@@ -6,11 +6,19 @@ here mirrors the module of the same name there, and the tests in
 This package imports ``torch`` and ``numpy`` and never ``jax`` or
 ``apex_tpu``.
 
-What is ported so far is the serving path of ``examples/gpt/serve_gpt.py``:
-GPT through the paged-KV continuous-batching engine
-(:mod:`apex_tpu_torch.inference`), with hand-written CUDA kernels for
-the three TPU kernels on that path (LayerNorm forward, paged decode
-attention, the fused sampling head) under :mod:`apex_tpu_torch.ops`.
+What is ported so far:
+
+- the serving path of ``examples/gpt/serve_gpt.py``: GPT through the
+  paged-KV continuous-batching engine (:mod:`apex_tpu_torch.inference`,
+  driven by ``python -m apex_tpu_torch.serve_gpt``);
+- the GPT training step ``bench.py`` times: ``gpt_loss`` with flash
+  attention and layer remat, and :class:`~apex_tpu_torch.optimizers.FusedAdam`
+  (driven by ``python -m apex_tpu_torch.train_gpt``);
+
+with hand-written CUDA kernels for the seven TPU kernels on those paths
+(LayerNorm forward and backward, flash attention forward, dq and dk/dv,
+paged decode attention, the fused sampling head) under
+:mod:`apex_tpu_torch.ops`.
 
 Entry points take ``device=`` and default to ``"cuda"``; with no CUDA
 device they raise rather than run on the CPU.  Pass ``device="cpu"`` to
@@ -24,7 +32,7 @@ kernel is built until a wrapper first sees a CUDA tensor.
 
 import importlib
 
-_SUBMODULES = ("inference", "models", "normalization", "ops", "transformer")
+_SUBMODULES = ("inference", "models", "normalization", "ops", "optimizers", "transformer")
 
 __all__ = list(_SUBMODULES)
 

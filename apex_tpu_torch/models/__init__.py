@@ -1,2 +1,2 @@
 """Models of the port (counterpart of :mod:`apex_tpu.models`); so far
-GPT's serving forward."""
+GPT on one device: serving and the training loss."""

@@ -1,21 +1,27 @@
-"""GPT for serving: the single-device forward and the paged-KV decode
-forward.
+"""GPT on one device: the forward, the training loss, and the paged-KV
+decode forward.
 
 Counterpart of :mod:`apex_tpu.models.gpt` at ``axis_name=None``, with
 the same layouts: activations ``(seq, batch, hidden)``, attention heads
 ``(batch, heads, seq, head_dim)``, the same parameter tree (names and
 shapes of ``init_params`` there, layers stacked on a leading axis), and
 the same expression for each op, so the JAX package's weights load
-through :func:`params_from_numpy` and the two forwards agree.
+through :func:`params_from_numpy` and the two agree, gradients included.
 
-The matmul weights and their biases are cast to ``compute_dtype`` once,
-when the params are loaded: the JAX package spells the cast at every
-use (``w.T.astype(x.dtype)``), which rounds identically, and eager
-PyTorch would otherwise convert every weight on every step.  LayerNorm
-params, the embedding and the position table stay fp32.
+Every matmul casts its weight and bias to the activation's dtype at use
+(``w.T.to(x.dtype)``), as the JAX package spells it.  For serving,
+:func:`params_from_numpy` casts the matmul leaves to ``compute_dtype``
+once at load (the same rounding, and the cast at use is then a no-op);
+for training it keeps them fp32 (``keep_fp32=True``), so the optimizer
+updates fp32 weights and autograd returns fp32 gradients through the
+cast, as JAX's ``astype`` transpose does.
 
-Not in this slice: tensor/sequence/context parallelism, MoE, flash
-attention (the einsum path is the serve path), and training.
+The training path is :func:`gpt_loss`: flash attention
+(``use_flash_attention``, the flash kernels) or the einsum core, layer
+remat (``checkpoint_layers``, policy ``"full"``), and the dense fp32 LM
+head with its cross entropy.  Not in this port yet (they raise):
+tensor/sequence/context parallelism, MoE, the fused LM-head CE
+(``fused_ce=True`` on the loss path) and the ``"dots"`` remat policy.
 """
 
 import dataclasses
@@ -27,22 +33,25 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.models._remat import remat_layer, validate_policy
 from apex_tpu_torch.normalization import fused_layer_norm_affine
+from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.decode_attention import paged_decode_attention
 from apex_tpu_torch.ops.rope import rope_cos_sin, rotate
 from apex_tpu_torch.transformer.functional import scaled_upper_triang_masked_softmax
 
-#: the stacked per-layer leaves cast to ``compute_dtype`` at load
+#: the stacked per-layer leaves cast to ``compute_dtype`` at load for
+#: serving
 MATMUL_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
                "fc1", "fc1_b", "fc2", "fc2_b")
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The fields of the JAX package's ``GPTConfig``.  The training-only
-    fields (``checkpoint_layers``, ``remat_policy``, ``fused_ce*``) are
-    kept for a like-for-like config and do not change the forward here;
-    the ones this slice cannot run raise."""
+    """The fields of the JAX package's ``GPTConfig``.  ``checkpoint_layers``
+    and ``remat_policy`` act when a gradient is taken; ``fused_ce`` acts on
+    the loss path, where ``True`` raises (not ported yet).  The options
+    the port cannot run raise at construction."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -76,13 +85,12 @@ class GPTConfig:
         for name, unsupported in (
                 ("moe_num_experts", self.moe_num_experts > 0),
                 ("sequence_parallel", self.sequence_parallel),
-                ("cp_overlap", self.cp_overlap),
-                ("use_flash_attention", self.use_flash_attention)):
+                ("cp_overlap", self.cp_overlap)):
             if unsupported:
                 raise NotImplementedError(
                     f"GPTConfig.{name} is not ported yet (MoE, sequence and "
-                    f"context parallelism and flash attention come in later "
-                    f"slices)")
+                    f"context parallelism come in later slices)")
+        validate_policy(self.remat_policy)
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be torch.float32 or torch.bfloat16 "
@@ -149,28 +157,32 @@ def _init_numpy(config: GPTConfig, seed: int) -> Dict[str, Any]:
     return params
 
 
-def params_from_numpy(tree, config: GPTConfig, device="cuda") -> Dict[str, Any]:
+def params_from_numpy(tree, config: GPTConfig, device="cuda",
+                      keep_fp32: bool = False) -> Dict[str, Any]:
     """The JAX package's GPT params (a tree of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's: torch tensors
-    on ``device``, the :data:`MATMUL_KEYS` leaves cast to
-    ``config.compute_dtype`` once here, the rest fp32."""
+    on ``device``.  For serving the :data:`MATMUL_KEYS` leaves are cast
+    to ``config.compute_dtype`` once here; with ``keep_fp32`` (training)
+    every leaf stays fp32, the tree JAX trains.  The rest is fp32."""
     dev = resolve_device(device)
+    cast = torch.float32 if keep_fp32 else config.compute_dtype
 
     def to(a, dtype):
         return torch.tensor(np.asarray(a, np.float32)).to(device=dev, dtype=dtype)
 
     out = {k: to(v, torch.float32) for k, v in tree.items() if k != "layers"}
     out["layers"] = {
-        k: to(v, config.compute_dtype if k in MATMUL_KEYS else torch.float32)
+        k: to(v, cast if k in MATMUL_KEYS else torch.float32)
         for k, v in tree["layers"].items()}
     return out
 
 
-def init_params(config: GPTConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+def init_params(config: GPTConfig, seed: int = 0, device="cuda",
+                keep_fp32: bool = False) -> Dict[str, Any]:
     """Random params from a numpy seed, loaded as :func:`params_from_numpy`
     loads the JAX package's."""
     dev = resolve_device(device)
-    return params_from_numpy(_init_numpy(config, seed), config, dev)
+    return params_from_numpy(_init_numpy(config, seed), config, dev, keep_fp32)
 
 
 def _layer_list(layers):
@@ -180,8 +192,9 @@ def _layer_list(layers):
 
 
 def _proj(x, w, b):
-    """``x @ w.T + b`` as two roundings, the JAX package's expression."""
-    return torch.matmul(x, w.T) + b
+    """``x @ w.T + b`` with the weight and bias cast to x's dtype at use:
+    two roundings, the JAX package's expression."""
+    return torch.matmul(x, w.T.to(x.dtype)) + b.to(x.dtype)
 
 
 def _mlp(x, p):
@@ -191,11 +204,12 @@ def _mlp(x, p):
 
 
 def _attention(x, p, config: GPTConfig, rope):
-    """Causal self attention on (S, B, H), einsum path: scores in the
-    compute dtype divided by sqrt(head_dim), causal fill, fp32 softmax,
-    probabilities cast to v's dtype.  Returns ``(out, (k, v))`` with
-    the post-RoPE k/v (B, kv_heads, S, head_dim) before any GQA
-    repeat."""
+    """Causal self attention on (S, B, H).  With ``use_flash_attention``
+    the flash kernels (GQA read in place); otherwise the einsum path:
+    scores in the compute dtype divided by sqrt(head_dim), causal fill,
+    fp32 softmax, probabilities cast to v's dtype.  Returns ``(out, (k,
+    v))`` with the post-RoPE k/v (B, kv_heads, S, head_dim) before any
+    GQA repeat."""
     S, B, _ = x.shape
     nh, nkv, hd = config.num_attention_heads, config.kv_heads, config.head_dim
 
@@ -208,14 +222,27 @@ def _attention(x, p, config: GPTConfig, rope):
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
     kv = (k, v)
-    if nkv != nh:
-        k = k.repeat_interleave(nh // nkv, dim=1)
-        v = v.repeat_interleave(nh // nkv, dim=1)
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-    probs = scaled_upper_triang_masked_softmax(scores, 1.0)
-    ctx = torch.matmul(probs.to(v.dtype), v)
+    if config.use_flash_attention:
+        ctx = flash_attention(q, k, v, causal=True)
+    else:
+        if nkv != nh:
+            k = k.repeat_interleave(nh // nkv, dim=1)
+            v = v.repeat_interleave(nh // nkv, dim=1)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        probs = scaled_upper_triang_masked_softmax(scores, 1.0)
+        ctx = torch.matmul(probs.to(v.dtype), v)
     ctx = ctx.permute(2, 0, 1, 3).reshape(S, B, nh * hd)
     return _proj(ctx, p["wo"], p["bo"]), kv
+
+
+def _layer(x, p, config: GPTConfig, rope):
+    """One transformer block on (S, B, H); returns ``(x, (k, v))``."""
+    H, eps, cd = config.hidden_size, config.layernorm_eps, config.compute_dtype
+    ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
+    attn, kv = _attention(ln1.to(cd), p, config, rope)
+    x = x + attn
+    ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
+    return x + _mlp(ln2.to(cd), p), kv
 
 
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
@@ -224,7 +251,10 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     the pre-head activations (S, B, H) after the final LayerNorm.  With
     ``return_kv`` a trailing ``(k, v)`` pair is appended, each (L, B,
     kv_heads, S, head_dim): every layer's post-RoPE keys/values, the
-    prefill capture the paged cache stores."""
+    prefill capture the paged cache stores.  When a gradient is being
+    recorded and ``config.checkpoint_layers`` is set, each layer runs
+    under :func:`~apex_tpu_torch.models._remat.remat_layer` (the JAX
+    package's remat of ``_layers_segment``)."""
     H = config.hidden_size
     eps = config.layernorm_eps
     cd = config.compute_dtype
@@ -238,22 +268,50 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     if config.position_embedding_type == "rope":
         rope = rope_cos_sin(torch.arange(S, device=x.device), config.head_dim,
                             config.rope_theta)
+    remat = config.checkpoint_layers and torch.is_grad_enabled() and not return_kv
     ks, vs = [], []
     for p in _layer_list(params["layers"]):
-        ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
-        attn, (k, v) = _attention(ln1.to(cd), p, config, rope)
+        if remat:
+            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope)[0],
+                            config.remat_policy)(x)
+            continue
+        x, (k, v) = _layer(x, p, config, rope)
         if return_kv:
             ks.append(k)
             vs.append(v)
-        x = x + attn
-        ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
-        x = x + _mlp(ln2.to(cd), p)
     x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
                                 (H,), eps)
     out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
     if return_kv:
         return out, (torch.stack(ks), torch.stack(vs))
     return out
+
+
+def lm_head_loss(x, embed, targets, config: GPTConfig):
+    """Per-token CE (S, B) of the tied LM head on the pre-head
+    activations ``x`` (S, B, H): the dense head of the JAX package's
+    ``lm_head_loss`` at ``axis_name=None`` -- fp32 logits ``x @
+    embed.T``, ``logsumexp`` minus the target logit, targets clamped
+    into ``[0, V-1]``.  ``config.fused_ce`` raises: the fused LM-head CE
+    kernels are not ported yet, and a config must not silently time the
+    dense head in their place."""
+    if config.fused_ce:
+        raise NotImplementedError(
+            "GPTConfig.fused_ce=True (the fused LM-head cross entropy) is not "
+            "ported yet; use fused_ce=False for the dense head")
+    logits = torch.matmul(x.float(), embed.float().T)
+    lse = torch.logsumexp(logits, dim=-1)
+    t_cl = targets.long().clamp(0, logits.shape[-1] - 1)
+    return lse - logits.gather(-1, t_cl[..., None])[..., 0]
+
+
+def gpt_loss(params, tokens, targets, config: GPTConfig):
+    """Mean causal-LM cross entropy of ``tokens`` (B, S) against
+    ``targets`` (B, S): the JAX package's ``gpt_loss`` on one device."""
+    dev = params["embed"].device
+    t = torch.as_tensor(targets, device=dev).transpose(0, 1)  # (S, B)
+    hidden = gpt_forward(params, tokens, config, return_hidden=True)
+    return lm_head_loss(hidden, params["embed"], t, config).mean()
 
 
 def forward_decode(params, tokens, positions, active, kv_pools, page_tables,

@@ -1,25 +1,28 @@
-"""Fused LayerNorm, forward.
+"""Fused LayerNorm, forward and backward.
 
 Counterpart of ``fused_layer_norm_affine`` in
-:mod:`apex_tpu.normalization.fused_layer_norm`.  The rows of the input
-(everything but the trailing ``normalized_shape``) go through
-:func:`apex_tpu_torch.ops.layer_norm.layer_norm_fwd`: the CUDA kernel
-for CUDA tensors, the plain PyTorch version for CPU tensors.  The
-numerics are the jnp specification there: fp32 mean, then
+:mod:`apex_tpu.normalization.fused_layer_norm` (``_ln_fwd``,
+``_ln_bwd``, ``_ln_bwd_jnp``).  The rows of the input (everything but
+the trailing ``normalized_shape``) go through
+:func:`apex_tpu_torch.ops.layer_norm.layer_norm_fwd` and, for a
+gradient, :func:`~apex_tpu_torch.ops.layer_norm.layer_norm_bwd`: the
+CUDA kernels for CUDA tensors, the plain PyTorch versions for CPU
+tensors.  The numerics are the jnp specification there: fp32 mean, then
 ``var = mean((x - mean)**2)``, ``rstd = rsqrt(var + eps)``, affine in
-fp32, and the output cast to the input's dtype.
+fp32, the output cast to the input's dtype; the backward's dx in the
+input's dtype and dw/db in fp32 (cast to the params' dtype by autograd).
 
-Only the forward is ported.  On the CPU the plain version is ordinary
-PyTorch and differentiates as such; through the CUDA kernel a backward
-raises ``NotImplementedError`` until the training slice brings the
-backward kernel.
+When a gradient is needed, the forward saves x, mean and rstd, on either
+device, and the backward is one call of ``layer_norm_bwd``.  The
+``memory_efficient`` backward (saving the output instead of x) is not
+ported: asking for it with a gradient raises.
 """
 
 import numbers
 
 import torch
 
-from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
+from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 
 
 def _canon_shape(normalized_shape):
@@ -29,23 +32,26 @@ def _canon_shape(normalized_shape):
 
 
 class _LayerNormCUDA(torch.autograd.Function):
+    """LayerNorm of (R, H) rows whose backward is ``layer_norm_bwd``:
+    the kernel on CUDA tensors, its plain version on CPU tensors."""
+
     @staticmethod
     def forward(ctx, x2, weight, bias, eps):
-        return layer_norm_fwd(x2, weight, bias, eps)[0]
+        y, mean, rstd = layer_norm_fwd(x2, weight, bias, eps)
+        ctx.save_for_backward(x2, weight, mean, rstd)
+        return y
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the LayerNorm backward kernel is not ported yet (it comes "
-            "with the training slice)")
+        x2, weight, mean, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x2, weight, grad.contiguous(), mean, rstd)
+        return dx, dw, db, None
 
 
 def fused_layer_norm_affine(input, weight, bias, normalized_shape, eps=1e-6,
                             memory_efficient=False):
     """Affine LayerNorm over the trailing ``normalized_shape`` of
-    ``input``.  ``memory_efficient`` only changes what a backward
-    saves, and no backward is ported: it is accepted and ignored."""
-    del memory_efficient
+    ``input``, differentiable in input, weight and bias."""
     shape = _canon_shape(normalized_shape)
     n = 1
     for s in shape:
@@ -53,9 +59,13 @@ def fused_layer_norm_affine(input, weight, bias, normalized_shape, eps=1e-6,
     x2 = input.reshape(-1, n).contiguous()
     w = weight.reshape(n).float().contiguous()
     b = bias.reshape(n).float().contiguous()
-    if x2.device.type == "cuda" and torch.is_grad_enabled() and (
+    if torch.is_grad_enabled() and (
             x2.requires_grad or w.requires_grad or b.requires_grad):
-        y = _LayerNormCUDA.apply(x2, w, b, eps)  # its backward raises
+        if memory_efficient:
+            raise NotImplementedError(
+                "the memory_efficient LayerNorm backward (saving the output "
+                "instead of the input) is not ported yet")
+        y = _LayerNormCUDA.apply(x2, w, b, eps)
     else:
         y = layer_norm_fwd(x2, w, b, eps)[0]
     return y.reshape(input.shape)

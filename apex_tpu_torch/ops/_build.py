@@ -55,6 +55,26 @@ SIGNATURES = {
     "apex_error_string": (ctypes.c_char_p, [_I]),
     # x, w, b, y, mean, rstd, rows, hidden, eps, dtype, stream
     "apex_layer_norm_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "apex_layer_norm_bwd_blocks": (_I, [_I]),
+    # x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows, hidden,
+    # dtype, stream
+    "apex_layer_norm_bwd": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "apex_flash_smem": (_I, [_I, _I, _I]),
+    # q, k, v, bias, out, lse, BH, Sq, Sk, D, heads, kv_heads, scale,
+    # causal, q_offset, k_offset, dtype, stream
+    "apex_flash_fwd": (
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+    # q, k, v, do, lse, delta, bias, dq, BH, Sq, Sk, D, heads, kv_heads,
+    # scale, causal, q_offset, k_offset, dtype, stream
+    "apex_flash_dq": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+             _I, _P]),
+    # q, k, v, do, lse, delta, bias, dk, dv, BKV, Sq, Sk, D, heads,
+    # kv_heads, scale, causal, q_offset, k_offset, dtype, stream
+    "apex_flash_dkv": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+             _I, _I, _P]),
     "apex_paged_decode_attention_smem": (_I, [_I, _I, _I]),
     # q, k_pool, v_pool, page_table, lengths, out, B, H, HKV, D,
     # num_pages, page_size, pages_per_seq, denom, q_dtype, kv_dtype, stream

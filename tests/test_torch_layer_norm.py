@@ -1,25 +1,30 @@
-"""The port's LayerNorm forward (apex_tpu_torch.ops.layer_norm, plain
-PyTorch version on the CPU) against the JAX package: the jnp
-specification (``fused_layer_norm_affine``) and the Pallas kernel in
-interpret mode (``layer_norm_fwd_pallas(interpret=True)``).
+"""The port's LayerNorm (apex_tpu_torch.ops.layer_norm, plain PyTorch
+versions on the CPU) against the JAX package: the jnp specification
+(``fused_layer_norm_affine`` and its ``jax.vjp``) and the Pallas kernels
+in interpret mode (``layer_norm_fwd_pallas`` / ``layer_norm_bwd_pallas``
+with ``interpret=True``).
 
 Bands: fp32 atol 1e-5 (summation order differs between the two
 frameworks' row means); bf16 outputs within 1 bf16 ulp (the fp32 values
 before the final rounding differ by ulps, which can move a rounding
-boundary by one step).
+boundary by one step).  Backward: dx as the forward; dw/db (fp32 sums
+over the rows) within 1e-5 relative to the largest |dw|, |db|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from apex_tpu.normalization import fused_layer_norm_affine as jax_ln
-from apex_tpu.ops.layer_norm_pallas import layer_norm_fwd_pallas
+from apex_tpu.ops.layer_norm_pallas import layer_norm_bwd_pallas, layer_norm_fwd_pallas
 
 from apex_tpu_torch.normalization import fused_layer_norm_affine
-from apex_tpu_torch.ops.layer_norm import layer_norm_fwd, layer_norm_fwd_plain
+from apex_tpu_torch.ops.layer_norm import (
+    layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd, layer_norm_fwd_plain,
+)
 
 EPS = 1e-5
 
@@ -100,3 +105,100 @@ def test_other_devices_raise_instead_of_falling_back():
     w = torch.empty(64, device="meta")
     with pytest.raises(ValueError, match="not supported"):
         layer_norm_fwd(x, w, w, EPS)
+
+
+def _bwd_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    H = shape[-1]
+    x = (rng.randn(*shape) * 2.0 + 0.5).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+    w = (1.0 + 0.1 * rng.randn(H)).astype(np.float32)
+    b = (0.1 * rng.randn(H)).astype(np.float32)
+    return x, dy, w, b
+
+
+def _assert_sums_close(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * max(1.0, float(np.abs(want).max())))
+
+
+def _assert_dx_close(dx, want, dtype):
+    if dtype == torch.bfloat16:
+        assert _bf16_ulp_diff(dx, _to_bf16_torch(np.asarray(want, np.float32))) <= 1
+    else:
+        np.testing.assert_allclose(dx.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 3, 128), (4, 2, 768), (5, 1, 96)])
+def test_plain_bwd_matches_jax_vjp(shape, dtype):
+    """dx, dw, db of the plain backward against jax.vjp of the JAX
+    package's fused_layer_norm_affine on (S, B, H) activations."""
+    x, dy, w, b = _bwd_inputs(shape, seed=3)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj, dyj = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    H = shape[-1]
+    _, vjp = jax.vjp(lambda a, ww, bb: jax_ln(a, ww, bb, (H,), EPS), xj, jnp.asarray(w),
+                     jnp.asarray(b))
+    rdx, rdw, rdb = vjp(dyj)
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(dtype).reshape(-1, H)
+    dyt = torch.from_numpy(np.array(dyj, np.float32)).to(dtype).reshape(-1, H)
+    wt = torch.from_numpy(w)
+    _, mean, rstd = layer_norm_fwd_plain(xt, wt, torch.from_numpy(b), EPS)
+    dx, dw, db = layer_norm_bwd_plain(xt, wt, dyt, mean, rstd)
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    _assert_dx_close(dx, np.asarray(rdx, np.float32).reshape(-1, H), dtype)
+    _assert_sums_close(dw, rdw)
+    _assert_sums_close(db, rdb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,H", [(64, 256), (16, 768)])
+def test_plain_bwd_matches_pallas_interpret(R, H, dtype):
+    """The Pallas backward kernel in interpret mode, fed the same x, dy,
+    mean and rstd, against the plain backward."""
+    x, dy, w, b = _bwd_inputs((R, H), seed=4)
+    xt, dyt = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    wt = torch.from_numpy(w)
+    _, mean, rstd = layer_norm_fwd_plain(xt, wt, torch.from_numpy(b), EPS)
+    dx, dw, db = layer_norm_bwd(xt, wt, dyt, mean, rstd)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    rdx, rdw, rdb = layer_norm_bwd_pallas(
+        jnp.asarray(xt.float().numpy(), jdt), jnp.asarray(w), jnp.asarray(dyt.float().numpy(), jdt),
+        jnp.asarray(mean.numpy()[:, None]), jnp.asarray(rstd.numpy()[:, None]), interpret=True)
+    _assert_dx_close(dx, np.asarray(rdx, np.float32), dtype)
+    _assert_sums_close(dw, np.asarray(rdw).sum(0))
+    _assert_sums_close(db, np.asarray(rdb).sum(0))
+
+
+def test_grads_through_fused_layer_norm_affine():
+    """Autograd through the port's fused_layer_norm_affine runs the
+    _LayerNormCUDA Function (saved x, mean, rstd; the plain backward on
+    the CPU) and matches jax.vjp in input, weight and bias."""
+    x, dy, w, b = _bwd_inputs((6, 3, 128), seed=5)
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = fused_layer_norm_affine(xt, wt, bt, (128,), EPS)
+    assert "_LayerNormCUDA" in type(y.grad_fn.next_functions[0][0]).__name__
+    y.backward(torch.from_numpy(dy))
+    _, vjp = jax.vjp(lambda a, ww, bb: jax_ln(a, ww, bb, (128,), EPS),
+                     *(jnp.asarray(a) for a in (x, w, b)))
+    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(rdx), rtol=0, atol=1e-5)
+    _assert_sums_close(wt.grad, rdw)
+    _assert_sums_close(bt.grad, rdb)
+    with pytest.raises(NotImplementedError, match="memory_efficient"):
+        fused_layer_norm_affine(xt, wt, bt, (128,), EPS, memory_efficient=True)
+
+
+def test_bwd_plain_version_is_the_cpu_path_and_other_devices_raise():
+    x, dy, w, b = _bwd_inputs((8, 64), seed=6)
+    args = [torch.from_numpy(a) for a in (x, w, dy)]
+    _, mean, rstd = layer_norm_fwd_plain(args[0], args[1], torch.from_numpy(b), EPS)
+    for got, want in zip(layer_norm_bwd(*args, mean, rstd),
+                         layer_norm_bwd_plain(*args, mean, rstd)):
+        assert torch.equal(got, want)
+    meta = torch.empty(8, 64, device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        layer_norm_bwd(meta, torch.empty(64, device="meta"), meta,
+                       torch.empty(8, device="meta"), torch.empty(8, device="meta"))
