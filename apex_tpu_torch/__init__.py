@@ -12,12 +12,16 @@ What is ported so far:
   paged-KV continuous-batching engine (:mod:`apex_tpu_torch.inference`,
   driven by ``python -m apex_tpu_torch.serve_gpt``);
 - the GPT training step ``bench.py`` times: ``gpt_loss`` with flash
-  attention and layer remat, and :class:`~apex_tpu_torch.optimizers.FusedAdam`
-  (driven by ``python -m apex_tpu_torch.train_gpt``);
+  attention and layer remat, the dense or the fused LM-head CE head, and
+  :class:`~apex_tpu_torch.optimizers.FusedAdam` (driven by ``python -m
+  apex_tpu_torch.train_gpt``, ``--fused-ce`` for the fused head);
+- ``apex.normalization``: the LayerNorm and RMSNorm functions and the
+  ``FusedLayerNorm``/``FusedRMSNorm`` modules;
 
-with hand-written CUDA kernels for the seven TPU kernels on those paths
-(LayerNorm forward and backward, flash attention forward, dq and dk/dv,
-paged decode attention, the fused sampling head) under
+with hand-written CUDA kernels for the ten TPU kernels on those paths
+(LayerNorm/RMSNorm forward and backward, flash attention forward, dq
+and dk/dv, the fused LM-head CE forward, dx and dembed, paged decode
+attention at ``width=1``, the fused sampling head) under
 :mod:`apex_tpu_torch.ops`.
 
 Entry points take ``device=`` and default to ``"cuda"``; with no CUDA

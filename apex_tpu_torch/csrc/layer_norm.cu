@@ -1,4 +1,7 @@
-// LayerNorm forward and backward for Hopper (sm_90a), affine LayerNorm.
+// LayerNorm and RMSNorm forward and backward for Hopper (sm_90a), with
+// or without the affine weight and bias: the Pallas kernels' `rms`,
+// `affine` and `with_bias` flags.  `rms` is a runtime flag; a null
+// weight means no affine, a null bias no bias.
 //
 // Forward.  Replaces: apex_tpu/ops/layer_norm_pallas.py `_ln_fwd_kernel`
 // (launcher `layer_norm_fwd_pallas`).
@@ -7,8 +10,9 @@
 // centred variance var = sum((x - mean)^2) / H (two passes, the jnp
 // spec in apex_tpu/normalization/fused_layer_norm.py, not a one-pass
 // E[x^2] - mean^2), rstd = rsqrt(var + eps), and
-// y = (x - mean) * rstd * w + b cast to x's dtype.  mean and rstd are
-// written as fp32 (R,).
+// y = (x - mean) * rstd * w + b cast to x's dtype.  RMS: mean = 0 and
+// var = sum(x^2) / H.  Without weight y = (x - mean) * rstd (+ b).
+// mean and rstd are written as fp32 (R,).
 //
 // Bound on the H100: memory bytes.  The row is read once and written
 // once (2 * R * H * sizeof(x)); the arithmetic is a few flops per
@@ -64,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
 ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ b, T* __restrict__ y,
               float* __restrict__ mean_out, float* __restrict__ rstd_out,
-              int H, float eps) {
+              int H, float eps, int rms) {
   extern __shared__ float row[];  // H floats
   __shared__ float red[kThreads / 32];
   const int64_t r = blockIdx.x;
@@ -77,7 +81,7 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     row[i] = v;
     s += v;
   }
-  const float mean = block_sum(s, red) / (float)H;
+  const float mean = rms ? 0.f : block_sum(s, red) / (float)H;
 
   float s2 = 0.f;
   for (int i = threadIdx.x; i < H; i += kThreads) {
@@ -88,8 +92,10 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float rstd = rsqrtf(var + eps);
 
   for (int i = threadIdx.x; i < H; i += kThreads) {
-    const float xhat = (row[i] - mean) * rstd;
-    yr[i] = from_f32<T>(xhat * w[i] + b[i]);
+    float v = (row[i] - mean) * rstd;
+    if (w) v = v * w[i];
+    if (b) v = v + b[i];
+    yr[i] = from_f32<T>(v);
   }
   if (threadIdx.x == 0) {
     mean_out[r] = mean;
@@ -101,10 +107,12 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // Replaces: apex_tpu/ops/layer_norm_pallas.py `_ln_bwd_kernel` (launcher
 // `layer_norm_bwd_pallas`); the numerics are `_ln_bwd_jnp` in
 // apex_tpu/normalization/fused_layer_norm.py.  Per row, in fp32:
-//   xhat = (x - mean) * rstd,  gw = dy * w,
+//   xhat = (x - mean) * rstd,  gw = dy * w (dy without weight),
 //   m1 = sum(gw) / H,  m2 = sum(gw * xhat) / H,
 //   dx = (gw - m1 - xhat * m2) * rstd   (cast to x's dtype),
-// and over all rows dw = sum(dy * xhat), db = sum(dy) (fp32).
+//   RMS: mean = 0 and dx = (gw - xhat * m2) * rstd,
+// and over all rows dw = sum(dy * xhat), db = sum(dy) (fp32), each only
+// where the caller gives its partial buffer (affine; db: with a bias).
 //
 // Bound on the H100: memory bytes.  x and dy are read once, dx written
 // once (3 * R * H * sizeof(x)); at R = 8192, H = 768 in bf16 that is
@@ -158,7 +166,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
               const T* __restrict__ dy, const float* __restrict__ mean,
               const float* __restrict__ rstd, T* __restrict__ dx,
               float* __restrict__ part_w, float* __restrict__ part_b, int R,
-              int H) {
+              int H, int rms) {
   extern __shared__ float sm[];  // xhat, dy, dw partial, db partial: 4 * H
   float* s_xhat = sm;
   float* s_dy = sm + H;
@@ -173,12 +181,12 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   for (int r = blockIdx.x * kBwdRows; r < r_end; ++r) {
     const T* xr = x + (int64_t)r * H;
     const T* gr = dy + (int64_t)r * H;
-    const float mu = mean[r], rs = rstd[r];
+    const float mu = rms ? 0.f : mean[r], rs = rstd[r];
     float s1 = 0.f, s2 = 0.f;
     for (int i = threadIdx.x; i < H; i += kThreads) {
       const float xhat = (to_f32(xr[i]) - mu) * rs;
       const float g = to_f32(gr[i]);
-      const float gw = g * w[i];
+      const float gw = w ? g * w[i] : g;
       s_xhat[i] = xhat;
       s_dy[i] = g;
       s1 += gw;
@@ -189,21 +197,20 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     T* dxr = dx + (int64_t)r * H;
     for (int i = threadIdx.x; i < H; i += kThreads) {
       const float xhat = s_xhat[i], g = s_dy[i];
-      const float gw = g * w[i];
-      dxr[i] = from_f32<T>((gw - m1 - xhat * m2) * rs);
+      const float gw = w ? g * w[i] : g;
+      dxr[i] = from_f32<T>((rms ? gw - xhat * m2 : gw - m1 - xhat * m2) * rs);
       s_dw[i] += g * xhat;
       s_db[i] += g;
     }
   }
-  float* pw = part_w + (int64_t)blockIdx.x * H;
-  float* pb = part_b + (int64_t)blockIdx.x * H;
   for (int i = threadIdx.x; i < H; i += kThreads) {
-    pw[i] = s_dw[i];
-    pb[i] = s_db[i];
+    if (part_w) part_w[(int64_t)blockIdx.x * H + i] = s_dw[i];
+    if (part_b) part_b[(int64_t)blockIdx.x * H + i] = s_db[i];
   }
 }
 
-// dw[c] = sum_g part_w[g, c], db likewise; 32 columns x 8 lanes a block.
+// dw[c] = sum_g part_w[g, c], db likewise (where db is given); 32
+// columns x 8 lanes a block.
 __global__ void __launch_bounds__(256)
 ln_bwd_reduce_kernel(const float* __restrict__ part_w,
                      const float* __restrict__ part_b, float* __restrict__ dw,
@@ -215,7 +222,7 @@ ln_bwd_reduce_kernel(const float* __restrict__ part_w,
   if (c < H) {
     for (int g = ty; g < G; g += 8) {
       aw += part_w[(int64_t)g * H + c];
-      ab += part_b[(int64_t)g * H + c];
+      if (db) ab += part_b[(int64_t)g * H + c];
     }
   }
   sw[ty][tx] = aw;
@@ -228,14 +235,14 @@ ln_bwd_reduce_kernel(const float* __restrict__ part_w,
       tb += sb[k][tx];
     }
     dw[c] = tw;
-    db[c] = tb;
+    if (db) db[c] = tb;
   }
 }
 
 template <typename T>
 cudaError_t launch_ln_bwd(const void* x, const void* w, const void* dy,
                           const void* mean, const void* rstd, void* dx,
-                          void* part_w, void* part_b, int R, int H, int G,
+                          void* part_w, void* part_b, int R, int H, int G, int rms,
                           cudaStream_t st) {
   const size_t smem = 4 * (size_t)H * sizeof(float);
   if (smem > 48 * 1024) {
@@ -245,27 +252,28 @@ cudaError_t launch_ln_bwd(const void* x, const void* w, const void* dy,
   }
   ln_bwd_kernel<T><<<G, kThreads, smem, st>>>(
       (const T*)x, (const float*)w, (const T*)dy, (const float*)mean,
-      (const float*)rstd, (T*)dx, (float*)part_w, (float*)part_b, R, H);
+      (const float*)rstd, (T*)dx, (float*)part_w, (float*)part_b, R, H, rms);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y).  w, b: float32 (H,).
+// dtype: 0 = float32, 1 = bfloat16 (x and y).  w, b: float32 (H,), or
+// null for none.  rms: 1 = RMSNorm (mean written as 0).
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
                                    void* y, void* mean, void* rstd, int rows,
-                                   int hidden, float eps, int dtype,
+                                   int hidden, float eps, int rms, int dtype,
                                    void* stream) {
   const size_t smem = (size_t)hidden * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     ln_fwd_kernel<float><<<rows, kThreads, smem, st>>>(
         (const float*)x, (const float*)w, (const float*)b, (float*)y,
-        (float*)mean, (float*)rstd, hidden, eps);
+        (float*)mean, (float*)rstd, hidden, eps, rms);
   } else if (dtype == 1) {
     ln_fwd_kernel<__nv_bfloat16><<<rows, kThreads, smem, st>>>(
         (const __nv_bfloat16*)x, (const float*)w, (const float*)b,
-        (__nv_bfloat16*)y, (float*)mean, (float*)rstd, hidden, eps);
+        (__nv_bfloat16*)y, (float*)mean, (float*)rstd, hidden, eps, rms);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -279,25 +287,27 @@ extern "C" int apex_layer_norm_bwd_blocks(int rows) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dy and dx).  w, mean, rstd, the
-// partials, dw and db: float32.  Launches stage 1 and stage 2.
+// partials, dw and db: float32.  w null: no affine (part_w, part_b, dw,
+// db null too); part_b and db null: no bias.  rms: 1 = RMSNorm (mean is
+// not read).  Launches stage 1, and stage 2 when there is a weight.
 extern "C" int apex_layer_norm_bwd(const void* x, const void* w, const void* dy,
                                    const void* mean, const void* rstd, void* dx,
                                    void* part_w, void* part_b, void* dw,
-                                   void* db, int rows, int hidden, int dtype,
-                                   void* stream) {
+                                   void* db, int rows, int hidden, int rms,
+                                   int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int G = apex_layer_norm_bwd_blocks(rows);
   cudaError_t e;
   if (dtype == 0) {
     e = launch_ln_bwd<float>(x, w, dy, mean, rstd, dx, part_w, part_b, rows,
-                             hidden, G, st);
+                             hidden, G, rms, st);
   } else if (dtype == 1) {
     e = launch_ln_bwd<__nv_bfloat16>(x, w, dy, mean, rstd, dx, part_w, part_b,
-                                     rows, hidden, G, st);
+                                     rows, hidden, G, rms, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !w) return (int)e;
   ln_bwd_reduce_kernel<<<(hidden + 31) / 32, 256, 0, st>>>(
       (const float*)part_w, (const float*)part_b, (float*)dw, (float*)db, G,
       hidden);

@@ -18,10 +18,11 @@ cast, as JAX's ``astype`` transpose does.
 
 The training path is :func:`gpt_loss`: flash attention
 (``use_flash_attention``, the flash kernels) or the einsum core, layer
-remat (``checkpoint_layers``, policy ``"full"``), and the dense fp32 LM
-head with its cross entropy.  Not in this port yet (they raise):
-tensor/sequence/context parallelism, MoE, the fused LM-head CE
-(``fused_ce=True`` on the loss path) and the ``"dots"`` remat policy.
+remat (``checkpoint_layers``, policy ``"full"``), and the LM head with
+its cross entropy: the dense fp32 head, or with ``fused_ce`` the fused
+LM-head CE kernels (:mod:`apex_tpu_torch.ops.fused_ce`).  Not in this
+port yet (they raise): tensor/sequence/context parallelism, MoE and the
+``"dots"`` remat policy.
 """
 
 import dataclasses
@@ -37,6 +38,7 @@ from apex_tpu_torch.models._remat import remat_layer, validate_policy
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.decode_attention import paged_decode_attention
+from apex_tpu_torch.ops.fused_ce import check_impl, fused_lm_head_ce
 from apex_tpu_torch.ops.rope import rope_cos_sin, rotate
 from apex_tpu_torch.transformer.functional import scaled_upper_triang_masked_softmax
 
@@ -49,9 +51,10 @@ MATMUL_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """The fields of the JAX package's ``GPTConfig``.  ``checkpoint_layers``
-    and ``remat_policy`` act when a gradient is taken; ``fused_ce`` acts on
-    the loss path, where ``True`` raises (not ported yet).  The options
-    the port cannot run raise at construction."""
+    and ``remat_policy`` act when a gradient is taken; ``fused_ce`` and
+    ``fused_ce_chunk`` act on the loss path, and ``fused_ce_impl`` must be
+    None (the kernels are the one implementation).  The options the port
+    cannot run raise at construction."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -91,6 +94,7 @@ class GPTConfig:
                     f"GPTConfig.{name} is not ported yet (MoE, sequence and "
                     f"context parallelism come in later slices)")
         validate_policy(self.remat_policy)
+        check_impl(self.fused_ce_impl)
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be torch.float32 or torch.bfloat16 "
@@ -289,16 +293,14 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
 
 def lm_head_loss(x, embed, targets, config: GPTConfig):
     """Per-token CE (S, B) of the tied LM head on the pre-head
-    activations ``x`` (S, B, H): the dense head of the JAX package's
-    ``lm_head_loss`` at ``axis_name=None`` -- fp32 logits ``x @
-    embed.T``, ``logsumexp`` minus the target logit, targets clamped
-    into ``[0, V-1]``.  ``config.fused_ce`` raises: the fused LM-head CE
-    kernels are not ported yet, and a config must not silently time the
-    dense head in their place."""
-    if config.fused_ce:
-        raise NotImplementedError(
-            "GPTConfig.fused_ce=True (the fused LM-head cross entropy) is not "
-            "ported yet; use fused_ce=False for the dense head")
+    activations ``x`` (S, B, H), the JAX package's ``lm_head_loss`` at
+    ``axis_name=None``: with ``config.fused_ce`` and S divisible by
+    ``config.fused_ce_chunk``, :func:`~apex_tpu_torch.ops.fused_ce.
+    fused_lm_head_ce` (the CE kernels); otherwise the dense head -- fp32 logits
+    ``x @ embed.T``, ``logsumexp`` minus the target logit, targets
+    clamped into ``[0, V-1]``."""
+    if config.fused_ce and targets.shape[0] % config.fused_ce_chunk == 0:
+        return fused_lm_head_ce(x, embed, targets, config.fused_ce_chunk)
     logits = torch.matmul(x.float(), embed.float().T)
     lse = torch.logsumexp(logits, dim=-1)
     t_cl = targets.long().clamp(0, logits.shape[-1] - 1)

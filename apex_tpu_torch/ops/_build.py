@@ -53,13 +53,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "apex_set_device": (_I, [_I]),
     "apex_error_string": (ctypes.c_char_p, [_I]),
-    # x, w, b, y, mean, rstd, rows, hidden, eps, dtype, stream
-    "apex_layer_norm_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    # x, w, b, y, mean, rstd, rows, hidden, eps, rms, dtype, stream
+    "apex_layer_norm_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P]),
     "apex_layer_norm_bwd_blocks": (_I, [_I]),
     # x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows, hidden,
-    # dtype, stream
+    # rms, dtype, stream
     "apex_layer_norm_bwd": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "apex_flash_smem": (_I, [_I, _I, _I]),
     # q, k, v, bias, out, lse, BH, Sq, Sk, D, heads, kv_heads, scale,
     # causal, q_offset, k_offset, dtype, stream
@@ -84,6 +84,13 @@ SIGNATURES = {
     # nblocks, temperature, top_k, x_dtype, stream
     "apex_fused_sample": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "apex_ce_fwd_splits": (_I, [_I, _I, _I]),
+    # x, embed, t, part, m, l, tgt, N, H, V, x_dtype, embed_dtype, stream
+    "apex_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, embed, t, lse, g, dx, N, H, V, x_dtype, embed_dtype, stream
+    "apex_ce_dx": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, embed, t, lse, g, dembed, N, H, V, x_dtype, embed_dtype, stream
+    "apex_ce_dembed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 #: torch dtype -> the C entries' dtype code
@@ -101,8 +108,9 @@ def sources():
 
 
 def source_hash() -> str:
+    """SHA-256 of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

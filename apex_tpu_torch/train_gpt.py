@@ -6,6 +6,10 @@ bench.py:401-440) with its headline shape as the defaults: GPT-124M
 1024, batch 8, bf16 compute, flash attention, full layer remat, the
 dense fp32 LM head (``fused_ce=False``); each step is the loss and its
 gradients followed by ``FusedAdam(lr=3e-4, weight_decay=0.1).update``.
+``--fused-ce`` takes the fused LM-head CE instead (``fused_ce=True``,
+``fused_ce_chunk=128``: bench.py's ``gpt124_s1024_fce`` A/B section,
+bench.py:2166-2189).  As in the JAX package, a ``--seq`` that
+``--fused-ce-chunk`` does not divide takes the dense head.
 Weights are random from ``--seed`` (numpy); tokens are
 ``np.random.RandomState(seed).randint(0, vocab, (batch, seq))`` with
 targets rolled by one, the same batch every step.
@@ -13,6 +17,9 @@ targets rolled by one, the same batch every step.
     python -m apex_tpu_torch.train_gpt                    # on the GPU
     python -m apex_tpu_torch.train_gpt --device cpu --layers 2 --hidden 64 \\
         --heads 4 --vocab 128 --seq 32 --batch 2          # plain versions
+    python -m apex_tpu_torch.train_gpt --fused-ce         # the fused CE head
+    python -m apex_tpu_torch.train_gpt --fused-ce --fused-ce-chunk 8 --device cpu \
+        --layers 2 --hidden 64 --heads 4 --vocab 128 --seq 32 --batch 2
 
 Prints one JSON line: the loss of every step, the median step time
 (host clock around a synchronized step), tokens/s and peak device
@@ -53,6 +60,12 @@ def build_args():
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--compute-dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fused-ce", action="store_true",
+                   help="the fused LM-head cross entropy (bench.py's gpt124_s1024_fce) "
+                        "in place of the dense head")
+    p.add_argument("--fused-ce-chunk", type=int, default=128,
+                   help="with --fused-ce: sequence positions per chunk; the fused "
+                        "head runs only when --seq is a multiple (bench.py: 128)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for "
                         "the kernels' plain versions")
@@ -65,7 +78,8 @@ def make_config(args) -> GPTConfig:
         vocab_size=args.vocab, hidden_size=args.hidden, num_layers=args.layers,
         num_attention_heads=args.heads, max_seq_len=args.seq,
         compute_dtype=_DTYPES[args.compute_dtype], use_flash_attention=True,
-        checkpoint_layers=True, remat_policy="full", fused_ce=False)
+        checkpoint_layers=True, remat_policy="full", fused_ce=args.fused_ce,
+        fused_ce_chunk=args.fused_ce_chunk)
 
 
 def make_batch(args):
@@ -137,7 +151,8 @@ def run(args, params_tree=None):
     report = {
         "model": {"layers": args.layers, "hidden": args.hidden, "heads": args.heads,
                   "vocab": args.vocab, "seq": args.seq, "batch": args.batch,
-                  "compute_dtype": args.compute_dtype},
+                  "compute_dtype": args.compute_dtype, "fused_ce": args.fused_ce,
+                  "fused_ce_chunk": args.fused_ce_chunk},
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "warmup_steps": args.warmup,
         "losses": losses,

@@ -10,11 +10,17 @@ Phases, each printing one JSON line:
 2. build: the CUDA kernels are compiled from ``apex_tpu_torch/csrc``.
 3. kernels: each kernel against its plain PyTorch version at the
    serve and train paths' shapes (LN forward at 8 and 64 rows for
-   serving and 8192 for training), with its error and tolerance, its
-   device time beside the plain version's, one PyTorch library call's
-   where one computes the same function, and the bound (the larger of
-   bytes at 3.35 TB/s and flops at the peak rate of their type: 989
-   TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32).
+   serving and 8192 for training; the RMS-affine, RMS and non-affine LN
+   modes forward and backward at 8192 rows; the fused-CE forward, dx and
+   dembed at N = 8192, H = 768, V = 50304 with bf16 dots, a ragged
+   N = 1000, V = 50257 case, every (x, embed) dtype pair at H = 768 and
+   1024, and a control -- the backward fed lse + log 2 -- that must fail
+   the same band), with its error and tolerance, its device
+   time beside the plain version's, one PyTorch library call's where
+   one computes the same function (for the CE kernels the dense bf16
+   head, two calls), and the bound (the larger of bytes at 3.35 TB/s
+   and flops at the peak rate of their type: 989 TFLOP/s bf16 tensor
+   cores, 67 TFLOP/s fp32).
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
    count from that run, checked exactly against the steps taken.
@@ -24,20 +30,33 @@ Phases, each printing one JSON line:
    steps of the bf16 engine.
 7. train: ``apex_tpu_torch.train_gpt`` at its defaults — bench.py's
    GPT-124M step, seq 1024, batch 8, bf16, flash attention, full remat,
-   FusedAdam — one warm-up step and 5 timed steps: losses finite and
-   falling, launch counts exactly 49 / 25 / 24 / 12 / 12 a step (LN
-   fwd, LN bwd, flash fwd, dq, dkv), and two backward passes of one
-   flash layer bitwise equal.
-8. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
-   H=12, S=1024; and GQA H_kv=4): the output and the gradients through
-   ``flash_attention`` on the card (the bf16 kernels the train step
-   runs) against the CPU (plain versions) on the same bf16 inputs.
-9. train_parity: the loss and every gradient leaf of one step at full
-   width (2 layers, seq 256, batch 2, fp32) on the card (the fp32
-   kernels) against the CPU (plain versions), from the same numpy
-   params.
-10. train_profile: device busy share and kernel time by name over one
-    training step.
+   the dense head, FusedAdam — one warm-up step and 5 timed steps:
+   losses finite and falling, launch counts exactly 49 / 25 / 24 / 12 /
+   12 / 0 / 0 / 0 a step (LN fwd, LN bwd, flash fwd, dq, dkv, ce_fwd,
+   ce_dx, ce_dembed).
+8. train_fce: the same with ``--fused-ce`` (bench.py's
+   ``gpt124_s1024_fce``): launch counts 49 / 25 / 24 / 12 / 12 / 1 / 1 /
+   1 a step, the warm-up loss within 1e-5 (relative) of the dense
+   step's, and the two steps' times side by side.
+9. train_reproducible: two backward passes of one flash layer bitwise
+   equal.
+10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
+    H=12, S=1024; and GQA H_kv=4): the output and the gradients through
+    ``flash_attention`` on the card (the bf16 kernels the train step
+    runs) against the CPU (plain versions) on the same bf16 inputs.
+11. fused_ce_grad_parity: ``fused_lm_head_ce`` in ``gpt_loss``'s layout
+    (S=256, B=8, full vocab): loss, dx and dembed on the card against
+    the CPU's plain versions with bf16 dots, and two backward passes on
+    the card bitwise equal.
+12. norm_modules: ``FusedLayerNorm`` and ``FusedRMSNorm``, affine and
+    not, memory_efficient off and on, bf16 (1024, 8, 768), card against
+    CPU, with exact launch counts.
+13. train_parity: the loss and every gradient leaf of one step at full
+    width (2 layers, seq 256, batch 2, fp32, dense head) on the card
+    (the fp32 kernels) against the CPU (plain versions), from the same
+    numpy params.
+14. train_profile: device busy share and kernel time by name over one
+    training step with the dense head and one with the fused CE.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -157,17 +176,39 @@ def bf16_ulps(a, b):
 
 
 # ------------------------------------------------------------------ kernels
-def check_layer_norm(dev, R, dtype):
+#: LayerNorm kernel modes: (rms, has weight, has bias)
+LN_MODES = {"ln_affine": (False, True, True), "ln": (False, False, False),
+            "rms_affine": (True, True, False), "rms": (True, False, False)}
+
+
+def _ln_params(rng, dev, H, mode):
+    _, affine, with_bias = LN_MODES[mode]
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
+    b = torch.from_numpy(0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
+    return (w if affine else None), (b if with_bias else None)
+
+
+def _ln_library(x, w, b, eps, rms):
+    """The PyTorch call computing the same norm: F.rms_norm or
+    F.layer_norm, params in x's dtype."""
+    F = torch.nn.functional
+    H = x.shape[-1]
+    if rms:
+        return F.rms_norm(x, (H,), w, eps)
+    return F.layer_norm(x, (H,), w, b, eps)
+
+
+def check_layer_norm(dev, R, dtype, mode="ln_affine"):
     from apex_tpu_torch.ops.layer_norm import layer_norm_fwd, layer_norm_fwd_plain
 
     H, eps = 768, 1e-5
+    rms = LN_MODES[mode][0]
     rng = np.random.default_rng(R)
     x = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32) * 2 + 0.5)
     x = x.to(dev, dtype)
-    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
-    b = torch.from_numpy(0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
-    y, mean, rstd = layer_norm_fwd(x, w, b, eps)
-    py, pmean, prstd = layer_norm_fwd_plain(x, w, b, eps)
+    w, b = _ln_params(rng, dev, H, mode)
+    y, mean, rstd = layer_norm_fwd(x, w, b, eps, rms)
+    py, pmean, prstd = layer_norm_fwd_plain(x, w, b, eps, rms)
     torch.cuda.synchronize()
     err = float((y.float() - py.float()).abs().max())
     stat_err = max(float((mean - pmean).abs().max()),
@@ -179,7 +220,7 @@ def check_layer_norm(dev, R, dtype):
         # another order).  An ulp count is no measure: where w * xhat
         # cancels b, y is near 0 and a 1e-7 change moves it many ulps.
         ulps = bf16_ulps(y, py)
-        y32 = layer_norm_fwd_plain(x.float(), w, b, eps)[0]
+        y32 = layer_norm_fwd_plain(x.float(), w, b, eps, rms)[0]
         excess = float(((y.float() - y32).abs() - 2.0 ** -8 * y32.abs()).max())
         ok = excess <= 1e-5
         tol = ("y within 2**-8 |y| + 1e-5 of the plain fp32 y (rounding to bf16, "
@@ -188,16 +229,17 @@ def check_layer_norm(dev, R, dtype):
         ulps = None
         ok, tol = err <= 1e-5, "1e-5 abs (fp32 row stats summed in another order)"
     if not ok or stat_err > 1e-5:
-        raise AssertionError(f"layer_norm R={R} {dtype}: err {err}, ulps {ulps}, "
+        raise AssertionError(f"layer_norm {mode} R={R} {dtype}: err {err}, ulps {ulps}, "
                              f"band excess {excess}, stats {stat_err}")
     xb = x.element_size()
-    nbytes = 2 * R * H * xb + 2 * H * 4 + 2 * R * 4
+    nparams = sum(t is not None for t in (w, b))
+    nbytes = 2 * R * H * xb + nparams * H * 4 + 2 * R * 4
     bms, by = bound(nbytes, 8 * R * H)
-    wl, bl = w.to(dtype), b.to(dtype)
-    t = timings(lambda: layer_norm_fwd(x, w, b, eps),
-                lambda: layer_norm_fwd_plain(x, w, b, eps),
-                lambda: torch.nn.functional.layer_norm(x, (H,), wl, bl, eps))
-    return {"R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
+    wl, bl = (None if t is None else t.to(dtype) for t in (w, b))
+    t = timings(lambda: layer_norm_fwd(x, w, b, eps, rms),
+                lambda: layer_norm_fwd_plain(x, w, b, eps, rms),
+                lambda: _ln_library(x, wl, bl, eps, rms))
+    return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "bf16_ulps": ulps, "band_excess": excess,
             "stats_err": stat_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
@@ -304,22 +346,23 @@ def rel_err(got, want):
     return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
 
 
-def check_layer_norm_bwd(dev, dtype, R=8192, H=768):
+def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768):
     from apex_tpu_torch.ops.layer_norm import (
         layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd_plain,
     )
 
     eps = 1e-5
+    rms, _, with_bias = LN_MODES[mode]
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32) * 2 + 0.5)
     x = x.to(dev, dtype)
     dy = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32)).to(dev, dtype)
-    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
-    b = torch.from_numpy(0.1 * rng.standard_normal(H, dtype=np.float32)).to(dev)
-    _, mean, rstd = layer_norm_fwd_plain(x, w, b, eps)
-    dx, dw, db = layer_norm_bwd(x, w, dy, mean, rstd)
-    pdx, pdw, pdb = layer_norm_bwd_plain(x, w, dy, mean, rstd)
-    dx32 = layer_norm_bwd_plain(x.float(), w, dy.float(), mean, rstd)[0]
+    w, b = _ln_params(rng, dev, H, mode)
+    _, mean, rstd = layer_norm_fwd_plain(x, w, b, eps, rms)
+    args = (x, w, dy, mean, rstd, rms, with_bias)
+    dx, dw, db = layer_norm_bwd(*args)
+    pdx, pdw, pdb = layer_norm_bwd_plain(*args)
+    dx32 = layer_norm_bwd_plain(x.float(), w, dy.float(), mean, rstd, rms, with_bias)[0]
     torch.cuda.synchronize()
     dx_err = float((dx.float() - pdx.float()).abs().max())
     # dx against the plain fp32 value: the final rounding (half a bf16
@@ -332,26 +375,31 @@ def check_layer_norm_bwd(dev, dtype, R=8192, H=768):
     xhat = (x.float() - mean[:, None]) * rstd[:, None]
     w_scale = (dy.float() * xhat).abs().sum(0)
     b_scale = dy.float().abs().sum(0)
-    sum_err = max(float(((dw - pdw).abs() / w_scale).max()),
-                  float(((db - pdb).abs() / b_scale).max()))
+    sum_err = 0.0
+    for got, want, scale in ((dw, pdw, w_scale), (db, pdb, b_scale)):
+        if (got is None) != (want is None):
+            raise AssertionError(f"layer_norm_bwd {mode}: dw/db presence differs")
+        if got is not None:
+            sum_err = max(sum_err, float(((got - want).abs() / scale).max()))
     ulps = bf16_ulps(dx, pdx) if dtype == torch.bfloat16 else None
     tol = ("dx within 2**-8 |dx| + 1e-5 of the plain fp32 dx (rounding to x's dtype, "
            "then fp32 row sums in another order); dw, db within 1e-5 of the sum "
            "of |terms| (fp32 column sums in another order)")
     if dx_excess > 1e-5 or sum_err > 1e-5:
-        raise AssertionError(f"layer_norm_bwd {dtype}: dx err {dx_err} ulps {ulps}, "
+        raise AssertionError(f"layer_norm_bwd {mode} {dtype}: dx err {dx_err} ulps {ulps}, "
                              f"dw/db rel {sum_err}")
     xb = x.element_size()
-    nbytes = 3 * R * H * xb + 2 * R * 4 + 3 * H * 4
+    nparams = sum(t is not None for t in (dw, db))
+    nbytes = 3 * R * H * xb + 2 * R * 4 + (int(w is not None) + nparams) * H * 4
     bms, by = bound(nbytes, 12 * R * H)
     xl = x.detach().requires_grad_()
-    wl = w.to(dtype).requires_grad_()
-    bl = b.to(dtype).requires_grad_()
-    yl = torch.nn.functional.layer_norm(xl, (H,), wl, bl, eps)
-    t = timings(lambda: layer_norm_bwd(x, w, dy, mean, rstd),
-                lambda: layer_norm_bwd_plain(x, w, dy, mean, rstd),
-                lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True))
-    return {"R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
+    wl, bl = (None if t is None else t.to(dtype).requires_grad_() for t in (w, b))
+    yl = _ln_library(xl, wl, bl, eps, rms)
+    leaves = [t for t in (xl, wl, bl) if t is not None]
+    t = timings(lambda: layer_norm_bwd(*args),
+                lambda: layer_norm_bwd_plain(*args),
+                lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True))
+    return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": dx_err, "bf16_ulps": ulps, "dx_band_excess": dx_excess,
             "dw_db_rel_err": sum_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
@@ -454,9 +502,197 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
             for name in outputs}
 
 
+#: bands of the CE kernels against their plain versions with bf16 dots
+#: (the kernels' arithmetic; the two sum in other orders):
+#: - m, lse, tgt: abs, times max(1, the largest |logit|);
+#: - dx and dembed, per element, from that element's own product terms:
+#:   |kernel - plain| <= out |plain| + acc_step * K/16 * T + flip * M.
+#:   ``out`` is one rounding of the stored value (2**-7 for a bf16 dx, 0
+#:   for fp32); T the sum of the |terms| d * e (dx) or d * x (dembed)
+#:   summed into it, K their count, and acc_step what each 16-term mma
+#:   step may lose of the fp32 accumulator; M a bound on its largest
+#:   term (its target term, or the other ids' largest |d| in its row or
+#:   vocab column times the largest |e| or |x| in its column), and
+#:   ``flip`` four bf16 steps of d (2**-7 of it each): d's rounding moves
+#:   when p changes in its last place, and over millions of elements a
+#:   few of one element's terms flip at once.  So each element is held
+#:   at the scale of its own terms: where no id is a target (most of
+#:   dembed's rows), at the softmax part's, not at the one-hot part's.
+CE_TOL = {"fwd": 1e-5, "out_bf16": 2.0 ** -7, "acc_step": 2.0 ** -22, "flip": 2.0 ** -5}
+
+#: the CE kernels' dtype and width cases beside the GPT-124M one: every
+#: (x, embed) dtype pair at H = 768 and 1024 (each instantiation and
+#: backward tile shape of csrc/fused_ce.cu), N and V ragged, embed std
+#: 0.1 for a peaked softmax
+CE_GRID = tuple((f"x_{xd}_e_{ed}_h{H}".replace("torch.", ""),
+                 {"N": 1000, "V": 8191, "H": H, "x_dtype": xd, "e_dtype": ed,
+                  "e_std": 0.1, "library": False})
+                for H in (768, 1024)
+                for xd in (torch.bfloat16, torch.float32)
+                for ed in (torch.float32, torch.bfloat16))
+
+
+def ce_term_scales(x2, e, t, lse, g, rows=1024):
+    """The band's allowance for each element of dx and of dembed (plain
+    arithmetic on x2's device): acc_step * K/16 * T + flip * M, with T
+    the sum of its |terms| (|d| . |e|, |d|^T . |x| on the bf16-rounded
+    operands) and M a bound on its largest term: the larger of its
+    target terms (d at the target id times e or x) and the largest other
+    |d| of its row (dx) or vocab column (dembed) times the largest |e| or
+    |x| of its column."""
+    bf = torch.bfloat16
+    xb, eb = x2.to(bf).float(), e.to(bf).float()
+    (N, H), V = x2.shape, e.shape[0]
+    tl, ea = t.long(), eb.abs()
+    cols = torch.arange(V, device=x2.device)
+    t_dx, hit_dx, other_row = [], [], []
+    t_de, hit_de = (torch.zeros(V, H, device=x2.device) for _ in range(2))
+    other_col = torch.zeros(V, device=x2.device)
+    for i in range(0, N, rows):
+        xc, tc = xb[i:i + rows], tl[i:i + rows]
+        p = torch.exp(xc @ eb.T - lse[i:i + rows, None])
+        hit = (cols[None, :] == tc[:, None]).float()
+        d = ((p - hit) * g[i:i + rows, None]).to(bf).float().abs()
+        t_dx.append(d @ ea)
+        t_de += d.T @ xc.abs()
+        d_t = d.gather(1, tc[:, None])  # the target's |d|, (rows, 1)
+        hit_dx.append(d_t * ea[tc])
+        hit_de.index_add_(0, tc, d_t * xc.abs())
+        other = d * (1 - hit)
+        other_row.append(other.max(1).values)
+        other_col = torch.maximum(other_col, other.max(0).values)
+    m_dx = torch.maximum(torch.cat(hit_dx), torch.cat(other_row)[:, None] * ea.max(0).values)
+    m_de = torch.maximum(hit_de, other_col[:, None] * xb.abs().max(0).values)
+    acc = {"dx": CE_TOL["acc_step"] * math.ceil(V / 16),
+           "dembed": CE_TOL["acc_step"] * math.ceil(N / 16)}
+    return {"dx": acc["dx"] * torch.cat(t_dx) + CE_TOL["flip"] * m_dx,
+            "dembed": acc["dembed"] * t_de + CE_TOL["flip"] * m_de}
+
+
+def ce_band(got, want, allowance):
+    """max over elements of (|got - want| - out |want|) / allowance: the
+    band holds while it is <= 1 (an element with no allowance must be
+    exact)."""
+    out = CE_TOL["out_bf16"] if got.dtype == torch.bfloat16 else 0.0
+    past = (got.float() - want.float()).abs() - out * want.float().abs()
+    return float(torch.where(past > 0, past / allowance, 0.0).max())
+
+
+def check_fused_ce(dev, case, N=8192, H=768, V=50304, x_dtype=torch.bfloat16,
+                   e_dtype=torch.float32, e_std=0.02, library=True):
+    """ce_fwd, ce_dx and ce_dembed against their plain versions with bf16
+    dots on one input (by default x bf16 and embed fp32 as in training,
+    embed std 0.02 as at init; g = 1/N as the mean loss gives it).  The
+    backward kernels and plain versions get the kernel's lse, so each
+    kernel is held on its own.  A control must fail the same band: the
+    backward kernels fed lse + log 2, every p halved.  The error against
+    the fp32-dot plain version is reported unbanded: the size of the bf16
+    rounding."""
+    from apex_tpu_torch.ops import fused_ce_kernels as K
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(N + V + H)
+    x = torch.from_numpy(rng.standard_normal((N, H), dtype=np.float32)).to(dev, x_dtype)
+    e = torch.from_numpy(e_std * rng.standard_normal((V, H), dtype=np.float32)).to(dev, e_dtype)
+    t_np = rng.integers(0, V, size=N)
+    t_np[:4] = (-3, V + 5, V - 1, 0)  # out of range ids, clamped as the caller does
+    t = torch.from_numpy(np.clip(t_np, 0, V - 1).astype(np.int32)).to(dev)
+    g = torch.full((N,), 1.0 / N, device=dev)
+    m, l, tgt = K.ce_fwd(x, e, t)
+    lse = m + torch.log(l)
+    dx = K.ce_dx(x, e, t, lse, g)
+    de = K.ce_dembed(x, e, t, lse, g)
+    lse_c = lse + math.log(2.0)
+    control = {"dx": K.ce_dx(x, e, t, lse_c, g), "dembed": K.ce_dembed(x, e, t, lse_c, g)}
+    pm, pl, ptgt = K.ce_fwd_plain(x, e, t, dot_dtype=bf)
+    plse = pm + torch.log(pl)
+    plain = {"dx": K.ce_dx_plain(x, e, t, lse, g, dot_dtype=bf),
+             "dembed": K.ce_dembed_plain(x, e, t, lse, g, dot_dtype=bf)}
+    allowance = ce_term_scales(x, e, t, lse, g)
+    fm, fl, ftgt = K.ce_fwd_plain(x, e, t)
+    fdx = K.ce_dx_plain(x, e, t, lse, g)
+    fde = K.ce_dembed_plain(x, e, t, lse, g)
+    torch.cuda.synchronize()
+    logit_scale = max(1.0, float(pm.abs().max()))
+    fwd_errs = {"m": float((m - pm).abs().max()), "lse": float((lse - plse).abs().max()),
+                "tgt": float((tgt - ptgt).abs().max())}
+    band, control_band = {}, {}
+    for n, got in (("dx", dx), ("dembed", de)):
+        band[n] = ce_band(got, plain[n], allowance[n])
+        control_band[n] = ce_band(control[n], plain[n], allowance[n])
+    abs_errs = {**fwd_errs, "dx": float((dx.float() - plain["dx"].float()).abs().max()),
+                "dembed": float((de - plain["dembed"]).abs().max())}
+    fp32_errs = {"lse": float((lse - (fm + torch.log(fl))).abs().max()),
+                 "tgt": float((tgt - ftgt).abs().max()),
+                 "dx": rel_err(dx, fdx), "dembed": rel_err(de, fde)}
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in (m, l, tgt, dx, de))
+    problems = [f"{n} err {v} > {CE_TOL['fwd'] * logit_scale}" for n, v in fwd_errs.items()
+                if not v <= CE_TOL["fwd"] * logit_scale]
+    problems += [f"{n} uses {v} of its band" for n, v in band.items() if not v <= 1.0]
+    problems += [f"{n} control (lse + log 2) passed: it uses {v} of the band"
+                 for n, v in control_band.items() if not v > 1.0]
+    summary = {"abs_errors": abs_errs, "band_used": band, "control_band_used": control_band,
+               "logit_scale": logit_scale}
+    if problems or not finite:
+        raise AssertionError(f"fused_ce {case}: {problems} (finite={finite}) "
+                             f"{json.dumps(summary)}")
+    xb, eb, row = x.element_size(), e.element_size(), N * 4
+    flops = 2.0 * N * V * H
+    bounds = {"fwd": bound(N * H * xb + V * H * eb + row + 3 * row, flops, PEAK_BF16),
+              "dx": bound(2 * N * H * xb + V * H * eb + 3 * row, 2 * flops, PEAK_BF16),
+              "dembed": bound(N * H * xb + V * H * eb + V * H * 4 + 3 * row, 2 * flops,
+                              PEAK_BF16)}
+    timed = {"fwd": None, "dx": None, "dembed": None}
+    if library:
+        # yardstick (no single PyTorch call computes the fused CE): the
+        # dense bf16 head, two calls -- torch.matmul, then F.cross_entropy
+        # on the fp32 logits -- and its autograd backward, one yardstick
+        # for dx and dembed together
+        F = torch.nn.functional
+        tl = t.long()
+        xl = x.to(bf).detach().requires_grad_()
+        el = e.to(bf).requires_grad_()
+        loss = F.cross_entropy(torch.matmul(xl, el.T).float(), tl)
+        lib_fwd = lambda: F.cross_entropy(torch.matmul(xl.detach(), el.detach().T).float(), tl)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(loss, (xl, el), retain_graph=True)  # noqa: E731
+        timed = {
+            "fwd": timings(lambda: K.ce_fwd(x, e, t),
+                           lambda: K.ce_fwd_plain(x, e, t, dot_dtype=bf), lib_fwd),
+            "dx": timings(lambda: K.ce_dx(x, e, t, lse, g),
+                          lambda: K.ce_dx_plain(x, e, t, lse, g, dot_dtype=bf), lib_bwd),
+            "dembed": timings(lambda: K.ce_dembed(x, e, t, lse, g),
+                              lambda: K.ce_dembed_plain(x, e, t, lse, g, dot_dtype=bf),
+                              lib_bwd)}
+        del loss
+    base = {"case": case, "N": N, "H": H, "V": V,
+            "x_dtype": str(x_dtype).replace("torch.", ""),
+            "embed_dtype": str(e_dtype).replace("torch.", ""), "embed_std": e_std,
+            **summary, "tolerance": CE_TOL,
+            "tolerance_why": "against the plain version with bf16 dots (the kernels' "
+                             "arithmetic): m, lse, tgt abs, times max(1, max |logit|) "
+                             "(fp32 sums in another order); dx, dembed per element "
+                             "|kernel - plain| <= out |plain| + acc_step K/16 T + flip M "
+                             "(T: the sum of its |terms|, M: a bound on its largest; out: "
+                             "one bf16 rounding of a bf16 dx), so each element is held at "
+                             "its own terms' scale; band_used is the largest share of it "
+                             "taken, and the control (lse + log 2) must exceed it",
+            "fp32_dot_errors_unbanded": fp32_errs,
+            "library": "dense bf16 head: torch.matmul + F.cross_entropy on fp32 logits "
+                       "(forward, 2 calls); its autograd backward (dx and dembed "
+                       "together)"}
+    outputs = {"fwd": ("m", "lse", "tgt"), "dx": ("dx",), "dembed": ("dembed",)}
+    return {name: {**base, "kernel": f"ce_{name}",
+                   "max_abs_err": max(abs_errs[n] for n in outputs[name]),
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   **(timed[name] or {})}
+            for name in outputs}
+
+
 # -------------------------------------------------------------------- serve
 def launch_counts():
-    from apex_tpu_torch.ops import decode_attention, decode_sampling, flash_attention, layer_norm
+    from apex_tpu_torch.ops import (
+        decode_attention, decode_sampling, flash_attention, fused_ce_kernels, layer_norm,
+    )
 
     return {"layer_norm_fwd": layer_norm.LAUNCHES,
             "paged_decode_attention": decode_attention.LAUNCHES,
@@ -464,16 +700,23 @@ def launch_counts():
             "layer_norm_bwd": layer_norm.BWD_LAUNCHES,
             "flash_fwd": flash_attention.FWD_LAUNCHES,
             "flash_dq": flash_attention.DQ_LAUNCHES,
-            "flash_dkv": flash_attention.DKV_LAUNCHES}
+            "flash_dkv": flash_attention.DKV_LAUNCHES,
+            "ce_fwd": fused_ce_kernels.FWD_LAUNCHES,
+            "ce_dx": fused_ce_kernels.DX_LAUNCHES,
+            "ce_dembed": fused_ce_kernels.DEMBED_LAUNCHES}
 
 
 def reset_counts():
-    from apex_tpu_torch.ops import decode_attention, decode_sampling, flash_attention, layer_norm
+    from apex_tpu_torch.ops import (
+        decode_attention, decode_sampling, flash_attention, fused_ce_kernels, layer_norm,
+    )
 
     layer_norm.LAUNCHES = decode_attention.LAUNCHES = decode_sampling.LAUNCHES = 0
     layer_norm.BWD_LAUNCHES = 0
     flash_attention.FWD_LAUNCHES = flash_attention.DQ_LAUNCHES = 0
     flash_attention.DKV_LAUNCHES = 0
+    fused_ce_kernels.FWD_LAUNCHES = fused_ce_kernels.DX_LAUNCHES = 0
+    fused_ce_kernels.DEMBED_LAUNCHES = 0
 
 
 def serve_phase():
@@ -489,7 +732,8 @@ def serve_phase():
     expect = {"layer_norm_fwd": (2 * config.num_layers + 1) * (steps + prefills),
               "paged_decode_attention": config.num_layers * steps,
               "fused_sample": steps + prefills,
-              "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+              "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+              "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
     if out["requests"] != args.requests or any(
             len(c.tokens) != args.max_new for c in sched.completed):
         raise AssertionError(f"served {out['requests']}/{args.requests} requests")
@@ -553,18 +797,27 @@ def profile_phase(params, config, steps=10):
 
 
 # -------------------------------------------------------------------- train
-def train_phase():
-    """bench.py's GPT-124M step through ``train_gpt.run`` at its defaults."""
+#: the fused-CE step's warm-up loss against the dense step's (same
+#: params and batch): the bf16-dot rounding of the head, relative
+FCE_LOSS_TOL = 1e-5
+
+
+def train_phase(fused=False, dense_report=None):
+    """bench.py's GPT-124M step through ``train_gpt.run`` at its defaults:
+    the dense head (``gpt124_s1024``) or, with ``fused``, ``--fused-ce``
+    (``gpt124_s1024_fce``), whose warm-up loss is held against the dense
+    step's ``dense_report``."""
     from apex_tpu_torch import train_gpt
 
-    args = train_gpt.build_args().parse_args([])
+    args = train_gpt.build_args().parse_args(["--fused-ce"] if fused else [])
     reset_counts()
     t0 = time.monotonic()
     report, params, state = train_gpt.run(args)
     counts = launch_counts()
     n, L = args.warmup + args.steps, args.layers
     per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
-                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused)}
     expect = {**{k: v * n for k, v in per_step.items()},
               "paged_decode_attention": 0, "fused_sample": 0}
     losses = report["losses"]
@@ -572,10 +825,31 @@ def train_phase():
         raise AssertionError(f"train losses not finite and falling: {losses}")
     if counts != expect:
         raise AssertionError(f"train launch counts {counts} != expected {expect}")
-    emit({"phase": "train", **report, "steps_counted": n,
-          "launches_per_step": per_step, "launches": counts,
+    extra = {}
+    if fused:
+        dense = dense_report["losses"][0]
+        rel = abs(losses[0] - dense) / abs(dense)
+        if not rel <= FCE_LOSS_TOL:
+            raise AssertionError(f"fused-CE warm-up loss {losses[0]} vs dense {dense}: "
+                                 f"rel {rel} > {FCE_LOSS_TOL}")
+        # bench.py's A/B on this card: the dense step (the train phase)
+        # beside this one
+        extra = {"warmup_loss_dense": dense, "warmup_loss_rel_err": rel,
+                 "tolerance": FCE_LOSS_TOL,
+                 "tolerance_why": "same params and batch; the fused head rounds embed and "
+                                  "x to bf16 before its dots, the dense head is fp32: that "
+                                  "moves each row's loss by about 1e-3 at random, the mean "
+                                  "over 8192 rows by about 1e-5 (1e-6 relative)",
+                 "ab_step_ms_median": {"dense": dense_report["step_ms_median"],
+                                       "fused_ce": report["step_ms_median"]},
+                 "ab_tokens_per_sec": {"dense": dense_report["tokens_per_sec"],
+                                       "fused_ce": report["tokens_per_sec"]},
+                 "ab_peak_memory_gb": {"dense": dense_report["peak_memory_gb"],
+                                       "fused_ce": report["peak_memory_gb"]}}
+    emit({"phase": "train_fce" if fused else "train", **report, "steps_counted": n,
+          "launches_per_step": per_step, "launches": counts, **extra,
           "seconds": time.monotonic() - t0})
-    return args, counts, report["step_ms_median"]
+    return args, counts, report
 
 
 def flash_reproducible(dev, B=8, H=12, S=1024, D=64):
@@ -641,6 +915,106 @@ def flash_grad_parity_phase(dev, S=1024, D=64):
               "seconds": time.monotonic() - t0})
 
 
+def fused_ce_grad_parity_phase(dev, S=256, B=8, H=768, V=50304):
+    """``fused_lm_head_ce`` in the layout ``gpt_loss`` gives it -- x (S,
+    B, H) bf16 as a leaf, embed fp32, the mean loss -- on the card (the
+    CE kernels through the autograd Function) against the CPU's plain
+    versions with bf16 dots on the same inputs; then two backward passes
+    on the card must be bitwise equal (no atomics)."""
+    from apex_tpu_torch.ops import fused_ce_kernels as K
+    from apex_tpu_torch.ops.fused_ce import fused_lm_head_ce
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(S * B)
+    x = torch.from_numpy(rng.standard_normal((S, B, H), dtype=np.float32)).to(torch.bfloat16)
+    e = torch.from_numpy(0.02 * rng.standard_normal((V, H), dtype=np.float32))
+    t = torch.from_numpy(rng.integers(0, V, size=(S, B)))
+    xc, ec = x.to(dev).requires_grad_(), e.to(dev).requires_grad_()
+    loss = fused_lm_head_ce(xc, ec, t.to(dev), 128)
+    first = torch.autograd.grad(loss.mean(), (xc, ec), retain_graph=True)
+    second = torch.autograd.grad(loss.mean(), (xc, ec))
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    # the CPU: the plain versions with the kernels' bf16 dots
+    N, bf = S * B, torch.bfloat16
+    x2, t2 = x.reshape(N, H), t.reshape(N).to(torch.int32)
+    m, l, tgt = K.ce_fwd_plain(x2, e, t2, dot_dtype=bf)
+    lse = m + torch.log(l)
+    g = torch.full((N,), 1.0 / N)
+    want = {"loss": (lse - tgt).reshape(S, B),
+            "dx": K.ce_dx_plain(x2, e, t2, lse, g, dot_dtype=bf),
+            "dembed": K.ce_dembed_plain(x2, e, t2, lse, g, dot_dtype=bf)}
+    got = {"loss": loss.detach().cpu(), "dx": first[0].reshape(N, H).cpu(),
+           "dembed": first[1].cpu()}
+    allowance = ce_term_scales(*(a.to(dev) for a in (x2, e, t2, lse, g)))
+    errs = {"loss": float((got["loss"] - want["loss"]).abs().max())}
+    for n in ("dx", "dembed"):
+        errs[n] = ce_band(got[n], want[n], allowance[n].cpu())
+    tol = {"loss": CE_TOL["fwd"] * max(1.0, float(m.abs().max())), "dx": 1.0, "dembed": 1.0}
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got.values())
+    bad = {n: v for n, v in errs.items() if not v <= tol[n]}
+    if bad or not finite or not all(same):
+        raise AssertionError(f"fused CE grad parity: errors {errs} over {tol} "
+                             f"(finite={finite}, bitwise={same})")
+    emit({"phase": "fused_ce_grad_parity", "S": S, "B": B, "H": H, "V": V,
+          "x_dtype": "bfloat16", "embed_dtype": "float32", "errors": errs,
+          "tolerance": tol, "dx_dembed_bitwise_equal_across_passes": same,
+          "tolerance_why": "card (kernels) against CPU (plain versions, bf16 dots): loss "
+                           "abs, times max(1, max |logit|); dx, dembed: the share of the "
+                           "kernels phase's per-element band used",
+          "seconds": time.monotonic() - t0})
+
+
+def norm_modules_phase(dev, shape=(1024, 8, 768)):
+    """FusedLayerNorm and FusedRMSNorm, affine and not, memory_efficient
+    off and on: forward and backward in bf16 on the card against the
+    same module on the CPU, with exact launch counts (one forward kernel;
+    one backward kernel, none with memory_efficient)."""
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+
+    t0 = time.monotonic()
+    H = shape[-1]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 2 + 0.5)
+    x = x.to(torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+    params = {"weight": 1 + 0.1 * rng.standard_normal(H, dtype=np.float32),
+              "bias": 0.1 * rng.standard_normal(H, dtype=np.float32)}
+    cases = []
+    for cls in (FusedLayerNorm, FusedRMSNorm):
+        for affine in (True, False):
+            for mem in (False, True):
+                got, counts = {}, None
+                for device in (dev, torch.device("cpu")):
+                    mod = cls((H,), elementwise_affine=affine, memory_efficient=mem,
+                              device=device)
+                    names = [n for n, _ in mod.named_parameters()]
+                    mod.load_flax_params({n: params[n] for n in names})
+                    xl = x.to(device).detach().requires_grad_()
+                    reset_counts()
+                    y = mod(xl)
+                    y.backward(dy.to(device))
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                        counts = launch_counts()
+                    got[device.type] = [y.detach().cpu(), xl.grad.cpu()] + [
+                        p.grad.cpu() for p in mod.parameters()]
+                expect = {"layer_norm_fwd": 1, "layer_norm_bwd": 0 if mem else 1}
+                seen = {k: counts[k] for k in expect}
+                errs = [rel_err(a, b) for a, b in zip(got["cuda"], got["cpu"])]
+                case = {"module": cls.__name__, "affine": affine, "memory_efficient": mem,
+                        "launches": seen, "rel_errors": errs}
+                if seen != expect or max(errs) > 2.0 ** -6:
+                    raise AssertionError(f"norm module {case}: expected launches {expect}, "
+                                         f"band 2**-6")
+                cases.append(case)
+    emit({"phase": "norm_modules", "shape": list(shape), "dtype": "bfloat16",
+          "cases": cases, "tolerance": 2.0 ** -6,
+          "tolerance_why": "max |cuda - cpu| / max |cpu| of y, dx, dw, db: bf16 outputs "
+                           "one rounding apart; memory_efficient recovers xhat from the "
+                           "bf16 output",
+          "seconds": time.monotonic() - t0})
+
+
 def train_parity_phase():
     """One step's loss and gradients at full width, fp32: the card (the
     kernels) against the CPU (the plain versions), same numpy params."""
@@ -691,6 +1065,8 @@ def _kernel_kind(name):
     the fp32 GEMMs (the dense LM head), the other GEMMs, the rest."""
     if "flash_" in name:
         return "flash"
+    if any(k in name for k in ("ce_fwd_kernel", "ce_fwd_combine", "ce_bwd_kernel")):
+        return "fused_ce"
     if "ln_fwd" in name or "ln_bwd" in name:
         return "layer_norm"
     if "sgemm" in name or "f32f32" in name:
@@ -718,6 +1094,7 @@ def train_profile_phase(args, step_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         train_gpt.train_step(params, state, opt, tokens, targets, config)
+        host = time.monotonic() - t0  # the host's dispatch of the step
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     by_name = {}
@@ -737,7 +1114,8 @@ def train_profile_phase(args, step_ms):
         if e.device_type == DeviceType.CUDA and "flash_" in e.name:
             kernel = re.search(r"flash_\w+", e.name).group(0)
             flash_seen[kernel] = flash_seen.get(kernel, 0) + 1
-    emit({"phase": "train_profile", "step_ms": 1e3 * wall, "device_busy_ms": busy_ms,
+    emit({"phase": "train_profile", "head": "fused_ce" if args.fused_ce else "dense",
+          "step_ms": 1e3 * wall, "host_dispatch_ms": 1e3 * host, "device_busy_ms": busy_ms,
           "device_ms_by_kind": by_kind, "flash_launches_seen": flash_seen,
           "idle_share": 1 - busy_ms / (1e3 * wall),
           "idle_share_of_unprofiled_step": 1 - busy_ms / step_ms,
@@ -803,6 +1181,21 @@ def main():
         r = check_layer_norm_bwd(dev, dtype)
         results[("ln_bwd", dtype)] = r
         emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    # the RMS and non-affine modes at the train path's rows
+    for mode, dtype in (("rms_affine", torch.bfloat16), ("rms_affine", torch.float32),
+                        ("rms", torch.bfloat16), ("ln", torch.bfloat16)):
+        r = check_layer_norm(dev, 8192, dtype, mode)
+        results[("ln", 8192, dtype, mode)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+        r = check_layer_norm_bwd(dev, dtype, mode)
+        results[("ln_bwd", dtype, mode)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    for case, kw in (("gpt124", {}),
+                     ("ragged", {"N": 1000, "V": 50257, "library": False}), *CE_GRID):
+        r = check_fused_ce(dev, case, **kw)
+        results[("ce", case)] = r
+        for name in ("fwd", "dx", "dembed"):
+            emit({"phase": "kernel", **r[name]})
     flash_cases = (
         ("gpt124", torch.bfloat16, {"library": True}),
         ("gpt124", torch.float32, {}),
@@ -825,15 +1218,22 @@ def main():
     profile_phase(params, config)
     lap("profile")
     del params
-    train_args, train_counts, step_ms = train_phase()
+    train_args, train_counts, dense = train_phase()
     lap("train")
+    fce_args, fce_counts, fused = train_phase(fused=True, dense_report=dense)
+    lap("train_fce")
     flash_reproducible(dev)
     lap("train_reproducible")
     flash_grad_parity_phase(dev)
     lap("flash_grad_parity")
+    fused_ce_grad_parity_phase(dev)
+    lap("fused_ce_grad_parity")
+    norm_modules_phase(dev)
+    lap("norm_modules")
     train_parity_phase()
     lap("train_parity")
-    train_profile_phase(train_args, step_ms)
+    train_profile_phase(train_args, dense["step_ms_median"])
+    train_profile_phase(fce_args, fused["step_ms_median"])
     lap("train_profile")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
@@ -856,13 +1256,21 @@ def main():
         ("flash_dkv", "apex_tpu_torch/csrc/flash_attention.cu",
          "apex_tpu/ops/flash_attention_pallas.py:394",
          results[("flash", "gpt124", torch.bfloat16)]["dkv"]),
+        ("ce_fwd", "apex_tpu_torch/csrc/fused_ce.cu",
+         "apex_tpu/ops/fused_ce_pallas.py:104", results[("ce", "gpt124")]["fwd"]),
+        ("ce_dx", "apex_tpu_torch/csrc/fused_ce.cu",
+         "apex_tpu/ops/fused_ce_pallas.py:185", results[("ce", "gpt124")]["dx"]),
+        ("ce_dembed", "apex_tpu_torch/csrc/fused_ce.cu",
+         "apex_tpu/ops/fused_ce_pallas.py:210", results[("ce", "gpt124")]["dembed"]),
     )
     # launches: the serve phase's for the serving kernels, the train
-    # phase's for the training kernels (LayerNorm forward runs in both;
-    # its line keeps the serve phase's count)
+    # phase's for the training kernels, the train_fce phase's for the CE
+    # kernels (LayerNorm forward runs in all three; its line keeps the
+    # serve phase's count)
     launches = {**train_counts, **{k: counts[k] for k in
                                    ("layer_norm_fwd", "paged_decode_attention",
-                                    "fused_sample")}}
+                                    "fused_sample")},
+                **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

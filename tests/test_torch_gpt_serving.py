@@ -250,7 +250,8 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.ops.decode_attention, apex_tpu_torch.ops.decode_sampling\n"
         "import apex_tpu_torch.train_gpt, apex_tpu_torch.ops.attention\n"
         "import apex_tpu_torch.ops.flash_attention, apex_tpu_torch.optimizers\n"
-        "import apex_tpu_torch.models._remat\n"
+        "import apex_tpu_torch.models._remat, apex_tpu_torch.ops.fused_ce\n"
+        "import apex_tpu_torch.ops.fused_ce_kernels, apex_tpu_torch.normalization\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -9,7 +9,11 @@ fp32) with the JAX package's params carried over by
   attention on and off, learned and rope positions, and GQA;
 - layer remat on and off give the same gradients;
 - a 3-step loss trajectory of ``train_gpt`` (``--device cpu``) against
-  bench.py's JAX loop (``value_and_grad(gpt_loss)`` + ``FusedAdam``);
+  bench.py's JAX loop (``value_and_grad(gpt_loss)`` + ``FusedAdam``),
+  with the dense head and with the fused LM-head CE (``--fused-ce``);
+- with ``fused_ce=True`` the loss and every gradient leaf again, for S
+  divisible by ``fused_ce_chunk`` (the fused head, the chunked scan on
+  the JAX side) and not (the dense head on both sides);
 - the options this slice does not run raise.
 
 Bands: the loss within 1e-6 relative; each gradient leaf within 1e-5 of
@@ -95,18 +99,23 @@ def test_remat_on_and_off_give_the_same_grads():
         assert torch.equal(a, b)
 
 
-def test_three_step_trajectory_matches_bench_loop(capsys):
+@pytest.mark.parametrize("fused", [False, True])
+def test_three_step_trajectory_matches_bench_loop(capsys, fused):
     argv = ["--device", "cpu", "--layers", "2", "--hidden", "64", "--heads", "4",
             "--vocab", "128", "--seq", "32", "--batch", "2", "--steps", "3",
             "--warmup", "0", "--compute-dtype", "float32"]
+    if fused:
+        argv += ["--fused-ce", "--fused-ce-chunk", "8"]
     args = train_gpt.build_args().parse_args(argv)
     tree = tgpt._init_numpy(train_gpt.make_config(args), args.seed)
     report, _, _ = train_gpt.run(args, params_tree=tree)
 
-    # bench.py:401-436, the step the JAX package times, at this shape
+    # bench.py:401-436, the step the JAX package times, at this shape (on
+    # the CPU its fused head is the fp32 chunked scan)
     cfg = jgpt.GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
                          num_attention_heads=4, max_seq_len=32, compute_dtype=jnp.float32,
-                         use_flash_attention=True, checkpoint_layers=True)
+                         use_flash_attention=True, checkpoint_layers=True,
+                         fused_ce=fused, fused_ce_chunk=8)
     opt = JaxFusedAdam(lr=3e-4, weight_decay=0.1)
     params = jax.tree.map(jnp.asarray, tree)
     state = opt.init(params)
@@ -129,14 +138,48 @@ def test_three_step_trajectory_matches_bench_loop(capsys):
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed["device"] == "cpu" and len(printed["losses"]) == 3
     assert printed["peak_memory_gb"] is None
+    assert printed["model"]["fused_ce"] is fused
+
+
+@pytest.mark.parametrize("pet,seq,chunk", [("learned", 32, 8), ("rope", 32, 16),
+                                            ("learned", 24, 16), ("rope", 20, 8)])
+def test_fused_ce_loss_and_grads_match_jax(pet, seq, chunk):
+    """fused_ce=True: S % fused_ce_chunk == 0 takes the fused head (the
+    plain CE kernels here, the chunked scan in JAX on the CPU); otherwise
+    both packages take the dense head."""
+    jcfg, tcfg = _configs(use_flash_attention=True, position_embedding_type=pet,
+                          fused_ce=True, fused_ce_chunk=chunk)
+    jp = jgpt.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = tgpt.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu",
+                                keep_fp32=True)
+    tokens, targets = _batch(4)
+    tokens, targets = tokens[:, :seq], targets[:, :seq]
+    jloss, jgrads = jax.value_and_grad(jgpt.gpt_loss)(jp, jnp.asarray(tokens),
+                                                      jnp.asarray(targets), jcfg)
+    from apex_tpu_torch.ops import fused_ce
+
+    calls = []
+    orig = fused_ce.fused_lm_head_ce
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    tgpt.fused_lm_head_ce = spy
+    try:
+        tloss, tgrads = train_gpt.loss_and_grads(tp, torch.from_numpy(tokens),
+                                                 torch.from_numpy(targets), tcfg)
+    finally:
+        tgpt.fused_lm_head_ce = orig
+    assert len(calls) == (seq % chunk == 0)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)
+    _assert_grads_close(tgrads, jgrads)
 
 
 def test_unported_options_raise():
-    _, cfg = _configs(fused_ce=True)
-    params = tgpt.init_params(cfg, device="cpu", keep_fp32=True)
-    tokens, targets = _batch()
-    with pytest.raises(NotImplementedError, match="fused_ce"):
-        tgpt.gpt_loss(params, tokens, targets, cfg)
+    for impl in ("interpret", "off"):
+        with pytest.raises(ValueError, match=impl):
+            _configs(fused_ce=True, fused_ce_impl=impl)
     with pytest.raises(NotImplementedError, match="dots"):
         _configs(remat_policy="dots")
     with pytest.raises(ValueError, match="remat_policy"):

@@ -4,6 +4,10 @@ versions on the CPU) against the JAX package: the jnp specification
 in interpret mode (``layer_norm_fwd_pallas`` / ``layer_norm_bwd_pallas``
 with ``interpret=True``).
 
+The RMS and non-affine modes, the ``memory_efficient`` backward and the
+``FusedLayerNorm``/``FusedRMSNorm`` modules (flax params carried over)
+are held against ``apex_tpu.normalization`` the same way.
+
 Bands: fp32 atol 1e-5 (summation order differs between the two
 frameworks' row means); bf16 outputs within 1 bf16 ulp (the fp32 values
 before the final rounding differ by ulps, which can move a rounding
@@ -187,8 +191,17 @@ def test_grads_through_fused_layer_norm_affine():
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(rdx), rtol=0, atol=1e-5)
     _assert_sums_close(wt.grad, rdw)
     _assert_sums_close(bt.grad, rdb)
-    with pytest.raises(NotImplementedError, match="memory_efficient"):
-        fused_layer_norm_affine(xt, wt, bt, (128,), EPS, memory_efficient=True)
+    # memory_efficient: the output is saved in place of x and xhat
+    # recovered from it, as the JAX package's backward does
+    xm, wm, bm = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    fused_layer_norm_affine(xm, wm, bm, (128,), EPS, memory_efficient=True).backward(
+        torch.from_numpy(dy))
+    _, vjp = jax.vjp(lambda a, ww, bb: jax_ln(a, ww, bb, (128,), EPS, True),
+                     *(jnp.asarray(a) for a in (x, w, b)))
+    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+    np.testing.assert_allclose(xm.grad.numpy(), np.asarray(rdx), rtol=0, atol=1e-5)
+    _assert_sums_close(wm.grad, rdw)
+    _assert_sums_close(bm.grad, rdb)
 
 
 def test_bwd_plain_version_is_the_cpu_path_and_other_devices_raise():
@@ -202,3 +215,178 @@ def test_bwd_plain_version_is_the_cpu_path_and_other_devices_raise():
     with pytest.raises(ValueError, match="not supported"):
         layer_norm_bwd(meta, torch.empty(64, device="meta"), meta,
                        torch.empty(8, device="meta"), torch.empty(8, device="meta"))
+
+
+# ------------------------------------------------ RMS and non-affine modes
+import apex_tpu.normalization as jnorm  # noqa: E402
+
+import apex_tpu_torch.normalization as tnorm  # noqa: E402
+
+# the shapes of tests/test_fused_layer_norm.py: (x shape, normalized shape)
+NORM_SHAPES = [((4, 16), (16,)), ((2, 3, 32), (32,)), ((5, 4, 6), (4, 6))]
+# mode -> (function name, has weight, has bias, rms)
+MODES = {"ln": ("fused_layer_norm", False, False, False),
+         "ln_affine": ("fused_layer_norm_affine", True, True, False),
+         "rms": ("fused_rms_norm", False, False, True),
+         "rms_affine": ("fused_rms_norm_affine", True, False, True)}
+
+
+def _mode_inputs(xshape, nshape, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*xshape) * 2.0 + 0.5).astype(np.float32)
+    w = (rng.rand(*nshape) + 0.5).astype(np.float32)
+    b = rng.randn(*nshape).astype(np.float32)
+    dy = rng.randn(*xshape).astype(np.float32)
+    return x, w, b, dy
+
+
+def _assert_out_close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        assert got.dtype == torch.bfloat16
+        assert _bf16_ulp_diff(got, _to_bf16_torch(np.asarray(want, np.float32))) <= 1
+    else:
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("xshape,nshape", NORM_SHAPES)
+def test_plain_modes_match_pallas_interpret(xshape, nshape, mode, dtype):
+    """The plain forward and backward in each mode against the Pallas
+    kernels in interpret mode on the (R, H) view, fed the same inputs
+    (and the same mean and rstd for the backward)."""
+    _, affine, with_bias, rms = MODES[mode]
+    x, w, b, dy = _mode_inputs(xshape, nshape, seed=7)
+    H = int(np.prod(nshape))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj, dyj = jnp.asarray(x.reshape(-1, H), jdt), jnp.asarray(dy.reshape(-1, H), jdt)
+    xt = torch.from_numpy(np.asarray(xj, np.float32)).to(dtype)
+    dyt = torch.from_numpy(np.asarray(dyj, np.float32)).to(dtype)
+    wt = torch.from_numpy(w.reshape(H)) if affine else None
+    bt = torch.from_numpy(b.reshape(H)) if with_bias else None
+    y, mean, rstd = layer_norm_fwd(xt, wt, bt, EPS, rms=rms)
+    ry, rmean, rrstd = layer_norm_fwd_pallas(
+        xj, None if wt is None else jnp.asarray(w.reshape(H)),
+        None if bt is None else jnp.asarray(b.reshape(H)), EPS, rms=rms, interpret=True)
+    _assert_out_close(y, ry, dtype)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(rmean)[:, 0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(rrstd)[:, 0], rtol=1e-5, atol=0)
+    dx, dw, db = layer_norm_bwd(xt, wt, dyt, mean, rstd, rms=rms, with_bias=with_bias)
+    rdx, rdw, rdb = layer_norm_bwd_pallas(
+        xj, None if wt is None else jnp.asarray(w.reshape(H)), dyj,
+        jnp.asarray(mean.numpy()[:, None]), jnp.asarray(rstd.numpy()[:, None]), rms=rms,
+        with_bias=with_bias, interpret=True)
+    _assert_dx_close(dx, np.asarray(rdx, np.float32), dtype)
+    assert (dw is None) == (rdw is None) and (db is None) == (rdb is None)
+    if dw is not None:
+        _assert_sums_close(dw, np.asarray(rdw).sum(0))
+    if db is not None:
+        _assert_sums_close(db, np.asarray(rdb).sum(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory_efficient", [False, True])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("xshape,nshape", NORM_SHAPES)
+def test_norm_functions_match_jax_vjp(xshape, nshape, mode, memory_efficient, dtype):
+    """Each public function, forward and gradients (input and params),
+    against jax.vjp of the JAX package's function of the same name, with
+    the memory-efficient backward on and off."""
+    name, affine, with_bias, _ = MODES[mode]
+    x, w, b, dy = _mode_inputs(xshape, nshape, seed=8)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj, dyj = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    params = [w] if affine else []
+    params += [b] if with_bias else []
+
+    def jfn(xx, *ps):
+        return getattr(jnorm, name)(xx, *ps, nshape, 1e-5, memory_efficient)
+
+    ry, vjp = jax.vjp(jfn, xj, *(jnp.asarray(p) for p in params))
+    rgrads = vjp(dyj)
+    xt = torch.from_numpy(np.asarray(xj, np.float32)).to(dtype).requires_grad_()
+    pt = [torch.from_numpy(p).requires_grad_() for p in params]
+    y = getattr(tnorm, name)(xt, *pt, nshape, 1e-5, memory_efficient)
+    _assert_out_close(y, ry, dtype)
+    y.backward(torch.from_numpy(np.asarray(dyj, np.float32)).to(dtype))
+    H = int(np.prod(nshape))
+    _assert_dx_close(xt.grad.reshape(-1, H), np.asarray(rgrads[0], np.float32).reshape(-1, H),
+                     dtype)
+    if dtype == torch.bfloat16 and memory_efficient:
+        # xhat is recovered from the bf16 output, where the two packages
+        # may round one element a bf16 step apart (the forward's band):
+        # (y - b) / w then moves by up to 2**-8 |y| / |w| in that row
+        yf = np.abs(np.asarray(ry, np.float32)).reshape(-1, H)
+        step = 2.0 ** -8 * yf.max() / (np.abs(w).min() if affine else 1.0)
+        band = step * np.abs(np.asarray(dyj, np.float32)).reshape(-1, H).sum(0).max()
+        for p, r in zip(pt, rgrads[1:]):
+            np.testing.assert_allclose(p.grad.numpy(), np.asarray(r), rtol=0,
+                                       atol=1e-5 * max(1.0, _scale_of(r)) + band)
+        return
+    for p, r in zip(pt, rgrads[1:]):
+        _assert_sums_close(p.grad, r)
+
+
+def _scale_of(a):
+    return float(np.abs(np.asarray(a, np.float32)).max())
+
+
+def test_manual_rms_norm_and_mixed_aliases_match_jax():
+    x, w, _, _ = _mode_inputs((3, 5, 32), (32,), seed=9)
+    got = tnorm.manual_rms_norm(torch.from_numpy(x), (32,), torch.from_numpy(w), 1e-5)
+    want = jnorm.manual_rms_norm(jnp.asarray(x), (32,), jnp.asarray(w), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wt = torch.from_numpy(w)
+    assert torch.equal(tnorm.mixed_dtype_fused_rms_norm_affine(xb, wt, (32,)),
+                       tnorm.fused_rms_norm_affine(xb, wt, (32,)))
+    bt = torch.zeros(32)
+    assert torch.equal(tnorm.mixed_dtype_fused_layer_norm_affine(xb, wt, bt, (32,)),
+                       tnorm.fused_layer_norm_affine(xb, wt, bt, (32,)))
+    assert tnorm.MixedFusedLayerNorm is tnorm.FusedLayerNorm
+    assert tnorm.MixedFusedRMSNorm is tnorm.FusedRMSNorm
+
+
+@pytest.mark.parametrize("memory_efficient", [False, True])
+@pytest.mark.parametrize("rms,affine", [(False, True), (False, False), (True, True),
+                                        (True, False)])
+def test_modules_with_flax_params_match_jax(rms, affine, memory_efficient):
+    """FusedLayerNorm / FusedRMSNorm with the flax module's params
+    (perturbed from their ones/zeros init) carried over: output and the
+    gradients of input and params."""
+    x, w, b, dy = _mode_inputs((4, 3, 32), (32,), seed=10)
+    jcls = jnorm.FusedRMSNorm if rms else jnorm.FusedLayerNorm
+    jm = jcls(normalized_shape=(32,), elementwise_affine=affine,
+              memory_efficient=memory_efficient)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    if affine:
+        params["params"]["weight"] = w
+        if not rms:
+            params["params"]["bias"] = b
+    tcls = tnorm.FusedRMSNorm if rms else tnorm.FusedLayerNorm
+    tm = tcls((32,), elementwise_affine=affine, memory_efficient=memory_efficient,
+              device="cpu").load_flax_params(params)
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+
+    def jloss(p, xx):
+        return jnp.sum(jm.apply(p, xx) * jnp.asarray(dy))
+
+    ry = jm.apply(params, jnp.asarray(x))
+    rgp, rgx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tm(xt)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ry), rtol=0, atol=1e-5)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(rgx), rtol=0, atol=1e-5)
+    for name, p in tm.named_parameters():
+        _assert_sums_close(p.grad, rgp["params"][name])
+
+
+def test_modules_default_to_cuda_and_refuse_wrong_params():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnorm.FusedLayerNorm(32)
+    m = tnorm.FusedRMSNorm(32, device="cpu")
+    with pytest.raises(ValueError, match="expected params"):
+        m.load_flax_params({"weight": np.ones(32), "bias": np.zeros(32)})
+    with pytest.raises(ValueError, match="shape"):
+        m.load_flax_params({"params": {"weight": np.ones(16)}})
