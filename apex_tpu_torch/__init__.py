@@ -10,7 +10,9 @@ What is ported so far:
 
 - the serving path of ``examples/gpt/serve_gpt.py``: GPT through the
   paged-KV continuous-batching engine (:mod:`apex_tpu_torch.inference`,
-  driven by ``python -m apex_tpu_torch.serve_gpt``);
+  driven by ``python -m apex_tpu_torch.serve_gpt``), with serving v2
+  (speculative verify, chunked prefill, prefix sharing, the
+  best-effort lane);
 - the GPT training step ``bench.py`` times: ``gpt_loss`` with flash
   attention and layer remat, the dense or the fused LM-head CE head, and
   :class:`~apex_tpu_torch.optimizers.FusedAdam` (driven by ``python -m
@@ -21,7 +23,7 @@ What is ported so far:
 with hand-written CUDA kernels for the ten TPU kernels on those paths
 (LayerNorm/RMSNorm forward and backward, flash attention forward, dq
 and dk/dv, the fused LM-head CE forward, dx and dembed, paged decode
-attention at ``width=1``, the fused sampling head) under
+attention at ``width=1`` and ``width > 1``, the fused sampling head) under
 :mod:`apex_tpu_torch.ops`.
 
 Entry points take ``device=`` and default to ``"cuda"``; with no CUDA

@@ -1,22 +1,32 @@
-"""The single-token decode step and the prompt prefill step.
+"""The decode, verify, prefill, prefill-chunk and sampling-head steps.
 
 Counterpart of :mod:`apex_tpu.inference.decode` (``DecodeConfig``,
-``make_decode_step``, ``make_prefill``).  The steps are plain callables
-run under ``torch.inference_mode()``, not compiled: the decode step is
-the embedding, every block through
-:func:`apex_tpu_torch.models.gpt.forward_decode` (paged decode
-attention), and the fused sampling head; the prefill runs the prompt
-through :func:`~apex_tpu_torch.models.gpt.gpt_forward` at one padded
-length, writes its k/v into the sequence's pages, and samples the first
-token from the last prompt position.  Both update the KV pools in place
-(the JAX package donates them).
+``make_decode_step``, ``make_verify_step``, ``make_prefill``,
+``make_prefill_chunk``, ``make_sample_head``).  The steps are plain
+callables run under ``torch.inference_mode()``, not compiled:
 
-Speculative decoding (``draft_len``), chunked prefill
-(``prefill_chunk``) and prefix sharing come in later slices; setting
-them raises.
+- the decode step is the embedding, every block through
+  :func:`apex_tpu_torch.models.gpt.forward_decode` (paged decode
+  attention, ``width == 1``), and the fused sampling head;
+- the verify step (speculative decoding, ``draft_len`` k > 0) is the
+  decode step at ``W = k + 1`` positions a slot: one pass through
+  ``forward_decode(verify_width=W)`` (the attention kernel's
+  ``width > 1`` layout) and one sampling launch over all B·W rows;
+- the prefill runs the prompt through
+  :func:`~apex_tpu_torch.models.gpt.gpt_forward` at one padded length,
+  writes its k/v into the sequence's pages, and samples the first token
+  from the last prompt position;
+- the prefill chunk (``prefill_chunk`` C) runs C prompt positions
+  through ``forward_decode(verify_width=C)`` and returns the last valid
+  position's hidden state; the sampling head turns it into the first
+  token once the final chunk lands.
+
+Every step updates the KV pools in place (the JAX package donates
+them).
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -24,7 +34,10 @@ from apex_tpu_torch.inference.kv_cache import KVCacheConfig, write_prompt_kv
 from apex_tpu_torch.models.gpt import GPTConfig, forward_decode, gpt_forward
 from apex_tpu_torch.ops.decode_sampling import fused_sample
 
-__all__ = ["DecodeConfig", "make_decode_step", "make_prefill"]
+__all__ = [
+    "DecodeConfig", "make_decode_step", "make_prefill", "make_prefill_chunk",
+    "make_sample_head", "make_verify_step",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +46,17 @@ class DecodeConfig:
     batch).  ``max_prompt_len``: the prefill pad length.
     ``temperature``/``top_k``: the sampling head (``temperature=0`` is
     greedy and ignores ``top_k``).  ``base_seed``: the sampling seeds'
-    base.  ``draft_len``, ``prefill_chunk`` and ``prefix_sharing`` keep
-    the JAX package's names and must stay off in this slice."""
+    base.
+
+    Serving v2, all off by default: ``draft_len`` k > 0 turns on
+    speculative decoding (n-gram drafts of up to k tokens verified per
+    step through the ``k + 1``-wide verify step), with
+    ``ngram_max``/``ngram_min`` bounding the prompt-lookup sweep;
+    ``prefill_chunk`` C admits prompts as C-token chunks interleaved
+    with decode steps (any prompt length up to the page table's);
+    ``prefix_sharing`` dedupes identical prompt-prefix pages through the
+    refcounted trie (:mod:`apex_tpu_torch.inference.prefix`) with
+    copy-on-write at the first divergent write."""
 
     cache: KVCacheConfig = dataclasses.field(default_factory=KVCacheConfig)
     max_batch: int = 8
@@ -43,7 +65,9 @@ class DecodeConfig:
     top_k: int = 0
     base_seed: int = 0
     draft_len: int = 0
-    prefill_chunk: int = None
+    ngram_max: int = 3
+    ngram_min: int = 1
+    prefill_chunk: Optional[int] = None
     prefix_sharing: bool = False
 
     def __post_init__(self):
@@ -55,14 +79,16 @@ class DecodeConfig:
                 "0 means greedy")
         if self.top_k < 0:
             raise ValueError(f"top_k must be >= 0 (got {self.top_k})")
-        for name, on in (("draft_len", self.draft_len != 0),
-                         ("prefill_chunk", self.prefill_chunk is not None),
-                         ("prefix_sharing", self.prefix_sharing)):
-            if on:
-                raise NotImplementedError(
-                    f"DecodeConfig.{name} is not ported yet (speculative "
-                    f"decoding, chunked prefill and prefix sharing come in "
-                    f"later slices)")
+        if self.draft_len < 0:
+            raise ValueError(f"draft_len must be >= 0 (got "
+                             f"{self.draft_len}); 0 disables speculation")
+        if not (1 <= self.ngram_min <= self.ngram_max):
+            raise ValueError(
+                f"need 1 <= ngram_min <= ngram_max, got "
+                f"({self.ngram_min}, {self.ngram_max})")
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 (got "
+                             f"{self.prefill_chunk}); None disables it")
 
 
 def make_decode_step(config: GPTConfig, dcfg: DecodeConfig):
@@ -81,6 +107,40 @@ def make_decode_step(config: GPTConfig, dcfg: DecodeConfig):
                                    temperature=dcfg.temperature, top_k=dcfg.top_k)
 
     return step
+
+
+def make_verify_step(config: GPTConfig, dcfg: DecodeConfig):
+    """The speculative verify step, the decode step grown to
+    ``W = draft_len + 1`` positions a slot: ``verify(params, pools,
+    tokens, positions, active, page_tables, seeds) -> (pools, sampled)``
+    with ``tokens`` (B, W) (column 0 the slot's current token, columns
+    1..k its drafts), ``positions``/``active`` (B,) as in the decode
+    step, ``page_tables`` (B, P) int32, ``seeds`` (B, W) int64 holding
+    the slot's next W uint32 draw counters, and ``sampled`` (B, W) int32:
+    the sampling head's token at every verified position.
+
+    One pass scores all B·W positions (each layer writes the W rows'
+    k/v, then every row attends at its own length) and one sampling
+    launch draws them all.  The host keeps the longest prefix where
+    ``sampled[:, j-1] == tokens[:, j]``
+    (:func:`apex_tpu_torch.inference.spec.accepted_tokens`): each kept
+    token is conditioned on a verified prefix and spends the seed the
+    plain decode step would, so the stream is the non-speculative one."""
+    W = dcfg.draft_len + 1
+
+    @torch.inference_mode()
+    def verify(params, pools, tokens, positions, active, page_tables, seeds):
+        B = tokens.shape[0]
+        off = torch.arange(W, device=positions.device)
+        pos_f = (positions.long()[:, None] + off[None, :]).reshape(B * W)
+        hidden, pools = forward_decode(
+            params, tokens.reshape(B * W), pos_f, active.repeat_interleave(W),
+            pools, page_tables, config, verify_width=W)
+        sampled = fused_sample(hidden, params["embed"], seeds.reshape(B * W),
+                               temperature=dcfg.temperature, top_k=dcfg.top_k)
+        return pools, sampled.reshape(B, W)
+
+    return verify
 
 
 def make_prefill(config: GPTConfig, dcfg: DecodeConfig):
@@ -107,3 +167,48 @@ def make_prefill(config: GPTConfig, dcfg: DecodeConfig):
         return pools, first
 
     return prefill
+
+
+def make_prefill_chunk(config: GPTConfig, dcfg: DecodeConfig):
+    """The chunked-prefill step, ``chunk(params, pools, tokens,
+    start_pos, valid, write_start, page_table_row) -> (pools, h_last)``:
+    ``tokens`` (C,) the prompt slice at positions ``start_pos ..
+    start_pos + C - 1``, of which the first ``valid`` are real (the last
+    chunk pads), through ``forward_decode(verify_width=C)``: each layer
+    writes the chunk's k/v into the sequence's pages, then every
+    position attends over the whole cached prefix plus its predecessors
+    in the chunk.  Positions below ``write_start`` (shared-prefix pages,
+    or a recompute pass over cached positions) skip the write.
+    ``page_table_row`` is (P,) int32.  ``h_last`` (H,) is the last valid
+    position's hidden state, the sampling head's input once the final
+    chunk lands (:func:`make_sample_head`)."""
+    C = int(dcfg.prefill_chunk)
+
+    @torch.inference_mode()
+    def chunk(params, pools, tokens, start_pos, valid, write_start, page_table_row):
+        dev = tokens.device
+        off = torch.arange(C, device=dev)
+        pos = int(start_pos) + off
+        act = off < int(valid)
+        wmask = act & (pos >= int(write_start))
+        hidden, pools = forward_decode(
+            params, tokens, pos, act, pools, page_table_row[None], config,
+            verify_width=C, write_mask=wmask)
+        return pools, hidden[min(max(int(valid) - 1, 0), C - 1)]
+
+    return chunk
+
+
+def make_sample_head(config: GPTConfig, dcfg: DecodeConfig):
+    """The standalone sampling head, ``head(params, hidden, seed) ->
+    token``: hidden (H,) and seed (1,) int64 to a (1,) int32 token, used
+    once per chunked admission (sampling stays out of the chunk step, so
+    intermediate chunks never pay the vocab product)."""
+    del config  # the head is described by dcfg and the params
+
+    @torch.inference_mode()
+    def head(params, hidden, seed):
+        return fused_sample(hidden[None].contiguous(), params["embed"], seed,
+                            temperature=dcfg.temperature, top_k=dcfg.top_k)
+
+    return head

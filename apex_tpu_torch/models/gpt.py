@@ -317,18 +317,28 @@ def gpt_loss(params, tokens, targets, config: GPTConfig):
 
 
 def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
-                   config: GPTConfig):
-    """Single-token decode forward over the paged KV cache.
+                   config: GPTConfig, verify_width: int = 1, write_mask=None):
+    """Decode forward over the paged KV cache.
 
     ``tokens``/``positions``/``active``: (B,) current token ids, their
     0-based positions, and slot liveness.  ``kv_pools``: the ``{"k",
     "v"}`` pools of :func:`apex_tpu_torch.inference.kv_cache.alloc_pools`,
     (L, num_pages, page_size, kv_heads, head_dim) each.  ``page_tables``:
-    (B, P) int32.  Each layer first writes the tokens' post-RoPE k/v
-    into their pages — IN PLACE (``index_put_``), where the JAX package
-    donates the pools and rebinds them; inactive slots write the
-    reserved garbage page — and then attends over the pages with
-    :func:`~apex_tpu_torch.ops.decode_attention.paged_decode_attention`.
+    (B // verify_width, P) int32.  Each layer first writes the rows'
+    post-RoPE k/v into their pages — IN PLACE (``index_put_``), where
+    the JAX package donates the pools and rebinds them; masked rows
+    write the reserved garbage page — and then attends over the pages
+    with :func:`~apex_tpu_torch.ops.decode_attention.paged_decode_attention`.
+
+    ``verify_width`` W > 1 is the multi-position layout (speculative
+    verification, a prefill chunk): rows come in groups of W consecutive
+    positions of one sequence sharing a page-table row.  Since each
+    layer writes all rows before it attends, row j of a group sees the
+    k/v rows 0..j wrote this very step: the group is a causal block over
+    the paged cache.  ``write_mask`` (default ``active``) narrows which
+    rows write their k/v; attention liveness stays ``active``, so a chunk
+    can recompute a shared-prefix position without rewriting the shared
+    page.
 
     Returns ``(hidden, kv_pools)``: hidden (B, H) after the final
     LayerNorm (the caller owns the head), and the same pools dict.
@@ -350,7 +360,15 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
         cos, sin = rope_cos_sin(positions, hd, config.rope_theta)
         rope = (cos[:, None, :], sin[:, None, :])
     k_pools, v_pools = kv_pools["k"], kv_pools["v"]
-    dest, slot = decode_write_index(page_tables, positions, active,
+    if B % verify_width:
+        raise ValueError(f"batch ({B}) must be a multiple of verify_width "
+                         f"({verify_width})")
+    # attention folds row r onto table row r // W; the writes want a
+    # table row per position
+    write_tables = (page_tables.repeat_interleave(verify_width, dim=0)
+                    if verify_width > 1 else page_tables)
+    dest, slot = decode_write_index(write_tables, positions,
+                                    active if write_mask is None else write_mask,
                                     k_pools.shape[1], k_pools.shape[2])
     for li, p in enumerate(_layer_list(params["layers"])):
         ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
@@ -363,7 +381,8 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
         k_pool, v_pool = k_pools[li], v_pools[li]
         k_pool.index_put_((dest, slot), k.to(k_pool.dtype))
         v_pool.index_put_((dest, slot), v.to(v_pool.dtype))
-        ctx = paged_decode_attention(q, k_pool, v_pool, page_tables, lengths)
+        ctx = paged_decode_attention(q, k_pool, v_pool, page_tables, lengths,
+                                     width=verify_width)
         ctx = ctx.to(cd).reshape(1, B, nh * hd)
         x = x + _proj(ctx, p["wo"], p["bo"])
         ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)

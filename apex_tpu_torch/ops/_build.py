@@ -75,11 +75,12 @@ SIGNATURES = {
     "apex_flash_dkv": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
              _I, _I, _P]),
-    "apex_paged_decode_attention_smem": (_I, [_I, _I, _I]),
-    # q, k_pool, v_pool, page_table, lengths, out, B, H, HKV, D,
+    # group, width, D, page_size
+    "apex_paged_decode_attention_smem": (_I, [_I, _I, _I, _I]),
+    # q, k_pool, v_pool, page_table, lengths, out, B, width, H, HKV, D,
     # num_pages, page_size, pages_per_seq, denom, q_dtype, kv_dtype, stream
     "apex_paged_decode_attention": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     # x, embed, seeds, tokens, part_v, part_i, logits, tau, N, H, V,
     # nblocks, temperature, top_k, x_dtype, stream
     "apex_fused_sample": (

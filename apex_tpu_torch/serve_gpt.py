@@ -10,6 +10,15 @@ time-to-first-token and per-token latency percentiles as one JSON line.
     python -m apex_tpu_torch.serve_gpt                    # on the GPU
     python -m apex_tpu_torch.serve_gpt --device cpu \\
         --layers 2 --hidden 64 --heads 4 --vocab 128      # plain versions
+    # serving v2: speculative decode + a shared system prompt + chunked
+    # prefill + a preemptible best-effort lane, one command
+    python -m apex_tpu_torch.serve_gpt --draft-len 4 --prefix-sharing \\
+        --system-prompt-len 128 --prefill-chunk 64 --best-effort-frac 0.5
+
+The serving-v2 flags and their defaults are those of
+``examples/gpt/serve_gpt.py``; the report then adds
+``accepted_tokens_per_step``, ``page_dedupe_ratio`` and time to first
+token by lane.
 
 The kernel library is built (or found current) before the clock starts.
 """
@@ -57,6 +66,26 @@ def build_args():
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
+    # ---- serving v2 (all off by default: the plain engine) ----
+    p.add_argument("--draft-len", type=int, default=0,
+                   help="speculative decode: n-gram drafts of up to k tokens "
+                        "verified per step in one pass (0 disables)")
+    p.add_argument("--ngram-max", type=int, default=3,
+                   help="longest prompt-lookup n-gram the drafter sweeps")
+    p.add_argument("--ngram-min", type=int, default=1)
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="chunked prefill: admit prompts as C-token chunks "
+                        "interleaved with decode steps (None = one padded "
+                        "prefill, prompts capped at the prompt length)")
+    p.add_argument("--prefix-sharing", action="store_true",
+                   help="dedupe identical prompt-prefix pages through the "
+                        "refcounted trie, copy-on-write on first divergence")
+    p.add_argument("--system-prompt-len", type=int, default=0,
+                   help="prepend one shared system prompt of this many tokens "
+                        "to every request (0 = fully random prompts)")
+    p.add_argument("--best-effort-frac", type=float, default=0.0,
+                   help="fraction of requests submitted on the preemptible "
+                        "best_effort lane (the rest are interactive)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for "
                         "the kernels' plain versions")
@@ -64,13 +93,20 @@ def build_args():
 
 
 def make_requests(args, rng):
+    """The requests of ``examples/gpt/serve_gpt.py``, drawn from ``rng`` in
+    its order: the shared system prompt, then per request its length,
+    its tokens and its lane."""
     reqs, arrivals = [], []
     t = 0.0
+    sysp = (rng.randint(0, args.vocab, size=args.system_prompt_len).tolist()
+            if args.system_prompt_len > 0 else [])
     for rid in range(args.requests):
         lo = min(4, args.prompt_len)
         plen = int(rng.randint(lo, args.prompt_len + 1))
-        prompt = rng.randint(0, args.vocab, size=plen).tolist()
-        reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=args.max_new))
+        prompt = sysp + rng.randint(0, args.vocab, size=plen).tolist()
+        lane = "best_effort" if rng.uniform() < args.best_effort_frac else "interactive"
+        reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=args.max_new,
+                            lane=lane))
         if args.arrival_rate > 0:
             t += float(rng.exponential(1.0 / args.arrival_rate))
         arrivals.append(t)
@@ -93,10 +129,13 @@ def serve(sched, reqs, arrivals):
 
 def report(completions, wall_secs):
     per_token, ttft = [], []
+    lane_ttft = {}
     n_tokens = 0
     for c in completions:
         n_tokens += len(c.tokens)
-        ttft.append(c.token_times[0] - c.submit_time)
+        t = c.token_times[0] - c.submit_time
+        ttft.append(t)
+        lane_ttft.setdefault(c.lane, []).append(t)
         per_token.extend(np.diff(c.token_times))
     out = {
         "requests": len(completions),
@@ -106,6 +145,12 @@ def report(completions, wall_secs):
         "ttft_p50_ms": round(1e3 * float(np.percentile(ttft, 50)), 2),
         "ttft_p99_ms": round(1e3 * float(np.percentile(ttft, 99)), 2),
     }
+    if len(lane_ttft) > 1:  # mixed lanes: time to first token by lane
+        out["lanes"] = {
+            lane: {"requests": len(ts),
+                   "ttft_p50_ms": round(1e3 * float(np.percentile(ts, 50)), 2),
+                   "ttft_p99_ms": round(1e3 * float(np.percentile(ts, 99)), 2)}
+            for lane, ts in sorted(lane_ttft.items())}
     if per_token:
         out["per_token_p50_ms"] = round(1e3 * float(np.percentile(per_token, 50)), 2)
         out["per_token_p99_ms"] = round(1e3 * float(np.percentile(per_token, 99)), 2)
@@ -132,24 +177,29 @@ def check_greedy_parity(params, config, completions, max_check=3):
 def setup(args):
     """``(config, params, dcfg)`` for ``args``."""
     device = resolve_device(args.device)
+    total_prompt = args.system_prompt_len + args.prompt_len
     config = GPTConfig(
         vocab_size=args.vocab, hidden_size=args.hidden,
         num_layers=args.layers, num_attention_heads=args.heads,
         num_query_groups=args.kv_groups,
-        max_seq_len=max(args.prompt_len + args.max_new + 1, 64),
+        max_seq_len=max(total_prompt + args.max_new + args.draft_len + 1, 64),
         position_embedding_type="rope",
         compute_dtype=_DTYPES[args.compute_dtype],
         checkpoint_layers=False,
     )
     params = init_params(config, args.seed, device=device)
-    pages_per_seq = -(-(args.prompt_len + args.max_new) // args.page_size)
+    # worst case: the full prompt, the generation budget and the
+    # speculative write window (draft k/v land past the accepted stream)
+    pages_per_seq = -(-(total_prompt + args.max_new + args.draft_len) // args.page_size)
     num_pages = args.num_pages or 1 + args.streams * pages_per_seq
     dcfg = DecodeConfig(
         cache=KVCacheConfig(num_pages=num_pages, page_size=args.page_size,
                             pages_per_seq=pages_per_seq,
                             dtype=_DTYPES[args.kv_dtype]),
-        max_batch=args.streams, max_prompt_len=args.prompt_len,
+        max_batch=args.streams, max_prompt_len=total_prompt,
         temperature=args.temperature, top_k=args.top_k, base_seed=args.seed,
+        draft_len=args.draft_len, ngram_max=args.ngram_max, ngram_min=args.ngram_min,
+        prefill_chunk=args.prefill_chunk, prefix_sharing=args.prefix_sharing,
     )
     return config, params, dcfg
 
@@ -169,6 +219,13 @@ def run(args):
     wall = time.monotonic() - t0
     out = report(completions, wall)
     out["stats"] = dict(sched.stats)
+    if args.draft_len > 0:
+        out["accepted_tokens_per_step"] = round(
+            sched.stats["spec_emitted"] / max(sched.stats["spec_steps"], 1), 3)
+    if args.prefix_sharing:
+        full_per = args.system_prompt_len // args.page_size
+        out["page_dedupe_ratio"] = round(
+            sched.stats["shared_full_pages"] / max(len(completions) * full_per, 1), 3)
     return out, sched, params, config
 
 

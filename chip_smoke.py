@@ -20,7 +20,11 @@ Phases, each printing one JSON line:
    one computes the same function (for the CE kernels the dense bf16
    head, two calls), and the bound (the larger of bytes at 3.35 TB/s
    and flops at the peak rate of their type: 989 TFLOP/s bf16 tensor
-   cores, 67 TFLOP/s fp32).
+   cores, 67 TFLOP/s fp32).  Paged decode attention runs in both
+   layouts: width 1 (8 sequences) and width > 1 at the verify shape (8
+   sequences x 5 rows) and the chunk shape (one sequence x 64 rows),
+   MHA and GQA, bf16 and fp32, each width-W launch also bitwise equal to
+   W width-1 launches of the same rows.
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
    count from that run, checked exactly against the steps taken.
@@ -28,6 +32,19 @@ Phases, each printing one JSON line:
    served token must be the argmax of the full-sequence forward.
 6. profile: device busy share and kernel time by name over decode
    steps of the bf16 engine.
+6a. serve_v2: ``serve_gpt`` at the serving-v2 command of
+   ``examples/gpt/serve_gpt.py`` (``--draft-len 4 --prefix-sharing
+   --system-prompt-len 128 --prefill-chunk 64 --best-effort-frac 0.5``),
+   the rest at the serve defaults: 32/32 requests of 32 tokens, and
+   exact launch counts from the scheduler's stats (N = verify + chunk
+   steps: LN forward 25 N, width > 1 attention 12 N, width-1 attention
+   0, sampling verify steps + prefills).
+6b. serve_v2_profile: device busy share and kernel time by name over
+   one verify step and one 64-position prefill chunk.
+6c. serve_v2_parity: fp32, repetitive prompts after a shared system
+   prompt: the speculative stream equals the plain one (T=0 and T=1),
+   chunked prefill the one-shot, prefix-shared the unshared; greedy
+   tokens are the full forward's argmax; some draft is accepted.
 7. train: ``apex_tpu_torch.train_gpt`` at its defaults — bench.py's
    GPT-124M step, seq 1024, batch 8, bf16, flash attention, full remat,
    the dense head, FusedAdam — one warm-up step and 5 timed steps:
@@ -142,6 +159,17 @@ def _cuda_durations(fn, iters):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return out
+
+
+def device_us_by_name(prof):
+    """{name: total device µs} of the CUDA activity a profiler recorded."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
     return out
 
 
@@ -295,13 +323,99 @@ def check_decode_attention(dev, h_kv, dtype):
             "bound_ms": bms, "bound_by": by, **t}
 
 
-def check_sampling(dev, temperature, top_k):
+#: the width > 1 cases of paged decode attention, at the serving-v2
+#: path's shapes: the verify step (8 sequences x W = 5, draft_len 4) and
+#: a prefill chunk (one sequence x W = 64), with P = 15 pages of 16
+WIDE_CASES = {
+    # per sequence, the length of its first row (each next row one more):
+    # inactive, 1, rows ending on a page edge (16) and one past it (17),
+    # and a sequence reaching the table's end (240 = 15 x 16)
+    "verify": {"B": 8, "W": 5, "first": [0, 1, 12, 13, 30, 60, 100, 236]},
+    # one sequence's chunk at positions 128..191: lengths 129..184, and 8
+    # pad rows (the final chunk's) of length 0
+    "chunk": {"B": 1, "W": 64, "first": [129], "pad": 8},
+}
+
+
+def check_decode_attention_wide(dev, case, h_kv, dtype):
+    """The ``width > 1`` layout against its plain version, with the
+    width = 1 bands; each width-W launch also against W width-1 launches
+    of the same rows, which must be bitwise equal."""
+    from apex_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, paged_decode_attention,
+    )
+
+    spec = WIDE_CASES[case]
+    B, W = spec["B"], spec["W"]
+    H, D, PS, P, num_pages = 12, 64, 16, 15, 121
+    rng = np.random.default_rng(W * 100 + h_kv)
+    q = torch.from_numpy(rng.standard_normal((B * W, H, D), dtype=np.float32)).to(dev, dtype)
+    kp = torch.from_numpy(rng.standard_normal((num_pages, PS, h_kv, D), dtype=np.float32)).to(dev, dtype)
+    vp = torch.from_numpy(rng.standard_normal((num_pages, PS, h_kv, D), dtype=np.float32)).to(dev, dtype)
+    pt_np = rng.integers(1, num_pages, size=(B, P)).astype(np.int32)
+    pt_np[B - 1, 1] = -5      # out of range, inside the read range
+    pt_np[B - 1, 9] = 1000
+    first = np.asarray(spec["first"], np.int32)
+    lens_np = (first[:, None] + np.arange(W, dtype=np.int32)[None, :])
+    lens_np = np.where(first[:, None] > 0, lens_np, 0)
+    if spec.get("pad"):
+        lens_np[:, W - spec["pad"]:] = 0
+    lens_np = lens_np.reshape(B * W).astype(np.int32)
+    pt = torch.from_numpy(pt_np).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    out = paged_decode_attention(q, kp, vp, pt, lens, width=W)
+    ref = decode_attention_plain(q, kp, vp, pt, lens, width=W)
+    # the same rows, one width-1 launch per column w
+    q4, l2 = q.view(B, W, H, D), lens.view(B, W)
+    alone = [paged_decode_attention(q4[:, w].contiguous(), kp, vp, pt, l2[:, w].contiguous())
+             for w in range(W)]
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(out.view(B, W, H, D)[:, w], a)) for w, a in enumerate(alone))
+    err = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    if dtype == torch.bfloat16:
+        tol = 2 * 2.0 ** -8 * scale
+        why = "2 bf16 ulps at the output's scale (probabilities round to bf16 before and after normalizing)"
+    else:
+        tol = 1e-5 * scale
+        why = "1e-5 abs (online against full softmax, other summation order)"
+    zero_rows = torch.from_numpy(lens_np == 0).to(dev)
+    if (err > tol or not bitwise
+            or float(out[zero_rows].float().abs().max()) != 0.0):
+        raise AssertionError(f"decode_attention width={W} {case} h_kv={h_kv} {dtype}: "
+                             f"err {err} > {tol}, bitwise vs width 1: {bitwise}")
+    eb, qb = kp.element_size(), q.element_size()
+    seq_len = lens_np.reshape(B, W).max(1)  # each sequence's longest row
+    nbytes = (2 * int(seq_len.sum()) * h_kv * D * eb + B * W * H * D * (qb + eb)
+              + B * P * 4 + B * W * 4)
+    bms, by = bound(nbytes, 4 * int(lens_np.sum()) * H * D,
+                    PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+    # library yardstick: SDPA over K/V gathered (and GQA-repeated)
+    # beforehand, each query row masked at its own length
+    ptc = pt.long().clamp(0, num_pages - 1)
+    kg = kp[ptc].reshape(B, P * PS, h_kv, D).transpose(1, 2).repeat_interleave(H // h_kv, 1)
+    vg = vp[ptc].reshape(B, P * PS, h_kv, D).transpose(1, 2).repeat_interleave(H // h_kv, 1)
+    kg, vg = kg.to(dtype).contiguous(), vg.to(dtype).contiguous()
+    qs = q4.transpose(1, 2).contiguous()  # (B, H, W, D)
+    mask = (torch.arange(P * PS, device=dev)[None, None, :] < l2[:, :, None])[:, None]
+    t = timings(lambda: paged_decode_attention(q, kp, vp, pt, lens, width=W),
+                lambda: decode_attention_plain(q, kp, vp, pt, lens, width=W),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, kg, vg, attn_mask=mask))
+    return {"case": case, "B": B, "W": W, "H": H, "H_kv": h_kv, "D": D, "page": PS,
+            "pages_per_seq": P, "first_row_lengths": spec["first"],
+            "pad_rows": spec.get("pad", 0), "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "tolerance": tol, "tolerance_why": why,
+            "bitwise_equal_to_width_1": bitwise, "bound_ms": bms, "bound_by": by, **t}
+
+
+def check_sampling(dev, temperature, top_k, N):
     from apex_tpu_torch.ops.decode_sampling import (
         fused_sample, fused_sample_plain, gumbel_from_seed,
     )
 
-    N, V, H = 8, 50304, 768
-    rng = np.random.default_rng(7)
+    V, H = 50304, 768
+    rng = np.random.default_rng(7 + N)
     embed = torch.from_numpy(rng.standard_normal((V, H), dtype=np.float32) * 0.02).to(dev)
     ties = 0
     worst = 0.0
@@ -326,7 +440,7 @@ def check_sampling(dev, temperature, top_k):
         if bool(diff.any()):
             if float(gap[diff].max()) > 1e-4:
                 raise AssertionError(
-                    f"sampling T={temperature} top_k={top_k}: kernel {got.tolist()} vs "
+                    f"sampling N={N} T={temperature} top_k={top_k}: kernel {got.tolist()} vs "
                     f"plain {want.tolist()}, score gaps {gap[:, 0].tolist()}")
             ties += int(diff.sum())
     nbytes = V * H * 4 + N * H * 2 + N * 8 + N * 4
@@ -696,6 +810,7 @@ def launch_counts():
 
     return {"layer_norm_fwd": layer_norm.LAUNCHES,
             "paged_decode_attention": decode_attention.LAUNCHES,
+            "paged_decode_attention_wide": decode_attention.WIDE_LAUNCHES,
             "fused_sample": decode_sampling.LAUNCHES,
             "layer_norm_bwd": layer_norm.BWD_LAUNCHES,
             "flash_fwd": flash_attention.FWD_LAUNCHES,
@@ -712,6 +827,7 @@ def reset_counts():
     )
 
     layer_norm.LAUNCHES = decode_attention.LAUNCHES = decode_sampling.LAUNCHES = 0
+    decode_attention.WIDE_LAUNCHES = 0
     layer_norm.BWD_LAUNCHES = 0
     flash_attention.FWD_LAUNCHES = flash_attention.DQ_LAUNCHES = 0
     flash_attention.DKV_LAUNCHES = 0
@@ -731,7 +847,7 @@ def serve_phase():
     steps, prefills = st["decode_steps"], st["prefills"]
     expect = {"layer_norm_fwd": (2 * config.num_layers + 1) * (steps + prefills),
               "paged_decode_attention": config.num_layers * steps,
-              "fused_sample": steps + prefills,
+              "paged_decode_attention_wide": 0, "fused_sample": steps + prefills,
               "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
               "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
     if out["requests"] != args.requests or any(
@@ -761,7 +877,6 @@ def parity_phase():
 def profile_phase(params, config, steps=10):
     """Busy share and kernel time by name over ``steps`` decode steps of
     the bf16 engine with all 8 slots active."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch import serve_gpt
@@ -784,16 +899,253 @@ def profile_phase(params, config, steps=10):
             sched.step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": "profile", "decode_steps": steps, "active": sched.num_active,
           "step_ms": 1e3 * wall / steps, "device_busy_ms_per_step": busy_ms / steps,
           "idle_share": 1 - busy_ms / (1e3 * wall),
           "top_kernels_us_per_step": [[n[:90], us / steps] for n, us in top]})
+
+
+# ----------------------------------------------------------------- serve v2
+#: the serving-v2 command of examples/gpt/serve_gpt.py:13-16
+SERVE_V2_ARGS = ["--draft-len", "4", "--prefix-sharing", "--system-prompt-len", "128",
+                 "--prefill-chunk", "64", "--best-effort-frac", "0.5"]
+
+
+def serve_v2_phase():
+    """``serve_gpt.run`` at the serving-v2 command, the rest at the serve
+    defaults: every request served in full, and exact launch counts from
+    the scheduler's stats (N = verify + chunk steps, each one
+    ``forward_decode`` at width 5 or 64)."""
+    from apex_tpu_torch import serve_gpt
+
+    args = serve_gpt.build_args().parse_args(SERVE_V2_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, sched, params, config = serve_gpt.run(args)
+    counts = launch_counts()
+    st = sched.stats
+    n = st["spec_steps"] + st["chunk_steps"]
+    L = config.num_layers
+    expect = {"layer_norm_fwd": (2 * L + 1) * n, "paged_decode_attention": 0,
+              "paged_decode_attention_wide": L * n,
+              "fused_sample": st["spec_steps"] + st["prefills"],
+              "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+              "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
+    if out["requests"] != args.requests or any(
+            len(c.tokens) != args.max_new for c in sched.completed):
+        raise AssertionError(f"serve_v2 served {out['requests']}/{args.requests} requests")
+    if st["decode_steps"] != st["spec_steps"]:
+        raise AssertionError(f"serve_v2 took other steps than verify and chunk steps: {st}")
+    if counts != expect:
+        raise AssertionError(f"serve_v2 launch counts {counts} != expected {expect}")
+    emit({"phase": "serve_v2", "argv": SERVE_V2_ARGS, **out, "launches": counts,
+          "launches_expected": "LN fwd 25 N, wide attention 12 N, width-1 attention 0, "
+                               "sampling spec_steps + prefills; N = spec_steps + "
+                               "chunk_steps",
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return counts, params, config
+
+
+def serve_v2_parity_phase():
+    """fp32 on the card, repetitive prompts (as tests/test_serving_v2.py
+    draws them) after a shared 128-token system prompt, 8 requests of 16
+    tokens in 8 slots: the speculative stream equals the plain stream
+    (T=0 and T=1), the chunked prefill the one-shot, the prefix-shared
+    the unshared, and every greedy token is the full forward's argmax.
+    Some verify step must accept a draft: more tokens emitted by verify
+    steps than (slot, verify step) pairs.  Then the serving-v2 engine's
+    copy-on-write (one prompt twice) and preemption (best-effort
+    residents of a full pool yield to an interactive request) paths,
+    each against the plain engine."""
+    import dataclasses
+
+    from apex_tpu_torch import serve_gpt
+    from apex_tpu_torch.inference import ContinuousBatchingScheduler, Request
+
+    t0 = time.monotonic()
+    args = serve_gpt.build_args().parse_args(
+        ["--compute-dtype", "float32", "--kv-dtype", "float32", "--temperature", "0"]
+        + SERVE_V2_ARGS)
+    config, params, dcfg = serve_gpt.setup(args)
+    rng = np.random.RandomState(3)
+    sysp = rng.randint(0, args.vocab, size=args.system_prompt_len).tolist()
+    prompts = []
+    for _ in range(args.streams):
+        pat = rng.randint(0, args.vocab, size=4).tolist()
+        prompts.append(sysp + (pat * 4)[:14])
+    max_new = 16
+
+    # every run starts from the plain engine and turns on what it names
+    plain = dict(draft_len=0, prefill_chunk=None, prefix_sharing=False)
+
+    def serve(**kw):
+        sched = ContinuousBatchingScheduler(params, config,
+                                            dataclasses.replace(dcfg, **{**plain, **kw}))
+        slot_steps = [0]
+        if sched._verify is not None:
+            inner = sched._verify
+
+            def counted(prm, pools, tokens, positions, active, *rest):
+                slot_steps[0] += int(active.sum())
+                return inner(prm, pools, tokens, positions, active, *rest)
+
+            sched._verify = counted
+        for rid, prompt in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=max_new))
+        done = sched.run_until_drained()
+        if len(done) != len(prompts) or any(len(c.tokens) != max_new for c in done):
+            raise AssertionError(f"serve_v2_parity {kw}: not every request served")
+        return {c.rid: c.tokens for c in done}, sched, slot_steps[0]
+
+    checks = {}
+    for T in (0.0, 1.0):
+        spec, sched, slot_steps = serve(draft_len=4, temperature=T)
+        checks[f"spec_equals_plain_T{T:g}"] = spec == serve(temperature=T)[0]
+        checks[f"drafts_accepted_T{T:g}"] = sched.stats["spec_emitted"] - slot_steps
+        if T == 0.0:
+            greedy, greedy_sched = spec, sched
+    oneshot = serve()[0]
+    checks["chunked_equals_oneshot"] = serve(prefill_chunk=64)[0] == oneshot
+    shared, shared_sched, _ = serve(prefix_sharing=True)
+    checks["shared_equals_unshared"] = shared == oneshot
+    checks["shared_full_pages"] = shared_sched.stats["shared_full_pages"]
+
+    # copy-on-write: one whole prompt served twice, one after the other;
+    # the second shares the first's full pages and its tail page, and
+    # copies the tail before its first write (the whole serving-v2
+    # engine against the plain one)
+    v2 = dict(draft_len=4, prefill_chunk=64, prefix_sharing=True)
+
+    def twice(**kw):
+        sched = ContinuousBatchingScheduler(params, config,
+                                            dataclasses.replace(dcfg, **{**plain, **kw}))
+        for rid in range(2):
+            sched.submit(Request(rid=rid, prompt=list(prompts[0]), max_new_tokens=max_new))
+            sched.run_until_drained()
+        return {c.rid: c.tokens for c in sched.completed}, sched
+
+    cow, cow_sched = twice(**v2)
+    checks["cow_equals_unshared"] = cow == twice()[0]
+    checks["cow_copies"] = cow_sched.stats["cow_copies"]
+    checks["shared_tail_pages"] = cow_sched.stats["shared_tail_pages"]
+
+    # preemption: a pool that holds two of these requests and no more;
+    # two best-effort requests decode when an interactive one arrives,
+    # the younger yields and its continuation (prompt and tokens so far)
+    # is prefilled again in chunks.  Greedy, so every stream must equal
+    # the unpreempted run's; sampled, the run must repeat itself (draw
+    # counters carry across re-admission)
+    own = [(rng.randint(0, args.vocab, size=4).tolist() * 36)[:len(prompts[0])]
+           for _ in range(3)]
+    need = -(-(len(own[0]) + max_new + 4) // args.page_size)
+    small = dataclasses.replace(dcfg.cache, num_pages=1 + 2 * need)
+
+    def preempted(T):
+        sched = ContinuousBatchingScheduler(params, config, dataclasses.replace(
+            dcfg, **v2, cache=small, max_batch=3, temperature=T))
+        for rid in (0, 1):
+            sched.submit(Request(rid=rid, prompt=list(own[rid]), max_new_tokens=max_new,
+                                 lane="best_effort"))
+        for _ in range(32):  # until both decode with a few tokens each
+            sched.step()
+            live = [s for s in sched._slots if s is not None]
+            if len(live) == 2 and all(s.chunk_next is None and len(s.generated) >= 3
+                                      for s in live):
+                break
+        else:
+            raise AssertionError("serve_v2_parity: best-effort requests never decoded")
+        sched.submit(Request(rid=2, prompt=list(own[2]), max_new_tokens=max_new))
+        done = sched.run_until_drained()
+        if len(done) != 3 or any(len(c.tokens) != max_new for c in done):
+            raise AssertionError("serve_v2_parity: preemption run did not serve every request")
+        return {c.rid: c.tokens for c in done}, sched
+
+    pre, pre_sched = preempted(0.0)
+    ref = ContinuousBatchingScheduler(params, config,
+                                      dataclasses.replace(dcfg, **plain, temperature=0.0))
+    for rid in range(3):
+        ref.submit(Request(rid=rid, prompt=list(own[rid]), max_new_tokens=max_new))
+    checks["preempted_equals_unpreempted"] = pre == {
+        c.rid: c.tokens for c in ref.run_until_drained()}
+    checks["preemptions"] = pre_sched.stats["preemptions"]
+    checks["completion_preemptions"] = sum(c.preemptions for c in pre_sched.completed)
+    checks["preempted_T1_repeats"] = preempted(1.0)[0] == preempted(1.0)[0]
+
+    serve_gpt.check_greedy_parity(params, config, greedy_sched.completed, max_check=8)
+    serve_gpt.check_greedy_parity(params, config, pre_sched.completed)
+    bad = [k for k, v in checks.items() if v is False]
+    if (bad or checks["drafts_accepted_T0"] <= 0 or checks["shared_full_pages"] <= 0
+            or checks["cow_copies"] <= 0 or checks["shared_tail_pages"] <= 0
+            or checks["preemptions"] <= 0 or checks["completion_preemptions"] <= 0):
+        raise AssertionError(f"serve_v2_parity: {checks}")
+    emit({"phase": "serve_v2_parity", "compute_dtype": "float32", "requests": len(prompts),
+          "max_new": max_new, **checks,
+          "greedy_tokens_checked_against_full_forward": sum(len(t) for t in greedy.values()),
+          "spec_stats_T0": {k: greedy_sched.stats[k] for k in ("spec_steps", "spec_emitted")},
+          "seconds": time.monotonic() - t0})
+
+
+def serve_v2_profile_phase(params, config):
+    """Busy share and kernel time by name over one verify step (8 slots
+    decoding, W = 5) and one prefill chunk (64 positions at 128..191) of
+    the bf16 serving-v2 engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch import serve_gpt
+    from apex_tpu_torch.inference import ContinuousBatchingScheduler, Request
+
+    args = serve_gpt.build_args().parse_args(SERVE_V2_ARGS)
+    _, _, dcfg = serve_gpt.setup(args)
+    sched = ContinuousBatchingScheduler(params, config, dcfg)
+    rng = np.random.RandomState(1)
+    sysp = rng.randint(0, args.vocab, size=args.system_prompt_len).tolist()
+    for rid in range(args.streams):
+        sched.submit(Request(rid=rid, prompt=sysp + rng.randint(0, args.vocab, 32).tolist(),
+                             max_new_tokens=args.max_new))
+    for _ in range(16):  # until every slot decodes: its chunks are done
+        sched.step()
+        if all(s is not None and s.chunk_next is None for s in sched._slots):
+            break
+    else:
+        raise AssertionError("serve_v2_profile: prompts still chunk-prefilling")
+    sched.step()
+    dev = sched.device
+    B, W, C = dcfg.max_batch, dcfg.draft_len + 1, dcfg.prefill_chunk
+    tokmat = torch.from_numpy(np.repeat(sched._tokens[:, None], W, 1)).to(dev, torch.long)
+    pos = torch.from_numpy(sched._positions).to(dev, torch.long)
+    act = torch.from_numpy(sched._active).to(dev)
+    tables = torch.from_numpy(sched._page_tables).to(dev)
+    seeds = torch.zeros((B, W), dtype=torch.long, device=dev)
+    chunk_tok = torch.from_numpy(rng.randint(0, args.vocab, C)).to(dev, torch.long)
+    steps = {
+        "verify": lambda: sched._verify(sched.params, sched.pools, tokmat, pos, act,
+                                        tables, seeds),
+        # slot 0's pages, positions 128..191, writing (its own cache is
+        # overwritten: this scheduler is thrown away)
+        "chunk": lambda: sched._chunk(sched.params, sched.pools, chunk_tok, 128, C, 0,
+                                      tables[0]),
+    }
+    for name, fn in steps.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            host = time.monotonic() - t0
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        by_name = device_us_by_name(prof)
+        busy_ms = sum(by_name.values()) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        emit({"phase": "serve_v2_profile", "step": name,
+              "rows": B * W if name == "verify" else C,
+              "step_ms": 1e3 * wall, "host_dispatch_ms": 1e3 * host,
+              "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (1e3 * wall),
+              "top_kernels_us": [[n[:90], us] for n, us in top]})
 
 
 # -------------------------------------------------------------------- train
@@ -819,7 +1171,8 @@ def train_phase(fused=False, dense_report=None):
                 "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
                 "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused)}
     expect = {**{k: v * n for k, v in per_step.items()},
-              "paged_decode_attention": 0, "fused_sample": 0}
+              "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+              "fused_sample": 0}
     losses = report["losses"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses not finite and falling: {losses}")
@@ -1097,10 +1450,7 @@ def train_profile_phase(args, step_ms):
         host = time.monotonic() - t0  # the host's dispatch of the step
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
     by_kind = {}
@@ -1162,7 +1512,8 @@ def main():
         clock = now
 
     results = {}
-    for R in (8, 64, 8192):  # serve (decode, prefill) and train (B * S) rows
+    # serve (decode, verify 8 x 5, prefill and chunk) and train (B * S) rows
+    for R in (8, 40, 64, 8192):
         for dtype in (torch.bfloat16, torch.float32):
             r = check_layer_norm(dev, R, dtype)
             results[("ln", R, dtype)] = r
@@ -1172,10 +1523,19 @@ def main():
             r = check_decode_attention(dev, h_kv, dtype)
             results[("attn", h_kv, dtype)] = r
             emit({"phase": "kernel", "kernel": "paged_decode_attention", **r})
-    for temperature, top_k in ((0.0, 0), (1.0, 0), (1.0, 50)):
-        r = check_sampling(dev, temperature, top_k)
-        results[("sample", temperature, top_k)] = r
-        emit({"phase": "kernel", "kernel": "fused_sample", **r})
+    for case in ("verify", "chunk"):
+        for h_kv in (12, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                r = check_decode_attention_wide(dev, case, h_kv, dtype)
+                results[("attn_wide", case, h_kv, dtype)] = r
+                emit({"phase": "kernel", "kernel": "paged_decode_attention_wide", **r})
+    # rows: the decode step (8), the verify step (8 x 5) and the chunked
+    # prefill's sampling head (1)
+    for N in (8, 40, 1):
+        for temperature, top_k in ((0.0, 0), (1.0, 0), (1.0, 50)):
+            r = check_sampling(dev, temperature, top_k, N)
+            results[("sample", temperature, top_k, N)] = r
+            emit({"phase": "kernel", "kernel": "fused_sample", **r})
 
     for dtype in (torch.bfloat16, torch.float32):
         r = check_layer_norm_bwd(dev, dtype)
@@ -1218,6 +1578,13 @@ def main():
     profile_phase(params, config)
     lap("profile")
     del params
+    v2_counts, params, config = serve_v2_phase()
+    lap("serve_v2")
+    serve_v2_profile_phase(params, config)
+    lap("serve_v2_profile")
+    del params
+    serve_v2_parity_phase()
+    lap("serve_v2_parity")
     train_args, train_counts, dense = train_phase()
     lap("train")
     fce_args, fce_counts, fused = train_phase(fused=True, dense_report=dense)
@@ -1243,8 +1610,11 @@ def main():
         ("paged_decode_attention", "apex_tpu_torch/csrc/decode_attention.cu",
          "apex_tpu/ops/decode_attention_pallas.py:130",
          results[("attn", 12, torch.bfloat16)]),
+        ("paged_decode_attention_wide", "apex_tpu_torch/csrc/decode_attention.cu",
+         "apex_tpu/ops/decode_attention_pallas.py:130",
+         results[("attn_wide", "verify", 12, torch.bfloat16)]),
         ("fused_sample", "apex_tpu_torch/csrc/decode_sampling.cu",
-         "apex_tpu/ops/decode_sampling_pallas.py:126", results[("sample", 1.0, 0)]),
+         "apex_tpu/ops/decode_sampling_pallas.py:126", results[("sample", 1.0, 0, 8)]),
         ("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
          "apex_tpu/ops/layer_norm_pallas.py:108", results[("ln_bwd", torch.bfloat16)]),
         ("flash_fwd", "apex_tpu_torch/csrc/flash_attention.cu",
@@ -1263,13 +1633,15 @@ def main():
         ("ce_dembed", "apex_tpu_torch/csrc/fused_ce.cu",
          "apex_tpu/ops/fused_ce_pallas.py:210", results[("ce", "gpt124")]["dembed"]),
     )
-    # launches: the serve phase's for the serving kernels, the train
-    # phase's for the training kernels, the train_fce phase's for the CE
-    # kernels (LayerNorm forward runs in all three; its line keeps the
-    # serve phase's count)
+    # launches: the serve phase's for the serving kernels, the serve_v2
+    # phase's for the width > 1 layout, the train phase's for the
+    # training kernels, the train_fce phase's for the CE kernels
+    # (LayerNorm forward and sampling run in several; their lines keep
+    # the serve phase's counts)
     launches = {**train_counts, **{k: counts[k] for k in
                                    ("layer_norm_fwd", "paged_decode_attention",
                                     "fused_sample")},
+                "paged_decode_attention_wide": v2_counts["paged_decode_attention_wide"],
                 **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

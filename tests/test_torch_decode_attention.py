@@ -103,12 +103,19 @@ def test_serve_shape_page_boundary_lengths():
 
 
 def test_width_above_one_is_not_ported():
+    """The width > 1 layout runs (the name dates from when it raised;
+    tests/test_torch_serving_v2.py holds the layout against JAX): on the
+    CPU the wrapper runs its plain version, and q rows that are not
+    page-table rows x width are refused, as the JAX code refuses them."""
     rng = np.random.RandomState(4)
-    q, kp, vp, pt = _torch(*_case(rng))
-    lengths = torch.tensor([1, 2, 3], dtype=torch.int32)
+    q, kp, vp, pt = _torch(*_case(rng, B=6))
+    pt = pt[:3]
+    lengths = torch.tensor([0, 1, 2, 3, 4, 5], dtype=torch.int32)
+    assert torch.equal(paged_decode_attention(q, kp, vp, pt, lengths, width=2),
+                       decode_attention_plain(q, kp, vp, pt, lengths, width=2))
     for fn in (paged_decode_attention, decode_attention_plain):
-        with pytest.raises(NotImplementedError, match="width"):
-            fn(q, kp, vp, pt, lengths, width=2)
+        with pytest.raises(ValueError, match="width"):
+            fn(q, kp, vp, pt, lengths, width=3)
 
 
 def test_other_devices_raise_instead_of_falling_back():

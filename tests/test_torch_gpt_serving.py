@@ -188,20 +188,16 @@ def test_serve_gpt_main_on_cpu(capsys):
 
 
 def test_unported_options_raise():
+    """What is still unported raises: MoE, sequence parallelism and the
+    overlapped ring schedule.  (Speculative decoding, chunked prefill,
+    prefix sharing and the best-effort lane are ported; their positive
+    cases are in tests/test_torch_serving_v2.py.)"""
     with pytest.raises(NotImplementedError, match="moe_num_experts"):
         tgpt.GPTConfig(moe_num_experts=4)
     with pytest.raises(NotImplementedError, match="sequence_parallel"):
         tgpt.GPTConfig(sequence_parallel=True)
     with pytest.raises(NotImplementedError, match="cp_overlap"):
         tgpt.GPTConfig(cp_overlap=True)
-    for kw in ({"draft_len": 2}, {"prefill_chunk": 16}, {"prefix_sharing": True}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            DecodeConfig(**kw)
-    _, tcfg = _configs()
-    tp = tgpt.init_params(tcfg, 0, device="cpu")
-    sched = ContinuousBatchingScheduler(tp, tcfg, DecodeConfig(max_prompt_len=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="best_effort"):
-        sched.submit(Request(rid=0, prompt=[1, 2], max_new_tokens=2, lane="best_effort"))
 
 
 def test_entry_points_raise_without_a_gpu():
