@@ -29,24 +29,52 @@
 // otherwise.
 //
 // Bound on the H100, at GPT-124M training shapes (B*H = 96, S = 1024,
-// D = 64, causal, bf16): the forward by bytes (50.7 MB, 15.1 us), dq and
-// dkv by tensor-core operations (19.3 and 25.8 GFLOP at 989 TFLOP/s).
+// D = 64, causal, bf16): the forward by bytes (50.7 MB, 15.1 us, beside
+// 12.9 GFLOP, 13.0 us at 989 TFLOP/s), dq and dkv by tensor-core
+// operations (19.3 and 25.8 GFLOP).  Short of those bounds, the forward
+// is held back by instruction issue: two blocks of 4 warps an SM (about
+// 250 registers a thread), 2 warps a scheduler, interleave mma.sync,
+// ldmatrix and the softmax's exp2f, max and sum with no overlap of
+// tensor and CUDA-core work beyond what the other warps give; a deeper
+// k/v ring or 8 warps of 16 rows moved it little.  The backward
+// is held back in addition by synchronous loads and 32-bit fragment
+// reads.
 //
-// Design (no wgmma, TMA or double buffering yet: later work).  Blocks
-// of 128 threads (4 warps) own one 64-row tile: a q tile for fwd and dq
-// (the k tiles are the loop inside the block, in place of the TPU's
-// sequential grid axis), a k tile for dkv (the loop walks every q head
-// of the GQA group, then the q tiles).  So each output tile is summed by
-// one block in a fixed order: no atomics, and the backward is bitwise
-// reproducible.  Causal tiles wholly above the diagonal are skipped (fwd
-// and dq stop at the diagonal, dkv starts at it).
-//   bf16, the training path (`*_mma`): mma.sync.m16n8k16 tensor-core
-// products; each warp keeps its 16 rows' scores, probabilities and
-// accumulators in registers, and only the streamed operand tiles pass
-// through shared memory.
+// Design.  Each output tile is summed by one block in a fixed order: no
+// atomics, and the backward is bitwise reproducible.  Causal tiles wholly
+// above the diagonal are skipped.
+//   bf16 forward (`flash_fwd_mma`): a block owns a 128-row q tile (4
+// warps of 32 rows for D <= 64, so each fragment of k or v read from
+// shared memory feeds two products; 8 warps of 16 rows above) and walks
+// 64-key k/v tiles through a two-stage cp.async ring, the next tile in
+// flight while the current one is scored, one barrier a tile.  Q.K^T and
+// P.V are mma.sync.m16n8k16 with ldmatrix fragments; scores, running
+// max and sum and the accumulator stay in registers, in base 2
+// (scale * log2(e) folded into one multiply, exp2f; lse is written back
+// in natural log).  Only a tile that is ragged, biased or crosses the
+// warp's causal diagonal is masked; a warp skips tiles wholly above its
+// diagonal; causal q tiles launch heaviest first, so the grid does not
+// end on a tail of long blocks.
+//   bf16 dq and dkv (`flash_dq_mma`, `flash_dkv_mma`): blocks of 4 warps
+// own a 64-row tile (q for dq, k for dkv; the dkv loop walks every q head
+// of the GQA group, then the q tiles), tiles loaded synchronously between
+// barriers, the same register-resident mma.sync products.
 //   fp32 (`*_f32`, for fp32 parity runs): the same loops with every
 // product written to fp32 tiles in shared memory by a 4x4
 // register-blocked FMA loop, and one warp per row for the softmax.
+//   Not used: wgmma.  A forward with two consumer warpgroups, Q.K^T as
+// wgmma m64n64k16 from shared memory and P.V as m64n16k16 with P in
+// registers (core-matrix tiles, no swizzle), gave the same outputs bit
+// for bit and was slower on the card at D = 64 and 128 (timed in turns
+// against this forward): issuing a product
+// and waiting on it within the warpgroup leaves the tensor cores idle
+// through the softmax.  wgmma pays off with producer and consumer
+// warpgroups that overlap one tile's softmax with the next tile's
+// products (FlashAttention-3's ping-pong), which is later work, as is
+// the backward's redesign; PERF.md keeps what that attempt settled (its
+// descriptors and fragment layouts).
+// TMA: the k/v tiles are contiguous rows that 16-byte cp.async copies
+// already move without a tensor map built on the host per call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -428,7 +456,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(Args a) {
 }
 
 // ------------------------------------------------ bf16: mma.sync kernels
-// One warp owns 16 rows of the block's 64-row tile and keeps its scores,
+// One warp owns 16 rows of the block's tile (32 in the forward at D <=
+// 64, as two 16-row halves) and keeps its scores,
 // probabilities and accumulators in registers, in the fragment layout of
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate): lane = 4 * g + t holds
 // rows g and g + 8 of each 16 x 8 accumulator tile, columns 2t and
@@ -439,6 +468,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(Args a) {
 using apex_mma::bf16;
 using apex_mma::mma16816;
 using apex_mma::pack2;
+using apex_mma::cp_async16;
+using apex_mma::cp_async_commit;
+using apex_mma::cp_async_wait;
+using apex_mma::quad_max;
+using apex_mma::quad_sum;
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -498,15 +532,6 @@ __device__ __forceinline__ void mm_px(float (&acc)[D / 8][4], const float (&s)[8
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Row `h` (0: g, 1: g + 8) and column of accumulator element e of tile j.
 __device__ __forceinline__ int frag_col(int j, int e, int t) { return 8 * j + 2 * t + (e & 1); }
 
@@ -526,79 +551,238 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
   }
 }
 
+// The bf16 forward.  A block owns 128 q rows: 4 warps of 32 rows (two
+// m16 tiles, so each k/v fragment read from shared memory feeds two
+// products) for D <= 64; 8 warps of 16 rows for D > 64, whose
+// accumulators would not fit twice.  K/V tiles of 64 keys come through
+// a two-stage cp.async ring: tile i + 1 is in flight while tile i is
+// scored, at one barrier a tile.  Fragments come by ldmatrix.  Scores are
+// kept in the base-2 domain (scale * log2(e) folded into one multiply,
+// exp2f), and only a tile that is ragged, biased or crosses the warp's
+// causal diagonal is masked; tiles wholly above a warp's diagonal are
+// skipped by that warp.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma(Args a) {
-  constexpr int LD = D + 8;
+struct Fwd {
+  static constexpr int kMi = D <= 64 ? 2 : 1;  // m16 tiles of a warp
+  static constexpr int kWarps = D <= 64 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kMi * kWarps;  // 128
+  static constexpr int kN = 64;                    // keys of a k/v tile
+  static constexpr int kLd = D + 8;
+  // D > 64: q fragments are read again for each tile, so that two
+  // blocks fit an SM's registers
+  static constexpr bool kQInRegs = D <= 64;
+  static constexpr int kMinBlocks = 2;
+};
+
+// Shared memory of the bf16 forward: the q tile and two stages of k and v.
+__host__ __device__ constexpr size_t fwd_mma_smem(int D) {
+  return (size_t)(128 + 4 * 64) * (D + 8) * sizeof(bf16);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMask2 = kNegInf * kLog2e;  // NEG_INF in the base-2 domain
+
+// k and v rows k0 .. k0 + 63 into a stage (rows past Sk zero).
+template <int D>
+__device__ __forceinline__ void fwd_issue_kv(bf16* sk, bf16* sv, const bf16* k, const bf16* v,
+                                             int k0, int Sk) {
+  using F = Fwd<D>;
+  constexpr int cpr = D / 8;
+  for (int c = threadIdx.x; c < F::kN * cpr; c += F::kThreads) {
+    const int r = c / cpr, col = (c % cpr) * 8;
+    const bool ok = k0 + r < Sk;
+    const int64_t o = ok ? (int64_t)(k0 + r) * D + col : 0;
+    cp_async16(sk + r * F::kLd + col, k + o, ok ? 16 : 0);
+    cp_async16(sv + r * F::kLd + col, v + o, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fwd_mma(Args a) {
+  using F = Fwd<D>;
+  constexpr int MI = F::kMi, LD = F::kLd, N = F::kN;
+  static_assert(F::kRows == 128 && N == 64, "fwd_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * LD;
-  bf16* sV = sK + kTile * LD;
+  bf16* sK0 = sQ + F::kRows * LD;  // stage i: k at sK0 + i * kStride, v N rows after
+  constexpr int kStride = 2 * N * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.Sq - q0);
+  const int b = blockIdx.x;
+  // causal: the heaviest q tiles are launched first
+  const int q0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * F::kRows;
+  const int rows = min(F::kRows, a.Sq - q0);
   const int kvb = kv_row(a, b);
   const bf16* k = (const bf16*)a.k + (int64_t)kvb * a.Sk * D;
   const bf16* v = (const bf16*)a.v + (int64_t)kvb * a.Sk * D;
   const float* bias = a.bias ? a.bias + (int64_t)(b / a.heads) * a.Sk : nullptr;
   const bool remask = a.causal || bias;
-  const int r0 = warp * 16 + g;  // this thread's tile rows: r0, r0 + 8
+  const int wr = warp * 16 * MI;  // the warp's first row of the tile
+  // keys [0, kend) are visible to some row of the block, [0, wkend) to
+  // some row of the warp (the Pallas kernel's `diag_ok`, by rows)
+  int kend = a.Sk, wkend = a.Sk;
+  if (a.causal) {
+    kend = min(a.Sk, max(0, a.q_offset + q0 + F::kRows - a.k_offset));
+    wkend = min(a.Sk, max(0, a.q_offset + q0 + wr + 16 * MI - a.k_offset));
+  }
+  const int n_tiles = (kend + N - 1) / N;
+  const float sl2 = a.scale * kLog2e;
 
-  load_tile(sQ, LD, (const bf16*)a.q + ((int64_t)b * a.Sq + q0) * D, rows, D);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
+  if (n_tiles > 0) {  // the q tile (rows past Sq zero) and the first k/v tile
+    const bf16* qg = (const bf16*)a.q + ((int64_t)b * a.Sq + q0) * D;
+    for (int c = threadIdx.x; c < F::kRows * (D / 8); c += F::kThreads) {
+      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+      const bool ok = r < rows;
+      cp_async16(sQ + r * LD + col, qg + (ok ? (int64_t)r * D + col : 0), ok ? 16 : 0);
+    }
+    fwd_issue_kv<D>(sK0, sK0 + N * LD, k, v, 0, a.Sk);
+    cp_async_commit();
+  }
+  uint32_t qf[MI][F::kQInRegs ? D / 16 : 1][4];
+  float acc[MI][D / 8][4] = {};
+  float m[MI][2], l[MI][2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sQ, LD, warp * 16, 16 * kk, g, t);
-  float acc[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < a.Sk && diag_ok(a, q0, k0); k0 += kTile) {
-    __syncthreads();
-    const int krows = min(kTile, a.Sk - k0);
-    load_tile(sK, LD, k + (int64_t)k0 * D, krows, D);
-    load_tile(sV, LD, v + (int64_t)k0 * D, krows, D);
-    __syncthreads();
-    float s[8][4] = {};
-    mm_xt<D>(s, qf, sK, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
+  for (int i = 0; i < MI; ++i) m[i][0] = m[i][1] = kMask2, l[i][0] = l[i][1] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    const int k0 = it * N;
+    if (it + 1 < n_tiles) {
+      bf16* nk = sK0 + ((it + 1) & 1) * kStride;
+      fwd_issue_kv<D>(nk, nk + N * LD, k, v, k0 + N, a.Sk);
+      cp_async_commit();
+    }
+    if (F::kQInRegs && it == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = score(a, bias, s[j][e], q0, r0 + 8 * (e >> 1), k0, frag_col(j, e, t));
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        for (int kk = 0; kk < D / 16; ++kk) apex_mma::ld_a(qf[i][kk], sQ, LD, wr + 16 * i, 16 * kk, lane);
+    }
+    if (k0 >= wkend) continue;  // the tile is above the diagonal for every row of the warp
+    const bf16* Ks = sK0 + (it & 1) * kStride;
+    const bf16* Vs = Ks + N * LD;
+    float s[MI][8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (!F::kQInRegs) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i) apex_mma::ld_a(qf[i][0], sQ, LD, wr + 16 * i, 16 * kk, lane);
       }
-    float m_new[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bk[4];
+        apex_mma::ld_b_nk(bk, Ks, LD, 16 * j2, 16 * kk, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sc = s[j][e];
-        float pr = expf(sc - m_new[e >> 1]);
-        if (remask && !(sc > kNegInf * 0.5f)) pr = 0.f;
-        s[j][e] = pr;
-        sum[e >> 1] += pr;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float corr = expf(m[h] - m_new[h]);
-      l[h] = l[h] * corr + quad_sum(sum[h]);
-      m[h] = m_new[h];
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][2 * h] *= corr;
-        acc[dn][2 * h + 1] *= corr;
+        for (int i = 0; i < MI; ++i) {
+          const uint32_t(&qa)[4] = qf[i][F::kQInRegs ? kk : 0];
+          mma16816(s[i][2 * j2], qa, bk[0], bk[1]);
+          mma16816(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
+        }
       }
     }
-    mm_px<D>(acc, s, sV, g, t);
+    // ragged, biased, or crossing the diagonal of the warp's rows
+    const bool masked = k0 + N > a.Sk || bias != nullptr ||
+                        (a.causal && a.q_offset + q0 + wr < a.k_offset + k0 + N - 1);
+    if (masked) {
+      // the bias of this thread's 16 columns, -inf past Sk (weight 0 in any softmax)
+      float cb[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = k0 + frag_col(j, c, t);
+          cb[j][c] = col >= a.Sk ? -INFINITY : bias ? bias[col] * kLog2e : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + wr + 16 * i + g + 8 * (e >> 1), col = k0 + frag_col(j, e, t);
+            float x = s[i][j][e] * sl2 + cb[j][e & 1];
+            if (a.causal && a.q_offset + row < a.k_offset + col) x = kMask2;
+            s[i][j][e] = x;
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j][e] *= sl2;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][j][e]);
+      float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) m_new[h] = fmaxf(m[i][h], quad_max(mx[h]));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sc = s[i][j][e];
+          float pr = exp2f(sc - m_new[e >> 1]);
+          if (masked && remask && !(sc > kMask2 * 0.5f)) pr = 0.f;
+          s[i][j][e] = pr;
+          sum[e >> 1] += pr;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float corr = exp2f(m[i][h] - m_new[h]);
+        l[i][h] = l[i][h] * corr + quad_sum(sum[h]);
+        m[i][h] = m_new[h];
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          acc[i][dn][2 * h] *= corr;
+          acc[i][dn][2 * h + 1] *= corr;
+        }
+      }
+    }
+    // acc += P . V, P rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        pa[i][0] = pack2(s[i][2 * kk][0], s[i][2 * kk][1]);
+        pa[i][1] = pack2(s[i][2 * kk][2], s[i][2 * kk][3]);
+        pa[i][2] = pack2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+        pa[i][3] = pack2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dn2 = 0; dn2 < D / 16; ++dn2) {
+        uint32_t bv[4];
+        apex_mma::ld_b_kn(bv, Vs, LD, 16 * dn2, 16 * kk, lane);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma16816(acc[i][2 * dn2], pa[i], bv[0], bv[1]);
+          mma16816(acc[i][2 * dn2 + 1], pa[i], bv[2], bv[3]);
+        }
+      }
+    }
   }
-  const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
-  store_rows<D>((bf16*)a.out + ((int64_t)b * a.Sq + q0) * D, acc, r0, rows, 1.f / l0,
-                1.f / l1, t);
-  if (t == 0) {
-    float* lse = a.lse_out + (int64_t)b * a.Sq + q0;
-    if (r0 < rows) lse[r0] = m[0] + logf(l0);
-    if (r0 + 8 < rows) lse[r0 + 8] = m[1] + logf(l1);
+  bf16* out = (bf16*)a.out + ((int64_t)b * a.Sq + q0) * D;
+  float* lse = a.lse_out + (int64_t)b * a.Sq + q0;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int r0 = wr + 16 * i + g;
+    const float l0 = fmaxf(l[i][0], 1e-30f), l1 = fmaxf(l[i][1], 1e-30f);
+    store_rows<D>(out, acc[i], r0, rows, 1.f / l0, 1.f / l1, t);
+    if (t == 0) {  // natural-log lse; a row that saw no key keeps NEG_INF
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mm = m[i][h] > kMask2 * 0.5f ? m[i][h] * kLn2 : kNegInf;
+        if (r0 + 8 * h < rows) lse[r0 + 8 * h] = mm + logf(h ? l1 : l0);
+      }
+    }
   }
 }
 
@@ -738,31 +922,36 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma(Args a) {
   store_rows<D>((bf16*)a.dv + krow0 * D, dv, r0, krows, 1.f, 1.f, t);
 }
 
-// Shared memory of the mma kernels: 3 (fwd) or 4 bf16 tiles, plus lse
-// and delta for dkv.
+// Shared memory of the mma kernels: the forward's q tile and k/v ring;
+// 4 bf16 tiles for dq, plus lse and delta for dkv.
 __host__ __device__ inline size_t mma_smem(int which, int D) {
   const size_t tile = (size_t)kTile * (D + 8) * sizeof(bf16);
-  return which == 0 ? 3 * tile : which == 1 ? 4 * tile : 4 * tile + 2 * kTile * sizeof(float);
+  return which == 0 ? fwd_mma_smem(D) : which == 1 ? 4 * tile : 4 * tile + 2 * kTile * sizeof(float);
 }
 
-cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, int grid_x,
-                   int grid_y, cudaStream_t st) {
+cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, int threads,
+                   cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(grid_x, grid_y), kThreads, smem, st>>>(a);
+  kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
+// rows: B*H for fwd and dq, B*H_kv for dkv.  The fp32 kernels and the
+// bf16 backward take grid (64-row tiles, rows); the bf16 forward (rows,
+// 128-row q tiles).
 template <int D>
-cudaError_t launch_mma(int which, const Args& a, int grid_x, int grid_y, cudaStream_t st) {
-  void (*kernel)(Args) = which == 0   ? &flash_fwd_mma<D>
-                         : which == 1 ? &flash_dq_mma<D>
-                                      : &flash_dkv_mma<D>;
-  return launch(kernel, mma_smem(which, D), a, grid_x, grid_y, st);
+cudaError_t launch_mma(int which, const Args& a, int rows, cudaStream_t st) {
+  if (which == 0)
+    return launch(&flash_fwd_mma<D>, mma_smem(0, D), a,
+                  dim3(rows, (a.Sq + Fwd<D>::kRows - 1) / Fwd<D>::kRows), Fwd<D>::kThreads, st);
+  const int tiles = ((which == 1 ? a.Sq : a.Sk) + kTile - 1) / kTile;
+  return launch(which == 1 ? &flash_dq_mma<D> : &flash_dkv_mma<D>, mma_smem(which, D), a,
+                dim3(tiles, rows), kThreads, st);
 }
 
-int dispatch(int which, const Args& a, int grid_x, int grid_y, int dtype, void* stream) {
+int dispatch(int which, const Args& a, int rows, int dtype, void* stream) {
   if (a.D % 16 != 0 || a.D <= 0 || a.D > 128 || a.heads % a.kv_heads != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -770,18 +959,19 @@ int dispatch(int which, const Args& a, int grid_x, int grid_y, int dtype, void* 
     void (*kernel)(Args) = which == 0   ? &flash_fwd_f32
                            : which == 1 ? &flash_dq_f32
                                         : &flash_dkv_f32;
-    return (int)launch(kernel, Plan(a.D).bytes(which), a, grid_x, grid_y, st);
+    const int tiles = ((which == 2 ? a.Sk : a.Sq) + kTile - 1) / kTile;
+    return (int)launch(kernel, Plan(a.D).bytes(which), a, dim3(tiles, rows), kThreads, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   switch (a.D) {
-    case 16: return (int)launch_mma<16>(which, a, grid_x, grid_y, st);
-    case 32: return (int)launch_mma<32>(which, a, grid_x, grid_y, st);
-    case 48: return (int)launch_mma<48>(which, a, grid_x, grid_y, st);
-    case 64: return (int)launch_mma<64>(which, a, grid_x, grid_y, st);
-    case 80: return (int)launch_mma<80>(which, a, grid_x, grid_y, st);
-    case 96: return (int)launch_mma<96>(which, a, grid_x, grid_y, st);
-    case 112: return (int)launch_mma<112>(which, a, grid_x, grid_y, st);
-    default: return (int)launch_mma<128>(which, a, grid_x, grid_y, st);
+    case 16: return (int)launch_mma<16>(which, a, rows, st);
+    case 32: return (int)launch_mma<32>(which, a, rows, st);
+    case 48: return (int)launch_mma<48>(which, a, rows, st);
+    case 64: return (int)launch_mma<64>(which, a, rows, st);
+    case 80: return (int)launch_mma<80>(which, a, rows, st);
+    case 96: return (int)launch_mma<96>(which, a, rows, st);
+    case 112: return (int)launch_mma<112>(which, a, rows, st);
+    default: return (int)launch_mma<128>(which, a, rows, st);
   }
 }
 
@@ -823,7 +1013,7 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                      q_offset, k_offset);
   a.out = out;
   a.lse_out = (float*)lse;
-  return dispatch(0, a, (Sq + kTile - 1) / kTile, BH, dtype, stream);
+  return dispatch(0, a, BH, dtype, stream);
 }
 
 // dq (BH, Sq, D) from q, k, v, do, lse and delta = rowsum(do * out).
@@ -838,7 +1028,7 @@ extern "C" int apex_flash_dq(const void* q, const void* k, const void* v,
   a.lse_in = (const float*)lse;
   a.delta = (const float*)delta;
   a.dq = dq;
-  return dispatch(1, a, (Sq + kTile - 1) / kTile, BH, dtype, stream);
+  return dispatch(1, a, BH, dtype, stream);
 }
 
 // dk, dv (BKV, Sk, D), each summed over the q heads of its GQA group.
@@ -855,5 +1045,5 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   a.delta = (const float*)delta;
   a.dk = dk;
   a.dv = dv;
-  return dispatch(2, a, (Sk + kTile - 1) / kTile, BKV, dtype, stream);
+  return dispatch(2, a, BKV, dtype, stream);
 }

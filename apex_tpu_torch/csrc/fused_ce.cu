@@ -72,11 +72,16 @@
 namespace {
 
 using apex_mma::bf16;
+using apex_mma::cp_async16;
+using apex_mma::cp_async_commit;
+using apex_mma::cp_async_wait;
 using apex_mma::ld_a;
 using apex_mma::ld_b_kn;
 using apex_mma::ld_b_nk;
 using apex_mma::mma16816;
 using apex_mma::pack2;
+using apex_mma::quad_max;
+using apex_mma::quad_sum;
 
 constexpr int kChunk = 64;          // rows and columns of a streamed chunk
 constexpr int kLdC = kChunk + 8;    // row stride of a chunk buffer / the staged d
@@ -137,16 +142,6 @@ __device__ void load_own(bf16* dst, int ld, const T* src, int valid, int H, int 
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   apex_mma::smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // An SR x 64 chunk (from column k0) of a row-major (rows, H) source,
 // copied raw into a shared-memory staging slot (SR x 64 T) by cp.async,
@@ -205,15 +200,6 @@ __device__ __forceinline__ void score_chunk(float (&acc)[NT][4], const bf16* A, 
       mma16816(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------------------------ forward

@@ -1,7 +1,8 @@
-// Tensor-core fragment helpers shared by the bf16 kernels
-// (flash_attention.cu, fused_ce.cu): mma.sync.m16n8k16 with bf16 inputs
-// and fp32 accumulators, and the ldmatrix loads that fill its operands
-// from shared memory.
+// Helpers shared by the kernels (decode_attention.cu, flash_attention.cu,
+// fused_ce.cu): mma.sync.m16n8k16 with bf16 inputs and fp32
+// accumulators, the ldmatrix loads that fill its operands from shared
+// memory, the quad reductions over a fragment row, and 16-byte cp.async
+// copies.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16): lane = 4 * g + t holds, of
 // the 16 x 8 accumulator, rows g and g + 8 at columns 2t and 2t + 1
@@ -75,6 +76,30 @@ __device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], const bf16* Y, int ld,
                                         int k0, int lane) {
   ldmatrix_x4_trans(b, Y + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
                            (lane >> 4) * 8);
+}
+
+// Max / sum over the quad (4 lanes) that holds one fragment row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned);
+// the first src_bytes come from src, the rest are zeros (src_bytes 0:
+// nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace apex_mma

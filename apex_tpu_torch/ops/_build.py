@@ -75,8 +75,8 @@ SIGNATURES = {
     "apex_flash_dkv": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
              _I, _I, _P]),
-    # group, width, D, page_size
-    "apex_paged_decode_attention_smem": (_I, [_I, _I, _I, _I]),
+    # width, group, D, q_dtype, kv_dtype, out (int32 x 3)
+    "apex_paged_decode_attention_plan": (_I, [_I, _I, _I, _I, _I, _P]),
     # q, k_pool, v_pool, page_table, lengths, out, B, width, H, HKV, D,
     # num_pages, page_size, pages_per_seq, denom, q_dtype, kv_dtype, stream
     "apex_paged_decode_attention": (

@@ -8,12 +8,18 @@ with ``width == W > 1`` (speculative verification, a prefill chunk)
 it has W consecutive ones, so ``q`` and ``lengths`` have ``B * W`` rows
 while ``page_table`` keeps one row per sequence, and each query row is
 masked at its own length.  The kernel is ``csrc/decode_attention.cu``:
-one block per (sequence, kv head, tile of at most 16 query rows) walks
-the sequence's pages, reads each page's ids from the table itself
-(clamped into the pool), and scores every query row of the tile
-against one read of the page.  ``LAUNCHES`` counts ``width == 1``
-launches and ``WIDE_LAUNCHES`` the others, so a run shows which
-layout ran.
+one block per (sequence, kv head, tile of at most 64 query rows) walks
+the sequence's positions in stages of 64, fixed in position whatever
+the width, gathering each stage's k and v through the page table (ids
+clamped into the pool) into shared memory by asynchronous copies while
+the previous stage is scored.  Each 16 query rows get four warps, one
+per 16-position slice of a stage, whose online softmaxes merge at the
+end in slice order; bf16 scores and P.V run on the tensor cores, fp32
+and mixed dtypes on CUDA cores.  :func:`launch_plan` states its launch
+plan (rows per block, stage, shared memory), a pure function of the
+shapes that the tests check without the card.  ``LAUNCHES`` counts
+``width == 1`` launches and ``WIDE_LAUNCHES`` the others, so a run shows
+which layout ran.
 
 :func:`decode_attention_plain` is the numerics specification, as
 ``decode_attention_xla`` is in the JAX package: it gathers the pages,
@@ -22,7 +28,9 @@ fp32 softmax, casts the probabilities to v's dtype before the weighted
 sum, and zeroes rows of length 0.
 """
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,7 +42,46 @@ LAUNCHES = 0
 #: kernel launches at ``width > 1`` (the verify/chunk layout)
 WIDE_LAUNCHES = 0
 
-_SMEM_LIMIT = 48 * 1024
+#: positions of a shared-memory stage: stage s holds positions
+#: [64 s, 64 s + 64) of its sequence at every width (csrc kStage)
+STAGE_POSITIONS = 64
+#: query rows of a warp (the mma tile's M) and of a block
+WARP_ROWS = 16
+MAX_BLOCK_ROWS = 64
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+class LaunchPlan(NamedTuple):
+    rows_per_block: int   # query rows of a (sequence, kv head) block
+    stage_positions: int  # positions a stage holds, fixed in position
+    smem_bytes: int       # dynamic shared memory of one block
+
+
+def _rup128(n):
+    return (n + 127) // 128 * 128
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(width, group, head_dim, q_bytes, kv_bytes):
+    """The kernel's launch plan at these shapes (element sizes in
+    bytes: 2 bf16, 4 fp32), as the C entry works it out from its
+    ``Layout``: q tile, two stages of k and v, the FMA path's fp32 P
+    (16 x 16 a warp, row stride 20), the rows' lengths, each region
+    rounded to 128 bytes.  Stages depend on no argument: that, with each
+    row's own dot products, keeps a row bitwise equal at every width.
+    A statement of the plan that runs without the card, for the tests;
+    ``chip_smoke.py`` holds it against ``apex_paged_decode_attention_plan``."""
+    rows_per_block = min(width * group, MAX_BLOCK_ROWS)
+    tile_rows = WARP_ROWS * -(-rows_per_block // WARP_ROWS)
+    mma = q_bytes == 2 and kv_bytes == 2
+    ldq = head_dim + (8 if mma else 4)
+    ldk = head_dim + 16 // kv_bytes
+    p_tile = 0 if mma else 4 * tile_rows * 20 * 4  # 4 slice warps a 16 rows
+    smem = (_rup128(tile_rows * ldq * (2 if mma else 4))
+            + 4 * _rup128(STAGE_POSITIONS * ldk * kv_bytes) + _rup128(p_tile)
+            + _rup128(tile_rows * 4))
+    return LaunchPlan(rows_per_block, STAGE_POSITIONS, smem)
 
 
 def _check_rows(q_rows, table_rows, width):
@@ -97,6 +144,8 @@ def _problem(q, k_pool, v_pool, page_table, lengths):
     h_kv = k_pool.shape[2]
     if k_pool.shape[3] != D or H % h_kv:
         return f"pools {tuple(k_pool.shape)} do not fit q {tuple(q.shape)}"
+    if D % 16 or not 16 <= D <= 128:
+        return f"head dim must be a multiple of 16 up to 128, got {D}"
     if page_table.dim() != 2 or lengths.shape != (Bq,):
         return "page_table must be (B, P) and lengths (B * width,)"
     if (q.dtype not in _build.DTYPE_CODES or k_pool.dtype not in _build.DTYPE_CODES
@@ -108,6 +157,8 @@ def _problem(q, k_pool, v_pool, page_table, lengths):
                     ("page_table", page_table), ("lengths", lengths)):
         if t.device != q.device or not t.is_contiguous():
             return f"{name} must be contiguous and on {q.device}"
+        if name in ("q", "k_pool", "v_pool") and t.data_ptr() % 16:
+            return f"{name} must be 16-byte aligned (the kernel copies 16 bytes at a time)"
     return None
 
 
@@ -129,11 +180,6 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, width=1):
     if Bq == 0:
         return out
     lib, stream = _build.prepare(q.device)
-    smem = lib.apex_paged_decode_attention_smem(H // h_kv, width, D, page_size)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_decode_attention: {smem} B of shared memory at "
-                         f"group={H // h_kv}, width={width}, D={D}, "
-                         f"page_size={page_size} exceeds {_SMEM_LIMIT}")
     _build.check(lib.apex_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, width, H, h_kv, D, num_pages, page_size,

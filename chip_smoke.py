@@ -24,7 +24,12 @@ Phases, each printing one JSON line:
    layouts: width 1 (8 sequences) and width > 1 at the verify shape (8
    sequences x 5 rows) and the chunk shape (one sequence x 64 rows),
    MHA and GQA, bf16 and fp32, each width-W launch also bitwise equal to
-   W width-1 launches of the same rows.
+   W width-1 launches of the same rows, and at the model's full context
+   (8 sequences x up to 1024 positions, W = 1 and W = 5, lengths on the
+   kernel's 64-position stage edges and one past them).  Flash attention
+   at GPT-124M's shape (B*H = 96, S = 1024, causal) in bf16 at D = 32,
+   64 and 128 (each with SDPA's time), fp32, GQA, non-causal, a key
+   bias and offsets.
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
    count from that run, checked exactly against the steps taken.
@@ -273,12 +278,12 @@ def check_layer_norm(dev, R, dtype, mode="ln_affine"):
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
 
 
-def check_decode_attention(dev, h_kv, dtype):
+def check_decode_attention(dev, h_kv, dtype, H=12, D=64):
     from apex_tpu_torch.ops.decode_attention import (
         decode_attention_plain, paged_decode_attention,
     )
 
-    B, H, D, PS, P, num_pages = 8, 12, 64, 16, 6, 49
+    B, PS, P, num_pages = 8, 16, 6, 49
     rng = np.random.default_rng(h_kv)
     q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(dev, dtype)
     kp = torch.from_numpy(rng.standard_normal((num_pages, PS, h_kv, D), dtype=np.float32)).to(dev, dtype)
@@ -301,7 +306,7 @@ def check_decode_attention(dev, h_kv, dtype):
         tol = 1e-5 * scale
         why = "1e-5 abs (online against full softmax, other summation order)"
     if err > tol or float(out[0].float().abs().max()) != 0.0:
-        raise AssertionError(f"decode_attention h_kv={h_kv} {dtype}: err {err} > {tol}")
+        raise AssertionError(f"decode_attention D={D} h_kv={h_kv} {dtype}: err {err} > {tol}")
     eb = kp.element_size()
     n_pos = int(lens_np.sum())
     nbytes = (2 * n_pos * h_kv * D * eb + B * H * D * (q.element_size() + eb)
@@ -325,7 +330,9 @@ def check_decode_attention(dev, h_kv, dtype):
 
 #: the width > 1 cases of paged decode attention, at the serving-v2
 #: path's shapes: the verify step (8 sequences x W = 5, draft_len 4) and
-#: a prefill chunk (one sequence x W = 64), with P = 15 pages of 16
+#: a prefill chunk (one sequence x W = 64), with P = 15 pages of 16; and
+#: the long cases at the model's full context (P = 64 pages of 16 = 1024
+#: positions, a pool of 513 pages), at W = 1 and W = 5
 WIDE_CASES = {
     # per sequence, the length of its first row (each next row one more):
     # inactive, 1, rows ending on a page edge (16) and one past it (17),
@@ -334,10 +341,18 @@ WIDE_CASES = {
     # one sequence's chunk at positions 128..191: lengths 129..184, and 8
     # pad rows (the final chunk's) of length 0
     "chunk": {"B": 1, "W": 64, "first": [129], "pad": 8},
+    # lengths on the kernel's 64-position stage edges and one past them
+    # (64, 65; 128, 129), mid-table, and the table's end (1024)
+    "long_w1": {"B": 8, "W": 1, "first": [0, 1, 64, 65, 128, 129, 700, 1024],
+                "P": 64, "num_pages": 513},
+    # rows 60..64 end on a stage edge, 64..68 and 128..132 start on one
+    # and run past it, 1020..1024 reach the table's end
+    "long": {"B": 8, "W": 5, "first": [0, 1, 60, 64, 124, 128, 1019, 1020],
+             "P": 64, "num_pages": 513},
 }
 
 
-def check_decode_attention_wide(dev, case, h_kv, dtype):
+def check_decode_attention_wide(dev, case, h_kv, dtype, H=12, D=64):
     """The ``width > 1`` layout against its plain version, with the
     width = 1 bands; each width-W launch also against W width-1 launches
     of the same rows, which must be bitwise equal."""
@@ -347,7 +362,8 @@ def check_decode_attention_wide(dev, case, h_kv, dtype):
 
     spec = WIDE_CASES[case]
     B, W = spec["B"], spec["W"]
-    H, D, PS, P, num_pages = 12, 64, 16, 15, 121
+    PS = 16
+    P, num_pages = spec.get("P", 15), spec.get("num_pages", 121)
     rng = np.random.default_rng(W * 100 + h_kv)
     q = torch.from_numpy(rng.standard_normal((B * W, H, D), dtype=np.float32)).to(dev, dtype)
     kp = torch.from_numpy(rng.standard_normal((num_pages, PS, h_kv, D), dtype=np.float32)).to(dev, dtype)
@@ -382,7 +398,7 @@ def check_decode_attention_wide(dev, case, h_kv, dtype):
     zero_rows = torch.from_numpy(lens_np == 0).to(dev)
     if (err > tol or not bitwise
             or float(out[zero_rows].float().abs().max()) != 0.0):
-        raise AssertionError(f"decode_attention width={W} {case} h_kv={h_kv} {dtype}: "
+        raise AssertionError(f"decode_attention width={W} {case} D={D} h_kv={h_kv} {dtype}: "
                              f"err {err} > {tol}, bitwise vs width 1: {bitwise}")
     eb, qb = kp.element_size(), q.element_size()
     seq_len = lens_np.reshape(B, W).max(1)  # each sequence's longest row
@@ -407,6 +423,31 @@ def check_decode_attention_wide(dev, case, h_kv, dtype):
             "pad_rows": spec.get("pad", 0), "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "tolerance": tol, "tolerance_why": why,
             "bitwise_equal_to_width_1": bitwise, "bound_ms": bms, "bound_by": by, **t}
+
+
+def check_decode_plan(lib):
+    """``launch_plan`` (the Python statement the CPU tests check)
+    against the plan the C entry launches with, at every width, GQA
+    group, head dim and dtype pair: equal, field for field."""
+    import ctypes
+
+    from apex_tpu_torch.ops.decode_attention import launch_plan
+
+    got = (ctypes.c_int * 3)()
+    n = 0
+    for width in (1, 2, 5, 16, 17, 64, 65):
+        for group in (1, 3, 4, 12):
+            for D in range(16, 129, 16):
+                for qd, kd in ((1, 1), (0, 0), (0, 1), (1, 0)):
+                    rc = lib.apex_paged_decode_attention_plan(width, group, D, qd, kd,
+                                                              ctypes.addressof(got))
+                    want = tuple(launch_plan(width, group, D, 4 - 2 * qd, 4 - 2 * kd))
+                    if rc or tuple(got) != want:
+                        raise AssertionError(
+                            f"decode launch plan W={width} group={group} D={D} dtypes "
+                            f"{qd},{kd}: C {tuple(got)} (rc {rc}), Python {want}")
+                    n += 1
+    return {"plans_checked": n}
 
 
 def check_sampling(dev, temperature, top_k, N):
@@ -1523,12 +1564,26 @@ def main():
             r = check_decode_attention(dev, h_kv, dtype)
             results[("attn", h_kv, dtype)] = r
             emit({"phase": "kernel", "kernel": "paged_decode_attention", **r})
-    for case in ("verify", "chunk"):
+    for case in ("verify", "chunk", "long_w1", "long"):
         for h_kv in (12, 4):
             for dtype in (torch.bfloat16, torch.float32):
                 r = check_decode_attention_wide(dev, case, h_kv, dtype)
                 results[("attn_wide", case, h_kv, dtype)] = r
+                name = "paged_decode_attention" + ("_wide" if r["W"] > 1 else "")
+                emit({"phase": "kernel", "kernel": name, **r})
+    # the other head widths serve_gpt --heads gives at hidden 768: 6
+    # heads of 128 and 24 of 32, MHA and GQA (group 3), width 1 and verify
+    for H, D in ((6, 128), (24, 32)):
+        for h_kv in (H, H // 3):
+            for dtype in (torch.bfloat16, torch.float32):
+                r = check_decode_attention(dev, h_kv, dtype, H=H, D=D)
+                results[("attn", h_kv, dtype, D)] = r
+                emit({"phase": "kernel", "kernel": "paged_decode_attention", **r})
+                r = check_decode_attention_wide(dev, "verify", h_kv, dtype, H=H, D=D)
+                results[("attn_wide", "verify", h_kv, dtype, D)] = r
                 emit({"phase": "kernel", "kernel": "paged_decode_attention_wide", **r})
+    emit({"phase": "kernel", "kernel": "paged_decode_attention_plan",
+          **check_decode_plan(_build.load())})
     # rows: the decode step (8), the verify step (8 x 5) and the chunked
     # prefill's sampling head (1)
     for N in (8, 40, 1):
@@ -1563,6 +1618,9 @@ def main():
         ("non_causal", torch.bfloat16, {"causal": False}),
         ("kv_bias", torch.bfloat16, {"masked": True}),
         ("offsets", torch.bfloat16, {"S": 1000, "q_offset": 0, "k_offset": 100}),
+        # the other head widths of the bf16 kernels, at the gpt124 shape
+        ("gpt124_d32", torch.bfloat16, {"D": 32, "library": True}),
+        ("gpt124_d128", torch.bfloat16, {"D": 128, "library": True}),
     )
     for case, dtype, kw in flash_cases:
         r = check_flash(dev, dtype, case, **kw)

@@ -124,3 +124,88 @@ def test_other_devices_raise_instead_of_falling_back():
     pt = torch.empty(2, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="not supported"):
         paged_decode_attention(q, pool, pool, pt, pt[:, 0])
+
+
+def _long_lengths(width):
+    """Per sequence, its first row's length (each next row one more) at
+    the model's full context (64 pages of 16 = 1024 positions): inactive,
+    1, rows on the kernel's 64-position stage edges and one past them,
+    and a sequence reaching the table's end."""
+    if width == 1:
+        return np.asarray([0, 1, 64, 65, 128, 129, 700, 1024], np.int32)
+    return np.asarray([0, 1, 60, 64, 124, 128, 1019, 1020], np.int32)
+
+
+@pytest.mark.parametrize("width", [1, 5])
+@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (4, 1)])
+def test_long_context_stage_edges_match_jax(width, H, KVH):
+    """The long shape (8 sequences x up to 1024 positions, pages of 16,
+    D 64) scaled down to 4 heads, MHA and GQA, at widths 1 and 5, with
+    lengths on and one past the stage edges: the plain version against
+    ``decode_attention_xla`` in fp32."""
+    rng = np.random.RandomState(5 + width)
+    B, D, page, P = 8, 64, 16, 64
+    num_pages = B * P + 1
+    q = rng.randn(B * width, H, D).astype(np.float32)
+    kp = rng.randn(num_pages, page, KVH, D).astype(np.float32)
+    vp = rng.randn(num_pages, page, KVH, D).astype(np.float32)
+    pt = rng.randint(1, num_pages, size=(B, P)).astype(np.int32)
+    pt[B - 1, 1], pt[B - 1, 9] = -5, 1000  # clamped, inside the read range
+    first = _long_lengths(width)
+    lengths = np.where(first[:, None] > 0, first[:, None] + np.arange(width)[None, :], 0)
+    lengths = lengths.reshape(B * width).astype(np.int32)
+    assert lengths.max() == P * page
+    out = paged_decode_attention(*_torch(q, kp, vp, pt, lengths), width=width)
+    ref = decode_attention_xla(*[jnp.asarray(a) for a in (q, kp, vp, pt, lengths)],
+                               width=width)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    zero = torch.from_numpy(lengths == 0)
+    assert float(out[zero].abs().max()) == 0.0, "a length-0 row must attend to nothing"
+
+
+#: (width, GQA group) of the serve paths and the long case
+PLAN_SHAPES = {
+    "decode": (1, 1), "decode_gqa": (1, 3),
+    "verify": (5, 1), "verify_gqa": (5, 3),
+    "chunk": (64, 1), "chunk_gqa": (64, 3),
+    "long": (1, 1), "long_verify_gqa": (5, 3),
+}
+#: (q, pool) element bytes: the bf16 serve path, fp32 parity, mixed
+PLAN_DTYPES = [(2, 2), (4, 4), (4, 2), (2, 4)]
+
+
+@pytest.mark.parametrize("dtypes", PLAN_DTYPES)
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_launch_plan_fits_the_card(shape, dtypes):
+    """Every serve, verify, chunk and long shape: the rows split into
+    whole tiles of at most 64, and a block's shared memory stays under
+    the H100's 227 KB at every head dim the kernel takes (16..128)."""
+    from apex_tpu_torch.ops.decode_attention import SMEM_LIMIT, launch_plan
+
+    width, group = PLAN_SHAPES[shape]
+    rows = width * group
+    for D in range(16, 129, 16):
+        plan = launch_plan(width, group, D, *dtypes)
+        assert plan.rows_per_block == min(rows, 64)
+        assert 0 < plan.smem_bytes <= SMEM_LIMIT == 232448
+        assert plan.smem_bytes % 128 == 0
+
+
+@pytest.mark.parametrize("P,page", [(6, 16), (15, 16), (64, 16), (7, 4), (3, 64), (5, 48)])
+def test_launch_plan_stages_fixed_in_position(P, page):
+    """The CPU half of the bitwise-rows invariant: at a fixed table
+    width the stage boundaries, in positions, are the same whatever the
+    width, the GQA group and the dtypes, so a row meets the same stages
+    in a verify or chunk launch as decoded alone."""
+    from apex_tpu_torch.ops.decode_attention import launch_plan
+
+    bounds = set()
+    for width in (1, 2, 5, 16, 64, 65):
+        for group in (1, 3, 4):
+            for dtypes in PLAN_DTYPES:
+                step = launch_plan(width, group, 64, *dtypes).stage_positions
+                bounds.add(tuple(range(0, P * page, step)) + (P * page,))
+    assert len(bounds) == 1
+    edges = bounds.pop()
+    assert edges[0] == 0 and all(b - a == 64 for a, b in zip(edges[:-2], edges[1:-1]))
+    assert edges[-2] < edges[-1] <= edges[-2] + 64

@@ -44,13 +44,13 @@ CASES = {
 B, D = 2, 32
 
 
-def _inputs(case, seed=0):
+def _inputs(case, seed=0, d=D):
     causal, H, Hkv, Sq, Sk, qo, ko, masked = CASES[case]
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, H, Sq, D).astype(np.float32)
-    k = rng.randn(B, Hkv, Sk, D).astype(np.float32)
-    v = rng.randn(B, Hkv, Sk, D).astype(np.float32)
-    do = rng.randn(B, H, Sq, D).astype(np.float32)
+    q = rng.randn(B, H, Sq, d).astype(np.float32)
+    k = rng.randn(B, Hkv, Sk, d).astype(np.float32)
+    v = rng.randn(B, Hkv, Sk, d).astype(np.float32)
+    do = rng.randn(B, H, Sq, d).astype(np.float32)
     mask = None
     if masked:
         mask = np.ones((B, Sk), bool)
@@ -77,8 +77,8 @@ def _repeat(k, H):
 def _fwd_plain(c):
     return tfa.flash_fwd_plain(
         torch.from_numpy(_flat(c["q"])), torch.from_numpy(_flat(c["k"])),
-        torch.from_numpy(_flat(c["v"])), 1 / np.sqrt(D), c["causal"], c["qo"], c["ko"],
-        kv_bias=_torch_bias(c["mask"]), heads=c["H"], kv_heads=c["Hkv"])
+        torch.from_numpy(_flat(c["v"])), 1 / np.sqrt(c["q"].shape[-1]), c["causal"],
+        c["qo"], c["ko"], kv_bias=_torch_bias(c["mask"]), heads=c["H"], kv_heads=c["Hkv"])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -92,6 +92,43 @@ def test_plain_fwd_matches_jax_scan(case):
     np.testing.assert_allclose(out.numpy(), _flat(np.asarray(ref)), rtol=0, atol=ATOL)
     np.testing.assert_allclose(lse.numpy()[..., 0], np.asarray(ref_lse).reshape(lse.shape[:2]),
                                rtol=1e-6, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("case", ["causal", "gqa2", "offsets", "kv_mask"])
+def test_plain_fwd_and_bwd_match_jax_scan_at_head_dims(case, d):
+    """The other head widths the bf16 kernels are built for (16, 64 and
+    128 beside the module's 32): the plain forward against
+    ``_attend_fwd_scan`` and the plain backward against
+    ``flash_bwd_from_lse``, at the same band."""
+    c = _inputs(case, seed=d, d=d)
+    H, Hkv, scale = c["H"], c["Hkv"], 1 / np.sqrt(d)
+    out, lse = _fwd_plain(c)
+    k4, v4 = (jnp.asarray(_repeat(c[n], H)) for n in ("k", "v"))
+    ref, ref_lse = jatt._attend_fwd_scan(
+        jnp.asarray(c["q"]), k4, v4, scale, c["causal"], c["qo"], c["ko"], 256,
+        kv_bias=_jax_bias(c["mask"]))
+    np.testing.assert_allclose(out.numpy(), _flat(np.asarray(ref)), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy()[..., 0], np.asarray(ref_lse).reshape(lse.shape[:2]),
+                               rtol=1e-6, atol=ATOL)
+    do = torch.from_numpy(_flat(c["do"]))
+    delta = (do * out).sum(-1, keepdim=True)
+    args = (torch.from_numpy(_flat(c["q"])), torch.from_numpy(_flat(c["k"])),
+            torch.from_numpy(_flat(c["v"])), do, lse, delta, scale, c["causal"], c["qo"],
+            c["ko"])
+    kw = dict(kv_bias=_torch_bias(c["mask"]), heads=H, kv_heads=Hkv)
+    dq, (dk, dv) = tfa.flash_dq_plain(*args, **kw), tfa.flash_dkv_plain(*args, **kw)
+    rq = jatt.flash_bwd_from_lse(
+        jnp.asarray(c["q"]), k4, v4, jnp.asarray(c["do"]),
+        jnp.asarray(lse.numpy().reshape(c["do"].shape[:3])),
+        jnp.asarray(delta.numpy().reshape(c["do"].shape[:3])), scale, c["causal"], c["qo"],
+        c["ko"], 256, kv_bias=_jax_bias(c["mask"]))
+    g = H // Hkv
+    rdq, rdk, rdv = (np.asarray(r) for r in rq[:3])
+    rdk = rdk.reshape(B, Hkv, g, *rdk.shape[2:]).sum(2)
+    rdv = rdv.reshape(B, Hkv, g, *rdv.shape[2:]).sum(2)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        np.testing.assert_allclose(got.numpy(), _flat(want), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", ["causal", "gqa2", "offsets", "kv_mask", "masked_rows"])
