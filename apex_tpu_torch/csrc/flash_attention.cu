@@ -31,37 +31,52 @@
 // Bound on the H100, at GPT-124M training shapes (B*H = 96, S = 1024,
 // D = 64, causal, bf16): the forward by bytes (50.7 MB, 15.1 us, beside
 // 12.9 GFLOP, 13.0 us at 989 TFLOP/s), dq and dkv by tensor-core
-// operations (19.3 and 25.8 GFLOP).  Short of those bounds, the forward
-// is held back by instruction issue: two blocks of 4 warps an SM (about
-// 250 registers a thread), 2 warps a scheduler, interleave mma.sync,
-// ldmatrix and the softmax's exp2f, max and sum with no overlap of
-// tensor and CUDA-core work beyond what the other warps give; a deeper
-// k/v ring or 8 warps of 16 rows moved it little.  The backward
-// is held back in addition by synchronous loads and 32-bit fragment
-// reads.
+// operations (19.3 and 25.8 GFLOP).  Short of those bounds, the kernels
+// are held back by instruction issue: one or two blocks of 4 or 8 warps
+// an SM (the forward and dq about 250 registers a thread at 4 warps),
+// which interleave mma.sync, ldmatrix and the exp2f of the softmax with
+// no overlap of tensor and CUDA-core work beyond what the other warps
+// give.  The split backward recomputes q.k^T and do.v^T in both dq and
+// dkv: seven products a tile pair against a fused backward's five.
 //
 // Design.  Each output tile is summed by one block in a fixed order: no
 // atomics, and the backward is bitwise reproducible.  Causal tiles wholly
-// above the diagonal are skipped.
+// above the diagonal are skipped, and the heaviest blocks of a causal
+// grid are dispatched first, so the grid does not end on a tail of long
+// blocks.  Every bf16 kernel streams its tiles through a two-stage
+// cp.async ring (the next tile in flight while the current one is
+// scored, one barrier a tile), reads its fragments by ldmatrix (.trans
+// for a B operand whose depth runs down a row-major tile), keeps scores,
+// p and ds in registers in mma.sync.m16n8k16's fragment layout, works in
+// base 2 (scale * log2(e) folded into one multiply, lse turned to base 2
+// once a row, exp2f), and masks only a tile that is ragged, biased or
+// crosses the warp's causal diagonal; a warp skips tiles wholly above
+// its diagonal.
 //   bf16 forward (`flash_fwd_mma`): a block owns a 128-row q tile (4
 // warps of 32 rows for D <= 64, so each fragment of k or v read from
 // shared memory feeds two products; 8 warps of 16 rows above) and walks
-// 64-key k/v tiles through a two-stage cp.async ring, the next tile in
-// flight while the current one is scored, one barrier a tile.  Q.K^T and
-// P.V are mma.sync.m16n8k16 with ldmatrix fragments; scores, running
-// max and sum and the accumulator stay in registers, in base 2
-// (scale * log2(e) folded into one multiply, exp2f; lse is written back
-// in natural log).  Only a tile that is ragged, biased or crosses the
-// warp's causal diagonal is masked; a warp skips tiles wholly above its
-// diagonal; causal q tiles launch heaviest first, so the grid does not
-// end on a tail of long blocks.
-//   bf16 dq and dkv (`flash_dq_mma`, `flash_dkv_mma`): blocks of 4 warps
-// own a 64-row tile (q for dq, k for dkv; the dkv loop walks every q head
-// of the GQA group, then the q tiles), tiles loaded synchronously between
-// barriers, the same register-resident mma.sync products.
+// 64-key k/v tiles.  lse is written back in natural log.
+//   bf16 dq (`flash_dq_mma`): the forward's q tiling and k/v ring; q.k^T
+// and do.v^T give s and dp, ds = p (dp - delta) stays in registers as
+// the A operand of ds.k, whose k fragments come by ldmatrix .trans.  The
+// q and do fragments stay in registers at D <= 32 and D > 64 (1 block an
+// SM); at D = 48, 64 they are read again each tile, so that two blocks
+// of 4 warps fit an SM's registers.  Grid (B*H, q tiles), the q tiles
+// reversed when causal.
+//   bf16 dk, dv (`flash_dkv_mma`): a block owns 64 key rows of a kv
+// head, 4 warps of 16 rows, two blocks an SM (128 rows, 8 warps, one
+// block an SM, was slower: `Dkv`), with k and v fragments in registers
+// at D <= 64 (read from shared memory above, so the two accumulators
+// fit).  It walks the 64-row q tiles of every q head of its GQA group
+// from the first on or below the diagonal, q, do, lse and delta through
+// the ring (lse and delta by 4-byte cp.async).  k.q^T and v.do^T give
+// s^T and dp^T; p^T.do and ds^T.q take their q/do fragments by ldmatrix
+// .trans.  Grid (B*H_kv, key tiles): the first key tiles, the heaviest,
+// first.
 //   fp32 (`*_f32`, for fp32 parity runs): the same loops with every
 // product written to fp32 tiles in shared memory by a 4x4
-// register-blocked FMA loop, and one warp per row for the softmax.
+// register-blocked FMA loop, one warp per row for the softmax, and
+// tiles loaded synchronously by `load_tile` (used by these kernels only).
 //   Not used: wgmma.  A forward with two consumer warpgroups, Q.K^T as
 // wgmma m64n64k16 from shared memory and P.V as m64n16k16 with P in
 // registers (core-matrix tiles, no swizzle), gave the same outputs bit
@@ -70,10 +85,10 @@
 // and waiting on it within the warpgroup leaves the tensor cores idle
 // through the softmax.  wgmma pays off with producer and consumer
 // warpgroups that overlap one tile's softmax with the next tile's
-// products (FlashAttention-3's ping-pong), which is later work, as is
-// the backward's redesign; PERF.md keeps what that attempt settled (its
-// descriptors and fragment layouts).
-// TMA: the k/v tiles are contiguous rows that 16-byte cp.async copies
+// products (FlashAttention-3's ping-pong), which is later work; PERF.md
+// keeps what that attempt settled (its descriptors and fragment
+// layouts).
+// TMA: the tiles are contiguous rows that 16-byte cp.async copies
 // already move without a tensor map built on the host per call.
 
 #include <cuda_bf16.h>
@@ -85,7 +100,7 @@
 
 namespace {
 
-constexpr int kTile = 64;  // rows of a q tile and of a k tile
+constexpr int kTile = 64;  // rows of the fp32 kernels' q and k tiles
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
@@ -456,8 +471,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(Args a) {
 }
 
 // ------------------------------------------------ bf16: mma.sync kernels
-// One warp owns 16 rows of the block's tile (32 in the forward at D <=
-// 64, as two 16-row halves) and keeps its scores,
+// One warp owns 16 rows of the block's tile (32 in the forward and dq at
+// D <= 64, as two 16-row halves) and keeps its scores,
 // probabilities and accumulators in registers, in the fragment layout of
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate): lane = 4 * g + t holds
 // rows g and g + 8 of each 16 x 8 accumulator tile, columns 2t and
@@ -469,68 +484,11 @@ using apex_mma::bf16;
 using apex_mma::mma16816;
 using apex_mma::pack2;
 using apex_mma::cp_async16;
+using apex_mma::cp_async4;
 using apex_mma::cp_async_commit;
 using apex_mma::cp_async_wait;
 using apex_mma::quad_max;
 using apex_mma::quad_sum;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// {p[0], p[ld]}: two elements of one column, for a B operand whose k
-// runs down the rows of a row-major tile.
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p, int ld) {
-  return (uint32_t)*reinterpret_cast<const uint16_t*>(p) |
-         ((uint32_t)*reinterpret_cast<const uint16_t*>(p + ld) << 16);
-}
-
-// A fragment (16 x 16) at (m0, k0) of row-major X.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* X, int ld, int m0,
-                                       int k0, int g, int t) {
-  const bf16* p = X + (m0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// acc[j] (16 x 8, j = 0..7) += A (16 x D, fragments af) . X^T, with X a
-// row-major (64 x D) tile: the 16 x 64 product of a warp's rows with the
-// tile's 64 rows.
-template <int D>
-__device__ __forceinline__ void mm_xt(float (&acc)[8][4], uint32_t (&af)[D / 16][4],
-                                      const bf16* X, int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* p = X + (8 * j + g) * LD + 16 * kk + 2 * t;
-      mma16816(acc[j], af[kk], ld32(p), ld32(p + 8));
-    }
-  }
-}
-
-// acc[dn] (16 x 8, dn = 0..D/8-1) += P (16 x 64, the fp32 tiles s
-// rounded to bf16) . X, with X a row-major (64 x D) tile.
-template <int D>
-__device__ __forceinline__ void mm_px(float (&acc)[D / 8][4], const float (&s)[8][4],
-                                      const bf16* X, int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
-                            pack2(s[2 * kk][2], s[2 * kk][3]),
-                            pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const bf16* p = X + (16 * kk + 2 * t) * LD + 8 * dn + g;
-      mma16816(acc[dn], pa, ld_col2(p, LD), ld_col2(p + 8 * LD, LD));
-    }
-  }
-}
 
 // Row `h` (0: g, 1: g + 8) and column of accumulator element e of tile j.
 __device__ __forceinline__ int frag_col(int j, int e, int t) { return 8 * j + 2 * t + (e & 1); }
@@ -548,6 +506,48 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(dst + (int64_t)r * D + 8 * dn + 2 * t) =
           pack2(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+  }
+}
+
+// rows [0, nrows) of a tile (row stride D + 8) from src (row stride D),
+// rows past `valid` zero, by 16-byte cp.async copies.
+template <int D, int THREADS>
+__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src, int nrows, int valid) {
+  constexpr int cpr = D / 8;
+  for (int c = threadIdx.x; c < nrows * cpr; c += THREADS) {
+    const int r = c / cpr, col = (c % cpr) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * (D + 8) + col, src + (ok ? (int64_t)r * D + col : 0), ok ? 16 : 0);
+  }
+}
+
+// acc[i][dn] (16 x 8, dn = 0..D/8-1) += P_i (16 x 64, the fp32 tiles
+// s[i] rounded to bf16) . X, with X a row-major (64 x D) tile in shared
+// memory (row stride D + 8): the products p.v, ds.k, p^T.do and
+// ds^T.q, X's fragments by ldmatrix .trans, each feeding MI products.
+template <int D, int MI>
+__device__ __forceinline__ void mm_px(float (&acc)[MI][D / 8][4], const float (&s)[MI][8][4],
+                                      const bf16* X, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      pa[i][0] = pack2(s[i][2 * kk][0], s[i][2 * kk][1]);
+      pa[i][1] = pack2(s[i][2 * kk][2], s[i][2 * kk][3]);
+      pa[i][2] = pack2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+      pa[i][3] = pack2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int dn2 = 0; dn2 < D / 16; ++dn2) {
+      uint32_t bx[4];
+      apex_mma::ld_b_kn(bx, X, D + 8, 16 * dn2, 16 * kk, lane);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma16816(acc[i][2 * dn2], pa[i], bx[0], bx[1]);
+        mma16816(acc[i][2 * dn2 + 1], pa[i], bx[2], bx[3]);
+      }
+    }
   }
 }
 
@@ -584,21 +584,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMask2 = kNegInf * kLog2e;  // NEG_INF in the base-2 domain
 
-// k and v rows k0 .. k0 + 63 into a stage (rows past Sk zero).
-template <int D>
-__device__ __forceinline__ void fwd_issue_kv(bf16* sk, bf16* sv, const bf16* k, const bf16* v,
-                                             int k0, int Sk) {
-  using F = Fwd<D>;
-  constexpr int cpr = D / 8;
-  for (int c = threadIdx.x; c < F::kN * cpr; c += F::kThreads) {
-    const int r = c / cpr, col = (c % cpr) * 8;
-    const bool ok = k0 + r < Sk;
-    const int64_t o = ok ? (int64_t)(k0 + r) * D + col : 0;
-    cp_async16(sk + r * F::kLd + col, k + o, ok ? 16 : 0);
-    cp_async16(sv + r * F::kLd + col, v + o, ok ? 16 : 0);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fwd_mma(Args a) {
   using F = Fwd<D>;
@@ -630,13 +615,10 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
   const float sl2 = a.scale * kLog2e;
 
   if (n_tiles > 0) {  // the q tile (rows past Sq zero) and the first k/v tile
-    const bf16* qg = (const bf16*)a.q + ((int64_t)b * a.Sq + q0) * D;
-    for (int c = threadIdx.x; c < F::kRows * (D / 8); c += F::kThreads) {
-      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-      const bool ok = r < rows;
-      cp_async16(sQ + r * LD + col, qg + (ok ? (int64_t)r * D + col : 0), ok ? 16 : 0);
-    }
-    fwd_issue_kv<D>(sK0, sK0 + N * LD, k, v, 0, a.Sk);
+    issue_rows<D, F::kThreads>(sQ, (const bf16*)a.q + ((int64_t)b * a.Sq + q0) * D, F::kRows,
+                               rows);
+    issue_rows<D, F::kThreads>(sK0, k, N, a.Sk);
+    issue_rows<D, F::kThreads>(sK0 + N * LD, v, N, a.Sk);
     cp_async_commit();
   }
   uint32_t qf[MI][F::kQInRegs ? D / 16 : 1][4];
@@ -651,7 +633,8 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
     const int k0 = it * N;
     if (it + 1 < n_tiles) {
       bf16* nk = sK0 + ((it + 1) & 1) * kStride;
-      fwd_issue_kv<D>(nk, nk + N * LD, k, v, k0 + N, a.Sk);
+      issue_rows<D, F::kThreads>(nk, k + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
+      issue_rows<D, F::kThreads>(nk + N * LD, v + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       cp_async_commit();
     }
     if (F::kQInRegs && it == 0) {
@@ -746,28 +729,7 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
         }
       }
     }
-    // acc += P . V, P rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        pa[i][0] = pack2(s[i][2 * kk][0], s[i][2 * kk][1]);
-        pa[i][1] = pack2(s[i][2 * kk][2], s[i][2 * kk][3]);
-        pa[i][2] = pack2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
-        pa[i][3] = pack2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int dn2 = 0; dn2 < D / 16; ++dn2) {
-        uint32_t bv[4];
-        apex_mma::ld_b_kn(bv, Vs, LD, 16 * dn2, 16 * kk, lane);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma16816(acc[i][2 * dn2], pa[i], bv[0], bv[1]);
-          mma16816(acc[i][2 * dn2 + 1], pa[i], bv[2], bv[3]);
-        }
-      }
-    }
+    mm_px<D, MI>(acc, s, Vs, lane);  // acc += P . V, P rounded to bf16
   }
   bf16* out = (bf16*)a.out + ((int64_t)b * a.Sq + q0) * D;
   float* lse = a.lse_out + (int64_t)b * a.Sq + q0;
@@ -786,147 +748,349 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
   }
 }
 
+// The bf16 dq.  A block owns 128 q rows: 4 warps of 32 rows (two m16
+// tiles, so each k or v fragment read from shared memory feeds two
+// products) for D <= 64, 8 warps of 16 rows above.  The q and do
+// fragments stay in registers where they fit beside the 32-row warp's
+// scores, dp and accumulator (D <= 32, and at 16 rows a warp); else they
+// are read again from shared memory for each tile.  K/V tiles of 64 keys
+// come through a two-stage cp.async ring at one barrier a tile.  Scores
+// in base 2 as the forward's; ds stays in registers as ds.k's A operand.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_mma(Args a) {
-  constexpr int LD = D + 8;
+struct Dq {
+  static constexpr int kMi = D <= 64 ? 2 : 1;
+  static constexpr int kWarps = D <= 64 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kMi * kWarps;  // 128
+  static constexpr int kN = 64;                    // keys of a k/v tile
+  static constexpr int kLd = D + 8;
+  static constexpr bool kRegs = D <= 32 || D > 64;
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+};
+
+// The bf16 dk, dv.  A block owns 64 key rows of a kv head, 4 warps of
+// 16, two blocks an SM (8 warps of 128 rows, one block an SM, ran 9 %
+// slower at D = 64 and 128: `python -m apex_tpu_torch.flash_bwd_tiles`),
+// with their k and v fragments in registers for D <= 64 (read again from
+// shared memory for each q tile above, so the accumulators fit).  It walks the q tiles of every q head of the GQA group, from the
+// first on or below the causal diagonal, 64 q rows with their do, lse
+// and delta through a two-stage cp.async ring.  S^T = K.Q^T and
+// dP^T = V.dO^T take their B fragments by ldmatrix, p^T.do and ds^T.q
+// by ldmatrix .trans.
+template <int D>
+struct Dkv {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // key rows of a block
+  static constexpr int kN = 64;              // q rows of a q tile
+  static constexpr int kLd = D + 8;
+  static constexpr bool kRegs = D <= 64;
+  static constexpr int kMinBlocks = 2;
+};
+
+// Shared memory of the bf16 backward.  dq: the q and do tiles and two
+// stages of k and v; dkv: the k and v tiles, two stages of q and do, and
+// two of lse and delta (fp32).
+__host__ __device__ constexpr size_t dq_mma_smem(int D) {
+  return (size_t)(2 * Dq<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16);
+}
+__host__ __device__ constexpr size_t dkv_mma_smem(int D) {
+  return (size_t)(2 * Dkv<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16) + 4 * 64 * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_mma(Args a) {
+  using F = Dq<D>;
+  constexpr int MI = F::kMi, LD = F::kLd, N = F::kN, R = F::kRows;
+  constexpr int kStride = 2 * N * LD;  // a ring stage: k, then v
+  static_assert(R == Dq<16>::kRows, "dq_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + kTile * LD;
-  bf16* sK = sDO + kTile * LD;
-  bf16* sV = sK + kTile * LD;
+  bf16* sDO = sQ + R * LD;
+  bf16* sK0 = sDO + R * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int rows = min(kTile, a.Sq - q0);
+  const int b = blockIdx.x;
+  // causal: the heaviest q tiles are launched first
+  const int q0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * R;
+  const int rows = min(R, a.Sq - q0);
   const int kvb = kv_row(a, b);
   const bf16* k = (const bf16*)a.k + (int64_t)kvb * a.Sk * D;
   const bf16* v = (const bf16*)a.v + (int64_t)kvb * a.Sk * D;
   const float* bias = a.bias ? a.bias + (int64_t)(b / a.heads) * a.Sk : nullptr;
   const bool remask = a.causal || bias;
   const int64_t row0 = (int64_t)b * a.Sq + q0;
-  const int r0 = warp * 16 + g;
+  const int wr = warp * 16 * MI;  // the warp's first row of the tile
+  // keys [0, kend) are visible to some row (below Sq) of the block,
+  // [0, wkend) to some row of the warp
+  int kend = a.Sk, wkend = wr < rows ? a.Sk : 0;
+  if (a.causal) {
+    kend = min(a.Sk, max(0, a.q_offset + q0 + rows - a.k_offset));
+    if (wr < rows)
+      wkend = min(a.Sk, max(0, a.q_offset + q0 + min(rows, wr + 16 * MI) - a.k_offset));
+  }
+  const int n_tiles = (kend + N - 1) / N;
+  const float sl2 = a.scale * kLog2e;
 
-  load_tile(sQ, LD, (const bf16*)a.q + row0 * D, rows, D);
-  load_tile(sDO, LD, (const bf16*)a.dout + row0 * D, rows, D);
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], sQ, LD, warp * 16, 16 * kk, g, t);
-    load_a(df[kk], sDO, LD, warp * 16, 16 * kk, g, t);
+  if (n_tiles > 0) {  // the q and do tiles (rows past Sq zero) and the first k/v tile
+    issue_rows<D, F::kThreads>(sQ, (const bf16*)a.q + row0 * D, R, rows);
+    issue_rows<D, F::kThreads>(sDO, (const bf16*)a.dout + row0 * D, R, rows);
+    issue_rows<D, F::kThreads>(sK0, k, N, a.Sk);
+    issue_rows<D, F::kThreads>(sK0 + N * LD, v, N, a.Sk);
+    cp_async_commit();
   }
-  float lse[2], delta[2];
+  float lse[MI][2], delta[MI][2];  // lse in base 2
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    lse[h] = r < rows ? a.lse_in[row0 + r] : 0.f;
-    delta[h] = r < rows ? a.delta[row0 + r] : 0.f;
-  }
-  float acc[D / 8][4] = {};
-  for (int k0 = 0; k0 < a.Sk && diag_ok(a, q0, k0); k0 += kTile) {
-    __syncthreads();
-    const int krows = min(kTile, a.Sk - k0);
-    load_tile(sK, LD, k + (int64_t)k0 * D, krows, D);
-    load_tile(sV, LD, v + (int64_t)k0 * D, krows, D);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};
-    mm_xt<D>(s, qf, sK, g, t);
-    mm_xt<D>(dp, df, sV, g, t);
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 16 * i + g + 8 * h;
+      lse[i][h] = r < rows ? a.lse_in[row0 + r] * kLog2e : 0.f;
+      delta[i][h] = r < rows ? a.delta[row0 + r] : 0.f;
+    }
+  uint32_t qf[MI][F::kRegs ? D / 16 : 1][4], df[MI][F::kRegs ? D / 16 : 1][4];
+  float acc[MI][D / 8][4] = {};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    const int k0 = it * N;
+    if (it + 1 < n_tiles) {
+      bf16* nk = sK0 + ((it + 1) & 1) * kStride;
+      issue_rows<D, F::kThreads>(nk, k + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
+      issue_rows<D, F::kThreads>(nk + N * LD, v + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
+      cp_async_commit();
+    }
+    if (F::kRegs && it == 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, c = frag_col(j, e, t);
-        const float sc = score(a, bias, s[j][e], q0, r0 + 8 * h, k0, c);
-        float pr = expf(sc - lse[h]);
-        if ((remask && !(sc > kNegInf * 0.5f)) || k0 + c >= a.Sk) pr = 0.f;
-        s[j][e] = pr * (dp[j][e] - delta[h]);  // ds
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          apex_mma::ld_a(qf[i][kk], sQ, LD, wr + 16 * i, 16 * kk, lane);
+          apex_mma::ld_a(df[i][kk], sDO, LD, wr + 16 * i, 16 * kk, lane);
+        }
+    }
+    if (k0 >= wkend) continue;  // the tile is above the diagonal for every row of the warp
+    const bf16* Ks = sK0 + (it & 1) * kStride;
+    const bf16* Vs = Ks + N * LD;
+    // s = q.k^T and dp = do.v^T, 64 keys
+    float s[MI][8][4] = {}, dp[MI][8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (!F::kRegs) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          apex_mma::ld_a(qf[i][0], sQ, LD, wr + 16 * i, 16 * kk, lane);
+          apex_mma::ld_a(df[i][0], sDO, LD, wr + 16 * i, 16 * kk, lane);
+        }
       }
-    mm_px<D>(acc, s, sK, g, t);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bk[4], bv[4];
+        apex_mma::ld_b_nk(bk, Ks, LD, 16 * j2, 16 * kk, lane);
+        apex_mma::ld_b_nk(bv, Vs, LD, 16 * j2, 16 * kk, lane);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const uint32_t(&qa)[4] = qf[i][F::kRegs ? kk : 0];
+          const uint32_t(&da)[4] = df[i][F::kRegs ? kk : 0];
+          mma16816(s[i][2 * j2], qa, bk[0], bk[1]);
+          mma16816(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
+          mma16816(dp[i][2 * j2], da, bv[0], bv[1]);
+          mma16816(dp[i][2 * j2 + 1], da, bv[2], bv[3]);
+        }
+      }
+    }
+    // p = exp2(s * scale * log2(e) - lse), then ds = p * (dp - delta), in s;
+    // masked only where the tile is ragged, biased or crosses the diagonal
+    // of the warp's rows
+    const bool masked = k0 + N > a.Sk || bias != nullptr ||
+                        (a.causal && a.q_offset + q0 + wr < a.k_offset + k0 + N - 1);
+    if (masked) {
+      float cb[8][2];  // the bias of this thread's columns, -inf past Sk
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = k0 + frag_col(j, c, t);
+          cb[j][c] = col >= a.Sk ? -INFINITY : bias ? bias[col] * kLog2e : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const int row = q0 + wr + 16 * i + g + 8 * h, col = k0 + frag_col(j, e, t);
+            float x = s[i][j][e] * sl2 + cb[j][e & 1];
+            if (a.causal && a.q_offset + row < a.k_offset + col) x = kMask2;
+            float pr = exp2f(x - lse[i][h]);
+            if (remask && !(x > kMask2 * 0.5f)) pr = 0.f;
+            s[i][j][e] = pr * (dp[i][j][e] - delta[i][h]);
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            s[i][j][e] = exp2f(s[i][j][e] * sl2 - lse[i][h]) * (dp[i][j][e] - delta[i][h]);
+          }
+    }
+    mm_px<D, MI>(acc, s, Ks, lane);  // acc += ds . k, ds rounded to bf16
   }
   // the sum over key tiles is scaled once at the end (the Pallas kernel
   // scales each tile's product: the same rounding for a power-of-two
   // scale, e.g. D = 16, 64; within the band otherwise)
-  store_rows<D>((bf16*)a.dq + row0 * D, acc, r0, rows, a.scale, a.scale, t);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+    store_rows<D>((bf16*)a.dq + row0 * D, acc[i], wr + 16 * i + g, rows, a.scale, a.scale, t);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_mma(Args a) {
-  constexpr int LD = D + 8;
+__global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dkv_mma(Args a) {
+  using F = Dkv<D>;
+  constexpr int LD = F::kLd, N = F::kN, R = F::kRows;
+  constexpr int kStride = 2 * N * LD;  // a ring stage: q, then do
+  static_assert(R == Dkv<16>::kRows, "dkv_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * LD;
-  bf16* sQ = sV + kTile * LD;
-  bf16* sDO = sQ + kTile * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + kTile * LD);
-  float* sDelta = sLse + kTile;
+  bf16* sV = sK + R * LD;
+  bf16* sQ0 = sV + R * LD;
+  float* sL0 = reinterpret_cast<float*>(sQ0 + 2 * kStride);  // stage i: lse, then delta
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int bkv = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int krows = min(kTile, a.Sk - k0);
+  const int bkv = blockIdx.x;
+  // causal: the heaviest key tiles (lowest k0) are launched first
+  const int k0 = blockIdx.y * R;
+  const int krows = min(R, a.Sk - k0);
   const int group = a.heads / a.kv_heads;
   const int batch = bkv / a.kv_heads;
   const float* bias = a.bias ? a.bias + (int64_t)batch * a.Sk : nullptr;
   const bool remask = a.causal || bias;
   const int64_t krow0 = (int64_t)bkv * a.Sk + k0;
-  const int r0 = warp * 16 + g;  // this thread's key rows: r0, r0 + 8
+  const int wk = warp * 16;  // the warp's first key row of the tile
+  // the q tiles from the first with a row that sees key k0
+  int qfirst = a.causal ? max(0, a.k_offset + k0 - a.q_offset) : 0;
+  const int n_q = qfirst < a.Sq ? (a.Sq - qfirst / N * N + N - 1) / N : 0;
+  qfirst = qfirst / N * N;
+  const int total = group * n_q;  // (q head, q tile) steps
+  const float sl2 = a.scale * kLog2e;
 
-  load_tile(sK, LD, (const bf16*)a.k + krow0 * D, krows, D);
-  load_tile(sV, LD, (const bf16*)a.v + krow0 * D, krows, D);
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(kf[kk], sK, LD, warp * 16, 16 * kk, g, t);
-    load_a(vf[kk], sV, LD, warp * 16, 16 * kk, g, t);
+  // q, do, lse and delta of step `it` into ring stage it & 1 (rows past Sq zero)
+  auto issue = [&](int it) {
+    const int b = batch * a.heads + (bkv % a.kv_heads) * group + it / n_q;
+    const int q0 = qfirst + (it % n_q) * N;
+    const int64_t row0 = (int64_t)b * a.Sq + q0;
+    const int valid = a.Sq - q0;
+    bf16* sq = sQ0 + (it & 1) * kStride;
+    issue_rows<D, F::kThreads>(sq, (const bf16*)a.q + row0 * D, N, valid);
+    issue_rows<D, F::kThreads>(sq + N * LD, (const bf16*)a.dout + row0 * D, N, valid);
+    float* sl = sL0 + (it & 1) * 2 * N;
+    for (int c = threadIdx.x; c < 2 * N; c += F::kThreads) {
+      const int r = c % N;
+      const bool ok = r < valid;
+      cp_async4(sl + c, (c < N ? a.lse_in : a.delta) + (ok ? row0 + r : 0), ok ? 4 : 0);
+    }
+  };
+  if (total > 0) {  // the k and v tiles (rows past Sk zero) and the first step
+    issue_rows<D, F::kThreads>(sK, (const bf16*)a.k + krow0 * D, R, krows);
+    issue_rows<D, F::kThreads>(sV, (const bf16*)a.v + krow0 * D, R, krows);
+    issue(0);
+    cp_async_commit();
   }
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int gi = 0; gi < group; ++gi) {
-    const int b = batch * a.heads + (bkv % a.kv_heads) * group + gi;
-    for (int q0 = 0; q0 < a.Sq; q0 += kTile) {
-      if (!diag_ok(a, q0, k0)) continue;
-      const int rows = min(kTile, a.Sq - q0);
-      const int64_t row0 = (int64_t)b * a.Sq + q0;
-      __syncthreads();
-      load_tile(sQ, LD, (const bf16*)a.q + row0 * D, rows, D);
-      load_tile(sDO, LD, (const bf16*)a.dout + row0 * D, rows, D);
-      if (threadIdx.x < kTile) {
-        const int r = threadIdx.x;
-        sLse[r] = r < rows ? a.lse_in[row0 + r] : 0.f;
-        sDelta[r] = r < rows ? a.delta[row0 + r] : 0.f;
+  uint32_t kf[F::kRegs ? D / 16 : 1][4], vf[F::kRegs ? D / 16 : 1][4];
+  float dk[1][D / 8][4] = {}, dv[1][D / 8][4] = {};
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // step it landed; every warp is done with step it - 1
+    if (it + 1 < total) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    if (F::kRegs && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        apex_mma::ld_a(kf[kk], sK, LD, wk, 16 * kk, lane);
+        apex_mma::ld_a(vf[kk], sV, LD, wk, 16 * kk, lane);
       }
-      __syncthreads();
-      // s^T (this warp's 16 keys x the tile's 64 queries), then p^T
-      float st[8][4] = {};
-      mm_xt<D>(st, kf, sQ, g, t);
+    }
+    const int q0 = qfirst + (it % n_q) * N;
+    // the warp's keys are past Sk, or above the diagonal for every q row
+    // of the tile
+    if (k0 + wk >= a.Sk ||
+        (a.causal && a.q_offset + min(a.Sq, q0 + N) - 1 < a.k_offset + k0 + wk))
+      continue;
+    const bf16* Qs = sQ0 + (it & 1) * kStride;
+    const bf16* DOs = Qs + N * LD;
+    const float* Ls = sL0 + (it & 1) * 2 * N;
+    const float* Ds = Ls + N;
+    // s^T = k.q^T and dp^T = v.do^T: the warp's 16 keys x the tile's 64 q rows
+    float st[1][8][4] = {}, dpt[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (!F::kRegs) {
+        apex_mma::ld_a(kf[0], sK, LD, wk, 16 * kk, lane);
+        apex_mma::ld_a(vf[0], sV, LD, wk, 16 * kk, lane);
+      }
+      const uint32_t(&ka)[4] = kf[F::kRegs ? kk : 0];
+      const uint32_t(&va)[4] = vf[F::kRegs ? kk : 0];
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t bq[4], bd[4];
+        apex_mma::ld_b_nk(bq, Qs, LD, 16 * j2, 16 * kk, lane);
+        apex_mma::ld_b_nk(bd, DOs, LD, 16 * j2, 16 * kk, lane);
+        mma16816(st[0][2 * j2], ka, bq[0], bq[1]);
+        mma16816(st[0][2 * j2 + 1], ka, bq[2], bq[3]);
+        mma16816(dpt[2 * j2], va, bd[0], bd[1]);
+        mma16816(dpt[2 * j2 + 1], va, bd[2], bd[3]);
+      }
+    }
+    // p^T = exp2(s^T * scale * log2(e) - lse), masked only where the tile
+    // is ragged (keys or q rows), biased or crosses the warp's diagonal
+    const bool masked = k0 + wk + 16 > a.Sk || q0 + N > a.Sq || bias != nullptr ||
+                        (a.causal && a.q_offset + q0 < a.k_offset + k0 + wk + 15);
+    if (masked) {
+      float kb[2];  // the bias of this thread's two keys, -inf past Sk
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + wk + g + 8 * h;
+        kb[h] = key >= a.Sk ? -INFINITY : bias ? bias[key] * kLog2e : 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kr = r0 + 8 * (e >> 1), qc = frag_col(j, e, t);
-          const float sc = score(a, bias, st[j][e], q0, qc, k0, kr);
-          float pr = expf(sc - sLse[qc]);
-          if ((remask && !(sc > kNegInf * 0.5f)) || k0 + kr >= a.Sk || qc >= rows) pr = 0.f;
-          st[j][e] = pr;
+          const int h = e >> 1, c = frag_col(j, e, t);
+          const int key = k0 + wk + g + 8 * h, row = q0 + c;
+          float x = st[0][j][e] * sl2 + kb[h];
+          if (a.causal && a.q_offset + row < a.k_offset + key) x = kMask2;
+          float pr = exp2f(x - Ls[c] * kLog2e);
+          if ((remask && !(x > kMask2 * 0.5f)) || row >= a.Sq) pr = 0.f;
+          st[0][j][e] = pr;
         }
-      mm_px<D>(dv, st, sDO, g, t);  // dv += p^T . do
-      float dpt[8][4] = {};
-      mm_xt<D>(dpt, vf, sDO, g, t);  // dp^T = v . do^T
+    } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          st[j][e] *= dpt[j][e] - sDelta[frag_col(j, e, t)];  // ds^T
-      mm_px<D>(dk, st, sQ, g, t);  // dk += ds^T . q (scaled at the end, as dq)
+          st[0][j][e] = exp2f(st[0][j][e] * sl2 - Ls[frag_col(j, e, t)] * kLog2e);
     }
+    mm_px<D, 1>(dv, st, DOs, lane);  // dv += p^T . do, p rounded to bf16
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[0][j][e] *= dpt[j][e] - Ds[frag_col(j, e, t)];  // ds^T
+    mm_px<D, 1>(dk, st, Qs, lane);  // dk += ds^T . q (scaled at the end, as dq)
   }
-  store_rows<D>((bf16*)a.dk + krow0 * D, dk, r0, krows, a.scale, a.scale, t);
-  store_rows<D>((bf16*)a.dv + krow0 * D, dv, r0, krows, 1.f, 1.f, t);
+  store_rows<D>((bf16*)a.dk + krow0 * D, dk[0], wk + g, krows, a.scale, a.scale, t);
+  store_rows<D>((bf16*)a.dv + krow0 * D, dv[0], wk + g, krows, 1.f, 1.f, t);
 }
 
-// Shared memory of the mma kernels: the forward's q tile and k/v ring;
-// 4 bf16 tiles for dq, plus lse and delta for dkv.
+// Shared memory of the mma kernels (which: 0 = fwd, 1 = dq, 2 = dkv).
 __host__ __device__ inline size_t mma_smem(int which, int D) {
-  const size_t tile = (size_t)kTile * (D + 8) * sizeof(bf16);
-  return which == 0 ? fwd_mma_smem(D) : which == 1 ? 4 * tile : 4 * tile + 2 * kTile * sizeof(float);
+  return which == 0 ? fwd_mma_smem(D) : which == 1 ? dq_mma_smem(D) : dkv_mma_smem(D);
 }
 
 cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, int threads,
@@ -938,17 +1102,20 @@ cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, 
   return cudaGetLastError();
 }
 
-// rows: B*H for fwd and dq, B*H_kv for dkv.  The fp32 kernels and the
-// bf16 backward take grid (64-row tiles, rows); the bf16 forward (rows,
-// 128-row q tiles).
+// rows: B*H for fwd and dq, B*H_kv for dkv.  The fp32 kernels take grid
+// (64-row tiles, rows); the bf16 kernels (rows, tiles), so that a
+// causal grid's heaviest tiles (reversed q tiles, the first key tiles)
+// are dispatched first.
 template <int D>
 cudaError_t launch_mma(int which, const Args& a, int rows, cudaStream_t st) {
   if (which == 0)
     return launch(&flash_fwd_mma<D>, mma_smem(0, D), a,
                   dim3(rows, (a.Sq + Fwd<D>::kRows - 1) / Fwd<D>::kRows), Fwd<D>::kThreads, st);
-  const int tiles = ((which == 1 ? a.Sq : a.Sk) + kTile - 1) / kTile;
-  return launch(which == 1 ? &flash_dq_mma<D> : &flash_dkv_mma<D>, mma_smem(which, D), a,
-                dim3(tiles, rows), kThreads, st);
+  if (which == 1)
+    return launch(&flash_dq_mma<D>, mma_smem(1, D), a,
+                  dim3(rows, (a.Sq + Dq<D>::kRows - 1) / Dq<D>::kRows), Dq<D>::kThreads, st);
+  return launch(&flash_dkv_mma<D>, mma_smem(2, D), a,
+                dim3(rows, (a.Sk + Dkv<D>::kRows - 1) / Dkv<D>::kRows), Dkv<D>::kThreads, st);
 }
 
 int dispatch(int which, const Args& a, int rows, int dtype, void* stream) {

@@ -1,8 +1,8 @@
 // Helpers shared by the kernels (decode_attention.cu, flash_attention.cu,
 // fused_ce.cu): mma.sync.m16n8k16 with bf16 inputs and fp32
 // accumulators, the ldmatrix loads that fill its operands from shared
-// memory, the quad reductions over a fragment row, and 16-byte cp.async
-// copies.
+// memory, the quad reductions over a fragment row, and 16- and 4-byte
+// cp.async copies.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16): lane = 4 * g + t holds, of
 // the 16 x 8 accumulator, rows g and g + 8 at columns 2t and 2t + 1
@@ -93,6 +93,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 // nothing is read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// The same for 4 bytes (4-byte aligned), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -13,6 +13,11 @@ them and how they are laid out).
 - :func:`flash_dkv` (``_dkv_kernel``) -> ``(dk, dv)``, summed over each
   kv head's q-head group.
 
+:func:`bwd_launch_plan` states the bf16 dq and dkv kernels' tile
+schedule (rows a block owns, the blocks' launch order, the tiles each
+walks, shared memory), a pure function of the shapes that the CPU tests
+check; ``chip_smoke.py`` holds its bytes against ``apex_flash_smem``.
+
 Each launches its kernel for CUDA tensors and runs its plain version
 (the ``_attend_fwd_scan`` / ``flash_bwd_from_lse`` specification of
 :mod:`apex_tpu_torch.ops.attention`) for CPU tensors, and for nothing
@@ -27,6 +32,8 @@ forward saves q, k, v, the bias, out and lse; the backward computes
 JAX package) and runs dq then dk/dv.  The bias gets no gradient (a
 padding mask is data).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +53,61 @@ _SMEM_LIMIT = 232448
 
 #: key-block size of the plain versions (the JAX scan path's default)
 _PLAIN_BLOCK_K = 256
+
+#: the bf16 backward kernels' tiles (csrc Dq, Dkv): rows a dq block owns
+#: (q) and a dkv block owns (keys), and the rows of the tiles each walks
+#: through its cp.async ring (keys for dq, q rows for dkv)
+DQ_BLOCK_ROWS = 128
+DKV_BLOCK_ROWS = 64
+BWD_TILE = 64
+
+
+class BwdLaunchPlan(NamedTuple):
+    rows_per_block: int  # q rows (dq) or key rows (dkv) a block owns
+    tile_rows: int       # rows of a walked tile: keys (dq), q rows (dkv)
+    order: tuple         # the blocks (index of their rows) in launch order
+    first: tuple         # by block index: the first tile it walks
+    last: tuple          # by block index: the last (first - 1: none)
+    smem_bytes: int      # dynamic shared memory of one block
+
+
+def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
+    """The bf16 backward's schedule for one (batch, head) row, as the C
+    kernels index it.  ``which`` 1: dq, a block of DQ_BLOCK_ROWS q rows
+    walks the 64-key tiles up to the last key one of its rows (below
+    Sq) sees; causal grids launch the last q blocks, the heaviest, first.
+    ``which`` 2: dkv, a block of DKV_BLOCK_ROWS keys walks the 64-row q
+    tiles from the first with a row that sees its first key (for each q
+    head of its GQA group, the same tiles); its first blocks are the
+    heaviest.  Shared memory: the owned tiles, two ring stages of two
+    bf16 tiles (row stride D + 8) and, for dkv, two of lse and delta."""
+    if which not in (1, 2):
+        raise ValueError(f"which must be 1 (dq) or 2 (dkv), got {which}")
+    N = BWD_TILE
+    if which == 1:
+        R = DQ_BLOCK_ROWS
+        n_blocks = -(-Sq // R)
+        first, last = [], []
+        for qb in range(n_blocks):
+            q0 = qb * R
+            kend = Sk
+            if causal:
+                kend = min(Sk, max(0, q_offset + min(Sq, q0 + R) - k_offset))
+            first.append(0)
+            last.append(-(-kend // N) - 1)
+        order = tuple(reversed(range(n_blocks))) if causal else tuple(range(n_blocks))
+        smem = (2 * R + 4 * N) * (D + 8) * 2
+    else:
+        R = DKV_BLOCK_ROWS
+        n_blocks = -(-Sk // R)
+        first, last = [], []
+        for kb in range(n_blocks):
+            r = max(0, k_offset + kb * R - q_offset) if causal else 0
+            first.append(r // N if r < Sq else -(-Sq // N))
+            last.append(-(-Sq // N) - 1)
+        order = tuple(range(n_blocks))
+        smem = (2 * R + 4 * N) * (D + 8) * 2 + 4 * N * 4
+    return BwdLaunchPlan(R, N, order, tuple(first), tuple(last), smem)
 
 
 def _unflatten(q, k, v, kv_bias, heads, kv_heads):

@@ -29,7 +29,10 @@ Phases, each printing one JSON line:
    kernel's 64-position stage edges and one past them).  Flash attention
    at GPT-124M's shape (B*H = 96, S = 1024, causal) in bf16 at D = 32,
    64 and 128 (each with SDPA's time), fp32, GQA, non-causal, a key
-   bias and offsets.
+   bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
+   keys), and bf16 at D = 16, 48, 80, 96 and 112 (B = 2); the bf16
+   backward's shared memory as ``bwd_launch_plan`` states it against
+   the C entry's at every head dim.
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
    count from that run, checked exactly against the steps taken.
@@ -450,6 +453,24 @@ def check_decode_plan(lib):
     return {"plans_checked": n}
 
 
+def check_flash_plan(lib):
+    """The bf16 backward's shared memory as ``bwd_launch_plan`` states it
+    (the Python plan the CPU tests check) against ``apex_flash_smem``,
+    which the launches use, at every head dim: equal."""
+    from apex_tpu_torch.ops.flash_attention import bwd_launch_plan
+
+    n = 0
+    for which in (1, 2):
+        for D in range(16, 129, 16):
+            got = lib.apex_flash_smem(which, D, 1)
+            want = bwd_launch_plan(which, 1024, 1024, D, True).smem_bytes
+            if got != want:
+                raise AssertionError(f"flash backward plan which={which} D={D}: C {got} B, "
+                                     f"Python {want} B")
+            n += 1
+    return {"plans_checked": n}
+
+
 def check_sampling(dev, temperature, top_k, N):
     from apex_tpu_torch.ops.decode_sampling import (
         fused_sample, fused_sample_plain, gumbel_from_seed,
@@ -570,10 +591,11 @@ def causal_pairs(Sq, Sk, causal, q_offset, k_offset):
 
 
 def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
-                q_offset=0, k_offset=0, masked=False, library=False):
+                q_offset=0, k_offset=0, masked=False, library=False, Sk=None):
     """flash_fwd, flash_dq and flash_dkv against their plain versions on
-    one input; the backward kernels and plain versions get the kernel's
-    lse and delta, so each kernel is held on its own."""
+    one input (S q rows, Sk keys, Sk = S by default); the backward
+    kernels and plain versions get the kernel's lse and delta, so each
+    kernel is held on its own."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops.attention import padding_bias
 
@@ -582,11 +604,13 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
 
+    Sk = Sk or S
     q, do = randn(B * H, S, D), randn(B * H, S, D)
-    k, v = randn(B * Hkv, S, D), randn(B * Hkv, S, D)
+    k, v = randn(B * Hkv, Sk, D), randn(B * Hkv, Sk, D)
     bias = None
-    if masked:  # batch row b keeps its first S - 100 * b keys
-        valid = torch.arange(S, device=dev)[None, :] < (S - 100 * torch.arange(B, device=dev))[:, None]
+    if masked:  # batch row b keeps its first Sk - 100 * b keys
+        valid = (torch.arange(Sk, device=dev)[None, :]
+                 < (Sk - 100 * torch.arange(B, device=dev))[:, None])
         bias = padding_bias(valid)[:, None, :].contiguous()
     scale = 1.0 / math.sqrt(D)
     kw = dict(kv_bias=bias, heads=H, kv_heads=Hkv)
@@ -623,16 +647,16 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
     if bad or not finite:
         raise AssertionError(f"flash {case} {dtype}: errors {errs} over {tol} "
                              f"(finite={finite})")
-    e, pairs = q.element_size(), causal_pairs(S, S, causal, q_offset, k_offset)
+    e, pairs = q.element_size(), causal_pairs(S, Sk, causal, q_offset, k_offset)
     BH, BKV = B * H, B * Hkv
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    qb, kb, rb = BH * S * D * e, BKV * S * D * e, BH * S * 4
-    biasb = 0 if bias is None else B * S * 4
+    qb, kb, rb = BH * S * D * e, BKV * Sk * D * e, BH * S * 4
+    biasb = 0 if bias is None else B * Sk * 4
     bounds = {"fwd": bound(2 * qb + 2 * kb + rb + biasb, 4 * D * pairs * BH, peak),
               "dq": bound(3 * qb + 2 * kb + 2 * rb + biasb, 6 * D * pairs * BH, peak),
               "dkv": bound(2 * qb + 4 * kb + 2 * rb + biasb, 8 * D * pairs * BH, peak)}
     lib = {"fwd": None, "bwd": None}
-    if library:
+    if library:  # SDPA's causal mask is the kernels' only at Sq == Sk, no offsets
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q4, k4, v4 = (t.view(B, -1, S, D).detach().requires_grad_() for t in (q, k, v))
         o4 = sdpa(q4, k4, v4, is_causal=causal)
@@ -645,7 +669,8 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
                        lambda: fa.flash_dq_plain(*bwd_args, **kw), lib["bwd"]),
          "dkv": timings(lambda: fa.flash_dkv(*bwd_args, **kw),
                         lambda: fa.flash_dkv_plain(*bwd_args, **kw), lib["bwd"])}
-    base = {"case": case, "B": B, "H": H, "H_kv": Hkv, "S": S, "D": D, "causal": causal,
+    base = {"case": case, "B": B, "H": H, "H_kv": Hkv, "S": S, "Sk": Sk, "D": D,
+            "causal": causal,
             "q_offset": q_offset, "k_offset": k_offset, "kv_bias": masked,
             "dtype": str(dtype).replace("torch.", ""), "fully_masked_rows": dead_rows,
             "rel_errors": errs, "abs_errors": abs_errs, "tolerance": tol,
@@ -1621,7 +1646,12 @@ def main():
         # the other head widths of the bf16 kernels, at the gpt124 shape
         ("gpt124_d32", torch.bfloat16, {"D": 32, "library": True}),
         ("gpt124_d128", torch.bfloat16, {"D": 128, "library": True}),
+        # a ring-attention chunk: q rows 512.. of 1024 keys
+        ("chunk", torch.bfloat16, {"S": 512, "Sk": 1024, "q_offset": 512}),
+        # the other instantiations of the bf16 kernels
+        *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
+    emit({"phase": "kernel", "kernel": "flash_bwd_plan", **check_flash_plan(_build.load())})
     for case, dtype, kw in flash_cases:
         r = check_flash(dev, dtype, case, **kw)
         results[("flash", case, dtype)] = r

@@ -16,6 +16,8 @@ by two frameworks; values are O(1)); bf16 outputs one bf16 step apart at
 most (both fp32 inside, one final rounding each).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,7 @@ import jax.numpy as jnp
 from apex_tpu.ops import attention as jatt
 from apex_tpu.ops.flash_attention_pallas import flash_bwd_pallas, flash_fwd_pallas
 
+from apex_tpu_torch.flash_bwd_tiles import VARIANTS, variant_source
 from apex_tpu_torch.ops import attention as tatt
 from apex_tpu_torch.ops import flash_attention as tfa
 
@@ -265,3 +268,68 @@ def test_flash_attention_with_lse_and_refusals():
     meta = torch.empty(2, 64, 32, device="meta")
     with pytest.raises(ValueError, match="not supported"):
         tfa.flash_fwd(meta, meta, meta, 0.1, True)
+
+
+#: (Sq, Sk, causal, q_offset, k_offset) of the bf16 backward's schedule
+#: tests: the training shape, ragged S, a ring-attention chunk (q rows
+#: 512.. of 1024 keys), offsets that leave rows with no visible key, and
+#: keys ahead of every q row
+PLAN_SHAPES = {
+    "gpt124": (1024, 1024, True, 0, 0),
+    "non_causal": (1024, 1024, False, 0, 0),
+    "ragged": (1000, 1000, True, 0, 0),
+    "ragged_non_causal": (1000, 1000, False, 0, 0),
+    "chunk": (512, 1024, True, 512, 0),
+    "offsets": (1000, 1000, True, 0, 100),
+    "keys_ahead": (200, 300, True, 0, 250),
+    "short": (100, 50, True, 20, 0),
+}
+
+
+@pytest.mark.parametrize("which", [1, 2])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_bwd_launch_plan_visits_each_visible_tile_pair_once(shape, which):
+    """dq (1) and dkv (2) blocks, walking the tiles the plan gives them,
+    cover every visible (q row, key) entry exactly once, visit no tile
+    pair wholly above the diagonal, and launch causal blocks heaviest
+    first."""
+    Sq, Sk, causal, qo, ko = PLAN_SHAPES[shape]
+    plan = tfa.bwd_launch_plan(which, Sq, Sk, 64, causal, qo, ko)
+    R, N = plan.rows_per_block, plan.tile_rows
+    assert sorted(plan.order) == list(range(-(-(Sq if which == 1 else Sk) // R)))
+    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    visible = (qo + i >= ko + j) if causal else np.ones((Sq, Sk), bool)
+    cover = np.zeros((Sq, Sk), np.int32)
+    work = []
+    for blk in plan.order:
+        work.append(plan.last[blk] - plan.first[blk] + 1)
+        for tile in range(plan.first[blk], plan.last[blk] + 1):
+            rb, cb = (blk * R, tile * N) if which == 1 else (tile * N, blk * R)
+            rows = slice(rb, min(Sq, rb + (R if which == 1 else N)))
+            cols = slice(cb, min(Sk, cb + (N if which == 1 else R)))
+            assert visible[rows, cols].any(), (blk, tile)
+            cover[rows, cols] += 1
+    assert (cover[visible] == 1).all() and (cover[~visible] <= 1).all()
+    if causal:
+        assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("which", [1, 2])
+@pytest.mark.parametrize("d", range(16, 129, 16))
+def test_bwd_launch_plan_fits_the_card(d, which):
+    plan = tfa.bwd_launch_plan(which, 1024, 1024, d, True)
+    assert 0 < plan.smem_bytes <= tfa._SMEM_LIMIT
+    assert plan.smem_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tile_variants_apply_to_the_kernel_source(variant):
+    """``flash_bwd_tiles`` builds each variant by giving constants of the
+    kernels' Dq/Dkv structs new values: each constant is still in its
+    struct, and the variant changes exactly those lines, to new values."""
+    src = (Path(tfa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    out = variant_source(src, VARIANTS[variant])
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert len(src.splitlines()) == len(out.splitlines())
+    assert sorted(b.split("=")[0].split()[-1] for _, b in changed) == sorted(
+        name for _, name in VARIANTS[variant])
