@@ -48,6 +48,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
+// Two 8 x 8 bf16 matrices; lanes 0-15 give the row addresses as for x4.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // The same, each matrix transposed on the way in.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -69,6 +76,12 @@ __device__ __forceinline__ void ld_b_nk(uint32_t (&b)[4], const bf16* Y, int ld,
                                         int k0, int lane) {
   ldmatrix_x4(b, Y + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
                      ((lane >> 3) & 1) * 8);
+}
+
+// b[0], b[1] of ld_b_nk alone: one n-tile, columns n0..n0+7.
+__device__ __forceinline__ void ld_b_nk1(uint32_t (&b)[2], const bf16* Y, int ld, int n0,
+                                         int k0, int lane) {
+  ldmatrix_x2(b, Y + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
 }
 
 // The same from Y stored k-major (Y[k * ld + n], row-major K x N).

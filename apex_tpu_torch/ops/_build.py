@@ -88,10 +88,13 @@ SIGNATURES = {
     "apex_ce_fwd_splits": (_I, [_I, _I, _I]),
     # x, embed, t, part, m, l, tgt, N, H, V, x_dtype, embed_dtype, stream
     "apex_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # x, embed, t, lse, g, dx, N, H, V, x_dtype, embed_dtype, stream
-    "apex_ce_dx": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # x, embed, t, lse, g, dembed, N, H, V, x_dtype, embed_dtype, stream
-    "apex_ce_dembed": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # which, N, H, V, x_dtype, embed_dtype, out (int64 x 7)
+    "apex_ce_bwd_plan": (_I, [_I, _I, _I, _I, _I, _I, _P]),
+    # x, embed, t, lse, g, dx, scratch, N, H, V, x_dtype, embed_dtype, stream
+    "apex_ce_dx": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, embed, t, lse, g, dembed, scratch, N, H, V, x_dtype, embed_dtype,
+    # stream
+    "apex_ce_dembed": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 #: torch dtype -> the C entries' dtype code

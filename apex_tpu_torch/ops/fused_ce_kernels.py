@@ -14,8 +14,15 @@ them), lse and g ``(N,)`` float32.  The kernels are ``csrc/fused_ce.cu``
 - :func:`ce_dx` (``_dx_kernel``) -> dx (N, H) in x's dtype;
 - :func:`ce_dembed` (``_dembed_kernel``) -> dembed (V, H) fp32;
 
-the gradients of ``sum(g * (lse - tgt))``.  The kernels' arithmetic is
-the Pallas kernels' default: x and embed rounded to bf16 before ``x .
+the gradients of ``sum(g * (lse - tgt))``.  dx and dembed stream one
+operand (the embed, x) past rows of the other held in a block; when it
+is fp32 the wrapper allocates its bf16 copy as scratch, which the call
+fills before the kernel runs (one call still counts one launch).
+:func:`ce_bwd_plan` states their tile plan, a pure function of the
+shapes that the CPU tests check; ``chip_smoke.py`` holds it against
+``apex_ce_bwd_plan``, what the C side launches with.
+
+The kernels' arithmetic is the Pallas kernels' default: x and embed rounded to bf16 before ``x .
 e^T`` and d rounded to bf16 before ``d . e`` and ``d^T . x``, with fp32
 accumulation, whatever x's dtype.
 
@@ -29,6 +36,8 @@ default, what the CPU path runs: the JAX package's semantics there) or
 ``torch.bfloat16``, which rounds the dot inputs as the kernels do.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from apex_tpu_torch.ops import _build
@@ -40,6 +49,45 @@ DEMBED_LAUNCHES = 0
 
 #: rows per block of the plain versions
 PLAIN_CHUNK_ROWS = 1024
+
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+#: the backward's tiles (csrc BwdH768 for H <= 768, BwdH1024 above): own
+#: rows a block, streamed rows a tile, K groups of the score product,
+#: warps a block
+BWD_TILES = {768: (64, 32, 4, 8), 1024: (32, 32, 6, 12)}
+
+
+class CeBwdPlan(NamedTuple):
+    own_rows: int       # rows of the held operand a block owns (x: dx, embed: dembed)
+    stream_rows: int    # rows of the streamed operand a tile
+    k_groups: int       # warp groups splitting the score product over H
+    warps: int          # warps a block
+    stages: int         # tiles of the cp.async ring
+    smem_bytes: int     # dynamic shared memory of one block
+    scratch_bytes: int  # the streamed operand's bf16 copy (0: it is bf16)
+
+
+def ce_bwd_plan(which, N, H, V, x_dtype, e_dtype):
+    """The bf16 backward's plan, as ``csrc/fused_ce.cu`` launches it:
+    ``which`` 1 (dx: own x rows, streamed embed) or 2 (dembed: own embed
+    rows, streamed x).  Shared memory: the own tile and two ring stages
+    (bf16, row stride H + 8), d (bf16, row stride stream_rows + 8), the
+    row data (lse, g, t of the own rows for dx, of two stages for
+    dembed) and k_groups - 1 fp32 partials of s."""
+    if which not in (1, 2):
+        raise ValueError(f"which must be 1 (dx) or 2 (dembed), got {which}")
+    rows, sr, kg, warps = BWD_TILES[768 if H <= 768 else 1024]
+    streamed_dtype, streamed_rows = (e_dtype, V) if which == 1 else (x_dtype, N)
+    scratch = streamed_rows * H * 2 if streamed_dtype == torch.float32 else 0
+    return CeBwdPlan(rows, sr, kg, warps, 2, bwd_smem_bytes(which, H, rows, sr, kg), scratch)
+
+
+def bwd_smem_bytes(which, H, rows, sr, kg):
+    """Shared memory of one backward block (``csrc`` ``bwd_smem``)."""
+    smem = ((rows + 2 * sr) * (H + 8) + rows * (sr + 8)) * 2
+    return smem + 3 * (2 * sr if which == 2 else rows) * 4 + (kg - 1) * rows * sr * 4
 
 
 def _dot_operand(a, dot_dtype):
@@ -146,6 +194,18 @@ def _prepare(name, x2, embed, t, rows=()):
     return lib, stream, (_build.DTYPE_CODES[x2.dtype], _build.DTYPE_CODES[embed.dtype])
 
 
+def _bf16_scratch(streamed):
+    """A bf16 buffer the shape of the streamed operand, which the call
+    fills with its copy, or None when the operand is bf16 already."""
+    if streamed.dtype == torch.bfloat16:
+        return None
+    return torch.empty(streamed.shape, dtype=torch.bfloat16, device=streamed.device)
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
 def ce_fwd(x2, embed, t):
     """``(m, l, tgt)``, each (N,) fp32, of the logits ``x2 . embed^T``."""
     if x2.device.type == "cpu":
@@ -175,9 +235,10 @@ def ce_dx(x2, embed, t, lse, g):
     dx = torch.empty_like(x2)
     if N == 0:
         return dx
+    scratch = _bf16_scratch(embed)
     _build.check(lib.apex_ce_dx(
         x2.data_ptr(), embed.data_ptr(), t.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), N, H, embed.shape[0], *codes, stream), "ce_dx")
+        dx.data_ptr(), _ptr(scratch), N, H, embed.shape[0], *codes, stream), "ce_dx")
     global DX_LAUNCHES
     DX_LAUNCHES += 1
     return dx
@@ -192,9 +253,10 @@ def ce_dembed(x2, embed, t, lse, g):
     if N == 0:
         return torch.zeros(embed.shape, dtype=torch.float32, device=x2.device)
     de = torch.empty(embed.shape, dtype=torch.float32, device=x2.device)
+    scratch = _bf16_scratch(x2)
     _build.check(lib.apex_ce_dembed(
         x2.data_ptr(), embed.data_ptr(), t.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        de.data_ptr(), N, H, embed.shape[0], *codes, stream), "ce_dembed")
+        de.data_ptr(), _ptr(scratch), N, H, embed.shape[0], *codes, stream), "ce_dembed")
     global DEMBED_LAUNCHES
     DEMBED_LAUNCHES += 1
     return de

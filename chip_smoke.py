@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
    modes forward and backward at 8192 rows; the fused-CE forward, dx and
    dembed at N = 8192, H = 768, V = 50304 with bf16 dots, a ragged
    N = 1000, V = 50257 case, every (x, embed) dtype pair at H = 768 and
-   1024, and a control -- the backward fed lse + log 2 -- that must fail
-   the same band), with its error and tolerance, its device
+   1024, H = 80 and 784 (widths that the backward's K groups split
+   unevenly), and a control -- the backward fed lse + log 2 -- that must
+   fail the same band; the backward's tile plan as ``ce_bwd_plan``
+   states it against the C entry's), with its error and tolerance, its device
    time beside the plain version's, one PyTorch library call's where
    one computes the same function (for the CE kernels the dense bf16
    head, two calls), and the bound (the larger of bytes at 3.35 TB/s
@@ -64,7 +66,8 @@ Phases, each printing one JSON line:
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
    step's, and the two steps' times side by side.
 9. train_reproducible: two backward passes of one flash layer bitwise
-   equal.
+   equal, and two calls each of the CE dx and dembed kernels at
+   GPT-124M bitwise equal.
 10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
     H=12, S=1024; and GQA H_kv=4): the output and the gradients through
     ``flash_attention`` on the card (the bf16 kernels the train step
@@ -471,6 +474,35 @@ def check_flash_plan(lib):
     return {"plans_checked": n}
 
 
+def check_ce_plan(lib):
+    """The fused-CE backward's plan as ``ce_bwd_plan`` states it (the
+    Python plan the CPU tests check) against ``apex_ce_bwd_plan``, what
+    the launches use, for dx and dembed at every dtype pair, at GPT-124M,
+    every ``CE_GRID`` shape and every H the kernels take: equal, field
+    for field."""
+    import ctypes
+
+    from apex_tpu_torch.ops.fused_ce_kernels import ce_bwd_plan
+
+    shapes = {(8192, 768, 50304)} | {(kw["N"], kw["H"], kw["V"]) for _, kw in CE_GRID}
+    shapes |= {(8192, H, 50304) for H in range(16, 1025, 16)}
+    got = (ctypes.c_int64 * 7)()
+    n = 0
+    for N, H, V in sorted(shapes):
+        for which in (1, 2):
+            for xd in (torch.float32, torch.bfloat16):
+                for ed in (torch.float32, torch.bfloat16):
+                    rc = lib.apex_ce_bwd_plan(which, N, H, V, int(xd == torch.bfloat16),
+                                              int(ed == torch.bfloat16), ctypes.addressof(got))
+                    want = tuple(ce_bwd_plan(which, N, H, V, xd, ed))
+                    if rc or tuple(got) != want:
+                        raise AssertionError(
+                            f"CE backward plan which={which} N={N} H={H} V={V} dtypes "
+                            f"{xd},{ed}: C {tuple(got)} (rc {rc}), Python {want}")
+                    n += 1
+    return {"plans_checked": n}
+
+
 def check_sampling(dev, temperature, top_k, N):
     from apex_tpu_torch.ops.decode_sampling import (
         fused_sample, fused_sample_plain, gumbel_from_seed,
@@ -702,14 +734,18 @@ CE_TOL = {"fwd": 1e-5, "out_bf16": 2.0 ** -7, "acc_step": 2.0 ** -22, "flip": 2.
 
 #: the CE kernels' dtype and width cases beside the GPT-124M one: every
 #: (x, embed) dtype pair at H = 768 and 1024 (each instantiation and
-#: backward tile shape of csrc/fused_ce.cu), N and V ragged, embed std
-#: 0.1 for a peaked softmax
+#: backward tile shape of csrc/fused_ce.cu), and H = 80 (64 own rows) and
+#: 784 (32 own rows), whose 16-column steps the backward's K groups split
+#: unevenly; N and V ragged, embed std 0.1 for a peaked softmax
+_CE_PAIRS = tuple((xd, ed) for xd in (torch.bfloat16, torch.float32)
+                  for ed in (torch.float32, torch.bfloat16))
 CE_GRID = tuple((f"x_{xd}_e_{ed}_h{H}".replace("torch.", ""),
                  {"N": 1000, "V": 8191, "H": H, "x_dtype": xd, "e_dtype": ed,
                   "e_std": 0.1, "library": False})
-                for H in (768, 1024)
-                for xd in (torch.bfloat16, torch.float32)
-                for ed in (torch.float32, torch.bfloat16))
+                for H, pairs in ((768, _CE_PAIRS), (1024, _CE_PAIRS),
+                                 (80, ((torch.float32, torch.float32),)),
+                                 (784, ((torch.bfloat16, torch.float32),)))
+                for xd, ed in pairs)
 
 
 def ce_term_scales(x2, e, t, lse, g, rows=1024):
@@ -1271,9 +1307,12 @@ def train_phase(fused=False, dense_report=None):
     return args, counts, report
 
 
-def flash_reproducible(dev, B=8, H=12, S=1024, D=64):
+def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     """Two backward passes of one flash layer (bf16, causal) must give
-    bitwise equal dq, dk, dv: no atomics in the kernels."""
+    bitwise equal dq, dk, dv, and two calls each of the CE dx and dembed
+    kernels at GPT-124M (bf16 x, fp32 embed) bitwise equal dx and
+    dembed: no atomics in the kernels, sums in a fixed order."""
+    from apex_tpu_torch.ops import fused_ce_kernels as K
     from apex_tpu_torch.ops.attention import flash_attention
 
     rng = np.random.default_rng(5)
@@ -1284,10 +1323,22 @@ def flash_reproducible(dev, B=8, H=12, S=1024, D=64):
     first = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     second = torch.autograd.grad(out, (q, k, v), do)
     same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
-    if not all(same):
-        raise AssertionError(f"flash backward not bitwise reproducible: {same}")
+    N, Hd, V = 8192, 768, 50304
+    x = torch.from_numpy(rng.standard_normal((N, Hd), dtype=np.float32)).to(dev, torch.bfloat16)
+    e = torch.from_numpy(0.02 * rng.standard_normal((V, Hd), dtype=np.float32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, V, size=N).astype(np.int32)).to(dev)
+    g = torch.full((N,), 1.0 / N, device=dev)
+    m, l, _ = K.ce_fwd(x, e, t)
+    lse = m + torch.log(l)
+    ce_same = {"dx": bool(torch.equal(K.ce_dx(x, e, t, lse, g), K.ce_dx(x, e, t, lse, g))),
+               "dembed": bool(torch.equal(K.ce_dembed(x, e, t, lse, g),
+                                          K.ce_dembed(x, e, t, lse, g)))}
+    if not all(same) or not all(ce_same.values()):
+        raise AssertionError(f"backward not bitwise reproducible: flash {same}, CE {ce_same}")
     emit({"phase": "train_reproducible", "B": B, "H": H, "S": S, "D": D,
-          "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same})
+          "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same,
+          "ce": {"N": N, "H": Hd, "V": V, "x_dtype": "bfloat16", "embed_dtype": "float32",
+                 "bitwise_equal": ce_same}})
 
 
 def flash_grad_parity_phase(dev, S=1024, D=64):
@@ -1484,7 +1535,7 @@ def _kernel_kind(name):
     the fp32 GEMMs (the dense LM head), the other GEMMs, the rest."""
     if "flash_" in name:
         return "flash"
-    if any(k in name for k in ("ce_fwd_kernel", "ce_fwd_combine", "ce_bwd_kernel")):
+    if any(k in name for k in ("ce_fwd_kernel", "ce_fwd_combine", "ce_bwd_kernel", "ce_to_bf16")):
         return "fused_ce"
     if "ln_fwd" in name or "ln_bwd" in name:
         return "layer_norm"
@@ -1652,6 +1703,7 @@ def main():
         *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
     emit({"phase": "kernel", "kernel": "flash_bwd_plan", **check_flash_plan(_build.load())})
+    emit({"phase": "kernel", "kernel": "ce_bwd_plan", **check_ce_plan(_build.load())})
     for case, dtype, kw in flash_cases:
         r = check_flash(dev, dtype, case, **kw)
         results[("flash", case, dtype)] = r
@@ -1677,7 +1729,7 @@ def main():
     lap("train")
     fce_args, fce_counts, fused = train_phase(fused=True, dense_report=dense)
     lap("train_fce")
-    flash_reproducible(dev)
+    train_reproducible_phase(dev)
     lap("train_reproducible")
     flash_grad_parity_phase(dev)
     lap("flash_grad_parity")

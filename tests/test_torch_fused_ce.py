@@ -13,6 +13,9 @@ sums differs); dx/dembed within 2**-8 of the output's largest magnitude
 the last place of p can move that rounding by one bf16 step).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,10 @@ import jax.numpy as jnp
 from apex_tpu.ops.fused_ce import fused_lm_head_ce as jax_fused_ce
 from apex_tpu.ops.fused_ce_pallas import fused_ce_bwd_pallas, fused_ce_fwd_pallas
 
+from apex_tpu_torch.ce_bwd_tiles import (
+    ABLATIONS, STRUCTS, VARIANTS, ablated_source, valid_plan,
+)
+from apex_tpu_torch.flash_bwd_tiles import variant_source
 from apex_tpu_torch.models import gpt as tgpt
 from apex_tpu_torch.ops import fused_ce_kernels as K
 from apex_tpu_torch.ops.fused_ce import fused_lm_head_ce
@@ -178,3 +185,99 @@ def test_plain_version_is_the_cpu_path_and_other_devices_raise():
         K.ce_dx(*meta)
     with pytest.raises(ValueError, match="not supported"):
         K.ce_dembed(*meta)
+
+
+_DTYPE_PAIRS = [(xd, ed) for xd in (torch.float32, torch.bfloat16)
+                for ed in (torch.float32, torch.bfloat16)]
+_CSRC = Path(K.__file__).parents[1] / "csrc" / "fused_ce.cu"
+
+
+@pytest.mark.parametrize("x_dtype,e_dtype", _DTYPE_PAIRS)
+@pytest.mark.parametrize("which", [1, 2])
+def test_ce_bwd_plan_fits_the_card(which, x_dtype, e_dtype):
+    """At every H the kernels take, the backward's plan fits a block's
+    shared memory, and it converts the streamed operand (the embed for
+    dx, x for dembed) into a bf16 scratch exactly when that is fp32."""
+    N, V = 8192, 50304
+    streamed, rows = (e_dtype, V) if which == 1 else (x_dtype, N)
+    for H in range(16, 1025, 16):
+        plan = K.ce_bwd_plan(which, N, H, V, x_dtype, e_dtype)
+        assert 0 < plan.smem_bytes <= K.SMEM_LIMIT and plan.smem_bytes % 16 == 0, H
+        assert plan.own_rows == (64 if H <= 768 else 32) and plan.stages == 2
+        assert plan.scratch_bytes == (rows * H * 2 if streamed == torch.float32 else 0)
+
+
+def test_ce_bwd_plan_is_the_kernel_source_plan():
+    """``BWD_TILES`` holds the constants of csrc/fused_ce.cu's tile
+    structs, and the plan gives the shared memory the header reckons."""
+    src = _CSRC.read_text()
+    for H, struct in STRUCTS.items():
+        body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+        consts = dict(re.findall(r"static constexpr int (\w+) = (\d+);", body))
+        assert tuple(int(consts[c]) for c in ("kRows", "kStream", "kGroups", "kWarps")) == \
+            K.BWD_TILES[H]
+    rows, sr, kg, _ = K.BWD_TILES[768]
+    plan = K.ce_bwd_plan(1, 8192, 768, 50304, torch.bfloat16, torch.float32)
+    assert plan.smem_bytes == (rows * 776 + 2 * sr * 776 + rows * (sr + 8)) * 2 \
+        + 3 * rows * 4 + (kg - 1) * rows * sr * 4
+    assert plan.scratch_bytes == 50304 * 768 * 2
+    with pytest.raises(ValueError, match="which"):
+        K.ce_bwd_plan(0, 8, 16, 8, torch.float32, torch.float32)
+
+
+@pytest.mark.parametrize("N,H,V,bn,bv", SHAPES)
+def test_bf16_copy_of_the_streamed_operand_changes_no_bit(N, H, V, bn, bv):
+    """The backward streams a bf16 copy of an fp32 operand: with bf16
+    dots, dx from the embed rounded to bf16 first is bitwise dx from the
+    fp32 embed, and dembed from x rounded first bitwise dembed from the
+    fp32 x."""
+    x, e, t, g = (torch.from_numpy(a) for a in _data(N, H, V, seed=7))
+    bf = torch.bfloat16
+    m, l, _ = K.ce_fwd_plain(x, e, t, dot_dtype=bf)
+    lse = m + torch.log(l)
+    assert torch.equal(K.ce_dx_plain(x, e.to(bf), t, lse, g, dot_dtype=bf),
+                       K.ce_dx_plain(x, e, t, lse, g, dot_dtype=bf))
+    assert torch.equal(K.ce_dembed_plain(x.to(bf), e, t, lse, g, dot_dtype=bf),
+                       K.ce_dembed_plain(x, e, t, lse, g, dot_dtype=bf))
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_ce_tile_variants_apply_to_the_kernel_source(variant):
+    """``ce_bwd_tiles`` builds each variant by giving the K groups,
+    streamed rows and warps of one width's tile struct new values: the
+    struct's own rows, the other width's struct and every other line stay
+    as they are, and the new plan is one the kernel takes."""
+    src = _CSRC.read_text()
+    out = variant_source(src, VARIANTS[variant])
+    assert len(src.splitlines()) == len(out.splitlines())
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    names = {b.split("=")[0].split()[-1] for _, b in changed}
+    assert changed and names <= {"kGroups", "kStream", "kWarps"}
+    (struct,) = {s for s, _ in VARIANTS[variant]}
+    H = next(h for h, s in STRUCTS.items() if s == struct)
+    rows, sr, kg, warps = K.BWD_TILES[H]
+    new = {c: int(v) for (_, c), v in VARIANTS[variant].items()}
+    assert (new["kGroups"], new["kStream"], new["kWarps"]) != (kg, sr, warps)
+    assert valid_plan(H, rows, new["kStream"], new["kGroups"], new["kWarps"])
+
+
+def test_valid_plans_are_the_kernels():
+    """The tool's test of a plan is the kernel's: the landed plans pass it,
+    pieces smaller than a fragment tile or K groups that do not divide
+    the warps fail it, and so do partials past shared memory."""
+    for H in STRUCTS:
+        assert valid_plan(H, *K.BWD_TILES[H])
+    assert not valid_plan(1024, 32, 16, 1, 8)   # 8 warps of 64 elements
+    assert not valid_plan(768, 64, 32, 4, 12)   # 3 warps a group
+    assert not valid_plan(768, 64, 32, 6, 12)   # five 8 KB partials: 245 KB
+
+
+@pytest.mark.parametrize("ablation", sorted(ABLATIONS))
+def test_ce_ablations_apply_to_the_kernel_source(ablation):
+    """Each ablation ``ce_bwd_tiles`` times takes its part out of the
+    backward's tile loop: every text it replaces is in the source once,
+    and nothing else changes."""
+    src = _CSRC.read_text()
+    out = ablated_source(src, ABLATIONS[ablation])
+    assert out != src
+    assert len(src) - len(out) == sum(len(a) - len(b) for a, b in ABLATIONS[ablation])
