@@ -55,7 +55,8 @@ SIGNATURES = {
     "apex_error_string": (ctypes.c_char_p, [_I]),
     # x, w, b, y, mean, rstd, rows, hidden, eps, rms, dtype, stream
     "apex_layer_norm_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P]),
-    "apex_layer_norm_bwd_blocks": (_I, [_I]),
+    # rows, hidden, dtype, aligned, out (int64 x 9)
+    "apex_layer_norm_plan": (_I, [_I, _I, _I, _I, _P]),
     # x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows, hidden,
     # rms, dtype, stream
     "apex_layer_norm_bwd": (

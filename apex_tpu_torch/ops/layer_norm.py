@@ -8,11 +8,22 @@ and an optional fp32 bias.  The kernels are in ``csrc/layer_norm.cu``
 (its comments say what bounds each and how it is laid out); the flags
 are parameters of the one kernel pair.
 
+Each call takes one of two paths, by shape alone: the fast path (a warp
+or a few a row, the row in registers, 16-byte accesses) where H fits
+its 16-byte vectors and every pointer is 16-byte aligned, the general
+path (a block a row, scalar loads) for every other H up to
+:data:`MAX_HIDDEN`.  :func:`ln_plan` states the launch plan, a pure
+function of the shape that the CPU tests check; ``chip_smoke.py`` holds
+it against ``apex_layer_norm_plan``, what the C side launches with.
+
 :func:`layer_norm_fwd` and :func:`layer_norm_bwd` launch their kernels
 for CUDA tensors and run :func:`layer_norm_fwd_plain` /
 :func:`layer_norm_bwd_plain` for CPU tensors, and for nothing else.
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count the kernels' launches.
 """
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,9 +35,74 @@ LAUNCHES = 0
 #: launches by :func:`layer_norm_bwd` (one per call: its two stages)
 BWD_LAUNCHES = 0
 
-#: the shared-memory row buffer holds H fp32 values in the default 48 KB
-#: a block may use, less 1 KB for the kernel's static reduction buffer
+#: the general path's shared-memory row buffer holds H fp32 values in the
+#: default 48 KB a block may use, less 1 KB for its static reduction buffer
 MAX_HIDDEN = 47 * 1024 // 4
+
+#: the fast path's tile plan (``csrc/layer_norm.cu`` ``LnFwdTiles``,
+#: ``LnBwdTiles``): warps a forward block, warps a backward block, rows a
+#: backward block walks for each of its warps; a lane holds at most
+#: ``MAX_VECTORS`` 16-byte vectors and a row takes at most ``MAX_WARPS_ROW``
+#: warps
+FWD_WARPS = 8
+BWD_WARPS = 4
+BWD_ROWS_WARP = 8
+MAX_VECTORS = 4
+MAX_WARPS_ROW = 8
+#: the general path: threads a block, rows a backward block
+GENERAL_THREADS = 256
+GENERAL_BWD_ROWS = 32
+#: shared memory a block may use on the H100
+SMEM_LIMIT = 232448
+
+
+class LnPlan(NamedTuple):
+    fast: int            # 1: the fast path, 0: the general path
+    warps_row: int       # warps a row (general: the block's 8)
+    vectors_lane: int    # 16-byte vectors a lane holds (general: 0)
+    fwd_rows_block: int  # rows a forward block holds
+    fwd_blocks: int      # forward grid
+    bwd_rows_block: int  # rows a backward stage-1 block walks
+    bwd_blocks: int      # G: stage-1 grid, rows of the dw/db partials
+    fwd_smem: int        # shared bytes of a forward block
+    bwd_smem: int        # shared bytes of a stage-1 block
+
+
+def _row_groups(warps, wr):
+    return warps // wr if warps > wr else 1
+
+
+def ln_plan(R, H, dtype, aligned):
+    """The launch plan of an (R, H) ``dtype`` (float32/bfloat16) norm, as
+    ``csrc/layer_norm.cu`` ``ln_plan`` makes it; ``aligned``: x, dy, y,
+    dx, w and b all start on 16 bytes.  The fast path takes H a multiple
+    of a 16-byte vector's values (8 bf16, 4 fp32) of at most
+    ``32 * MAX_WARPS_ROW * MAX_VECTORS`` vectors: a row gets the fewest
+    warps (1, 2, 4, 8) that leave a lane at most ``MAX_VECTORS`` vectors.
+    The grids are ceil(R / rows a block); a backward block walks
+    ``BWD_WARPS * BWD_ROWS_WARP`` rows on the fast path, as many as on the
+    general one, so G depends on R alone, never on the card."""
+    if dtype not in (torch.float32, torch.bfloat16) or H <= 0 or R < 0:
+        raise ValueError(f"ln_plan: no plan for R={R} H={H} {dtype}")
+    e = 8 if dtype == torch.bfloat16 else 4
+    nv, wr = H // e, 1
+    while wr <= MAX_WARPS_ROW and nv > 32 * wr * MAX_VECTORS:
+        wr *= 2
+    if aligned and H % e == 0 and wr <= MAX_WARPS_ROW:
+        ngf, ngb = _row_groups(FWD_WARPS, wr), _row_groups(BWD_WARPS, wr)
+        fast, nvl, frb, brb = 1, -(-nv // (32 * wr)), ngf, BWD_WARPS * BWD_ROWS_WARP
+        fsm = 2 * ngf * wr * 8 if wr > 1 else 0           # the group sums' float2 slots
+        bsm = (2 * ngb * wr * 8 if wr > 1 else 0) + (2 * H * 4 if ngb > 1 else 0)
+    else:
+        fast, wr, nvl, frb, brb = 0, GENERAL_THREADS // 32, 0, 1, GENERAL_BWD_ROWS
+        fsm = H * 4 + (GENERAL_THREADS // 32) * 4
+        bsm = 4 * H * 4 + (2 * (GENERAL_THREADS // 32) + 2) * 4
+    return LnPlan(fast, wr, nvl, frb, -(-R // frb), brb, -(-R // brb), fsm, bsm)
+
+
+def _aligned(*tensors):
+    """Whether every given tensor's data starts on 16 bytes."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def layer_norm_fwd_plain(x2, weight, bias, eps, rms=False):
@@ -145,14 +221,22 @@ def layer_norm_bwd(x2, weight, dy2, mean, rstd, rms=False, with_bias=True):
     R, H = x2.shape
     affine = weight is not None
     dx = torch.empty_like(x2)
-    dw = torch.zeros(H, dtype=torch.float32, device=x2.device) if affine else None
-    db = torch.zeros(H, dtype=torch.float32, device=x2.device) if affine and with_bias else None
+    # every column of dw and db is written by the kernels; with no rows
+    # they are sums of nothing
+    alloc = torch.zeros if R == 0 else torch.empty
+    dw = alloc(H, dtype=torch.float32, device=x2.device) if affine else None
+    db = alloc(H, dtype=torch.float32, device=x2.device) if affine and with_bias else None
     if R == 0:
         return dx, dw, db
     lib, stream = _build.prepare(x2.device)
     part_w = part_b = None
     if affine:
-        G = lib.apex_layer_norm_bwd_blocks(R)
+        # the C side's own plan, with the pointers its launch tests
+        plan = (ctypes.c_int64 * len(LnPlan._fields))()
+        _build.check(lib.apex_layer_norm_plan(
+            R, H, _build.DTYPE_CODES[x2.dtype], int(_aligned(x2, dy2, dx, weight)),
+            ctypes.addressof(plan)), "apex_layer_norm_plan")
+        G = plan[LnPlan._fields.index("bwd_blocks")]
         part_w = torch.empty((G, H), dtype=torch.float32, device=x2.device)
         if with_bias:
             part_b = torch.empty((G, H), dtype=torch.float32, device=x2.device)

@@ -9,9 +9,12 @@ Phases, each printing one JSON line:
    limit; TF32 is switched off for matmuls and cuDNN.
 2. build: the CUDA kernels are compiled from ``apex_tpu_torch/csrc``.
 3. kernels: each kernel against its plain PyTorch version at the
-   serve and train paths' shapes (LN forward at 8 and 64 rows for
-   serving and 8192 for training; the RMS-affine, RMS and non-affine LN
-   modes forward and backward at 8192 rows; the fused-CE forward, dx and
+   serve and train paths' shapes (LN forward at 8, 40 and 64 rows for
+   serving and 8192 for training; at 8192 rows, forward and backward in
+   bf16 and fp32: the RMS-affine, RMS and non-affine modes, H = 1024 and
+   4096 on the fast path, every mode at H = 770 and a misaligned view on
+   the general path; the LN plan as ``ln_plan`` states it against the C
+   entry's at 624 shapes; the fused-CE forward, dx and
    dembed at N = 8192, H = 768, V = 50304 with bf16 dots, a ragged
    N = 1000, V = 50257 case, every (x, embed) dtype pair at H = 768 and
    1024, H = 80 and 784 (widths that the backward's K groups split
@@ -66,8 +69,9 @@ Phases, each printing one JSON line:
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
    step's, and the two steps' times side by side.
 9. train_reproducible: two backward passes of one flash layer bitwise
-   equal, and two calls each of the CE dx and dembed kernels at
-   GPT-124M bitwise equal.
+   equal, two calls each of the CE dx and dembed kernels at GPT-124M
+   bitwise equal, and two LN backward calls at 8192 x 768 (bf16, affine
+   with bias) with bitwise equal dx, dw and db.
 10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
     H=12, S=1024; and GQA H_kv=4): the output and the gradients through
     ``flash_attention`` on the card (the bf16 kernels the train step
@@ -237,15 +241,41 @@ def _ln_library(x, w, b, eps, rms):
     return F.layer_norm(x, (H,), w, b, eps)
 
 
-def check_layer_norm(dev, R, dtype, mode="ln_affine"):
+def _ln_rows(rng, dev, R, H, dtype, misaligned, scale=1.0, shift=0.0):
+    """An (R, H) ``dtype`` tensor of normal values on the card; with
+    ``misaligned`` a contiguous view one element into a larger buffer,
+    so that its data does not start on 16 bytes."""
+    x = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32) * scale + shift)
+    x = x.to(dev, dtype)
+    if not misaligned:
+        return x
+    buf = torch.empty(R * H + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(R, H)
+    view.copy_(x)
+    return view
+
+
+def _ln_path(R, H, dtype, tensors, want):
+    """The path ``ln_plan`` gives these tensors, which must be ``want``
+    (the case is there to run that path)."""
+    from apex_tpu_torch.ops.layer_norm import _aligned, ln_plan
+
+    path = "fast" if ln_plan(R, H, dtype, _aligned(*tensors)).fast else "general"
+    if path != want:
+        raise AssertionError(f"layer_norm R={R} H={H} {dtype}: plan takes the {path} "
+                             f"path, the case is for the {want} path")
+    return path
+
+
+def check_layer_norm(dev, R, dtype, mode="ln_affine", H=768, path="fast", misaligned=False):
     from apex_tpu_torch.ops.layer_norm import layer_norm_fwd, layer_norm_fwd_plain
 
-    H, eps = 768, 1e-5
+    eps = 1e-5
     rms = LN_MODES[mode][0]
     rng = np.random.default_rng(R)
-    x = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32) * 2 + 0.5)
-    x = x.to(dev, dtype)
+    x = _ln_rows(rng, dev, R, H, dtype, misaligned, scale=2.0, shift=0.5)
     w, b = _ln_params(rng, dev, H, mode)
+    _ln_path(R, H, dtype, (x, w, b), path)
     y, mean, rstd = layer_norm_fwd(x, w, b, eps, rms)
     py, pmean, prstd = layer_norm_fwd_plain(x, w, b, eps, rms)
     torch.cuda.synchronize()
@@ -279,9 +309,42 @@ def check_layer_norm(dev, R, dtype, mode="ln_affine"):
                 lambda: layer_norm_fwd_plain(x, w, b, eps, rms),
                 lambda: _ln_library(x, wl, bl, eps, rms))
     return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
+            "path": path, "misaligned": misaligned,
             "max_abs_err": err, "bf16_ulps": ulps, "band_excess": excess,
             "stats_err": stat_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
+
+
+def layer_norm_kernels(dev, results, lib):
+    """The LayerNorm part of the kernels phase: each case's line, its
+    result kept in ``results``."""
+    # serve (decode, verify 8 x 5, prefill and chunk) and train (B * S) rows
+    for R in (8, 40, 64, 8192):
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_layer_norm(dev, R, dtype)
+            results[("ln", R, dtype)] = r
+            emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_layer_norm_bwd(dev, dtype)
+        results[("ln_bwd", dtype)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    # at the train path's rows: the RMS and non-affine modes, the widths of
+    # gpt345 (1024) and bench.py's fused_ln (4096); a width the fast path
+    # does not take (770) and a misaligned view, each on the general path
+    ln_cases = [(mode, 768, "fast", False) for mode in ("rms_affine", "rms", "ln")]
+    ln_cases += [("ln_affine", H, "fast", False) for H in (1024, 4096)]
+    ln_cases += [(mode, 770, "general", False) for mode in LN_MODES]
+    ln_cases += [("ln_affine", 768, "general", True)]
+    for mode, H, path, misaligned in ln_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            kw = {"H": H, "path": path, "misaligned": misaligned}
+            r = check_layer_norm(dev, 8192, dtype, mode, **kw)
+            results[("ln", 8192, dtype, mode, H, misaligned)] = r
+            emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+            r = check_layer_norm_bwd(dev, dtype, mode, **kw)
+            results[("ln_bwd", dtype, mode, H, misaligned)] = r
+            emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    emit({"phase": "kernel", "kernel": "layer_norm_plan", **check_ln_plan(lib)})
 
 
 def check_decode_attention(dev, h_kv, dtype, H=12, D=64):
@@ -503,6 +566,38 @@ def check_ce_plan(lib):
     return {"plans_checked": n}
 
 
+#: the widths the LayerNorm plan check runs: every path and warps a row,
+#: ragged widths beside them, past the fast path and up to MAX_HIDDEN
+LN_PLAN_WIDTHS = (8, 12, 16, 24, 96, 100, 256, 512, 764, 768, 770, 1000, 1024, 1028, 1536,
+                  2048, 2052, 3072, 4096, 4100, 5120, 6144, 8192, 8200, 10240, 12032)
+
+
+def check_ln_plan(lib):
+    """``ln_plan`` (the Python statement the CPU tests check) against
+    ``apex_layer_norm_plan``, what the launches use, at R in {1, 7, 8,
+    40, 64, 8192}, every width of ``LN_PLAN_WIDTHS``, both dtypes,
+    aligned or not: equal, field for field."""
+    import ctypes
+
+    from apex_tpu_torch.ops.layer_norm import LnPlan, ln_plan
+
+    got = (ctypes.c_int64 * len(LnPlan._fields))()
+    n = 0
+    for R in (1, 7, 8, 40, 64, 8192):
+        for H in LN_PLAN_WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for aligned in (True, False):
+                    rc = lib.apex_layer_norm_plan(R, H, int(dtype == torch.bfloat16),
+                                                  int(aligned), ctypes.addressof(got))
+                    want = tuple(ln_plan(R, H, dtype, aligned))
+                    if rc or tuple(got) != want:
+                        raise AssertionError(
+                            f"LayerNorm plan R={R} H={H} {dtype} aligned={aligned}: C "
+                            f"{tuple(got)} (rc {rc}), Python {want}")
+                    n += 1
+    return {"plans_checked": n}
+
+
 def check_sampling(dev, temperature, top_k, N):
     from apex_tpu_torch.ops.decode_sampling import (
         fused_sample, fused_sample_plain, gumbel_from_seed,
@@ -554,7 +649,8 @@ def rel_err(got, want):
     return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
 
 
-def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768):
+def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768, path="fast",
+                         misaligned=False):
     from apex_tpu_torch.ops.layer_norm import (
         layer_norm_bwd, layer_norm_bwd_plain, layer_norm_fwd_plain,
     )
@@ -562,10 +658,10 @@ def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768):
     eps = 1e-5
     rms, _, with_bias = LN_MODES[mode]
     rng = np.random.default_rng(11)
-    x = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32) * 2 + 0.5)
-    x = x.to(dev, dtype)
-    dy = torch.from_numpy(rng.standard_normal((R, H), dtype=np.float32)).to(dev, dtype)
+    x = _ln_rows(rng, dev, R, H, dtype, misaligned, scale=2.0, shift=0.5)
+    dy = _ln_rows(rng, dev, R, H, dtype, misaligned)
     w, b = _ln_params(rng, dev, H, mode)
+    _ln_path(R, H, dtype, (x, dy, w), path)
     _, mean, rstd = layer_norm_fwd_plain(x, w, b, eps, rms)
     args = (x, w, dy, mean, rstd, rms, with_bias)
     dx, dw, db = layer_norm_bwd(*args)
@@ -608,6 +704,7 @@ def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768):
                 lambda: layer_norm_bwd_plain(*args),
                 lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True))
     return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
+            "path": path, "misaligned": misaligned,
             "max_abs_err": dx_err, "bf16_ulps": ulps, "dx_band_excess": dx_excess,
             "dw_db_rel_err": sum_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
@@ -1309,11 +1406,14 @@ def train_phase(fused=False, dense_report=None):
 
 def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     """Two backward passes of one flash layer (bf16, causal) must give
-    bitwise equal dq, dk, dv, and two calls each of the CE dx and dembed
+    bitwise equal dq, dk, dv; two calls each of the CE dx and dembed
     kernels at GPT-124M (bf16 x, fp32 embed) bitwise equal dx and
-    dembed: no atomics in the kernels, sums in a fixed order."""
+    dembed; and two LayerNorm backward calls at the train step's rows
+    (8192 x 768 bf16, affine with bias) bitwise equal dx, dw and db: no
+    atomics in the kernels, sums in a fixed order."""
     from apex_tpu_torch.ops import fused_ce_kernels as K
     from apex_tpu_torch.ops.attention import flash_attention
+    from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd_plain
 
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32))
@@ -1333,12 +1433,23 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     ce_same = {"dx": bool(torch.equal(K.ce_dx(x, e, t, lse, g), K.ce_dx(x, e, t, lse, g))),
                "dembed": bool(torch.equal(K.ce_dembed(x, e, t, lse, g),
                                           K.ce_dembed(x, e, t, lse, g)))}
-    if not all(same) or not all(ce_same.values()):
-        raise AssertionError(f"backward not bitwise reproducible: flash {same}, CE {ce_same}")
+    xl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False, scale=2.0, shift=0.5)
+    dyl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False)
+    wl, bl = _ln_params(rng, dev, Hd, "ln_affine")
+    _, mean, rstd = layer_norm_fwd_plain(xl, wl, bl, 1e-5)
+    first_ln = layer_norm_bwd(xl, wl, dyl, mean, rstd)
+    second_ln = layer_norm_bwd(xl, wl, dyl, mean, rstd)
+    ln_same = {k: bool(torch.equal(a, b)) for k, a, b in zip(("dx", "dw", "db"), first_ln,
+                                                            second_ln)}
+    if not all(same) or not all(ce_same.values()) or not all(ln_same.values()):
+        raise AssertionError(f"backward not bitwise reproducible: flash {same}, CE {ce_same}, "
+                             f"LayerNorm {ln_same}")
     emit({"phase": "train_reproducible", "B": B, "H": H, "S": S, "D": D,
           "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same,
           "ce": {"N": N, "H": Hd, "V": V, "x_dtype": "bfloat16", "embed_dtype": "float32",
-                 "bitwise_equal": ce_same}})
+                 "bitwise_equal": ce_same},
+          "layer_norm_bwd": {"R": N, "H": Hd, "dtype": "bfloat16", "mode": "ln_affine",
+                             "bitwise_equal": ln_same}})
 
 
 def flash_grad_parity_phase(dev, S=1024, D=64):
@@ -1629,12 +1740,7 @@ def main():
         clock = now
 
     results = {}
-    # serve (decode, verify 8 x 5, prefill and chunk) and train (B * S) rows
-    for R in (8, 40, 64, 8192):
-        for dtype in (torch.bfloat16, torch.float32):
-            r = check_layer_norm(dev, R, dtype)
-            results[("ln", R, dtype)] = r
-            emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+    layer_norm_kernels(dev, results, _build.load())
     for h_kv in (12, 4):
         for dtype in (torch.bfloat16, torch.float32):
             r = check_decode_attention(dev, h_kv, dtype)
@@ -1668,19 +1774,6 @@ def main():
             results[("sample", temperature, top_k, N)] = r
             emit({"phase": "kernel", "kernel": "fused_sample", **r})
 
-    for dtype in (torch.bfloat16, torch.float32):
-        r = check_layer_norm_bwd(dev, dtype)
-        results[("ln_bwd", dtype)] = r
-        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
-    # the RMS and non-affine modes at the train path's rows
-    for mode, dtype in (("rms_affine", torch.bfloat16), ("rms_affine", torch.float32),
-                        ("rms", torch.bfloat16), ("ln", torch.bfloat16)):
-        r = check_layer_norm(dev, 8192, dtype, mode)
-        results[("ln", 8192, dtype, mode)] = r
-        emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
-        r = check_layer_norm_bwd(dev, dtype, mode)
-        results[("ln_bwd", dtype, mode)] = r
-        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
     for case, kw in (("gpt124", {}),
                      ("ragged", {"N": 1000, "V": 50257, "library": False}), *CE_GRID):
         r = check_fused_ce(dev, case, **kw)

@@ -390,3 +390,171 @@ def test_modules_default_to_cuda_and_refuse_wrong_params():
         m.load_flax_params({"weight": np.ones(32), "bias": np.zeros(32)})
     with pytest.raises(ValueError, match="shape"):
         m.load_flax_params({"params": {"weight": np.ones(16)}})
+
+
+# ------------------------------------------------------------ launch plan
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from apex_tpu_torch import ln_tiles  # noqa: E402
+from apex_tpu_torch.flash_bwd_tiles import variant_source  # noqa: E402
+from apex_tpu_torch.ops import layer_norm as L  # noqa: E402
+
+_CSRC = Path(L.__file__).resolve().parents[1] / "csrc" / "layer_norm.cu"
+#: widths on either path: the fast path's 1, 2, 4, 8 warps a row, ragged
+#: widths beside them, widths past the fast path up to MAX_HIDDEN
+PLAN_WIDTHS = (8, 12, 16, 24, 96, 100, 256, 512, 764, 768, 770, 1000, 1024, 1028, 1536,
+               2048, 2052, 3072, 4096, 4100, 5120, 6144, 8192, 8200, 10240, 12032)
+PLAN_ROWS = (1, 7, 8, 40, 64, 8192, 8193)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _vector_values(dtype):
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ln_plan_blocks_depend_on_rows_alone(aligned, dtype):
+    """Every field but the two grids is the same at every R, and G is
+    ceil(R / 32) on both paths: the partials' rows never depend on the
+    card, so the backward sums in one order everywhere."""
+    for H in PLAN_WIDTHS:
+        plans = {R: L.ln_plan(R, H, dtype, aligned) for R in PLAN_ROWS}
+        fixed = {p._replace(fwd_blocks=0, bwd_blocks=0) for p in plans.values()}
+        assert len(fixed) == 1, H
+        for R, p in plans.items():
+            assert p.bwd_rows_block == 32 and p.bwd_blocks == -(-R // 32)
+            assert p.fwd_blocks == -(-R // p.fwd_rows_block)
+
+
+def _block_rows(R, rows_block, blocks):
+    return [r for b in range(blocks) for r in range(b * rows_block, min(R, (b + 1) * rows_block))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", PLAN_ROWS)
+def test_ln_plan_row_blocks_tile_rows_once(R, dtype):
+    """The forward's and the backward's row blocks cover rows 0..R-1 once
+    each, none past R and no block empty; within a fast backward block the
+    row groups' walks (row g, g + groups, ...) cover its rows once."""
+    for H in PLAN_WIDTHS:
+        p = L.ln_plan(R, H, dtype, True)
+        for rows_block, blocks in ((p.fwd_rows_block, p.fwd_blocks),
+                                   (p.bwd_rows_block, p.bwd_blocks)):
+            assert _block_rows(R, rows_block, blocks) == list(range(R))
+            assert (blocks - 1) * rows_block < R <= blocks * rows_block
+        if p.fast:
+            groups = max(1, L.BWD_WARPS // p.warps_row)
+            walk = p.bwd_rows_block // groups
+            assert walk * groups == p.bwd_rows_block
+            got = sorted(g + i * groups for g in range(groups) for i in range(walk))
+            assert got == list(range(p.bwd_rows_block))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ln_plan_every_column_has_one_owning_lane(dtype):
+    """At every width the fast path takes, lane l of a row's warps holds
+    the 16-byte vectors l, l + 32 WR, ... below H: each column of the row
+    belongs to exactly one lane, and no lane holds more than MAX_VECTORS."""
+    e = _vector_values(dtype)
+    widths = sorted(set(range(e, 32 * L.MAX_WARPS_ROW * L.MAX_VECTORS * e + 1, 40 * e))
+                    | {w for w in PLAN_WIDTHS if w % e == 0})
+    n = 0
+    for H in widths:
+        p = L.ln_plan(64, H, dtype, True)
+        if not p.fast:
+            continue
+        wr, nvl, nv = p.warps_row, p.vectors_lane, H // e
+        owner = {}
+        for lane in range(32 * wr):
+            vectors = [lane + 32 * wr * k for k in range(nvl) if lane + 32 * wr * k < nv]
+            assert len(vectors) <= L.MAX_VECTORS
+            for v in vectors:
+                for c in range(v * e, v * e + e):
+                    assert c not in owner
+                    owner[c] = lane
+        assert sorted(owner) == list(range(H)), H
+        # the fewest warps a row: half as many would leave a lane too many vectors
+        assert wr == 1 or nv > 16 * wr * L.MAX_VECTORS
+        n += 1
+    assert n >= 20
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ln_plan_misaligned_or_ragged_widths_take_the_general_path(dtype):
+    """The fast path takes an aligned H of whole 16-byte vectors up to
+    8192 values; a misaligned pointer, a ragged H or a wider row takes
+    the general path, with its one block a row and 32 rows a backward
+    block."""
+    e = _vector_values(dtype)
+    top = 32 * L.MAX_WARPS_ROW * L.MAX_VECTORS * e
+    for H in PLAN_WIDTHS + (top, top + e, 2 * e + 2):
+        fast = H % e == 0 and H <= top
+        assert L.ln_plan(64, H, dtype, True).fast == int(fast), H
+        general = L.ln_plan(64, H, dtype, False)
+        assert not general.fast and general.fwd_rows_block == 1 and general.vectors_lane == 0
+        assert general.fwd_blocks == 64 and general.bwd_rows_block == 32
+    with pytest.raises(ValueError, match="no plan"):
+        L.ln_plan(8, 768, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ln_plan_fits_shared_memory(aligned, dtype):
+    """Each plan's shared memory fits a block's 227 KB; the general
+    forward's fits the 48 KB a launch gets without asking, up to
+    MAX_HIDDEN; the fast forward of one warp a row uses none."""
+    for H in list(PLAN_WIDTHS) + list(range(8, L.MAX_HIDDEN + 1, 488)):
+        p = L.ln_plan(8192, H, dtype, aligned)
+        assert 0 <= p.fwd_smem <= L.SMEM_LIMIT and 0 <= p.bwd_smem <= L.SMEM_LIMIT
+        if not p.fast:
+            assert p.fwd_smem <= 48 * 1024
+        elif p.warps_row == 1:
+            assert p.fwd_smem == 0
+
+
+def test_ln_plan_is_the_kernel_source_plan():
+    """The plan's constants are those of csrc/layer_norm.cu's tile structs
+    and limits, and at GPT-124M's rows the plan is the one the source's
+    notes describe."""
+    src = _CSRC.read_text()
+
+    def consts(struct):
+        body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+        return dict(re.findall(r"static constexpr \w+ (\w+) = (\w+);", body))
+
+    assert int(consts("LnFwdTiles")["kWarps"]) == L.FWD_WARPS
+    bwd = consts("LnBwdTiles")
+    assert (int(bwd["kWarps"]), int(bwd["kRowsWarp"])) == (L.BWD_WARPS, L.BWD_ROWS_WARP)
+    for name, value in (("kMaxVectors", L.MAX_VECTORS), ("kMaxWarpsRow", L.MAX_WARPS_ROW),
+                        ("kThreads", L.GENERAL_THREADS), ("kBwdRows", L.GENERAL_BWD_ROWS)):
+        assert re.search(r"constexpr int %s = %d;" % (name, value), src), name
+    p = L.ln_plan(8192, 768, torch.bfloat16, True)
+    assert p == L.LnPlan(1, 1, 3, L.FWD_WARPS, 8192 // L.FWD_WARPS, 32, 256, 0,
+                         2 * 768 * 4 if L.BWD_WARPS > 1 else 0)
+
+
+@pytest.mark.parametrize("variant", sorted(ln_tiles.VARIANTS))
+def test_ln_tile_variants_apply_to_the_kernel_source(variant):
+    """``ln_tiles`` builds each variant by giving constants of the tile
+    structs new values (one at least differing from the landed plan):
+    every other line stays as it is."""
+    src = _CSRC.read_text()
+    out = variant_source(src, ln_tiles.VARIANTS[variant])
+    assert len(src.splitlines()) == len(out.splitlines())
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert changed and len(changed) <= len(ln_tiles.VARIANTS[variant])
+    names = {b.split("=")[0].split()[-1] for _, b in changed}
+    assert names <= {c for _, c in ln_tiles.VARIANTS[variant]}
+
+
+@pytest.mark.parametrize("ablation", sorted(ln_tiles.ABLATIONS))
+def test_ln_ablations_apply_to_the_kernel_source(ablation):
+    """Each ablation ``ln_tiles`` times takes its part out of the landed
+    backward: every text it replaces is in the source once, and nothing
+    else changes."""
+    src = _CSRC.read_text()
+    out = ln_tiles.ablated_source(src, ln_tiles.ABLATIONS[ablation])
+    assert out != src
+    assert len(src) - len(out) == sum(len(a) - len(b) for a, b in ln_tiles.ABLATIONS[ablation])
