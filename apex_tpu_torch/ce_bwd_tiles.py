@@ -126,13 +126,20 @@ def sources():
 
 def build_all():
     """{name: (CDLL, ptxas lines)} for every source of :func:`sources`."""
+    return build_libs(sources(), "ce", ("apex_ce_dx", "apex_ce_dembed"), "ce_bwd_kernel")
+
+
+def build_libs(texts, prefix, entries, kernel):
+    """{name: (CDLL, ptxas lines of ``kernel``'s instantiations)}: each
+    source of ``texts`` built by its own ``nvcc``, all started together,
+    into ``VARIANT_DIR/<prefix>_<name>.so``, with ``entries`` bound."""
     nvcc = _build.find_nvcc()
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, text in sources().items():
-        cu = VARIANT_DIR / f"ce_{name}.cu"
+    for name, text in texts.items():
+        cu = VARIANT_DIR / f"{prefix}_{name}.cu"
         cu.write_text(text)
-        lib = VARIANT_DIR / f"ce_{name}.so"
+        lib = VARIANT_DIR / f"{prefix}_{name}.so"
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR), "-o", str(lib),
                str(cu)]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -143,10 +150,10 @@ def build_all():
         if proc.returncode != 0:
             raise RuntimeError(f"building {name} failed:\n{out}")
         lib = ctypes.CDLL(str(path))
-        for entry in ("apex_ce_dx", "apex_ce_dembed"):
+        for entry in entries:
             fn = getattr(lib, entry)
             fn.restype, fn.argtypes = _build.SIGNATURES[entry]
-        libs[name] = (lib, ptxas_report(out))
+        libs[name] = (lib, ptxas_report(out, kernel))
     return libs
 
 
@@ -167,18 +174,18 @@ def _demangle(names):
     return dict(zip(names, out)) if len(out) == len(names) else dict(zip(names, names))
 
 
-def ptxas_report(log):
-    """{"ce_bwd_kernel<...>": [ptxas' register and spill lines], ...}
-    for the backward kernels, from ``nvcc -Xptxas -v`` output."""
+def ptxas_report(log, kernel="ce_bwd_kernel"):
+    """{"<kernel><...>": [ptxas' register and spill lines], ...} for the
+    instantiations of ``kernel``, from ``nvcc -Xptxas -v`` output."""
     report, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
-            fn = m.group(1) if "ce_bwd_kernel" in m.group(1) else None
+            fn = m.group(1) if kernel in m.group(1) else None
         elif fn and ("registers" in ln or "spill" in ln):
             report.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
     names = _demangle(list(report))
-    short = {k: re.search(r"ce_bwd_kernel<[^()]*>", v) for k, v in names.items()}
+    short = {k: re.search(kernel + r"<[^()]*>", v) for k, v in names.items()}
     return {short[k].group(0) if short[k] else k: v for k, v in report.items()}
 
 

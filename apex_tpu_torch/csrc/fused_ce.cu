@@ -15,7 +15,7 @@
 // x and embed are rounded to bf16 (nearest even) before x . e^T, which
 // accumulates in fp32 on the tensor cores (mma.sync.m16n8k16).  Columns
 // past V weigh 0 and a target hit counts only on a valid column.
-// Forward, per 64-column tile: m_new = max(m, max s), l = l * exp(m -
+// Forward, per vocab tile: m_new = max(m, max s), l = l * exp(m -
 // m_new) + sum exp(s - m_new), tgt += s[t].  Backward: p = exp(s - lse)
 // (as exp2(s log2 e - lse log2 e)), d = (p - onehot(t)) * g in fp32, d
 // rounded to bf16 before d . e (dx) and d^T . x (dembed); rows past N
@@ -28,18 +28,33 @@
 // more product each, 1.27 TFLOP (1.28 ms) each.  The bytes that must
 // move (x, the fp32 embed once, the outputs) are 167 MB forward.
 //
-// Forward.  A block owns 128 x rows (64 when H > 768), converted to
-// bf16 once into shared memory, and streams the embed in chunks of 64
-// rows x 64 columns of H: the TPU's sequential grid axis is the loop in
-// the block.  8 (4) warps, each owning 16 rows x the 64 columns of the
-// tile, so the online max / sum-exp runs in registers (quad shuffles).
-// Each chunk is loaded into registers (16-byte loads) one step ahead
-// and converted to bf16 into one of two chunk buffers.  N / 128 = 64
-// row blocks do not fill 132 SMs, so the vocab is split across
-// gridDim.y (about 128 blocks in all); each split writes its partial
-// (m, l, tgt) and `ce_fwd_combine` merges them in a fixed order with the
-// tp formula of ops/fused_ce.py (m = max m_s, l = sum l_s exp(m_s - m),
-// tgt = sum tgt_s).  One apex_ce_fwd call is one launch in the counter
+// Forward: a GEMM tiling with the softmax statistics as its epilogue.
+// Both operands come to the kernel as bf16: an fp32 x or embed is
+// converted once a call by `ce_to_bf16` into the caller's scratch, with
+// the tiles' rounding (nearest even), so no bit of s moves; the embed's
+// copy halves the bytes every block streams and takes the conversion out
+// of the tile loop.  A block (FwdTiles: 8 warps) owns a 128-row x tile
+// and walks its vocab split in 256-row tiles; the tiles' 64-column
+// chunks of x and of the embed come by 16-byte cp.async straight into
+// the padded layout ldmatrix reads (row stride 72), through a ring of
+// two chunks that runs on across tile edges, so the next chunk's loads
+// are in flight during a tile's epilogue.  One block barrier a chunk.
+// Each warp owns a 64 x 64 piece of s in registers (128 fp32 a thread):
+// every ldmatrix feeds four mma (8 ldmatrix for 32 mma a 16-deep step,
+// where 16 x 64 pieces took 5 for 8).  When a tile's s is whole, each
+// lane folds its 16 columns of each of its 8 rows into its own running
+// (m, l, tgt) in base 2 (exp2(s log2 e - m log2 e) on the SFU's
+// ex2.approx), with no shuffle;
+// after the walk the 16 lanes of a row are merged in lane order through
+// shared memory.  The 64 row tiles of N = 8192 are split over the vocab
+// by gridDim.y to fill 132 SMs (128 blocks of 98-99 tiles), and
+// `ce_fwd_combine` merges the splits in split order with the tp formula
+// of ops/fused_ce.py (m = max m_s, l = sum l_s exp(m_s - m), tgt = sum
+// tgt_s).  L2 traffic at GPT-124M: the x tile again for every vocab
+// tile and the embed copy once for every row tile, 7.4 GB (the fp32
+// stream of the earlier design read 9.9).  The width is a run-time
+// argument: the chunks take any H % 16 == 0.  One apex_ce_fwd call (the
+// copies, the split kernel, the combine) is one launch in the counter
 // of the wrapper.
 //
 // dx and dembed: one kernel template of W warps (BwdH768: 8 warps, 64
@@ -125,177 +140,206 @@ using apex_mma::ld_b_nk;
 using apex_mma::ld_b_nk1;
 using apex_mma::mma16816;
 using apex_mma::pack2;
-using apex_mma::quad_max;
-using apex_mma::quad_sum;
 
-constexpr int kChunk = 64;          // rows and columns of a streamed chunk
-constexpr int kLdC = kChunk + 8;    // row stride of a forward chunk buffer
 constexpr int kMaxHidden = 1024;
-constexpr int kTargetBlocks = 128;  // forward blocks aimed at (132 SMs, one block each)
+constexpr int kSms = 132;           // the H100's SMs: the forward's grid aims at them
 constexpr float kNegInf = -1e30f;
+constexpr float kMasked = -2e30f;   // a column past V: below every running max
 constexpr float kLog2e = 1.4426950408889634f;
 
-// H rounded up to a multiple of w (whole steps of chunks); tiles are
-// zero past H.
-__host__ __device__ inline int padded(int H, int w = kChunk) { return (H + w - 1) / w * w; }
-
-// CR rows x 64 columns (from column k0) of a row-major (rows, H) source,
-// held in registers by THREADS threads as 16-byte vectors, stored to
-// shared memory as bf16.  Rows past `valid` and columns past H are zero.
-template <typename T, int THREADS, int CR>
-struct Chunk {
-  static constexpr int kPerRow = kChunk * (int)sizeof(T) / 16;  // vectors a row
-  static constexpr int kElems = 16 / (int)sizeof(T);            // elements a vector
-  static constexpr int kPer = CR * kPerRow / THREADS;          // vectors a thread
-  static_assert(CR * kPerRow % THREADS == 0, "chunk does not split evenly");
-  uint4 v[kPer];
-
-  __device__ __forceinline__ void load(const T* src, int valid, int H, int k0) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      const int r = idx / kPerRow, c = k0 + (idx % kPerRow) * kElems;
-      v[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid && c < H) v[i] = *reinterpret_cast<const uint4*>(src + (int64_t)r * H + c);
-    }
-  }
-
-  // into dst (row stride ld) at columns k0.. of the tile
-  __device__ __forceinline__ void store(bf16* dst, int ld, int k0) const {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      bf16* p = dst + (idx / kPerRow) * ld + k0 + (idx % kPerRow) * kElems;
-      if constexpr (sizeof(T) == 4) {
-        const float4 f = *reinterpret_cast<const float4*>(&v[i]);
-        *reinterpret_cast<uint2*>(p) = make_uint2(pack2(f.x, f.y), pack2(f.z, f.w));
-      } else {
-        *reinterpret_cast<uint4*>(p) = v[i];
-      }
-    }
-  }
+// ------------------------------------------------------------------ forward
+// The forward's tile plan: x rows and vocab rows of a block tile, the
+// columns of H a ring stage holds, ring stages, the warps' layout (kWarpsM
+// down the rows by kWarpsN across the vocab: each warp owns a (kRows /
+// kWarpsM) x (kCols / kWarpsN) piece of s) and the blocks an SM holds.
+struct FwdTiles {
+  static constexpr int kRows = 128;
+  static constexpr int kCols = 256;
+  static constexpr int kChunk = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kWarpsM = 2;
+  static constexpr int kWarpsN = 4;
+  static constexpr int kBlocksPerSm = 1;
 };
 
-// The first `valid` rows of src (row stride H) into a ROWS x width bf16
-// tile (row stride ld); everything else zero.
-template <typename T, int THREADS, int ROWS>
-__device__ void load_own(bf16* dst, int ld, const T* src, int valid, int H, int width) {
-  for (int k0 = 0; k0 < width; k0 += kChunk) {
-    Chunk<T, THREADS, ROWS> c;
-    c.load(src, valid, H, k0);
-    c.store(dst, ld, k0);
-  }
+// 2^x by the SFU alone (ex2.approx.ftz: relative error under 2^-22; a
+// very negative x gives 0), for the forward's N x V exponentials.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-
-// acc (16 x 8 NT) += A[m0..m0+15, ak0..ak0+63] . B[n0..n0+8NT-1, bk0..bk0+63]^T
-template <int NT>
-__device__ __forceinline__ void score_chunk(float (&acc)[NT][4], const bf16* A, int lda, int m0,
-                                            int ak0, const bf16* B, int ldb, int n0, int bk0,
-                                            int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kChunk; kk += 16) {
-    uint32_t a[4];
-    ld_a(a, A, lda, m0, ak0 + kk, lane);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      ld_b_nk(b, B, ldb, n0 + 16 * p, bk0 + kk, lane);
-      mma16816(acc[2 * p], a, b[0], b[1]);
-      mma16816(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
+// Shared memory of a forward block: the ring (each stage the x rows and
+// the vocab rows of a chunk, bf16, row stride chunk + 8) and the rows'
+// target ids.  The rows' partial (m, l, tgt) of every lane are merged
+// through the ring's memory after the walk.
+__host__ __device__ constexpr size_t fwd_smem(int rows, int cols, int chunk, int stages) {
+  return (size_t)stages * (rows + cols) * (chunk + 8) * sizeof(bf16) + (size_t)rows * sizeof(int);
 }
 
-// ------------------------------------------------------------------ forward
-// Block (row tile blockIdx.x, vocab split blockIdx.y): partial (m, l,
+// Block (row tile blockIdx.x, vocab split blockIdx.y): the partial (m, l,
 // tgt) of its rows over vocab tiles [y * tps, (y + 1) * tps) into
 // part[(k * S + y) * N + n], k = 0 (m), 1 (l), 2 (tgt), S = gridDim.y.
-template <typename TX, typename TE, int ROWS>
-__global__ void __launch_bounds__(2 * ROWS, 1)
-ce_fwd_kernel(const TX* __restrict__ x, const TE* __restrict__ e, const int* __restrict__ tid,
+// x and e are bf16 (the wrapper's copies of fp32 operands).  The block
+// walks its tiles' chunks (vocab tile c / KC, columns (c % KC) BK..) through
+// a ring of STAGES chunks; each warp holds its MW x NW piece of s in
+// registers over H, then folds it into its lanes' running (m, l, tgt):
+// each lane keeps its own for its columns, merged once at the end.
+template <int BM, int BN, int BK, int STAGES, int WM, int WN, int MINB>
+__global__ void __launch_bounds__(32 * WM * WN, MINB)
+ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e, const int* __restrict__ tid,
               float* __restrict__ part, int N, int H, int V, int tps) {
-  constexpr int kThreads = 2 * ROWS;  // one warp a 16-row strip
+  constexpr int kThreads = 32 * WM * WN, LD = BK + 8, VPR = BK / 8;
+  constexpr int MW = BM / WM, NW = BN / WN, MT = MW / 16, NT = NW / 8;
+  constexpr int kStage = (BM + BN) * LD;  // elements of a stage
+  constexpr int kLanes = 4 * WN;          // lanes that hold a part of one row
+  static_assert(MW % 16 == 0 && NW % 16 == 0 && BK % 16 == 0 && STAGES >= 2,
+                "a warp's piece of s is whole 16 x 16 tiles");
+  static_assert((size_t)3 * BM * kLanes * sizeof(float) <= (size_t)STAGES * kStage * sizeof(bf16),
+                "the merge of the lanes' partials fits the ring");
   extern __shared__ __align__(128) char smem[];
-  const int ldx = padded(H) + 8, KC = padded(H) / kChunk;
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sC = sX + ROWS * ldx;  // two chunk buffers, kChunk x kLdC each
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  int* sT = reinterpret_cast<int*>(ring + STAGES * kStage);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int64_t n0 = (int64_t)blockIdx.x * ROWS;
-  const int rows = N - n0 < ROWS ? (int)(N - n0) : ROWS;
-  const int nv = (V + kChunk - 1) / kChunk;
+  const int wm = warp / WN, wn = warp % WN;
+  const int64_t n0 = (int64_t)blockIdx.x * BM;
+  const int rows = N - n0 < BM ? (int)(N - n0) : BM;
+  const int nv = (V + BN - 1) / BN, KC = (H + BK - 1) / BK;
   const int vt0 = blockIdx.y * tps, vt1 = min(nv, vt0 + tps);
   const int steps = (vt1 - vt0) * KC;
 
-  load_own<TX, kThreads, ROWS>(sX, ldx, x + n0 * H, rows, H, padded(H));
-  const int r0 = warp * 16 + g;  // this thread's rows: r0, r0 + 8
-  int target[2];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, tg[2] = {0.f, 0.f};
+  // chunk c into stage c % STAGES by 16-byte cp.async: x rows 0..BM-1,
+  // then vocab rows; rows past N or V and columns past H are zeros
+  auto issue = [&](int c) {
+    if (c < steps) {
+      const int64_t v0 = (int64_t)(vt0 + c / KC) * BN;
+      const int k0 = (c % KC) * BK;
+      bf16* dst = ring + (c % STAGES) * kStage;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) target[h] = r0 + 8 * h < rows ? tid[n0 + r0 + 8 * h] : -1;
-
-  Chunk<TE, kThreads, kChunk> next;
-  if (steps > 0) {
-    next.load(e + (int64_t)vt0 * kChunk * H, min(kChunk, V - vt0 * kChunk), H, 0);
-    next.store(sC, kLdC, 0);
-  }
-  __syncthreads();
-  float s[8][4];
-  for (int step = 0; step < steps; ++step) {
-    const int vt = vt0 + step / KC, kc = step % KC;
-    if (kc == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[j][q] = 0.f;
-    }
-    const bool more = step + 1 < steps;
-    if (more) {  // the next chunk, in flight while this one is multiplied
-      const int vn = vt0 + (step + 1) / KC;
-      next.load(e + (int64_t)vn * kChunk * H, min(kChunk, V - vn * kChunk), H,
-                (step + 1) % KC * kChunk);
-    }
-    score_chunk<8>(s, sX, ldx, warp * 16, kc * kChunk, sC + (step & 1) * kChunk * kLdC, kLdC,
-                   0, 0, lane);
-    if (kc == KC - 1) {  // the tile's online max / sum-exp, in registers
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (vt * kChunk + 8 * j + 2 * t + (q & 1) >= V) s[j][q] = kNegInf;
-          mx[q >> 1] = fmaxf(mx[q >> 1], s[j][q]);
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m[h], quad_max(mx[h]));
-        float sum = 0.f, hit = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int q = 2 * h; q < 2 * h + 2; ++q) {
-            const int col = vt * kChunk + 8 * j + 2 * t + (q & 1);
-            sum += expf(s[j][q] - m_new);
-            if (col < V && col == target[h]) hit += s[j][q];
-          }
-        l[h] = l[h] * expf(m[h] - m_new) + quad_sum(sum);
-        m[h] = m_new;
-        tg[h] += quad_sum(hit);
+      for (int i = threadIdx.x; i < (BM + BN) * VPR; i += kThreads) {
+        const int r = i / VPR, k = k0 + (i % VPR) * 8;
+        const bool is_x = r < BM;
+        const int64_t row = is_x ? n0 + r : v0 + (r - BM);
+        const bool ok = k < H && (is_x ? r < rows : row < V);
+        const bf16* src = (is_x ? x : e) + (ok ? row * H + k : 0);
+        cp_async16(dst + r * LD + (i % VPR) * 8, src, ok ? 16 : 0);
       }
     }
-    if (more) next.store(sC + ((step + 1) & 1) * kChunk * kLdC, kLdC, 0);
-    __syncthreads();
+    cp_async_commit();  // empty past the walk: the wait counts stay the same
+  };
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  for (int i = threadIdx.x; i < BM; i += kThreads) {
+    const int id = i < rows ? tid[n0 + i] : -1;
+    sT[i] = id < V ? id : -1;  // an id outside [0, V) hits nothing
   }
-  if (t == 0) {
-    const int64_t S = gridDim.y;
+
+  // this lane's rows: wm MW + 16 i + g + 8 h; its columns of a tile: wn NW
+  // + 8 j + 2 t + q (acc[i][j][2 h + q])
+  float m[MT][2], l[MT][2], tg[MT][2], acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[i][h] = kNegInf, l[i][h] = 0.f, tg[i][h] = 0.f;
+  for (int c = 0; c < steps; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1's stage
+    issue(c + STAGES - 1);
+    const int kc = c % KC;
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
+    const bf16* sX = ring + (c % STAGES) * kStage;
+    const bf16* sE = sX + BM * LD;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) ld_a(a[i], sX, LD, wm * MW + 16 * i, kk, lane);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t b[4];
+        ld_b_nk(b, sE, LD, wn * NW + 16 * p, kk, lane);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma16816(acc[i][2 * p], a[i], b[0], b[1]);
+          mma16816(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+    if (kc == KC - 1) {  // the tile's s is whole: fold it into the running (m, l, tgt)
+      const int vt = vt0 + c / KC, col0 = vt * BN + wn * NW + 2 * t;
+      if ((vt + 1) * BN > V) {  // the last tile: columns past V weigh 0
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (col0 + 8 * j + (q & 1) >= V) acc[i][j][q] = kMasked;
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = m[i][h];
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mx = fmaxf(mx, fmaxf(acc[i][j][2 * h], acc[i][j][2 * h + 1]));
+          const float ms = mx * kLog2e;  // exp(s - mx) = exp2(s log2 e - mx log2 e)
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) sum += fast_exp2(fmaf(acc[i][j][2 * h + q], kLog2e, -ms));
+          l[i][h] = l[i][h] * fast_exp2(fmaf(m[i][h], kLog2e, -ms)) + sum;
+          m[i][h] = mx;
+          const int rel = sT[wm * MW + 16 * i + g + 8 * h] - col0;
+          if (rel >= 0 && rel < NW && (rel & 6) == 0) {  // the target is this lane's column
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                if (8 * j + q == rel) tg[i][h] += acc[i][j][2 * h + q];
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  // every lane's (m, l, tgt) of its rows, then one thread a row merges
+  // the row's kLanes partials in lane order (warp wn, then t)
+  float* sM = reinterpret_cast<float*>(ring);
+  float* sL = sM + BM * kLanes;
+  float* sG = sL + BM * kLanes;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= rows) continue;
-      part[(0 * S + blockIdx.y) * N + n0 + r] = m[h];
-      part[(1 * S + blockIdx.y) * N + n0 + r] = l[h];
-      part[(2 * S + blockIdx.y) * N + n0 + r] = tg[h];
+      const int o = (wm * MW + 16 * i + g + 8 * h) * kLanes + wn * 4 + t;
+      sM[o] = m[i][h], sL[o] = l[i][h], sG[o] = tg[i][h];
     }
+  __syncthreads();
+  const int64_t S = gridDim.y;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const float* pm = sM + r * kLanes;
+    float mr = kNegInf, lr = 0.f, gr = 0.f;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) mr = fmaxf(mr, pm[k]);
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) {
+      lr += sL[r * kLanes + k] * fast_exp2((pm[k] - mr) * kLog2e);
+      gr += sG[r * kLanes + k];
+    }
+    part[(0 * S + blockIdx.y) * N + n0 + r] = mr;
+    part[(1 * S + blockIdx.y) * N + n0 + r] = lr;
+    part[(2 * S + blockIdx.y) * N + n0 + r] = gr;
   }
 }
 
@@ -583,22 +627,31 @@ ce_bwd_kernel(const TOWN* __restrict__ own, const bf16* __restrict__ str,
   }
 }
 
-// Rows of a forward block: 128, or 64 when the x tile would not fit.
-int fwd_rows(int H) { return H <= 768 ? 128 : 64; }
-
-// Vocab splits of the forward: about kTargetBlocks blocks in all.
-int fwd_splits(int N, int H, int V) {
-  const int row_blocks = (N + fwd_rows(H) - 1) / fwd_rows(H);
-  const int nv = (V + kChunk - 1) / kChunk;
-  int S = kTargetBlocks / row_blocks;  // row_blocks >= 1: N > 0 here
+// The forward's plan, as launched: tiles, ring, warps, vocab splits
+// (about kSms x blocks an SM blocks in all), shared memory, and the
+// caller's scratch: the splits' partials (3, S, N) fp32, then the bf16
+// copies of an fp32 x and an fp32 embed, each from a 256-byte boundary.
+struct FwdPlan {
+  int rows, cols, chunk, stages, warps, splits;
+  size_t smem, part_bytes, x_copy, e_copy;
+};
+size_t round256(size_t b) { return (b + 255) / 256 * 256; }
+FwdPlan fwd_plan(int N, int H, int V, int x_dtype, int e_dtype) {
+  using F = FwdTiles;
+  const int row_blocks = (N + F::kRows - 1) / F::kRows;
+  const int nv = (V + F::kCols - 1) / F::kCols;
+  int S = row_blocks > 0 ? kSms * F::kBlocksPerSm / row_blocks : 1;
   S = S < 1 ? 1 : S > nv ? nv : S;
   const int tps = (nv + S - 1) / S;
-  return (nv + tps - 1) / tps;  // no split left empty
-}
-
-// Shared memory of a forward block: the x tile and two chunk buffers.
-size_t fwd_smem(int H) {
-  return (fwd_rows(H) * ((size_t)padded(H) + 8) + 2 * kChunk * kLdC) * sizeof(bf16);
+  FwdPlan f;
+  f.rows = F::kRows, f.cols = F::kCols, f.chunk = F::kChunk, f.stages = F::kStages;
+  f.warps = F::kWarpsM * F::kWarpsN;
+  f.splits = (nv + tps - 1) / tps;  // no split left empty
+  f.smem = fwd_smem(F::kRows, F::kCols, F::kChunk, F::kStages);
+  f.part_bytes = round256((size_t)3 * f.splits * N * sizeof(float));
+  f.x_copy = x_dtype == 0 ? round256((size_t)N * H * sizeof(bf16)) : 0;
+  f.e_copy = e_dtype == 0 ? round256((size_t)V * H * sizeof(bf16)) : 0;
+  return f;
 }
 
 template <typename K>
@@ -614,26 +667,51 @@ struct Problem {
   cudaStream_t st;
 };
 
-template <typename TX, typename TE, int ROWS>
-cudaError_t fwd_rows_t(const Problem& p, float* part, float* m, float* l, float* tgt) {
-  auto kernel = ce_fwd_kernel<TX, TE, ROWS>;
-  const size_t smem = fwd_smem(p.H);
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int S = fwd_splits(p.N, p.H, p.V);
-  const int nv = (p.V + kChunk - 1) / kChunk, tps = (nv + S - 1) / S;
-  kernel<<<dim3((p.N + ROWS - 1) / ROWS, S), 2 * ROWS, smem, p.st>>>(
-      (const TX*)p.x, (const TE*)p.e, p.t, part, p.N, p.H, p.V, tps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ce_fwd_combine<<<(p.N + 255) / 256, 256, 0, p.st>>>(part, S, p.N, m, l, tgt);
-  return cudaGetLastError();
+// The streamed operand as bf16: itself, or its copy in `scratch` (rows x
+// H), converted here when it is fp32.
+template <typename T>
+cudaError_t streamed(const void* src, int64_t rows, int H, void* scratch, cudaStream_t st,
+                     const bf16** out) {
+  *out = (const bf16*)src;
+  if constexpr (sizeof(T) == 4) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const int64_t n8 = rows * H / 8;
+    const int64_t want = (n8 + 255) / 256;
+    const int blocks = want < 4096 ? (int)want : 4096;
+    ce_to_bf16<<<blocks, 256, 0, st>>>((const float*)src, (bf16*)scratch, n8);
+    *out = (const bf16*)scratch;
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
-template <typename TX, typename TE>
-cudaError_t fwd(const Problem& p, float* part, float* m, float* l, float* tgt) {
-  return fwd_rows(p.H) == 128 ? fwd_rows_t<TX, TE, 128>(p, part, m, l, tgt)
-                              : fwd_rows_t<TX, TE, 64>(p, part, m, l, tgt);
+// The forward: the bf16 copies of fp32 operands, the split kernel, the
+// combine.
+cudaError_t fwd(const Problem& p, char* scratch, float* m, float* l, float* tgt, int x_dtype,
+                int e_dtype) {
+  using F = FwdTiles;
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const FwdPlan f = fwd_plan(p.N, p.H, p.V, x_dtype, e_dtype);
+  float* part = (float*)scratch;
+  char* x_copy = scratch + f.part_bytes;
+  const bf16 *xb, *eb;
+  cudaError_t err = x_dtype == 0 ? streamed<float>(p.x, p.N, p.H, x_copy, p.st, &xb)
+                                 : streamed<bf16>(p.x, p.N, p.H, nullptr, p.st, &xb);
+  if (err != cudaSuccess) return err;
+  err = e_dtype == 0 ? streamed<float>(p.e, p.V, p.H, x_copy + f.x_copy, p.st, &eb)
+                     : streamed<bf16>(p.e, p.V, p.H, nullptr, p.st, &eb);
+  if (err != cudaSuccess) return err;
+  auto kernel = ce_fwd_kernel<F::kRows, F::kCols, F::kChunk, F::kStages, F::kWarpsM, F::kWarpsN,
+                              F::kBlocksPerSm>;
+  err = prepare(kernel, f.smem);
+  if (err != cudaSuccess) return err;
+  const int nv = (p.V + F::kCols - 1) / F::kCols, tps = (nv + f.splits - 1) / f.splits;
+  kernel<<<dim3((p.N + F::kRows - 1) / F::kRows, f.splits), 32 * f.warps, f.smem, p.st>>>(
+      xb, eb, p.t, part, p.N, p.H, p.V, tps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ce_fwd_combine<<<(p.N + 255) / 256, 256, 0, p.st>>>(part, f.splits, p.N, m, l, tgt);
+  return cudaGetLastError();
 }
 
 // The backward's plan at width H, as launched: own rows, streamed rows a
@@ -677,24 +755,6 @@ cudaError_t bwd_w(const void* own, const bf16* str, const Problem& p, const floa
 #undef APEX_CE_BWD
 }
 
-// The streamed operand as bf16: itself, or its copy in `scratch` (rows x
-// H), converted here when it is fp32.
-template <typename T>
-cudaError_t streamed(const void* src, int64_t rows, int H, void* scratch, cudaStream_t st,
-                     const bf16** out) {
-  *out = (const bf16*)src;
-  if constexpr (sizeof(T) == 4) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    const int64_t n8 = rows * H / 8;
-    const int64_t want = (n8 + 255) / 256;
-    const int blocks = want < 4096 ? (int)want : 4096;
-    ce_to_bf16<<<blocks, 256, 0, st>>>((const float*)src, (bf16*)scratch, n8);
-    *out = (const bf16*)scratch;
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
-}
-
 // which: 1 = dx (own x, streamed embed), 2 = dembed (own embed, streamed x).
 template <typename TX, typename TE>
 cudaError_t bwd(int which, const Problem& p, const float* lse, const float* g, void* out,
@@ -712,41 +772,56 @@ bool bad_problem(const Problem& p, int x_dtype, int e_dtype) {
          x_dtype > 1 || e_dtype < 0 || e_dtype > 1;
 }
 
-// which: 0 = forward (o0..o3: m, l, tgt, part), 1 = dx, 2 = dembed (o0:
-// the output, o1: the streamed operand's bf16 scratch or null).
-// x_dtype, e_dtype: 0 = float32, 1 = bfloat16.
+// which: 0 = forward (o0..o3: m, l, tgt, the plan's scratch), 1 = dx, 2 =
+// dembed (o0: the output, o1: the streamed operand's bf16 scratch or
+// null).  x_dtype, e_dtype: 0 = float32, 1 = bfloat16.
 int dispatch(int which, const Problem& p, const float* lse, const float* g, void* o0,
              void* o1, void* o2, void* o3, int x_dtype, int e_dtype) {
   if (bad_problem(p, x_dtype, e_dtype)) return (int)cudaErrorInvalidValue;
   if (p.N == 0) return 0;
+  if (which == 0)
+    return (int)fwd(p, (char*)o3, (float*)o0, (float*)o1, (float*)o2, x_dtype, e_dtype);
   cudaError_t err;
-#define APEX_CE_RUN(TX, TE)                                                        \
-  err = which == 0 ? fwd<TX, TE>(p, (float*)o3, (float*)o0, (float*)o1, (float*)o2) \
-                   : bwd<TX, TE>(which, p, lse, g, o0, o1)
   if (x_dtype == 1 && e_dtype == 0)
-    APEX_CE_RUN(bf16, float);
+    err = bwd<bf16, float>(which, p, lse, g, o0, o1);
   else if (x_dtype == 1)
-    APEX_CE_RUN(bf16, bf16);
+    err = bwd<bf16, bf16>(which, p, lse, g, o0, o1);
   else if (e_dtype == 0)
-    APEX_CE_RUN(float, float);
+    err = bwd<float, float>(which, p, lse, g, o0, o1);
   else
-    APEX_CE_RUN(float, bf16);
-#undef APEX_CE_RUN
+    err = bwd<float, bf16>(which, p, lse, g, o0, o1);
   return (int)err;
 }
 
 }  // namespace
 
-// Vocab splits of the forward: the caller's partial buffer is (3, S, N) fp32.
-extern "C" int apex_ce_fwd_splits(int N, int hidden, int V) { return fwd_splits(N, hidden, V); }
+// The forward's plan into out[8]: x rows and vocab rows of a block tile,
+// columns of H a ring stage, ring stages, warps a block, vocab splits,
+// shared memory bytes of a block, bytes of the caller's scratch (the
+// splits' partials and the bf16 copies of fp32 operands).
+extern "C" int apex_ce_fwd_plan(int N, int H, int V, int x_dtype, int e_dtype, int64_t* out) {
+  const Problem p = {nullptr, nullptr, nullptr, N, H, V, nullptr};
+  if (bad_problem(p, x_dtype, e_dtype)) return (int)cudaErrorInvalidValue;
+  const FwdPlan f = fwd_plan(N, H, V, x_dtype, e_dtype);
+  out[0] = f.rows;
+  out[1] = f.cols;
+  out[2] = f.chunk;
+  out[3] = f.stages;
+  out[4] = f.warps;
+  out[5] = f.splits;
+  out[6] = (int64_t)f.smem;
+  out[7] = (int64_t)(f.part_bytes + f.x_copy + f.e_copy);
+  return 0;
+}
 
-// m, l, tgt (N,) fp32; part: the (3, S, N) fp32 scratch.  Two launches:
-// the split forward and the combine.
-extern "C" int apex_ce_fwd(const void* x, const void* e, const void* t, void* part, void* m,
+// m, l, tgt (N,) fp32; scratch: the plan's bytes (16-byte aligned).  Up
+// to four launches: the bf16 copies of fp32 x and embed, the split
+// forward and the combine.
+extern "C" int apex_ce_fwd(const void* x, const void* e, const void* t, void* scratch, void* m,
                            void* l, void* tgt, int N, int H, int V, int x_dtype, int e_dtype,
                            void* stream) {
   const Problem p = {x, e, (const int*)t, N, H, V, (cudaStream_t)stream};
-  return dispatch(0, p, nullptr, nullptr, m, l, tgt, part, x_dtype, e_dtype);
+  return dispatch(0, p, nullptr, nullptr, m, l, tgt, scratch, x_dtype, e_dtype);
 }
 
 // The backward's plan (which: 1 = dx, 2 = dembed) into out[7]: own rows

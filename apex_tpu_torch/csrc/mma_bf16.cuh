@@ -1,8 +1,8 @@
-// Helpers shared by the kernels (decode_attention.cu, flash_attention.cu,
-// fused_ce.cu): mma.sync.m16n8k16 with bf16 inputs and fp32
-// accumulators, the ldmatrix loads that fill its operands from shared
-// memory, the quad reductions over a fragment row, and 16- and 4-byte
-// cp.async copies.
+// Helpers shared by the kernels (decode_attention.cu, decode_sampling.cu,
+// flash_attention.cu, fused_ce.cu): mma.sync.m16n8k16 with bf16 inputs
+// and fp32 accumulators, the ldmatrix loads that fill its operands from
+// shared memory, the quad reductions over a fragment row, and 16-, 8-
+// and 4-byte cp.async copies.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16): lane = 4 * g + t holds, of
 // the 16 x 8 accumulator, rows g and g + 8 at columns 2t and 2t + 1
@@ -106,6 +106,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 // nothing is read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// The same for 8 bytes (8-byte aligned), through L1.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
 // The same for 4 bytes (4-byte aligned), through L1.

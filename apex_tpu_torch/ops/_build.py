@@ -82,12 +82,15 @@ SIGNATURES = {
     # num_pages, page_size, pages_per_seq, denom, q_dtype, kv_dtype, stream
     "apex_paged_decode_attention": (
         _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # N, H, V, sm_count, out (int64 x 9)
+    "apex_sample_plan": (_I, [_I, _I, _I, _I, _P]),
     # x, embed, seeds, tokens, part_v, part_i, logits, tau, N, H, V,
     # nblocks, temperature, top_k, x_dtype, stream
     "apex_fused_sample": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
-    "apex_ce_fwd_splits": (_I, [_I, _I, _I]),
-    # x, embed, t, part, m, l, tgt, N, H, V, x_dtype, embed_dtype, stream
+    # N, H, V, x_dtype, embed_dtype, out (int64 x 8)
+    "apex_ce_fwd_plan": (_I, [_I, _I, _I, _I, _I, _P]),
+    # x, embed, t, scratch, m, l, tgt, N, H, V, x_dtype, embed_dtype, stream
     "apex_ce_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # which, N, H, V, x_dtype, embed_dtype, out (int64 x 7)
     "apex_ce_bwd_plan": (_I, [_I, _I, _I, _I, _I, _I, _P]),

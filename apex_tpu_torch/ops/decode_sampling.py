@@ -4,8 +4,11 @@ its plain PyTorch version.
 Counterpart of :mod:`apex_tpu.ops.decode_sampling_pallas`.  The LM head,
 temperature, optional top-k restriction and the categorical draw are
 one kernel (``csrc/decode_sampling.cu``): the head streams the fp32
-embedding once and never writes the (N, V) logits unless top-k needs
-them.  Sampling is the Gumbel-max trick, ``argmax_v(logits_v / T +
+embedding once for every row of a call (up to 64 rows a pass) and never
+writes the (N, V) logits unless top-k needs them.  :func:`sample_plan`
+states its launch plan, a pure function of the shapes and the card's SM
+count that the CPU tests check; ``chip_smoke.py`` holds it against
+``apex_sample_plan``, what the C side launches with.  Sampling is the Gumbel-max trick, ``argmax_v(logits_v / T +
 g_v)``, with ``g_v`` from a counter hash of (row seed, vocab column) —
 the same uint32 arithmetic as ``_hash_u32``/``gumbel_from_seed`` in the
 JAX package, so both packages and both versions here draw the same
@@ -22,6 +25,8 @@ Seeds are int64 tensors holding uint32 values.  Tokens come back as
 int32, as in the JAX package.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from apex_tpu_torch.ops import _build
@@ -33,9 +38,55 @@ LAUNCHES = 0
 
 NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
-#: the score kernel keeps 8 x rows (fp32) in the default 48 KB of shared
-#: memory a block may use, less 1 KB for its static candidate buffers
-MAX_HIDDEN = 47 * 1024 // (8 * 4)
+#: the widest hidden state taken: the kernel brings x and the embed in
+#: chunks of H, so shared memory does not bound it; this keeps a pass's
+#: x offsets (64 rows x H) and the plan's checks in range
+MAX_HIDDEN = 65536
+
+#: the score kernel's tiles (csrc SampleTiles): vocab rows a tile,
+#: columns of H a ring stage, ring stages, blocks an SM, x rows a pass
+SAMPLE_TILES = {"vocab_tile": 128, "chunk": 32, "stages": 2, "blocks_per_sm": 3, "row_cap": 64}
+
+
+class SamplePlan(NamedTuple):
+    passes: int         # launches of the score kernel, each of up to row_cap x rows
+    row_cap: int        # x rows a pass
+    n_tiles: int        # n-tiles of 8 x rows of the first pass
+    warps: int          # warps a block, 16 vocab rows each
+    vocab_tile: int     # vocab rows a tile
+    chunk: int          # columns of H a ring stage holds
+    stages: int         # chunks of the cp.async ring
+    blocks: int         # blocks (one vocab tile or more each), about blocks_per_sm an SM
+    smem_bytes: int     # dynamic shared memory of a block of the first pass
+
+
+def sample_smem_bytes(rows, tiles=None):
+    """Shared memory of one score block of ``rows`` x rows, a multiple of
+    8 (``csrc`` ``sample_smem``): the ring, each stage the vocab tile's
+    chunk and the x rows' chunk in fp32 (row stride chunk + 4) and a bf16
+    x chunk's landing area; then each warp's best (value, index) of every
+    row of a pass."""
+    t = SAMPLE_TILES if tiles is None else tiles
+    ring = t["stages"] * ((t["vocab_tile"] + rows) * (t["chunk"] + 4) + rows * t["chunk"] // 2)
+    return ring * 4 + t["vocab_tile"] // 16 * t["row_cap"] * 8
+
+
+def sample_plan(N, H, V, sm_count):
+    """The score kernel's launch plan, as ``csrc/decode_sampling.cu``
+    launches it for N rows of width H over V vocab rows on a card of
+    ``sm_count`` SMs: passes of at most ``row_cap`` rows, each reading the
+    embed once; the first pass's n-tiles of 8 rows; a warp for each 16
+    vocab rows of a tile; blocks: one for each vocab tile, at most
+    ``blocks_per_sm`` an SM (a block takes tiles b, b + blocks, ...).  H
+    does not change it."""
+    if N <= 0 or V <= 0 or H <= 0 or H % 4 or sm_count <= 0:
+        raise ValueError(f"no plan for N={N}, H={H}, V={V}, sm_count={sm_count}")
+    t = SAMPLE_TILES
+    nt = -(-min(N, t["row_cap"]) // 8)
+    blocks = min(-(-V // t["vocab_tile"]), t["blocks_per_sm"] * sm_count)
+    return SamplePlan(-(-N // t["row_cap"]), t["row_cap"], nt, t["vocab_tile"] // 16,
+                      t["vocab_tile"], t["chunk"], t["stages"], blocks,
+                      sample_smem_bytes(8 * nt))
 
 
 def hash_u32(z):
@@ -82,6 +133,12 @@ def _problem(x2, embed, seeds):
     message is built only on failure: this runs on every launch)."""
     if x2.device.type != "cuda":
         return f"tensors on {x2.device} are not supported"
+    return _shape_problem(x2, embed, seeds)
+
+
+def _shape_problem(x2, embed, seeds):
+    """What the kernel cannot take about these arguments' shapes, dtypes,
+    layout and alignment, whatever their device, or None."""
     if x2.dim() != 2 or embed.dim() != 2 or x2.shape[1] != embed.shape[1]:
         return (f"x {tuple(x2.shape)} and embed {tuple(embed.shape)} must be "
                 f"(N, H) and (V, H)")
@@ -90,6 +147,8 @@ def _problem(x2, embed, seeds):
         return f"x dtype {x2.dtype} is not float32/bfloat16"
     if embed.dtype != torch.float32 or embed.data_ptr() % 16:
         return "embed must be float32 and 16-byte aligned"
+    if x2.data_ptr() % (4 * x2.element_size()):
+        return "x must be aligned to 4 of its elements (the kernel's copies)"
     if seeds.dtype != torch.int64 or seeds.shape != (N,):
         return "seeds must be an int64 (N,) tensor"
     if H % 4 or not 0 < H <= MAX_HIDDEN:
@@ -105,8 +164,9 @@ def _problem(x2, embed, seeds):
 def fused_sample(x2, embed, seeds, temperature=1.0, top_k=0):
     """hidden (N, H) -> token ids (N,) int32.  CPU tensors run the plain
     version; CUDA tensors launch the kernel: ``x2`` float32/bfloat16,
-    ``embed`` float32 (V, H) with H % 4 == 0, ``seeds`` int64, all
-    contiguous on one device."""
+    ``embed`` float32 (V, H) with H % 4 == 0 (up to ``MAX_HIDDEN``),
+    ``seeds`` int64, all contiguous on one device, the embed 16-byte
+    aligned and x aligned to 4 of its elements."""
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0 (got {temperature})")
     if top_k < 0:
@@ -122,7 +182,8 @@ def fused_sample(x2, embed, seeds, temperature=1.0, top_k=0):
     if N == 0:
         return tokens
     dev = x2.device
-    nblocks = min(-(-V // 8), 4 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    nblocks = sample_plan(N, H, V,
+                          torch.cuda.get_device_properties(dev).multi_processor_count).blocks
     part_v = torch.empty((nblocks, N), dtype=torch.float32, device=dev)
     part_i = torch.empty((nblocks, N), dtype=torch.int32, device=dev)
     logits = tau = None

@@ -7,8 +7,9 @@ it fp32) or bfloat16, t ``(N,)`` int32 target ids (the caller clamps
 them), lse and g ``(N,)`` float32.  The kernels are ``csrc/fused_ce.cu``
 (its header says what bounds them and how they are laid out).
 
-- :func:`ce_fwd` (``_fwd_kernel``; one call launches the vocab-split
-  kernel and its combine, and counts once) -> ``(m, l, tgt)``, each (N,) fp32:
+- :func:`ce_fwd` (``_fwd_kernel``; one call launches the bf16 copies of
+  fp32 operands, the vocab-split kernel and its combine, and counts
+  once) -> ``(m, l, tgt)``, each (N,) fp32:
   the row max of the logits, the sum of ``exp(logit - m)``, the target
   logit (0 for an id outside ``[0, V)``), so ``lse = m + log(l)``;
 - :func:`ce_dx` (``_dx_kernel``) -> dx (N, H) in x's dtype;
@@ -20,7 +21,11 @@ is fp32 the wrapper allocates its bf16 copy as scratch, which the call
 fills before the kernel runs (one call still counts one launch).
 :func:`ce_bwd_plan` states their tile plan, a pure function of the
 shapes that the CPU tests check; ``chip_smoke.py`` holds it against
-``apex_ce_bwd_plan``, what the C side launches with.
+``apex_ce_bwd_plan``, what the C side launches with.  The forward
+streams bf16 operands too: :func:`ce_fwd_plan` states its tiles, vocab
+splits and the one scratch buffer the wrapper allocates (the splits'
+partials and the bf16 copies of fp32 x and embed), held against
+``apex_ce_fwd_plan``.
 
 The kernels' arithmetic is the Pallas kernels' default: x and embed rounded to bf16 before ``x .
 e^T`` and d rounded to bf16 before ``d . e`` and ``d^T . x``, with fp32
@@ -53,10 +58,63 @@ PLAIN_CHUNK_ROWS = 1024
 #: shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
 
+#: the forward's tiles (csrc FwdTiles): x rows and vocab rows of a block
+#: tile, columns of H a ring stage, ring stages, warps down the rows and
+#: across the vocab, blocks an SM
+FWD_TILES = {"rows": 128, "cols": 256, "chunk": 64, "stages": 2, "warps_m": 2, "warps_n": 4,
+             "blocks_per_sm": 1}
+
+#: the SMs the forward's vocab splits aim to fill (an H100's 132)
+SMS = 132
+
 #: the backward's tiles (csrc BwdH768 for H <= 768, BwdH1024 above): own
 #: rows a block, streamed rows a tile, K groups of the score product,
 #: warps a block
 BWD_TILES = {768: (64, 32, 4, 8), 1024: (32, 32, 6, 12)}
+
+
+class CeFwdPlan(NamedTuple):
+    rows: int           # x rows of a block tile
+    vocab_rows: int     # vocab rows of a block tile (columns of s)
+    chunk: int          # columns of H a ring stage holds
+    stages: int         # chunks of the cp.async ring
+    warps: int          # warps a block
+    splits: int         # vocab splits (gridDim.y), merged by the combine
+    smem_bytes: int     # dynamic shared memory of one block
+    scratch_bytes: int  # the splits' partials, then the bf16 copies of fp32 x / embed
+
+
+def _round256(n):
+    return -(-n // 256) * 256
+
+
+def fwd_smem_bytes(rows, cols, chunk, stages):
+    """Shared memory of one forward block (``csrc`` ``fwd_smem``): the
+    ring of x and embed chunks (bf16, row stride chunk + 8) and the rows'
+    target ids."""
+    return stages * (rows + cols) * (chunk + 8) * 2 + rows * 4
+
+
+def ce_fwd_plan(N, H, V, x_dtype, e_dtype):
+    """The forward's plan, as ``csrc/fused_ce.cu`` launches it: the block
+    tile, ring and warps of ``FWD_TILES``, the vocab splits that bring
+    the blocks to about ``SMS`` x blocks an SM (no split left empty),
+    shared memory, and the scratch: the splits' partial (m, l, tgt), (3,
+    S, N) fp32, then the bf16 copy of x when it is fp32 and of the embed
+    when it is fp32, each from a 256-byte boundary."""
+    f = FWD_TILES
+    row_blocks = -(-N // f["rows"])
+    nv = -(-V // f["cols"])
+    S = SMS * f["blocks_per_sm"] // row_blocks if row_blocks else 1
+    S = min(max(S, 1), nv)
+    tps = -(-nv // S)
+    S = -(-nv // tps)
+    scratch = _round256(3 * S * N * 4)
+    scratch += _round256(N * H * 2) if x_dtype == torch.float32 else 0
+    scratch += _round256(V * H * 2) if e_dtype == torch.float32 else 0
+    return CeFwdPlan(f["rows"], f["cols"], f["chunk"], f["stages"],
+                     f["warps_m"] * f["warps_n"], S,
+                     fwd_smem_bytes(f["rows"], f["cols"], f["chunk"], f["stages"]), scratch)
 
 
 class CeBwdPlan(NamedTuple):
@@ -215,11 +273,12 @@ def ce_fwd(x2, embed, t):
     m, l, tgt = (torch.empty(N, dtype=torch.float32, device=x2.device) for _ in range(3))
     if N == 0:
         return m, l, tgt
-    # the vocab splits' partial (m, l, tgt), merged by the kernel's second stage
-    part = torch.empty((3, lib.apex_ce_fwd_splits(N, H, V), N), dtype=torch.float32,
-                       device=x2.device)
+    # the vocab splits' partial (m, l, tgt), merged by the kernel's second
+    # stage, and the bf16 copies of fp32 operands
+    plan = ce_fwd_plan(N, H, V, x2.dtype, embed.dtype)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x2.device)
     _build.check(lib.apex_ce_fwd(
-        x2.data_ptr(), embed.data_ptr(), t.data_ptr(), part.data_ptr(), m.data_ptr(),
+        x2.data_ptr(), embed.data_ptr(), t.data_ptr(), scratch.data_ptr(), m.data_ptr(),
         l.data_ptr(), tgt.data_ptr(), N, H, V, *codes, stream), "ce_fwd")
     global FWD_LAUNCHES
     FWD_LAUNCHES += 1

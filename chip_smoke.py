@@ -19,13 +19,18 @@ Phases, each printing one JSON line:
    N = 1000, V = 50257 case, every (x, embed) dtype pair at H = 768 and
    1024, H = 80 and 784 (widths that the backward's K groups split
    unevenly), and a control -- the backward fed lse + log 2 -- that must
-   fail the same band; the backward's tile plan as ``ce_bwd_plan``
-   states it against the C entry's), with its error and tolerance, its device
+   fail the same band; the forward's and the backward's plans as
+   ``ce_fwd_plan`` and ``ce_bwd_plan`` state them against the C entries';
+   the sampling head at 8, 40, 1 and 64 rows and H = 768, 1600 and 2048,
+   greedy, T = 1 and top-k, and its plan as ``sample_plan`` states it
+   against ``apex_sample_plan`` at N 1..256 and H 4..8192), with its
+   error and tolerance, its device
    time beside the plain version's, one PyTorch library call's where
    one computes the same function (for the CE kernels the dense bf16
-   head, two calls), and the bound (the larger of bytes at 3.35 TB/s
-   and flops at the peak rate of their type: 989 TFLOP/s bf16 tensor
-   cores, 67 TFLOP/s fp32).  Paged decode attention runs in both
+   head, two calls; for the greedy sampling head argmax of a fp32
+   matmul, two calls), and the bound (the larger of bytes at 3.35 TB/s
+   and flops at the peak rate of their type: 989 TFLOP/s bf16 and 495
+   tf32 tensor cores, 67 TFLOP/s fp32).  Paged decode attention runs in both
    layouts: width 1 (8 sequences) and width > 1 at the verify shape (8
    sequences x 5 rows) and the chunk shape (one sequence x 64 rows),
    MHA and GQA, bf16 and fp32, each width-W launch also bitwise equal to
@@ -69,9 +74,10 @@ Phases, each printing one JSON line:
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
    step's, and the two steps' times side by side.
 9. train_reproducible: two backward passes of one flash layer bitwise
-   equal, two calls each of the CE dx and dembed kernels at GPT-124M
-   bitwise equal, and two LN backward calls at 8192 x 768 (bf16, affine
-   with bias) with bitwise equal dx, dw and db.
+   equal, two calls each of the CE forward, dx and dembed kernels at
+   GPT-124M bitwise equal, two LN backward calls at 8192 x 768 (bf16,
+   affine with bias) with bitwise equal dx, dw and db, and two calls of
+   the sampling head at 40 rows (T = 1) with equal tokens.
 10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
     H=12, S=1024; and GQA H_kv=4): the output and the gradients through
     ``flash_attention`` on the card (the bf16 kernels the train step
@@ -111,10 +117,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s,
-#: fp32 flops/s outside the tensor cores, bf16 tensor-core flops/s
+#: fp32 flops/s outside the tensor cores, bf16 and tf32 tensor-core flops/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 
 ITERS = 20
 
@@ -538,32 +545,66 @@ def check_flash_plan(lib):
 
 
 def check_ce_plan(lib):
-    """The fused-CE backward's plan as ``ce_bwd_plan`` states it (the
-    Python plan the CPU tests check) against ``apex_ce_bwd_plan``, what
-    the launches use, for dx and dembed at every dtype pair, at GPT-124M,
+    """The fused-CE plans as ``ce_bwd_plan`` and ``ce_fwd_plan`` state
+    them (the Python plans the CPU tests check) against
+    ``apex_ce_bwd_plan`` and ``apex_ce_fwd_plan``, what the launches use:
+    dx and dembed, and the forward, at every dtype pair, at GPT-124M,
     every ``CE_GRID`` shape and every H the kernels take: equal, field
     for field."""
     import ctypes
 
-    from apex_tpu_torch.ops.fused_ce_kernels import ce_bwd_plan
+    from apex_tpu_torch.ops.fused_ce_kernels import ce_bwd_plan, ce_fwd_plan
 
     shapes = {(8192, 768, 50304)} | {(kw["N"], kw["H"], kw["V"]) for _, kw in CE_GRID}
     shapes |= {(8192, H, 50304) for H in range(16, 1025, 16)}
     got = (ctypes.c_int64 * 7)()
-    n = 0
+    got_fwd = (ctypes.c_int64 * 8)()
+    n = n_fwd = 0
     for N, H, V in sorted(shapes):
-        for which in (1, 2):
-            for xd in (torch.float32, torch.bfloat16):
-                for ed in (torch.float32, torch.bfloat16):
-                    rc = lib.apex_ce_bwd_plan(which, N, H, V, int(xd == torch.bfloat16),
-                                              int(ed == torch.bfloat16), ctypes.addressof(got))
+        for xd in (torch.float32, torch.bfloat16):
+            for ed in (torch.float32, torch.bfloat16):
+                codes = (int(xd == torch.bfloat16), int(ed == torch.bfloat16))
+                for which in (1, 2):
+                    rc = lib.apex_ce_bwd_plan(which, N, H, V, *codes, ctypes.addressof(got))
                     want = tuple(ce_bwd_plan(which, N, H, V, xd, ed))
                     if rc or tuple(got) != want:
                         raise AssertionError(
                             f"CE backward plan which={which} N={N} H={H} V={V} dtypes "
                             f"{xd},{ed}: C {tuple(got)} (rc {rc}), Python {want}")
                     n += 1
-    return {"plans_checked": n}
+                rc = lib.apex_ce_fwd_plan(N, H, V, *codes, ctypes.addressof(got_fwd))
+                want = tuple(ce_fwd_plan(N, H, V, xd, ed))
+                if rc or tuple(got_fwd) != want:
+                    raise AssertionError(
+                        f"CE forward plan N={N} H={H} V={V} dtypes {xd},{ed}: C "
+                        f"{tuple(got_fwd)} (rc {rc}), Python {want}")
+                n_fwd += 1
+    return {"plans_checked": n, "fwd_plans_checked": n_fwd}
+
+
+def check_sample_plan(lib, sm_counts=(132,)):
+    """``sample_plan`` (the Python statement the CPU tests check) against
+    ``apex_sample_plan``, what the launches use, at N from 1 to 256, H
+    from 4 to 8192 in steps of 4, V = 50304 and 8191, on 132 SMs and the
+    card's own count: equal, field for field."""
+    import ctypes
+
+    from apex_tpu_torch.ops.decode_sampling import SamplePlan, sample_plan
+
+    got = (ctypes.c_int64 * len(SamplePlan._fields))()
+    n = 0
+    for sms in sm_counts:
+        for V in (50304, 8191):
+            for N in range(1, 257):
+                for H in range(4, 8193, 4):
+                    rc = lib.apex_sample_plan(N, H, V, sms, ctypes.addressof(got))
+                    want = tuple(sample_plan(N, H, V, sms))
+                    if rc or tuple(got) != want:
+                        raise AssertionError(
+                            f"sampling plan N={N} H={H} V={V} SMs={sms}: C {tuple(got)} "
+                            f"(rc {rc}), Python {want}")
+                    n += 1
+    return {"plans_checked": n, "sm_counts": list(sm_counts)}
 
 
 #: the widths the LayerNorm plan check runs: every path and warps a row,
@@ -598,14 +639,32 @@ def check_ln_plan(lib):
     return {"plans_checked": n}
 
 
-def check_sampling(dev, temperature, top_k, N):
+_SAMPLE_EMBEDS = {}
+
+
+def sample_embed(dev, H, V=50304):
+    """The fp32 (V, H) embed of the sampling cases at width H (std 0.02,
+    from seed 7 + H), made once."""
+    if H not in _SAMPLE_EMBEDS:
+        rng = np.random.default_rng(7 + H)
+        _SAMPLE_EMBEDS[H] = torch.from_numpy(
+            rng.standard_normal((V, H), dtype=np.float32) * 0.02).to(dev)
+    return _SAMPLE_EMBEDS[H]
+
+
+def check_sampling(dev, temperature, top_k, N, H=768, timed=True):
+    """The sampling head against its plain version on 8 draws of N bf16
+    rows of width H: the same tokens, or the plain score at the kernel's
+    token within 1e-4 of the plain max.  ``timed``: the kernel's, the
+    plain version's and, at T = 0, the library's time (argmax of a fp32
+    torch.matmul, two calls) beside the bound."""
     from apex_tpu_torch.ops.decode_sampling import (
         fused_sample, fused_sample_plain, gumbel_from_seed,
     )
 
-    V, H = 50304, 768
+    V = 50304
+    embed = sample_embed(dev, H, V)
     rng = np.random.default_rng(7 + N)
-    embed = torch.from_numpy(rng.standard_normal((V, H), dtype=np.float32) * 0.02).to(dev)
     ties = 0
     worst = 0.0
     for rep in range(8):
@@ -633,13 +692,23 @@ def check_sampling(dev, temperature, top_k, N):
                     f"plain {want.tolist()}, score gaps {gap[:, 0].tolist()}")
             ties += int(diff.sum())
     nbytes = V * H * 4 + N * H * 2 + N * 8 + N * 4
-    bms, by = bound(nbytes, 2 * N * V * H)
-    t = timings(lambda: fused_sample(x, embed, seeds, temperature, top_k),
-                lambda: fused_sample_plain(x, embed, seeds, temperature, top_k))
+    # the kernel's operations: two tf32 products (the embed's hi and lo
+    # halves against the bf16 rows, exact in tf32) on the tensor cores
+    bms, by = bound(nbytes, 2 * 2 * N * V * H, PEAK_TF32)
+    t = {}
+    if timed:
+        # yardstick at T = 0 (no single PyTorch call samples): the greedy
+        # head as two calls, a fp32 torch.matmul and torch.argmax
+        library = None if temperature > 0 else (
+            lambda: torch.argmax(torch.matmul(x.float(), embed.T), dim=-1))
+        t = timings(lambda: fused_sample(x, embed, seeds, temperature, top_k),
+                    lambda: fused_sample_plain(x, embed, seeds, temperature, top_k), library)
     return {"N": N, "V": V, "H": H, "temperature": temperature, "top_k": top_k,
             "draws": 8 * N, "near_ties": ties, "max_abs_err": worst,
             "tolerance": "tokens equal, or the plain score at the kernel's token "
                          "within 1e-4 of the plain max (summation order, logf)",
+            "library": None if temperature > 0 else "torch.argmax(torch.matmul(x.float(), "
+                                                    "embed.T)): 2 calls",
             "bound_ms": bms, "bound_by": by, **t}
 
 
@@ -1406,13 +1475,15 @@ def train_phase(fused=False, dense_report=None):
 
 def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     """Two backward passes of one flash layer (bf16, causal) must give
-    bitwise equal dq, dk, dv; two calls each of the CE dx and dembed
-    kernels at GPT-124M (bf16 x, fp32 embed) bitwise equal dx and
-    dembed; and two LayerNorm backward calls at the train step's rows
-    (8192 x 768 bf16, affine with bias) bitwise equal dx, dw and db: no
-    atomics in the kernels, sums in a fixed order."""
+    bitwise equal dq, dk, dv; two calls each of the CE forward, dx and
+    dembed kernels at GPT-124M (bf16 x, fp32 embed) bitwise equal m, l,
+    tgt, dx and dembed; two LayerNorm backward calls at the train step's
+    rows (8192 x 768 bf16, affine with bias) bitwise equal dx, dw and db;
+    and two sampling-head calls at 40 rows (T = 1) equal tokens: no
+    atomics in the kernels, sums and merges in a fixed order."""
     from apex_tpu_torch.ops import fused_ce_kernels as K
     from apex_tpu_torch.ops.attention import flash_attention
+    from apex_tpu_torch.ops.decode_sampling import fused_sample
     from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd_plain
 
     rng = np.random.default_rng(5)
@@ -1428,11 +1499,20 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     e = torch.from_numpy(0.02 * rng.standard_normal((V, Hd), dtype=np.float32)).to(dev)
     t = torch.from_numpy(rng.integers(0, V, size=N).astype(np.int32)).to(dev)
     g = torch.full((N,), 1.0 / N, device=dev)
-    m, l, _ = K.ce_fwd(x, e, t)
+    fwd = K.ce_fwd(x, e, t)
+    m, l, _ = fwd
     lse = m + torch.log(l)
-    ce_same = {"dx": bool(torch.equal(K.ce_dx(x, e, t, lse, g), K.ce_dx(x, e, t, lse, g))),
+    ce_same = {**{k: bool(torch.equal(a, b)) for k, a, b in zip(("m", "l", "tgt"), fwd,
+                                                               K.ce_fwd(x, e, t))},
+               "dx": bool(torch.equal(K.ce_dx(x, e, t, lse, g), K.ce_dx(x, e, t, lse, g))),
                "dembed": bool(torch.equal(K.ce_dembed(x, e, t, lse, g),
                                           K.ce_dembed(x, e, t, lse, g)))}
+    # the sampling head at the verify step's 40 rows, T = 1, on the same embed
+    xs = torch.from_numpy(rng.standard_normal((40, Hd), dtype=np.float32)).to(dev, torch.bfloat16)
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, size=40, dtype=np.uint64)
+                             .astype(np.int64)).to(dev)
+    sample_same = bool(torch.equal(fused_sample(xs, e, seeds, 1.0, 0),
+                                   fused_sample(xs, e, seeds, 1.0, 0)))
     xl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False, scale=2.0, shift=0.5)
     dyl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False)
     wl, bl = _ln_params(rng, dev, Hd, "ln_affine")
@@ -1441,15 +1521,18 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     second_ln = layer_norm_bwd(xl, wl, dyl, mean, rstd)
     ln_same = {k: bool(torch.equal(a, b)) for k, a, b in zip(("dx", "dw", "db"), first_ln,
                                                             second_ln)}
-    if not all(same) or not all(ce_same.values()) or not all(ln_same.values()):
-        raise AssertionError(f"backward not bitwise reproducible: flash {same}, CE {ce_same}, "
-                             f"LayerNorm {ln_same}")
+    if (not all(same) or not all(ce_same.values()) or not all(ln_same.values())
+            or not sample_same):
+        raise AssertionError(f"not bitwise reproducible: flash {same}, CE {ce_same}, "
+                             f"LayerNorm {ln_same}, sampling {sample_same}")
     emit({"phase": "train_reproducible", "B": B, "H": H, "S": S, "D": D,
           "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same,
           "ce": {"N": N, "H": Hd, "V": V, "x_dtype": "bfloat16", "embed_dtype": "float32",
                  "bitwise_equal": ce_same},
           "layer_norm_bwd": {"R": N, "H": Hd, "dtype": "bfloat16", "mode": "ln_affine",
-                             "bitwise_equal": ln_same}})
+                             "bitwise_equal": ln_same},
+          "fused_sample": {"N": 40, "H": Hd, "V": V, "temperature": 1.0,
+                           "x_dtype": "bfloat16", "bitwise_equal": sample_same}})
 
 
 def flash_grad_parity_phase(dev, S=1024, D=64):
@@ -1766,13 +1849,20 @@ def main():
                 emit({"phase": "kernel", "kernel": "paged_decode_attention_wide", **r})
     emit({"phase": "kernel", "kernel": "paged_decode_attention_plan",
           **check_decode_plan(_build.load())})
-    # rows: the decode step (8), the verify step (8 x 5) and the chunked
-    # prefill's sampling head (1)
-    for N in (8, 40, 1):
-        for temperature, top_k in ((0.0, 0), (1.0, 0), (1.0, 50)):
-            r = check_sampling(dev, temperature, top_k, N)
-            results[("sample", temperature, top_k, N)] = r
-            emit({"phase": "kernel", "kernel": "fused_sample", **r})
+    # rows: the decode step (8), the verify step (8 x 5), the chunked
+    # prefill's sampling head (1) and a full 64-row pass; widths: GPT-124M's
+    # and the two past the earlier 1504 limit (timed at T = 1 alone)
+    for H in (768, 1600, 2048):
+        for N in (8, 40, 1, 64):
+            for temperature, top_k in ((0.0, 0), (1.0, 0), (1.0, 50)):
+                r = check_sampling(dev, temperature, top_k, N, H,
+                                   timed=H == 768 or (temperature, top_k) == (1.0, 0))
+                results[("sample", temperature, top_k, N) + ((H,) if H != 768 else ())] = r
+                emit({"phase": "kernel", "kernel": "fused_sample", **r})
+    _SAMPLE_EMBEDS.clear()
+    emit({"phase": "kernel", "kernel": "fused_sample_plan",
+          **check_sample_plan(_build.load(), tuple(sorted(
+              {132, torch.cuda.get_device_properties(dev).multi_processor_count})))})
 
     for case, kw in (("gpt124", {}),
                      ("ragged", {"N": 1000, "V": 50257, "library": False}), *CE_GRID):
@@ -1796,7 +1886,7 @@ def main():
         *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
     emit({"phase": "kernel", "kernel": "flash_bwd_plan", **check_flash_plan(_build.load())})
-    emit({"phase": "kernel", "kernel": "ce_bwd_plan", **check_ce_plan(_build.load())})
+    emit({"phase": "kernel", "kernel": "ce_plan", **check_ce_plan(_build.load())})
     for case, dtype, kw in flash_cases:
         r = check_flash(dev, dtype, case, **kw)
         results[("flash", case, dtype)] = r

@@ -281,3 +281,164 @@ def test_ce_ablations_apply_to_the_kernel_source(ablation):
     out = ablated_source(src, ABLATIONS[ablation])
     assert out != src
     assert len(src) - len(out) == sum(len(a) - len(b) for a, b in ABLATIONS[ablation])
+
+
+# ------------------------------------------------------------------ forward
+from apex_tpu_torch import ce_fwd_tiles as FT  # noqa: E402
+
+_LOG2E = 1.4426950408889634
+
+
+def _fwd_model(x, e, t):
+    """The forward kernel's arithmetic in plain torch, at the landed
+    plan: vocab splits of whole tiles; in each tile a lane (warp wn,
+    quad t) owns 16 columns of every row, masked to -2e30 past V, and
+    keeps its own running (m, l, tgt) in base 2; the 4 x kWarpsN lanes of
+    a row are merged in lane order, then the splits in split order."""
+    f = K.FWD_TILES
+    BM, BN, lanes = f["rows"], f["cols"], 4 * f["warps_n"]
+    NW = BN // f["warps_n"]
+    (N, H), V = x.shape, e.shape[0]
+    plan = K.ce_fwd_plan(N, H, V, x.dtype, e.dtype)
+    assert plan.rows == BM
+    nv = -(-V // BN)
+    tps = -(-nv // plan.splits)
+    s = torch.full((N, nv * BN), -2e30)
+    s[:, :V] = x.to(torch.bfloat16).float() @ e.to(torch.bfloat16).float().T
+    c = torch.arange(BN)
+    order = torch.argsort((c // NW) * 4 + (c % 8) // 2, stable=True)  # columns by lane
+    rows = torch.arange(N)
+    parts = []
+    for y in range(plan.splits):
+        m = torch.full((N, lanes), -1e30)
+        l = torch.zeros(N, lanes)
+        g = torch.zeros(N, lanes)
+        for vt in range(y * tps, min(nv, (y + 1) * tps)):
+            tile = s[:, vt * BN:(vt + 1) * BN][:, order].reshape(N, lanes, BN // lanes)
+            mx = torch.maximum(m, tile.max(-1).values)
+            ms = mx * _LOG2E
+            l = l * torch.exp2(m * _LOG2E - ms) + torch.exp2(tile * _LOG2E - ms[..., None]).sum(-1)
+            m = mx
+            rel = t.long() - vt * BN
+            hit = (rel >= 0) & (rel < BN)
+            lane = (rel.clamp(0, BN - 1) // NW) * 4 + (rel.clamp(0, BN - 1) % 8) // 2
+            g[rows[hit], lane[hit]] += s[rows[hit], t.long()[hit]]
+        M = m.max(-1).values
+        L = torch.zeros(N)
+        for k in range(lanes):
+            L = L + l[:, k] * torch.exp2((m[:, k] - M) * _LOG2E)
+        parts.append((M, L, g.sum(-1)))
+    M = torch.stack([p[0] for p in parts]).max(0).values
+    L, G = torch.zeros(N), torch.zeros(N)
+    for pm, pl, pg in parts:
+        L, G = L + pl * torch.exp(pm - M), G + pg
+    return M, L, G
+
+
+@pytest.mark.parametrize("N,H,V", [(300, 48, 700), (64, 32, 259), (1000, 80, 2049),
+                                   (130, 16, 256)])
+def test_forward_kernel_arithmetic_matches_the_plain_version(N, H, V):
+    """The kernel's lane-wise online softmax (columns past V masked below
+    every running max, a lane with none of a tile's valid columns, splits
+    of one partial tile) gives the plain version's m and tgt exactly and
+    its lse within 1e-5."""
+    x, e, t, _ = _data(N, H, V, seed=8)
+    xt, et, tt = (torch.from_numpy(a) for a in (x, e, t))
+    m, l, tgt = _fwd_model(xt.to(torch.bfloat16), et, tt)
+    pm, pl, ptgt = K.ce_fwd_plain(xt.to(torch.bfloat16), et, tt, dot_dtype=torch.bfloat16)
+    assert torch.equal(m, pm) and torch.equal(tgt, ptgt)
+    _close(m + torch.log(l), (pm + torch.log(pl)).numpy(), 1e-5)
+
+
+#: the shapes the forward's plan is held at: the CE_GRID cases of
+#: chip_smoke.py, the ragged one, GPT-124M and every H the kernels take
+_FWD_SHAPES = sorted({(1000, 768, 8191), (1000, 1024, 8191), (1000, 80, 8191), (1000, 784, 8191),
+                      (1000, 768, 50257), (2048, 768, 50304)}
+                     | {(8192, H, 50304) for H in range(16, 1025, 16)})
+
+
+@pytest.mark.parametrize("x_dtype,e_dtype", _DTYPE_PAIRS)
+def test_ce_fwd_plan_fits_the_card(x_dtype, e_dtype):
+    """At every shape the forward's plan fits a block's shared memory,
+    its splits leave none empty and bring the blocks to at most the
+    card's SMs (more than 96 of them at N = 8192), and its scratch is
+    the splits' partials and a bf16 copy of exactly the fp32 operands,
+    each from a 256-byte boundary."""
+    f = K.FWD_TILES
+    for N, H, V in _FWD_SHAPES:
+        plan = K.ce_fwd_plan(N, H, V, x_dtype, e_dtype)
+        assert 0 < plan.smem_bytes <= K.SMEM_LIMIT
+        assert (plan.rows, plan.vocab_rows, plan.warps) == (
+            f["rows"], f["cols"], f["warps_m"] * f["warps_n"])
+        nv, rb = -(-V // plan.vocab_rows), -(-N // plan.rows)
+        tps = -(-nv // plan.splits)
+        assert 1 <= plan.splits <= nv and (plan.splits - 1) * tps < nv
+        assert rb * plan.splits <= max(K.SMS, rb)
+        if N == 8192:
+            assert rb * plan.splits > 96
+        r = lambda b: -(-b // 256) * 256  # noqa: E731
+        assert plan.scratch_bytes == (r(3 * plan.splits * N * 4)
+                                      + (r(N * H * 2) if x_dtype == torch.float32 else 0)
+                                      + (r(V * H * 2) if e_dtype == torch.float32 else 0))
+
+
+def test_ce_fwd_plan_is_the_kernel_source_plan():
+    """``FWD_TILES`` holds the constants of csrc/fused_ce.cu's FwdTiles,
+    and the plan gives the shared memory the header reckons: two
+    stages of 128 x rows and 256 vocab rows, 64 columns (row stride 72),
+    and the rows' target ids."""
+    body = re.search(r"struct FwdTiles \{(.*?)\n\};", _CSRC.read_text(), re.S).group(1)
+    consts = {k: int(v) for k, v in re.findall(r"static constexpr int (\w+) = (\d+);", body)}
+    assert {FT.CONSTANTS[k]: v for k, v in consts.items()} == K.FWD_TILES
+    plan = K.ce_fwd_plan(8192, 768, 50304, torch.bfloat16, torch.float32)
+    assert plan.smem_bytes == 2 * (128 + 256) * 72 * 2 + 128 * 4
+    assert plan.splits == 2 and plan.scratch_bytes == 3 * 2 * 8192 * 4 + 50304 * 768 * 2
+
+
+@pytest.mark.parametrize("N,H,V,bn,bv", SHAPES)
+def test_bf16_copy_of_the_forward_operands_changes_no_bit(N, H, V, bn, bv):
+    """The forward streams bf16 copies of fp32 x and embed: with bf16
+    dots, m, l and tgt from operands rounded to bf16 first are bitwise
+    those from the fp32 operands."""
+    x, e, t, _ = (torch.from_numpy(a) for a in _data(N, H, V, seed=9))
+    bf = torch.bfloat16
+    for got, want in zip(K.ce_fwd_plain(x.to(bf), e.to(bf), t, dot_dtype=bf),
+                         K.ce_fwd_plain(x, e, t, dot_dtype=bf)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", sorted(FT.VARIANTS))
+def test_ce_fwd_tile_variants_apply_to_the_kernel_source(variant):
+    """``ce_fwd_tiles`` builds each variant by giving FwdTiles' constants
+    new values: every other line stays as it is, and the new tiles are
+    ones the kernel takes."""
+    src = _CSRC.read_text()
+    out = variant_source(src, FT.VARIANTS[variant])
+    assert len(src.splitlines()) == len(out.splitlines())
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert changed and {b.split("=")[0].split()[-1] for _, b in changed} <= set(FT.CONSTANTS)
+    tiles = FT.tiles_of({c: int(v) for (_, c), v in FT.VARIANTS[variant].items()})
+    assert tiles != K.FWD_TILES and FT.valid_fwd_tiles(tiles)
+
+
+def test_valid_fwd_tiles_are_the_kernels():
+    """The tool's test of tiles is the kernel's: the landed tiles pass,
+    pieces of s that are not whole 16 x 16 tiles, stages that do not
+    split over the threads and rings past shared memory fail."""
+    assert FT.valid_fwd_tiles(K.FWD_TILES)
+    assert not FT.valid_fwd_tiles(FT.tiles_of({"kCols": 96}))     # 24 columns a warp
+    assert not FT.valid_fwd_tiles(FT.tiles_of({"kChunk": 24}))    # not 16 deep
+    assert not FT.valid_fwd_tiles(FT.tiles_of({"kStages": 5}))    # 276 KB
+    assert not FT.valid_fwd_tiles(FT.tiles_of({"kBlocksPerSm": 3}))  # three 111 KB blocks
+
+
+@pytest.mark.parametrize("ablation", sorted(FT.ABLATIONS) + sorted(FT.REWRITES))
+def test_ce_fwd_ablations_apply_to_the_kernel_source(ablation):
+    """Each ablation and rewrite ``ce_fwd_tiles`` times changes its part
+    of the forward: every text it replaces is in the source once, and
+    nothing else changes."""
+    pairs = {**FT.ABLATIONS, **FT.REWRITES}[ablation]
+    src = _CSRC.read_text()
+    out = ablated_source(src, pairs)
+    assert out != src
+    assert len(src) - len(out) == sum(len(a) - len(b) for a, b in pairs)

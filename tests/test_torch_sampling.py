@@ -116,3 +116,108 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="not supported"):
         fused_sample(x, torch.empty(50, 32, device="meta"),
                      torch.empty(2, dtype=torch.int64, device="meta"))
+
+
+# ------------------------------------------------------------ the plan
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from apex_tpu_torch import sample_tiles as ST  # noqa: E402
+from apex_tpu_torch.flash_bwd_tiles import variant_source  # noqa: E402
+from apex_tpu_torch.ops import decode_sampling as S  # noqa: E402
+
+_SRC = Path(S.__file__).parents[1] / "csrc" / "decode_sampling.cu"
+
+
+@pytest.mark.parametrize("H", [1600, 2048])
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_tokens_bitwise_jax_fp32_wide(H, temperature):
+    """At the widths the kernel now takes past the old 1504 limit, the
+    plain version's tokens are ``fused_sample_xla``'s in fp32."""
+    rng = np.random.RandomState(5)
+    x2, emb, seeds = _case(rng, N=6, H=H, V=311)
+    got = fused_sample(torch.from_numpy(x2), torch.from_numpy(emb),
+                       torch.from_numpy(seeds.astype(np.int64)), temperature, 0)
+    want = fused_sample_xla(jnp.asarray(x2), jnp.asarray(emb), jnp.asarray(seeds),
+                            temperature, 0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("H", [768, 1600, 2048, S.MAX_HIDDEN])
+def test_problem_admits_the_wide_widths(H):
+    """The kernel's checks take any H % 4 == 0 up to ``MAX_HIDDEN``
+    (1600 and 2048 raised before) and refuse the rest."""
+    def shapes(h, dtype=torch.bfloat16):
+        return (torch.empty(3, h, dtype=dtype, device="meta"),
+                torch.empty(50, h, device="meta"),
+                torch.empty(3, dtype=torch.int64, device="meta"))
+    assert S._shape_problem(*shapes(H)) is None
+    assert S._shape_problem(*shapes(H, torch.float32)) is None
+    assert "multiple of 4" in S._shape_problem(*shapes(H + 2))
+    assert "multiple of 4" in S._shape_problem(*shapes(S.MAX_HIDDEN + 4))
+
+
+def test_sample_plan_fits_the_card():
+    """At N from 1 to 256 and H from 4 to 8192 in steps of 4 (V = 50304,
+    132 SMs), a block fits shared memory at the opt-in limit; the first
+    pass's n-tiles of 8 hold all its rows; a warp serves each 16 vocab
+    rows of a tile; the passes cover N; the blocks are at most one a
+    vocab tile and ``blocks_per_sm`` an SM.  The plan does not depend on
+    H."""
+    t = S.SAMPLE_TILES
+    V, sms = 50304, 132
+    ntiles = -(-V // t["vocab_tile"])
+    for N in range(1, 257):
+        plan = S.sample_plan(N, 4, V, sms)
+        n = min(N, t["row_cap"])
+        assert plan.passes * plan.row_cap >= N > (plan.passes - 1) * plan.row_cap
+        assert 8 * plan.n_tiles >= n > 8 * (plan.n_tiles - 1)
+        assert plan.warps * 16 == plan.vocab_tile and plan.warps <= 8
+        assert plan.blocks == min(ntiles, t["blocks_per_sm"] * sms)
+        assert 0 < plan.smem_bytes <= 232448 and plan.smem_bytes % 16 == 0
+        for H in range(4, 8193, 4):
+            assert S.sample_plan(N, H, V, sms) == plan
+    with pytest.raises(ValueError):
+        S.sample_plan(8, 770, V, sms)
+
+
+def test_sample_plan_is_the_kernel_source_plan():
+    """``SAMPLE_TILES`` holds the constants of csrc/decode_sampling.cu's
+    SampleTiles, and the plan gives the shared memory its header reckons:
+    two stages of 128 vocab rows and the pass's x rows rounded up to 8,
+    32 columns (row stride 36 fp32), and a bf16 landing area; then the 8
+    warps' best (value, index) of 64 rows."""
+    body = re.search(r"struct SampleTiles \{(.*?)\n\};", _SRC.read_text(), re.S).group(1)
+    consts = {k: int(v) for k, v in re.findall(r"static constexpr int (\w+) = (\d+);", body)}
+    assert {ST.CONSTANTS[k]: v for k, v in consts.items()} == S.SAMPLE_TILES
+    plan = S.sample_plan(40, 768, 50304, 132)
+    assert (plan.n_tiles, plan.warps, plan.blocks) == (5, 8, 393)
+    assert plan.smem_bytes == 2 * ((128 + 40) * 36 + 40 * 16) * 4 + 8 * 64 * 8
+    assert S.sample_plan(1, 768, 50304, 132).smem_bytes == (
+        2 * ((128 + 8) * 36 + 8 * 16) * 4 + 8 * 64 * 8)
+
+
+@pytest.mark.parametrize("variant", sorted(ST.VARIANTS))
+def test_sample_tile_variants_apply_to_the_kernel_source(variant):
+    """``sample_tiles`` builds each variant by giving SampleTiles'
+    constants new values: every other line stays, and the new tiles are
+    ones the kernel takes."""
+    src = _SRC.read_text()
+    out = variant_source(src, ST.VARIANTS[variant])
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert len(src.splitlines()) == len(out.splitlines())
+    assert changed and {b.split("=")[0].split()[-1] for _, b in changed} <= set(ST.CONSTANTS)
+    tiles = ST.tiles_of({c: int(v) for (_, c), v in ST.VARIANTS[variant].items()})
+    assert tiles != S.SAMPLE_TILES and ST.valid_sample_tiles(tiles)
+
+
+@pytest.mark.parametrize("ablation", sorted(ST.ABLATIONS) + sorted(ST.REWRITES))
+def test_sample_ablations_apply_to_the_kernel_source(ablation):
+    """Each ablation and rewrite ``sample_tiles`` times changes its part
+    of the score kernel: every text it replaces is in the source once,
+    and nothing else changes."""
+    pairs = {**ST.ABLATIONS, **ST.REWRITES}[ablation]
+    src = _SRC.read_text()
+    out = ST.ablated_source(src, pairs)
+    assert out != src
+    assert len(src) - len(out) == sum(len(a) - len(b) for a, b in pairs)
