@@ -2,8 +2,16 @@
 
 Counterpart of :mod:`apex_tpu.inference.decode` (``DecodeConfig``,
 ``make_decode_step``, ``make_verify_step``, ``make_prefill``,
-``make_prefill_chunk``, ``make_sample_head``).  The steps are plain
-callables run under ``torch.inference_mode()``, not compiled:
+``make_prefill_chunk``, ``make_sample_head``).  Each builder returns a
+compiled step, as the JAX package's ``jax.jit(..., donate_argnums=(1,))``
+does: a :class:`~apex_tpu_torch.graphs.CapturedStep` that captures the
+step as a CUDA graph over static buffers on its first call on the card
+(an eager warm-up), replays it on every later call, and runs the same
+static buffers without capture on the CPU.  ``graphs=False`` returns the
+plain callable under ``torch.inference_mode()`` instead, the counterpart
+of ``JAX_DISABLE_JIT=1``.  No step body reads a device value on the host:
+``prompt_len``, ``start``, ``start_pos``, ``valid`` and ``write_start``
+may be ints or 0-d tensors, and enter as device arithmetic.
 
 - the decode step is the embedding, every block through
   :func:`apex_tpu_torch.models.gpt.forward_decode` (paged decode
@@ -22,7 +30,10 @@ callables run under ``torch.inference_mode()``, not compiled:
   token once the final chunk lands.
 
 Every step updates the KV pools in place (the JAX package donates
-them).
+them), and a compiled step refuses pools or params other than those it
+was built over.  ``pool`` (``torch.cuda.graph_pool_handle()``) lets the
+steps of one scheduler share their graphs' memory: they never run at
+the same time, and each step's outputs are read before the next runs.
 """
 
 import dataclasses
@@ -30,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.graphs import CapturedStep
 from apex_tpu_torch.inference.kv_cache import KVCacheConfig, write_prompt_kv
 from apex_tpu_torch.models.gpt import GPTConfig, forward_decode, gpt_forward
 from apex_tpu_torch.ops.decode_sampling import fused_sample
@@ -91,13 +103,23 @@ class DecodeConfig:
                              f"{self.prefill_chunk}); None disables it")
 
 
-def make_decode_step(config: GPTConfig, dcfg: DecodeConfig):
+def _compiled(fn, graphs, pool, donate=(0, 1)):
+    """``fn`` itself with ``graphs=False``; otherwise (None) ``fn`` as a
+    :class:`~apex_tpu_torch.graphs.CapturedStep` with ``donate`` (the
+    params and the pools) referenced."""
+    if graphs is False:
+        return fn
+    return CapturedStep(fn, donate=donate, pool=pool)
+
+
+def make_decode_step(config: GPTConfig, dcfg: DecodeConfig, graphs=None, pool=None):
     """The one-token-per-sequence decode step,
     ``step(params, pools, tokens, positions, active, page_tables, seeds)
     -> (pools, next_tokens)``: ``tokens``/``positions``/``active`` (B,),
     ``page_tables`` (B, P) int32, ``seeds`` (B,) int64 holding uint32
-    sampling counters, all on the params' device.  ``pools`` is written
-    in place and returned."""
+    sampling counters.  ``pools`` is written in place and returned.
+    Compiled unless ``graphs=False`` (module docstring); the plain step
+    takes its inputs on the params' device."""
 
     @torch.inference_mode()
     def step(params, pools, tokens, positions, active, page_tables, seeds):
@@ -106,10 +128,10 @@ def make_decode_step(config: GPTConfig, dcfg: DecodeConfig):
         return pools, fused_sample(hidden, params["embed"], seeds,
                                    temperature=dcfg.temperature, top_k=dcfg.top_k)
 
-    return step
+    return _compiled(step, graphs, pool)
 
 
-def make_verify_step(config: GPTConfig, dcfg: DecodeConfig):
+def make_verify_step(config: GPTConfig, dcfg: DecodeConfig, graphs=None, pool=None):
     """The speculative verify step, the decode step grown to
     ``W = draft_len + 1`` positions a slot: ``verify(params, pools,
     tokens, positions, active, page_tables, seeds) -> (pools, sampled)``
@@ -125,7 +147,8 @@ def make_verify_step(config: GPTConfig, dcfg: DecodeConfig):
     ``sampled[:, j-1] == tokens[:, j]``
     (:func:`apex_tpu_torch.inference.spec.accepted_tokens`): each kept
     token is conditioned on a verified prefix and spends the seed the
-    plain decode step would, so the stream is the non-speculative one."""
+    plain decode step would, so the stream is the non-speculative one.
+    Compiled unless ``graphs=False``."""
     W = dcfg.draft_len + 1
 
     @torch.inference_mode()
@@ -140,17 +163,18 @@ def make_verify_step(config: GPTConfig, dcfg: DecodeConfig):
                                temperature=dcfg.temperature, top_k=dcfg.top_k)
         return pools, sampled.reshape(B, W)
 
-    return verify
+    return _compiled(verify, graphs, pool)
 
 
-def make_prefill(config: GPTConfig, dcfg: DecodeConfig):
+def make_prefill(config: GPTConfig, dcfg: DecodeConfig, graphs=None, pool=None):
     """The prompt prefill step, ``prefill(params, pools, prompt,
     prompt_len, start, page_table_row, seed) -> (pools, first_token)``:
     ``prompt`` (1, max_prompt_len) int (zero-padded past ``prompt_len``;
     the pad tail's k/v go to the garbage page), ``start`` the write
-    window (0 = write every prompt position), ``page_table_row`` (P,)
-    int32, ``seed`` (1,) int64.  ``first_token`` is a (1,) int32 tensor
-    sampled from the last prompt position."""
+    window (0 = write every prompt position), both ints or 0-d tensors,
+    ``page_table_row`` (P,) int32, ``seed`` (1,) int64.  ``first_token``
+    is a (1,) int32 tensor sampled from the last prompt position, picked
+    on the device.  Compiled unless ``graphs=False``."""
     S = dcfg.max_prompt_len
 
     @torch.inference_mode()
@@ -161,15 +185,17 @@ def make_prefill(config: GPTConfig, dcfg: DecodeConfig):
         vs = v_stack[:, 0].transpose(1, 2)
         write_prompt_kv(pools["k"], pools["v"], ks, vs, page_table_row,
                         prompt_len, start=start)
-        h_last = hidden[min(max(int(prompt_len) - 1, 0), S - 1), 0]
-        first = fused_sample(h_last[None].contiguous(), params["embed"], seed,
+        last = torch.clamp(torch.as_tensor(prompt_len, device=hidden.device) - 1,
+                           0, S - 1).reshape(1)
+        h_last = hidden[:, 0].index_select(0, last)  # (1, H)
+        first = fused_sample(h_last, params["embed"], seed,
                              temperature=dcfg.temperature, top_k=dcfg.top_k)
         return pools, first
 
-    return prefill
+    return _compiled(prefill, graphs, pool)
 
 
-def make_prefill_chunk(config: GPTConfig, dcfg: DecodeConfig):
+def make_prefill_chunk(config: GPTConfig, dcfg: DecodeConfig, graphs=None, pool=None):
     """The chunked-prefill step, ``chunk(params, pools, tokens,
     start_pos, valid, write_start, page_table_row) -> (pools, h_last)``:
     ``tokens`` (C,) the prompt slice at positions ``start_pos ..
@@ -179,31 +205,35 @@ def make_prefill_chunk(config: GPTConfig, dcfg: DecodeConfig):
     position attends over the whole cached prefix plus its predecessors
     in the chunk.  Positions below ``write_start`` (shared-prefix pages,
     or a recompute pass over cached positions) skip the write.
+    ``start_pos``, ``valid`` and ``write_start`` are ints or 0-d tensors;
     ``page_table_row`` is (P,) int32.  ``h_last`` (H,) is the last valid
     position's hidden state, the sampling head's input once the final
-    chunk lands (:func:`make_sample_head`)."""
+    chunk lands (:func:`make_sample_head`).  Compiled unless
+    ``graphs=False``."""
     C = int(dcfg.prefill_chunk)
 
     @torch.inference_mode()
     def chunk(params, pools, tokens, start_pos, valid, write_start, page_table_row):
         dev = tokens.device
         off = torch.arange(C, device=dev)
-        pos = int(start_pos) + off
-        act = off < int(valid)
-        wmask = act & (pos >= int(write_start))
+        pos = start_pos + off
+        act = off < valid
+        wmask = act & (pos >= write_start)
         hidden, pools = forward_decode(
             params, tokens, pos, act, pools, page_table_row[None], config,
             verify_width=C, write_mask=wmask)
-        return pools, hidden[min(max(int(valid) - 1, 0), C - 1)]
+        last = torch.clamp(torch.as_tensor(valid, device=dev) - 1, 0, C - 1).reshape(1)
+        return pools, hidden.index_select(0, last)[0]
 
-    return chunk
+    return _compiled(chunk, graphs, pool)
 
 
-def make_sample_head(config: GPTConfig, dcfg: DecodeConfig):
+def make_sample_head(config: GPTConfig, dcfg: DecodeConfig, graphs=None, pool=None):
     """The standalone sampling head, ``head(params, hidden, seed) ->
     token``: hidden (H,) and seed (1,) int64 to a (1,) int32 token, used
     once per chunked admission (sampling stays out of the chunk step, so
-    intermediate chunks never pay the vocab product)."""
+    intermediate chunks never pay the vocab product).  Compiled, the
+    params referenced, unless ``graphs=False``."""
     del config  # the head is described by dcfg and the params
 
     @torch.inference_mode()
@@ -211,4 +241,4 @@ def make_sample_head(config: GPTConfig, dcfg: DecodeConfig):
         return fused_sample(hidden[None].contiguous(), params["embed"], seed,
                             temperature=dcfg.temperature, top_k=dcfg.top_k)
 
-    return head
+    return _compiled(head, graphs, pool, donate=(0,))

@@ -204,7 +204,9 @@ def write_prompt_kv(k_pool, v_pool, k_stack, v_stack, page_table_row,
     keys/values for the padded prompt; ``page_table_row``: (P,).
     Positions >= ``prompt_len`` (the pad tail) and < ``start`` (a
     prefix already cached in shared pages) write the garbage page.
-    Returns the pools."""
+    ``prompt_len`` and ``start`` are ints or 0-d tensors on the pools'
+    device (a compiled prefill's buffers): they are only compared with,
+    never read on the host.  Returns the pools."""
     num_pages, page_size = k_pool.shape[1], k_pool.shape[2]
     P = page_table_row.shape[0]
     S = k_stack.shape[1]

@@ -36,6 +36,18 @@ scheduler fills its slots:
 - **evict**: finished sequences drop their page references for the
   next admission and register their quiesced tail page in the trie.
 
+**Compiled steps.** Every step is built compiled (``graphs=None``): a
+:class:`~apex_tpu_torch.graphs.CapturedStep` that captures a CUDA graph
+on its first call on the card and replays it after, as the JAX
+scheduler's steps are ``jax.jit`` with donated pools.  The steps share
+one graph memory pool (``torch.cuda.graph_pool_handle()``), freed with
+the scheduler.  The host work stays on the host, between steps:
+admission, drafting, copy-on-write, the readback of tokens.  Each step's
+inputs are built as pinned host tensors and copied into the step's
+static buffers; ``graphs=False`` runs the plain steps eagerly on inputs
+uploaded each step.  On the CPU the compiled steps run their static
+buffers without capture.
+
 Sampling seeds derive from ``(base_seed, slot, per-slot draw
 counter)`` exactly as in the JAX package (``_seed_at``), and the draw
 counter only grows, across every generation a slot serves (preemption
@@ -56,6 +68,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.graphs import CapturedStep
 from apex_tpu_torch.inference.decode import (
     DecodeConfig, make_decode_step, make_prefill, make_prefill_chunk, make_sample_head,
     make_verify_step,
@@ -141,10 +154,11 @@ class ContinuousBatchingScheduler:
     deterministic per-slot sampling seeds (see the module docstring).
     ``params`` are the port's params
     (:func:`apex_tpu_torch.models.gpt.params_from_numpy`) on ``device``;
-    the KV pools are allocated there."""
+    the KV pools are allocated there.  ``graphs``: None (the default)
+    compiles the steps, False runs the plain steps eagerly."""
 
     def __init__(self, params, config: GPTConfig, dcfg: DecodeConfig,
-                 time_fn=time.monotonic, device="cuda"):
+                 time_fn=time.monotonic, device="cuda", graphs=None):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -187,17 +201,20 @@ class ContinuousBatchingScheduler:
             "shared_full_pages": 0, "shared_tail_pages": 0,
             "spec_steps": 0, "spec_emitted": 0,
         }
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" and graphs is not False else None)
+        kw = dict(graphs=graphs, pool=pool)
         self._decode = self._verify = self._prefill = None
         self._chunk = self._sample_head = None
         if dcfg.draft_len > 0:
-            self._verify = make_verify_step(config, dcfg)
+            self._verify = make_verify_step(config, dcfg, **kw)
         else:
-            self._decode = make_decode_step(config, dcfg)
+            self._decode = make_decode_step(config, dcfg, **kw)
         if dcfg.prefill_chunk is not None:
-            self._chunk = make_prefill_chunk(config, dcfg)
-            self._sample_head = make_sample_head(config, dcfg)
+            self._chunk = make_prefill_chunk(config, dcfg, **kw)
+            self._sample_head = make_sample_head(config, dcfg, **kw)
         else:
-            self._prefill = make_prefill(config, dcfg)
+            self._prefill = make_prefill(config, dcfg, **kw)
 
     # ------------------------------------------------------------ seeds
     def _seed_at(self, slot: int, draw: int) -> int:
@@ -209,8 +226,23 @@ class ContinuousBatchingScheduler:
         self._draws[slot] += 1
         return self._seed_at(slot, d)
 
-    def _to_device(self, a: np.ndarray, dtype) -> torch.Tensor:
-        return torch.from_numpy(a).to(device=self.device, dtype=dtype)
+    def _host(self, a: np.ndarray, dtype) -> torch.Tensor:
+        """``a`` as a step input on the host: pinned when the steps run on
+        the card, so that its copy into a step's buffer is asynchronous
+        (the pinned-memory cache keeps the block until the copy is done)."""
+        src = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return src.to(dtype)
+        return torch.empty(src.shape, dtype=dtype, pin_memory=True).copy_(src)
+
+    def _call(self, step, *args):
+        """Run ``step``: a compiled step copies the host tensors into its
+        buffers itself; a plain one (``graphs=False``) gets them
+        uploaded."""
+        if not isinstance(step, CapturedStep):
+            args = [a.to(self.device, non_blocking=True) if isinstance(a, torch.Tensor)
+                    else a for a in args]
+        return step(*args)
 
     # ---------------------------------------------------------- requests
     def submit(self, request: Request) -> None:
@@ -255,6 +287,13 @@ class ContinuousBatchingScheduler:
         return pages_needed(
             len(req.prompt) + req.max_new_tokens + self.dcfg.draft_len,
             self.dcfg.cache.page_size)
+
+    @property
+    def capture_seconds(self) -> float:
+        """Host time spent capturing the steps' graphs so far: each step
+        captures at its first call, inside the serving loop."""
+        steps = (self._decode, self._verify, self._prefill, self._chunk, self._sample_head)
+        return sum(s.capture_seconds for s in steps if isinstance(s, CapturedStep))
 
     @property
     def num_active(self) -> int:
@@ -341,10 +380,9 @@ class ContinuousBatchingScheduler:
         prompt = np.zeros((1, self.dcfg.max_prompt_len), np.int64)
         prompt[0, :plen] = req.prompt
         seed = np.asarray([self._seed(slot)], np.int64)
-        self.pools, first = self._prefill(
-            self.params, self.pools, self._to_device(prompt, torch.long), plen,
-            match.shared_len, self._to_device(row, torch.int32),
-            self._to_device(seed, torch.long))
+        self.pools, first = self._call(
+            self._prefill, self.params, self.pools, self._host(prompt, torch.long), plen,
+            match.shared_len, self._host(row, torch.int32), self._host(seed, torch.long))
         self.stats["prefills"] += 1
         self._start_decoding(slot, int(first.cpu()[0]))
 
@@ -459,16 +497,16 @@ class ContinuousBatchingScheduler:
             n_valid = min(C, plen - start)
             tok = np.zeros((C,), np.int64)
             tok[:n_valid] = s.request.prompt[start:start + n_valid]
-            self.pools, h_last = self._chunk(
-                self.params, self.pools, self._to_device(tok, torch.long), start,
-                n_valid, s.shared_len, self._to_device(self._page_tables[i], torch.int32))
+            self.pools, h_last = self._call(
+                self._chunk, self.params, self.pools, self._host(tok, torch.long), start,
+                n_valid, s.shared_len, self._host(self._page_tables[i], torch.int32))
             self.stats["chunk_steps"] += 1
             s.chunk_next = start + n_valid
             progressed = True
             if s.chunk_next >= plen:
                 seed = np.asarray([self._seed(i)], np.int64)
-                first = self._sample_head(self.params, h_last,
-                                          self._to_device(seed, torch.long))
+                first = self._call(self._sample_head, self.params, h_last,
+                                   self._host(seed, torch.long))
                 self.stats["prefills"] += 1
                 self._start_decoding(i, int(first.cpu()[0]))
         return progressed
@@ -538,12 +576,10 @@ class ContinuousBatchingScheduler:
         for i in range(B):
             if self._active[i]:
                 seeds[i] = self._seed(i)
-        self.pools, next_tokens = self._decode(
-            self.params, self.pools, self._to_device(self._tokens, torch.long),
-            self._to_device(self._positions, torch.long),
-            self._to_device(self._active, torch.bool),
-            self._to_device(self._page_tables, torch.int32),
-            self._to_device(seeds, torch.long))
+        self.pools, next_tokens = self._call(
+            self._decode, self.params, self.pools, self._host(self._tokens, torch.long),
+            self._host(self._positions, torch.long), self._host(self._active, torch.bool),
+            self._host(self._page_tables, torch.int32), self._host(seeds, torch.long))
         next_tokens = next_tokens.cpu().numpy()
         now = self._time()
         self.stats["decode_steps"] += 1
@@ -579,12 +615,10 @@ class ContinuousBatchingScheduler:
             d0 = int(self._draws[i])
             for j in range(W):
                 seeds[i, j] = self._seed_at(i, d0 + j)
-        self.pools, sampled = self._verify(
-            self.params, self.pools, self._to_device(tokmat, torch.long),
-            self._to_device(self._positions, torch.long),
-            self._to_device(self._active, torch.bool),
-            self._to_device(self._page_tables, torch.int32),
-            self._to_device(seeds, torch.long))
+        self.pools, sampled = self._call(
+            self._verify, self.params, self.pools, self._host(tokmat, torch.long),
+            self._host(self._positions, torch.long), self._host(self._active, torch.bool),
+            self._host(self._page_tables, torch.int32), self._host(seeds, torch.long))
         sampled = sampled.cpu().numpy()
         now = self._time()
         self.stats["decode_steps"] += 1

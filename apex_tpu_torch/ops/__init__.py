@@ -17,4 +17,38 @@ its plain PyTorch version, and a launch counter ``LAUNCHES``.
   scan specification the flash kernels' plain versions use (plain
   PyTorch);
 - :mod:`~apex_tpu_torch.ops.rope` — rotary embeddings (plain PyTorch).
+
+:func:`launch_counts` and :func:`restore_counts` read and set every
+counter at once, for code that must not know the kernel modules (a
+captured step counts its replays through them).
 """
+
+import importlib
+
+#: every launch counter: (kernel module, its global)
+COUNTERS = (
+    ("layer_norm", "LAUNCHES"), ("layer_norm", "BWD_LAUNCHES"),
+    ("flash_attention", "FWD_LAUNCHES"), ("flash_attention", "DQ_LAUNCHES"),
+    ("flash_attention", "DKV_LAUNCHES"),
+    ("fused_ce_kernels", "FWD_LAUNCHES"), ("fused_ce_kernels", "DX_LAUNCHES"),
+    ("fused_ce_kernels", "DEMBED_LAUNCHES"),
+    ("decode_attention", "LAUNCHES"), ("decode_attention", "WIDE_LAUNCHES"),
+    ("decode_sampling", "LAUNCHES"),
+)
+
+
+def _module(name):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def launch_counts():
+    """Every counter of :data:`COUNTERS` as ``{"module.NAME": count}``."""
+    return {f"{m}.{n}": getattr(_module(m), n) for m, n in COUNTERS}
+
+
+def restore_counts(counts):
+    """Set the counters named in ``counts`` (keys as
+    :func:`launch_counts` gives them) to its values."""
+    for key, value in counts.items():
+        m, n = key.split(".")
+        setattr(_module(m), n, value)

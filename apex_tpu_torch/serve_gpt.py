@@ -20,7 +20,13 @@ The serving-v2 flags and their defaults are those of
 ``accepted_tokens_per_step``, ``page_dedupe_ratio`` and time to first
 token by lane.
 
-The kernel library is built (or found current) before the clock starts.
+Every step is compiled: captured as a CUDA graph on its first call and
+replayed after (:mod:`apex_tpu_torch.graphs`), and the report says
+``"graphs": true``.  ``--eager`` runs the plain steps instead, the
+counterpart of ``JAX_DISABLE_JIT=1``.  The kernel library is built (or
+found current) before the clock starts; the graphs are captured on the
+clock, at each step's first call, as the reference compiles its steps,
+and ``capture_ms`` reports the host time the captures took.
 """
 
 import argparse
@@ -86,6 +92,8 @@ def build_args():
     p.add_argument("--best-effort-frac", type=float, default=0.0,
                    help="fraction of requests submitted on the preemptible "
                         "best_effort lane (the rest are interactive)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the steps eagerly instead of as captured CUDA graphs")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for "
                         "the kernels' plain versions")
@@ -208,7 +216,8 @@ def run(args):
     """Serve ``args.requests`` requests; returns ``(report, scheduler,
     params, config)``."""
     config, params, dcfg = setup(args)
-    sched = ContinuousBatchingScheduler(params, config, dcfg, device=args.device)
+    sched = ContinuousBatchingScheduler(params, config, dcfg, device=args.device,
+                                        graphs=False if args.eager else None)
     if sched.device.type == "cuda":
         from apex_tpu_torch.ops import _build
 
@@ -218,6 +227,8 @@ def run(args):
     completions = serve(sched, reqs, arrivals)
     wall = time.monotonic() - t0
     out = report(completions, wall)
+    out["graphs"] = sched.device.type == "cuda" and not args.eager
+    out["capture_ms"] = round(1e3 * sched.capture_seconds, 2)
     out["stats"] = dict(sched.stats)
     if args.draft_len > 0:
         out["accepted_tokens_per_step"] = round(

@@ -21,10 +21,21 @@ targets rolled by one, the same batch every step.
     python -m apex_tpu_torch.train_gpt --fused-ce --fused-ce-chunk 8 --device cpu \
         --layers 2 --hidden 64 --heads 4 --vocab 128 --seq 32 --batch 2
 
+The step is compiled, as bench.py's ``jax.jit(..., donate_argnums=(0,
+1))`` is: the loss, its gradients and the FusedAdam update, written back
+into the params and the optimizer state in place, captured as one CUDA
+graph (:mod:`apex_tpu_torch.graphs`; the layers' remat and the flash and
+CE autograd Functions inside it).  The ``--warmup`` steps run eagerly on
+a side stream and the last of them captures; every timed step is a
+replay.  ``--eager`` runs the same step eagerly instead (the counterpart
+of ``JAX_DISABLE_JIT=1``); on the CPU the step runs its static buffers
+without capture.
+
 Prints one JSON line: the loss of every step, the median step time
-(host clock around a synchronized step), tokens/s and peak device
-memory.  The kernel library is built before the clock starts, and the
-``--warmup`` steps are not timed.
+(host clock around a synchronized step), tokens/s, peak device memory
+whether the step ran as a graph and the capture's host time.  The
+kernel library is built before the clock starts, and the ``--warmup``
+steps (the capture with them) are not timed.
 """
 
 import argparse
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.graphs import CapturedStep, tensor_leaves
 from apex_tpu_torch.models.gpt import GPTConfig, gpt_loss, init_params, params_from_numpy
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.optimizers.base import tree_leaves, tree_unflatten
@@ -56,7 +68,8 @@ def build_args():
     p.add_argument("--seq", type=int, default=1024)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=5, help="timed steps")
-    p.add_argument("--warmup", type=int, default=1, help="untimed steps first")
+    p.add_argument("--warmup", type=int, default=1,
+                   help="untimed eager steps first; the last one captures the graph")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--compute-dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--seed", type=int, default=0)
@@ -66,6 +79,8 @@ def build_args():
     p.add_argument("--fused-ce-chunk", type=int, default=128,
                    help="with --fused-ce: sequence positions per chunk; the fused "
                         "head runs only when --seq is a multiple (bench.py: 128)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the step eagerly instead of as a captured CUDA graph")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for "
                         "the kernels' plain versions")
@@ -105,19 +120,40 @@ def setup(args, params_tree=None):
 
 def loss_and_grads(params, tokens, targets, config):
     """``value_and_grad(gpt_loss)``: the loss and a tree of gradients
-    shaped like ``params``."""
+    shaped like ``params``.  Leaves that do not require a gradient yet
+    are made to."""
     leaves = tree_leaves(params)
     for leaf in leaves:
-        leaf.requires_grad_(True)
+        if not leaf.requires_grad:
+            leaf.requires_grad_(True)
     loss = gpt_loss(params, tokens, targets, config)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def train_step(params, state, opt, tokens, targets, config):
-    loss, grads = loss_and_grads(params, tokens, targets, config)
-    params, state = opt.update(grads, state, params)
-    return params, state, loss
+def make_train_step(opt, config, graphs=None, warmup=1):
+    """``step(params, state, tokens, targets) -> loss``: the loss, its
+    gradients and ``opt.update``, the new params and optimizer state
+    copied into ``params`` and ``state`` in place (the counterpart of
+    bench.py's ``donate_argnums=(0, 1)``).  Compiled unless
+    ``graphs=False``: a :class:`~apex_tpu_torch.graphs.CapturedStep` that
+    runs ``warmup`` eager steps on a side stream, captures the step as one
+    CUDA graph after the last of them, and replays it; on the CPU it runs
+    the static buffers without capture.  ``params`` must already require
+    gradients when captured."""
+
+    def step(params, state, tokens, targets):
+        loss, grads = loss_and_grads(params, tokens, targets, config)
+        new_params, new_state = opt.update(grads, state, params)
+        with torch.no_grad():
+            for dst, src in zip(tensor_leaves((params, state)),
+                                tensor_leaves((new_params, new_state)), strict=True):
+                dst.copy_(src)
+        return loss
+
+    if graphs is False:
+        return step
+    return CapturedStep(step, donate=(0, 1), warmup=warmup)
 
 
 def run(args, params_tree=None):
@@ -133,6 +169,10 @@ def run(args, params_tree=None):
         torch.cuda.reset_peak_memory_stats(dev)
     opt = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
     state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = make_train_step(opt, config, graphs=False if args.eager else None,
+                           warmup=args.warmup)
 
     def sync():
         if cuda:
@@ -142,7 +182,7 @@ def run(args, params_tree=None):
     for i in range(args.warmup + args.steps):
         sync()
         t0 = time.perf_counter()
-        params, state, loss = train_step(params, state, opt, tokens, targets, config)
+        loss = step(params, state, tokens, targets)
         sync()
         if i >= args.warmup:
             times.append(time.perf_counter() - t0)
@@ -160,6 +200,8 @@ def run(args, params_tree=None):
         "step_ms_median": None if step_s is None else 1e3 * step_s,
         "tokens_per_sec": None if step_s is None else args.batch * args.seq / step_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
+        "graphs": isinstance(step, CapturedStep) and step.graph is not None,
+        "capture_ms": 1e3 * step.capture_seconds if isinstance(step, CapturedStep) else 0.0,
     }
     return report, params, state
 

@@ -3,6 +3,15 @@
 
     python3 chip_smoke.py
 
+Every step of the serve and train paths runs compiled, as the
+reference's ``jax.jit`` with donated buffers: captured as a CUDA graph
+over static buffers at its first call, after an eager warm-up, and
+replayed after (``apex_tpu_torch.graphs``).  The serve, serve_v2, train
+and train_fce phases then run once more with ``--eager`` in the same
+call and print a ``graphs_ab`` line: graphed beside eager, streams equal
+token for token, train losses bitwise equal (or within 1e-5, and which
+held).  The launch counts are counted by replay and stay exact.
+
 Phases, each printing one JSON line:
 
 1. card: PyTorch version, the card, ``nvidia-smi`` name and power
@@ -45,21 +54,29 @@ Phases, each printing one JSON line:
    the C entry's at every head dim.
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
-   count from that run, checked exactly against the steps taken.
+   count from that run, checked exactly against the steps taken;
+   graphed, then eager (``serve_eager``), then ``graphs_ab``.
 5. parity: full width in fp32, greedy, 4 requests of 8 tokens: every
    served token must be the argmax of the full-sequence forward.
 6. profile: device busy share and kernel time by name over decode
-   steps of the bf16 engine.
+   steps of the bf16 engine, graphed and eager.
 6a. serve_v2: ``serve_gpt`` at the serving-v2 command of
    ``examples/gpt/serve_gpt.py`` (``--draft-len 4 --prefix-sharing
    --system-prompt-len 128 --prefill-chunk 64 --best-effort-frac 0.5``),
    the rest at the serve defaults: 32/32 requests of 32 tokens, and
    exact launch counts from the scheduler's stats (N = verify + chunk
    steps: LN forward 25 N, width > 1 attention 12 N, width-1 attention
-   0, sampling verify steps + prefills).
-6b. serve_v2_profile: device busy share and kernel time by name over
-   one verify step and one 64-position prefill chunk.
-6c. serve_v2_parity: fp32, repetitive prompts after a shared system
+   0, sampling verify steps + prefills); graphed, then eager.
+6b. serve_v2_profile: device busy share, host dispatch and kernel time
+   by name over one verify step and one 64-position prefill chunk,
+   graphed and eager.
+6c. serve_streams: the serve and serving-v2 commands in bf16 and fp32,
+   T = 0 and T = 1, graphed and eager: equal streams, exact counts.
+6d. graph_replay: each serving step (decode, prefill at the serve
+   shapes; verify, chunk, head at the serving-v2 shapes) compiled beside
+   the same step eager on three sets of random inputs in turn: outputs
+   and pools bitwise equal, launch counts equal, call by call.
+6e. serve_v2_parity: fp32, repetitive prompts after a shared system
    prompt: the speculative stream equals the plain one (T=0 and T=1),
    chunked prefill the one-shot, prefix-shared the unshared; greedy
    tokens are the full forward's argmax; some draft is accepted.
@@ -68,16 +85,19 @@ Phases, each printing one JSON line:
    the dense head, FusedAdam — one warm-up step and 5 timed steps:
    losses finite and falling, launch counts exactly 49 / 25 / 24 / 12 /
    12 / 0 / 0 / 0 a step (LN fwd, LN bwd, flash fwd, dq, dkv, ce_fwd,
-   ce_dx, ce_dembed).
+   ce_dx, ce_dembed); each timed step a graph replay; then ``--eager``
+   and ``graphs_ab`` (losses, step median with its spread, tokens/s,
+   peak memory side by side).
 8. train_fce: the same with ``--fused-ce`` (bench.py's
    ``gpt124_s1024_fce``): launch counts 49 / 25 / 24 / 12 / 12 / 1 / 1 /
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
-   step's, and the two steps' times side by side.
+   step's, and the two steps' times side by side; graphed, then eager.
 9. train_reproducible: two backward passes of one flash layer bitwise
    equal, two calls each of the CE forward, dx and dembed kernels at
    GPT-124M bitwise equal, two LN backward calls at 8192 x 768 (bf16,
    affine with bias) with bitwise equal dx, dw and db, and two calls of
-   the sampling head at 40 rows (T = 1) with equal tokens.
+   the sampling head at 40 rows (T = 1) with equal tokens; the same
+   calls captured as CUDA graphs, two replays bitwise equal to them.
 10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
     H=12, S=1024; and GQA H_kv=4): the output and the gradients through
     ``flash_attention`` on the card (the bf16 kernels the train step
@@ -92,9 +112,11 @@ Phases, each printing one JSON line:
 13. train_parity: the loss and every gradient leaf of one step at full
     width (2 layers, seq 256, batch 2, fp32, dense head) on the card
     (the fp32 kernels) against the CPU (plain versions), from the same
-    numpy params.
+    numpy params; the card's from a graph replay of ``loss_and_grads``
+    on this batch after a warm-up on another, held against an eager call.
 14. train_profile: device busy share and kernel time by name over one
-    training step with the dense head and one with the fused CE.
+    training step with the dense head and one with the fused CE, each
+    a graph replay and eager.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -1071,61 +1093,110 @@ def check_fused_ce(dev, case, N=8192, H=768, V=50304, x_dtype=torch.bfloat16,
 
 
 # -------------------------------------------------------------------- serve
-def launch_counts():
-    from apex_tpu_torch.ops import (
-        decode_attention, decode_sampling, flash_attention, fused_ce_kernels, layer_norm,
-    )
+#: the kernels' launch counters (``apex_tpu_torch.ops.COUNTERS``) by the
+#: names of this script's lines
+COUNTER_NAMES = {
+    "layer_norm_fwd": "layer_norm.LAUNCHES",
+    "paged_decode_attention": "decode_attention.LAUNCHES",
+    "paged_decode_attention_wide": "decode_attention.WIDE_LAUNCHES",
+    "fused_sample": "decode_sampling.LAUNCHES",
+    "layer_norm_bwd": "layer_norm.BWD_LAUNCHES",
+    "flash_fwd": "flash_attention.FWD_LAUNCHES",
+    "flash_dq": "flash_attention.DQ_LAUNCHES",
+    "flash_dkv": "flash_attention.DKV_LAUNCHES",
+    "ce_fwd": "fused_ce_kernels.FWD_LAUNCHES",
+    "ce_dx": "fused_ce_kernels.DX_LAUNCHES",
+    "ce_dembed": "fused_ce_kernels.DEMBED_LAUNCHES",
+}
 
-    return {"layer_norm_fwd": layer_norm.LAUNCHES,
-            "paged_decode_attention": decode_attention.LAUNCHES,
-            "paged_decode_attention_wide": decode_attention.WIDE_LAUNCHES,
-            "fused_sample": decode_sampling.LAUNCHES,
-            "layer_norm_bwd": layer_norm.BWD_LAUNCHES,
-            "flash_fwd": flash_attention.FWD_LAUNCHES,
-            "flash_dq": flash_attention.DQ_LAUNCHES,
-            "flash_dkv": flash_attention.DKV_LAUNCHES,
-            "ce_fwd": fused_ce_kernels.FWD_LAUNCHES,
-            "ce_dx": fused_ce_kernels.DX_LAUNCHES,
-            "ce_dembed": fused_ce_kernels.DEMBED_LAUNCHES}
+
+def launch_counts():
+    from apex_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    return {name: counts[key] for name, key in COUNTER_NAMES.items()}
 
 
 def reset_counts():
-    from apex_tpu_torch.ops import (
-        decode_attention, decode_sampling, flash_attention, fused_ce_kernels, layer_norm,
-    )
+    from apex_tpu_torch import ops
 
-    layer_norm.LAUNCHES = decode_attention.LAUNCHES = decode_sampling.LAUNCHES = 0
-    decode_attention.WIDE_LAUNCHES = 0
-    layer_norm.BWD_LAUNCHES = 0
-    flash_attention.FWD_LAUNCHES = flash_attention.DQ_LAUNCHES = 0
-    flash_attention.DKV_LAUNCHES = 0
-    fused_ce_kernels.FWD_LAUNCHES = fused_ce_kernels.DX_LAUNCHES = 0
-    fused_ce_kernels.DEMBED_LAUNCHES = 0
+    ops.restore_counts(dict.fromkeys(ops.launch_counts(), 0))
 
 
-def serve_phase():
+def serve_expect(stats, L, chunked):
+    """The launch counts a serve run must show, from its scheduler's
+    stats: LN forward 2L + 1 a forward (decode, verify and chunk steps,
+    one-shot prefills), width-1 attention L a plain decode step, width >
+    1 attention L a verify or chunk step, sampling one a decode or verify
+    step and one a prefill (the one-shot prefill's, or the sampling head
+    after a chunked prefill)."""
+    oneshot = 0 if chunked else stats["prefills"]
+    return {"layer_norm_fwd": (2 * L + 1) * (stats["decode_steps"] + stats["chunk_steps"]
+                                             + oneshot),
+            "paged_decode_attention": L * (stats["decode_steps"] - stats["spec_steps"]),
+            "paged_decode_attention_wide": L * (stats["spec_steps"] + stats["chunk_steps"]),
+            "fused_sample": stats["decode_steps"] + stats["prefills"],
+            "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
+
+
+def serve_run(argv, eager=False):
+    """``serve_gpt.run`` on ``argv``, compiled (every step a CUDA graph)
+    or with ``eager`` its ``--eager`` twin: every request served in full,
+    the launch counts exactly :func:`serve_expect`'s, ``graphs`` as
+    asked.  Returns ``(report, scheduler, params, config)``."""
     from apex_tpu_torch import serve_gpt
 
-    args = serve_gpt.build_args().parse_args([])
+    args = serve_gpt.build_args().parse_args(argv + (["--eager"] if eager else []))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out, sched, params, config = serve_gpt.run(args)
     counts = launch_counts()
-    st = sched.stats
-    steps, prefills = st["decode_steps"], st["prefills"]
-    expect = {"layer_norm_fwd": (2 * config.num_layers + 1) * (steps + prefills),
-              "paged_decode_attention": config.num_layers * steps,
-              "paged_decode_attention_wide": 0, "fused_sample": steps + prefills,
-              "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-              "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
+    expect = serve_expect(sched.stats, config.num_layers, args.prefill_chunk is not None)
     if out["requests"] != args.requests or any(
             len(c.tokens) != args.max_new for c in sched.completed):
-        raise AssertionError(f"served {out['requests']}/{args.requests} requests")
+        raise AssertionError(f"{argv}: served {out['requests']}/{args.requests} requests")
     if counts != expect:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
-    emit({"phase": "serve", **out, "launches": counts,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return counts, sched, params, config
+        raise AssertionError(f"{argv} eager={eager}: launch counts {counts} != "
+                             f"expected {expect}")
+    if out["graphs"] is eager:
+        raise AssertionError(f"{argv} eager={eager}: the report says graphs={out['graphs']}")
+    out.update(launches=counts, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out, sched, params, config
+
+
+def streams(sched):
+    return {c.rid: c.tokens for c in sched.completed}
+
+
+#: the numbers of a serve cell printed graphed beside eager
+SERVE_AB_KEYS = ("tokens_per_sec", "ttft_p50_ms", "ttft_p99_ms", "per_token_p50_ms",
+                 "per_token_p99_ms", "wall_secs", "capture_ms", "peak_memory_gb", "lanes",
+                 "accepted_tokens_per_step")
+
+
+def serve_ab(phase, argv):
+    """A serve cell compiled, then eager in the same call: each run's
+    line, then both side by side; the two streams must be equal token for
+    token (the same seeds)."""
+    g = serve_run(argv)
+    e = serve_run(argv, eager=True)
+    emit({"phase": phase, "argv": argv, **g[0]})
+    emit({"phase": f"{phase}_eager", "argv": argv, **e[0]})
+    same = streams(g[1]) == streams(e[1])
+    emit({"phase": "graphs_ab", "cell": phase, "argv": argv, "streams_equal": same,
+          "graphed": {k: g[0][k] for k in SERVE_AB_KEYS if k in g[0]},
+          "eager": {k: e[0][k] for k in SERVE_AB_KEYS if k in e[0]}})
+    if not same:
+        raise AssertionError(f"{phase}: the graphed and eager streams differ")
+    return g
+
+
+def serve_phase():
+    """``serve_gpt`` at its defaults, graphed and eager (``--eager``):
+    every request served, exact launch counts, equal streams."""
+    out, sched, params, config = serve_ab("serve", [])
+    return out["launches"], sched, params, config
 
 
 def parity_phase():
@@ -1142,9 +1213,13 @@ def parity_phase():
     del params, sched
 
 
-def profile_phase(params, config, steps=10):
+def profile_phase(params, config, steps=10, eager=False):
     """Busy share and kernel time by name over ``steps`` decode steps of
-    the bf16 engine with all 8 slots active."""
+    the bf16 engine with all 8 slots active, graphed or ``eager``; the
+    host dispatch is the time in the scheduler's step calls (uploads or
+    copies into the graph's buffers, then the launches or the replay),
+    the rest of a step is the scheduler's own host work and the
+    readback."""
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch import serve_gpt
@@ -1152,7 +1227,8 @@ def profile_phase(params, config, steps=10):
 
     args = serve_gpt.build_args().parse_args([])
     _, _, dcfg = serve_gpt.setup(args)
-    sched = ContinuousBatchingScheduler(params, config, dcfg)
+    sched = ContinuousBatchingScheduler(params, config, dcfg,
+                                        graphs=False if eager else None)
     rng = np.random.RandomState(1)
     for rid in range(args.streams):
         plen = min(32, args.prompt_len)
@@ -1160,7 +1236,24 @@ def profile_phase(params, config, steps=10):
                              max_new_tokens=args.max_new))
     for _ in range(3):
         sched.step()
+    dispatch = [0.0]
+    call = sched._call
+
+    def timed(*args):
+        t = time.monotonic()
+        out = call(*args)
+        dispatch[0] += time.monotonic() - t
+        return out
+
+    sched._call = timed
+    # the same steps unprofiled first: the profiler slows the host
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    plain_wall, plain_dispatch = time.monotonic() - t0, dispatch[0]
+    dispatch[0] = 0.0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
@@ -1170,9 +1263,14 @@ def profile_phase(params, config, steps=10):
     by_name = device_us_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "decode_steps": steps, "active": sched.num_active,
-          "step_ms": 1e3 * wall / steps, "device_busy_ms_per_step": busy_ms / steps,
+    emit({"phase": "profile", "graphs": not eager, "decode_steps": steps,
+          "active": sched.num_active, "kernels_seen": len(by_name),
+          "step_ms": 1e3 * wall / steps, "host_dispatch_ms": 1e3 * dispatch[0] / steps,
+          "device_busy_ms_per_step": busy_ms / steps,
           "idle_share": 1 - busy_ms / (1e3 * wall),
+          "unprofiled_step_ms": 1e3 * plain_wall / steps,
+          "unprofiled_host_dispatch_ms": 1e3 * plain_dispatch / steps,
+          "idle_share_unprofiled": 1 - busy_ms / (1e3 * plain_wall),
           "top_kernels_us_per_step": [[n[:90], us / steps] for n, us in top]})
 
 
@@ -1184,37 +1282,42 @@ SERVE_V2_ARGS = ["--draft-len", "4", "--prefix-sharing", "--system-prompt-len", 
 
 def serve_v2_phase():
     """``serve_gpt.run`` at the serving-v2 command, the rest at the serve
-    defaults: every request served in full, and exact launch counts from
-    the scheduler's stats (N = verify + chunk steps, each one
-    ``forward_decode`` at width 5 or 64)."""
-    from apex_tpu_torch import serve_gpt
-
-    args = serve_gpt.build_args().parse_args(SERVE_V2_ARGS)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    out, sched, params, config = serve_gpt.run(args)
-    counts = launch_counts()
+    defaults, graphed and eager: every request served in full, only
+    verify and chunk steps, exact launch counts (N = verify + chunk
+    steps: LN forward 25 N, width > 1 attention 12 N, width-1 attention
+    0, sampling verify steps + prefills), equal streams."""
+    out, sched, params, config = serve_ab("serve_v2", SERVE_V2_ARGS)
     st = sched.stats
-    n = st["spec_steps"] + st["chunk_steps"]
-    L = config.num_layers
-    expect = {"layer_norm_fwd": (2 * L + 1) * n, "paged_decode_attention": 0,
-              "paged_decode_attention_wide": L * n,
-              "fused_sample": st["spec_steps"] + st["prefills"],
-              "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-              "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
-    if out["requests"] != args.requests or any(
-            len(c.tokens) != args.max_new for c in sched.completed):
-        raise AssertionError(f"serve_v2 served {out['requests']}/{args.requests} requests")
     if st["decode_steps"] != st["spec_steps"]:
         raise AssertionError(f"serve_v2 took other steps than verify and chunk steps: {st}")
-    if counts != expect:
-        raise AssertionError(f"serve_v2 launch counts {counts} != expected {expect}")
-    emit({"phase": "serve_v2", "argv": SERVE_V2_ARGS, **out, "launches": counts,
-          "launches_expected": "LN fwd 25 N, wide attention 12 N, width-1 attention 0, "
-                               "sampling spec_steps + prefills; N = spec_steps + "
-                               "chunk_steps",
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return counts, params, config
+    return out["launches"], params, config
+
+
+def serve_streams_phase():
+    """Graphed against eager, token for token, at the serve and the
+    serving-v2 commands in bf16 and fp32 (compute and KV), T = 0 and
+    T = 1, each with exact launch counts (bf16 at T = 1 are the serve
+    and serve_v2 phases' own A/B)."""
+    t0 = time.monotonic()
+    cases = {}
+    for cell, base in (("serve", []), ("serve_v2", SERVE_V2_ARGS)):
+        for dtype in ("bfloat16", "float32"):
+            for T in ("0", "1"):
+                if (dtype, T) == ("bfloat16", "1"):
+                    continue
+                argv = base + ["--compute-dtype", dtype, "--kv-dtype", dtype,
+                               "--temperature", T]
+                g, e = serve_run(argv), serve_run(argv, eager=True)
+                cases[f"{cell}_{dtype}_T{T}"] = {
+                    "streams_equal": streams(g[1]) == streams(e[1]),
+                    "tokens": g[0]["generated_tokens"],
+                    "tokens_per_sec": {"graphed": g[0]["tokens_per_sec"],
+                                       "eager": e[0]["tokens_per_sec"]}}
+                del g, e
+    emit({"phase": "serve_streams", "cases": cases, "seconds": time.monotonic() - t0})
+    bad = [k for k, v in cases.items() if not v["streams_equal"]]
+    if bad:
+        raise AssertionError(f"serve_streams: graphed and eager streams differ in {bad}")
 
 
 def serve_v2_parity_phase():
@@ -1356,10 +1459,10 @@ def serve_v2_parity_phase():
           "seconds": time.monotonic() - t0})
 
 
-def serve_v2_profile_phase(params, config):
+def serve_v2_profile_phase(params, config, eager=False):
     """Busy share and kernel time by name over one verify step (8 slots
     decoding, W = 5) and one prefill chunk (64 positions at 128..191) of
-    the bf16 serving-v2 engine."""
+    the bf16 serving-v2 engine, graphed or ``eager``."""
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch import serve_gpt
@@ -1367,7 +1470,8 @@ def serve_v2_profile_phase(params, config):
 
     args = serve_gpt.build_args().parse_args(SERVE_V2_ARGS)
     _, _, dcfg = serve_gpt.setup(args)
-    sched = ContinuousBatchingScheduler(params, config, dcfg)
+    sched = ContinuousBatchingScheduler(params, config, dcfg,
+                                        graphs=False if eager else None)
     rng = np.random.RandomState(1)
     sysp = rng.randint(0, args.vocab, size=args.system_prompt_len).tolist()
     for rid in range(args.streams):
@@ -1399,7 +1503,14 @@ def serve_v2_profile_phase(params, config):
     for name, fn in steps.items():
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
+        walls, hosts = [], []
+        for _ in range(10):  # unprofiled: the profiler slows the host
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            hosts.append(time.monotonic() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             fn()
@@ -1409,11 +1520,112 @@ def serve_v2_profile_phase(params, config):
         by_name = device_us_by_name(prof)
         busy_ms = sum(by_name.values()) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        emit({"phase": "serve_v2_profile", "step": name,
-              "rows": B * W if name == "verify" else C,
+        emit({"phase": "serve_v2_profile", "graphs": not eager, "step": name,
+              "rows": B * W if name == "verify" else C, "kernels_seen": len(by_name),
               "step_ms": 1e3 * wall, "host_dispatch_ms": 1e3 * host,
               "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (1e3 * wall),
+              "unprofiled_step_ms": 1e3 * float(np.median(walls)),
+              "unprofiled_host_dispatch_ms": 1e3 * float(np.median(hosts)),
+              "idle_share_unprofiled": 1 - busy_ms / (1e3 * float(np.median(walls))),
               "top_kernels_us": [[n[:90], us] for n, us in top]})
+
+
+def _step_inputs(rng, kind, config, dcfg):
+    """Random inputs of one serving step at ``dcfg``'s shapes, the
+    arguments after its params and pools: numpy arrays and ints."""
+    c = dcfg.cache
+    B, cap, V = dcfg.max_batch, c.pages_per_seq * c.page_size, config.vocab_size
+    tables = (rng.permutation(np.arange(1, c.num_pages))[:B * c.pages_per_seq]
+              .reshape(B, c.pages_per_seq).astype(np.int32))
+
+    def seeds(*shape):
+        return rng.randint(0, 2 ** 32, size=shape, dtype=np.uint64).astype(np.int64)
+
+    if kind == "decode":
+        return [rng.randint(0, V, B), rng.randint(0, cap, B), rng.rand(B) < 0.9, tables,
+                seeds(B)]
+    if kind == "verify":
+        W = dcfg.draft_len + 1
+        return [rng.randint(0, V, (B, W)), rng.randint(0, cap - W + 1, B), rng.rand(B) < 0.9,
+                tables, seeds(B, W)]
+    if kind == "prefill":
+        S = dcfg.max_prompt_len
+        plen = int(rng.randint(1, S + 1))
+        prompt = np.zeros((1, S), np.int64)
+        prompt[0, :plen] = rng.randint(0, V, plen)
+        return [prompt, plen, int(rng.randint(0, plen)), tables[0], seeds(1)]
+    if kind == "chunk":
+        C = dcfg.prefill_chunk
+        start, valid = int(rng.randint(0, cap - C + 1)), int(rng.randint(1, C + 1))
+        return [rng.randint(0, V, C), start, valid, start + int(rng.randint(0, valid)),
+                tables[0]]
+    return [rng.standard_normal(config.hidden_size).astype(np.float32), seeds(1)]  # head
+
+
+def graph_replay_phase():
+    """Each serving step compiled (an eager warm-up, then a CUDA graph)
+    beside the same step eager, each on its own pools, over three sets
+    of random inputs in turn at the serve (decode, prefill) and
+    serving-v2 (verify, chunk, head) shapes, bf16: every output and the
+    pools (the garbage page aside: its duplicate writes land in no fixed
+    order) bitwise equal, and each call's launch counts equal.  A static
+    buffer that the capture missed keeps the first inputs' result, and a
+    replay that is not counted shows in the counts."""
+    from apex_tpu_torch import serve_gpt
+    from apex_tpu_torch.graphs import tensor_leaves
+    from apex_tpu_torch.inference import (
+        alloc_pools, make_decode_step, make_prefill, make_prefill_chunk, make_sample_head,
+        make_verify_step,
+    )
+
+    builders = {"decode": make_decode_step, "prefill": make_prefill,
+                "verify": make_verify_step, "chunk": make_prefill_chunk,
+                "head": make_sample_head}
+    t0 = time.monotonic()
+    rng = np.random.RandomState(7)
+    results = {}
+    for argv, kinds in (([], ("decode", "prefill")),
+                        (SERVE_V2_ARGS, ("verify", "chunk", "head"))):
+        args = serve_gpt.build_args().parse_args(argv)
+        config, params, dcfg = serve_gpt.setup(args)
+        dev = params["embed"].device
+        for kind in kinds:
+            steps = (builders[kind](config, dcfg), builders[kind](config, dcfg, graphs=False))
+            pools = [alloc_pools(config.num_layers, config.kv_heads, config.head_dim,
+                                 dcfg.cache, device=dev) for _ in steps]
+            equal, counts_equal = [], []
+            for _ in range(3):
+                inputs = _step_inputs(rng, kind, config, dcfg)
+                outs, counts = [], []
+                for step, pool, where in zip(steps, pools, ("pinned", dev)):
+                    args_in = []
+                    for a in inputs:
+                        if isinstance(a, np.ndarray):
+                            a = torch.from_numpy(a)
+                            if a.is_floating_point():
+                                a = a.to(config.compute_dtype)
+                            a = a.pin_memory() if where == "pinned" else a.to(where)
+                        args_in.append(a)
+                    reset_counts()
+                    res = (step(params, *args_in) if kind == "head"
+                           else step(params, pool, *args_in)[1])
+                    outs.append([t.clone() for t in tensor_leaves(res)])
+                    counts.append(launch_counts())
+                equal.append(all(torch.equal(a, b) for a, b in zip(*outs, strict=True))
+                             and all(torch.equal(pools[0][n][:, 1:], pools[1][n][:, 1:])
+                                     for n in ("k", "v")))
+                counts_equal.append(counts[0] == counts[1])
+            results[kind] = {"captured": steps[0].graph is not None, "calls": steps[0].calls,
+                             "outputs_and_pools_bitwise_equal": equal,
+                             "launch_counts_equal": counts_equal}
+            del steps, pools
+    emit({"phase": "graph_replay", "compute_dtype": "bfloat16", "steps": results,
+          "seconds": time.monotonic() - t0})
+    bad = [k for k, r in results.items() if not (
+        r["captured"] and all(r["outputs_and_pools_bitwise_equal"])
+        and all(r["launch_counts_equal"]))]
+    if bad:
+        raise AssertionError(f"graph_replay: a replay is not the eager step in {bad}")
 
 
 # -------------------------------------------------------------------- train
@@ -1422,17 +1634,25 @@ def serve_v2_profile_phase(params, config):
 FCE_LOSS_TOL = 1e-5
 
 
-def train_phase(fused=False, dense_report=None):
+#: graphed against eager train losses, relative, if they are not
+#: bitwise equal: the fp32 band of the train parity's loss
+TRAIN_AB_TOL = 1e-5
+
+
+def train_phase(fused=False, dense_report=None, eager=False):
     """bench.py's GPT-124M step through ``train_gpt.run`` at its defaults:
     the dense head (``gpt124_s1024``) or, with ``fused``, ``--fused-ce``
     (``gpt124_s1024_fce``), whose warm-up loss is held against the dense
-    step's ``dense_report``."""
+    step's ``dense_report``; compiled (one CUDA graph a step, replayed
+    after the warm-up) or with ``eager`` its ``--eager`` twin."""
     from apex_tpu_torch import train_gpt
 
-    args = train_gpt.build_args().parse_args(["--fused-ce"] if fused else [])
+    argv = (["--fused-ce"] if fused else []) + (["--eager"] if eager else [])
+    args = train_gpt.build_args().parse_args(argv)
     reset_counts()
     t0 = time.monotonic()
     report, params, state = train_gpt.run(args)
+    del params, state
     counts = launch_counts()
     n, L = args.warmup + args.steps, args.layers
     per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
@@ -1446,6 +1666,8 @@ def train_phase(fused=False, dense_report=None):
         raise AssertionError(f"train losses not finite and falling: {losses}")
     if counts != expect:
         raise AssertionError(f"train launch counts {counts} != expected {expect}")
+    if report["graphs"] is eager:
+        raise AssertionError(f"train eager={eager}: the report says graphs={report['graphs']}")
     extra = {}
     if fused:
         dense = dense_report["losses"][0]
@@ -1454,7 +1676,7 @@ def train_phase(fused=False, dense_report=None):
             raise AssertionError(f"fused-CE warm-up loss {losses[0]} vs dense {dense}: "
                                  f"rel {rel} > {FCE_LOSS_TOL}")
         # bench.py's A/B on this card: the dense step (the train phase)
-        # beside this one
+        # beside this one, in the same mode
         extra = {"warmup_loss_dense": dense, "warmup_loss_rel_err": rel,
                  "tolerance": FCE_LOSS_TOL,
                  "tolerance_why": "same params and batch; the fused head rounds embed and "
@@ -1467,10 +1689,32 @@ def train_phase(fused=False, dense_report=None):
                                        "fused_ce": report["tokens_per_sec"]},
                  "ab_peak_memory_gb": {"dense": dense_report["peak_memory_gb"],
                                        "fused_ce": report["peak_memory_gb"]}}
-    emit({"phase": "train_fce" if fused else "train", **report, "steps_counted": n,
-          "launches_per_step": per_step, "launches": counts, **extra,
-          "seconds": time.monotonic() - t0})
+    emit({"phase": ("train_fce" if fused else "train") + ("_eager" if eager else ""),
+          **report, "steps_counted": n, "launches_per_step": per_step, "launches": counts,
+          **extra, "seconds": time.monotonic() - t0})
     return args, counts, report
+
+
+def _train_summary(report):
+    ms = report["step_ms"]
+    return {"step_ms_median": report["step_ms_median"], "step_ms_min": min(ms),
+            "step_ms_max": max(ms), "tokens_per_sec": report["tokens_per_sec"],
+            "capture_ms": report["capture_ms"], "peak_memory_gb": report["peak_memory_gb"]}
+
+
+def train_ab(cell, graphed, eager):
+    """The graphed and eager runs of one train cell side by side: their
+    losses bitwise equal, or failing that within ``TRAIN_AB_TOL``
+    (cuBLAS may pick another algorithm under capture); which held is
+    printed."""
+    gl, el = graphed["losses"], eager["losses"]
+    bitwise = gl == el
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el, strict=True))
+    emit({"phase": "graphs_ab", "cell": cell, "losses_bitwise_equal": bitwise,
+          "losses_max_rel_err": rel, "held": "bitwise" if bitwise else f"band {TRAIN_AB_TOL}",
+          "graphed": _train_summary(graphed), "eager": _train_summary(eager)})
+    if not bitwise and not rel <= TRAIN_AB_TOL:
+        raise AssertionError(f"{cell}: graphed losses {gl} vs eager {el}: rel {rel}")
 
 
 def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
@@ -1480,7 +1724,10 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     tgt, dx and dembed; two LayerNorm backward calls at the train step's
     rows (8192 x 768 bf16, affine with bias) bitwise equal dx, dw and db;
     and two sampling-head calls at 40 rows (T = 1) equal tokens: no
-    atomics in the kernels, sums and merges in a fixed order."""
+    atomics in the kernels, sums and merges in a fixed order.  Then the
+    same calls captured as CUDA graphs: two replays after the eager
+    warm-up, each bitwise equal to the eager calls."""
+    from apex_tpu_torch.graphs import CapturedStep
     from apex_tpu_torch.ops import fused_ce_kernels as K
     from apex_tpu_torch.ops.attention import flash_attention
     from apex_tpu_torch.ops.decode_sampling import fused_sample
@@ -1502,17 +1749,17 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     fwd = K.ce_fwd(x, e, t)
     m, l, _ = fwd
     lse = m + torch.log(l)
+    dx, de = K.ce_dx(x, e, t, lse, g), K.ce_dembed(x, e, t, lse, g)
     ce_same = {**{k: bool(torch.equal(a, b)) for k, a, b in zip(("m", "l", "tgt"), fwd,
                                                                K.ce_fwd(x, e, t))},
-               "dx": bool(torch.equal(K.ce_dx(x, e, t, lse, g), K.ce_dx(x, e, t, lse, g))),
-               "dembed": bool(torch.equal(K.ce_dembed(x, e, t, lse, g),
-                                          K.ce_dembed(x, e, t, lse, g)))}
+               "dx": bool(torch.equal(dx, K.ce_dx(x, e, t, lse, g))),
+               "dembed": bool(torch.equal(de, K.ce_dembed(x, e, t, lse, g)))}
     # the sampling head at the verify step's 40 rows, T = 1, on the same embed
     xs = torch.from_numpy(rng.standard_normal((40, Hd), dtype=np.float32)).to(dev, torch.bfloat16)
     seeds = torch.from_numpy(rng.integers(0, 2 ** 32, size=40, dtype=np.uint64)
                              .astype(np.int64)).to(dev)
-    sample_same = bool(torch.equal(fused_sample(xs, e, seeds, 1.0, 0),
-                                   fused_sample(xs, e, seeds, 1.0, 0)))
+    tokens = fused_sample(xs, e, seeds, 1.0, 0)
+    sample_same = bool(torch.equal(tokens, fused_sample(xs, e, seeds, 1.0, 0)))
     xl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False, scale=2.0, shift=0.5)
     dyl = _ln_rows(rng, dev, N, Hd, torch.bfloat16, False)
     wl, bl = _ln_params(rng, dev, Hd, "ln_affine")
@@ -1521,10 +1768,30 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     second_ln = layer_norm_bwd(xl, wl, dyl, mean, rstd)
     ln_same = {k: bool(torch.equal(a, b)) for k, a, b in zip(("dx", "dw", "db"), first_ln,
                                                             second_ln)}
+
+    def flash_grads(q, k, v, do):
+        q, k, v = (a.detach().requires_grad_() for a in (q, k, v))
+        return torch.autograd.grad(flash_attention(q, k, v, causal=True), (q, k, v), do)
+
+    def kernels(x, e, t, lse, g, xs, seeds, xl, wl, dyl, mean, rstd):
+        return (*K.ce_fwd(x, e, t), K.ce_dx(x, e, t, lse, g), K.ce_dembed(x, e, t, lse, g),
+                fused_sample(xs, e, seeds, 1.0, 0), *layer_norm_bwd(xl, wl, dyl, mean, rstd))
+
+    graphed = {}
+    for name, fn, inputs, eager in (
+            ("flash", flash_grads, (q, k, v, do), first),
+            ("ce_sampling_ln", kernels, (x, e, t, lse, g, xs, seeds, xl, wl, dyl, mean, rstd),
+             (*fwd, dx, de, tokens, *first_ln))):
+        step = CapturedStep(fn)
+        step(*inputs)  # eager on a side stream, then the capture
+        replays = [[o.clone() for o in step(*inputs)] for _ in range(2)]
+        graphed[name] = step.graph is not None and all(
+            torch.equal(a, b) for r in replays for a, b in zip(r, eager, strict=True))
     if (not all(same) or not all(ce_same.values()) or not all(ln_same.values())
-            or not sample_same):
+            or not sample_same or not all(graphed.values())):
         raise AssertionError(f"not bitwise reproducible: flash {same}, CE {ce_same}, "
-                             f"LayerNorm {ln_same}, sampling {sample_same}")
+                             f"LayerNorm {ln_same}, sampling {sample_same}, "
+                             f"graph replays {graphed}")
     emit({"phase": "train_reproducible", "B": B, "H": H, "S": S, "D": D,
           "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same,
           "ce": {"N": N, "H": Hd, "V": V, "x_dtype": "bfloat16", "embed_dtype": "float32",
@@ -1532,7 +1799,8 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
           "layer_norm_bwd": {"R": N, "H": Hd, "dtype": "bfloat16", "mode": "ln_affine",
                              "bitwise_equal": ln_same},
           "fused_sample": {"N": 40, "H": Hd, "V": V, "temperature": 1.0,
-                           "x_dtype": "bfloat16", "bitwise_equal": sample_same}})
+                           "x_dtype": "bfloat16", "bitwise_equal": sample_same},
+          "graph_replays_bitwise_equal_eager": graphed})
 
 
 def flash_grad_parity_phase(dev, S=1024, D=64):
@@ -1681,8 +1949,13 @@ def norm_modules_phase(dev, shape=(1024, 8, 768)):
 
 def train_parity_phase():
     """One step's loss and gradients at full width, fp32: the card (the
-    kernels) against the CPU (the plain versions), same numpy params."""
+    kernels) against the CPU (the plain versions), same numpy params.
+    On the card they come from a CUDA graph of ``loss_and_grads``
+    replayed on this batch after its eager warm-up on another one, and
+    must also equal an eager call on this batch: bitwise, or failing
+    that within the same bands (which held is printed)."""
     from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.graphs import CapturedStep
     from apex_tpu_torch.optimizers.base import tree_leaves
 
     t0 = time.monotonic()
@@ -1691,8 +1964,26 @@ def train_parity_phase():
     for device in ("cuda", "cpu"):
         args = train_gpt.build_args().parse_args(base + ["--device", device])
         config, params, tokens, targets = train_gpt.setup(args)
-        loss, grads = train_gpt.loss_and_grads(params, tokens, targets, config)
-        out[device] = (float(loss), [g.detach().cpu() for g in tree_leaves(grads)])
+        if device == "cuda":
+            step = CapturedStep(
+                lambda p, x, y: train_gpt.loss_and_grads(p, x, y, config), donate=(0,))
+            step(params, torch.roll(tokens, 1, 1), torch.roll(targets, 1, 1))
+            loss, grads = step(params, tokens, targets)
+            graphed = (float(loss), [g.clone() for g in tree_leaves(grads)])
+            loss, grads = train_gpt.loss_and_grads(params, tokens, targets, config)
+            eager = (float(loss), tree_leaves(grads))
+            replay_bitwise = graphed[0] == eager[0] and all(
+                torch.equal(a, b) for a, b in zip(graphed[1], eager[1], strict=True))
+            floor = 1e-4 * max(float(b.abs().max()) for b in eager[1])
+            replay_err = {"loss": abs(graphed[0] - eager[0]) / abs(eager[0]),
+                          "grads": max(float((a - b).abs().max())
+                                       / max(float(b.abs().max()), floor)
+                                       for a, b in zip(graphed[1], eager[1]))}
+            loss, grads = graphed
+        else:
+            loss, grads = train_gpt.loss_and_grads(params, tokens, targets, config)
+            loss, grads = float(loss), tree_leaves(grads)
+        out[device] = (loss, [g.detach().cpu() for g in grads])
     names = tree_leaves(_leaf_names(params))
     loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     # each leaf's max |cuda - cpu| over its own max |cpu|, floored at
@@ -1705,8 +1996,12 @@ def train_parity_phase():
     worst = max(grad_errs, key=grad_errs.get)
     if loss_err > TRAIN_PARITY_TOL["loss"] or grad_errs[worst] > TRAIN_PARITY_TOL["grads"]:
         raise AssertionError(f"train parity: loss rel {loss_err}, grad rel {grad_errs}")
+    if not replay_bitwise and any(replay_err[k] > TRAIN_PARITY_TOL[k] for k in replay_err):
+        raise AssertionError(f"train parity: the graph replay is {replay_err} from eager")
     emit({"phase": "train_parity", "layers": 2, "hidden": 768, "heads": 12,
           "vocab": 50304, "seq": 256, "batch": 2, "compute_dtype": "float32",
+          "graph_replay_bitwise_equal_eager": replay_bitwise,
+          "graph_replay_rel_err_to_eager": replay_err,
           "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
           "loss_rel_err": loss_err, "grad_leaves": len(grad_errs),
           "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst_leaf": worst,
@@ -1740,24 +2035,29 @@ def _kernel_kind(name):
     return "other"
 
 
-def train_profile_phase(args, step_ms):
-    """Busy share and kernel time by name over one training step.  The
-    profiler slows the host side of the step, so the idle share is also
-    given against ``step_ms``, the train phase's unprofiled median."""
+def train_profile_phase(args, step_ms, eager=False):
+    """Busy share and kernel time by name over one training step, a
+    graph replay or with ``eager`` an eager step.  The profiler slows
+    the host side of the step, so the idle share is also given against
+    ``step_ms``, the train phase's unprofiled median in the same mode."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch import train_gpt
     from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.base import tree_leaves
 
     config, params, tokens, targets = train_gpt.setup(args)
     opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
     state = opt.init(params)
-    params, state, _ = train_gpt.train_step(params, state, opt, tokens, targets, config)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = train_gpt.make_train_step(opt, config, graphs=False if eager else None)
+    step(params, state, tokens, targets)  # the warm-up (and the capture)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        train_gpt.train_step(params, state, opt, tokens, targets, config)
+        step(params, state, tokens, targets)
         host = time.monotonic() - t0  # the host's dispatch of the step
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -1776,7 +2076,8 @@ def train_profile_phase(args, step_ms):
             kernel = re.search(r"flash_\w+", e.name).group(0)
             flash_seen[kernel] = flash_seen.get(kernel, 0) + 1
     emit({"phase": "train_profile", "head": "fused_ce" if args.fused_ce else "dense",
-          "step_ms": 1e3 * wall, "host_dispatch_ms": 1e3 * host, "device_busy_ms": busy_ms,
+          "graphs": not eager, "kernels_seen": len(by_name), "step_ms": 1e3 * wall,
+          "host_dispatch_ms": 1e3 * host, "device_busy_ms": busy_ms,
           "device_ms_by_kind": by_kind, "flash_launches_seen": flash_seen,
           "idle_share": 1 - busy_ms / (1e3 * wall),
           "idle_share_of_unprofiled_step": 1 - busy_ms / step_ms,
@@ -1899,18 +2200,28 @@ def main():
     parity_phase()
     lap("parity")
     profile_phase(params, config)
+    profile_phase(params, config, eager=True)
     lap("profile")
     del params
     v2_counts, params, config = serve_v2_phase()
     lap("serve_v2")
     serve_v2_profile_phase(params, config)
+    serve_v2_profile_phase(params, config, eager=True)
     lap("serve_v2_profile")
     del params
+    serve_streams_phase()
+    lap("serve_streams")
+    graph_replay_phase()
+    lap("graph_replay")
     serve_v2_parity_phase()
     lap("serve_v2_parity")
     train_args, train_counts, dense = train_phase()
+    dense_eager = train_phase(eager=True)[2]
+    train_ab("train", dense, dense_eager)
     lap("train")
     fce_args, fce_counts, fused = train_phase(fused=True, dense_report=dense)
+    fused_eager = train_phase(fused=True, dense_report=dense_eager, eager=True)[2]
+    train_ab("train_fce", fused, fused_eager)
     lap("train_fce")
     train_reproducible_phase(dev)
     lap("train_reproducible")
@@ -1923,7 +2234,9 @@ def main():
     train_parity_phase()
     lap("train_parity")
     train_profile_phase(train_args, dense["step_ms_median"])
+    train_profile_phase(train_args, dense_eager["step_ms_median"], eager=True)
     train_profile_phase(fce_args, fused["step_ms_median"])
+    train_profile_phase(fce_args, fused_eager["step_ms_median"], eager=True)
     lap("train_profile")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
