@@ -19,12 +19,19 @@ What is ported so far:
   apex_tpu_torch.train_gpt``, ``--fused-ce`` for the fused head);
 - ``apex.normalization``: the LayerNorm and RMSNorm functions and the
   ``FusedLayerNorm``/``FusedRMSNorm`` modules;
+- ``apex.optimizers`` (:mod:`apex_tpu_torch.optimizers`): FusedAdam,
+  FusedSGD, FusedLAMB, FusedMixedPrecisionLamb, FusedAdagrad and
+  FusedNovoGrad on the multi-tensor engine (bucket plans, resident
+  state, per-group hyperparameters, the folded clip and
+  ``update_scaled``), with :mod:`apex_tpu_torch.multi_tensor_apply` and
+  :mod:`apex_tpu_torch.contrib.clip_grad`;
 
 with hand-written CUDA kernels for the ten TPU kernels on those paths
 (LayerNorm/RMSNorm forward and backward, flash attention forward, dq
 and dk/dv, the fused LM-head CE forward, dx and dembed, paged decode
-attention at ``width=1`` and ``width > 1``, the fused sampling head) under
-:mod:`apex_tpu_torch.ops`.
+attention at ``width=1`` and ``width > 1``, the fused sampling head) and
+for the optimizer engine's multi-tensor Adam, scale and L2 norm (XLA
+fusions in the JAX package) under :mod:`apex_tpu_torch.ops`.
 
 Entry points take ``device=`` and default to ``"cuda"``; with no CUDA
 device they raise rather than run on the CPU.  Pass ``device="cpu"`` to
@@ -38,7 +45,8 @@ kernel is built until a wrapper first sees a CUDA tensor.
 
 import importlib
 
-_SUBMODULES = ("inference", "models", "normalization", "ops", "optimizers", "transformer")
+_SUBMODULES = ("contrib", "inference", "models", "multi_tensor_apply", "normalization", "ops",
+               "optimizers", "transformer")
 
 __all__ = list(_SUBMODULES)
 

@@ -38,6 +38,7 @@ import time
 import torch
 
 from apex_tpu_torch import ops
+from apex_tpu_torch.optimizers.bucketing import Buckets
 
 __all__ = ["CapturedStep", "add_counts", "capture_counted", "tensor_leaves"]
 
@@ -47,8 +48,11 @@ _SIDE_STREAMS = {}
 
 def tensor_leaves(tree):
     """The tensors of ``tree`` in order: dicts (by sorted key), lists and
-    tuples (NamedTuples too) are walked; None and other leaves are
+    tuples (NamedTuples too) are walked, and the buffers of an
+    optimizer's resident ``Buckets``; None and other leaves are
     skipped."""
+    if isinstance(tree, Buckets):
+        return list(tree.arrays)
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tensor_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):

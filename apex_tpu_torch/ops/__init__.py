@@ -13,6 +13,10 @@ its plain PyTorch version, and a launch counter ``LAUNCHES``.
   ``DEMBED_LAUNCHES``);
 - :mod:`~apex_tpu_torch.ops.fused_ce` — ``fused_lm_head_ce``, the
   autograd Function over them;
+- :mod:`~apex_tpu_torch.ops.multi_tensor` — the optimizer engine's
+  multi-tensor Adam, scale and L2-norm kernels (``ADAM_LAUNCHES``,
+  ``SCALE_LAUNCHES``, ``L2NORM_LAUNCHES``) and the ``multi_tensor_*``
+  tree ops over them;
 - :mod:`~apex_tpu_torch.ops.attention` — ``flash_attention`` and the
   scan specification the flash kernels' plain versions use (plain
   PyTorch);
@@ -34,6 +38,8 @@ COUNTERS = (
     ("fused_ce_kernels", "DEMBED_LAUNCHES"),
     ("decode_attention", "LAUNCHES"), ("decode_attention", "WIDE_LAUNCHES"),
     ("decode_sampling", "LAUNCHES"),
+    ("multi_tensor", "ADAM_LAUNCHES"), ("multi_tensor", "SCALE_LAUNCHES"),
+    ("multi_tensor", "L2NORM_LAUNCHES"),
 )
 
 

@@ -99,6 +99,16 @@ SIGNATURES = {
     # x, embed, t, lse, g, dembed, scratch, N, H, V, x_dtype, embed_dtype,
     # stream
     "apex_ce_dembed": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # kind, n (int64 x T), T, out (int64 x 6)
+    "apex_mt_plan": (_I, [_I, _P, _I, _P]),
+    # ptrs (8 x T), n, lr, wd, codes (4 x T), T, bc1, bc2, pred, coef, lr,
+    # beta1, 1 - beta1, beta2, 1 - beta2, eps, adam_w_mode, stream, launches
+    "apex_mt_adam": (
+        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P]),
+    # src, out, n, codes (2 x T), T, mult_ptr, mult, flag, stream, launches
+    "apex_mt_scale": (_I, [_P, _P, _P, _P, _I, _P, _F, _P, _P, _P]),
+    # src, n, codes, T, partial, per-leaf, total, stream, launches
+    "apex_mt_l2norm": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
 }
 
 #: torch dtype -> the C entries' dtype code

@@ -5,7 +5,8 @@ bench.py:401-440) with its headline shape as the defaults: GPT-124M
 (12 layers, hidden 768, 12 heads, vocab 50304, learned positions), seq
 1024, batch 8, bf16 compute, flash attention, full layer remat, the
 dense fp32 LM head (``fused_ce=False``); each step is the loss and its
-gradients followed by ``FusedAdam(lr=3e-4, weight_decay=0.1).update``.
+gradients followed by ``FusedAdam(lr=3e-4, weight_decay=0.1).update``,
+on the multi-tensor engine (the ``mt_adam`` kernel) as in the reference.
 ``--fused-ce`` takes the fused LM-head CE instead (``fused_ce=True``,
 ``fused_ce_chunk=128``: bench.py's ``gpt124_s1024_fce`` A/B section,
 bench.py:2166-2189).  As in the JAX package, a ``--seq`` that
@@ -156,9 +157,11 @@ def make_train_step(opt, config, graphs=None, warmup=1):
     return CapturedStep(step, donate=(0, 1), warmup=warmup)
 
 
-def run(args, params_tree=None):
+def run(args, params_tree=None, opt=None):
     """Train ``args.warmup + args.steps`` steps; returns ``(report,
-    params, state)``."""
+    params, state)``.  ``opt``: the optimizer, by default bench.py's
+    ``FusedAdam(lr=args.lr, weight_decay=0.1)`` on the multi-tensor
+    engine."""
     config, params, tokens, targets = setup(args, params_tree)
     dev = tokens.device
     cuda = dev.type == "cuda"
@@ -167,7 +170,8 @@ def run(args, params_tree=None):
 
         _build.load()
         torch.cuda.reset_peak_memory_stats(dev)
-    opt = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
+    if opt is None:
+        opt = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
     state = opt.init(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
@@ -189,6 +193,7 @@ def run(args, params_tree=None):
         losses.append(float(loss))
     step_s = statistics.median(times) if times else None
     report = {
+        "optimizer": "engine" if opt.use_buckets else "per_leaf",
         "model": {"layers": args.layers, "hidden": args.hidden, "heads": args.heads,
                   "vocab": args.vocab, "seq": args.seq, "batch": args.batch,
                   "compute_dtype": args.compute_dtype, "fused_ce": args.fused_ce,

@@ -51,7 +51,24 @@ Phases, each printing one JSON line:
    bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
    keys), and bf16 at D = 16, 48, 80, 96 and 112 (B = 2); the bf16
    backward's shared memory as ``bwd_launch_plan`` states it against
-   the C entry's at every head dim.
+   the C entry's at every head dim.  The optimizer engine's kernels
+   (XLA fusions in the JAX package): ``mt_adam`` bitwise against its
+   plain version (AdamW at GPT-124M's 20 leaves, timed beside
+   ``torch.optim.AdamW`` fused and foreach; L2 mode, bf16 params with
+   and without a master, resident bucket slices, param groups with a
+   tensor lr, a clip coefficient, a false predicate that keeps every
+   value), ``mt_scale`` bitwise with its flag (an injected inf, an
+   overflow), ``mt_l2norm`` within 1e-5 of float64 sums and bitwise over
+   two calls, and ``mt_plan`` against ``apex_mt_plan``.
+3a. optimizers: bench.py's headline section (``bench_fused_adam``) on
+   the port: FusedAdam over bench.py's 99-tensor set, timed graphed and
+   eager on the engine (resident and transparent), on the per-leaf
+   path, as bench.py's op-by-op eager Adam and as ``torch.optim.AdamW``
+   (fused, foreach); ``speedup_vs_eager``; 5 steps of every engine
+   variant bitwise equal to the per-leaf path; ``update_scaled`` with
+   exact mt_adam / mt_scale / mt_l2norm launches; FusedSGD (momentum,
+   nesterov), FusedLAMB, FusedMixedPrecisionLamb, FusedAdagrad and
+   FusedNovoGrad card against CPU.
 4. serve: ``apex_tpu_torch.serve_gpt`` at its defaults — GPT-124M
    width, bf16, 8 slots, 32 requests — with every kernel's launch
    count from that run, checked exactly against the steps taken;
@@ -85,9 +102,11 @@ Phases, each printing one JSON line:
    the dense head, FusedAdam — one warm-up step and 5 timed steps:
    losses finite and falling, launch counts exactly 49 / 25 / 24 / 12 /
    12 / 0 / 0 / 0 a step (LN fwd, LN bwd, flash fwd, dq, dkv, ce_fwd,
-   ce_dx, ce_dembed); each timed step a graph replay; then ``--eager``
-   and ``graphs_ab`` (losses, step median with its spread, tokens/s,
-   peak memory side by side).
+   ce_dx, ce_dembed) and ``mt_plan``'s mt_adam launches (one); each
+   timed step a graph replay; then ``--eager`` and ``graphs_ab``
+   (losses, step median with its spread, tokens/s, peak memory side by
+   side); then FusedAdam on its per-leaf path and ``optimizer_ab``
+   (losses bitwise equal to the engine's, medians side by side).
 8. train_fce: the same with ``--fused-ce`` (bench.py's
    ``gpt124_s1024_fce``): launch counts 49 / 25 / 24 / 12 / 12 / 1 / 1 /
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
@@ -96,7 +115,8 @@ Phases, each printing one JSON line:
    equal, two calls each of the CE forward, dx and dembed kernels at
    GPT-124M bitwise equal, two LN backward calls at 8192 x 768 (bf16,
    affine with bias) with bitwise equal dx, dw and db, and two calls of
-   the sampling head at 40 rows (T = 1) with equal tokens; the same
+   the sampling head at 40 rows (T = 1) with equal tokens, and two
+   ``mt_adam`` and ``mt_l2norm`` calls at GPT-124M's leaves; the same
    calls captured as CUDA graphs, two replays bitwise equal to them.
 10. flash_grad_parity: one bf16 flash layer in the model's layout (B=8,
     H=12, S=1024; and GQA H_kv=4): the output and the gradients through
@@ -116,7 +136,9 @@ Phases, each printing one JSON line:
     on this batch after a warm-up on another, held against an eager call.
 14. train_profile: device busy share and kernel time by name over one
     training step with the dense head and one with the fused CE, each
-    a graph replay and eager.
+    a graph replay and eager, and the dense step with FusedAdam
+    per-leaf; ``optimizer_profile``: the update alone on the step's
+    grads, device ms by kernel name under both paths.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -1092,6 +1114,586 @@ def check_fused_ce(dev, case, N=8192, H=768, V=50304, x_dtype=torch.bfloat16,
             for name in outputs}
 
 
+# --------------------------------------------------------------- optimizers
+def bench_param_shapes():
+    """bench.py's ``make_params`` shapes (bench.py:72-90) in its order:
+    ResNet-50's convolutions, batch-norm vectors and classifier, 99
+    tensors and 22,761,768 params."""
+    shapes = [("conv1", (64, 3, 7, 7))]
+    widths = ((64, 256, 3), (128, 512, 4), (256, 1024, 6), (512, 2048, 3))
+    for si, (w, wout, blocks) in enumerate(widths):
+        for b in range(blocks):
+            shapes += [(f"s{si}b{b}c1", (w, wout if b else wout // 2, 1, 1)),
+                       (f"s{si}b{b}c2", (w, w, 3, 3)), (f"s{si}b{b}c3", (wout, w, 1, 1)),
+                       (f"s{si}b{b}bn1", (w,)), (f"s{si}b{b}bn2", (w,)),
+                       (f"s{si}b{b}bn3", (wout,))]
+    return shapes + [("fc", (1000, 2048)), ("fc_b", (1000,))]
+
+
+def gpt_param_shapes(L=12, H=768, V=50304, S=1024):
+    """GPT-124M's param leaves as ``models.gpt.init_params`` lays them out
+    (the layers stacked), ``{name: shape}``."""
+    layer = {"ln1_scale": (L, H), "ln1_bias": (L, H), "wq": (L, H, H), "wk": (L, H, H),
+             "wv": (L, H, H), "bq": (L, H), "bk": (L, H), "bv": (L, H), "wo": (L, H, H),
+             "bo": (L, H), "ln2_scale": (L, H), "ln2_bias": (L, H), "fc1": (L, 4 * H, H),
+             "fc1_b": (L, 4 * H), "fc2": (L, H, 4 * H), "fc2_b": (L, H)}
+    return {"embed": (V, H), "final_ln_scale": (H,), "final_ln_bias": (H,),
+            "pos_embed": (S, H), "layers": layer}
+
+
+#: shapes whose sizes are not multiples of 4: the kernels' scalar path,
+#: and bucket slices that start off 16 bytes
+ODD_SHAPES = ((7,), (33,), (9, 17), (1,), (1001,), (3, 5, 7), (65537,), (16385,), (256, 3))
+
+
+def _leaf_shapes(tree):
+    """The shapes of a ``{name: shape}`` tree in leaf order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _leaf_shapes(tree[k])]
+    return [tree]
+
+
+def _randn(gen, shape, dev, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _adam_operands(dev, shapes, seed, p_dtype=torch.float32, g_dtype=torch.float32,
+                   master=False, resident=False):
+    """Inputs and two sets of outputs of one ``mt_adam`` call; with
+    ``resident`` m, v (and the master) are slices of bucket buffers, as
+    ``init(bucketed=True)`` holds them."""
+    from apex_tpu_torch.optimizers import bucketing
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = [int(np.prod(s)) for s in shapes]
+    g = [_randn(gen, s, dev, 0.1, g_dtype) for s in shapes]
+    p = [_randn(gen, s, dev, 1.0, p_dtype) for s in shapes]
+    m = [_randn(gen, s, dev, 0.01) for s in shapes]
+    v = [_randn(gen, s, dev, 0.01).abs() for s in shapes]
+    src = [x.float() for x in p] if master else p
+    if resident:
+        plan = bucketing.plan_of([torch.empty(s, device="meta") for s in shapes])
+
+        def views(leaves):
+            return bucketing.Buckets(plan, bucketing.pack(plan, leaves)).leaf_views()
+
+        m, v = views(m), views(v)
+        if master:
+            src = views(src)
+
+    def outs():
+        def bucket_views():
+            return bucketing.Buckets(plan, [torch.zeros(b.total, device=dev)
+                                            for b in plan.buckets]).leaf_views()
+        po = [torch.empty(k, dtype=p_dtype, device=dev) for k in n]
+        if resident:
+            return po, bucket_views(), bucket_views(), bucket_views() if master else None
+        return (po, [torch.empty(k, device=dev) for k in n], [torch.empty(k, device=dev)
+                                                               for k in n],
+                [torch.empty(k, device=dev) for k in n] if master else None)
+
+    return g, src, m, v, outs(), outs()
+
+
+#: the mt_adam cases: (shapes, operands, options)
+ADAM_CASES = {
+    "adamw": ("gpt124", {}, {}),
+    "l2": ("bench", {}, {"adam_w_mode": False}),
+    "bf16_master": ("bench", {"p_dtype": torch.bfloat16, "g_dtype": torch.bfloat16,
+                              "master": True}, {}),
+    "bf16_params": ("odd", {"p_dtype": torch.bfloat16}, {}),
+    "resident": ("odd", {"resident": True}, {}),
+    "resident_master": ("odd", {"resident": True, "master": True,
+                                "p_dtype": torch.bfloat16}, {}),
+    "groups": ("odd", {}, {"groups": True}),
+    "clip": ("bench", {}, {"coef": 0.37}),
+    "nonfinite": ("odd", {"resident": True}, {"pred": False}),
+}
+
+
+def _case_shapes(name):
+    if name == "gpt124":
+        return _leaf_shapes(gpt_param_shapes())
+    if name == "bench":
+        return [s for _, s in sorted(bench_param_shapes())]
+    return list(ODD_SHAPES)
+
+
+def check_mt_adam(dev, case):
+    """``mt_adam`` against its plain version on the same card tensors,
+    bitwise: params, moments and master; the AdamW case at GPT-124M's
+    20 leaves (the train step's call) is timed beside the plain version
+    and ``torch.optim.AdamW`` (``fused=True``, the library call; and
+    ``foreach=True``)."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    shapes_name, okw, ckw = ADAM_CASES[case]
+    shapes = _case_shapes(shapes_name)
+    g, src, m, v, out_k, out_p = _adam_operands(dev, shapes, len(case), **okw)
+    T = len(shapes)
+    kw = dict(lr=1e-3, wd=[0.01] * T, bc1=torch.tensor(0.19, device=dev),
+              bc2=torch.tensor(0.0029970, device=dev), beta1=0.9, beta2=0.999, eps=1e-8,
+              adam_w_mode=ckw.get("adam_w_mode", True))
+    if ckw.get("groups"):
+        kw.update(lr=torch.tensor(3e-3, device=dev),
+                  wd=[0.1 if len(s) > 1 else 0.0 for s in shapes],
+                  lr_abs=[1e-4 if k % 3 == 0 else None for k in range(T)],
+                  lr_scale=[0.5 if k % 2 else 1.0 for k in range(T)])
+    if "coef" in ckw:
+        kw["coef"] = torch.tensor(ckw["coef"], device=dev)
+    if "pred" in ckw:
+        kw["pred"] = torch.tensor(ckw["pred"], device=dev)
+    mt.mt_adam(g, src, m, v, *out_k, **kw)
+    mt.mt_adam_plain(g, src, m, v, *out_p, **kw)
+    torch.cuda.synchronize()
+    got = [t for ts in out_k if ts is not None for t in ts]
+    want = [t for ts in out_p if ts is not None for t in ts]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    kept = None
+    if ckw.get("pred") is False:
+        old = list(src) + list(m) + list(v)
+        new = list(out_k[0] if out_k[3] is None else out_k[3]) + list(out_k[1]) + list(out_k[2])
+        kept = all(torch.equal(a.float().reshape(-1), b.float().reshape(-1))
+                   for a, b in zip(new, old, strict=True))
+    if not bitwise or kept is False:
+        raise AssertionError(f"mt_adam {case}: kernel != plain version (max abs {err}), "
+                             f"old values kept: {kept}")
+    N = sum(int(np.prod(s)) for s in shapes)
+    pb = src[0].element_size()
+    nbytes = N * (g[0].element_size() + pb + 8 + out_k[0][0].element_size() + 8
+                  + (4 if out_k[3] is not None else 0))
+    bms, by = bound(nbytes, 20 * N)
+    plan = mt.mt_plan("adam", [int(np.prod(s)) for s in shapes])
+    r = {"kernel": "mt_adam", "case": case, "tensors": T, "elements": N,
+         "launches_per_call": plan.launches, "max_abs_err": err, "bitwise_equal": bitwise,
+         "old_values_kept": kept, "tolerance": "bitwise (the same fp32 operations, "
+         "no FMA contraction, in the same association)", "bound_ms": bms, "bound_by": by}
+    if case != "adamw":
+        return r
+    t = timings(lambda: mt.mt_adam(g, src, m, v, *out_k, **kw),
+                lambda: mt.mt_adam_plain(g, src, m, v, *out_p, **kw))
+    for k in ("fused", "foreach"):
+        lp = [x.clone().requires_grad_() for x in src]
+        for a, b in zip(lp, g):
+            a.grad = b.clone()
+        lib_opt = torch.optim.AdamW(lp, lr=1e-3, weight_decay=0.01, **{k: True})
+        lib_opt.step()
+        t[f"adamw_{k}_ms"] = device_ms(lib_opt.step)[0]
+        del lib_opt, lp
+    t["library_ms"] = t["adamw_fused_ms"]
+    return {**r, **t, "library": "torch.optim.AdamW(fused=True).step (foreach: adamw_foreach_ms); "
+            "its decay associates differently, a yardstick of time only"}
+
+
+def check_mt_scale(dev, case):
+    """``mt_scale`` against its plain version, bitwise, with the found
+    flag equal and as expected: the train grads' 1/1024 unscale into
+    fp32 (timed; the library: ``torch._foreach_mul`` and an
+    ``isfinite().all()`` vote), bf16 in and out, an inf injected, and a
+    multiply that overflows."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    src_dtype, out_dtype, shapes, mult, want_found = {
+        "unscale": (torch.float32, torch.float32, "gpt124", 1.0 / 1024, False),
+        "bf16_in": (torch.bfloat16, torch.float32, "bench", 0.5, False),
+        "bf16_out": (torch.float32, torch.bfloat16, "odd", 3.0, False),
+        "inf": (torch.float32, torch.float32, "odd", 1.0 / 1024, True),
+        "overflow": (torch.float32, torch.float32, "odd", 3e38, True),
+        "tensor_mult": (torch.float16, torch.float32, "odd", "tensor", False),
+    }[case]
+    shapes = _case_shapes(shapes)
+    src = [_randn(gen, s, dev, 1.0, src_dtype) for s in shapes]
+    if case == "inf":
+        src[len(src) // 2].view(-1)[-1] = math.inf
+    if mult == "tensor":
+        mult = torch.tensor(1.0 / 64, device=dev)
+    out_k = [torch.empty(s, dtype=out_dtype, device=dev) for s in shapes]
+    out_p = [torch.empty(s, dtype=out_dtype, device=dev) for s in shapes]
+    fk = mt.mt_scale(src, out_k, mult)
+    fp = mt.mt_scale_plain(src, out_p, mult)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p)) or case in ("inf",
+                                                                          "overflow")
+    if case in ("inf", "overflow"):  # inf and nan compare unequal: compare the bits
+        bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(out_k, out_p))
+    err = max(float((a.float() - b.float()).abs().nan_to_num(0.0, 0.0, 0.0).max())
+              for a, b in zip(out_k, out_p))
+    if not bitwise or bool(fk) != bool(fp) or bool(fk) != want_found:
+        raise AssertionError(f"mt_scale {case}: bitwise {bitwise}, found {bool(fk)} / "
+                             f"plain {bool(fp)}, expected {want_found}")
+    N = sum(int(np.prod(s)) for s in shapes)
+    bms, by = bound(N * (src[0].element_size() + out_k[0].element_size()), N)
+    r = {"kernel": "mt_scale", "case": case, "tensors": len(src), "elements": N,
+         "launches_per_call": mt.mt_plan("scale", [x.numel() for x in src]).launches,
+         "max_abs_err": err, "bitwise_equal": bitwise, "found_non_finite": bool(fk),
+         "tolerance": "bitwise, and the flag equal", "bound_ms": bms, "bound_by": by}
+    if case != "unscale":
+        return r
+
+    def library():
+        outs = torch._foreach_mul(src, mult)
+        return torch.stack([torch.isfinite(o).all() for o in outs]).all()
+
+    t = timings(lambda: mt.mt_scale(src, out_k, mult), lambda: mt.mt_scale_plain(src, out_p, mult),
+                library)
+    return {**r, **t, "library": "torch._foreach_mul + stack(isfinite(x).all())"}
+
+
+def check_mt_l2norm(dev, case):
+    """``mt_l2norm`` within 1e-5 relative of a float64 sum per leaf and
+    in total (its order differs from the plain version's), and bitwise
+    equal over two calls; at the train grads' shapes timed beside the
+    plain version and ``torch.linalg.vector_norm`` a leaf."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dtype, shapes = {"gpt124": (torch.float32, "gpt124"), "bench": (torch.float32, "bench"),
+                     "odd_bf16": (torch.bfloat16, "odd"), "odd": (torch.float32, "odd")}[case]
+    shapes = _case_shapes(shapes)
+    x = [_randn(gen, s, dev, 1.0, dtype) for s in shapes]
+    total, per = mt.mt_l2norm(x)
+    total2, per2 = mt.mt_l2norm(x)
+    torch.cuda.synchronize()
+    ref = torch.stack([t.double().square().sum() for t in x])
+    rel_leaf = float(((per.double() - ref).abs() / ref).max())
+    rel_total = abs(float(total) - float(ref.sum())) / float(ref.sum())
+    same = bool(torch.equal(total, total2)) and bool(torch.equal(per, per2))
+    if max(rel_leaf, rel_total) > 1e-5 or not same:
+        raise AssertionError(f"mt_l2norm {case}: rel {rel_leaf} / {rel_total}, "
+                             f"reproducible {same}")
+    N = sum(t.numel() for t in x)
+    bms, by = bound(N * x[0].element_size(), 2 * N)
+    r = {"kernel": "mt_l2norm", "case": case, "tensors": len(x), "elements": N,
+         "launches_per_call": mt.mt_plan("l2norm", [t.numel() for t in x]).launches,
+         "max_abs_err": float((per.double() - ref).abs().max()),
+         "max_rel_err_leaf": rel_leaf, "rel_err_total": rel_total,
+         "bitwise_equal_over_two_calls": same,
+         "tolerance": "1e-5 relative of the float64 sums (fp32 partials in a fixed order)",
+         "bound_ms": bms, "bound_by": by}
+    if case != "gpt124":
+        return r
+    t = timings(lambda: mt.mt_l2norm(x), lambda: mt.mt_l2norm_plain(x),
+                lambda: [torch.linalg.vector_norm(t) for t in x])
+    return {**r, **t, "library": "torch.linalg.vector_norm, one call a leaf"}
+
+
+def check_mt_plan(lib):
+    """``mt_plan`` against ``apex_mt_plan`` field for field, for each
+    kernel at the bench set, GPT-124M, the odd shapes and random lists
+    of up to 600 tensors (empty ones among them)."""
+    import ctypes
+
+    from apex_tpu_torch.ops import _build, multi_tensor as mt
+
+    rng = np.random.default_rng(17)
+    lists = [[int(np.prod(s)) for s in _case_shapes(n)] for n in ("bench", "gpt124", "odd")]
+    lists += [list(rng.integers(0, 3 * mt.CHUNK, size=int(rng.integers(0, 600))))
+              for _ in range(40)]
+    lists += [[0] * 200, [mt.CHUNK] * 500, []]
+    out = (ctypes.c_longlong * 6)()
+    checked = 0
+    for kind, code in mt.KINDS.items():
+        for sizes in lists:
+            n = np.array(sizes, dtype=np.int64)
+            _build.check(lib.apex_mt_plan(code, n.ctypes.data, len(sizes), out), "apex_mt_plan")
+            want = tuple(mt.mt_plan(kind, sizes))
+            if tuple(out) != want:
+                raise AssertionError(f"mt_plan {kind} over {len(sizes)} tensors: {want} != "
+                                     f"C {tuple(out)}")
+            checked += 1
+    return {"plans_checked": checked, "capacity": mt.CAPACITY, "table_bytes": mt.TABLE_SIZES,
+            "chunk": mt.CHUNK, "threads": mt.THREADS}
+
+
+def mt_kernels(dev, results, lib):
+    """The optimizer kernels' part of the kernels phase."""
+    emit({"phase": "kernel", "kernel": "mt_plan", **check_mt_plan(lib)})
+    for case in ADAM_CASES:
+        results[("mt_adam", case)] = r = check_mt_adam(dev, case)
+        emit({"phase": "kernel", **r})
+    for case in ("unscale", "bf16_in", "bf16_out", "inf", "overflow", "tensor_mult"):
+        results[("mt_scale", case)] = r = check_mt_scale(dev, case)
+        emit({"phase": "kernel", **r})
+    for case in ("gpt124", "bench", "odd_bf16", "odd"):
+        results[("mt_l2norm", case)] = r = check_mt_l2norm(dev, case)
+        emit({"phase": "kernel", **r})
+
+
+def bench_params(dev, seed=0):
+    """bench.py's params (``randn * 0.01`` from numpy's ``seed``) and
+    grads (``p * 0.001 + 0.0001``, ``bench_fused_adam``) on ``dev``."""
+    rng = np.random.RandomState(seed)
+    params = {n: torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.01).to(dev)
+              for n, s in bench_param_shapes()}
+    return params, {n: p * 0.001 + 0.0001 for n, p in params.items()}
+
+
+def eager_adam_step(params, m, v, grads, step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.01):
+    """bench.py's ``eager_adam_step``: op-by-op Adam, one launch a line a
+    tensor."""
+    new_p, new_m, new_v = {}, {}, {}
+    bc1 = 1 - b1 ** step
+    bc2 = 1 - b2 ** step
+    for k in params:
+        g = grads[k]
+        m_k = b1 * m[k] + (1 - b1) * g
+        v_k = b2 * v[k] + (1 - b2) * (g * g)
+        update = (m_k / bc1) / (torch.sqrt(v_k / bc2) + eps) + wd * params[k]
+        new_p[k] = params[k] - lr * update
+        new_m[k] = m_k
+        new_v[k] = v_k
+    return new_p, new_m, new_v
+
+
+def _chain_ms(step, carry, K, reps=3):
+    """Device-clock ms a step of ``K`` chained eager steps (CUDA events,
+    best of ``reps``): the host's time where the host is slower."""
+    best = None
+    for _ in range(reps):
+        c = carry
+        c = step(c)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(K):
+            c = step(c)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / K
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def _graphed_chain(step, carry, K):
+    """``K`` chained steps captured as one CUDA graph (bench.py's jitted
+    chain): ``(graph, output after K steps)``; each replay recomputes
+    them from ``carry``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(carry)  # warm-up: kernels built, allocator primed
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = carry
+        for _ in range(K):
+            c = step(c)
+    return graph, c
+
+
+def _replay_ms(graph, K, reps=5):
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * K)
+
+
+def _state_tensors(state):
+    from apex_tpu_torch.optimizers import bucketing
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    out = []
+    for field in state:
+        if isinstance(field, bucketing.Buckets):
+            out += tree_leaves(field.unpack(dtype=torch.float32))
+        elif field is not None:
+            out += tree_leaves(field)
+    return out
+
+
+#: the other optimizers' card-against-CPU runs: (class, kwargs, bf16 params)
+OTHER_OPTS = {
+    "sgd_momentum": ("FusedSGD", {"lr": 1e-2, "momentum": 0.9, "weight_decay": 0.01}, False),
+    "sgd_nesterov": ("FusedSGD", {"lr": 1e-2, "momentum": 0.9, "nesterov": True}, False),
+    "lamb": ("FusedLAMB", {"lr": 1e-2, "weight_decay": 0.01}, False),
+    "mixed_precision_lamb": ("FusedMixedPrecisionLamb", {"lr": 1e-2, "weight_decay": 0.01},
+                             True),
+    "adagrad": ("FusedAdagrad", {"lr": 1e-2, "weight_decay": 0.01}, False),
+    "novograd": ("FusedNovoGrad", {"lr": 1e-2, "weight_decay": 0.01}, False),
+}
+#: fp32 params and state; bf16 params (the mixed-precision LAMB's) within
+#: one bf16 ulp: their fp32 master may differ by an ulp, and its rounding
+#: to bf16 by one bf16 ulp where it lies next to a rounding midpoint
+OTHER_OPTS_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def other_optimizers(dev, steps=5):
+    """Each other optimizer 5 steps on the engine on the card and on the
+    CPU from the same numpy params and grads (the bench set's first 40
+    tensors and the odd shapes): bitwise where it holds, else fp32
+    within rtol 1e-5 / atol 1e-6 and bf16 params within one bf16 ulp
+    (LAMB's and NovoGrad's norms sum in another order on the card, and
+    their bias corrections' powers may round apart)."""
+    from apex_tpu_torch import optimizers as O
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    rng = np.random.RandomState(3)
+    shapes = [s for _, s in bench_param_shapes()[:40]] + list(ODD_SHAPES)
+    p_np = {f"t{i:03d}": rng.randn(*s).astype(np.float32) * 0.1 for i, s in enumerate(shapes)}
+    g_np = [{k: rng.randn(*a.shape).astype(np.float32) * 0.01 for k, a in p_np.items()}
+            for _ in range(steps)]
+    out = {}
+    for name, (cls, kw, bf16) in OTHER_OPTS.items():
+        res = {}
+        for where in ("cpu", dev):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            p = {k: torch.from_numpy(a).to(where, dt) for k, a in p_np.items()}
+            opt = getattr(O, cls)(**kw)
+            s = opt.init(p)
+            for g in g_np:
+                p, s = opt.update({k: torch.from_numpy(a).to(where, dt) for k, a in g.items()},
+                                  s, p)
+            res[str(where)] = [t.cpu() for t in tree_leaves(p) + _state_tensors(s)]
+        cpu, card = res["cpu"], res[str(dev)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(card, cpu, strict=True))
+        f32 = [(a, b) for a, b in zip(card, cpu) if a.dtype == torch.float32]
+        half = [(a, b) for a, b in zip(card, cpu) if a.dtype == torch.bfloat16]
+        err = max(float((a - b).abs().max()) for a, b in f32)
+        ulps = max((bf16_ulps(a, b) for a, b in half), default=0)
+        ok = all(torch.allclose(a, b, **OTHER_OPTS_TOL) for a, b in f32) and ulps <= 1
+        out[name] = {"bitwise_equal": bitwise, "max_abs_err_fp32": err,
+                     "max_bf16_ulps": ulps if half else None, "within_band": ok}
+        if not ok:
+            raise AssertionError(f"{name}: card against CPU outside the band: fp32 {err}, "
+                                 f"bf16 ulps {ulps}")
+    return out
+
+
+def optimizers_phase(dev, K=10):
+    """bench.py's headline section (``bench_fused_adam``) on the card:
+    FusedAdam(lr=1e-3, weight_decay=0.01) over bench.py's 99-tensor set
+    with grads ``p * 0.001 + 0.0001``.  Times per step (CUDA events over
+    chained steps): the engine with resident state graphed (``K`` steps
+    a graph: the twin of the jitted chain) and eager, the engine in
+    transparent mode, the per-leaf path (graphed and eager), bench.py's
+    op-by-op eager Adam, and ``torch.optim.AdamW`` fused and foreach.
+    After 5 steps every engine variant's params and moments equal the
+    per-leaf path's bitwise.  Then ``update_scaled`` (scale 1024, clip
+    1.0) for two steps with exact mt_adam / mt_scale / mt_l2norm launch
+    counts, and the other five optimizers card against CPU."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    t0 = time.monotonic()
+    params, grads = bench_params(dev)
+    sizes = [p.numel() for p in tree_leaves(params)]
+    N = sum(sizes)
+    plan = mt.mt_plan("adam", sizes)
+    bms, by = bound(28 * N, 20 * N)
+    engine = FusedAdam(lr=1e-3, weight_decay=0.01)
+    leaf = FusedAdam(lr=1e-3, weight_decay=0.01, use_buckets=False)
+
+    def stepper(opt):
+        def step(c):
+            return opt.update(grads, c[1], c[0])
+        return step
+
+    # 5 steps each: every engine variant bitwise equal to the per-leaf path
+    runs = {}
+    for name, opt, bucketed in (("resident", engine, True), ("transparent", engine, False),
+                                ("per_leaf", leaf, False)):
+        reset_counts()
+        c = (params, opt.init(params, bucketed=bucketed))
+        for _ in range(5):
+            c = stepper(opt)(c)
+        torch.cuda.synchronize()
+        runs[name] = (tree_leaves(c[0]) + _state_tensors(c[1]), launch_counts())
+    graph5, out5 = _graphed_chain(stepper(engine), (params, engine.init(params, bucketed=True)),
+                                  5)
+    graph5.replay()
+    torch.cuda.synchronize()
+    runs["resident_graphed"] = (tree_leaves(out5[0]) + _state_tensors(out5[1]), None)
+    del graph5, out5
+    ref = runs["per_leaf"][0]
+    equal = {k: all(torch.equal(a, b) for a, b in zip(v[0], ref, strict=True))
+             for k, v in runs.items() if k != "per_leaf"}
+    launches = {k: runs[k][1]["mt_adam"] for k in ("resident", "transparent", "per_leaf")}
+    want_launches = {"resident": 5 * plan.launches, "transparent": 5 * plan.launches,
+                     "per_leaf": 0}
+    del runs, ref
+
+    # times
+    ms = {}
+    for name, opt, bucketed in (("engine_resident_graphed", engine, True),
+                                ("per_leaf_graphed", leaf, False)):
+        graph, _ = _graphed_chain(stepper(opt), (params, opt.init(params, bucketed=bucketed)), K)
+        ms[name] = _replay_ms(graph, K)
+        del graph
+    ms["engine_resident_eager"] = _chain_ms(stepper(engine),
+                                            (params, engine.init(params, bucketed=True)), K)
+    ms["engine_transparent_eager"] = _chain_ms(stepper(engine), (params, engine.init(params)), K)
+    ms["per_leaf_eager"] = _chain_ms(stepper(leaf), (params, leaf.init(params)), 3)
+    zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+    eager = {"i": 1}
+
+    def eager_step(c):
+        eager["i"] += 1
+        p, m_, v_ = eager_adam_step(c[0], c[1], c[2], grads, eager["i"])
+        return p, m_, v_
+
+    ms["op_by_op_eager"] = _chain_ms(eager_step, (params, zeros, dict(zeros)), 3)
+    for k in ("fused", "foreach"):
+        lp = [p.clone().requires_grad_() for p in tree_leaves(params)]
+        for a, g in zip(lp, tree_leaves(grads)):
+            a.grad = g.clone()
+        lib_opt = torch.optim.AdamW(lp, lr=1e-3, weight_decay=0.01, **{k: True})
+        ms[f"torch_adamw_{k}"] = _chain_ms(lambda c, o=lib_opt: o.step(), None, K)
+        del lib_opt, lp
+
+    # the amp step: unscale, clip, vote and Adam, two steps, counted
+    reset_counts()
+    c = (params, engine.init(params, bucketed=True))
+    scaled = {n: g * 1024.0 for n, g in grads.items()}
+    for _ in range(2):
+        p, s, fin = engine.update_scaled(scaled, c[1], c[0], scale=1024.0, clip_norm=1.0)
+        c = (p, s)
+    finite = bool(fin)
+    amp_counts = launch_counts()
+    amp_want = {"mt_adam": 2 * plan.launches,
+                "mt_scale": 2 * mt.mt_plan("scale", sizes).launches,
+                "mt_l2norm": 2 * mt.mt_plan("l2norm", sizes).launches}
+    amp_seen = {k: amp_counts[k] for k in amp_want}
+    others = other_optimizers(dev)
+    fused_ms = ms["engine_resident_graphed"]
+    report = {
+        "phase": "optimizers", "set": "bench.py make_params (bench.py:72-90)",
+        "tensors": len(sizes), "params": N, "tensors_under_64k": sum(n < 65536 for n in sizes),
+        "ms": ms, "graph_steps": K,
+        "speedup_vs_eager": ms["op_by_op_eager"] / fused_ms,
+        "speedup_vs_per_leaf": ms["per_leaf_graphed"] / fused_ms,
+        "speedup_vs_per_leaf_eager": ms["per_leaf_eager"] / fused_ms,
+        "speedup_vs_torch_adamw_fused": ms["torch_adamw_fused"] / fused_ms,
+        "bound_ms": bms, "bound_by": by, "fraction_of_bound": bms / fused_ms,
+        "five_steps_bitwise_equal_per_leaf": equal,
+        "mt_adam_launches": launches, "mt_adam_launches_expected": want_launches,
+        "mt_adam_launches_per_step": plan.launches,
+        "amp_step": {"finite": finite, "launches": amp_seen, "expected": amp_want},
+        "other_optimizers_card_vs_cpu": others,
+        "band": {**OTHER_OPTS_TOL, "bf16_params_ulps": 1},
+        "nvidia_smi": _smi(), "seconds": time.monotonic() - t0}
+    emit(report)
+    if not all(equal.values()) or launches != want_launches or amp_seen != amp_want \
+            or not finite:
+        raise AssertionError(f"optimizers: bitwise {equal}, launches {launches} vs "
+                             f"{want_launches}, amp {amp_seen} vs {amp_want}, finite {finite}")
+    return amp_seen
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 # -------------------------------------------------------------------- serve
 #: the kernels' launch counters (``apex_tpu_torch.ops.COUNTERS``) by the
 #: names of this script's lines
@@ -1107,6 +1709,9 @@ COUNTER_NAMES = {
     "ce_fwd": "fused_ce_kernels.FWD_LAUNCHES",
     "ce_dx": "fused_ce_kernels.DX_LAUNCHES",
     "ce_dembed": "fused_ce_kernels.DEMBED_LAUNCHES",
+    "mt_adam": "multi_tensor.ADAM_LAUNCHES",
+    "mt_scale": "multi_tensor.SCALE_LAUNCHES",
+    "mt_l2norm": "multi_tensor.L2NORM_LAUNCHES",
 }
 
 
@@ -1137,7 +1742,8 @@ def serve_expect(stats, L, chunked):
             "paged_decode_attention_wide": L * (stats["spec_steps"] + stats["chunk_steps"]),
             "fused_sample": stats["decode_steps"] + stats["prefills"],
             "layer_norm_bwd": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0}
+            "ce_fwd": 0, "ce_dx": 0, "ce_dembed": 0, "mt_adam": 0, "mt_scale": 0,
+            "mt_l2norm": 0}
 
 
 def serve_run(argv, eager=False):
@@ -1639,25 +2245,36 @@ FCE_LOSS_TOL = 1e-5
 TRAIN_AB_TOL = 1e-5
 
 
-def train_phase(fused=False, dense_report=None, eager=False):
+def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
     """bench.py's GPT-124M step through ``train_gpt.run`` at its defaults:
     the dense head (``gpt124_s1024``) or, with ``fused``, ``--fused-ce``
     (``gpt124_s1024_fce``), whose warm-up loss is held against the dense
     step's ``dense_report``; compiled (one CUDA graph a step, replayed
-    after the warm-up) or with ``eager`` its ``--eager`` twin."""
+    after the warm-up) or with ``eager`` its ``--eager`` twin.  FusedAdam
+    runs on the engine (one ``mt_adam`` call a step, ``mt_plan``'s
+    launches) or, with ``per_leaf``, on its per-leaf path
+    (``use_buckets=False``: no ``mt_adam`` launch)."""
     from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
 
     argv = (["--fused-ce"] if fused else []) + (["--eager"] if eager else [])
     args = train_gpt.build_args().parse_args(argv)
+    opt = (FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY, use_buckets=False)
+           if per_leaf else None)
     reset_counts()
     t0 = time.monotonic()
-    report, params, state = train_gpt.run(args)
-    del params, state
+    report, params, state = train_gpt.run(args, opt=opt)
     counts = launch_counts()
+    sizes = [p.numel() for p in tree_leaves(params)]
+    del params, state
     n, L = args.warmup + args.steps, args.layers
     per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
                 "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
-                "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused)}
+                "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused),
+                "mt_adam": 0 if per_leaf else mt_plan("adam", sizes).launches,
+                "mt_scale": 0, "mt_l2norm": 0}
     expect = {**{k: v * n for k, v in per_step.items()},
               "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
               "fused_sample": 0}
@@ -1689,7 +2306,8 @@ def train_phase(fused=False, dense_report=None, eager=False):
                                        "fused_ce": report["tokens_per_sec"]},
                  "ab_peak_memory_gb": {"dense": dense_report["peak_memory_gb"],
                                        "fused_ce": report["peak_memory_gb"]}}
-    emit({"phase": ("train_fce" if fused else "train") + ("_eager" if eager else ""),
+    emit({"phase": ("train_fce" if fused else "train") + ("_eager" if eager else "")
+          + ("_per_leaf" if per_leaf else ""),
           **report, "steps_counted": n, "launches_per_step": per_step, "launches": counts,
           **extra, "seconds": time.monotonic() - t0})
     return args, counts, report
@@ -1715,6 +2333,19 @@ def train_ab(cell, graphed, eager):
           "graphed": _train_summary(graphed), "eager": _train_summary(eager)})
     if not bitwise and not rel <= TRAIN_AB_TOL:
         raise AssertionError(f"{cell}: graphed losses {gl} vs eager {el}: rel {rel}")
+
+
+def optimizer_ab(cell, engine, per_leaf):
+    """The train cell with FusedAdam on the engine beside the same cell on
+    its per-leaf path, both graphed: the losses must be bitwise equal
+    (the update is the same fp32 expression), the medians side by side."""
+    bitwise = engine["losses"] == per_leaf["losses"]
+    emit({"phase": "optimizer_ab", "cell": cell, "losses_bitwise_equal": bitwise,
+          "engine": _train_summary(engine), "per_leaf": _train_summary(per_leaf),
+          "step_ms_saved": per_leaf["step_ms_median"] - engine["step_ms_median"]})
+    if not bitwise:
+        raise AssertionError(f"{cell}: engine losses {engine['losses']} != per-leaf "
+                             f"{per_leaf['losses']}")
 
 
 def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
@@ -1768,6 +2399,21 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
     second_ln = layer_norm_bwd(xl, wl, dyl, mean, rstd)
     ln_same = {k: bool(torch.equal(a, b)) for k, a, b in zip(("dx", "dw", "db"), first_ln,
                                                             second_ln)}
+    # the optimizer kernels at the train step's 20 GPT-124M leaves
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    ga, pa, ma, va, out1, out2 = _adam_operands(dev, _case_shapes("gpt124"), 7)
+    akw = dict(lr=3e-4, wd=[0.1] * len(ga), bc1=torch.tensor(0.19, device=dev),
+               bc2=torch.tensor(0.002997, device=dev), beta1=0.9, beta2=0.999, eps=1e-8,
+               adam_w_mode=True)
+    mt.mt_adam(ga, pa, ma, va, *out1, **akw)
+    mt.mt_adam(ga, pa, ma, va, *out2, **akw)
+    n1, q1 = mt.mt_l2norm(ga)
+    n2, q2 = mt.mt_l2norm(ga)
+    mt_same = {"mt_adam": all(torch.equal(a, b) for x, y in zip(out1[:3], out2[:3])
+                              for a, b in zip(x, y)),
+               "mt_l2norm": bool(torch.equal(n1, n2)) and bool(torch.equal(q1, q2))}
+    del ga, pa, ma, va, out1, out2
 
     def flash_grads(q, k, v, do):
         q, k, v = (a.detach().requires_grad_() for a in (q, k, v))
@@ -1788,10 +2434,10 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
         graphed[name] = step.graph is not None and all(
             torch.equal(a, b) for r in replays for a, b in zip(r, eager, strict=True))
     if (not all(same) or not all(ce_same.values()) or not all(ln_same.values())
-            or not sample_same or not all(graphed.values())):
+            or not sample_same or not all(graphed.values()) or not all(mt_same.values())):
         raise AssertionError(f"not bitwise reproducible: flash {same}, CE {ce_same}, "
                              f"LayerNorm {ln_same}, sampling {sample_same}, "
-                             f"graph replays {graphed}")
+                             f"graph replays {graphed}, optimizer kernels {mt_same}")
     emit({"phase": "train_reproducible", "B": B, "H": H, "S": S, "D": D,
           "dtype": "bfloat16", "dq_dk_dv_bitwise_equal": same,
           "ce": {"N": N, "H": Hd, "V": V, "x_dtype": "bfloat16", "embed_dtype": "float32",
@@ -1800,6 +2446,7 @@ def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
                              "bitwise_equal": ln_same},
           "fused_sample": {"N": 40, "H": Hd, "V": V, "temperature": 1.0,
                            "x_dtype": "bfloat16", "bitwise_equal": sample_same},
+          "optimizer_kernels": {"leaves": "GPT-124M's 20", "bitwise_equal": mt_same},
           "graph_replays_bitwise_equal_eager": graphed})
 
 
@@ -2028,6 +2675,8 @@ def _kernel_kind(name):
         return "fused_ce"
     if "ln_fwd" in name or "ln_bwd" in name:
         return "layer_norm"
+    if "mt_adam" in name or "mt_scale" in name or "mt_l2norm" in name:
+        return "optimizer_kernels"
     if "sgemm" in name or "f32f32" in name:
         return "gemm_fp32"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -2035,11 +2684,46 @@ def _kernel_kind(name):
     return "other"
 
 
-def train_profile_phase(args, step_ms, eager=False):
+def optimizer_profile_phase(args):
+    """FusedAdam's update alone on the train step's real grads, each path
+    eager: its device ms a call (``device_ms``) and the device ms by
+    kernel name over 5 profiled calls, for the engine (``mt_adam``) and
+    the per-leaf path (its elementwise ops)."""
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    config, params, tokens, targets = train_gpt.setup(args)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    _, grads = train_gpt.loss_and_grads(params, tokens, targets, config)
+    out = {}
+    for name, use_buckets in (("engine", True), ("per_leaf", False)):
+        opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY,
+                        use_buckets=use_buckets)
+        state = opt.init(params)
+
+        def update():
+            opt.update(grads, state, params)
+
+        ms, timer = device_ms(update, iters=5)
+        by_name = {k: sum(v) / 5 for k, v in _cuda_durations(update, 5).items()}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[name] = {"device_ms": ms, "timer": timer, "kernels_seen": len(by_name),
+                     "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top]}
+        del opt, state
+    emit({"phase": "optimizer_profile", "head": "fused_ce" if args.fused_ce else "dense",
+          "leaves": len(tree_leaves(params)),
+          "params": sum(p.numel() for p in tree_leaves(params)), **out,
+          "per_leaf_over_engine": out["per_leaf"]["device_ms"] / out["engine"]["device_ms"]})
+
+
+def train_profile_phase(args, step_ms, eager=False, per_leaf=False):
     """Busy share and kernel time by name over one training step, a
-    graph replay or with ``eager`` an eager step.  The profiler slows
-    the host side of the step, so the idle share is also given against
-    ``step_ms``, the train phase's unprofiled median in the same mode."""
+    graph replay or with ``eager`` an eager step; with ``per_leaf``
+    FusedAdam on its per-leaf path.  The profiler slows the host side of
+    the step, so the idle share is also given against ``step_ms``, the
+    train phase's unprofiled median in the same mode."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2048,7 +2732,7 @@ def train_profile_phase(args, step_ms, eager=False):
     from apex_tpu_torch.optimizers.base import tree_leaves
 
     config, params, tokens, targets = train_gpt.setup(args)
-    opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+    opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY, use_buckets=not per_leaf)
     state = opt.init(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
@@ -2076,7 +2760,7 @@ def train_profile_phase(args, step_ms, eager=False):
             kernel = re.search(r"flash_\w+", e.name).group(0)
             flash_seen[kernel] = flash_seen.get(kernel, 0) + 1
     emit({"phase": "train_profile", "head": "fused_ce" if args.fused_ce else "dense",
-          "graphs": not eager, "kernels_seen": len(by_name), "step_ms": 1e3 * wall,
+          "optimizer": "per_leaf" if per_leaf else "engine", "graphs": not eager, "kernels_seen": len(by_name), "step_ms": 1e3 * wall,
           "host_dispatch_ms": 1e3 * host, "device_busy_ms": busy_ms,
           "device_ms_by_kind": by_kind, "flash_launches_seen": flash_seen,
           "idle_share": 1 - busy_ms / (1e3 * wall),
@@ -2097,9 +2781,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = _smi()
     dev = torch.device("cuda", 0)
     emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2193,7 +2875,10 @@ def main():
         results[("flash", case, dtype)] = r
         for name in ("fwd", "dq", "dkv"):
             emit({"phase": "kernel", **r[name]})
+    mt_kernels(dev, results, _build.load())
     lap("kernels")
+    amp_counts = optimizers_phase(dev)
+    lap("optimizers")
 
     counts, _, params, config = serve_phase()
     lap("serve")
@@ -2218,10 +2903,13 @@ def main():
     train_args, train_counts, dense = train_phase()
     dense_eager = train_phase(eager=True)[2]
     train_ab("train", dense, dense_eager)
+    optimizer_ab("train", dense, train_phase(per_leaf=True)[2])
     lap("train")
     fce_args, fce_counts, fused = train_phase(fused=True, dense_report=dense)
     fused_eager = train_phase(fused=True, dense_report=dense_eager, eager=True)[2]
     train_ab("train_fce", fused, fused_eager)
+    optimizer_ab("train_fce", fused,
+                 train_phase(fused=True, dense_report=dense, per_leaf=True)[2])
     lap("train_fce")
     train_reproducible_phase(dev)
     lap("train_reproducible")
@@ -2237,6 +2925,8 @@ def main():
     train_profile_phase(train_args, dense_eager["step_ms_median"], eager=True)
     train_profile_phase(fce_args, fused["step_ms_median"])
     train_profile_phase(fce_args, fused_eager["step_ms_median"], eager=True)
+    train_profile_phase(train_args, dense["step_ms_median"], per_leaf=True)
+    optimizer_profile_phase(train_args)
     lap("train_profile")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
@@ -2268,17 +2958,29 @@ def main():
          "apex_tpu/ops/fused_ce_pallas.py:185", results[("ce", "gpt124")]["dx"]),
         ("ce_dembed", "apex_tpu_torch/csrc/fused_ce.cu",
          "apex_tpu/ops/fused_ce_pallas.py:210", results[("ce", "gpt124")]["dembed"]),
+        # no Pallas twin: these replace XLA fusions of the JAX engine
+        ("mt_adam", "apex_tpu_torch/csrc/multi_tensor.cu",
+         "apex_tpu/optimizers/fused_adam.py:163 (XLA fusion)", results[("mt_adam", "adamw")]),
+        ("mt_scale", "apex_tpu_torch/csrc/multi_tensor.cu",
+         "apex_tpu/ops/multi_tensor.py:59 (XLA fusion)", results[("mt_scale", "unscale")]),
+        ("mt_l2norm", "apex_tpu_torch/csrc/multi_tensor.cu",
+         "apex_tpu/ops/multi_tensor.py:90 (XLA fusion)", results[("mt_l2norm", "gpt124")]),
     )
     # launches: the serve phase's for the serving kernels, the serve_v2
     # phase's for the width > 1 layout, the train phase's for the
     # training kernels, the train_fce phase's for the CE kernels
     # (LayerNorm forward and sampling run in several; their lines keep
-    # the serve phase's counts)
-    launches = {**train_counts, **{k: counts[k] for k in
+    # the serve phase's counts); mt_adam the train phase's, mt_scale and
+    # mt_l2norm the optimizers phase's amp steps
+    launches = {**train_counts, **amp_counts, "mt_adam": train_counts["mt_adam"],
+                **{k: counts[k] for k in
                                    ("layer_norm_fwd", "paged_decode_attention",
                                     "fused_sample")},
                 "paged_decode_attention_wide": v2_counts["paged_decode_attention_wide"],
                 **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")}}
+    unlaunched = [name for name, *_ in main_path if not launches[name]]
+    if unlaunched:
+        raise AssertionError(f"kernels the main path never launched: {unlaunched}")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

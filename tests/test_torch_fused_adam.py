@@ -1,7 +1,8 @@
-"""The port's FusedAdam (apex_tpu_torch.optimizers, the per-leaf path)
-against the JAX package's ``FusedAdam``, on the per-leaf path and on
-the default bucketed engine (which the JAX package holds bit-exact with
-per-leaf in fp32).
+"""The port's FusedAdam (apex_tpu_torch.optimizers; its default is the
+multi-tensor engine, whose CPU path is the ``mt_adam`` kernel's plain
+version) against the JAX package's ``FusedAdam``, on the per-leaf path
+and on the default bucketed engine (which the JAX package holds
+bit-exact with per-leaf in fp32).
 
 Five steps on a fixed numpy grad stream, for AdamW and L2 mode, with
 and without weight decay: params, m and v must be bitwise equal, since
@@ -101,15 +102,18 @@ def test_predicated_commit_keeps_state_on_overflow():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        FusedAdam(use_buckets=True)
-    with pytest.raises(NotImplementedError, match="group"):
-        FusedAdam(param_group_fn=lambda path, leaf: "all")
-    opt = FusedAdam()
-    params = {"w": torch.zeros(3)}
-    with pytest.raises(NotImplementedError, match="bucket"):
-        opt.init(params, bucketed=True)
-    with pytest.raises(NotImplementedError, match="update_scaled"):
-        opt.update_scaled(params, opt.init(params), params)
+    """Only AMSGrad raises now: the engine (``use_buckets=True``, the
+    default), resident state, per-group hyperparameters, the folded
+    clip and ``update_scaled`` are ported and run."""
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(amsgrad=True)
+    params = {"w": torch.ones(3), "b": torch.ones(2)}
+    grads = {"w": torch.full((3,), 0.5), "b": torch.full((2,), 0.25)}
+    opt = FusedAdam(param_group_fn=lambda path, leaf: "bias" if "b" in path else "w",
+                    group_hypers={"bias": {"weight_decay": 0.0}})
+    assert opt.use_buckets
+    for state in (opt.init(params), opt.init(params, bucketed=True)):
+        new, st = opt.update(grads, state, params, clip_norm=1.0)
+        assert int(st.step) == 1
+        new, st, finite = opt.update_scaled(grads, state, params, scale=2.0)
+        assert bool(finite) and int(st.step) == 1

@@ -3,8 +3,9 @@ at small widths.  The card captures CUDA graphs; the CPU has none, so
 these tests hold what a capture relies on:
 
 - no step body reads a device value on the host: each of the decode,
-  verify, prefill, chunk and head steps, and the dense and fused-CE
-  train steps, runs under a dispatch mode that raises on
+  verify, prefill, chunk and head steps, the dense and fused-CE train
+  steps, and each optimizer's engine update (tree and resident state,
+  clip, ``update_scaled``), runs under a dispatch mode that raises on
   ``aten._local_scalar_dense``, ``aten.item`` and ``aten.nonzero``
   (what ``int(t)``, ``bool(t)`` and data-dependent shapes dispatch to;
   a capture cannot hold them), with a control that must raise;
@@ -174,6 +175,33 @@ def test_train_step_body_reads_nothing_on_the_host(fused):
     step = train_gpt.make_train_step(opt, config)
     with NoHostReads():
         step(params, state, tokens, targets)
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["tree_state", "resident"])
+@pytest.mark.parametrize("name", ["FusedAdam", "FusedSGD", "FusedLAMB", "FusedAdagrad",
+                                  "FusedNovoGrad", "FusedMixedPrecisionLamb"])
+def test_engine_update_reads_nothing_on_the_host(name, resident):
+    """Each optimizer's engine path (the multi-tensor kernels' plain
+    versions here), with tree or resident state: a plain update, a
+    clip with a tensor lr, and ``update_scaled`` with a tensor scale,
+    a clip and the finite vote, all without a host read."""
+    from apex_tpu_torch import optimizers
+
+    rng = np.random.RandomState(0)
+    params = {"w": torch.from_numpy(rng.randn(9, 17).astype(np.float32)),
+              "b": torch.from_numpy(rng.randn(33).astype(np.float32)),
+              "s": torch.tensor(0.5)}
+    grads = {k: torch.from_numpy(np.asarray(rng.randn(*v.shape), np.float32)) * 0.1
+             for k, v in params.items()}
+    kw = {"momentum": 0.9} if name == "FusedSGD" else {}
+    opt = getattr(optimizers, name)(lr=1e-2, **kw)
+    state = opt.init(params, bucketed=resident)
+    with NoHostReads():
+        p, s = opt.update(grads, state, params)
+        p, s = opt.update(grads, s, p, clip_norm=1.0, lr=torch.tensor(1e-3))
+        p, s, finite = opt.update_scaled(grads, s, p, scale=torch.tensor(1024.0),
+                                         clip_norm=1.0)
+    assert bool(finite) and int(s.step) == 3
 
 
 # ------------------------------------------- tensor arguments against JAX
