@@ -25,10 +25,17 @@ What is ported so far:
   state, per-group hyperparameters, the folded clip and
   ``update_scaled``), with :mod:`apex_tpu_torch.multi_tensor_apply` and
   :mod:`apex_tpu_torch.contrib.clip_grad`;
+- ``apex.amp`` (:mod:`apex_tpu_torch.amp`: the O0–O3 policies, dynamic
+  loss scaling on the device, the decorators), ``apex.fp16_utils``
+  (:mod:`apex_tpu_torch.fp16_utils`), the model-parallel ``GradScaler``
+  (:mod:`apex_tpu_torch.transformer.amp`) and the step guard
+  (:mod:`apex_tpu_torch.resilience`), with fp16 training of the GPT step
+  (``python -m apex_tpu_torch.train_gpt --fp16``: float16 compute, the
+  scaled step, ``--step-guard``, ``--clip-grad-norm``);
 
 with hand-written CUDA kernels for the ten TPU kernels on those paths
-(LayerNorm/RMSNorm forward and backward, flash attention forward, dq
-and dk/dv, the fused LM-head CE forward, dx and dembed, paged decode
+(LayerNorm/RMSNorm forward and backward and flash attention forward, dq
+and dk/dv, each also in float16, the fused LM-head CE forward, dx and dembed, paged decode
 attention at ``width=1`` and ``width > 1``, the fused sampling head) and
 for the optimizer engine's multi-tensor Adam, scale and L2 norm (XLA
 fusions in the JAX package) under :mod:`apex_tpu_torch.ops`.
@@ -45,8 +52,8 @@ kernel is built until a wrapper first sees a CUDA tensor.
 
 import importlib
 
-_SUBMODULES = ("contrib", "inference", "models", "multi_tensor_apply", "normalization", "ops",
-               "optimizers", "transformer")
+_SUBMODULES = ("amp", "contrib", "fp16_utils", "inference", "models", "multi_tensor_apply",
+               "normalization", "ops", "optimizers", "resilience", "transformer")
 
 __all__ = list(_SUBMODULES)
 

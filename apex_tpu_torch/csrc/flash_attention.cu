@@ -10,8 +10,8 @@
 // global sequence, and an optional per-key additive bias (B, Sk).
 //
 // Layouts: q, out, do (B*H, Sq, D); k, v, dk, dv (B*H_kv, Sk, D); lse and
-// delta (B*H, Sq) fp32; bias (B, Sk) fp32.  dtype float32 or bfloat16,
-// one for q, k, v, do and the outputs.  D % 16 == 0, D <= 128.
+// delta (B*H, Sq) fp32; bias (B, Sk) fp32.  dtype float32, bfloat16 or
+// float16, one for q, k, v, do and the outputs.  D % 16 == 0, D <= 128.
 //
 // Numerics, as the Pallas kernels: s = (q . k) * scale (+ bias); causal
 // entries with q_offset + row < k_offset + col are set to NEG_INF =
@@ -27,6 +27,20 @@
 // scale once (the Pallas kernels scale each tile's product): the same
 // rounding for a power-of-two scale (D = 16, 64), within the bf16 band
 // otherwise.
+//   float16 is the mma kernels' other element type (a template parameter
+// T: `mma.sync ... f32.f16.f16.f32`, `pack2<T>` rounding to fp16, fp16
+// stores; the b16 ldmatrix, the cp.async ring and the shared-memory
+// plan are the bf16 kernels' own).  The reference has no fp16 Pallas
+// kernel: at fp16 it runs the fp32 scan (apex_tpu/ops/attention.py
+// `_attend_fwd_scan`, `flash_bwd_from_lse`) and casts only its outputs.
+// These kernels round p and ds to fp16 where the bf16 ones round to
+// bf16: 2^-11 relative against bf16's 2^-8, inside fp16's range.  ds =
+// p (dp - delta) is rounded to fp16 as it is.  Under a loss scale S the
+// do, dp and delta it comes from are S times the unscaled ones, and ds
+// past 65504 becomes inf where the reference keeps it in fp32: the step's
+// gradients are then not finite, and the loss scaler skips the step and
+// backs the scale off.  dq and dk (ds . k and ds^T . q times 1/8 at D =
+// 64) and dv meet fp16's range at their own stores in both.
 //
 // Bound on the H100, at GPT-124M training shapes (B*H = 96, S = 1024,
 // D = 64, causal, bf16): the forward by bytes (50.7 MB, 15.1 us, beside
@@ -470,14 +484,15 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32(Args a) {
   }
 }
 
-// ------------------------------------------------ bf16: mma.sync kernels
-// One warp owns 16 rows of the block's tile (32 in the forward and dq at
-// D <= 64, as two 16-row halves) and keeps its scores,
+// ---------------------------------- bf16 and fp16: mma.sync kernels
+// Templates on the element type T (bf16 or fp16); the comments say bf16
+// for both.  One warp owns 16 rows of the block's tile (32 in the
+// forward and dq at D <= 64, as two 16-row halves) and keeps its scores,
 // probabilities and accumulators in registers, in the fragment layout of
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate): lane = 4 * g + t holds
+// mma.sync.m16n8k16 (T in, fp32 accumulate): lane = 4 * g + t holds
 // rows g and g + 8 of each 16 x 8 accumulator tile, columns 2t and
 // 2t + 1.  Scores of two neighbouring 8-column tiles are, once rounded
-// to bf16, exactly the A operand of the next product, so p and ds never
+// to T, exactly the A operand of the next product, so p and ds never
 // leave registers.  Only the streamed operand tiles live in shared
 // memory.
 using apex_mma::bf16;
@@ -494,8 +509,8 @@ using apex_mma::quad_sum;
 __device__ __forceinline__ int frag_col(int j, int e, int t) { return 8 * j + 2 * t + (e & 1); }
 
 // Stores rows r0 and r0 + 8 (of `rows` valid) of acc * mul as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int r0,
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], int r0,
                                            int rows, float mul0, float mul1, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -505,14 +520,14 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
       *reinterpret_cast<uint32_t*>(dst + (int64_t)r * D + 8 * dn + 2 * t) =
-          pack2(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+          pack2<T>(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
   }
 }
 
 // rows [0, nrows) of a tile (row stride D + 8) from src (row stride D),
 // rows past `valid` zero, by 16-byte cp.async copies.
-template <int D, int THREADS>
-__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src, int nrows, int valid) {
+template <int D, int THREADS, typename T>
+__device__ __forceinline__ void issue_rows(T* dst, const T* src, int nrows, int valid) {
   constexpr int cpr = D / 8;
   for (int c = threadIdx.x; c < nrows * cpr; c += THREADS) {
     const int r = c / cpr, col = (c % cpr) * 8;
@@ -525,18 +540,18 @@ __device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src, int nrows
 // s[i] rounded to bf16) . X, with X a row-major (64 x D) tile in shared
 // memory (row stride D + 8): the products p.v, ds.k, p^T.do and
 // ds^T.q, X's fragments by ldmatrix .trans, each feeding MI products.
-template <int D, int MI>
+template <typename T, int D, int MI>
 __device__ __forceinline__ void mm_px(float (&acc)[MI][D / 8][4], const float (&s)[MI][8][4],
-                                      const bf16* X, int lane) {
+                                      const T* X, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t pa[MI][4];
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
-      pa[i][0] = pack2(s[i][2 * kk][0], s[i][2 * kk][1]);
-      pa[i][1] = pack2(s[i][2 * kk][2], s[i][2 * kk][3]);
-      pa[i][2] = pack2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
-      pa[i][3] = pack2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+      pa[i][0] = pack2<T>(s[i][2 * kk][0], s[i][2 * kk][1]);
+      pa[i][1] = pack2<T>(s[i][2 * kk][2], s[i][2 * kk][3]);
+      pa[i][2] = pack2<T>(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+      pa[i][3] = pack2<T>(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
     }
 #pragma unroll
     for (int dn2 = 0; dn2 < D / 16; ++dn2) {
@@ -544,8 +559,8 @@ __device__ __forceinline__ void mm_px(float (&acc)[MI][D / 8][4], const float (&
       apex_mma::ld_b_kn(bx, X, D + 8, 16 * dn2, 16 * kk, lane);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
-        mma16816(acc[i][2 * dn2], pa[i], bx[0], bx[1]);
-        mma16816(acc[i][2 * dn2 + 1], pa[i], bx[2], bx[3]);
+        mma16816<T>(acc[i][2 * dn2], pa[i], bx[0], bx[1]);
+        mma16816<T>(acc[i][2 * dn2 + 1], pa[i], bx[2], bx[3]);
       }
     }
   }
@@ -584,14 +599,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMask2 = kNegInf * kLog2e;  // NEG_INF in the base-2 domain
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fwd_mma(Args a) {
   using F = Fwd<D>;
   constexpr int MI = F::kMi, LD = F::kLd, N = F::kN;
   static_assert(F::kRows == 128 && N == 64, "fwd_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK0 = sQ + F::kRows * LD;  // stage i: k at sK0 + i * kStride, v N rows after
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK0 = sQ + F::kRows * LD;  // stage i: k at sK0 + i * kStride, v N rows after
   constexpr int kStride = 2 * N * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x;
@@ -599,8 +614,8 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
   const int q0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * F::kRows;
   const int rows = min(F::kRows, a.Sq - q0);
   const int kvb = kv_row(a, b);
-  const bf16* k = (const bf16*)a.k + (int64_t)kvb * a.Sk * D;
-  const bf16* v = (const bf16*)a.v + (int64_t)kvb * a.Sk * D;
+  const T* k = (const T*)a.k + (int64_t)kvb * a.Sk * D;
+  const T* v = (const T*)a.v + (int64_t)kvb * a.Sk * D;
   const float* bias = a.bias ? a.bias + (int64_t)(b / a.heads) * a.Sk : nullptr;
   const bool remask = a.causal || bias;
   const int wr = warp * 16 * MI;  // the warp's first row of the tile
@@ -615,7 +630,7 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
   const float sl2 = a.scale * kLog2e;
 
   if (n_tiles > 0) {  // the q tile (rows past Sq zero) and the first k/v tile
-    issue_rows<D, F::kThreads>(sQ, (const bf16*)a.q + ((int64_t)b * a.Sq + q0) * D, F::kRows,
+    issue_rows<D, F::kThreads>(sQ, (const T*)a.q + ((int64_t)b * a.Sq + q0) * D, F::kRows,
                                rows);
     issue_rows<D, F::kThreads>(sK0, k, N, a.Sk);
     issue_rows<D, F::kThreads>(sK0 + N * LD, v, N, a.Sk);
@@ -632,7 +647,7 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
     __syncthreads();  // tile it landed; every warp is done with tile it - 1
     const int k0 = it * N;
     if (it + 1 < n_tiles) {
-      bf16* nk = sK0 + ((it + 1) & 1) * kStride;
+      T* nk = sK0 + ((it + 1) & 1) * kStride;
       issue_rows<D, F::kThreads>(nk, k + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       issue_rows<D, F::kThreads>(nk + N * LD, v + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       cp_async_commit();
@@ -644,8 +659,8 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
         for (int kk = 0; kk < D / 16; ++kk) apex_mma::ld_a(qf[i][kk], sQ, LD, wr + 16 * i, 16 * kk, lane);
     }
     if (k0 >= wkend) continue;  // the tile is above the diagonal for every row of the warp
-    const bf16* Ks = sK0 + (it & 1) * kStride;
-    const bf16* Vs = Ks + N * LD;
+    const T* Ks = sK0 + (it & 1) * kStride;
+    const T* Vs = Ks + N * LD;
     float s[MI][8][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -660,8 +675,8 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           const uint32_t(&qa)[4] = qf[i][F::kQInRegs ? kk : 0];
-          mma16816(s[i][2 * j2], qa, bk[0], bk[1]);
-          mma16816(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
+          mma16816<T>(s[i][2 * j2], qa, bk[0], bk[1]);
+          mma16816<T>(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
         }
       }
     }
@@ -729,15 +744,15 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
         }
       }
     }
-    mm_px<D, MI>(acc, s, Vs, lane);  // acc += P . V, P rounded to bf16
+    mm_px<T, D, MI>(acc, s, Vs, lane);  // acc += P . V, P rounded to bf16
   }
-  bf16* out = (bf16*)a.out + ((int64_t)b * a.Sq + q0) * D;
+  T* out = (T*)a.out + ((int64_t)b * a.Sq + q0) * D;
   float* lse = a.lse_out + (int64_t)b * a.Sq + q0;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int r0 = wr + 16 * i + g;
     const float l0 = fmaxf(l[i][0], 1e-30f), l1 = fmaxf(l[i][1], 1e-30f);
-    store_rows<D>(out, acc[i], r0, rows, 1.f / l0, 1.f / l1, t);
+    store_rows<T, D>(out, acc[i], r0, rows, 1.f / l0, 1.f / l1, t);
     if (t == 0) {  // natural-log lse; a row that saw no key keeps NEG_INF
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -798,24 +813,24 @@ __host__ __device__ constexpr size_t dkv_mma_smem(int D) {
   return (size_t)(2 * Dkv<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16) + 4 * 64 * sizeof(float);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_mma(Args a) {
   using F = Dq<D>;
   constexpr int MI = F::kMi, LD = F::kLd, N = F::kN, R = F::kRows;
   constexpr int kStride = 2 * N * LD;  // a ring stage: k, then v
   static_assert(R == Dq<16>::kRows, "dq_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + R * LD;
-  bf16* sK0 = sDO + R * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + R * LD;
+  T* sK0 = sDO + R * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x;
   // causal: the heaviest q tiles are launched first
   const int q0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * R;
   const int rows = min(R, a.Sq - q0);
   const int kvb = kv_row(a, b);
-  const bf16* k = (const bf16*)a.k + (int64_t)kvb * a.Sk * D;
-  const bf16* v = (const bf16*)a.v + (int64_t)kvb * a.Sk * D;
+  const T* k = (const T*)a.k + (int64_t)kvb * a.Sk * D;
+  const T* v = (const T*)a.v + (int64_t)kvb * a.Sk * D;
   const float* bias = a.bias ? a.bias + (int64_t)(b / a.heads) * a.Sk : nullptr;
   const bool remask = a.causal || bias;
   const int64_t row0 = (int64_t)b * a.Sq + q0;
@@ -832,8 +847,8 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
   const float sl2 = a.scale * kLog2e;
 
   if (n_tiles > 0) {  // the q and do tiles (rows past Sq zero) and the first k/v tile
-    issue_rows<D, F::kThreads>(sQ, (const bf16*)a.q + row0 * D, R, rows);
-    issue_rows<D, F::kThreads>(sDO, (const bf16*)a.dout + row0 * D, R, rows);
+    issue_rows<D, F::kThreads>(sQ, (const T*)a.q + row0 * D, R, rows);
+    issue_rows<D, F::kThreads>(sDO, (const T*)a.dout + row0 * D, R, rows);
     issue_rows<D, F::kThreads>(sK0, k, N, a.Sk);
     issue_rows<D, F::kThreads>(sK0 + N * LD, v, N, a.Sk);
     cp_async_commit();
@@ -855,7 +870,7 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
     __syncthreads();  // tile it landed; every warp is done with tile it - 1
     const int k0 = it * N;
     if (it + 1 < n_tiles) {
-      bf16* nk = sK0 + ((it + 1) & 1) * kStride;
+      T* nk = sK0 + ((it + 1) & 1) * kStride;
       issue_rows<D, F::kThreads>(nk, k + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       issue_rows<D, F::kThreads>(nk + N * LD, v + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       cp_async_commit();
@@ -870,8 +885,8 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
         }
     }
     if (k0 >= wkend) continue;  // the tile is above the diagonal for every row of the warp
-    const bf16* Ks = sK0 + (it & 1) * kStride;
-    const bf16* Vs = Ks + N * LD;
+    const T* Ks = sK0 + (it & 1) * kStride;
+    const T* Vs = Ks + N * LD;
     // s = q.k^T and dp = do.v^T, 64 keys
     float s[MI][8][4] = {}, dp[MI][8][4] = {};
 #pragma unroll
@@ -892,10 +907,10 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
         for (int i = 0; i < MI; ++i) {
           const uint32_t(&qa)[4] = qf[i][F::kRegs ? kk : 0];
           const uint32_t(&da)[4] = df[i][F::kRegs ? kk : 0];
-          mma16816(s[i][2 * j2], qa, bk[0], bk[1]);
-          mma16816(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
-          mma16816(dp[i][2 * j2], da, bv[0], bv[1]);
-          mma16816(dp[i][2 * j2 + 1], da, bv[2], bv[3]);
+          mma16816<T>(s[i][2 * j2], qa, bk[0], bk[1]);
+          mma16816<T>(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
+          mma16816<T>(dp[i][2 * j2], da, bv[0], bv[1]);
+          mma16816<T>(dp[i][2 * j2 + 1], da, bv[2], bv[3]);
         }
       }
     }
@@ -938,26 +953,26 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
             s[i][j][e] = exp2f(s[i][j][e] * sl2 - lse[i][h]) * (dp[i][j][e] - delta[i][h]);
           }
     }
-    mm_px<D, MI>(acc, s, Ks, lane);  // acc += ds . k, ds rounded to bf16
+    mm_px<T, D, MI>(acc, s, Ks, lane);  // acc += ds . k, ds rounded to bf16
   }
   // the sum over key tiles is scaled once at the end (the Pallas kernel
   // scales each tile's product: the same rounding for a power-of-two
   // scale, e.g. D = 16, 64; within the band otherwise)
 #pragma unroll
   for (int i = 0; i < MI; ++i)
-    store_rows<D>((bf16*)a.dq + row0 * D, acc[i], wr + 16 * i + g, rows, a.scale, a.scale, t);
+    store_rows<T, D>((T*)a.dq + row0 * D, acc[i], wr + 16 * i + g, rows, a.scale, a.scale, t);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dkv_mma(Args a) {
   using F = Dkv<D>;
   constexpr int LD = F::kLd, N = F::kN, R = F::kRows;
   constexpr int kStride = 2 * N * LD;  // a ring stage: q, then do
   static_assert(R == Dkv<16>::kRows, "dkv_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + R * LD;
-  bf16* sQ0 = sV + R * LD;
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + R * LD;
+  T* sQ0 = sV + R * LD;
   float* sL0 = reinterpret_cast<float*>(sQ0 + 2 * kStride);  // stage i: lse, then delta
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bkv = blockIdx.x;
@@ -983,9 +998,9 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
     const int q0 = qfirst + (it % n_q) * N;
     const int64_t row0 = (int64_t)b * a.Sq + q0;
     const int valid = a.Sq - q0;
-    bf16* sq = sQ0 + (it & 1) * kStride;
-    issue_rows<D, F::kThreads>(sq, (const bf16*)a.q + row0 * D, N, valid);
-    issue_rows<D, F::kThreads>(sq + N * LD, (const bf16*)a.dout + row0 * D, N, valid);
+    T* sq = sQ0 + (it & 1) * kStride;
+    issue_rows<D, F::kThreads>(sq, (const T*)a.q + row0 * D, N, valid);
+    issue_rows<D, F::kThreads>(sq + N * LD, (const T*)a.dout + row0 * D, N, valid);
     float* sl = sL0 + (it & 1) * 2 * N;
     for (int c = threadIdx.x; c < 2 * N; c += F::kThreads) {
       const int r = c % N;
@@ -994,8 +1009,8 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
     }
   };
   if (total > 0) {  // the k and v tiles (rows past Sk zero) and the first step
-    issue_rows<D, F::kThreads>(sK, (const bf16*)a.k + krow0 * D, R, krows);
-    issue_rows<D, F::kThreads>(sV, (const bf16*)a.v + krow0 * D, R, krows);
+    issue_rows<D, F::kThreads>(sK, (const T*)a.k + krow0 * D, R, krows);
+    issue_rows<D, F::kThreads>(sV, (const T*)a.v + krow0 * D, R, krows);
     issue(0);
     cp_async_commit();
   }
@@ -1022,8 +1037,8 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
     if (k0 + wk >= a.Sk ||
         (a.causal && a.q_offset + min(a.Sq, q0 + N) - 1 < a.k_offset + k0 + wk))
       continue;
-    const bf16* Qs = sQ0 + (it & 1) * kStride;
-    const bf16* DOs = Qs + N * LD;
+    const T* Qs = sQ0 + (it & 1) * kStride;
+    const T* DOs = Qs + N * LD;
     const float* Ls = sL0 + (it & 1) * 2 * N;
     const float* Ds = Ls + N;
     // s^T = k.q^T and dp^T = v.do^T: the warp's 16 keys x the tile's 64 q rows
@@ -1041,10 +1056,10 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
         uint32_t bq[4], bd[4];
         apex_mma::ld_b_nk(bq, Qs, LD, 16 * j2, 16 * kk, lane);
         apex_mma::ld_b_nk(bd, DOs, LD, 16 * j2, 16 * kk, lane);
-        mma16816(st[0][2 * j2], ka, bq[0], bq[1]);
-        mma16816(st[0][2 * j2 + 1], ka, bq[2], bq[3]);
-        mma16816(dpt[2 * j2], va, bd[0], bd[1]);
-        mma16816(dpt[2 * j2 + 1], va, bd[2], bd[3]);
+        mma16816<T>(st[0][2 * j2], ka, bq[0], bq[1]);
+        mma16816<T>(st[0][2 * j2 + 1], ka, bq[2], bq[3]);
+        mma16816<T>(dpt[2 * j2], va, bd[0], bd[1]);
+        mma16816<T>(dpt[2 * j2 + 1], va, bd[2], bd[3]);
       }
     }
     // p^T = exp2(s^T * scale * log2(e) - lse), masked only where the tile
@@ -1077,15 +1092,15 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
         for (int e = 0; e < 4; ++e)
           st[0][j][e] = exp2f(st[0][j][e] * sl2 - Ls[frag_col(j, e, t)] * kLog2e);
     }
-    mm_px<D, 1>(dv, st, DOs, lane);  // dv += p^T . do, p rounded to bf16
+    mm_px<T, D, 1>(dv, st, DOs, lane);  // dv += p^T . do, p rounded to bf16
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[0][j][e] *= dpt[j][e] - Ds[frag_col(j, e, t)];  // ds^T
-    mm_px<D, 1>(dk, st, Qs, lane);  // dk += ds^T . q (scaled at the end, as dq)
+    mm_px<T, D, 1>(dk, st, Qs, lane);  // dk += ds^T . q (scaled at the end, as dq)
   }
-  store_rows<D>((bf16*)a.dk + krow0 * D, dk[0], wk + g, krows, a.scale, a.scale, t);
-  store_rows<D>((bf16*)a.dv + krow0 * D, dv[0], wk + g, krows, 1.f, 1.f, t);
+  store_rows<T, D>((T*)a.dk + krow0 * D, dk[0], wk + g, krows, a.scale, a.scale, t);
+  store_rows<T, D>((T*)a.dv + krow0 * D, dv[0], wk + g, krows, 1.f, 1.f, t);
 }
 
 // Shared memory of the mma kernels (which: 0 = fwd, 1 = dq, 2 = dkv).
@@ -1106,18 +1121,35 @@ cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, 
 // (64-row tiles, rows); the bf16 kernels (rows, tiles), so that a
 // causal grid's heaviest tiles (reversed q tiles, the first key tiles)
 // are dispatched first.
-template <int D>
+template <typename T, int D>
 cudaError_t launch_mma(int which, const Args& a, int rows, cudaStream_t st) {
   if (which == 0)
-    return launch(&flash_fwd_mma<D>, mma_smem(0, D), a,
+    return launch(&flash_fwd_mma<T, D>, mma_smem(0, D), a,
                   dim3(rows, (a.Sq + Fwd<D>::kRows - 1) / Fwd<D>::kRows), Fwd<D>::kThreads, st);
   if (which == 1)
-    return launch(&flash_dq_mma<D>, mma_smem(1, D), a,
+    return launch(&flash_dq_mma<T, D>, mma_smem(1, D), a,
                   dim3(rows, (a.Sq + Dq<D>::kRows - 1) / Dq<D>::kRows), Dq<D>::kThreads, st);
-  return launch(&flash_dkv_mma<D>, mma_smem(2, D), a,
+  return launch(&flash_dkv_mma<T, D>, mma_smem(2, D), a,
                 dim3(rows, (a.Sk + Dkv<D>::kRows - 1) / Dkv<D>::kRows), Dkv<D>::kThreads, st);
 }
 
+// The mma kernels at the head dim a.D, elements of type T.
+template <typename T>
+cudaError_t launch_mma_d(int which, const Args& a, int rows, cudaStream_t st) {
+  switch (a.D) {
+    case 16: return launch_mma<T, 16>(which, a, rows, st);
+    case 32: return launch_mma<T, 32>(which, a, rows, st);
+    case 48: return launch_mma<T, 48>(which, a, rows, st);
+    case 64: return launch_mma<T, 64>(which, a, rows, st);
+    case 80: return launch_mma<T, 80>(which, a, rows, st);
+    case 96: return launch_mma<T, 96>(which, a, rows, st);
+    case 112: return launch_mma<T, 112>(which, a, rows, st);
+    default: return launch_mma<T, 128>(which, a, rows, st);
+  }
+}
+
+// dtype: 0 = float32 (the *_f32 kernels), 1 = bfloat16, 2 = float16 (the
+// mma kernels).
 int dispatch(int which, const Args& a, int rows, int dtype, void* stream) {
   if (a.D % 16 != 0 || a.D <= 0 || a.D > 128 || a.heads % a.kv_heads != 0)
     return (int)cudaErrorInvalidValue;
@@ -1129,17 +1161,9 @@ int dispatch(int which, const Args& a, int rows, int dtype, void* stream) {
     const int tiles = ((which == 2 ? a.Sk : a.Sq) + kTile - 1) / kTile;
     return (int)launch(kernel, Plan(a.D).bytes(which), a, dim3(tiles, rows), kThreads, st);
   }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (a.D) {
-    case 16: return (int)launch_mma<16>(which, a, rows, st);
-    case 32: return (int)launch_mma<32>(which, a, rows, st);
-    case 48: return (int)launch_mma<48>(which, a, rows, st);
-    case 64: return (int)launch_mma<64>(which, a, rows, st);
-    case 80: return (int)launch_mma<80>(which, a, rows, st);
-    case 96: return (int)launch_mma<96>(which, a, rows, st);
-    case 112: return (int)launch_mma<112>(which, a, rows, st);
-    default: return (int)launch_mma<128>(which, a, rows, st);
-  }
+  if (dtype == 1) return (int)launch_mma_d<bf16>(which, a, rows, st);
+  if (dtype == 2) return (int)launch_mma_d<apex_mma::f16>(which, a, rows, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias, int Sq,
@@ -1165,9 +1189,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, in
 }  // namespace
 
 // Shared memory of one block (bytes): which 0 = fwd, 1 = dq, 2 = dkv;
-// dtype 0 = float32, 1 = bfloat16.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16 (the same plan as bf16).
 extern "C" int apex_flash_smem(int which, int D, int dtype) {
-  return (int)(dtype == 1 ? mma_smem(which, D) : Plan(D).bytes(which));
+  return (int)(dtype == 0 ? Plan(D).bytes(which) : mma_smem(which, D));
 }
 
 // out (BH, Sq, D), lse (BH, Sq).  bias may be null.

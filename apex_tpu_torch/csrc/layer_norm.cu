@@ -14,6 +14,15 @@
 // var = sum(x^2) / H.  Without weight y = (x - mean) * rstd (+ b).
 // mean and rstd are written as fp32 (R,).
 //
+// x (and dy, y, dx) is float32, bfloat16 or float16; w, b and the
+// statistics are fp32 whatever x is.  Each kernel is a template on x's
+// type, and only its loads and stores differ: float16 converts by
+// __half22float2 and __floats2half2_rn (nearest even), a 16-byte vector
+// holds 8 values as for bf16, and the fp32 arithmetic between them is the
+// same template code.  The reference's Pallas kernels take fp32 and bf16
+// only; at fp16 it runs the jnp LayerNorm, whose statistics are fp32 too
+// (apex_tpu/normalization/fused_layer_norm.py `_ln_fwd_impl`).
+//
 // Backward (`_ln_bwd_jnp` / `_rms_bwd_jnp`), per row in fp32:
 //   xhat = (x - mean) * rstd,  gw = dy * w (dy without weight),
 //   m1 = sum(gw) / H,  m2 = sum(gw * xhat) / H,
@@ -32,7 +41,7 @@
 // Two paths, chosen by shape alone (ln_plan below; ops/layer_norm.py
 // `ln_plan` states the same and chip_smoke.py holds the two equal):
 //
-// Fast path (H a multiple of 8 for bf16 or 4 for fp32, at most 1024
+// Fast path (H a multiple of 8 for bf16 and fp16 or 4 for fp32, at most 1024
 // 16-byte vectors a row, x, dy, y, dx, w and b 16-byte aligned).  A row
 // group of WR warps (1 up to 128 vectors a row, 1024 bf16 values, then 2,
 // 4, 8) owns a row; lane l of it holds the row's 16-byte vectors l, l + 32 WR, ... in
@@ -62,6 +71,7 @@
 // the row staged in shared memory; see its kernels below.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,10 +86,14 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch and XLA
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even, as torch and XLA
 }
 
 // ============================================================ general path
@@ -346,6 +360,26 @@ template <> struct Vec16<__nv_bfloat16> {
   }
   __device__ __forceinline__ static uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
+template <> struct Vec16<__half> {
+  static constexpr int kE = 8;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* f) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ __forceinline__ static uint32_t pack2(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);  // round to nearest even
     return *reinterpret_cast<uint32_t*>(&h);
   }
   __device__ __forceinline__ static uint4 pack(const float* f) {
@@ -720,11 +754,11 @@ struct LnPlan {
 };
 constexpr int kPlanFields = 9;
 
-// dtype: 0 = float32, 1 = bfloat16.  aligned: x, dy, y, dx, w and b all
-// start on 16 bytes.  Depends on the shape alone.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  aligned: x, dy, y, dx,
+// w and b all start on 16 bytes.  Depends on the shape alone.
 LnPlan ln_plan(int R, int H, int dtype, int aligned) {
   LnPlan p{};
-  const int E = dtype == 1 ? 8 : 4;
+  const int E = dtype == 0 ? 4 : 8;
   const int nv = H / E, wr = row_warps(nv);
   if (aligned && H % E == 0 && wr <= kMaxWarpsRow) {
     const int ngf = row_groups(LnFwdTiles::kWarps, wr);
@@ -818,82 +852,31 @@ struct BwdLaunch {
   }
 };
 
-}  // namespace
-
-// The launch plan of rows x hidden in dtype (0 = float32, 1 = bfloat16),
-// with aligned = 1 when every pointer starts on 16 bytes: the LnPlan
-// fields in order into out (int64 x 9).  The launches below use it.
-extern "C" int apex_layer_norm_plan(int rows, int hidden, int dtype, int aligned,
-                                    int64_t* out) {
-  if (rows < 0 || hidden <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const LnPlan p = ln_plan(rows, hidden, dtype, aligned);
-  const int f[kPlanFields] = {p.fast, p.warps_row, p.vectors_lane,
-                              p.fwd_rows_block, p.fwd_blocks, p.bwd_rows_block,
-                              p.bwd_blocks, p.fwd_smem, p.bwd_smem};
-  for (int i = 0; i < kPlanFields; ++i) out[i] = f[i];
-  return 0;
-}
-
-// dtype: 0 = float32, 1 = bfloat16 (x and y).  w, b: float32 (H,), or
-// null for none.  rms: 1 = RMSNorm (mean written as 0).
-extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
-                                   void* y, void* mean, void* rstd, int rows,
-                                   int hidden, float eps, int rms, int dtype,
-                                   void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+template <typename T>
+cudaError_t ln_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
+                   void* rstd, int rows, int hidden, float eps, int rms, int dtype,
+                   cudaStream_t st) {
   const LnPlan p = ln_plan(rows, hidden, dtype, aligned16({x, w, b, y}));
-  if (p.fast) {
-    return dtype == 0
-               ? (int)dispatch<float>(p, hidden, FwdLaunch<float>{p, x, w, b, y, mean, rstd,
-                                                                  rows, hidden, eps, rms, st})
-               : (int)dispatch<__nv_bfloat16>(
-                     p, hidden, FwdLaunch<__nv_bfloat16>{p, x, w, b, y, mean, rstd, rows,
-                                                          hidden, eps, rms, st});
-  }
-  const size_t smem = (size_t)hidden * sizeof(float);
-  if (dtype == 0) {
-    ln_fwd_kernel<float><<<rows, kThreads, smem, st>>>(
-        (const float*)x, (const float*)w, (const float*)b, (float*)y,
-        (float*)mean, (float*)rstd, hidden, eps, rms);
-  } else {
-    ln_fwd_kernel<__nv_bfloat16><<<rows, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)x, (const float*)w, (const float*)b,
-        (__nv_bfloat16*)y, (float*)mean, (float*)rstd, hidden, eps, rms);
-  }
-  return (int)cudaGetLastError();
+  if (p.fast)
+    return dispatch<T>(p, hidden,
+                       FwdLaunch<T>{p, x, w, b, y, mean, rstd, rows, hidden, eps, rms, st});
+  ln_fwd_kernel<T><<<rows, kThreads, (size_t)hidden * sizeof(float), st>>>(
+      (const T*)x, (const float*)w, (const float*)b, (T*)y, (float*)mean, (float*)rstd,
+      hidden, eps, rms);
+  return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, dy and dx).  w, mean, rstd, the
-// partials, dw and db: float32; the partials hold the plan's bwd_blocks
-// rows of H (apex_layer_norm_plan with aligned as x, dy, dx and w give
-// it).  w null: no affine (part_w, part_b, dw, db null too); part_b and
-// db null: no bias.  rms: 1 = RMSNorm (mean is not read).  Launches
-// stage 1, and stage 2 when there is a weight.
-extern "C" int apex_layer_norm_bwd(const void* x, const void* w, const void* dy,
-                                   const void* mean, const void* rstd, void* dx,
-                                   void* part_w, void* part_b, void* dw,
-                                   void* db, int rows, int hidden, int rms,
-                                   int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+template <typename T>
+cudaError_t ln_bwd(const void* x, const void* w, const void* dy, const void* mean,
+                   const void* rstd, void* dx, void* part_w, void* part_b, void* dw, void* db,
+                   int rows, int hidden, int rms, int dtype, cudaStream_t st) {
   const LnPlan p = ln_plan(rows, hidden, dtype, aligned16({x, dy, dx, w}));
-  cudaError_t e;
-  if (p.fast) {
-    e = dtype == 0
-            ? dispatch<float>(p, hidden, BwdLaunch<float>{p, x, w, dy, mean, rstd, dx, part_w,
-                                                          part_b, rows, hidden, rms, st})
-            : dispatch<__nv_bfloat16>(
-                  p, hidden, BwdLaunch<__nv_bfloat16>{p, x, w, dy, mean, rstd, dx, part_w,
-                                                       part_b, rows, hidden, rms, st});
-  } else if (dtype == 0) {
-    e = launch_ln_bwd<float>(x, w, dy, mean, rstd, dx, part_w, part_b, rows,
-                             hidden, p.bwd_blocks, rms, st);
-  } else {
-    e = launch_ln_bwd<__nv_bfloat16>(x, w, dy, mean, rstd, dx, part_w, part_b,
-                                     rows, hidden, p.bwd_blocks, rms, st);
-  }
-  if (e != cudaSuccess || !w) return (int)e;
+  const cudaError_t e =
+      p.fast ? dispatch<T>(p, hidden, BwdLaunch<T>{p, x, w, dy, mean, rstd, dx, part_w,
+                                                   part_b, rows, hidden, rms, st})
+             : launch_ln_bwd<T>(x, w, dy, mean, rstd, dx, part_w, part_b, rows, hidden,
+                                p.bwd_blocks, rms, st);
+  if (e != cudaSuccess || !w) return e;
   if (p.fast) {
     ln_bwd_reduce_vec<<<(hidden + 15) / 16, 4 * kReduceLanes, 0, st>>>(
         (const float*)part_w, (const float*)part_b, (float*)dw, (float*)db, p.bwd_blocks,
@@ -903,5 +886,65 @@ extern "C" int apex_layer_norm_bwd(const void* x, const void* w, const void* dy,
         (const float*)part_w, (const float*)part_b, (float*)dw, (float*)db, p.bwd_blocks,
         hidden);
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The launch plan of rows x hidden in dtype (0 = float32, 1 = bfloat16,
+// 2 = float16), with aligned = 1 when every pointer starts on 16 bytes:
+// the LnPlan fields in order into out (int64 x 9).  The launches below
+// use it.
+extern "C" int apex_layer_norm_plan(int rows, int hidden, int dtype, int aligned,
+                                    int64_t* out) {
+  if (rows < 0 || hidden <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  const LnPlan p = ln_plan(rows, hidden, dtype, aligned);
+  const int f[kPlanFields] = {p.fast, p.warps_row, p.vectors_lane,
+                              p.fwd_rows_block, p.fwd_blocks, p.bwd_rows_block,
+                              p.bwd_blocks, p.fwd_smem, p.bwd_smem};
+  for (int i = 0; i < kPlanFields; ++i) out[i] = f[i];
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and y).  w, b: float32
+// (H,), or null for none.  rms: 1 = RMSNorm (mean written as 0).
+extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
+                                   void* y, void* mean, void* rstd, int rows,
+                                   int hidden, float eps, int rms, int dtype,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return (int)ln_fwd<float>(x, w, b, y, mean, rstd, rows, hidden, eps, rms, dtype, st);
+    case 1:
+      return (int)ln_fwd<__nv_bfloat16>(x, w, b, y, mean, rstd, rows, hidden, eps, rms, dtype,
+                                        st);
+    case 2: return (int)ln_fwd<__half>(x, w, b, y, mean, rstd, rows, hidden, eps, rms, dtype, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, dy and dx).  w, mean,
+// rstd, the partials, dw and db: float32; the partials hold the plan's
+// bwd_blocks rows of H (apex_layer_norm_plan with aligned as x, dy, dx
+// and w give it).  w null: no affine (part_w, part_b, dw, db null too);
+// part_b and db null: no bias.  rms: 1 = RMSNorm (mean is not read).
+// Launches stage 1, and stage 2 when there is a weight.
+extern "C" int apex_layer_norm_bwd(const void* x, const void* w, const void* dy,
+                                   const void* mean, const void* rstd, void* dx,
+                                   void* part_w, void* part_b, void* dw,
+                                   void* db, int rows, int hidden, int rms,
+                                   int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return (int)ln_bwd<float>(x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows, hidden,
+                                rms, dtype, st);
+    case 1:
+      return (int)ln_bwd<__nv_bfloat16>(x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows,
+                                        hidden, rms, dtype, st);
+    case 2:
+      return (int)ln_bwd<__half>(x, w, dy, mean, rstd, dx, part_w, part_b, dw, db, rows, hidden,
+                                 rms, dtype, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -95,10 +95,15 @@ class GPTConfig:
                     f"context parallelism come in later slices)")
         validate_policy(self.remat_policy)
         check_impl(self.fused_ce_impl)
-        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+        if self.compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
             raise ValueError(
-                f"compute_dtype must be torch.float32 or torch.bfloat16 "
+                f"compute_dtype must be torch.float32, torch.bfloat16 or torch.float16 "
                 f"(got {self.compute_dtype})")
+        if self.fused_ce and self.compute_dtype == torch.float16:
+            raise NotImplementedError(
+                "fused_ce with compute_dtype torch.float16 is not ported: the fused-CE "
+                "kernels take float32 or bfloat16 x only; use the dense head "
+                "(fused_ce=False) for fp16 training")
         if self.num_attention_heads % self.kv_heads != 0:
             raise ValueError(
                 f"num_attention_heads ({self.num_attention_heads}) must be "

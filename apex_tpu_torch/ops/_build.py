@@ -111,8 +111,12 @@ SIGNATURES = {
     "apex_mt_l2norm": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
 }
 
-#: torch dtype -> the C entries' dtype code
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: torch dtype -> the C entries' dtype code (as ``ops/multi_tensor.py``'s)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes of the kernels with no float16 instantiation: the fused CE,
+#: paged decode attention and the sampling head (the LayerNorm and flash
+#: kernels take all three)
+FP32_BF16 = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _lib = None

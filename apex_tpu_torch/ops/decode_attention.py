@@ -148,7 +148,7 @@ def _problem(q, k_pool, v_pool, page_table, lengths):
         return f"head dim must be a multiple of 16 up to 128, got {D}"
     if page_table.dim() != 2 or lengths.shape != (Bq,):
         return "page_table must be (B, P) and lengths (B * width,)"
-    if (q.dtype not in _build.DTYPE_CODES or k_pool.dtype not in _build.DTYPE_CODES
+    if (q.dtype not in _build.FP32_BF16 or k_pool.dtype not in _build.FP32_BF16
             or v_pool.dtype != k_pool.dtype):
         return "q and the pools must be float32 or bfloat16, the two pools of one dtype"
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:

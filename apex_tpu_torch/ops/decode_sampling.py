@@ -143,7 +143,7 @@ def _shape_problem(x2, embed, seeds):
         return (f"x {tuple(x2.shape)} and embed {tuple(embed.shape)} must be "
                 f"(N, H) and (V, H)")
     N, H = x2.shape
-    if x2.dtype not in _build.DTYPE_CODES:
+    if x2.dtype not in _build.FP32_BF16:
         return f"x dtype {x2.dtype} is not float32/bfloat16"
     if embed.dtype != torch.float32 or embed.data_ptr() % 16:
         return "embed must be float32 and 16-byte aligned"

@@ -24,7 +24,11 @@ Each launches its kernel for CUDA tensors and runs its plain version
 else; ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count the
 launches.  The plain versions are fp32 throughout; the bf16 kernels
 round p and ds to bf16 before their dots, as the Pallas kernels do, so
-they differ from the plain versions by that rounding.
+they differ from the plain versions by that rounding.  float16 runs the
+same mma kernels with fp16 operands (p and ds rounded to fp16).  The
+reference has no fp16 Pallas kernel: at fp16 it runs the scan, the
+plain versions here, so the fp16 kernels stand in for an XLA
+composite.
 
 :class:`FlashAttention` is the ``custom_vjp`` of ``_flash_pallas``: the
 forward saves q, k, v, the bias, out and lse; the backward computes
@@ -72,8 +76,8 @@ class BwdLaunchPlan(NamedTuple):
 
 
 def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
-    """The bf16 backward's schedule for one (batch, head) row, as the C
-    kernels index it.  ``which`` 1: dq, a block of DQ_BLOCK_ROWS q rows
+    """The bf16 (and fp16) backward's schedule for one (batch, head) row,
+    as the C kernels index it.  ``which`` 1: dq, a block of DQ_BLOCK_ROWS q rows
     walks the 64-key tiles up to the last key one of its rows (below
     Sq) sees; causal grids launch the last q blocks, the heaviest, first.
     ``which`` 2: dkv, a block of DKV_BLOCK_ROWS keys walks the 64-row q
@@ -181,7 +185,7 @@ def _problem(q, k, v, kv_bias, heads, kv_heads, extra=()):
     if k.shape[0] != BH // heads * kv_heads:
         return f"k has {k.shape[0]} rows, expected B*H_kv={BH // heads * kv_heads}"
     if q.dtype not in _build.DTYPE_CODES:
-        return f"dtype must be float32 or bfloat16, got {q.dtype}"
+        return f"dtype must be float32, bfloat16 or float16, got {q.dtype}"
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             return f"{name} must be contiguous, 16-byte aligned and on {q.device}"

@@ -229,7 +229,7 @@ def _problem(x2, embed, t, rows=()):
         return f"H must be a multiple of 16 up to 1024 (tensor-core tiles), got {H}"
     if embed.shape[0] == 0:
         return "embed has no rows"
-    if x2.dtype not in _build.DTYPE_CODES or embed.dtype not in _build.DTYPE_CODES:
+    if x2.dtype not in _build.FP32_BF16 or embed.dtype not in _build.FP32_BF16:
         return f"x and embed must be float32 or bfloat16, got {x2.dtype}, {embed.dtype}"
     for name, a in (("x", x2), ("embed", embed)):
         if a.device != x2.device or not a.is_contiguous() or a.data_ptr() % 16:

@@ -4,9 +4,12 @@ their plain PyTorch versions.
 Counterpart of :mod:`apex_tpu.ops.layer_norm_pallas`
 (``layer_norm_fwd_pallas``, ``layer_norm_bwd_pallas``) with its flags:
 ``rms`` (mean 0, var = mean(x**2)), an optional fp32 weight (affine)
-and an optional fp32 bias.  The kernels are in ``csrc/layer_norm.cu``
-(its comments say what bounds each and how it is laid out); the flags
-are parameters of the one kernel pair.
+and an optional fp32 bias, on x in float32, bfloat16 or float16 (the
+reference's Pallas kernels take the first two; at float16 it runs the
+jnp path, which these kernels' float16 instantiation stands in for).
+The kernels are in ``csrc/layer_norm.cu`` (its comments say what bounds
+each and how it is laid out); the flags are parameters of the one
+kernel pair.
 
 Each call takes one of two paths, by shape alone: the fast path (a warp
 or a few a row, the row in registers, 16-byte accesses) where H fits
@@ -73,18 +76,19 @@ def _row_groups(warps, wr):
 
 
 def ln_plan(R, H, dtype, aligned):
-    """The launch plan of an (R, H) ``dtype`` (float32/bfloat16) norm, as
-    ``csrc/layer_norm.cu`` ``ln_plan`` makes it; ``aligned``: x, dy, y,
-    dx, w and b all start on 16 bytes.  The fast path takes H a multiple
-    of a 16-byte vector's values (8 bf16, 4 fp32) of at most
-    ``32 * MAX_WARPS_ROW * MAX_VECTORS`` vectors: a row gets the fewest
+    """The launch plan of an (R, H) ``dtype`` (float32, bfloat16 or
+    float16) norm, as ``csrc/layer_norm.cu`` ``ln_plan`` makes it;
+    ``aligned``: x, dy, y, dx, w and b all start on 16 bytes.  The fast
+    path takes H a multiple of a 16-byte vector's values (8 bf16 or
+    fp16, 4 fp32) of at most ``32 * MAX_WARPS_ROW * MAX_VECTORS``
+    vectors: a row gets the fewest
     warps (1, 2, 4, 8) that leave a lane at most ``MAX_VECTORS`` vectors.
     The grids are ceil(R / rows a block); a backward block walks
     ``BWD_WARPS * BWD_ROWS_WARP`` rows on the fast path, as many as on the
     general one, so G depends on R alone, never on the card."""
-    if dtype not in (torch.float32, torch.bfloat16) or H <= 0 or R < 0:
+    if dtype not in _build.DTYPE_CODES or H <= 0 or R < 0:
         raise ValueError(f"ln_plan: no plan for R={R} H={H} {dtype}")
-    e = 8 if dtype == torch.bfloat16 else 4
+    e = 16 // dtype.itemsize
     nv, wr = H // e, 1
     while wr <= MAX_WARPS_ROW and nv > 32 * wr * MAX_VECTORS:
         wr *= 2
@@ -158,7 +162,8 @@ def _problem(x2, params):
     if x2.device.type != "cuda":
         return f"tensors on {x2.device} are not supported"
     if x2.dim() != 2 or x2.dtype not in _build.DTYPE_CODES or not x2.is_contiguous():
-        return f"x must be a contiguous float32/bfloat16 (R, H) tensor, got {x2.dtype} {tuple(x2.shape)}"
+        return (f"x must be a contiguous float32/bfloat16/float16 (R, H) tensor, got "
+                f"{x2.dtype} {tuple(x2.shape)}")
     H = x2.shape[1]
     if not 0 < H <= MAX_HIDDEN:
         return f"H={H} outside (0, {MAX_HIDDEN}]"
@@ -175,7 +180,7 @@ def _ptr(t):
 
 def layer_norm_fwd(x2, weight, bias, eps, rms=False):
     """Row LayerNorm (RMSNorm with ``rms``) of ``x2`` (R, H)
-    float32/bfloat16, with fp32 ``weight``/``bias`` (H,) or None.
+    float32/bfloat16/float16, with fp32 ``weight``/``bias`` (H,) or None.
     Returns ``(y (R, H) x2.dtype, mean (R,) fp32, rstd (R,) fp32)``; the
     mean is 0 for RMS."""
     if x2.device.type == "cpu":
@@ -201,7 +206,7 @@ def layer_norm_fwd(x2, weight, bias, eps, rms=False):
 
 def layer_norm_bwd(x2, weight, dy2, mean, rstd, rms=False, with_bias=True):
     """Gradients of :func:`layer_norm_fwd`: ``x2``/``dy2`` (R, H) of one
-    dtype (float32/bfloat16), fp32 ``weight`` (H,) or None, and the
+    dtype (float32/bfloat16/float16), fp32 ``weight`` (H,) or None, and the
     forward's fp32 ``mean``/``rstd`` (R,).  Returns ``(dx (R, H)
     x2.dtype, dw (H,) fp32, db (H,) fp32)``: dw and db are None without
     a weight, db is None without ``with_bias``."""

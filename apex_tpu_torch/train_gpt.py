@@ -21,6 +21,20 @@ targets rolled by one, the same batch every step.
     python -m apex_tpu_torch.train_gpt --fused-ce         # the fused CE head
     python -m apex_tpu_torch.train_gpt --fused-ce --fused-ce-chunk 8 --device cpu \
         --layers 2 --hidden 64 --heads 4 --vocab 128 --seq 32 --batch 2
+    python -m apex_tpu_torch.train_gpt --fp16             # amp: fp16, loss scaling
+    python -m apex_tpu_torch.train_gpt --fp16 --step-guard 3 --clip-grad-norm 1.0
+
+``--fp16`` is the single-device form of ``examples/gpt/pretrain_gpt.py
+--fp16``: float16 compute (fp32 params cast at use, the fp16 LayerNorm
+and flash kernels) and ``DynamicLossScaler(init_scale=2**12)``, through
+:func:`make_train_step`'s scaled variant: the scaled loss and its
+gradients, then one fused pass of ``FusedAdam.update_scaled`` (unscale,
+finite vote, the update predicated on it), the scaler's branch-free
+update, and with ``--step-guard N`` a ``StepGuard(max_consecutive_bad=N)``
+fed by the same vote; ``--clip-grad-norm X`` folds the global-L2 clip
+into the update.  A non-finite step leaves params and optimizer state
+as they were and backs the scale off, all on the device.  ``--fp16``
+with ``--fused-ce`` raises: the fused-CE kernels take fp32 or bf16 x.
 
 The step is compiled, as bench.py's ``jax.jit(..., donate_argnums=(0,
 1))`` is: the loss, its gradients and the FusedAdam update, written back
@@ -49,15 +63,21 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp.scaler import DynamicLossScaler, all_finite
 from apex_tpu_torch.graphs import CapturedStep, tensor_leaves
 from apex_tpu_torch.models.gpt import GPTConfig, gpt_loss, init_params, params_from_numpy
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.optimizers.base import tree_leaves, tree_unflatten
+from apex_tpu_torch.resilience.step_guard import StepGuard
+from apex_tpu_torch.transformer.amp.grad_scaler import sync_found_inf
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: bench.py's FusedAdam weight decay
 WEIGHT_DECAY = 0.1
+#: ``examples/gpt/pretrain_gpt.py --fp16``'s scaler (its other settings
+#: at their defaults)
+FP16_INIT_SCALE = 2.0 ** 12
 
 
 def build_args():
@@ -73,6 +93,13 @@ def build_args():
                    help="untimed eager steps first; the last one captures the graph")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--compute-dtype", default="bfloat16", choices=sorted(_DTYPES))
+    p.add_argument("--fp16", action="store_true",
+                   help="amp: float16 compute with DynamicLossScaler(init_scale=2**12), "
+                        "as examples/gpt/pretrain_gpt.py --fp16 (sets --compute-dtype)")
+    p.add_argument("--step-guard", type=int, default=None, metavar="N",
+                   help="StepGuard(max_consecutive_bad=N) on the step's finite vote")
+    p.add_argument("--clip-grad-norm", type=float, default=None, metavar="X",
+                   help="fold a global-L2 grad clip to X into the optimizer's update")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fused-ce", action="store_true",
                    help="the fused LM-head cross entropy (bench.py's gpt124_s1024_fce) "
@@ -88,14 +115,19 @@ def build_args():
     return p
 
 
+def compute_dtype(args) -> str:
+    """The compute dtype's name: float16 with ``--fp16``."""
+    return "float16" if args.fp16 else args.compute_dtype
+
+
 def make_config(args) -> GPTConfig:
     """bench.py's ``GPTConfig`` for this shape."""
     return GPTConfig(
         vocab_size=args.vocab, hidden_size=args.hidden, num_layers=args.layers,
         num_attention_heads=args.heads, max_seq_len=args.seq,
-        compute_dtype=_DTYPES[args.compute_dtype], use_flash_attention=True,
-        checkpoint_layers=True, remat_policy="full", fused_ce=args.fused_ce,
-        fused_ce_chunk=args.fused_ce_chunk)
+        compute_dtype=torch.float16 if args.fp16 else _DTYPES[args.compute_dtype],
+        use_flash_attention=True, checkpoint_layers=True, remat_policy="full",
+        fused_ce=args.fused_ce, fused_ce_chunk=args.fused_ce_chunk)
 
 
 def make_batch(args):
@@ -119,49 +151,126 @@ def setup(args, params_tree=None):
     return config, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev)
 
 
-def loss_and_grads(params, tokens, targets, config):
+def loss_and_grads(params, tokens, targets, config, post_loss=None):
     """``value_and_grad(gpt_loss)``: the loss and a tree of gradients
-    shaped like ``params``.  Leaves that do not require a gradient yet
-    are made to."""
+    shaped like ``params``; with ``post_loss`` (the loss scaler's
+    ``scale``) of ``post_loss(loss)``.  Leaves that do not require a
+    gradient yet are made to."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         if not leaf.requires_grad:
             leaf.requires_grad_(True)
     loss = gpt_loss(params, tokens, targets, config)
+    if post_loss is not None:
+        loss = post_loss(loss)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def make_train_step(opt, config, graphs=None, warmup=1):
-    """``step(params, state, tokens, targets) -> loss``: the loss, its
-    gradients and ``opt.update``, the new params and optimizer state
-    copied into ``params`` and ``state`` in place (the counterpart of
-    bench.py's ``donate_argnums=(0, 1)``).  Compiled unless
+def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, params,
+                         step_guard=None, guard_state=None, clip_grad_norm=None):
+    """The JAX package's ``_apply_scaled_update`` (apex_tpu/models/gpt.py)
+    on one device: unscale, the finite vote (``sync_found_inf`` with no
+    process group: the vote as it is), the update predicated on it, the
+    scaler's update; with ``step_guard`` the same vote feeds the guard.
+    An engine optimizer does the first three in its one fused pass
+    (``update_scaled``, the clip folded in); any other takes the explicit
+    unscale, vote and ``update(grads_finite=)``.
+    Returns ``(params, state, scaler_state[, guard_state])``."""
+    if getattr(opt, "supports_update_scaled", False):
+        new_params, new_state, finite = opt.update_scaled(
+            grads, opt_state, params, scale=scaler_state.loss_scale, clip_norm=clip_grad_norm,
+            finite_sync=sync_found_inf)
+    else:
+        grads, finite = loss_scaler.unscale(scaler_state, grads)
+        finite = sync_found_inf(finite)
+        new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
+    new_scaler = loss_scaler.update(scaler_state, finite)
+    if step_guard is None:
+        return new_params, new_state, new_scaler
+    return new_params, new_state, new_scaler, step_guard.update(guard_state, finite)
+
+
+def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state,
+                          clip_grad_norm=None):
+    """The JAX package's ``_apply_guarded_update``: no loss scale; the
+    finite vote alone predicates the update and feeds the guard (an
+    engine optimizer votes in its fused pass, ``scale=None``).  Returns
+    ``(params, state, guard_state)``."""
+    if getattr(opt, "supports_update_scaled", False):
+        new_params, new_state, finite = opt.update_scaled(
+            grads, opt_state, params, clip_norm=clip_grad_norm, finite_sync=sync_found_inf)
+    else:
+        finite = sync_found_inf(all_finite(grads))
+        new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
+    return new_params, new_state, step_guard.update(guard_state, finite)
+
+
+def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
+                    graphs=None, warmup=1):
+    """The single-device form of the JAX package's ``make_train_step``
+    (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
+    [guard_state], tokens, targets) -> loss``, a scaler state only with
+    ``loss_scaler`` and a guard state only with ``step_guard``, as the
+    JAX step's variants take them.
+
+    The step is the loss (scaled by ``loss_scaler``) and its gradients,
+    then the update: :func:`_apply_scaled_update` with a scaler,
+    :func:`_apply_guarded_update` with a guard alone, else
+    ``opt.update`` (``clip_grad_norm`` folded into each; it needs an
+    engine optimizer).  The new params, optimizer state and small states
+    are copied into the given ones in place (the counterpart of donating
+    them); the loss returned is the unscaled one.  Compiled unless
     ``graphs=False``: a :class:`~apex_tpu_torch.graphs.CapturedStep` that
     runs ``warmup`` eager steps on a side stream, captures the step as one
     CUDA graph after the last of them, and replays it; on the CPU it runs
-    the static buffers without capture.  ``params`` must already require
-    gradients when captured."""
+    the static buffers without capture.  Nothing in the step reads a
+    device value on the host.  ``params`` must already require gradients
+    when captured."""
+    if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
+        raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
+                         "subclass): the clip folds into its fused grad pass")
+    n_small = int(loss_scaler is not None) + int(step_guard is not None)
 
-    def step(params, state, tokens, targets):
-        loss, grads = loss_and_grads(params, tokens, targets, config)
-        new_params, new_state = opt.update(grads, state, params)
+    def step(params, state, *rest):
+        small, (tokens, targets) = rest[:n_small], rest[n_small:]
+        scaler_state = small[0] if loss_scaler is not None else None
+        guard_state = small[-1] if step_guard is not None else None
+        if loss_scaler is not None:
+            scaled, grads = loss_and_grads(params, tokens, targets, config,
+                                           lambda l: loss_scaler.scale(scaler_state, l))
+            loss = scaled / scaler_state.loss_scale
+            new = _apply_scaled_update(loss_scaler, scaler_state, grads, opt, state, params,
+                                       step_guard=step_guard, guard_state=guard_state,
+                                       clip_grad_norm=clip_grad_norm)
+        else:
+            loss, grads = loss_and_grads(params, tokens, targets, config)
+            if step_guard is not None:
+                new = _apply_guarded_update(grads, opt, state, params, step_guard,
+                                            guard_state, clip_grad_norm=clip_grad_norm)
+            elif clip_grad_norm is not None:
+                new = opt.update(grads, state, params, clip_norm=clip_grad_norm)
+            else:
+                new = opt.update(grads, state, params)
         with torch.no_grad():
-            for dst, src in zip(tensor_leaves((params, state)),
-                                tensor_leaves((new_params, new_state)), strict=True):
+            for dst, src in zip(tensor_leaves((params, state, *small)), tensor_leaves(new),
+                                strict=True):
                 dst.copy_(src)
         return loss
 
     if graphs is False:
         return step
-    return CapturedStep(step, donate=(0, 1), warmup=warmup)
+    return CapturedStep(step, donate=range(2 + n_small), warmup=warmup)
 
 
-def run(args, params_tree=None, opt=None):
+def run(args, params_tree=None, opt=None, loss_scaler=None, step_guard=None):
     """Train ``args.warmup + args.steps`` steps; returns ``(report,
     params, state)``.  ``opt``: the optimizer, by default bench.py's
     ``FusedAdam(lr=args.lr, weight_decay=0.1)`` on the multi-tensor
-    engine."""
+    engine.  ``loss_scaler``: by default ``DynamicLossScaler(init_scale=
+    2**12)`` with ``--fp16`` and none without; ``step_guard``: by default
+    ``StepGuard(args.step_guard)`` when that is given.  With a guard,
+    ``StepGuard.check`` runs on the host after the last step."""
     config, params, tokens, targets = setup(args, params_tree)
     dev = tokens.device
     cuda = dev.type == "cuda"
@@ -172,35 +281,52 @@ def run(args, params_tree=None, opt=None):
         torch.cuda.reset_peak_memory_stats(dev)
     if opt is None:
         opt = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
+    if loss_scaler is None and args.fp16:
+        loss_scaler = DynamicLossScaler(init_scale=FP16_INIT_SCALE)
+    if step_guard is None and args.step_guard is not None:
+        step_guard = StepGuard(max_consecutive_bad=args.step_guard)
     state = opt.init(params)
+    small = [] if loss_scaler is None else [loss_scaler.init(dev)]
+    small += [] if step_guard is None else [step_guard.init(dev)]
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
-    step = make_train_step(opt, config, graphs=False if args.eager else None,
-                           warmup=args.warmup)
+    step = make_train_step(opt, config, loss_scaler=loss_scaler, step_guard=step_guard,
+                           clip_grad_norm=args.clip_grad_norm,
+                           graphs=False if args.eager else None, warmup=args.warmup)
 
     def sync():
         if cuda:
             torch.cuda.synchronize(dev)
 
-    losses, times = [], []
+    losses, times, scales = [], [], []
     for i in range(args.warmup + args.steps):
         sync()
         t0 = time.perf_counter()
-        loss = step(params, state, tokens, targets)
+        loss = step(params, state, *small, tokens, targets)
         sync()
         if i >= args.warmup:
             times.append(time.perf_counter() - t0)
         losses.append(float(loss))
+        if loss_scaler is not None:
+            scales.append(float(small[0].loss_scale))
+    n = args.warmup + args.steps
     step_s = statistics.median(times) if times else None
     report = {
         "optimizer": "engine" if opt.use_buckets else "per_leaf",
         "model": {"layers": args.layers, "hidden": args.hidden, "heads": args.heads,
                   "vocab": args.vocab, "seq": args.seq, "batch": args.batch,
-                  "compute_dtype": args.compute_dtype, "fused_ce": args.fused_ce,
-                  "fused_ce_chunk": args.fused_ce_chunk},
+                  "fused_ce": args.fused_ce, "fused_ce_chunk": args.fused_ce_chunk},
+        "compute_dtype": compute_dtype(args),
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "warmup_steps": args.warmup,
         "losses": losses,
+        # the scale after each step, the state the next step reads
+        "loss_scale": scales if loss_scaler is not None else None,
+        # steps whose update the finite vote held back (the optimizer's
+        # step counter did not move)
+        "skipped_steps": n - int(state.step),
+        "step_guard": None if step_guard is None else step_guard.state_dict(small[-1]),
+        "clip_grad_norm": args.clip_grad_norm,
         "step_ms": [1e3 * t for t in times],
         "step_ms_median": None if step_s is None else 1e3 * step_s,
         "tokens_per_sec": None if step_s is None else args.batch * args.seq / step_s,
@@ -208,6 +334,8 @@ def run(args, params_tree=None, opt=None):
         "graphs": isinstance(step, CapturedStep) and step.graph is not None,
         "capture_ms": 1e3 * step.capture_seconds if isinstance(step, CapturedStep) else 0.0,
     }
+    if step_guard is not None:
+        step_guard.check(small[-1])
     return report, params, state
 
 

@@ -1,3 +1,4 @@
 """Transformer building blocks of the port (counterpart of
-:mod:`apex_tpu.transformer`); so far only the causal softmax of the
-attention's einsum path."""
+:mod:`apex_tpu.transformer`); so far the causal softmax of the
+attention's einsum path and the model-parallel ``GradScaler``
+(:mod:`~apex_tpu_torch.transformer.amp`)."""

@@ -1,0 +1,3 @@
+from apex_tpu_torch.transformer.amp.grad_scaler import GradScaler
+
+__all__ = ["GradScaler"]

@@ -23,7 +23,7 @@ Phases, each printing one JSON line:
    bf16 and fp32: the RMS-affine, RMS and non-affine modes, H = 1024 and
    4096 on the fast path, every mode at H = 770 and a misaligned view on
    the general path; the LN plan as ``ln_plan`` states it against the C
-   entry's at 624 shapes; the fused-CE forward, dx and
+   entry's at 936 shapes (3 dtypes); the fused-CE forward, dx and
    dembed at N = 8192, H = 768, V = 50304 with bf16 dots, a ragged
    N = 1000, V = 50257 case, every (x, embed) dtype pair at H = 768 and
    1024, H = 80 and 784 (widths that the backward's K groups split
@@ -51,7 +51,14 @@ Phases, each printing one JSON line:
    bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
    keys), and bf16 at D = 16, 48, 80, 96 and 112 (B = 2); the bf16
    backward's shared memory as ``bwd_launch_plan`` states it against
-   the C entry's at every head dim.  The optimizer engine's kernels
+   the C entry's at every head dim.  The float16 instantiations (the
+   amp train step's): LN forward at 8 and 8192 rows, the backward at
+   8192, the RMS and non-affine modes, H = 770 and a misaligned view,
+   each with ``F.layer_norm``'s fp16 time; flash at GPT-124M's shape at
+   D = 64, 32 and 128 with SDPA's fp16 time, GQA, and B = 2 at D = 16,
+   48, 80, 96, 112, against their plain versions (the reference's fp16
+   path: the jnp LayerNorm, the fp32 scan) in bands of fp16's rounding;
+   the plans in fp16 against the C entries'.  The optimizer engine's kernels
    (XLA fusions in the JAX package): ``mt_adam`` bitwise against its
    plain version (AdamW at GPT-124M's 20 leaves, timed beside
    ``torch.optim.AdamW`` fused and foreach; L2 mode, bf16 params with
@@ -111,6 +118,17 @@ Phases, each printing one JSON line:
    ``gpt124_s1024_fce``): launch counts 49 / 25 / 24 / 12 / 12 / 1 / 1 /
    1 a step, the warm-up loss within 1e-5 (relative) of the dense
    step's, and the two steps' times side by side; graphed, then eager.
+8a. train_fp16: ``train_gpt --fp16`` (``examples/gpt/pretrain_gpt.py
+   --fp16`` on one device: fp16 compute, ``DynamicLossScaler(2**12)``,
+   the scaled step with ``update_scaled``), graphed and eager: losses
+   finite and falling, every scale 4096, 0 skipped steps, launch counts
+   exactly 49 / 25 / 24 / 12 / 12 fp16 kernels, one ``mt_adam`` and
+   ``mt_plan``'s ``mt_scale`` a step; graphed = eager (losses and
+   scales); step ms, tokens/s and peak GB beside the bf16 train phase's.
+8b. amp_overflow: the same step at GPT-124M with ``--step-guard 3`` and
+   the scaler at 2**127 (one backoff to 2**12): the first step skipped
+   with every param and the whole optimizer state bitwise unchanged, the
+   next two finite graph replays; the guard 1 -> 0 bad, 1 skipped.
 9. train_reproducible: two backward passes of one flash layer bitwise
    equal, two calls each of the CE forward, dx and dembed kernels at
    GPT-124M bitwise equal, two LN backward calls at 8192 x 768 (bf16,
@@ -134,6 +152,9 @@ Phases, each printing one JSON line:
     (the fp32 kernels) against the CPU (plain versions), from the same
     numpy params; the card's from a graph replay of ``loss_and_grads``
     on this batch after a warm-up on another, held against an eager call.
+    train_parity_fp16: ``train_gpt --fp16`` at 2 layers, hidden 256, seq
+    128, on the card (compiled) and the CPU: losses in stated bands,
+    scales and skipped steps equal.
 14. train_profile: device busy share and kernel time by name over one
     training step with the dense head and one with the fused CE, each
     a graph replay and eager, and the dense step with FusedAdam
@@ -176,6 +197,12 @@ NEG_INF_HALF = -0.5e30
 FLASH_TOL_BF16 = {"out": 2.0 ** -6, "dq": 2.0 ** -6, "dk": 2.0 ** -6, "dv": 2.0 ** -6,
                   "lse": 1e-4}
 FLASH_TOL_FP32 = {"out": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4, "lse": 1e-4}
+#: fp16: the bf16 bands scaled by fp16's unit roundoff (2**-11 against
+#: bf16's 2**-8), the same 4x margin over one rounding of p and ds
+FLASH_TOL_FP16 = {"out": 2.0 ** -9, "dq": 2.0 ** -9, "dk": 2.0 ** -9, "dv": 2.0 ** -9,
+                  "lse": 1e-4}
+#: half an ulp, relative: what rounding an fp32 value to the type moves it
+HALF_ULP = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 #: train parity bands (relative): the loss, and every gradient leaf
 TRAIN_PARITY_TOL = {"loss": 1e-5, "grads": 1e-3}
 
@@ -262,7 +289,9 @@ def timings(kernel, plain, library=None):
     return out
 
 
-def bf16_ulps(a, b):
+def ulps16(a, b):
+    """Largest distance in steps of their type between two bf16 or two
+    fp16 tensors (both sign-magnitude 16-bit codes)."""
     def key(t):
         i = t.contiguous().view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
@@ -334,17 +363,18 @@ def check_layer_norm(dev, R, dtype, mode="ln_affine", H=768, path="fast", misali
     stat_err = max(float((mean - pmean).abs().max()),
                    float(((rstd - prstd) / prstd).abs().max()))
     excess = None
-    if dtype == torch.bfloat16:
-        # y against the plain fp32 value: the final rounding (half a bf16
-        # ulp, 2**-8 relative) plus the fp32 band, 1e-5 abs (row stats in
-        # another order).  An ulp count is no measure: where w * xhat
-        # cancels b, y is near 0 and a 1e-7 change moves it many ulps.
-        ulps = bf16_ulps(y, py)
+    if dtype != torch.float32:
+        # y against the plain fp32 value: the final rounding (half an
+        # ulp: 2**-8 relative for bf16, 2**-11 for fp16) plus the fp32
+        # band, 1e-5 abs (row stats in another order).  An ulp count is no
+        # measure: where w * xhat cancels b, y is near 0 and a 1e-7 change
+        # moves it many ulps.
+        ulps = ulps16(y, py)
         y32 = layer_norm_fwd_plain(x.float(), w, b, eps, rms)[0]
-        excess = float(((y.float() - y32).abs() - 2.0 ** -8 * y32.abs()).max())
+        excess = float(((y.float() - y32).abs() - HALF_ULP[dtype] * y32.abs()).max())
         ok = excess <= 1e-5
-        tol = ("y within 2**-8 |y| + 1e-5 of the plain fp32 y (rounding to bf16, "
-               "then fp32 row stats in another order)")
+        tol = (f"y within {HALF_ULP[dtype]} |y| + 1e-5 of the plain fp32 y (rounding to "
+               f"{dtype}, then fp32 row stats in another order)")
     else:
         ulps = None
         ok, tol = err <= 1e-5, "1e-5 abs (fp32 row stats summed in another order)"
@@ -361,7 +391,7 @@ def check_layer_norm(dev, R, dtype, mode="ln_affine", H=768, path="fast", misali
                 lambda: _ln_library(x, wl, bl, eps, rms))
     return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
             "path": path, "misaligned": misaligned,
-            "max_abs_err": err, "bf16_ulps": ulps, "band_excess": excess,
+            "max_abs_err": err, "ulps": ulps, "band_excess": excess,
             "stats_err": stat_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
 
@@ -396,6 +426,49 @@ def layer_norm_kernels(dev, results, lib):
             results[("ln_bwd", dtype, mode, H, misaligned)] = r
             emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
     emit({"phase": "kernel", "kernel": "layer_norm_plan", **check_ln_plan(lib)})
+
+
+#: the fp16 flash cases (the amp train step's kernels): GPT-124M's shape
+#: with SDPA's fp16 time, its other head widths, a GQA case, and the
+#: other instantiations at B = 2
+FLASH_FP16_CASES = (
+    ("gpt124", torch.float16, {"library": True}),
+    ("gpt124_d32", torch.float16, {"D": 32, "library": True}),
+    ("gpt124_d128", torch.float16, {"D": 128, "library": True}),
+    ("gqa", torch.float16, {"Hkv": 4}),
+    *((f"d{D}", torch.float16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
+)
+
+
+def fp16_kernels(dev, results):
+    """The float16 instantiations of the LayerNorm and flash kernels (the
+    amp train step's): LN forward at the decode (8) and train (8192)
+    rows, the backward at 8192, the RMS and non-affine modes and the
+    general path (H = 770, a misaligned view); flash per
+    :data:`FLASH_FP16_CASES`.  Each against its plain version."""
+    fp16 = torch.float16
+    for R in (8, 8192):
+        r = check_layer_norm(dev, R, fp16)
+        results[("ln", R, fp16)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+    r = check_layer_norm_bwd(dev, fp16)
+    results[("ln_bwd", fp16)] = r
+    emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    ln_cases = [(mode, 768, "fast", False) for mode in ("rms_affine", "rms", "ln")]
+    ln_cases += [("ln_affine", 770, "general", False), ("ln_affine", 768, "general", True)]
+    for mode, H, path, misaligned in ln_cases:
+        kw = {"H": H, "path": path, "misaligned": misaligned}
+        r = check_layer_norm(dev, 8192, fp16, mode, **kw)
+        results[("ln", 8192, fp16, mode, H, misaligned)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+        r = check_layer_norm_bwd(dev, fp16, mode, **kw)
+        results[("ln_bwd", fp16, mode, H, misaligned)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    for case, dtype, kw in FLASH_FP16_CASES:
+        r = check_flash(dev, dtype, case, **kw)
+        results[("flash", case, dtype)] = r
+        for name in ("fwd", "dq", "dkv"):
+            emit({"phase": "kernel", **r[name]})
 
 
 def check_decode_attention(dev, h_kv, dtype, H=12, D=64):
@@ -571,20 +644,23 @@ def check_decode_plan(lib):
 
 
 def check_flash_plan(lib):
-    """The bf16 backward's shared memory as ``bwd_launch_plan`` states it
-    (the Python plan the CPU tests check) against ``apex_flash_smem``,
-    which the launches use, at every head dim: equal."""
+    """The bf16 and fp16 backward's shared memory as ``bwd_launch_plan``
+    states it (the Python plan the CPU tests check) against
+    ``apex_flash_smem``, which the launches use, at every head dim:
+    equal."""
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.flash_attention import bwd_launch_plan
 
     n = 0
     for which in (1, 2):
         for D in range(16, 129, 16):
-            got = lib.apex_flash_smem(which, D, 1)
-            want = bwd_launch_plan(which, 1024, 1024, D, True).smem_bytes
-            if got != want:
-                raise AssertionError(f"flash backward plan which={which} D={D}: C {got} B, "
-                                     f"Python {want} B")
-            n += 1
+            for dtype in (torch.bfloat16, torch.float16):
+                got = lib.apex_flash_smem(which, D, _build.DTYPE_CODES[dtype])
+                want = bwd_launch_plan(which, 1024, 1024, D, True).smem_bytes
+                if got != want:
+                    raise AssertionError(f"flash backward plan which={which} D={D} {dtype}: "
+                                         f"C {got} B, Python {want} B")
+                n += 1
     return {"plans_checked": n}
 
 
@@ -660,19 +736,20 @@ LN_PLAN_WIDTHS = (8, 12, 16, 24, 96, 100, 256, 512, 764, 768, 770, 1000, 1024, 1
 def check_ln_plan(lib):
     """``ln_plan`` (the Python statement the CPU tests check) against
     ``apex_layer_norm_plan``, what the launches use, at R in {1, 7, 8,
-    40, 64, 8192}, every width of ``LN_PLAN_WIDTHS``, both dtypes,
+    40, 64, 8192}, every width of ``LN_PLAN_WIDTHS``, the three dtypes,
     aligned or not: equal, field for field."""
     import ctypes
 
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.layer_norm import LnPlan, ln_plan
 
     got = (ctypes.c_int64 * len(LnPlan._fields))()
     n = 0
     for R in (1, 7, 8, 40, 64, 8192):
         for H in LN_PLAN_WIDTHS:
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in _build.DTYPE_CODES:
                 for aligned in (True, False):
-                    rc = lib.apex_layer_norm_plan(R, H, int(dtype == torch.bfloat16),
+                    rc = lib.apex_layer_norm_plan(R, H, _build.DTYPE_CODES[dtype],
                                                   int(aligned), ctypes.addressof(got))
                     want = tuple(ln_plan(R, H, dtype, aligned))
                     if rc or tuple(got) != want:
@@ -782,11 +859,13 @@ def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768, path="fast
     dx32 = layer_norm_bwd_plain(x.float(), w, dy.float(), mean, rstd, rms, with_bias)[0]
     torch.cuda.synchronize()
     dx_err = float((dx.float() - pdx.float()).abs().max())
-    # dx against the plain fp32 value: the final rounding (half a bf16
-    # ulp, 2**-8 relative) plus the fp32 band, 1e-5 abs (the row sums in
-    # another order; dx = (gw - m1 - xhat * m2) * rstd cancels, so an
-    # ulp count of the rounded values is no measure)
-    dx_excess = float(((dx.float() - dx32).abs() - 2.0 ** -8 * dx32.abs()).max())
+    # dx against the plain fp32 value: the final rounding (half an ulp:
+    # 2**-8 relative for bf16, 2**-11 for fp16, 0 for fp32) plus the fp32
+    # band, 1e-5 abs (the row sums in another order; dx = (gw - m1 - xhat
+    # * m2) * rstd cancels, so an ulp count of the rounded values is no
+    # measure)
+    half_ulp = HALF_ULP.get(dtype, 2.0 ** -8)
+    dx_excess = float(((dx.float() - dx32).abs() - half_ulp * dx32.abs()).max())
     # fp32 column sums over R rows in another order: bounded by a few
     # ulps of the sum of the terms' magnitudes
     xhat = (x.float() - mean[:, None]) * rstd[:, None]
@@ -798,9 +877,9 @@ def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768, path="fast
             raise AssertionError(f"layer_norm_bwd {mode}: dw/db presence differs")
         if got is not None:
             sum_err = max(sum_err, float(((got - want).abs() / scale).max()))
-    ulps = bf16_ulps(dx, pdx) if dtype == torch.bfloat16 else None
-    tol = ("dx within 2**-8 |dx| + 1e-5 of the plain fp32 dx (rounding to x's dtype, "
-           "then fp32 row sums in another order); dw, db within 1e-5 of the sum "
+    ulps = ulps16(dx, pdx) if dtype != torch.float32 else None
+    tol = (f"dx within {half_ulp} |dx| + 1e-5 of the plain fp32 dx (rounding to x's "
+           "dtype, then fp32 row sums in another order); dw, db within 1e-5 of the sum "
            "of |terms| (fp32 column sums in another order)")
     if dx_excess > 1e-5 or sum_err > 1e-5:
         raise AssertionError(f"layer_norm_bwd {mode} {dtype}: dx err {dx_err} ulps {ulps}, "
@@ -818,7 +897,7 @@ def check_layer_norm_bwd(dev, dtype, mode="ln_affine", R=8192, H=768, path="fast
                 lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True))
     return {"mode": mode, "R": R, "H": H, "dtype": str(dtype).replace("torch.", ""),
             "path": path, "misaligned": misaligned,
-            "max_abs_err": dx_err, "bf16_ulps": ulps, "dx_band_excess": dx_excess,
+            "max_abs_err": dx_err, "ulps": ulps, "dx_band_excess": dx_excess,
             "dw_db_rel_err": sum_err,
             "tolerance": tol, "bound_ms": bms, "bound_by": by, **t}
 
@@ -881,6 +960,12 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
         why = ("max |kernel - plain| / max |plain| for out, dq, dk, dv: the kernel "
                "rounds p and ds to bf16 before its dots (as the Pallas kernels do), "
                "the plain version is fp32 throughout; lse abs (fp32 in both)")
+    elif dtype == torch.float16:
+        tol = FLASH_TOL_FP16
+        why = ("max |kernel - plain| / max |plain| for out, dq, dk, dv: the kernel "
+               "rounds p and ds to fp16 before its dots, the plain version (the "
+               "reference's fp16 path, the fp32 scan) is fp32 throughout; the bf16 "
+               "band times 2**-3; lse abs (fp32 in both)")
     else:
         tol = FLASH_TOL_FP32
         why = ("max |kernel - plain| / max |plain|: fp32 throughout, sums in "
@@ -891,7 +976,7 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
                              f"(finite={finite})")
     e, pairs = q.element_size(), causal_pairs(S, Sk, causal, q_offset, k_offset)
     BH, BKV = B * H, B * Hkv
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16  # fp16: the same peak
     qb, kb, rb = BH * S * D * e, BKV * Sk * D * e, BH * S * 4
     biasb = 0 if bias is None else B * Sk * 4
     bounds = {"fwd": bound(2 * qb + 2 * kb + rb + biasb, 4 * D * pairs * BH, peak),
@@ -1557,7 +1642,7 @@ def other_optimizers(dev, steps=5):
         f32 = [(a, b) for a, b in zip(card, cpu) if a.dtype == torch.float32]
         half = [(a, b) for a, b in zip(card, cpu) if a.dtype == torch.bfloat16]
         err = max(float((a - b).abs().max()) for a, b in f32)
-        ulps = max((bf16_ulps(a, b) for a, b in half), default=0)
+        ulps = max((ulps16(a, b) for a, b in half), default=0)
         ok = all(torch.allclose(a, b, **OTHER_OPTS_TOL) for a, b in f32) and ulps <= 1
         out[name] = {"bitwise_equal": bitwise, "max_abs_err_fp32": err,
                      "max_bf16_ulps": ulps if half else None, "within_band": ok}
@@ -2245,7 +2330,7 @@ FCE_LOSS_TOL = 1e-5
 TRAIN_AB_TOL = 1e-5
 
 
-def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
+def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False, fp16=False):
     """bench.py's GPT-124M step through ``train_gpt.run`` at its defaults:
     the dense head (``gpt124_s1024``) or, with ``fused``, ``--fused-ce``
     (``gpt124_s1024_fce``), whose warm-up loss is held against the dense
@@ -2253,13 +2338,18 @@ def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
     after the warm-up) or with ``eager`` its ``--eager`` twin.  FusedAdam
     runs on the engine (one ``mt_adam`` call a step, ``mt_plan``'s
     launches) or, with ``per_leaf``, on its per-leaf path
-    (``use_buckets=False``: no ``mt_adam`` launch)."""
+    (``use_buckets=False``: no ``mt_adam`` launch).  With ``fp16``,
+    ``--fp16`` (``pretrain_gpt.py --fp16``'s single-device step: fp16
+    compute, the fp16 LayerNorm and flash kernels, the 2**12 loss scale,
+    ``update_scaled``'s ``mt_scale`` pass a step), its numbers beside the
+    bf16 step's ``dense_report``: every step finite at the scale 2**12."""
     from apex_tpu_torch import train_gpt
     from apex_tpu_torch.ops.multi_tensor import mt_plan
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.optimizers.tree import tree_leaves
 
-    argv = (["--fused-ce"] if fused else []) + (["--eager"] if eager else [])
+    argv = ((["--fused-ce"] if fused else []) + (["--eager"] if eager else [])
+            + (["--fp16"] if fp16 else []))
     args = train_gpt.build_args().parse_args(argv)
     opt = (FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY, use_buckets=False)
            if per_leaf else None)
@@ -2274,7 +2364,8 @@ def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
                 "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
                 "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused),
                 "mt_adam": 0 if per_leaf else mt_plan("adam", sizes).launches,
-                "mt_scale": 0, "mt_l2norm": 0}
+                "mt_scale": mt_plan("scale", sizes).launches if fp16 else 0,
+                "mt_l2norm": 0}
     expect = {**{k: v * n for k, v in per_step.items()},
               "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
               "fused_sample": 0}
@@ -2286,6 +2377,14 @@ def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
     if report["graphs"] is eager:
         raise AssertionError(f"train eager={eager}: the report says graphs={report['graphs']}")
     extra = {}
+    if fp16:
+        if report["loss_scale"] != [train_gpt.FP16_INIT_SCALE] * n or report["skipped_steps"]:
+            raise AssertionError(f"train_fp16: scales {report['loss_scale']}, skipped "
+                                 f"{report['skipped_steps']}: every step must be finite "
+                                 f"at 2**12")
+        extra = {k: {"bf16": dense_report[m], "fp16": report[m]} for k, m in (
+            ("ab_step_ms_median", "step_ms_median"), ("ab_tokens_per_sec", "tokens_per_sec"),
+            ("ab_peak_memory_gb", "peak_memory_gb"))}
     if fused:
         dense = dense_report["losses"][0]
         rel = abs(losses[0] - dense) / abs(dense)
@@ -2306,11 +2405,106 @@ def train_phase(fused=False, dense_report=None, eager=False, per_leaf=False):
                                        "fused_ce": report["tokens_per_sec"]},
                  "ab_peak_memory_gb": {"dense": dense_report["peak_memory_gb"],
                                        "fused_ce": report["peak_memory_gb"]}}
-    emit({"phase": ("train_fce" if fused else "train") + ("_eager" if eager else "")
-          + ("_per_leaf" if per_leaf else ""),
+    emit({"phase": ("train_fce" if fused else "train") + ("_fp16" if fp16 else "")
+          + ("_eager" if eager else "") + ("_per_leaf" if per_leaf else ""),
           **report, "steps_counted": n, "launches_per_step": per_step, "launches": counts,
           **extra, "seconds": time.monotonic() - t0})
     return args, counts, report
+
+
+#: the amp_overflow phase's scaler: 2**127 overflows the first step's
+#: fp16 backward, and one backoff to 2**12, the trainer's scale, makes the
+#: next steps finite (2**127 times 2**-4, the flagship test's backoff,
+#: would overflow the fp16 backward again for some 28 steps)
+OVERFLOW_SCALER = {"init_scale": 2.0 ** 127, "backoff_factor": 2.0 ** -115}
+
+
+def amp_overflow_phase():
+    """``train_gpt --fp16 --step-guard 3`` at GPT-124M, the step compiled,
+    with the scaler at 2**127: the first step (the eager warm-up that
+    captures) overflows in the fp16 backward and must leave every param
+    and the whole optimizer state bitwise as they were, the Adam counter
+    included, and back the scale off; the next two (graph replays) are
+    finite.  The guard goes consecutive_bad 1 -> 0, total_skipped 1, and
+    its host-side check passes."""
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.amp import DynamicLossScaler
+    from apex_tpu_torch.graphs import tensor_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import StepGuard
+
+    t0 = time.monotonic()
+    args = train_gpt.build_args().parse_args(["--fp16", "--step-guard", "3"])
+    config, params, tokens, targets = train_gpt.setup(args)
+    opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+    scaler, guard = DynamicLossScaler(**OVERFLOW_SCALER), StepGuard(args.step_guard)
+    state, sstate, gstate = opt.init(params), scaler.init(), guard.init()
+    for leaf in tensor_leaves(params):
+        leaf.requires_grad_(True)
+    step = train_gpt.make_train_step(opt, config, loss_scaler=scaler, step_guard=guard)
+    # detached: a clone recorded by autograd would keep the leaves' grad
+    # accumulators on this stream alive and break the capture
+    before = [t.detach().clone() for t in tensor_leaves((params, state))]
+    rows = []
+    for i in range(3):
+        loss = float(step(params, state, sstate, gstate, tokens, targets))
+        torch.cuda.synchronize()
+        rows.append({"loss": loss, "loss_scale": float(sstate.loss_scale),
+                     "adam_step": int(state.step), **guard.state_dict(gstate)})
+        if i == 0:
+            unchanged = all(torch.equal(a, b) for a, b in zip(
+                tensor_leaves((params, state)), before, strict=True))
+    del before
+    guard.check(gstate)
+    want_scales = [2.0 ** 12] * 3
+    ok = (unchanged and [r["loss_scale"] for r in rows] == want_scales
+          and [r["adam_step"] for r in rows] == [0, 1, 2]
+          and [r["consecutive_bad"] for r in rows] == [1, 0, 0]
+          and rows[-1]["total_skipped"] == 1 and rows[-1]["step"] == 3
+          and all(math.isfinite(r["loss"]) for r in rows[1:]) and step.graph is not None)
+    emit({"phase": "amp_overflow", "scaler": OVERFLOW_SCALER, "guard_budget": 3,
+          "skipped_step_params_and_state_bitwise_unchanged": unchanged, "steps": rows,
+          "graphs": step.graph is not None, "seconds": time.monotonic() - t0})
+    if not ok:
+        raise AssertionError(f"amp_overflow: unchanged={unchanged}, steps {rows}")
+
+
+#: fp16 train parity bands (relative): the warm-up loss (the forward and
+#: the loss only: the kernels round p and the matmuls round their
+#: outputs to fp16, 2**-11 each, where the CPU's plain versions keep
+#: fp32) and the losses after Adam steps (which carry the gradients'
+#: fp16 roundings, ds and p rounded in the kernels, into the params)
+TRAIN_FP16_PARITY_TOL = {"warmup_loss": 2e-3, "losses": 1e-2}
+
+
+def train_fp16_parity_phase():
+    """``train_gpt --fp16`` at a small size (2 layers, hidden 256, 4
+    heads, vocab 512, seq 128, batch 2; 1 warm-up and 3 steps) on the
+    card (the fp16 kernels, compiled) against the CPU (the plain
+    versions), from the same numpy params: losses in the bands of
+    :data:`TRAIN_FP16_PARITY_TOL`, the scales and skipped steps equal."""
+    from apex_tpu_torch import train_gpt
+
+    t0 = time.monotonic()
+    base = ["--fp16", "--layers", "2", "--hidden", "256", "--heads", "4", "--vocab", "512",
+            "--seq", "128", "--batch", "2", "--steps", "3"]
+    out = {dev: train_gpt.run(train_gpt.build_args().parse_args(base + ["--device", dev]))[0]
+           for dev in ("cuda", "cpu")}
+    card, cpu = out["cuda"], out["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"], strict=True)]
+    emit({"phase": "train_parity_fp16", "argv": base, "losses_cuda": card["losses"],
+          "losses_cpu": cpu["losses"], "loss_rel_err": rel,
+          "loss_scale_cuda": card["loss_scale"], "loss_scale_cpu": cpu["loss_scale"],
+          "skipped_steps": [card["skipped_steps"], cpu["skipped_steps"]],
+          "graphs": card["graphs"], "tolerance": TRAIN_FP16_PARITY_TOL,
+          "seconds": time.monotonic() - t0})
+    if (rel[0] > TRAIN_FP16_PARITY_TOL["warmup_loss"]
+            or max(rel) > TRAIN_FP16_PARITY_TOL["losses"]
+            or card["loss_scale"] != cpu["loss_scale"]
+            or card["skipped_steps"] != cpu["skipped_steps"] or not card["graphs"]):
+        raise AssertionError(f"train_parity_fp16: losses {card['losses']} vs "
+                             f"{cpu['losses']} (rel {rel}), scales {card['loss_scale']} "
+                             f"vs {cpu['loss_scale']}")
 
 
 def _train_summary(report):
@@ -2326,6 +2520,9 @@ def train_ab(cell, graphed, eager):
     (cuBLAS may pick another algorithm under capture); which held is
     printed."""
     gl, el = graphed["losses"], eager["losses"]
+    if graphed.get("loss_scale") != eager.get("loss_scale"):
+        raise AssertionError(f"{cell}: graphed scales {graphed['loss_scale']} != eager "
+                             f"{eager['loss_scale']}")
     bitwise = gl == el
     rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el, strict=True))
     emit({"phase": "graphs_ab", "cell": cell, "losses_bitwise_equal": bitwise,
@@ -2875,6 +3072,7 @@ def main():
         results[("flash", case, dtype)] = r
         for name in ("fwd", "dq", "dkv"):
             emit({"phase": "kernel", **r[name]})
+    fp16_kernels(dev, results)
     mt_kernels(dev, results, _build.load())
     lap("kernels")
     amp_counts = optimizers_phase(dev)
@@ -2911,6 +3109,12 @@ def main():
     optimizer_ab("train_fce", fused,
                  train_phase(fused=True, dense_report=dense, per_leaf=True)[2])
     lap("train_fce")
+    _, fp16_counts, fp16 = train_phase(fp16=True, dense_report=dense)
+    train_ab("train_fp16", fp16, train_phase(fp16=True, dense_report=dense_eager,
+                                             eager=True)[2])
+    lap("train_fp16")
+    amp_overflow_phase()
+    lap("amp_overflow")
     train_reproducible_phase(dev)
     lap("train_reproducible")
     flash_grad_parity_phase(dev)
@@ -2920,6 +3124,7 @@ def main():
     norm_modules_phase(dev)
     lap("norm_modules")
     train_parity_phase()
+    train_fp16_parity_phase()
     lap("train_parity")
     train_profile_phase(train_args, dense["step_ms_median"])
     train_profile_phase(train_args, dense_eager["step_ms_median"], eager=True)
@@ -2965,19 +3170,37 @@ def main():
          "apex_tpu/ops/multi_tensor.py:59 (XLA fusion)", results[("mt_scale", "unscale")]),
         ("mt_l2norm", "apex_tpu_torch/csrc/multi_tensor.cu",
          "apex_tpu/ops/multi_tensor.py:90 (XLA fusion)", results[("mt_l2norm", "gpt124")]),
+        # the fp16 instantiations (the amp train step's); the reference runs
+        # XLA composites at fp16 (the jnp LayerNorm, the flash scan)
+        ("layer_norm_fwd_fp16", "apex_tpu_torch/csrc/layer_norm.cu",
+         "apex_tpu/ops/layer_norm_pallas.py:39", results[("ln", 8192, torch.float16)]),
+        ("layer_norm_bwd_fp16", "apex_tpu_torch/csrc/layer_norm.cu",
+         "apex_tpu/ops/layer_norm_pallas.py:108", results[("ln_bwd", torch.float16)]),
+        ("flash_fwd_fp16", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:145",
+         results[("flash", "gpt124", torch.float16)]["fwd"]),
+        ("flash_dq_fp16", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:339",
+         results[("flash", "gpt124", torch.float16)]["dq"]),
+        ("flash_dkv_fp16", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:394",
+         results[("flash", "gpt124", torch.float16)]["dkv"]),
     )
     # launches: the serve phase's for the serving kernels, the serve_v2
     # phase's for the width > 1 layout, the train phase's for the
     # training kernels, the train_fce phase's for the CE kernels
     # (LayerNorm forward and sampling run in several; their lines keep
     # the serve phase's counts); mt_adam the train phase's, mt_scale and
-    # mt_l2norm the optimizers phase's amp steps
+    # mt_l2norm the optimizers phase's amp steps; the fp16 instantiations
+    # the train_fp16 phase's
     launches = {**train_counts, **amp_counts, "mt_adam": train_counts["mt_adam"],
                 **{k: counts[k] for k in
                                    ("layer_norm_fwd", "paged_decode_attention",
                                     "fused_sample")},
                 "paged_decode_attention_wide": v2_counts["paged_decode_attention_wide"],
-                **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")}}
+                **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")},
+                **{f"{k}_fp16": fp16_counts[k] for k in (
+                    "layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq", "flash_dkv")}}
     unlaunched = [name for name, *_ in main_path if not launches[name]]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")

@@ -4,8 +4,9 @@ these tests hold what a capture relies on:
 
 - no step body reads a device value on the host: each of the decode,
   verify, prefill, chunk and head steps, the dense and fused-CE train
-  steps, and each optimizer's engine update (tree and resident state,
-  clip, ``update_scaled``), runs under a dispatch mode that raises on
+  steps, the amp train steps (loss scaler, step guard, folded clip, in
+  fp32 and fp16), and each optimizer's engine update (tree and resident
+  state, clip, ``update_scaled``), runs under a dispatch mode that raises on
   ``aten._local_scalar_dense``, ``aten.item`` and ``aten.nonzero``
   (what ``int(t)``, ``bool(t)`` and data-dependent shapes dispatch to;
   a capture cannot hold them), with a control that must raise;
@@ -17,7 +18,8 @@ these tests hold what a capture relies on:
   sampled tokens bitwise;
 - the static-buffer path (a compiled step on the CPU) equal to a direct
   call of the plain step, bitwise, over several calls with changing
-  inputs, for every serving step and both train steps;
+  inputs, for every serving step, both train steps and the amp train
+  steps (the scaler and guard states too);
 - the launch-count bookkeeping of a capture, driven by a stand-in;
 - a compiled step given other pools, params or shapes raises;
 - the CLIs' ``--eager`` runs equal their compiled runs.
@@ -41,6 +43,7 @@ from apex_tpu.inference import (
 from apex_tpu.models import gpt as jgpt
 
 from apex_tpu_torch import graphs, ops, serve_gpt, train_gpt
+from apex_tpu_torch.amp import DynamicLossScaler
 from apex_tpu_torch.graphs import CapturedStep, add_counts, capture_counted, tensor_leaves
 from apex_tpu_torch.inference import (
     DecodeConfig, KVCacheConfig, alloc_pools, make_decode_step,
@@ -48,6 +51,7 @@ from apex_tpu_torch.inference import (
 )
 from apex_tpu_torch.models import gpt as tgpt
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.resilience import StepGuard
 
 TINY = dict(vocab_size=61, hidden_size=32, num_layers=2, num_attention_heads=4,
             max_seq_len=64, position_embedding_type="rope", checkpoint_layers=False)
@@ -135,8 +139,35 @@ def _call(step, name, params, pools, args):
     return step(params, *args) if name == "head" else step(params, pools, *args)
 
 
-def _train_setup(fused):
-    args = train_gpt.build_args().parse_args(TRAIN_ARGV + (FUSED_ARGV if fused else []))
+#: the amp train step's variants: make_train_step's keywords
+AMP_VARIANTS = {
+    "scaler": dict(loss_scaler=True),
+    "scaler_guard_clip": dict(loss_scaler=True, step_guard=True, clip_grad_norm=0.5),
+    "guard": dict(step_guard=True),
+    "clip": dict(clip_grad_norm=0.5),
+}
+
+
+def _amp_step(variant, graphs_opt=None, fp16=False):
+    """``(step, params, state, small states, tokens, targets)`` of an amp
+    variant of the train step at TRAIN_ARGV's shape (fp16 compute with
+    ``fp16``)."""
+    config, params, state, opt, tokens, targets = _train_setup(False, fp16)
+    kw = dict(AMP_VARIANTS[variant])
+    small = []
+    if kw.get("loss_scaler"):
+        kw["loss_scaler"] = DynamicLossScaler(init_scale=2.0 ** 12, growth_interval=2)
+        small.append(kw["loss_scaler"].init("cpu"))
+    if kw.get("step_guard"):
+        kw["step_guard"] = StepGuard(3)
+        small.append(kw["step_guard"].init("cpu"))
+    step = train_gpt.make_train_step(opt, config, graphs=graphs_opt, **kw)
+    return step, params, state, small, tokens, targets
+
+
+def _train_setup(fused, fp16=False):
+    args = train_gpt.build_args().parse_args(TRAIN_ARGV + (FUSED_ARGV if fused else [])
+                                             + (["--fp16"] if fp16 else []))
     config, params, tokens, targets = train_gpt.setup(args)
     opt = FusedAdam(lr=1e-3, weight_decay=0.1)
     for leaf in tensor_leaves(params):
@@ -175,6 +206,17 @@ def test_train_step_body_reads_nothing_on_the_host(fused):
     step = train_gpt.make_train_step(opt, config)
     with NoHostReads():
         step(params, state, tokens, targets)
+
+
+@pytest.mark.parametrize("fp16", [False, True], ids=["fp32", "fp16"])
+@pytest.mark.parametrize("variant", sorted(AMP_VARIANTS))
+def test_amp_train_step_body_reads_nothing_on_the_host(variant, fp16):
+    """The scaled loss and its gradients, the fused unscale, vote and
+    predicated update, the scaler's and the guard's branch-free updates
+    and the in-place write-back of every state."""
+    step, params, state, small, tokens, targets = _amp_step(variant, fp16=fp16)
+    with NoHostReads():
+        step(params, state, *small, tokens, targets)
 
 
 @pytest.mark.parametrize("resident", [False, True], ids=["tree_state", "resident"])
@@ -288,6 +330,24 @@ def test_static_buffer_train_step_equals_direct_call(fused):
                                torch.roll(targets, i, 1)).clone())
         assert int(state.step) == 3
         runs.append((losses, tensor_leaves((params, state))))
+    (lc, sc), (lp, sp) = runs
+    assert all(torch.equal(a, b) for a, b in zip(lc, lp, strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(sc, sp, strict=True))
+
+
+@pytest.mark.parametrize("variant", sorted(AMP_VARIANTS))
+def test_static_buffer_amp_train_step_equals_direct_call(variant):
+    """Three steps of each amp variant on changing batches: losses, params,
+    the optimizer state and the scaler and guard states bitwise equal to
+    the plain step's."""
+    runs = []
+    for graphs_opt in (None, False):
+        step, params, state, small, tokens, targets = _amp_step(variant, graphs_opt)
+        assert isinstance(step, CapturedStep) == (graphs_opt is None)
+        losses = [step(params, state, *small, torch.roll(tokens, i, 1),
+                       torch.roll(targets, i, 1)).clone() for i in range(3)]
+        assert int(state.step) == 3
+        runs.append((losses, tensor_leaves((params, state, *small))))
     (lc, sc), (lp, sp) = runs
     assert all(torch.equal(a, b) for a, b in zip(lc, lp, strict=True))
     assert all(torch.equal(a, b) for a, b in zip(sc, sp, strict=True))

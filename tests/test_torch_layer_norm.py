@@ -406,11 +406,11 @@ _CSRC = Path(L.__file__).resolve().parents[1] / "csrc" / "layer_norm.cu"
 PLAN_WIDTHS = (8, 12, 16, 24, 96, 100, 256, 512, 764, 768, 770, 1000, 1024, 1028, 1536,
                2048, 2052, 3072, 4096, 4100, 5120, 6144, 8192, 8200, 10240, 12032)
 PLAN_ROWS = (1, 7, 8, 40, 64, 8192, 8193)
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _vector_values(dtype):
-    return 8 if dtype == torch.bfloat16 else 4
+    return 16 // dtype.itemsize
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -496,7 +496,7 @@ def test_ln_plan_misaligned_or_ragged_widths_take_the_general_path(dtype):
         assert not general.fast and general.fwd_rows_block == 1 and general.vectors_lane == 0
         assert general.fwd_blocks == 64 and general.bwd_rows_block == 32
     with pytest.raises(ValueError, match="no plan"):
-        L.ln_plan(8, 768, torch.float16, True)
+        L.ln_plan(8, 768, torch.float64, True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
