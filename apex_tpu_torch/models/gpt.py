@@ -186,6 +186,58 @@ def params_from_numpy(tree, config: GPTConfig, device="cuda",
     return out
 
 
+def _field(node, name: str, index: int):
+    """A NamedTuple's field (the JAX ``AdamState`` or the port's), or a
+    dict's key."""
+    return node[name] if isinstance(node, dict) else node[index]
+
+
+def _host_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(a, np.float32)
+
+
+def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=None):
+    """The JAX trainer's checkpoint tree as the port's train state.
+
+    ``tree`` is what ``examples/gpt/pretrain_gpt.py`` saves (``ckpt_tree``)
+    read back as numpy arrays or CPU tensors: ``{"params", "state":
+    AdamState(step, exp_avg, exp_avg_sq, master), "step", "scaler"}``,
+    every tree per leaf in the JAX layout.  Returns ``(params, state,
+    scaler_state, step)``: the fp32 params on ``device`` (the tree JAX
+    trains, :func:`params_from_numpy` with ``keep_fp32``), a FusedAdam
+    ``AdamState`` holding the moments and master in the same layout, the
+    scaler's state through ``loss_scaler.load_state_dict`` (None without
+    a ``loss_scaler``; raises if the tree has none to load), and the
+    step count as an int."""
+    from apex_tpu_torch.optimizers.fused_adam import AdamState
+    from apex_tpu_torch.optimizers.tree import tree_map
+
+    dev = resolve_device(device)
+    params = params_from_numpy(tree_map(_host_f32, tree["params"]), config, dev,
+                               keep_fp32=True)
+
+    def like_params(t):
+        return None if t is None else params_from_numpy(tree_map(_host_f32, t), config, dev,
+                                                        keep_fp32=True)
+
+    st = tree["state"]
+    state = AdamState(
+        step=torch.as_tensor(np.asarray(_field(st, "step", 0)), device=dev).to(torch.int32),
+        exp_avg=like_params(_field(st, "exp_avg", 1)),
+        exp_avg_sq=like_params(_field(st, "exp_avg_sq", 2)),
+        master=like_params(_field(st, "master", 3)))
+    scaler_state = None
+    if loss_scaler is not None:
+        if tree.get("scaler") is None:
+            raise ValueError("the checkpoint has no loss-scaler state (saved by a run "
+                             "without --fp16)")
+        scaler_state = loss_scaler.load_state_dict(
+            {k: np.asarray(v).item() for k, v in tree["scaler"].items()}, dev)
+    return params, state, scaler_state, int(np.asarray(tree["step"]))
+
+
 def init_params(config: GPTConfig, seed: int = 0, device="cuda",
                 keep_fp32: bool = False) -> Dict[str, Any]:
     """Random params from a numpy seed, loaded as :func:`params_from_numpy`

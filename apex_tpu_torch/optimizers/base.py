@@ -29,15 +29,18 @@ two agree bitwise wherever the JAX package pins it (Adam, SGD, Adagrad).
 
 The port routes straight to one path or the other and never degrades
 from the engine to the per-leaf path: the JAX package's
-``resilience.fallback`` registry has no counterpart here, and neither
-has its ``observability.stepstats`` seam (the grad-norm telemetry,
-which comes with the host runtime).
+``resilience.fallback`` registry has no counterpart here.  Both paths
+offer the step's grad norm to the telemetry seam
+(:mod:`apex_tpu_torch.observability.stepstats`): the clip's global norm
+when there is a clip, else one ``mt_l2norm`` pass over the grads, only
+while a telemetry wrapper captures.
 """
 
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch.observability import stepstats as _stepstats
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers import bucketing
 from apex_tpu_torch.optimizers.tree import leaves_with_path, tree_leaves, tree_map, tree_unflatten
@@ -225,7 +228,11 @@ def prepare_grads_bucketed(params, grads, scale=None, clip_norm=None, finite_syn
         total_sq, per = mt.mt_l2norm(leaves)
         if sumsq_reduce is not None:
             total_sq = sumsq_reduce(list(per.unbind(0)))
+        # the telemetry seam reuses the clip's (agreed) norm
+        _stepstats.offer("grad_norm", torch.sqrt(total_sq))
         coef = _clip_coef(torch.sqrt(total_sq), clip_norm)
+    else:
+        _stepstats.offer_local_grad_norm(leaves)
     return PreparedGrads(plan=plan, leaves=tuple(leaves), g=g, finite=finite, coef=coef)
 
 
@@ -295,8 +302,11 @@ class OptimizerBase:
         if clip_norm is not None:
             sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(g)]
             total_sq = torch.stack(sq).sum() if sumsq_reduce is None else sumsq_reduce(sq)
+            _stepstats.offer("grad_norm", torch.sqrt(total_sq))
             coef = _clip_coef(torch.sqrt(total_sq), clip_norm)
             g = tree_map(lambda x: x.to(torch.float32) * coef, g)
+        else:
+            _stepstats.offer_local_grad_norm(tree_leaves(g))
         p, s = self._leaf_update(g, state, params, grads_finite=finite, lr=lr, **kw)
         return p, s, finite
 

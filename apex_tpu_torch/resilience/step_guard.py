@@ -14,11 +14,9 @@ them that notices when bad steps stop being transient:
   ``max_consecutive_bad`` consecutive bad steps it raises
   :class:`BadStepBudgetExceeded`, so that the loop can stop and resume
   from its last checkpoint instead of skipping every step of a diverged
-  run.
-
-The JAX module's ``check`` also counts the abort in its metrics registry
-and dumps the flight recorder; the port has neither yet (they come with
-the host runtime) and leaves both out.
+  run.  Before it raises, ``check`` counts the abort
+  (``apex_bad_step_budget_aborts_total``) and dumps the installed flight
+  recorder (``"step_guard_abort"``), as the JAX module does.
 """
 
 from typing import NamedTuple, Optional
@@ -26,6 +24,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.observability import flightrec as _flightrec
+from apex_tpu_torch.observability import metrics as _metrics
 
 __all__ = ["GuardState", "StepGuard", "BadStepBudgetExceeded"]
 
@@ -81,6 +81,14 @@ class StepGuard:
         state.  It reads the state, so call it where the loop already
         synchronizes, never inside a captured step."""
         if int(state.consecutive_bad) >= self.max_consecutive_bad:
+            _metrics.inc("apex_bad_step_budget_aborts_total",
+                         help="runs aborted on the consecutive-bad budget")
+            # forensics BEFORE the raise: the abort unwinds to an exit,
+            # and the dump is what names the divergence ramp (a no-op
+            # without an installed recorder)
+            _flightrec.dump_active(
+                "step_guard_abort", consecutive_bad=int(state.consecutive_bad),
+                total_skipped=int(state.total_skipped), guard_step=int(state.step))
             raise BadStepBudgetExceeded(
                 f"{int(state.consecutive_bad)} consecutive non-finite "
                 f"steps (budget {self.max_consecutive_bad}); "

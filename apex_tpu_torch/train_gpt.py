@@ -66,6 +66,7 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.amp.scaler import DynamicLossScaler, all_finite
 from apex_tpu_torch.graphs import CapturedStep, tensor_leaves
 from apex_tpu_torch.models.gpt import GPTConfig, gpt_loss, init_params, params_from_numpy
+from apex_tpu_torch.observability import stepstats
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.optimizers.base import tree_leaves, tree_unflatten
 from apex_tpu_torch.resilience.step_guard import StepGuard
@@ -185,6 +186,7 @@ def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, param
         grads, finite = loss_scaler.unscale(scaler_state, grads)
         finite = sync_found_inf(finite)
         new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
+    stepstats.offer("all_finite", finite)
     new_scaler = loss_scaler.update(scaler_state, finite)
     if step_guard is None:
         return new_params, new_state, new_scaler
@@ -203,16 +205,23 @@ def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state
     else:
         finite = sync_found_inf(all_finite(grads))
         new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
+    stepstats.offer("all_finite", finite)
     return new_params, new_state, step_guard.update(guard_state, finite)
 
 
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
-                    graphs=None, warmup=1):
+                    graphs=None, warmup=1, telemetry=None):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
-    [guard_state], tokens, targets) -> loss``, a scaler state only with
-    ``loss_scaler`` and a guard state only with ``step_guard``, as the
-    JAX step's variants take them.
+    [guard_state], [stats], tokens, targets) -> loss``, a scaler state
+    only with ``loss_scaler``, a guard state only with ``step_guard`` and
+    a :class:`~apex_tpu_torch.observability.StepStats` window only with
+    ``telemetry`` (a :class:`~apex_tpu_torch.observability.StepTelemetry`),
+    as the JAX step's variants take them.  The window is updated in place
+    (:meth:`StepTelemetry.accumulate_`) from the loss, the grad norm and
+    finite vote the update offers through the capture seam, the new loss
+    scale and the param/update norms; it observes and changes nothing
+    else, so losses and params are bitwise those of the step without it.
 
     The step is the loss (scaled by ``loss_scaler``) and its gradients,
     then the update: :func:`_apply_scaled_update` with a scaler,
@@ -231,9 +240,28 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
                          "subclass): the clip folds into its fused grad pass")
     n_small = int(loss_scaler is not None) + int(step_guard is not None)
+    n_state = n_small + int(telemetry is not None)
 
     def step(params, state, *rest):
-        small, (tokens, targets) = rest[:n_small], rest[n_small:]
+        small, (tokens, targets) = rest[:n_small], rest[n_state:]
+        if telemetry is None:
+            loss, new = body(params, state, small, tokens, targets)
+        else:
+            with stepstats.capture() as cap:
+                loss, new = body(params, state, small, tokens, targets)
+            telemetry.accumulate_(
+                rest[n_small], loss=loss, grad_norm=cap.get("grad_norm"),
+                finite=cap.get("all_finite"),
+                loss_scale=new[2].loss_scale if loss_scaler is not None else None,
+                new_params=new[0], old_params=params)
+        with torch.no_grad():
+            for dst, src in zip(tensor_leaves((params, state, *small)), tensor_leaves(new),
+                                strict=True):
+                dst.copy_(src)
+        return loss
+
+    def body(params, state, small, tokens, targets):
+        """``(loss, (params, state, *small states))`` of one step."""
         scaler_state = small[0] if loss_scaler is not None else None
         guard_state = small[-1] if step_guard is not None else None
         if loss_scaler is not None:
@@ -252,15 +280,11 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                 new = opt.update(grads, state, params, clip_norm=clip_grad_norm)
             else:
                 new = opt.update(grads, state, params)
-        with torch.no_grad():
-            for dst, src in zip(tensor_leaves((params, state, *small)), tensor_leaves(new),
-                                strict=True):
-                dst.copy_(src)
-        return loss
+        return loss, new
 
     if graphs is False:
         return step
-    return CapturedStep(step, donate=range(2 + n_small), warmup=warmup)
+    return CapturedStep(step, donate=range(2 + n_state), warmup=warmup)
 
 
 def run(args, params_tree=None, opt=None, loss_scaler=None, step_guard=None):

@@ -160,6 +160,28 @@ Phases, each printing one JSON line:
     a graph replay and eager, and the dense step with FusedAdam
     per-leaf; ``optimizer_profile``: the update alone on the step's
     grads, device ms by kernel name under both paths.
+15. pretrain: ``apex_tpu_torch.pretrain_gpt`` (the trainer's host
+    runtime) at GPT-124M width, seq 1024, global batch 8, bf16,
+    ``--fused-ce``, graphed, on a uint16 token file of 2**20 tokens from
+    the seed: in this process the full run (8 steps, checkpoints at 4
+    and 8, telemetry every 4, metrics and trace dirs) and the same
+    without telemetry and tracing, bitwise equal; in child processes
+    (``python -m``) a run resumed from ``step_00000004.ckpt``, bitwise
+    equal at steps 5-8, and the SIGTERM runs below; the full run's
+    files (2 metrics windows, each ``loss_mean`` within 1e-6 of its
+    steps' mean; ``metrics.prom``; goodput fractions summing to 1 within
+    1e-6; the trace's spans, ``train.step.dispatch`` 8 times;
+    checkpoints that validate); an ``--auto-resume`` run sent SIGTERM
+    after its ``step 2`` line (saves every 2), which must print
+    ``preempted``, exit 0 with a checkpoint at the step it reached and a
+    flight-recorder dump, and the same command again, resuming there:
+    both bitwise equal to the full run, at most 3 checkpoints kept.  Then
+    7 steps in this process under the profiler: bitwise equal again,
+    launch counts exactly the train_fce step's plus three ``mt_l2norm``
+    calls a step (the grad, param and update norms), and the idle share
+    over the last 4 steps.  Printed beside ``nvidia-smi``: the step
+    median with telemetry on and off, each save's blocking host time,
+    the writer thread's seconds and bytes, the step after a save.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -2965,6 +2987,278 @@ def train_profile_phase(args, step_ms, eager=False, per_leaf=False):
           "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top]})
 
 
+# ----------------------------------------------------------------- pretrain
+#: the pretrain phase's model: the train phase's GPT-124M width, seq
+#: 1024, global batch 8, bf16, the fused CE head, graphed
+PRETRAIN_ARGV = ["--layers", "12", "--hidden", "768", "--heads", "12", "--vocab", "50304",
+                 "--seq", "1024", "--global-batch", "8", "--fused-ce"]
+#: tokens of the phase's uint16 corpus (about 1M, from the seed)
+PRETRAIN_TOKENS = 1 << 20
+
+
+def _pretrain_proc(argv, sigterm_after=None, timeout=300):
+    """``python -m apex_tpu_torch.pretrain_gpt`` in a child process on
+    this card; with ``sigterm_after`` the child gets SIGTERM once it has
+    printed that step's loss line.  Returns ``(returncode, stdout lines,
+    the JSON report)``."""
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.pretrain_gpt", *argv], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, deadline = [], time.monotonic() + timeout
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if sigterm_after is not None and line.startswith(f"step {sigterm_after}:"):
+                proc.send_signal(signal.SIGTERM)
+                sigterm_after = None
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"pretrain_gpt {argv} ran past {timeout} s")
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    report = next((json.loads(ln)["pretrain_gpt"] for ln in lines
+                   if ln.startswith('{"pretrain_gpt"')), None)
+    if rc != 0 or report is None:
+        raise AssertionError(f"pretrain_gpt {argv} exited {rc}:\n" + "\n".join(lines[-40:]))
+    return rc, lines, report
+
+
+def _pretrain_here(argv, profiler=None):
+    """``pretrain_gpt.run`` in this process (its lines kept out of this
+    script's output) in a metrics scope of its own; with ``profiler`` (a
+    ``torch.profiler.profile``) under it.  Returns the JSON report."""
+    import contextlib
+    import gc
+    import io as stdio
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.observability.metrics import MetricsScope
+
+    args = pretrain_gpt.build_args().parse_args(argv)
+    with contextlib.redirect_stdout(stdio.StringIO()), MetricsScope(), \
+            (profiler if profiler is not None else contextlib.nullcontext()):
+        report = pretrain_gpt.run(args)
+    gc.collect()  # the run's graph, params and state, before the next run
+    torch.cuda.empty_cache()
+    return report
+
+
+def _bitwise(name, got, want):
+    """``got``'s losses by step equal to ``want``'s wherever both ran."""
+    g, w = dict(zip(got["steps"], got["losses"])), dict(zip(want["steps"], want["losses"]))
+    common = sorted(set(g) & set(w))
+    bad = [(s, g[s], w[s]) for s in common if g[s] != w[s]]
+    if not common or bad:
+        raise AssertionError(f"pretrain {name}: losses not bitwise equal to the full run's "
+                             f"at steps {common}: {bad}")
+    return common
+
+
+def _busy_share(prof, kernel="mt_adam_kernel", skip=3):
+    """The device's busy share over the steps after the ``skip``-th: the
+    window from the end of that step's ``mt_adam`` (one launch a step, the
+    update's) to the end of the last one, the union of every CUDA
+    activity's intervals inside it over its length; and each activity's
+    device ms a step in that window, by name (the first 100 characters),
+    largest first."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    ends = sorted(end for _, end, name in spans if kernel in name)
+    if len(ends) <= skip:
+        raise AssertionError(f"pretrain profile: {len(ends)} {kernel} records, want more "
+                             f"than {skip}")
+    lo, hi = ends[skip - 1], ends[-1]
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for s, e, _ in sorted((max(s, lo), min(e, hi), n) for s, e, n in spans if e > lo and s < hi):
+        if cur_hi is None or s > cur_hi:
+            busy += 0.0 if cur_hi is None else cur_hi - cur_lo
+            cur_lo, cur_hi = s, e
+        else:
+            cur_hi = max(cur_hi, e)
+    busy += 0.0 if cur_hi is None else cur_hi - cur_lo
+    by_name = {}
+    for s, e, n in spans:
+        if e > lo and s < hi:
+            by_name[n[:100]] = by_name.get(n[:100], 0.0) + min(e, hi) - max(s, lo)
+    n_steps = len(ends) - skip
+    return {"window_steps": n_steps, "window_ms": (hi - lo) / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (hi - lo),
+            "kernel_ms_per_step": {n: us / 1e3 / n_steps for n, us in
+                                   sorted(by_name.items(), key=lambda kv: -kv[1])}}
+
+
+def pretrain_phase(smi):
+    """``apex_tpu_torch.pretrain_gpt`` at GPT-124M width on a uint16 token
+    file of about 1M tokens written from the seed.  In this process: the
+    full run (8 steps, checkpoints at 4 and 8, telemetry every 4, metrics
+    and trace dirs) and the same run with telemetry and tracing off,
+    bitwise equal (their step times side by side).  In child processes
+    (``python -m``): a run resumed from step 4, bitwise equal at steps
+    5-8; an --auto-resume run sent SIGTERM after its step 2 line, which
+    must save at the step it reached, dump the flight recorder and exit
+    0, and the same command again, both bitwise equal to the full run.
+    The full run's files: 2 metrics windows whose loss_mean is the mean
+    of their steps' losses, metrics.prom, goodput fractions summing to 1,
+    the trace's spans with 8 dispatches, checkpoints that validate, at
+    most max(keep, 3) of them.  Then, in this process, 7 steps with
+    telemetry under the profiler: exact launch counts (the train_fce
+    step's, plus the telemetry's three mt_l2norm calls a step) and the
+    idle share over its last 4 steps.  Child processes pay torch's
+    import and first-use costs again (about 25 s each on the card's
+    host), so only what needs a process of its own runs in one."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch import io
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="pretrain_"))
+    try:
+        data = work / "tokens.u16"
+        vocab = int(PRETRAIN_ARGV[PRETRAIN_ARGV.index("--vocab") + 1])
+        np.random.RandomState(0).randint(0, vocab, size=PRETRAIN_TOKENS).astype(
+            np.uint16).tofile(data)
+        # the watchdog ends a child whose step hangs (exit 75) instead of
+        # this script waiting on it
+        base = PRETRAIN_ARGV + ["--data", str(data), "--steps", "8", "--save-every", "4",
+                                "--telemetry-every", "4", "--watchdog-secs", "120"]
+        ck, m, tr = work / "ck", work / "metrics", work / "trace"
+        full = _pretrain_here(base + ["--checkpoint", str(ck), "--metrics-dir", str(m),
+                                      "--trace-dir", str(tr)])
+        if full["steps"] != list(range(8)) or not all(map(math.isfinite, full["losses"])):
+            raise AssertionError(f"pretrain full run: steps {full['steps']}, losses "
+                                 f"{full['losses']}")
+        # the full run's files
+        kept = sorted(p.name for p in ck.glob("step_*.ckpt"))
+        for p in ck.glob("step_*.ckpt"):
+            io.validate_checkpoint(p)
+        if kept != ["step_00000004.ckpt", "step_00000008.ckpt"]:
+            raise AssertionError(f"pretrain checkpoints {kept}")
+        lines = [json.loads(x) for x in (m / "metrics.jsonl").read_text().splitlines()]
+        windows = {x["window_end_step"]: x["value"] for x in lines
+                   if x["metric"] == "apex_train_loss"}
+        window_err = {}
+        for end, mean in windows.items():
+            want = float(np.sum(np.float32(full["losses"][end - 4:end]), dtype=np.float32)) / 4
+            window_err[end] = abs(mean - want) / abs(want)
+        if sorted(windows) != [4, 8] or max(window_err.values()) > 1e-6:
+            raise AssertionError(f"pretrain metrics windows {windows} against the printed "
+                                 f"losses: relative errors {window_err}")
+        if not (m / "metrics.prom").read_text().startswith("# "):
+            raise AssertionError("pretrain metrics.prom is empty")
+        goodput = json.loads((m / "goodput_report.json").read_text())
+        if abs(sum(goodput["fractions"].values()) - 1.0) > 1e-6:
+            raise AssertionError(f"pretrain goodput fractions {goodput['fractions']}")
+        trace = json.loads(next(tr.glob("trace_gpt_*.json")).read_text())
+        names = [e["name"] for e in trace["traceEvents"]]
+        spans = {n: names.count(n) for n in (
+            "train.data_wait", "train.step.dispatch", "train.telemetry_fetch",
+            "train.checkpoint_save")}
+        if spans["train.step.dispatch"] != 8 or not all(spans.values()):
+            raise AssertionError(f"pretrain trace spans {spans}")
+        # the resumed process
+        _, out2, resumed = _pretrain_proc(PRETRAIN_ARGV + [
+            "--data", str(data), "--resume", str(ck / "step_00000004.ckpt"), "--steps", "8"])
+        if "resumed at step 4" not in out2:
+            raise AssertionError("pretrain resume did not resume at step 4")
+        resumed_steps = _bitwise("resume", resumed, full)
+        shutil.rmtree(ck)
+        # telemetry and tracing off
+        quiet = _pretrain_here(base + ["--checkpoint", str(work / "ck_quiet")])
+        quiet_steps = _bitwise("telemetry off", quiet, full)
+        shutil.rmtree(work / "ck_quiet")
+        # SIGTERM after the step 2 line, then the same command again
+        # saves every 2 steps: each blocks the host until its step is done,
+        # so the loop cannot run ahead of the notice to its end
+        pre_argv = base + ["--save-every", "2", "--checkpoint", str(work / "ck_pre"),
+                           "--auto-resume", "--metrics-dir", str(work / "m_pre")]
+        _, out4, first = _pretrain_proc(pre_argv, sigterm_after=2)
+        said = [ln for ln in out4 if ln.startswith("preempted (")]
+        reached = first["start_step"] + first["steps_done"]
+        saved = sorted(p.name for p in (work / "ck_pre").glob("step_*.ckpt"))
+        dumps = [p.name for p in (work / "m_pre" / "flightrec").glob("flightrec_dump_*.json")]
+        if not said or not first["preempted"] or f"step_{reached:08d}.ckpt" not in saved \
+                or not dumps:
+            raise AssertionError(f"pretrain preemption: said {said}, reached {reached}, "
+                                 f"checkpoints {saved}, dumps {dumps}")
+        _, out5, again = _pretrain_proc(pre_argv)
+        if f"resumed at step {reached}" not in out5 or again["steps_done"] != 8:
+            raise AssertionError(f"pretrain rerun after preemption: {out5[-5:]}")
+        pre_steps = _bitwise("preempted", first, full) + _bitwise("rerun", again, full)
+        if pre_steps != list(range(8)):
+            raise AssertionError(f"pretrain preempted + rerun cover steps {pre_steps}")
+        kept_pre = sorted(p.name for p in (work / "ck_pre").glob("step_*.ckpt"))
+        if len(kept_pre) > 3:
+            raise AssertionError(f"pretrain --keep 3 left {kept_pre}")
+        shutil.rmtree(work / "ck_pre")
+
+        # in this process: exact launch counts and the profiled idle share
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        reset_counts()
+        profiled = _pretrain_here(PRETRAIN_ARGV + [
+            "--data", str(data), "--steps", "7", "--telemetry-every", "4",
+            "--metrics-dir", str(work / "m_prof")], profiler=prof)
+        counts = launch_counts()
+        prof_steps = _bitwise("profiled", profiled, full)
+        sizes = [math.prod(shape) for shape in _leaf_shapes(gpt_param_shapes())]
+        L = 12
+        per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                    "ce_fwd": 1, "ce_dx": 1, "ce_dembed": 1,
+                    "mt_adam": mt_plan("adam", sizes).launches, "mt_scale": 0,
+                    # the grad norm, the param norm and the update norm
+                    "mt_l2norm": 3 * mt_plan("l2norm", sizes).launches}
+        expect = {**{k: 7 * v for k, v in per_step.items()},
+                  "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                  "fused_sample": 0}
+        if counts != expect:
+            raise AssertionError(f"pretrain launch counts {counts} != expected {expect}")
+        idle = _busy_share(prof)
+        del prof
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def steady(rep):
+        # every step after the first (warm-up and capture), but the ones
+        # right after a save (their time holds the save's snapshot)
+        after_save = {s["step"] for s in rep["saves"]}
+        return [ms for k, ms in enumerate(rep["step_ms"][1:], start=rep["start_step"] + 1)
+                if k not in after_save]
+
+    def median(xs):
+        return float(np.median(xs)) if xs else None
+
+    overlap = {s["step"]: full["step_ms"][s["step"] - full["start_step"]]
+               for s in full["saves"] if s["step"] - full["start_step"] < len(full["step_ms"])}
+    emit({"phase": "pretrain", "argv": PRETRAIN_ARGV, "nvidia_smi": smi,
+          "corpus_tokens": PRETRAIN_TOKENS, "losses": full["losses"],
+          "resume_bitwise_steps": resumed_steps, "telemetry_off_bitwise_steps": quiet_steps,
+          "preempted_after": reached, "preempt_rerun_bitwise_steps": pre_steps,
+          "profiled_bitwise_steps": prof_steps, "flight_dumps": len(dumps),
+          "metrics_window_rel_err": window_err, "goodput": goodput["fractions"],
+          "trace_spans": spans, "checkpoints_kept_after_rerun": kept_pre,
+          "launches_per_step": per_step, "launches": counts,
+          "step_ms_median_telemetry_on": median(steady(full)),
+          "step_ms_median_telemetry_off": median(steady(quiet)),
+          "step_ms_telemetry_on": full["step_ms"], "step_ms_telemetry_off": quiet["step_ms"],
+          "first_step_ms": full["step_ms"][0] if full["step_ms"] else None,
+          "save_block_ms": [s["block_ms"] for s in full["saves"]],
+          "step_ms_after_save": overlap,
+          "writes": [{"seconds": w["seconds"], "bytes": w["bytes"]} for w in full["writes"]],
+          "tokens_per_sec_wall": full["tokens_per_sec"], "profile": idle,
+          "seconds": time.monotonic() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3133,6 +3427,8 @@ def main():
     train_profile_phase(train_args, dense["step_ms_median"], per_leaf=True)
     optimizer_profile_phase(train_args)
     lap("train_profile")
+    pretrain_phase(smi)
+    lap("pretrain")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (

@@ -250,6 +250,9 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.ops.fused_ce_kernels, apex_tpu_torch.normalization\n"
         "import apex_tpu_torch.amp, apex_tpu_torch.fp16_utils, apex_tpu_torch.resilience\n"
         "import apex_tpu_torch.transformer.amp, apex_tpu_torch._autocast_utils\n"
+        "import apex_tpu_torch.pretrain_gpt, apex_tpu_torch.io, apex_tpu_torch.utils\n"
+        "import apex_tpu_torch.observability, apex_tpu_torch.resilience.elastic\n"
+        "import apex_tpu_torch.resilience.preemption, apex_tpu_torch.transformer._data\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
