@@ -1,2 +1,3 @@
 """Contrib modules of the port (counterpart of :mod:`apex_tpu.contrib`):
-so far :mod:`~apex_tpu_torch.contrib.clip_grad`."""
+:mod:`~apex_tpu_torch.contrib.clip_grad` and the ZeRO optimizers
+(:mod:`~apex_tpu_torch.contrib.optimizers`)."""

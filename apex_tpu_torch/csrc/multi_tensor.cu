@@ -1,6 +1,6 @@
-// Multi-tensor kernels of the optimizer engine: mt_adam, mt_scale and
-// mt_l2norm (apex_tpu_torch/ops/multi_tensor.py holds their wrappers,
-// plain versions and launch plans).
+// Multi-tensor kernels of the optimizer engine: mt_adam, mt_scale,
+// mt_l2norm and mt_adam_remainder (apex_tpu_torch/ops/multi_tensor.py
+// holds their wrappers, plain versions and launch plans).
 //
 // What they replace.  No Pallas kernel: the JAX package writes its
 // engine as tree math under one jit and XLA fuses it
@@ -31,6 +31,17 @@
 // - 16-byte vectors where every pointer of a tensor allows them (4
 //   elements), scalar accesses otherwise: a leaf inside a bucket may
 //   start at any element offset.
+//
+// mt_adam_remainder is the ZeRO shard update with store_param_remainders
+// (apex's multi_tensor_distopt_adam with remainders; the JAX package's
+// XLA fusion of _master_from_remainder, adam_math and _split_master,
+// apex_tpu/contrib/optimizers/distributed_fused_adam.py:67-95 and :200).
+// It reads the bf16 param shard and its uint16 remainder and rebuilds the
+// fp32 master bit-exactly as (bits << 16) | rem, applies the Adam step of
+// mt_adam, and writes the master's high 16 bits as the bf16 param and the
+// low 16 as the remainder: truncation, the JAX package's convention.
+// Bytes bound it too: 2+2 read and 2+2 written a param element against
+// Adam's fp32 master's 4+4, beside g, m and v.
 //
 // Numerics.  mt_adam and mt_scale are bitwise equal to their plain
 // PyTorch versions (and so to the JAX package): each operation is
@@ -357,6 +368,91 @@ __global__ void __launch_bounds__(kThreads) mt_l2norm_leaves(NormTable t) {
   }
 }
 
+
+// --------------------------------------------------- mt_adam_remainder
+constexpr int kRemOps = 9;  // g, p, rem, m, v, p_out, rem_out, m_out, v_out
+constexpr int kRemBytesPerTensor = kRemOps * 8 + 8 + 4 + 4 + 4 + 2;
+constexpr int kRemTensors =
+    (kTableBytes - (int)sizeof(AdamHead) - 4 - 8) / kRemBytesPerTensor;
+
+struct RemTable {
+  AdamHead h;
+  void* ptr[kRemOps][kRemTensors];
+  long long n[kRemTensors];
+  int start[kRemTensors + 1];
+  float lr[kRemTensors];
+  float wd[kRemTensors];
+  unsigned char g_dt[kRemTensors], flags[kRemTensors];
+};
+static_assert(sizeof(RemTable) <= kTableBytes, "mt_adam_remainder table over 4 KB");
+
+__device__ __forceinline__ float rem_master(unsigned short p, unsigned short r) {
+  return __uint_as_float((((unsigned)p) << 16) | (unsigned)r);
+}
+
+__global__ void __launch_bounds__(kThreads) mt_adam_remainder_kernel(RemTable t) {
+  const int i = find_tensor(t.start, t.h.n, blockIdx.x);
+  const long long n = t.n[i];
+  const long long lo = (long long)(blockIdx.x - t.start[i]) * kChunk;
+  const long long hi = min(n, lo + kChunk);
+  AdamConsts c;
+  c.b1 = t.h.beta1; c.omb1 = t.h.omb1; c.b2 = t.h.beta2; c.omb2 = t.h.omb2; c.eps = t.h.eps;
+  c.bc1 = *t.h.bc1; c.bc2 = *t.h.bc2;
+  c.lr = (t.flags[i] & kLrPtr) ? __fmul_rn(*t.h.lr, t.lr[i]) : t.lr[i];
+  c.wd = t.wd[i];
+  c.clip = t.h.coef != nullptr;
+  c.coef = c.clip ? *t.h.coef : 1.f;
+  c.adam_w = t.h.adam_w_mode != 0;
+  c.keep = t.h.pred != nullptr && t.h.pred[0] == 0;
+  const void* g = t.ptr[0][i];
+  const unsigned short* p = static_cast<const unsigned short*>(t.ptr[1][i]);
+  const unsigned short* r = static_cast<const unsigned short*>(t.ptr[2][i]);
+  const float* m = static_cast<const float*>(t.ptr[3][i]);
+  const float* v = static_cast<const float*>(t.ptr[4][i]);
+  unsigned short* po = static_cast<unsigned short*>(t.ptr[5][i]);
+  unsigned short* ro = static_cast<unsigned short*>(t.ptr[6][i]);
+  float* mo = static_cast<float*>(t.ptr[7][i]);
+  float* vo = static_cast<float*>(t.ptr[8][i]);
+  const int gdt = t.g_dt[i];
+  long long e = lo;
+  if (t.flags[i] & kAligned) {
+    const long long vec_hi = lo + ((hi - lo) & ~3LL);
+    for (e = lo + 4 * threadIdx.x; e < vec_hi; e += 4 * kThreads) {
+      float gx[4], mx[4], vx[4], pn[4], mn[4], vn[4], stored[4];
+      ld4(g, e, gdt, gx);
+      ld4(m, e, kF32, mx);
+      ld4(v, e, kF32, vx);
+      const uint2 pv = *reinterpret_cast<const uint2*>(p + e);
+      const uint2 rv = *reinterpret_cast<const uint2*>(r + e);
+      const unsigned short pb[4] = {(unsigned short)(pv.x & 0xFFFF), (unsigned short)(pv.x >> 16),
+                                    (unsigned short)(pv.y & 0xFFFF), (unsigned short)(pv.y >> 16)};
+      const unsigned short rb[4] = {(unsigned short)(rv.x & 0xFFFF), (unsigned short)(rv.x >> 16),
+                                    (unsigned short)(rv.y & 0xFFFF), (unsigned short)(rv.y >> 16)};
+      unsigned hb[4], lb[4];
+      for (int k = 0; k < 4; ++k) {
+        adam_one(c, gx[k], rem_master(pb[k], rb[k]), mx[k], vx[k], pn[k], mn[k], vn[k]);
+        const unsigned bits = __float_as_uint(pn[k]);
+        hb[k] = bits >> 16;
+        lb[k] = bits & 0xFFFFu;
+      }
+      *reinterpret_cast<uint2*>(po + e) = make_uint2(hb[0] | (hb[1] << 16), hb[2] | (hb[3] << 16));
+      *reinterpret_cast<uint2*>(ro + e) = make_uint2(lb[0] | (lb[1] << 16), lb[2] | (lb[3] << 16));
+      st4(mo, e, kF32, mn, stored);
+      st4(vo, e, kF32, vn, stored);
+    }
+    e = vec_hi;
+  }
+  for (long long j = e + threadIdx.x; j < hi; j += kThreads) {
+    float pn, mn, vn;
+    adam_one(c, ld1(g, j, gdt), rem_master(p[j], r[j]), m[j], v[j], pn, mn, vn);
+    const unsigned bits = __float_as_uint(pn);
+    po[j] = (unsigned short)(bits >> 16);
+    ro[j] = (unsigned short)(bits & 0xFFFFu);
+    mo[j] = mn;
+    vo[j] = vn;
+  }
+}
+
 // --------------------------------------------------------------- host
 int elem_size(int dt) { return dt == kF32 ? 4 : 2; }
 
@@ -377,13 +473,14 @@ long long fill_starts(const long long* n, int first, int count, int* start) {
 }
 
 int capacity(int kind) {
-  return kind == 0 ? kAdamTensors : kind == 1 ? kScaleTensors : kNormTensors;
+  return kind == 0 ? kAdamTensors : kind == 1 ? kScaleTensors
+       : kind == 2 ? kNormTensors : kRemTensors;
 }
 
 }  // namespace
 
 // The launch plan of a call of `T` tensors of `n` elements by kernel
-// `kind` (0 mt_adam, 1 mt_scale, 2 mt_l2norm).  out (int64 x 6):
+// `kind` (0 mt_adam, 1 mt_scale, 2 mt_l2norm, 3 mt_adam_remainder).  out (int64 x 6):
 // capacity a launch, elements a chunk, threads a block, launches, total
 // chunks, table bytes.  For mt_l2norm launches counts both stages.
 extern "C" int apex_mt_plan(int kind, const long long* n, int T, long long* out) {
@@ -401,7 +498,8 @@ extern "C" int apex_mt_plan(int kind, const long long* n, int T, long long* out)
   out[2] = kThreads;
   out[3] = launches;
   out[4] = chunks;
-  out[5] = kind == 0 ? sizeof(AdamTable) : kind == 1 ? sizeof(ScaleTable) : sizeof(NormTable);
+  out[5] = kind == 0 ? sizeof(AdamTable) : kind == 1 ? sizeof(ScaleTable)
+         : kind == 2 ? sizeof(NormTable) : sizeof(RemTable);
   return 0;
 }
 
@@ -518,6 +616,54 @@ extern "C" int apex_mt_l2norm(const void* const* src, const long long* n,
     mt_l2norm_leaves<<<1, kThreads, 0, (cudaStream_t)stream>>>(t);
     ++*launches;
     chunk_base += chunks;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ptrs: 9 x T (op-major: g, p, rem, m, v, p_out, rem_out, m_out, v_out;
+// p and p_out bf16, rem and rem_out uint16, the rest fp32 but g, whose
+// dtype is codes[i]); codes: 2 x T (g dtype, 1 = lr from lr_ptr).
+extern "C" int apex_mt_adam_remainder(const void* const* ptrs, const long long* n,
+                                      const float* lr, const float* wd,
+                                      const unsigned char* codes, int T, const void* bc1,
+                                      const void* bc2, const void* pred, const void* coef,
+                                      const void* lr_ptr, float beta1, float omb1, float beta2,
+                                      float omb2, float eps, int adam_w_mode, void* stream,
+                                      int* launches) {
+  *launches = 0;
+  RemTable t;
+  t.h.bc1 = static_cast<const float*>(bc1);
+  t.h.bc2 = static_cast<const float*>(bc2);
+  t.h.pred = static_cast<const unsigned char*>(pred);
+  t.h.coef = static_cast<const float*>(coef);
+  t.h.lr = static_cast<const float*>(lr_ptr);
+  t.h.beta1 = beta1; t.h.omb1 = omb1; t.h.beta2 = beta2; t.h.omb2 = omb2; t.h.eps = eps;
+  t.h.adam_w_mode = adam_w_mode;
+  for (int first = 0; first < T; first += kRemTensors) {
+    const int count = T - first < kRemTensors ? T - first : kRemTensors;
+    t.h.n = count;
+    for (int k = 0; k < count; ++k) {
+      const int i = first + k;
+      bool al = true;
+      for (int op = 0; op < kRemOps; ++op) {
+        void* p = const_cast<void*>(ptrs[op * T + i]);
+        t.ptr[op][k] = p;
+        const int dt = op == 0 ? codes[i] : (op == 1 || op == 2 || op == 5 || op == 6) ? kBF16
+                                                                                       : kF32;
+        al = al && aligned(p, dt);
+      }
+      t.n[k] = n[i];
+      t.lr[k] = lr[i];
+      t.wd[k] = wd[i];
+      t.g_dt[k] = codes[i];
+      t.flags[k] = (codes[T + i] ? kLrPtr : 0) | (al ? kAligned : 0);
+    }
+    const long long chunks = fill_starts(n, first, count, t.start);
+    if (chunks == 0) continue;
+    mt_adam_remainder_kernel<<<(unsigned)chunks, kThreads, 0, (cudaStream_t)stream>>>(t);
+    ++*launches;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -31,8 +31,9 @@ Guarantees:
 ``in_flight()`` lists the paths queued or being written, which a caller
 that prunes old files must not count as missing nor delete.  ``writes``
 records each finished write: its path, the worker's seconds and the
-file's bytes.  ``save_distributed`` of the JAX module comes
-with ZeRO.
+file's bytes.  :meth:`AsyncCheckpointer.save_distributed` is the
+non-blocking :func:`~apex_tpu_torch.io.checkpoint.save_distributed_checkpoint`:
+this rank's pieces are snapshot now and written by the worker.
 """
 
 import os
@@ -44,6 +45,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from apex_tpu_torch.io import checkpoint as _ckpt
 from apex_tpu_torch.io.checkpoint import save_checkpoint
 from apex_tpu_torch.optimizers.tree import tree_map
 
@@ -117,6 +119,20 @@ class AsyncCheckpointer:
         with self._lock:
             self._in_flight.append(path)
         self._q.put(write)
+
+    def save_distributed(self, dir_path, tree: Any, rank=None, world_size=None) -> None:
+        """:func:`~apex_tpu_torch.io.checkpoint.save_distributed_checkpoint`
+        without the wait: this rank's pieces snapshot to host now (rank 0
+        publishes the index first, synchronously), the file is queued.
+        Call from every rank."""
+        if rank is None or world_size is None:
+            import torch.distributed as dist
+
+            rank, world_size = dist.get_rank(), dist.get_world_size()
+        if rank == 0:
+            _ckpt._write_index(dir_path, world_size)
+        self.save(os.path.join(str(dir_path), _ckpt._shard_name(rank, world_size)),
+                  _ckpt._distributed_payload(tree, rank))
 
     def in_flight(self) -> List[str]:
         """The paths of the saves queued or being written, oldest first."""

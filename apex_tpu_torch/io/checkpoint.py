@@ -28,8 +28,22 @@ Leaves are read back as CPU tensors.  bf16 (and fp8) leaves need no
 (``tensor.view(torch.int16)``) under the reference's dtype name
 (``"bfloat16"``).
 
-The sharded and distributed checkpoints of the JAX module come with
-ZeRO and are not here.
+The sharded checkpoints (one file a rank under a directory with an
+``index.json``, the JAX module's ``apex_tpu_sharded_v1`` layout) are
+here too: :func:`save_sharded_checkpoint` writes this rank's piece (rank
+0 the index), :func:`load_sharded_checkpoint` reads one rank's or all,
+:func:`latest_distributed_step` finds the newest complete ``step_*``
+directory.  A JAX-written shard file needs a ``template`` as any JAX
+file does.  :func:`save_distributed_checkpoint` /
+:func:`load_distributed_checkpoint` keep the JAX module's per-leaf
+``{"start", "stop", "data"}`` pieces: rank 0 writes every leaf whole,
+and a leaf that is a :class:`LocalShard` is written by each rank as its
+own slice, so a reader assembles the global tree from all the files.
+The JAX package's distributed files hold its leaves' pieces under keys
+only its pickled tree structure names, so the port reads its own.
+
+Leaves of a dtype torch lacks (a string, as the ZeRO shard dicts hold)
+load back as numpy arrays.
 """
 
 import io as _stdio
@@ -55,10 +69,12 @@ from apex_tpu_torch.optimizers import tree as _tree
 from apex_tpu_torch.utils.logging import get_logger, log_structured
 
 __all__ = [
-    "AllCheckpointsTornError", "CorruptCheckpoint", "checkpoint_step",
-    "latest_checkpoint", "load_checkpoint", "open_checkpoint_lazy",
-    "probe_checkpoint", "probe_checkpoint_dir", "quarantine_checkpoint",
-    "save_checkpoint", "validate_checkpoint",
+    "AllCheckpointsTornError", "CorruptCheckpoint", "LocalShard", "checkpoint_step",
+    "latest_checkpoint", "latest_distributed_step", "load_checkpoint",
+    "load_distributed_checkpoint", "load_sharded_checkpoint", "open_checkpoint_lazy",
+    "probe_checkpoint", "probe_checkpoint_dir", "quarantine_checkpoint", "read_index",
+    "save_checkpoint", "save_distributed_checkpoint", "save_sharded_checkpoint",
+    "validate_checkpoint",
 ]
 
 _MAGIC = b"APEXTPU1"
@@ -144,7 +160,11 @@ def _resolve_dtype(s):
     return np.dtype(s), None
 
 
-def _to_tensor(a: np.ndarray, view) -> torch.Tensor:
+def _to_tensor(a: np.ndarray, view):
+    """The leaf as a tensor, or as the numpy array itself when torch has
+    no dtype for it (strings)."""
+    if a.dtype.kind in "USO":
+        return a
     t = torch.from_numpy(a)
     return t.view(view) if view is not None else t
 
@@ -529,3 +549,183 @@ def latest_checkpoint(dir_path, suffixes=(".ckpt", ".apex")) -> str:
         f"no valid checkpoint under {dir_path}: all {len(skipped)} "
         f"candidate(s) torn/corrupt — " +
         "; ".join(f"{p}: {e}" for p, e in skipped))
+
+
+# ------------------------------------------------------- sharded checkpoints
+def _shard_name(rank: int, world: int) -> str:
+    return f"shard_{rank:05d}-of-{world:05d}.ckpt"
+
+
+def read_index(dir_path) -> dict:
+    """Parse and format-check a sharded checkpoint directory's
+    ``index.json`` (its world size and any ``index_extra`` metadata)."""
+    path = Path(dir_path) / "index.json"
+    index = json.loads(_with_io_retries(lambda: path.read_text(), "read", path))
+    if index.get("format") != "apex_tpu_sharded_v1":
+        raise ValueError(f"{dir_path} is not a sharded apex_tpu checkpoint")
+    return index
+
+
+def _write_index(dir_path, world_size: int, extra: Optional[dict] = None) -> None:
+    """Publish ``index.json`` atomically and durably; ``extra`` merges
+    more metadata in (``format`` and ``world_size`` win)."""
+    d = Path(dir_path)
+    d.mkdir(parents=True, exist_ok=True)
+    payload = dict(extra or {})
+    payload.update({"format": "apex_tpu_sharded_v1", "world_size": int(world_size)})
+
+    def write():
+        with native.atomic_output(d / "index.json") as f:
+            f.write(json.dumps(payload).encode())
+
+    _with_io_retries(write, "write", d / "index.json")
+
+
+def save_sharded_checkpoint(dir_path, tree: Any, rank: int, world_size: int,
+                            index_extra: Optional[dict] = None) -> str:
+    """Save this rank's piece of a sharded checkpoint (host leaves), one
+    file a rank; rank 0 also writes the index.  Returns the file."""
+    d = Path(dir_path)
+    d.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        _write_index(d, world_size, extra=index_extra)
+    path = d / _shard_name(rank, world_size)
+    save_checkpoint(path, tree)
+    return str(path)
+
+
+def load_sharded_checkpoint(dir_path, rank=None, lazy: bool = False, template=None) -> Any:
+    """One rank's shard tree (``rank=``) or every rank's (a list) from a
+    :func:`save_sharded_checkpoint` directory, checked complete against
+    the index.  ``template(rank)`` (or one tree) gives the structure of
+    a JAX-written file."""
+    d = Path(dir_path)
+    world = read_index(d)["world_size"]
+    reader = open_checkpoint_lazy if lazy else load_checkpoint
+
+    def one(r):
+        p = d / _shard_name(r, world)
+        if not p.exists():
+            raise FileNotFoundError(f"missing shard {r} of {world}: {p}")
+        t = template(r) if callable(template) else template
+        return reader(p, template=t)
+
+    if rank is not None:
+        return one(rank)
+    return [one(r) for r in range(world)]
+
+
+def latest_distributed_step(dir_path) -> int:
+    """The newest COMPLETE ``step_*`` directory's step under
+    ``dir_path``: one with an ``index.json`` and every one of its
+    world's named shard files.  Incomplete directories are skipped with
+    a warning; ``-1`` when no ``step_*`` directory exists; raises
+    :class:`AllCheckpointsTornError` when some exist but none is
+    complete."""
+    d = Path(dir_path)
+    dirs = sorted(d.glob("step_*"), reverse=True) if d.is_dir() else []
+    for sd in dirs:
+        if not (sd / "index.json").exists():
+            continue
+        try:
+            world = read_index(sd)["world_size"]
+        except (OSError, ValueError):
+            continue
+        missing = [r for r in range(world) if not (sd / _shard_name(r, world)).exists()]
+        if not missing:
+            return checkpoint_step(sd)
+        log_structured(_logger, logging.WARNING, "checkpoint.incomplete_step_dir_skipped",
+                       path=str(sd), world_size=world, missing_ranks=missing[:8],
+                       missing=len(missing))
+    if dirs:
+        raise AllCheckpointsTornError(
+            f"no complete checkpoint under {dir_path}: {len(dirs)} step_* dir(s) exist but "
+            "none is fully published (interrupted save?)")
+    return -1
+
+
+class LocalShard(NamedTuple):
+    """This rank's slice of a larger tensor, for
+    :func:`save_distributed_checkpoint`: ``data`` lies at ``start`` (one
+    offset a dimension) of a global tensor the template gives."""
+
+    data: Any
+    start: tuple
+
+
+def _distributed_payload(tree: Any, rank: int) -> dict:
+    """``{keystr: [{"start", "stop", "data"}]}``: this rank's pieces."""
+    payload = {}
+
+    def walk(x, prefix):
+        if isinstance(x, LocalShard):
+            start = np.asarray(x.start, np.int64)
+            payload[prefix] = [{"start": start, "data": x.data,
+                                "stop": start + np.asarray(tuple(x.data.shape), np.int64)}]
+            return
+        node = _tree._children(x)
+        if node is None:
+            shape = tuple(getattr(x, "shape", np.shape(x)))
+            payload[prefix] = [] if rank != 0 else [{
+                "start": np.zeros(len(shape), np.int64), "stop": np.asarray(shape, np.int64),
+                "data": x}]
+            return
+        kind, keys, kids = node
+        names = (keys if kind == "dict" else keys._fields if kind == "namedtuple"
+                 else range(len(kids)))
+        for name, kid in zip(names, kids):
+            walk(kid, prefix + _tree._key_entry(kind, name))
+
+    walk(tree, "")
+    return payload
+
+
+def save_distributed_checkpoint(dir_path, tree: Any, rank: Optional[int] = None,
+                                world_size: Optional[int] = None) -> str:
+    """Each process writes only its own pieces of ``tree`` (host leaves):
+    rank 0 every replicated leaf whole, every rank its
+    :class:`LocalShard` slices.  Call from every rank (``rank`` /
+    ``world_size`` default to the default process group's); reassemble
+    with :func:`load_distributed_checkpoint`."""
+    if rank is None or world_size is None:
+        import torch.distributed as dist
+
+        rank, world_size = dist.get_rank(), dist.get_world_size()
+    return save_sharded_checkpoint(dir_path, _distributed_payload(tree, rank), rank,
+                                   world_size)
+
+
+def _assemble_slice(pieces, shape, key):
+    """The global leaf of ``shape`` from saved ``pieces``; raises unless
+    they cover every element."""
+    out, covered = None, 0
+    for s in pieces:
+        data = s["data"]
+        start = [int(a) for a in np.asarray(s["start"]).reshape(-1)]
+        stop = [int(b) for b in np.asarray(s["stop"]).reshape(-1)]
+        if out is None:
+            out = (torch.zeros(shape, dtype=data.dtype) if isinstance(data, torch.Tensor)
+                   else np.zeros(shape, np.asarray(data).dtype))
+        idx = tuple(slice(a, b) for a, b in zip(start, stop))
+        out[idx] = data
+        covered += int(np.prod([b - a for a, b in zip(start, stop)], dtype=np.int64))
+    want = int(np.prod(shape, dtype=np.int64))
+    if out is None or covered != want:
+        raise ValueError(f"checkpoint shards cover {covered}/{want} elements of leaf {key} "
+                         "— shape mismatch between the saved state and the template")
+    return out
+
+
+def load_distributed_checkpoint(dir_path, template: Any) -> Any:
+    """Reassemble a :func:`save_distributed_checkpoint` directory into
+    the structure of ``template`` (its leaves' shapes are the global
+    shapes), as host tensors."""
+    payloads = load_sharded_checkpoint(dir_path)
+    leaves = []
+    for path, leaf in _tree.leaves_with_path(template):
+        pieces = [s for p in payloads for s in p.get(path, ())]
+        if not pieces:
+            raise KeyError(f"checkpoint has no shards for leaf {path}")
+        shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
+        leaves.append(_assemble_slice(pieces, shape, path))
+    return _tree.tree_unflatten(template, leaves)

@@ -454,10 +454,9 @@ def overlap_fraction(tracer: Optional[Tracer] = None,
 def emit_sync_plan(optimizer, tracer: Optional[Tracer] = None) -> dict:
     """Emit one ``zero_sync.bucket<k>.hop_<axis>`` marker per (bucket,
     hop) of a ZeRO optimizer's sync plan, attributes carrying the
-    per-hop payload/scale bytes (the optimizer's ``sync_plan_hops()``).
-    No optimizer of the port carries a sync plan yet (ZeRO is still to
-    be ported), so this is a no-op for every one of them, as it is in
-    the JAX package for the replicated optimizers.
+    per-hop payload/scale bytes (the optimizer's ``sync_plan_hops()``:
+    the ZeRO optimizers of :mod:`apex_tpu_torch.contrib.optimizers`).
+    A no-op for the replicated optimizers, as in the JAX package.
 
     Returns ``{"markers": n, "overlap_fraction": f}``: markers emitted
     this call (0 when tracing is off or the optimizer has no plan) and

@@ -15,8 +15,9 @@ its plain PyTorch version, and a launch counter ``LAUNCHES``.
   autograd Function over them;
 - :mod:`~apex_tpu_torch.ops.multi_tensor` — the optimizer engine's
   multi-tensor Adam, scale and L2-norm kernels (``ADAM_LAUNCHES``,
-  ``SCALE_LAUNCHES``, ``L2NORM_LAUNCHES``) and the ``multi_tensor_*``
-  tree ops over them;
+  ``SCALE_LAUNCHES``, ``L2NORM_LAUNCHES``), the ZeRO remainder-mode
+  Adam (``REMAINDER_LAUNCHES``) and the ``multi_tensor_*`` tree ops over
+  them;
 - :mod:`~apex_tpu_torch.ops.attention` — ``flash_attention`` and the
   scan specification the flash kernels' plain versions use (plain
   PyTorch);
@@ -39,7 +40,7 @@ COUNTERS = (
     ("decode_attention", "LAUNCHES"), ("decode_attention", "WIDE_LAUNCHES"),
     ("decode_sampling", "LAUNCHES"),
     ("multi_tensor", "ADAM_LAUNCHES"), ("multi_tensor", "SCALE_LAUNCHES"),
-    ("multi_tensor", "L2NORM_LAUNCHES"),
+    ("multi_tensor", "L2NORM_LAUNCHES"), ("multi_tensor", "REMAINDER_LAUNCHES"),
 )
 
 

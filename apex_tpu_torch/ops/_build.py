@@ -109,6 +109,10 @@ SIGNATURES = {
     "apex_mt_scale": (_I, [_P, _P, _P, _P, _I, _P, _F, _P, _P, _P]),
     # src, n, codes, T, partial, per-leaf, total, stream, launches
     "apex_mt_l2norm": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
+    # ptrs (9 x T), n, lr, wd, codes (2 x T), T, bc1, bc2, pred, coef, lr,
+    # beta1, 1 - beta1, beta2, 1 - beta2, eps, adam_w_mode, stream, launches
+    "apex_mt_adam_remainder": (
+        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P]),
 }
 
 #: torch dtype -> the C entries' dtype code (as ``ops/multi_tensor.py``'s)

@@ -12,7 +12,12 @@ version and a launch counter:
   outputs of any float dtype, raising a device flag where an output is
   not finite: the engine's pack, unscale and finite vote in one read;
 - :func:`mt_l2norm` (``L2NORM_LAUNCHES``): each leaf's sum of squares
-  and their sum, in fp32, in a fixed order (no atomics).
+  and their sum, in fp32, in a fixed order (no atomics);
+- :func:`mt_adam_remainder` (``REMAINDER_LAUNCHES``): the ZeRO shard
+  update with ``store_param_remainders``: the fp32 master rebuilt from
+  the bf16 param and its uint16 remainder (``(bits << 16) | rem``),
+  :func:`mt_adam`'s step, the new master split back into its high half
+  (the bf16 param) and its low half (the remainder).
 
 They replace no Pallas kernel: the JAX package's engine is tree math
 that XLA fuses.  A kernel reads each leaf where it lies through a table
@@ -47,17 +52,18 @@ Tree = Any
 ADAM_LAUNCHES = 0
 SCALE_LAUNCHES = 0
 L2NORM_LAUNCHES = 0
+REMAINDER_LAUNCHES = 0
 
 #: ``csrc/multi_tensor.cu``: elements a block, threads a block, the
 #: kernel-parameter table's limit, and the tensors a table holds
 CHUNK = 16384
 THREADS = 256
 TABLE_BYTES = 4096
-CAPACITY = {"adam": 45, "scale": 126, "l2norm": 183}
+CAPACITY = {"adam": 45, "scale": 126, "l2norm": 183, "adam_remainder": 42}
 #: ``sizeof`` of each table (the launch's parameter bytes)
-TABLE_SIZES = {"adam": 4040, "scale": 4064, "l2norm": 4080}
+TABLE_SIZES = {"adam": 4040, "scale": 4064, "l2norm": 4080, "adam_remainder": 4024}
 #: the C entries' kernel codes (``apex_mt_plan``)
-KINDS = {"adam": 0, "scale": 1, "l2norm": 2}
+KINDS = {"adam": 0, "scale": 1, "l2norm": 2, "adam_remainder": 3}
 
 #: torch dtype -> the kernels' dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -89,12 +95,22 @@ def mt_plan(kind: str, sizes: Sequence[int]) -> MtPlan:
 
 
 # ---------------------------------------------------------------- math
+def sqrt_rn(x):
+    """The correctly rounded square root of an fp32 tensor, as the card's
+    ``sqrt`` (the kernels' ``__fsqrt_rn``) and XLA's give it.  On the CPU
+    torch's vectorized fp32 ``sqrt`` can be an ulp off; the fp64 root
+    rounded once to fp32 is the correctly rounded one."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def adam_core(g, m, v, bc1, bc2, *, beta1, beta2, eps):
     """New moments and the core update ``m_hat / (sqrt(v_hat) + eps)``,
     in the association of the JAX package's ``adam_core``."""
     m_new = beta1 * m + (1.0 - beta1) * g
     v_new = beta2 * v + (1.0 - beta2) * (g * g)
-    core = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    core = (m_new / bc1) / (sqrt_rn(v_new / bc2) + eps)
     return core, m_new, v_new
 
 
@@ -269,6 +285,103 @@ def mt_adam(g, p, m, v, p_out, m_out, v_out, master_out=None, *, lr, wd, bc1, bc
         int(adam_w_mode), stream, ctypes.addressof(launches)), "mt_adam")
     global ADAM_LAUNCHES
     ADAM_LAUNCHES += launches.value
+
+
+# --------------------------------------------------- mt_adam_remainder
+def master_from_remainder(p_bf16, rem_u16):
+    """The fp32 master ``(bits(p) << 16) | rem`` of a bf16 param and its
+    uint16 remainder, bit-exactly (the JAX package's
+    ``_master_from_remainder``)."""
+    hi = p_bf16.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    lo = rem_u16.to(torch.int64)
+    return ((hi << 16) | lo).to(torch.int32).view(torch.float32)
+
+
+def split_master(master_f32):
+    """``(bf16 param, uint16 remainder)``: the master's high and low 16
+    bits, truncation (the JAX package's ``_split_master``)."""
+    bits = master_f32.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return ((bits >> 16).to(torch.uint16).view(torch.bfloat16),
+            (bits & 0xFFFF).to(torch.uint16))
+
+
+def mt_adam_remainder_plain(g, p, rem, m, v, p_out, rem_out, m_out, v_out, *, lr, wd, bc1,
+                            bc2, beta1, beta2, eps, adam_w_mode, pred=None, coef=None):
+    """The plain version: the JAX package's remainder path written out.
+    Rebuild the fp32 masters (:func:`master_from_remainder`), evaluate
+    :func:`adam_math` over the packed buffers (g times ``coef``), keep
+    the old values where ``pred`` is false, split the new masters
+    (:func:`split_master`) into the outputs."""
+    sizes = [t.numel() for t in g]
+    dev = g[0].device
+    G = _flat(g)
+    if coef is not None:
+        G = G * coef
+    P = master_from_remainder(torch.cat([t.reshape(-1) for t in p]),
+                              torch.cat([t.reshape(-1) for t in rem]))
+    M, V = _flat(m), _flat(v)
+    lrs = [v_ for v_, _ in _lr_table(lr, None, None, len(g))]
+    lr_op = lr if isinstance(lr, torch.Tensor) else _per_element(lrs, sizes, dev)
+    p_new, m_new, v_new = adam_math(
+        G, P, M, V, _per_element([float(w) for w in wd], sizes, dev), lr_op, bc1, bc2,
+        beta1=beta1, beta2=beta2, eps=eps, adam_w_mode=adam_w_mode)
+    if pred is not None:
+        p_new, m_new, v_new = (torch.where(pred, n, o)
+                               for n, o in ((p_new, P), (m_new, M), (v_new, V)))
+    hi, lo = split_master(p_new)
+    _unpack_into(hi, p_out)
+    _unpack_into(lo, rem_out)
+    _unpack_into(m_new, m_out)
+    _unpack_into(v_new, v_out)
+
+
+def mt_adam_remainder(g, p, rem, m, v, p_out, rem_out, m_out, v_out, *, lr, wd, bc1, bc2,
+                      beta1, beta2, eps, adam_w_mode, pred=None, coef=None):
+    """One Adam/AdamW step over tensors whose fp32 master is stored as a
+    bf16 param ``p`` and its uint16 remainder ``rem``: ``g`` (fp32 or
+    half grads), ``m``, ``v`` (fp32) in; ``p_out`` (bf16), ``rem_out``
+    (uint16), ``m_out``, ``v_out`` out.  ``lr``: a float or a 0-d fp32
+    tensor; ``wd``: per-tensor floats; ``bc1``, ``bc2``, ``pred``,
+    ``coef`` as :func:`mt_adam` takes them.  Nothing given is
+    modified."""
+    if not g:
+        return
+    if g[0].device.type == "cpu":
+        return mt_adam_remainder_plain(g, p, rem, m, v, p_out, rem_out, m_out, v_out, lr=lr,
+                                       wd=wd, bc1=bc1, bc2=bc2, beta1=beta1, beta2=beta2,
+                                       eps=eps, adam_w_mode=adam_w_mode, pred=pred, coef=coef)
+    T = len(g)
+    lists = (p, rem, m, v, p_out, rem_out, m_out, v_out)
+    if any(len(x) != T for x in lists) or len(wd) != T:
+        raise ValueError("mt_adam_remainder: every list must hold one tensor per grad")
+    dev = _check("mt_adam_remainder", list(g))
+    _check("mt_adam_remainder", list(p) + list(p_out), (torch.bfloat16,))
+    _check("mt_adam_remainder", list(rem) + list(rem_out), (torch.uint16,))
+    _check("mt_adam_remainder", list(m) + list(v) + list(m_out) + list(v_out),
+           (torch.float32,))
+    for k in range(T):
+        n = g[k].numel()
+        if any(x[k].numel() != n for x in lists):
+            raise ValueError(f"mt_adam_remainder: tensor {k} differs in size across the lists")
+    lrs = _lr_table(lr, None, None, T)
+    lr_vals = np.array([v_ for v_, _ in lrs], dtype=np.float32)
+    ptrs = np.concatenate([_ptr_array(x) for x in (g,) + lists])
+    codes = np.concatenate([np.array([DTYPE_CODES[t.dtype] for t in g], np.uint8),
+                            np.array([from_lr for _, from_lr in lrs], np.uint8)])
+    n = np.array([t.numel() for t in g], dtype=np.int64)
+    wd_vals = np.array([float(w) for w in wd], dtype=np.float32)
+    f32 = lambda x: float(np.float32(x))  # noqa: E731 -- the one rounding to fp32
+    launches = ctypes.c_int(0)
+    lib, stream = _build.prepare(dev)
+    _build.check(lib.apex_mt_adam_remainder(
+        _np_ptr(ptrs), _np_ptr(n), _np_ptr(lr_vals), _np_ptr(wd_vals), _np_ptr(codes), T,
+        _scalar_ptr(bc1, "bc1"), _scalar_ptr(bc2, "bc2"),
+        _scalar_ptr(pred, "pred", torch.bool), _scalar_ptr(coef, "coef"),
+        _scalar_ptr(lr, "lr") if isinstance(lr, torch.Tensor) else None,
+        f32(beta1), f32(1.0 - beta1), f32(beta2), f32(1.0 - beta2), f32(eps),
+        int(adam_w_mode), stream, ctypes.addressof(launches)), "mt_adam_remainder")
+    global REMAINDER_LAUNCHES
+    REMAINDER_LAUNCHES += launches.value
 
 
 # ------------------------------------------------------------ mt_scale
@@ -448,8 +561,10 @@ def tree_where(pred, true_tree: Tree, false_tree: Tree) -> Tree:
 
 
 __all__ = [
-    "ADAM_LAUNCHES", "SCALE_LAUNCHES", "L2NORM_LAUNCHES", "MtPlan", "mt_plan",
-    "adam_core", "adam_math", "mt_adam", "mt_adam_plain", "mt_scale", "mt_scale_plain",
+    "ADAM_LAUNCHES", "SCALE_LAUNCHES", "L2NORM_LAUNCHES", "REMAINDER_LAUNCHES", "MtPlan",
+    "mt_plan", "sqrt_rn", "adam_core", "adam_math", "mt_adam", "mt_adam_plain", "mt_scale",
+    "mt_scale_plain", "mt_adam_remainder", "mt_adam_remainder_plain", "master_from_remainder",
+    "split_master",
     "mt_l2norm", "mt_l2norm_plain", "all_finite", "tree_not_finite",
     "multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
     "multi_tensor_norm_blend", "tree_where",

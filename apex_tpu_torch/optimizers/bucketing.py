@@ -22,12 +22,16 @@ plain versions' layout and the transparent mode's on the CPU.
 128) VMEM tile, a TPU fact.  Here the unit is :data:`ALIGN_BYTES` = 16
 bytes of the dtype (4 fp32, 8 bf16/fp16 elements): every bucket's tail,
 and with ``shard_pad`` every shard, ends on a 16-byte vector, the width
-of the kernels' vector accesses.  :func:`padded_total` is the one
-formula, as in JAX.
+of the kernels' vector accesses.  The ZeRO optimizers add ``block``:
+each of their shards holds a whole number of quantized-wire scale blocks
+(1024 elements), so an fp32 ZeRO bucket pads as the JAX package's does
+(its fp32 tile is 1024 elements) and a bf16 one to half of the JAX
+package's 2048.  :func:`padded_total` is the one formula, as in JAX.
 """
 
 import dataclasses
 import functools
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +43,7 @@ __all__ = [
     "ALIGN_BYTES", "BucketLeaf", "BucketSpec", "BucketPlan", "Buckets", "plan_of",
     "plan_of_shapes", "padded_total", "pack", "pack_bucket", "unpack",
     "per_leaf_reduce", "seg_values", "seg_broadcast", "seg_ids", "buckets_by_stage",
-    "dtype_name", "torch_dtype", "new_buckets",
+    "dtype_name", "torch_dtype", "new_buckets", "shard_segments", "shard_views",
 ]
 
 #: a bucket's tail (and each of its ``shard_pad`` shards) ends on this
@@ -109,17 +113,19 @@ def _unit(dtype_name_: str) -> int:
     return max(1, ALIGN_BYTES // itemsize)
 
 
-def padded_total(size: int, dtype_name_: str, shard_pad: int = 1) -> int:
+def padded_total(size: int, dtype_name_: str, shard_pad: int = 1, block: int = 1) -> int:
     """The bucket length for ``size`` payload elements: rounded up to
-    16 bytes of the dtype times ``shard_pad``, so every 1/shard_pad
-    shard also ends on 16 bytes.  The ONE padding formula: the plan
-    builder and a checkpoint resharder must agree on it."""
-    unit = _unit(dtype_name_) * max(1, int(shard_pad))
+    16 bytes of the dtype (and to ``block`` elements) times
+    ``shard_pad``, so every 1/shard_pad shard also ends on 16 bytes and
+    holds whole blocks.  The ONE padding formula: the plan builder and a
+    checkpoint resharder must agree on it."""
+    unit = math.lcm(_unit(dtype_name_), max(1, int(block))) * max(1, int(shard_pad))
     return ((size + unit - 1) // unit) * unit if size else 0
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_from_key(treedef, shapes_dtypes, cap_bytes=None, shard_pad=1) -> BucketPlan:
+def _plan_from_key(treedef, shapes_dtypes, cap_bytes=None, shard_pad=1,
+                   block=1) -> BucketPlan:
     by_dtype: dict = {}
     order: List[str] = []  # first-appearance bucket order, deterministic
     for i, (shape, dt) in enumerate(shapes_dtypes):
@@ -153,27 +159,30 @@ def _plan_from_key(treedef, shapes_dtypes, cap_bytes=None, shard_pad=1) -> Bucke
                            for i, shape, o in group)
             size = sum(bl.size for bl in leaves)
             buckets.append(BucketSpec(dtype=dt, leaves=leaves, size=size,
-                                      total=padded_total(size, dt, shard_pad)))
+                                      total=padded_total(size, dt, shard_pad, block)))
     return BucketPlan(treedef=treedef, leaf_dtypes=tuple(dt for _, dt in shapes_dtypes),
                       buckets=tuple(buckets))
 
 
-def plan_of(tree, cap_bytes: Optional[int] = None, shard_pad: int = 1) -> BucketPlan:
+def plan_of(tree, cap_bytes: Optional[int] = None, shard_pad: int = 1,
+            block: int = 1) -> BucketPlan:
     """The bucket plan of ``tree``'s (structure, shapes, dtypes), cached,
     so every step of one model reuses one plan object.  ``cap_bytes``
     splits an oversized dtype bucket at leaf granularity (the
     reference's ``bucket_cap_mb``); ``shard_pad`` pads each bucket to
-    split evenly into that many aligned shards (the ZeRO dp count)."""
+    split evenly into that many aligned shards (the ZeRO dp count), each
+    of whole ``block``-element blocks."""
     leaves = _tree.tree_leaves(tree)
     key = tuple((tuple(x.shape), dtype_name(x.dtype)) for x in leaves)
-    return _plan_from_key(_tree.tree_structure(tree), key, cap_bytes, shard_pad)
+    return _plan_from_key(_tree.tree_structure(tree), key, cap_bytes, shard_pad, block)
 
 
 def plan_of_shapes(treedef, shapes_dtypes: Sequence[Tuple[Tuple[int, ...], str]],
-                   cap_bytes: Optional[int] = None, shard_pad: int = 1) -> BucketPlan:
+                   cap_bytes: Optional[int] = None, shard_pad: int = 1,
+                   block: int = 1) -> BucketPlan:
     """:func:`plan_of` from ``(shape, dtype_name)`` pairs alone."""
     return _plan_from_key(treedef, tuple((tuple(s), str(d)) for s, d in shapes_dtypes),
-                          cap_bytes, shard_pad)
+                          cap_bytes, shard_pad, block)
 
 
 class Buckets:
@@ -312,3 +321,28 @@ def seg_broadcast(bucket: BucketSpec, per_leaf: Sequence, device=None) -> torch.
     if bucket.pad:
         parts.append(torch.zeros(bucket.pad, dtype=torch.float32, device=device))
     return torch.cat(parts)
+
+
+def shard_segments(bucket: BucketSpec, rank: int, world: int) -> List[Tuple[int, int, int]]:
+    """The leaves that rank ``rank``'s 1/world shard of ``bucket``
+    overlaps, as ``(leaf_id, start, stop)`` element offsets into the
+    SHARD, in bucket order; the pad is in no segment.  The static
+    segment map the ZeRO optimizers read per-leaf sums through (the JAX
+    package's ``seg_ids`` sliced to the rank's window): a shard does not
+    align to leaf boundaries."""
+    shard = bucket.total // world
+    lo, hi = rank * shard, (rank + 1) * shard
+    out = []
+    for bl in bucket.leaves:
+        a, b = max(bl.offset, lo), min(bl.offset + bl.size, hi)
+        if a < b:
+            out.append((bl.leaf_id, a - lo, b - lo))
+    return out
+
+
+def shard_views(bucket: BucketSpec, flat: torch.Tensor, rank: int,
+                world: int) -> torch.Tensor:
+    """Rank ``rank``'s 1/world shard of one bucket's flat buffer: a
+    view, no copy."""
+    shard = bucket.total // world
+    return flat[rank * shard:(rank + 1) * shard]

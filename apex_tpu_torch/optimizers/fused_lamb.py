@@ -42,7 +42,7 @@ def lamb_stage1_math(g, p32, m, v, wd_i, bc1, bc2, *, beta1, beta2, eps, adam_w_
         g = g + wd_i * p32
     m_new = beta1 * m + b3 * g
     v_new = beta2 * v + (1.0 - beta2) * (g * g)
-    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    u = (m_new / bc1) / (mt.sqrt_rn(v_new / bc2) + eps)
     if adam_w_mode:
         u = u + wd_i * p32
     return u, m_new, v_new

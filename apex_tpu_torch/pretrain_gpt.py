@@ -1,8 +1,13 @@
-"""GPT pretraining on one device with the trainer's host runtime -- the
-port's twin of ``examples/gpt/pretrain_gpt.py`` at tp = pp = dp = 1.
+"""GPT pretraining with the trainer's host runtime -- the port's twin of
+``examples/gpt/pretrain_gpt.py`` at tp = pp = 1, data-parallel over a
+``torch.distributed`` group of one process a rank.
 
     python -m apex_tpu_torch.pretrain_gpt --steps 8                # on the GPU
     python -m apex_tpu_torch.pretrain_gpt --device cpu --steps 4   # plain versions
+    python -m apex_tpu_torch.pretrain_gpt --zero                   # ZeRO-2
+    ... --zero --grad-sync-dtype int8            # the quantized grad wire
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.pretrain_gpt --device cpu --zero
+    #   two ranks under gloo (NCCL and one card a rank on CUDA)
     ... --checkpoint /tmp/gpt_ck --steps 4       # then: --resume /tmp/gpt_ck
     ... --checkpoint /tmp/gpt_ck --auto-resume   # SIGTERM saves, drains and
     #   exits 0; rerunning the same line resumes from the newest valid
@@ -15,7 +20,20 @@ The flags, their defaults and the printed lines are the reference
 driver's where they apply.  The step is :func:`apex_tpu_torch.train_gpt
 .make_train_step` (flash attention, full remat, FusedAdam(weight_decay=
 0.01) on the multi-tensor engine, ``--fp16``'s DynamicLossScaler(2**12)),
-captured as one CUDA graph unless ``--eager``; with ``--metrics-dir`` or
+captured as one CUDA graph unless ``--eager``.
+
+Data parallelism: the process group comes from the ``torchrun``
+environment (:func:`apex_tpu_torch.parallel.initialize_distributed`:
+NCCL on CUDA, gloo with ``--device cpu``); without it the run is a
+one-rank group, whose collectives still run.  Each rank takes its
+``--global-batch / dp`` rows of every global batch (its own Megatron
+sample).  ``--zero`` trains with ``DistributedFusedAdam(lr,
+weight_decay=0.01, axis_name="dp", grad_sync_dtype=...)``, which owns the
+grad sync (per-bucket reduce-scatter, the shard update, per-bucket
+all-gather, all inside the captured step); without it a world above one
+all-reduces the grads a bucket at a time (the DDP sync) before
+FusedAdam.  The printed loss is the mean over the ranks.  Only rank 0
+prints and writes the metrics and goodput files.  With ``--metrics-dir`` or
 ``--trace-dir`` a :class:`~apex_tpu_torch.observability.StepStats` window
 rides it in fixed device buffers.  The loop reads no device value on the
 host: each step's loss (and scale) goes to an
@@ -23,9 +41,12 @@ host: each step's loss (and scale) goes to an
 copy has landed; the telemetry window is fetched every
 ``--telemetry-every`` steps and reset in stream order.
 
-Checkpoints are the JAX driver's single-file ``step_<N>.ckpt`` in its
-byte layout and tree (``{"params", "state": AdamState, "step",
-"scaler"}``), written by an :class:`~apex_tpu_torch.io.AsyncCheckpointer`
+``--zero`` checkpoints are elastic ``step_<N>/`` directories (one shard
+file a rank and an index, :mod:`apex_tpu_torch.resilience.elastic`): a
+save at one world resumes at another, and a JAX ``--zero`` directory
+resumes here.  Other checkpoints are the JAX driver's single-file
+``step_<N>.ckpt`` in its byte layout and tree (``{"params", "state":
+AdamState, "step", "scaler"}``; rank 0 writes it), written by an :class:`~apex_tpu_torch.io.AsyncCheckpointer`
 that snapshots to host before ``save`` returns; ``--keep`` prunes to the
 newest ``max(keep, 3)``.  ``--resume`` takes that directory (the newest
 valid file in it) or one file.  Batches are Megatron-sampled rows of
@@ -35,8 +56,8 @@ prefetch thread.
 
 Flags of the reference that need modules not yet ported raise, naming
 the ROADMAP.md queue item that brings them: ``--tp``/``--pp`` above 1,
-``--micro-batches``, ``--zero``, ``--grad-sync-dtype``, ``--sequence-parallel``,
-``--supervise`` and the ``--chaos-*`` faults.  ``--auto-resume`` does not
+``--micro-batches``, ``--sequence-parallel``, ``--supervise`` and the
+``--chaos-*`` faults.  ``--auto-resume`` does not
 degrade kernel failures to a fallback as the reference's does: a kernel
 that fails to build or launch raises, as everywhere in the port.
 
@@ -57,8 +78,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from apex_tpu_torch._device import resolve_device
-
 #: the reference driver's FusedAdam weight decay
 WEIGHT_DECAY = 0.01
 #: ``--fp16``'s scaler (its other settings at their defaults)
@@ -71,9 +90,6 @@ _UNPORTED = (
     ("--pp > 1", lambda a: a.pp > 1, "pipeline parallelism, ROADMAP.md queue 1 item 9"),
     ("--micro-batches", lambda a: a.micro_batches is not None,
      "pipeline parallelism, ROADMAP.md queue 1 item 9"),
-    ("--zero", lambda a: a.zero, "ZeRO, ROADMAP.md queue 1 item 6"),
-    ("--grad-sync-dtype", lambda a: a.grad_sync_dtype is not None,
-     "the quantized ZeRO sync, ROADMAP.md queue 1 item 6"),
     ("--sequence-parallel", lambda a: a.sequence_parallel,
      "sequence parallelism, ROADMAP.md queue 1 item 7"),
     ("--supervise", lambda a: a.supervise,
@@ -105,10 +121,13 @@ def build_args():
     p.add_argument("--num-query-groups", type=int, default=None,
                    help="grouped-query attention: kv-head groups (1 = MQA)")
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO-2: shard optimizer state over dp (not ported yet)")
+                   help="ZeRO-2: shard optimizer state over dp")
     p.add_argument("--grad-sync-dtype", default=None,
                    choices=["int8", "float8_e4m3fn", "float8_e5m2"],
-                   help="quantized ZeRO gradient sync (not ported yet)")
+                   help="quantized ZeRO gradient sync (needs --zero): the per-bucket "
+                        "reduce-scatter carries int8/fp8 payloads with per-block fp32 scales, "
+                        "and the quantization error rides the optimizer state as an "
+                        "error-feedback residual (checkpointed; resume must pass the same flag)")
     p.add_argument("--sequence-parallel", action="store_true",
                    help="sequence parallelism (not ported yet)")
     p.add_argument("--remat-policy", default="full", choices=["full", "dots"],
@@ -206,7 +225,9 @@ def load_corpus(args):
 
 
 def run(args):
-    """The training loop; returns the report the JSON line prints."""
+    """The training loop; returns the report the JSON line prints.  The
+    process group is started here unless one is up already, and torn
+    down with the run when it was started here."""
     for flag, is_set, brings in _UNPORTED:
         if is_set(args):
             raise NotImplementedError(f"{flag} is not ported yet: it comes with {brings}")
@@ -215,29 +236,74 @@ def run(args):
                          "from and saves into)")
     if args.telemetry_every < 1:
         raise SystemExit("--telemetry-every must be >= 1 (steps per StepStats fetch window)")
+    if args.grad_sync_dtype and not args.zero:
+        raise SystemExit("--grad-sync-dtype needs --zero: the quantized wire's error-feedback "
+                         "residual lives in the ZeRO optimizer's sharded state")
+    import torch.distributed as dist
 
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    owns_group = not dist.is_initialized()
+    dev = multiproc.initialize_distributed(args.device)
+    try:
+        dp_group = (ps.get_data_parallel_group() if ps.model_parallel_is_initialized()
+                    else ps.initialize_model_parallel())
+        return _train(args, dev, dp_group)
+    finally:
+        if owns_group:
+            multiproc.destroy_distributed()
+
+
+def _train(args, dev, dp_group):
+    """The loop of :func:`run` on ``dev``, data-parallel over
+    ``dp_group``."""
     from apex_tpu_torch import io, observability as obs, resilience
     from apex_tpu_torch.amp import DynamicLossScaler
-    from apex_tpu_torch.models.gpt import init_params, train_state_from_numpy
+    from apex_tpu_torch.models.gpt import (
+        _host_f32,
+        init_params,
+        params_from_numpy,
+        train_state_from_numpy,
+    )
     from apex_tpu_torch.observability import flightrec, goodput as gp, stepstats, tracing
     from apex_tpu_torch.observability.tracing import span
     from apex_tpu_torch.optimizers import FusedAdam
-    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
     from apex_tpu_torch.train_gpt import make_train_step
     from apex_tpu_torch.transformer._data import MegatronPretrainingSampler
 
-    dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     if cuda:
         from apex_tpu_torch.ops import _build
 
         _build.load()  # the kernels build before anything runs
-    print("mesh: dp=1 pp=1 tp=1 (1 devices)", flush=True)
+    dp, rank = dp_group.size(), dp_group.rank()
+    lead = rank == 0
+
+    def say(*a):
+        """Rank 0 prints, as in the reference."""
+        if lead:
+            print(*a, flush=True)
+
+    say(f"mesh: dp={dp} pp=1 tp=1 ({dp} devices)")
+    if args.global_batch % dp:
+        raise SystemExit(f"--global-batch {args.global_batch} does not split over dp={dp}")
+    # only rank 0 writes the metrics and goodput files
+    metrics_dir = args.metrics_dir if lead else None
 
     config = make_config(args)
     params = init_params(config, 0, dev, keep_fp32=True)
-    optimizer = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
+    if args.zero:
+        from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+        optimizer = DistributedFusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY, axis_name="dp",
+                                         grad_sync_dtype=args.grad_sync_dtype)
+    else:
+        optimizer = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
     state = optimizer.init(params)
+    # the model layout an elastic checkpoint must match (only dp is elastic)
+    mesh_meta = {"tp": args.tp, "pp": args.pp}
     scaler = DynamicLossScaler(init_scale=FP16_INIT_SCALE) if args.fp16 else None
     scaler_state = scaler.init(dev) if scaler else None
 
@@ -246,24 +312,24 @@ def run(args):
     # goes through the async fetcher.
     obs.set_step_context(run_id=args.run_id, step=0)
     fetcher = stepstats.AsyncFetcher()
-    telemetry = (stepstats.StepTelemetry() if (args.metrics_dir or args.trace_dir) else None)
+    telemetry = (stepstats.StepTelemetry() if (metrics_dir or args.trace_dir) else None)
     registry = obs.get_metrics()
     tracer = None
     if args.trace_dir:
         Path(args.trace_dir).mkdir(parents=True, exist_ok=True)
         tracer = tracing.configure(capacity=args.trace_capacity)
-    flight_dir = flightrec.default_dir(metrics_dir=args.metrics_dir, trace_dir=args.trace_dir)
+    flight_dir = flightrec.default_dir(metrics_dir=metrics_dir, trace_dir=args.trace_dir)
     recorder = None
     if flight_dir is not None:
         recorder = flightrec.install(flightrec.FlightRecorder(flight_dir, run_id=args.run_id))
         if tracer is not None:
             recorder.attach(tracer)
-    anomaly = obs.AnomalyMonitor() if (args.metrics_dir or args.trace_dir) else None
-    if args.metrics_dir:
-        Path(args.metrics_dir).mkdir(parents=True, exist_ok=True)
-    acct = obs.GoodputAccountant(args.metrics_dir, run_id=args.run_id) \
-        if args.metrics_dir else None
-    metrics_jsonl = Path(args.metrics_dir) / "metrics.jsonl" if args.metrics_dir else None
+    anomaly = obs.AnomalyMonitor() if (metrics_dir or args.trace_dir) else None
+    if metrics_dir:
+        Path(metrics_dir).mkdir(parents=True, exist_ok=True)
+    acct = obs.GoodputAccountant(metrics_dir, run_id=args.run_id) \
+        if metrics_dir else None
+    metrics_jsonl = Path(metrics_dir) / "metrics.jsonl" if metrics_dir else None
 
     #: wall time of the previous StepStats harvest (the window-level
     #: step-time series the anomaly detector watches)
@@ -294,7 +360,7 @@ def run(args):
             if "scale" in tree:
                 scales[at_step] = float(tree["scale"])
                 extra = f" scale={scales[at_step]:.0f}"
-            print(f"step {at_step}: loss={losses[at_step]:.4f}{extra}", flush=True)
+            say(f"step {at_step}: loss={losses[at_step]:.4f}{extra}")
             return
         s = stepstats.StepTelemetry.emit(registry, tree)
         if recorder is not None:
@@ -304,8 +370,8 @@ def run(args):
             registry.snapshot_jsonl(metrics_jsonl, window_end_step=at_step)
         if acct is not None:
             acct.heartbeat()
-        print(f"telemetry[{at_step}]: loss_mean={s['loss_mean']:.4f} "
-              f"grad_norm={s['grad_norm_last']:.3g} bad={s['bad_steps']}", flush=True)
+        say(f"telemetry[{at_step}]: loss_mean={s['loss_mean']:.4f} "
+              f"grad_norm={s['grad_norm_last']:.3g} bad={s['bad_steps']}")
 
     corpus = load_corpus(args)
     start_step = 0
@@ -322,13 +388,42 @@ def run(args):
         return {"params": params, "state": state, "step": np.int64(step_no), "scaler": sd}
 
     ckpt = io.AsyncCheckpointer() if args.checkpoint else None
+    # --zero: elastic step_* directories, every rank its own shard
+    run_ctl = (resilience.ElasticRunController(args.checkpoint, optimizer, world_size=dp,
+                                               mesh_axes=mesh_meta, checkpointer=ckpt,
+                                               keep=args.keep)
+               if args.zero and args.checkpoint else None)
 
     # --resume points at a dir (or file) and fails loudly if nothing valid
     # is there; --auto-resume resumes from --checkpoint when it holds a
     # valid checkpoint and starts fresh otherwise
     t_restore = time.time()
     resume_dir = args.resume or (args.checkpoint if args.auto_resume else None)
-    if resume_dir:
+    if resume_dir and args.zero:
+        # elastic resume: a save at another world (or by the JAX
+        # package) reshards; AllCheckpointsTornError (dirs exist, none
+        # complete) stays loud even under --auto-resume
+        restored = resilience.restore_elastic_checkpoint(
+            resume_dir, optimizer=optimizer, world_size=dp, mesh_axes=mesh_meta,
+            opt_state=state, params=params, scaler_state=ckpt_tree(0)["scaler"])
+        if restored is None and args.resume:
+            raise FileNotFoundError(f"no elastic checkpoint under {resume_dir}")
+        if restored is not None:
+            params = params_from_numpy(tree_map(_host_f32, restored.params), config, dev,
+                                       keep_fp32=True)
+            state = restored.opt_state
+            start_step = restored.step
+            if scaler is not None:
+                if restored.scaler is None:
+                    raise ValueError(f"checkpoint in {resume_dir} has no loss-scaler state "
+                                     "(saved by a run without --fp16)")
+                scaler_state = scaler.load_state_dict(
+                    {k: np.asarray(v).item() for k, v in restored.scaler.items()}, dev)
+            msg = f"resumed at step {start_step}"
+            if restored.resharded:
+                msg += f" (elastic reshard: dp={restored.saved_world} -> dp={dp})"
+            say(msg)
+    elif resume_dir:
         if Path(resume_dir).is_file():
             io.validate_checkpoint(resume_dir)
             path = resume_dir
@@ -345,13 +440,13 @@ def run(args):
                 if any(Path(resume_dir).glob("step_*/index.json")):
                     raise ValueError(
                         f"{resume_dir} holds elastic step_* checkpoints (saved by a "
-                        "--zero run); point at a matching run's dir")
+                        "--zero run); resume with --zero or point at a matching run's dir")
                 path = None  # --auto-resume first launch: fresh start
         if path is not None:
             ck = io.load_checkpoint(path, template=ckpt_tree(0))
             params, state, scaler_state, start_step = train_state_from_numpy(
                 ck, config, dev, loss_scaler=scaler)
-            print(f"resumed at step {start_step}", flush=True)
+            say(f"resumed at step {start_step}")
     if acct is not None and start_step:
         acct.add_segment("restore", time.time() - t_restore)
     if tracer is not None and resume_dir and start_step:
@@ -364,7 +459,8 @@ def run(args):
     small = [] if scaler is None else [scaler_state]
     step = tracing.TracedStep(
         make_train_step(optimizer, config, loss_scaler=scaler,
-                        graphs=False if args.eager else None, telemetry=telemetry),
+                        graphs=False if args.eager else None, telemetry=telemetry,
+                        dp_group=dp_group),
         name="train.step.dispatch")
     tracing.emit_sync_plan(optimizer)
 
@@ -376,8 +472,8 @@ def run(args):
         while True:
             yield from MegatronPretrainingSampler(
                 total_samples=len(corpus), consumed_samples=consumed,
-                micro_batch_size=args.global_batch, data_parallel_rank=0,
-                data_parallel_size=1)
+                micro_batch_size=args.global_batch // dp, data_parallel_rank=rank,
+                data_parallel_size=dp)
             consumed = 0
 
     def assemble(idx):
@@ -406,7 +502,7 @@ def run(args):
         the goodput session stamped wedged."""
         for piece in (
                 (lambda: (anomaly.wedge(info.get("elapsed_s"), step=info.get("step")),
-                          anomaly.persist(args.metrics_dir or args.trace_dir)))
+                          anomaly.persist(metrics_dir or args.trace_dir)))
                 if anomaly is not None else None,
                 (lambda: registry.snapshot_jsonl(metrics_jsonl, wedged=True))
                 if metrics_jsonl is not None else None,
@@ -443,6 +539,13 @@ def run(args):
             saves.append({"step": step_no, "block_ms": 1e3 * (time.time() - t0)})
 
     def _save_at(step_no):
+        if run_ctl is not None:
+            # --zero: this rank's shard of an elastic step_* directory
+            tree = ckpt_tree(step_no)
+            run_ctl.save(step_no, tree["params"], tree["state"], scaler_state=tree["scaler"])
+            return
+        if not lead:
+            return  # a replicated state: rank 0's file holds it
         # step-named files (atomic publish) so a preempted restart picks
         # the newest VALID one; bounded disk: keep the newest
         # max(keep, 3), counting the saves still queued or writing among
@@ -511,8 +614,8 @@ def run(args):
                 save_at(i + 1)
             if ckpt:
                 pre.drain(ckpt)  # every accepted save is durable
-            print(f"preempted ({pre.reason}) after step {i}; rerun the same command "
-                  f"to resume", flush=True)
+            say(f"preempted ({pre.reason}) after step {i}; rerun the same command "
+                  f"to resume")
             break
     # final harvest: the tail window plus any loss lines still in flight
     # (blocking is correct here — the run is over); the watchdog still
@@ -534,28 +637,25 @@ def run(args):
         ckpt.close()
         if acct is not None:
             acct.add_segment("checkpoint", time.time() - t_close)
-        print(f"checkpoint: {args.checkpoint}", flush=True)
-    if args.metrics_dir:
-        (Path(args.metrics_dir) / "metrics.prom").write_text(registry.prometheus_text())
+        say(f"checkpoint: {args.checkpoint}")
+    if metrics_dir:
+        (Path(metrics_dir) / "metrics.prom").write_text(registry.prometheus_text())
     if acct is not None:
         acct.finalize("preempted" if (pre is not None and pre.preempted) else "clean")
         report = gp.goodput_report(
-            args.metrics_dir, flops_per_token=gp.model_flops_per_token(
+            metrics_dir, flops_per_token=gp.model_flops_per_token(
                 gp.param_count(params), args.layers, args.seq, args.hidden))
-        (Path(args.metrics_dir) / "goodput_report.json").write_text(json.dumps(report, indent=1))
-        print("goodput: " + " ".join(f"{k}={v:.1%}"
-                                     for k, v in sorted(report["fractions"].items())),
-              flush=True)
+        (Path(metrics_dir) / "goodput_report.json").write_text(json.dumps(report, indent=1))
+        say("goodput: " + " ".join(f"{k}={v:.1%}"
+                                   for k, v in sorted(report["fractions"].items())))
     if anomaly is not None:
-        anomaly.persist(args.metrics_dir or args.trace_dir)
+        anomaly.persist(metrics_dir or args.trace_dir)
         counts = anomaly.counts()
         if counts:
-            print("anomalies: " + " ".join(f"{k}={v}" for k, v in sorted(counts.items())),
-                  flush=True)
+            say("anomalies: " + " ".join(f"{k}={v}" for k, v in sorted(counts.items())))
     if tracer is not None:
         exp = tracing.export_run(args.trace_dir, args.run_id, tracer)
-        print(f"trace: {args.trace_dir} ({exp['events']} events, {exp['dropped']} dropped)",
-              flush=True)
+        say(f"trace: {args.trace_dir} ({exp['events']} events, {exp['dropped']} dropped)")
     # the process-wide hooks this run installed go with it
     if pre is not None:
         pre.uninstall()
@@ -567,6 +667,8 @@ def run(args):
     steps = sorted(losses)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "rank": rank, "dp": dp, "zero": bool(args.zero),
+        "grad_sync_dtype": args.grad_sync_dtype,
         "graphs": not args.eager and cuda,
         "start_step": start_step, "steps_done": done,
         "preempted": bool(pre is not None and pre.preempted),
@@ -585,9 +687,10 @@ def run(args):
 def main(argv=None):
     args = build_args().parse_args(argv)
     report = run(args)
-    print(json.dumps({"pretrain_gpt": report}), flush=True)
-    print(f"{report['steps_done']} steps in {report['wall_secs']:.1f}s "
-          f"({report['tokens_per_sec']:.0f} tokens/s)", flush=True)
+    if report["rank"] == 0:
+        print(json.dumps({"pretrain_gpt": report}), flush=True)
+        print(f"{report['steps_done']} steps in {report['wall_secs']:.1f}s "
+              f"({report['tokens_per_sec']:.0f} tokens/s)", flush=True)
     return 0
 
 

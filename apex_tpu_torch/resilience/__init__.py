@@ -9,7 +9,14 @@ back); its elastic checkpoints and run controller come with ZeRO, and
 its supervisor, chaos, uniformity and lock modules are still to be
 ported."""
 
-from apex_tpu_torch.resilience.elastic import EXIT_WEDGED, StepWatchdog
+from apex_tpu_torch.resilience.elastic import (
+    EXIT_WEDGED,
+    ElasticRestore,
+    ElasticRunController,
+    StepWatchdog,
+    restore_elastic_checkpoint,
+    save_elastic_checkpoint,
+)
 from apex_tpu_torch.resilience.preemption import PreemptionHandler
 from apex_tpu_torch.resilience.step_guard import (
     BadStepBudgetExceeded,
@@ -17,5 +24,6 @@ from apex_tpu_torch.resilience.step_guard import (
     StepGuard,
 )
 
-__all__ = ["BadStepBudgetExceeded", "EXIT_WEDGED", "GuardState", "PreemptionHandler",
-           "StepGuard", "StepWatchdog"]
+__all__ = ["BadStepBudgetExceeded", "EXIT_WEDGED", "ElasticRestore", "ElasticRunController",
+           "GuardState", "PreemptionHandler", "StepGuard", "StepWatchdog",
+           "restore_elastic_checkpoint", "save_elastic_checkpoint"]

@@ -14,21 +14,36 @@ Exit-code contract (what a supervisor keys restart policy on)::
                  valid checkpoint
     anything else: a real crash; do not blindly restart
 
-The JAX module's elastic checkpoints, reshard and run controller come
-with ZeRO.
+Elastic checkpoints (:func:`save_elastic_checkpoint` /
+:func:`restore_elastic_checkpoint`, the JAX module's :289-463): one
+``step_<N>/`` directory a save, one shard file a data-parallel rank
+plus an ``index.json`` recording the saved world layout, in the JAX
+package's file layout and tree.  Each rank writes its own shard (the
+process holds only its own); rank 0's also carries the replicated
+pieces (params, the step, the loss-scaler / StepGuard / RNG state
+dicts).  A ZeRO state saved at one world restores at another through
+``load_sharded_state_dicts``, residuals included; a JAX-saved directory
+restores here and the reverse.  :class:`ElasticRunController` is the
+loop's side of it (restore-or-fresh, saves with bounded disk); its
+chaos delivery is not ported (ROADMAP.md queue 1 item 5).
 """
 
 import logging
 import os
+import shutil
 import threading
 import time
-from typing import Optional
+from pathlib import Path
+from typing import Any, Dict, Mapping, NamedTuple, Optional
+
+import numpy as np
 
 from apex_tpu_torch.observability import flightrec as _flightrec
 from apex_tpu_torch.observability import metrics as _metrics
 from apex_tpu_torch.utils.logging import get_logger, log_structured
 
-__all__ = ["EXIT_WEDGED", "StepWatchdog"]
+__all__ = ["EXIT_WEDGED", "ElasticRestore", "ElasticRunController", "StepWatchdog",
+           "restore_elastic_checkpoint", "save_elastic_checkpoint"]
 
 _logger = get_logger("apex_tpu_torch.resilience")
 
@@ -221,3 +236,242 @@ class StepWatchdog:
             self._on_fire(info)
             return
         os._exit(self.exit_code)
+
+
+# ------------------------------------------------------ elastic checkpoints
+#: index.json metadata kinds: which restore path owns the state
+ELASTIC_KIND_ZERO = "zero2"
+ELASTIC_KIND_REPLICATED = "replicated"
+
+
+class ElasticRestore(NamedTuple):
+    """What :func:`restore_elastic_checkpoint` hands the loop: host
+    trees (CPU tensors), the optimizer state already on the optimizer's
+    device and resharded for the live world."""
+
+    step: int
+    params: Any
+    opt_state: Any
+    scaler: Optional[dict]
+    guard: Optional[dict]
+    rng: Optional[dict]
+    saved_world: int
+    resharded: bool
+
+
+def _is_zero(optimizer) -> bool:
+    return hasattr(optimizer, "sharded_state_dict")
+
+
+def _step_dir(dir_path, step: int) -> Path:
+    return Path(dir_path) / f"step_{int(step):08d}"
+
+
+def _live_rank(optimizer) -> int:
+    if _is_zero(optimizer):
+        return int(optimizer.rank)
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def save_elastic_checkpoint(dir_path, step: int, *, params, opt_state, optimizer,
+                            world_size: int, mesh_axes: Optional[Mapping[str, int]] = None,
+                            scaler_state: Optional[dict] = None,
+                            guard_state: Optional[dict] = None,
+                            rng_state: Optional[dict] = None, checkpointer=None) -> str:
+    """Publish this rank's part of the train state as an elastic
+    ``step_<N>/`` directory.  A ZeRO optimizer's rank writes its
+    :meth:`sharded_state_dict`; a replicated one's rank 0 writes its
+    state as a world-1 shard (the state is the same on every rank).
+    Rank 0 writes the index first, then its shard with the replicated
+    pieces.  ``scaler_state`` / ``guard_state`` / ``rng_state`` are the
+    owners' plain state dicts.  With a ``checkpointer``
+    (:class:`~apex_tpu_torch.io.AsyncCheckpointer`) the shard is
+    snapshot now and written by its worker.  Returns the directory."""
+    from apex_tpu_torch.io import checkpoint as ck
+
+    zero = _is_zero(optimizer)
+    world = int(world_size) if zero else 1
+    rank = _live_rank(optimizer)
+    sd = _step_dir(dir_path, step)
+    meta = {"elastic": {"kind": ELASTIC_KIND_ZERO if zero else ELASTIC_KIND_REPLICATED,
+                        "step": int(step), "dp_world": world,
+                        "mesh_axes": {k: int(v) for k, v in (mesh_axes or {}).items()}}}
+    if not zero and rank != 0:
+        return str(sd)
+    tree: Dict[str, Any] = {"opt": optimizer.sharded_state_dict(opt_state) if zero
+                            else opt_state}
+    if rank == 0:
+        tree.update({"params": params, "step": np.int64(step), "scaler": scaler_state,
+                     "guard": guard_state, "rng": rng_state})
+    if rank == 0:
+        ck._write_index(sd, world, extra=meta)
+    path = sd / ck._shard_name(rank, world)
+    if checkpointer is not None:
+        checkpointer.save(path, tree)
+    else:
+        from apex_tpu_torch.io.async_checkpoint import _snapshot
+
+        sd.mkdir(parents=True, exist_ok=True)
+        ck.save_checkpoint(path, _snapshot(tree))
+    log_structured(_logger, logging.INFO, "elastic.saved", step=int(step), dp_world=world,
+                   rank=rank, path=str(sd))
+    return str(sd)
+
+
+def _shape_free(tree):
+    """``tree`` with every leaf a placeholder that carries no shape: the
+    structure of a JAX-written shard file whose shard lengths differ
+    from the live ones."""
+    from apex_tpu_torch.optimizers.tree import tree_map
+
+    return tree_map(lambda _: 0, tree)
+
+
+def _shard_template(optimizer, opt_state, params, scaler_state, guard_state, rng_state):
+    """``template(rank)``: the tree of a shard file (for a JAX-written
+    directory, whose structure bytes only jaxlib reads)."""
+    opt = _shape_free(optimizer.sharded_state_dict(opt_state)) if _is_zero(optimizer) \
+        else opt_state
+
+    def template(rank):
+        t = {"opt": opt}
+        if rank == 0:
+            t.update({"params": params, "step": np.int64(0), "scaler": scaler_state,
+                      "guard": guard_state, "rng": rng_state})
+        return t
+
+    return template
+
+
+def restore_elastic_checkpoint(dir_path, *, optimizer, world_size: int,
+                               mesh_axes: Optional[Mapping[str, int]] = None,
+                               step: Optional[int] = None, opt_state=None, params=None,
+                               scaler_state: Optional[dict] = None
+                               ) -> Optional[ElasticRestore]:
+    """Resume from the newest complete elastic ``step_<N>/`` directory,
+    resharding a ZeRO state for the live ``world_size`` (the optimizer
+    ``init``-ed at it).  ``None`` when no ``step_*`` directory exists;
+    :class:`~apex_tpu_torch.io.AllCheckpointsTornError` when some exist
+    but none is complete.  Refuses a model-layout change (``mesh_axes``),
+    a replicated/ZeRO kind mismatch, and the engine's own state checks
+    (master precision, residual kind, incomplete shard sets).
+    ``opt_state`` / ``params`` / ``scaler_state``: the live trees, whose
+    structure reads a JAX-written directory (a port-written one needs
+    none)."""
+    from apex_tpu_torch import io
+
+    if step is None:
+        step = io.latest_distributed_step(dir_path)
+        if step < 0:
+            return None
+    sd = _step_dir(dir_path, step)
+    index = io.read_index(sd)
+    meta = index.get("elastic")
+    if meta is None:
+        raise ValueError(f"{sd} is a sharded checkpoint but not an ELASTIC one (no 'elastic' "
+                         "index metadata): load it with io.load_sharded_checkpoint")
+    zero = _is_zero(optimizer)
+    want_kind = ELASTIC_KIND_ZERO if zero else ELASTIC_KIND_REPLICATED
+    if meta.get("kind") != want_kind:
+        raise ValueError(
+            f"elastic checkpoint kind {meta.get('kind')!r} does not match this optimizer "
+            f"({want_kind!r}): a replicated state cannot restore into a ZeRO optimizer or "
+            "vice versa (the --zero flag must agree between save and resume)")
+    saved_axes = {k: int(v) for k, v in (meta.get("mesh_axes") or {}).items()}
+    live_axes = {k: int(v) for k, v in (mesh_axes or {}).items()}
+    if saved_axes != live_axes:
+        raise ValueError(
+            f"elastic resume is data-parallel-only: checkpoint was saved with model axes "
+            f"{saved_axes} but the live layout has {live_axes}")
+    saved_world = int(meta.get("dp_world", index["world_size"]))
+    if zero and optimizer.world_size is not None and int(optimizer.world_size) != int(world_size):
+        raise ValueError(
+            f"optimizer was init'd for dp={optimizer.world_size} but the live world is "
+            f"{world_size}: init it at the live world before restore")
+    template = None
+    if opt_state is not None and params is not None:
+        template = _shard_template(optimizer, opt_state, params, scaler_state, None, None)
+    shards = io.load_sharded_checkpoint(sd, template=template)
+    r0 = shards[0]
+    if zero:
+        from apex_tpu_torch.contrib.optimizers import zero_state_from_numpy
+
+        opt_state = zero_state_from_numpy(optimizer, [d["opt"] for d in shards])
+    else:
+        opt_state = r0["opt"]
+    resharded = zero and saved_world != int(world_size)
+    log_structured(_logger, logging.INFO, "elastic.restored", step=int(step),
+                   saved_world=saved_world, live_world=int(world_size), resharded=resharded,
+                   path=str(sd))
+    return ElasticRestore(step=int(np.asarray(r0["step"])), params=r0["params"],
+                          opt_state=opt_state, scaler=r0.get("scaler"),
+                          guard=r0.get("guard"), rng=r0.get("rng"), saved_world=saved_world,
+                          resharded=resharded)
+
+
+# ---------------------------------------------------------- run controller
+class ElasticRunController:
+    """The loop's side of elastic checkpoints: restore-or-fresh, the
+    per-step watchdog heartbeat, saves with bounded disk (the JAX
+    module's :464 without its chaos delivery)::
+
+        ctl = ElasticRunController(ckdir, optimizer, world_size=dp,
+                                   mesh_axes={"tp": 1, "pp": 1}, checkpointer=ckpt)
+        restored = ctl.restore(opt_state=state, params=params)  # None: fresh
+        for step in range(start, end):
+            ctl.on_step(step)
+            ...train...
+            ctl.save(step + 1, params, state)
+
+    Every rank runs it: each saves its own shard, and rank 0 prunes."""
+
+    def __init__(self, checkpoint_dir, optimizer, world_size: int,
+                 mesh_axes: Optional[Mapping[str, int]] = None, checkpointer=None,
+                 watchdog: Optional[StepWatchdog] = None, keep: int = 3):
+        self.dir = checkpoint_dir
+        self.optimizer = optimizer
+        self.world_size = int(world_size)
+        self.mesh_axes = dict(mesh_axes or {})
+        self.checkpointer = checkpointer
+        self.watchdog = watchdog
+        self.keep = max(int(keep), 1)
+
+    def __enter__(self):
+        if self.watchdog is not None:
+            self.watchdog.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        return False
+
+    def on_step(self, step: int, deadline: Optional[float] = None) -> None:
+        """Top-of-iteration hook: the watchdog's heartbeat."""
+        if self.watchdog is not None:
+            self.watchdog.beat(step, deadline=deadline)
+
+    def restore(self, opt_state=None, params=None, scaler_state=None) -> Optional[ElasticRestore]:
+        return restore_elastic_checkpoint(
+            self.dir, optimizer=self.optimizer, world_size=self.world_size,
+            mesh_axes=self.mesh_axes, opt_state=opt_state, params=params,
+            scaler_state=scaler_state)
+
+    def save(self, step: int, params, opt_state, scaler_state=None, guard_state=None,
+             rng_state=None) -> str:
+        path = save_elastic_checkpoint(
+            self.dir, step, params=params, opt_state=opt_state, optimizer=self.optimizer,
+            world_size=self.world_size, mesh_axes=self.mesh_axes, scaler_state=scaler_state,
+            guard_state=guard_state, rng_state=rng_state, checkpointer=self.checkpointer)
+        if _live_rank(self.optimizer) == 0:
+            self.prune()
+        return path
+
+    def prune(self) -> None:
+        """Keep the newest ``keep`` step directories (at least 3 with an
+        async checkpointer, whose queue may hold two in flight)."""
+        keep = max(self.keep, 3) if self.checkpointer is not None else self.keep
+        for d in sorted(Path(self.dir).glob("step_*"))[:-keep]:
+            shutil.rmtree(d, ignore_errors=True)

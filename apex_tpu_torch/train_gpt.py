@@ -209,8 +209,37 @@ def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state
     return new_params, new_state, step_guard.update(guard_state, finite)
 
 
+def _dp_sync(opt, dp_group):
+    """``(grad sync or None, loss mean or None)`` of a step: a ZeRO
+    optimizer owns the grad sync (its reduce-scatter), so the step only
+    averages the loss over its group; a replicated optimizer over a
+    ``dp_group`` of more than one rank gets the DDP all-reduce
+    (:func:`apex_tpu_torch.parallel.allreduce_gradients`) and the loss
+    mean; otherwise neither.  The loss mean adds in rank order, the
+    JAX step's ``pmean``."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.parallel.distributed import allreduce_gradients, process_group
+
+    if hasattr(opt, "sharded_state_dict"):
+        pg, world = opt._pg, opt.world_size
+        grad_sync = None
+    elif dp_group is not None and process_group(dp_group)[1] > 1:
+        pg, world = process_group(dp_group)
+
+        def grad_sync(grads):
+            return allreduce_gradients(grads, group=dp_group)
+    else:
+        return None, None
+
+    def loss_mean(loss):
+        return qs.rank_order_sum(loss.reshape(1), pg, world)[0] / world
+
+    return grad_sync, loss_mean
+
+
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
-                    graphs=None, warmup=1, telemetry=None):
+                    graphs=None, warmup=1, telemetry=None, dp_group=None,
+                    overlap_grad_sync=False):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
     [guard_state], [stats], tokens, targets) -> loss``, a scaler state
@@ -235,7 +264,23 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     CUDA graph after the last of them, and replays it; on the CPU it runs
     the static buffers without capture.  Nothing in the step reads a
     device value on the host.  ``params`` must already require gradients
-    when captured."""
+    when captured.
+
+    Data parallelism: a ZeRO optimizer
+    (:mod:`apex_tpu_torch.contrib.optimizers`) owns the grad sync over
+    its group and the step adds none; a replicated optimizer gets the
+    DDP all-reduce of the grads over ``dp_group`` (an ``AxisGroup``)
+    when it has more than one rank.  Either way the loss returned is the
+    mean over the group, as the JAX step's ``pmean``.  The collectives
+    are captured with the rest of the step.  ``overlap_grad_sync=True``
+    (the sync issued inside the backward) is not ported yet and
+    raises."""
+    if overlap_grad_sync:
+        from apex_tpu_torch.contrib.optimizers._zero_engine import OVERLAP_ITEM
+
+        raise NotImplementedError(f"make_train_step(overlap_grad_sync=True) is not ported "
+                                  f"yet: it comes with {OVERLAP_ITEM}")
+    grad_sync, loss_mean = _dp_sync(opt, dp_group)
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
                          "subclass): the clip folds into its fused grad pass")
@@ -268,11 +313,15 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
             scaled, grads = loss_and_grads(params, tokens, targets, config,
                                            lambda l: loss_scaler.scale(scaler_state, l))
             loss = scaled / scaler_state.loss_scale
+            if grad_sync is not None:
+                grads = grad_sync(grads)
             new = _apply_scaled_update(loss_scaler, scaler_state, grads, opt, state, params,
                                        step_guard=step_guard, guard_state=guard_state,
                                        clip_grad_norm=clip_grad_norm)
         else:
             loss, grads = loss_and_grads(params, tokens, targets, config)
+            if grad_sync is not None:
+                grads = grad_sync(grads)
             if step_guard is not None:
                 new = _apply_guarded_update(grads, opt, state, params, step_guard,
                                             guard_state, clip_grad_norm=clip_grad_norm)
@@ -280,6 +329,8 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                 new = opt.update(grads, state, params, clip_norm=clip_grad_norm)
             else:
                 new = opt.update(grads, state, params)
+        if loss_mean is not None:
+            loss = loss_mean(loss)
         return loss, new
 
     if graphs is False:

@@ -6,9 +6,12 @@ Reference: ``apex/transformer/amp/grad_scaler.py:21-126``: a
 ``found_inf`` over the model-parallel group in ``unscale_`` and
 ``update``, so that every rank agrees on skipping a step.  The JAX
 package combines the vote over mesh axes; here the axes are
-``torch.distributed`` process groups, combined by an all-reduce MAX of
-the not-finite indicator.  With no groups (one device) the vote is
-returned as it is.
+``torch.distributed`` process groups (or the ``AxisGroup`` handles of
+:mod:`apex_tpu_torch.transformer.parallel_state`), combined by an
+all-reduce MAX of the not-finite indicator.  The ZeRO optimizers agree
+their vote over the data-parallel group through it.  With no groups (one
+device) the vote is returned as it is; a one-rank axis of
+``parallel_state`` (tp, pp here) has no group and adds no collective.
 """
 
 from typing import Sequence
@@ -28,10 +31,13 @@ def sync_found_inf(grads_finite, groups: Sequence = ()):
         return grads_finite
     import torch.distributed as dist
 
-    not_finite = 1.0 - torch.as_tensor(grads_finite).to(torch.float32)
+    not_finite = 1.0 - torch.as_tensor(grads_finite).to(torch.float32).reshape(1)
     for group in groups:
+        group = getattr(group, "group", group)  # an AxisGroup's ProcessGroup
+        if group is None:
+            continue
         dist.all_reduce(not_finite, op=dist.ReduceOp.MAX, group=group)
-    return not_finite == 0.0
+    return not_finite[0] == 0.0
 
 
 class GradScaler(DynamicLossScaler):

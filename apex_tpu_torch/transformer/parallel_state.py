@@ -1,0 +1,220 @@
+"""Model-parallel state: the process-group registry (counterpart of
+:mod:`apex_tpu.transformer.parallel_state`).
+
+Reference: ``apex/transformer/parallel_state.py`` — ``initialize_model_
+parallel`` (:155) builds NCCL process groups for TP/PP/DP and ~50
+getters expose their ranks, sizes and groups.  The JAX package turns the
+groups into named axes of one device mesh; here they are
+``torch.distributed`` process groups again, one per axis, built with
+``torch.distributed.new_group`` over the default group that
+:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed` starts
+(one process a rank: NCCL on CUDA, gloo on the CPU).
+
+Only the data-parallel axis is ported: at tp = pp = cp = 1 the
+data-parallel group is the whole world.  tp, pp or cp above 1 and a
+hierarchical dp split raise, naming the ROADMAP.md queue item that
+brings them.  :class:`AxisGroup` is the handle a getter returns: the
+axis name (it is a ``str``, as the JAX package's handle is), its
+``torch.distributed`` group, its size and this process's rank in it.
+"""
+
+import dataclasses
+from typing import Optional
+
+# The JAX package's axis names (apex_tpu/transformer/parallel_state.py:32-52)
+DATA_AXIS = "dp"
+PIPELINE_AXIS = "pp"
+CONTEXT_AXIS = "cp"
+TENSOR_AXIS = "tp"
+DCN_AXIS = "dcn"
+DATA_OUTER_AXIS = "dp_out"
+DATA_INNER_AXIS = "dp_in"
+HIER_DP_AXES = (DCN_AXIS, DATA_OUTER_AXIS, DATA_INNER_AXIS)
+AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
+
+#: what brings each axis that is not ported yet
+_UNPORTED_AXES = {
+    TENSOR_AXIS: "tensor parallelism, ROADMAP.md queue 1 item 7",
+    PIPELINE_AXIS: "pipeline parallelism, ROADMAP.md queue 1 item 9",
+    CONTEXT_AXIS: "context parallelism, ROADMAP.md queue 1 item 9",
+    DCN_AXIS: "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)",
+}
+
+__all__ = [
+    "DATA_AXIS", "PIPELINE_AXIS", "CONTEXT_AXIS", "TENSOR_AXIS", "DCN_AXIS",
+    "DATA_OUTER_AXIS", "DATA_INNER_AXIS", "HIER_DP_AXES", "AXIS_ORDER", "AxisGroup",
+    "initialize_model_parallel", "model_parallel_is_initialized", "destroy_model_parallel",
+    "get_tensor_model_parallel_world_size", "get_pipeline_model_parallel_world_size",
+    "get_context_parallel_world_size", "get_data_parallel_world_size",
+    "get_tensor_model_parallel_group", "get_pipeline_model_parallel_group",
+    "get_context_parallel_group", "get_data_parallel_group", "get_model_parallel_group",
+    "get_tensor_model_parallel_rank", "get_pipeline_model_parallel_rank",
+    "get_context_parallel_rank", "get_data_parallel_rank", "get_data_parallel_src_rank",
+    "get_num_distributed_slices",
+]
+
+
+class AxisGroup(str):
+    """A process-group handle: the axis name, with ``group`` (the
+    ``torch.distributed`` ProcessGroup), ``size()`` and ``rank()``."""
+
+    def __new__(cls, axis: str, group, size: int, rank: int):
+        self = super().__new__(cls, axis)
+        self.group = group
+        self._size = int(size)
+        self._rank = int(rank)
+        return self
+
+    def size(self) -> int:
+        return self._size
+
+    def rank(self) -> int:
+        return self._rank
+
+
+@dataclasses.dataclass
+class _State:
+    data: AxisGroup
+    tensor: AxisGroup
+    pipeline: AxisGroup
+    context: AxisGroup
+
+
+_STATE: Optional[_State] = None
+
+
+def _one_rank_group(axis: str) -> AxisGroup:
+    """A size-1 axis: each rank is its own group (no collective crosses
+    it; ``group`` None tells the collectives helpers to skip it)."""
+    return AxisGroup(axis, None, 1, 0)
+
+
+def initialize_model_parallel(
+    tensor_model_parallel_size_: int = 1,
+    pipeline_model_parallel_size_: int = 1,
+    virtual_pipeline_model_parallel_size_: Optional[int] = None,
+    pipeline_model_parallel_split_rank_: Optional[int] = None,
+    context_parallel_size_: int = 1,
+    num_distributed_slices_: int = 1,
+) -> AxisGroup:
+    """Build and register the process groups (reference
+    ``parallel_state.initialize_model_parallel``, :155; the JAX
+    package's :76 with its argument names).  Needs the default group
+    (:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`).
+    Returns the data-parallel group, the whole world here."""
+    import torch.distributed as dist
+
+    global _STATE
+    for size, axis in ((tensor_model_parallel_size_, TENSOR_AXIS),
+                       (pipeline_model_parallel_size_, PIPELINE_AXIS),
+                       (context_parallel_size_, CONTEXT_AXIS),
+                       (num_distributed_slices_, DCN_AXIS)):
+        if int(size) != 1:
+            raise NotImplementedError(
+                f"{axis} size {size} is not ported yet: it comes with "
+                f"{_UNPORTED_AXES[axis]}")
+    if virtual_pipeline_model_parallel_size_ is not None:
+        raise NotImplementedError(
+            f"the interleaved schedule is not ported yet: it comes with "
+            f"{_UNPORTED_AXES[PIPELINE_AXIS]}")
+    if not dist.is_initialized():
+        raise RuntimeError("initialize_model_parallel needs the default process group: "
+                           "call apex_tpu_torch.parallel.multiproc.initialize_distributed")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    data = AxisGroup(DATA_AXIS, dist.new_group(list(range(world))), world, rank)
+    _STATE = _State(data=data, tensor=_one_rank_group(TENSOR_AXIS),
+                    pipeline=_one_rank_group(PIPELINE_AXIS),
+                    context=_one_rank_group(CONTEXT_AXIS))
+    return data
+
+
+def model_parallel_is_initialized() -> bool:
+    """Reference: parallel_state.py:404."""
+    return _STATE is not None
+
+
+def _state() -> _State:
+    if _STATE is None:
+        raise RuntimeError("model parallel is not initialized (call initialize_model_parallel)")
+    return _STATE
+
+
+def destroy_model_parallel() -> None:
+    """Reference: parallel_state.py:761.  The groups go with the default
+    group (``multiproc.destroy_distributed``)."""
+    global _STATE
+    _STATE = None
+
+
+# ------------------------------------------------------------------- sizes
+def get_tensor_model_parallel_world_size() -> int:
+    return _state().tensor.size()
+
+
+def get_pipeline_model_parallel_world_size() -> int:
+    return _state().pipeline.size()
+
+
+def get_context_parallel_world_size() -> int:
+    return _state().context.size()
+
+
+def get_data_parallel_world_size() -> int:
+    return _state().data.size()
+
+
+def get_num_distributed_slices() -> int:
+    _state()
+    return 1
+
+
+# ------------------------------------------------------------------ groups
+def get_tensor_model_parallel_group() -> AxisGroup:
+    return _state().tensor
+
+
+def get_pipeline_model_parallel_group() -> AxisGroup:
+    return _state().pipeline
+
+
+def get_context_parallel_group() -> AxisGroup:
+    return _state().context
+
+
+def get_data_parallel_group() -> AxisGroup:
+    """Reference :462 (the JAX package's :259): the data-parallel
+    group, the whole world at tp = pp = cp = 1."""
+    return _state().data
+
+
+def get_model_parallel_group() -> tuple:
+    """The (pp, tp) groups a found-inf vote is agreed over; both are
+    one rank here, so a vote over them is the vote as it is."""
+    s = _state()
+    return (s.pipeline, s.tensor)
+
+
+# ------------------------------------------------------------------- ranks
+def get_tensor_model_parallel_rank() -> int:
+    return _state().tensor.rank()
+
+
+def get_pipeline_model_parallel_rank() -> int:
+    return _state().pipeline.rank()
+
+
+def get_context_parallel_rank() -> int:
+    return _state().context.rank()
+
+
+def get_data_parallel_rank() -> int:
+    """Reference :382 — this process's rank in the data-parallel group
+    (the JAX package's traced ``axis_index``)."""
+    return _state().data.rank()
+
+
+def get_data_parallel_src_rank() -> int:
+    """Reference :520: the group's broadcast source, rank 0 of the
+    world at tp = pp = 1."""
+    _state()
+    return 0

@@ -182,6 +182,23 @@ Phases, each printing one JSON line:
     over the last 4 steps.  Printed beside ``nvidia-smi``: the step
     median with telemetry on and off, each save's blocking host time,
     the writer thread's seconds and bytes, the step after a save.
+16. zero: ``pretrain_gpt --zero`` (DistributedFusedAdam over a one-rank
+    NCCL group on this card) at the pretrain cell, in this process:
+    graphed (8 steps, elastic saves at 4 and 8) and ``--eager``, losses
+    bitwise equal to the pretrain phase's FusedAdam run at every step;
+    exact launch counts (train_fce's and one ``mt_adam`` a step); a
+    resume from the step-4 directory bitwise; ``--grad-sync-dtype int8``,
+    ``float8_e4m3fn`` and ``float8_e5m2`` on one repeated batch finite,
+    falling and within 1e-2 of the wide wire's losses; the quantized wire's
+    residual identity bitwise on the card; bench.py's ``zero2_vs_fused``
+    and ``zero_gpt124`` at dp 1 (step ms, live MB, wire bytes; the
+    remainder mode's ``mt_adam_remainder`` launches counted); a profile
+    of 7 graphed steps, wide and int8 (the collectives' and quantize
+    ops' device ms, the idle share).  With two or more cards, torchrun at
+    world min(4, count) against world 1; with one, a line says world > 1
+    did not run on a card.  The kernels phase holds ``mt_adam_remainder``
+    bitwise against its plain version (with a clip and a false
+    predicate) and times it beside ``torch.optim.AdamW(fused=True)``.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -1527,6 +1544,8 @@ def mt_kernels(dev, results, lib):
     for case in ("gpt124", "bench", "odd_bf16", "odd"):
         results[("mt_l2norm", case)] = r = check_mt_l2norm(dev, case)
         emit({"phase": "kernel", **r})
+    results[("mt_adam_remainder",)] = r = check_mt_adam_remainder(dev)
+    emit({"phase": "kernel", **r})
 
 
 def bench_params(dev, seed=0):
@@ -3257,6 +3276,510 @@ def pretrain_phase(smi):
           "writes": [{"seconds": w["seconds"], "bytes": w["bytes"]} for w in full["writes"]],
           "tokens_per_sec_wall": full["tokens_per_sec"], "profile": idle,
           "seconds": time.monotonic() - t_phase})
+    return full
+
+
+# --------------------------------------------------------------------- zero
+def _remainder_launches():
+    from apex_tpu_torch import ops
+
+    return ops.launch_counts()["multi_tensor.REMAINDER_LAUNCHES"]
+
+
+def check_mt_adam_remainder(dev):
+    """``mt_adam_remainder`` against its plain version on the same card
+    tensors, bitwise (bf16 params, uint16 remainders, moments), at
+    GPT-124M's bf16 params as ZeRO's world-1 shards (one tensor a
+    bucket, ``bucket_cap_mb=100``); with a clip coefficient; and a false
+    predicate that must keep every value.  Timed beside the plain
+    version and ``torch.optim.AdamW(fused=True)`` over the fp32 master
+    (the library yardstick)."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import bucketing
+
+    meta = {k: (torch.empty(s, device="meta", dtype=torch.bfloat16) if not isinstance(s, dict)
+                else {n: torch.empty(t, device="meta", dtype=torch.bfloat16)
+                      for n, t in s.items()})
+            for k, s in gpt_param_shapes().items()}
+    plan = bucketing.plan_of(meta, cap_bytes=100 * 2 ** 20, block=qs.QBLOCK)
+    sizes = [b.total for b in plan.buckets]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = [_randn(gen, (n,), dev, 0.1) for n in sizes]
+    p = [_randn(gen, (n,), dev, 1.0, torch.bfloat16) for n in sizes]
+    rem = [torch.randint(0, 1 << 16, (n,), generator=gen, device=dev, dtype=torch.int32)
+           .to(torch.uint16) for n in sizes]
+    m = [_randn(gen, (n,), dev, 0.01) for n in sizes]
+    v = [_randn(gen, (n,), dev, 0.01).abs() for n in sizes]
+
+    def outs():
+        return ([torch.empty_like(x) for x in p], [torch.empty_like(x) for x in rem],
+                [torch.empty_like(x) for x in m], [torch.empty_like(x) for x in v])
+
+    kw = dict(lr=1e-3, wd=[0.01] * len(sizes), bc1=torch.tensor(0.19, device=dev),
+              bc2=torch.tensor(0.0029970, device=dev), beta1=0.9, beta2=0.999, eps=1e-8,
+              adam_w_mode=True)
+    cases = {}
+    for case, extra in (("adamw", {}), ("clip", {"coef": torch.tensor(0.37, device=dev)}),
+                        ("nonfinite", {"pred": torch.tensor(False, device=dev)})):
+        ok_, op_ = outs(), outs()
+        mt.mt_adam_remainder(g, p, rem, m, v, *ok_, **kw, **extra)
+        mt.mt_adam_remainder_plain(g, p, rem, m, v, *op_, **kw, **extra)
+        torch.cuda.synchronize()
+        got = [t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.uint16) else t
+               for ts in ok_ for t in ts]
+        want = [t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.uint16) else t
+                for ts in op_ for t in ts]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        kept = None
+        if case == "nonfinite":
+            kept = all(torch.equal(a.view(torch.int16) if a.dtype != torch.float32 else a,
+                                   b.view(torch.int16) if b.dtype != torch.float32 else b)
+                       for a, b in zip([t for ts in ok_ for t in ts], p + rem + m + v))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(ok_[0] + ok_[2] + ok_[3], op_[0] + op_[2] + op_[3]))
+        cases[case] = {"bitwise_equal": bitwise, "old_values_kept": kept, "max_abs_err": err}
+        if not bitwise or kept is False:
+            raise AssertionError(f"mt_adam_remainder {case}: kernel != plain version {cases}")
+    # the master the kernel wrote back rebuilds bit-exactly
+    ok_ = outs()
+    mt.mt_adam_remainder(g, p, rem, m, v, *ok_, **kw)
+    rebuilt = mt.master_from_remainder(ok_[0][0], ok_[1][0])
+    hi, lo = mt.split_master(rebuilt)
+    roundtrip = bool(torch.equal(hi.view(torch.int16), ok_[0][0].view(torch.int16))
+                     and torch.equal(lo.view(torch.int16), ok_[1][0].view(torch.int16)))
+    if not roundtrip:
+        raise AssertionError("mt_adam_remainder: split(master(p, rem)) != (p, rem)")
+    N = sum(sizes)
+    bms, by = bound(28 * N, 20 * N)
+    t = timings(lambda: mt.mt_adam_remainder(g, p, rem, m, v, *ok_, **kw),
+                lambda: mt.mt_adam_remainder_plain(g, p, rem, m, v, *ok_, **kw))
+    master = [mt.master_from_remainder(a, b).clone().requires_grad_() for a, b in zip(p, rem)]
+    for a, b in zip(master, g):
+        a.grad = b.clone()
+    lib_opt = torch.optim.AdamW(master, lr=1e-3, weight_decay=0.01, fused=True)
+    lib_opt.step()
+    t["library_ms"] = device_ms(lib_opt.step)[0]
+    del lib_opt, master
+    return {"kernel": "mt_adam_remainder", "tensors": len(sizes), "elements": N,
+            "launches_per_call": mt.mt_plan("adam_remainder", sizes).launches,
+            "cases": cases, "max_abs_err": cases["adamw"]["max_abs_err"],
+            "master_roundtrip": roundtrip, "bound_ms": bms, "bound_by": by,
+            "tolerance": "bitwise (the same fp32 operations as mt_adam; truncation split)",
+            "library": "torch.optim.AdamW(fused=True).step over the fp32 master (its decay "
+                       "associates differently, a yardstick of time only)", **t}
+
+
+def check_residual_identity(dev, n_blocks=122880):
+    """The quantized wire's telescoping identity on the card at world 1,
+    bitwise: two steps of ``quantized_reduce_scatter`` on a GPT-124M-sized
+    bucket (``n_blocks`` x 1024 fp32) of crafted values (integers with
+    each block's amax pinned at 2 qmax x 2^k, so every scale is a power
+    of two, the scaled values half-integers that the wire rounds, and
+    every add exact): ``transmitted_1 + transmitted_2 +
+    residual_2 == g_1 + g_2``, for int8 and float8_e4m3fn."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    group = ps.get_data_parallel_group()
+    N = n_blocks * qs.QBLOCK
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    out = {}
+    for name in ("int8", "float8_e4m3fn"):
+        spec = qs.qspec_of(name)
+
+        def ints(scale):
+            h = torch.randint(-100, 101, (N,), generator=gen, device=dev).to(
+                torch.float32) * scale
+            h.view(-1, qs.QBLOCK)[:, 0] = 2 * spec.qmax * scale
+            return h
+
+        g1 = ints(1.0)
+        t1, res1 = qs.quantized_reduce_scatter(g1, group.group, spec, 0, 1)
+        h2 = ints(2.0)
+        g2 = h2 - res1
+        t2, res2 = qs.quantized_reduce_scatter(h2, group.group, spec, 0, 1)
+        lhs, rhs = t1 + t2 + res2, g1 + g2
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(lhs, rhs))
+        out[name] = {"bitwise": ok, "residual_max": float(res1.abs().max()),
+                     "elements": N}
+        if not ok or not float(res1.abs().max()) > 0:
+            raise AssertionError(f"residual identity {name}: {out[name]}, max diff "
+                                 f"{float((lhs - rhs).abs().max())}")
+    return out
+
+
+def gpt345_param_shapes():
+    """GPT-345M (bench.py's ``gpt345_params``: 24 layers, hidden 1024,
+    16 heads, vocab 50304, seq 1024) in the port's layout."""
+    return gpt_param_shapes(L=24, H=1024, V=50304, S=1024)
+
+
+def _shape_params(dev, shapes, seed=0, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+
+    def one(s):
+        if isinstance(s, dict):
+            return {k: one(s[k]) for k in sorted(s)}
+        return (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.02)
+                .to(dev).to(dtype))
+
+    return one(shapes)
+
+
+def zero2_vs_fused(dev, K=5):
+    """bench.py's ``zero2_vs_fused`` (``bench_zero2``, bench.py:726-808)
+    at dp 1: ``DistributedFusedAdam`` against ``FusedAdam`` (lr 1e-3,
+    weight decay 0.01, grads ``p * 0.001 + 0.0001``) over bench.py's
+    99-tensor set and GPT-345M's params; a step's ms from CUDA events
+    over ``K`` steps captured as one graph, and the optimizer state's
+    bytes of each."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+
+    out = {}
+    for label, make in (("resnet50_25m", lambda: bench_params(dev)[0]),
+                        ("gpt345", lambda: _shape_params(dev, gpt345_param_shapes()))):
+        params = make()
+        grads = tree_map(lambda p: p * 0.001 + 0.0001, params)
+        n = sum(p.numel() for p in tree_leaves(params))
+        rec = {"params_m": n / 1e6}
+        for name, opt in (("fused", FusedAdam(lr=1e-3, weight_decay=0.01)),
+                          ("zero2_dp1", DistributedFusedAdam(lr=1e-3, weight_decay=0.01,
+                                                             axis_name="dp"))):
+            state = opt.init(params)
+            rec[f"{name}_state_mb"] = sum(t.numel() * t.element_size()
+                                          for t in tree_leaves(state)
+                                          if isinstance(t, torch.Tensor)) / 2 ** 20
+
+            def step(c, opt=opt):
+                return opt.update(grads, c[1], c[0])
+
+            graph, _ = _graphed_chain(step, (params, state), K)
+            rec[f"{name}_ms"] = _replay_ms(graph, K)
+            del graph, state
+            torch.cuda.empty_cache()
+        rec["zero2_over_fused"] = rec["zero2_dp1_ms"] / rec["fused_ms"]
+        out[label] = rec
+        del params, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+#: zero_gpt124's modes (bench.py:923-935): label -> DistributedFusedAdam kwargs
+ZERO_MODES = {"zero_fp32_master": {}, "zero_param_remainders": {"store_param_remainders": True},
+              "zero_int8_sync": {"grad_sync_dtype": "int8"},
+              "zero_fp8_e4m3_sync": {"grad_sync_dtype": "float8_e4m3fn"}}
+
+
+def zero_gpt124(dev, iters=8):
+    """bench.py's ``zero_gpt124`` (bench.py:810-935) at dp 1: GPT-124M
+    with bf16 params everywhere, batch 1 a rank, seq 1024, bf16 compute,
+    flash attention, full remat, through ``train_gpt.make_train_step``
+    graphed: replicated ``FusedAdam(lr=3e-4, weight_decay=0.1,
+    master_weights=True)`` and ``DistributedFusedAdam`` in its
+    fp32-master, ``store_param_remainders``, int8 and float8_e4m3fn
+    modes.  Each: tokens/s over ``iters`` replays (CUDA events), the
+    live bytes of params and optimizer state on the device,
+    ``wire_bytes_per_step``; the remainder mode's ``mt_adam_remainder``
+    launches counted from zero."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import GPTConfig, init_params
+    from apex_tpu_torch.optimizers import FusedAdam, bucketing
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+    from apex_tpu_torch.train_gpt import make_train_step
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12, num_attention_heads=12,
+                    max_seq_len=1024, compute_dtype=torch.bfloat16, use_flash_attention=True,
+                    checkpoint_layers=True, remat_policy="full")
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, 50304, size=(1, 1024))
+    tokens = torch.from_numpy(tok).to(dev)
+    targets = torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)
+    base = tree_map(lambda x: x.to(torch.bfloat16), init_params(cfg, 0, dev, keep_fp32=True))
+    n_params = sum(p.numel() for p in tree_leaves(base))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    out = {"dp": 1, "params_m": n_params / 1e6, "batch": 1, "seq": 1024}
+    modes = {"fused_replicated": lambda: FusedAdam(lr=3e-4, weight_decay=0.1,
+                                                   master_weights=True)}
+    modes.update({k: (lambda kw=kw: DistributedFusedAdam(lr=3e-4, weight_decay=0.1,
+                                                          axis_name="dp", **kw))
+                  for k, kw in ZERO_MODES.items()})
+    rem_launches = 0
+    for label, make in modes.items():
+        params = tree_map(lambda x: x.clone().requires_grad_(True), base)
+        opt = make()
+        state = opt.init(params)
+        live = nbytes(params) + nbytes(state)
+        step = make_train_step(opt, cfg)
+        losses = torch.empty(iters + 1, device=dev)
+        losses[0].copy_(step(params, state, tokens, targets))  # warm-up + capture
+        torch.cuda.synchronize()
+        before = _remainder_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            losses[i + 1].copy_(step(params, state, tokens, targets))
+        end.record()
+        torch.cuda.synchronize()
+        losses = losses.tolist()
+        dt = start.elapsed_time(end) / 1e3 / iters
+        if label == "zero_param_remainders":
+            rem_launches = _remainder_launches() - before
+        rec = {"tokens_per_sec": 1024 / dt, "ms_per_step": 1e3 * dt,
+               "live_bytes_per_device_mb": live / 2 ** 20, "losses": losses,
+               "graphed": step.graph is not None}
+        if label == "fused_replicated":
+            rplan = bucketing.plan_of(params)
+            rec["wire_bytes_per_step"] = sum(
+                b.total * torch.empty((), dtype=bucketing.torch_dtype(b.dtype)).element_size()
+                for b in rplan.buckets)
+        else:
+            wb = opt.wire_bytes_per_step()
+            rec["wire_bytes_per_step"] = wb["grad_sync"]
+            rec["wire_bytes_param_sync"] = wb["param_sync"]
+            rec["state_bytes_vs_replicated"] = (
+                rec["live_bytes_per_device_mb"]
+                / out["fused_replicated"]["live_bytes_per_device_mb"])
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"zero_gpt124 {label}: losses {losses}")
+        out[label] = rec
+        del params, state, step, opt
+        torch.cuda.empty_cache()
+    default = out["zero_fp32_master"]["wire_bytes_per_step"]
+    for label in ("zero_int8_sync", "zero_fp8_e4m3_sync"):
+        out[label]["wire_cut_vs_default"] = default / out[label]["wire_bytes_per_step"]
+    if rem_launches != iters:
+        raise AssertionError(f"zero_gpt124: mt_adam_remainder launched {rem_launches} times "
+                             f"in {iters} replays, want {iters}")
+    out["mt_adam_remainder_launches"] = rem_launches
+    return out
+
+
+#: the quantized wires' losses against the wide wire's on the same run
+#: (error feedback keeps the trajectory; the quantization error of 8
+#: steps of int8 / e4m3 payloads at GPT-124M)
+QUANT_BAND = 1e-2
+
+
+def _kernel_ms_matching(idle, *needles):
+    """Device ms a step of the profiled kernels whose name holds any of
+    ``needles`` (case-insensitive), by name."""
+    return {n: ms for n, ms in idle["kernel_ms_per_step"].items()
+            if any(k in n.lower() for k in needles)}
+
+
+def zero_phase(smi, full):
+    """``pretrain_gpt --zero`` at the pretrain phase's GPT-124M cell (seq
+    1024, global batch 8, bf16, --fused-ce, its token file from the same
+    seed), at world 1 over NCCL on this card, in this process: graphed
+    (8 steps, elastic checkpoints at 4 and 8) and ``--eager``, losses
+    bitwise equal to the pretrain phase's FusedAdam run (``full``) at
+    every step, exact launch counts (the train_fce step's and one
+    ``mt_adam`` a step); resumed from the step-4 directory, bitwise equal
+    at steps 4-7; ``--grad-sync-dtype int8``, ``float8_e4m3fn`` and
+    ``float8_e5m2`` on a corpus of one global batch (so that a loss
+    falls): finite, falling, within ``QUANT_BAND`` of the wide wire's; the residual identity on
+    the card; bench.py's
+    ``zero2_vs_fused`` and ``zero_gpt124`` sections; a profile of 7
+    graphed --zero steps (wide and int8): device ms of the collectives
+    and the quantize ops by kernel name and the idle share.  With two or
+    more cards, ``torchrun`` at world min(4, count) against world 1 on
+    the same global batch; with one, a line says that world > 1 did not
+    run on a card here."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="zero_"))
+    # one world-1 NCCL group for the whole phase: every run reuses it
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel()
+    try:
+        data = work / "tokens.u16"
+        vocab = int(PRETRAIN_ARGV[PRETRAIN_ARGV.index("--vocab") + 1])
+        np.random.RandomState(0).randint(0, vocab, size=PRETRAIN_TOKENS).astype(
+            np.uint16).tofile(data)
+        base = PRETRAIN_ARGV + ["--data", str(data), "--zero"]
+        ck = work / "ck"
+        reset_counts()
+        graphed = _pretrain_here(base + ["--steps", "8", "--checkpoint", str(ck),
+                                         "--save-every", "4"])
+        counts = launch_counts()
+        zsizes = _zero_shard_sizes()
+        L = 12
+        per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                    "ce_fwd": 1, "ce_dx": 1, "ce_dembed": 1,
+                    "mt_adam": mt_plan("adam", zsizes).launches, "mt_scale": 0,
+                    "mt_l2norm": 0}
+        expect = {**{k: 8 * v for k, v in per_step.items()},
+                  "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                  "fused_sample": 0}
+        if counts != expect:
+            raise AssertionError(f"zero launch counts {counts} != expected {expect}")
+        dirs = sorted(p.name for p in ck.glob("step_*"))
+        if dirs != ["step_00000004", "step_00000008"] or not graphed["graphs"]:
+            raise AssertionError(f"zero checkpoints {dirs}, graphs {graphed['graphs']}")
+        graphed_steps = _bitwise("zero graphed vs FusedAdam", graphed, full)
+        eager = _pretrain_here(base + ["--steps", "8", "--eager"])
+        eager_steps = _bitwise("zero eager vs FusedAdam", eager, full)
+        shutil.rmtree(ck / "step_00000008")
+        resumed = _pretrain_here(base + ["--resume", str(ck), "--steps", "4"])
+        if resumed["start_step"] != 4:
+            raise AssertionError(f"zero resume started at {resumed['start_step']}")
+        resume_steps = _bitwise("zero resume", resumed, graphed)
+        shutil.rmtree(ck)
+        # the quantized wires on one global batch repeated (a corpus of
+        # one batch), where a loss falls: finite, falling, and within
+        # QUANT_BAND of the wide wire's at every step
+        one = work / "one_batch.u16"
+        np.random.RandomState(1).randint(0, vocab, size=8 * 1025).astype(np.uint16).tofile(one)
+        qbase = PRETRAIN_ARGV + ["--data", str(one), "--zero", "--steps", "8"]
+        wide = _pretrain_here(qbase)["losses"]
+        quant = {"wide": {"losses": wide}}
+        for wire in ("int8", "float8_e4m3fn", "float8_e5m2"):
+            q = _pretrain_here(qbase + ["--grad-sync-dtype", wire])
+            ls = q["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(ls, wide))
+            if not all(map(math.isfinite, ls)) or not ls[-1] < ls[0] or rel > QUANT_BAND:
+                raise AssertionError(f"zero {wire}: losses {ls} against the wide wire's {wide}")
+            quant[wire] = {"losses": ls, "max_rel_vs_wide": rel, "step_ms": q["step_ms"]}
+        identity = check_residual_identity(torch.device("cuda", 0))
+
+        # profiles: 7 graphed steps, the wide wire and int8; at world 1
+        # NCCL runs a collective as a device-to-device copy
+        prof_out = {}
+        for wire in (None, "int8"):
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            argv = base + ["--steps", "7"] + (["--grad-sync-dtype", wire] if wire else [])
+            rep = _pretrain_here(argv, profiler=prof)
+            idle = _busy_share(prof)
+            del prof
+            prof_out[wire or "wide"] = {
+                "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+                "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
+                "collectives_ms_per_step": _kernel_ms_matching(idle, "nccl", "memcpy dtod"),
+                "kernel_ms_per_step": idle["kernel_ms_per_step"], "losses": rep["losses"]}
+        # the quantized wire's own device time: what int8 adds, by name
+        wide_k, int8_k = (prof_out[k].pop("kernel_ms_per_step") for k in ("wide", "int8"))
+        extra = {n: ms - wide_k.get(n, 0.0) for n, ms in int8_k.items()
+                 if ms - wide_k.get(n, 0.0) > 0.005}
+        prof_out["int8"]["quantize_ms_per_step"] = sum(extra.values())
+        prof_out["int8"]["quantize_by_kernel"] = dict(sorted(extra.items(), key=lambda kv: -kv[1]))
+        prof_out["wide"]["top_kernels_ms_per_step"] = dict(list(wide_k.items())[:20])
+        z2 = zero2_vs_fused(torch.device("cuda", 0))
+        reset_counts()
+        z124 = zero_gpt124(torch.device("cuda", 0))
+    finally:
+        multiproc.destroy_distributed()
+        shutil.rmtree(work, ignore_errors=True)
+
+    n_cards = torch.cuda.device_count()
+    multi = {"ran": False, "cards": n_cards,
+             "note": "world > 1 did not run on a card here: one card"}
+    if n_cards >= 2:
+        data = Path(tempfile.mkdtemp(prefix="zero_multi_")) / "tokens.u16"
+        np.random.RandomState(0).randint(0, vocab, size=PRETRAIN_TOKENS).astype(
+            np.uint16).tofile(data)
+        try:
+            multi = zero_multi_card(min(4, n_cards), data)
+        finally:
+            shutil.rmtree(data.parent, ignore_errors=True)
+
+    def steady(rep):
+        return [ms for k, ms in enumerate(rep["step_ms"][1:], start=rep["start_step"] + 1)
+                if k not in {s["step"] for s in rep["saves"]}]
+
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    emit({"phase": "zero", "argv": PRETRAIN_ARGV + ["--zero"], "nvidia_smi": smi,
+          "world": 1, "backend": "nccl", "losses": graphed["losses"],
+          "bitwise_vs_fused_adam_graphed_steps": graphed_steps,
+          "bitwise_vs_fused_adam_eager_steps": eager_steps,
+          "resume_bitwise_steps": resume_steps, "launches_per_step": per_step,
+          "launches": counts, "checkpoint_dirs": dirs,
+          "step_ms_median_zero_graphed": med(steady(graphed)),
+          "step_ms_median_zero_eager": med(steady(eager)),
+          "step_ms_median_fused_adam": med([ms for k, ms in enumerate(full["step_ms"][1:], 1)
+                                            if k not in {s["step"] for s in full["saves"]}]),
+          "step_ms_zero_graphed": graphed["step_ms"],
+          "save_block_ms": [s["block_ms"] for s in graphed["saves"]],
+          "quantized": quant, "residual_identity": identity, "profile": prof_out,
+          "zero2_vs_fused": z2, "zero_gpt124": z124, "world_gt_1": multi,
+          "seconds": time.monotonic() - t_phase})
+    return z124["mt_adam_remainder_launches"]
+
+
+def _zero_shard_sizes():
+    """The world-1 ZeRO shard sizes of GPT-124M's fp32 params (one
+    tensor a bucket of ``bucket_cap_mb=100``), which ``mt_adam`` takes."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.optimizers import bucketing
+
+    meta = {k: (torch.empty(s, device="meta") if not isinstance(s, dict)
+                else {n: torch.empty(t, device="meta") for n, t in s.items()})
+            for k, s in gpt_param_shapes().items()}
+    plan = bucketing.plan_of(meta, cap_bytes=100 * 2 ** 20, shard_pad=1, block=qs.QBLOCK)
+    return [b.total for b in plan.buckets]
+
+
+def zero_multi_card(world, data=None):
+    """``torchrun --nproc-per-node world -m apex_tpu_torch.pretrain_gpt
+    --zero`` (one card a rank, NCCL) against the same command at world 1,
+    on the same global batch: losses within the band the CPU tests state
+    for a torchrun world-2 run against the JAX package
+    (tests/test_torch_pretrain.py ``ZERO_BAND``, 1e-3 relative: bf16
+    compute over other row splits).  With ``data`` (the pretrain cell's
+    token file) also the cell itself at 8 rows a rank, 10 steps: world 1
+    ``--zero`` beside world ``world`` ``--zero``, ``--zero
+    --grad-sync-dtype int8`` and replicated (the DDP all-reduce), each
+    step's ms from CUDA events."""
+    def launch(n, argv):
+        res = subprocess.run(["torchrun", "--standalone", f"--nproc-per-node={n}", "-m",
+                              "apex_tpu_torch.pretrain_gpt", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        rep = next((json.loads(ln)["pretrain_gpt"] for ln in res.stdout.splitlines()
+                    if ln.startswith('{"pretrain_gpt"')), None)
+        if res.returncode != 0 or rep is None:
+            raise AssertionError(f"torchrun world {n}: exit {res.returncode}\n"
+                                 + res.stdout[-3000:] + res.stderr[-3000:])
+        return rep
+
+    tiny = ["--layers", "2", "--hidden", "256", "--heads", "4", "--vocab", "4096",
+            "--seq", "256", "--global-batch", "8", "--steps", "4", "--zero"]
+    one, many = launch(1, tiny), launch(world, tiny)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(many["losses"], one["losses"]))
+    if rel > 1e-3:
+        raise AssertionError(f"zero world {world} against world 1: relative {rel}")
+    out = {"ran": True, "cards": torch.cuda.device_count(), "world": world,
+           "losses_world_1": one["losses"], f"losses_world_{world}": many["losses"],
+           "max_rel_diff": rel, "band": 1e-3, "timed": []}
+    if data is None:
+        return out
+    argv = list(PRETRAIN_ARGV)
+    for n, extra in ((1, ["--zero"]), (world, ["--zero"]),
+                     (world, ["--zero", "--grad-sync-dtype", "int8"]), (world, [])):
+        argv[argv.index("--global-batch") + 1] = str(8 * n)
+        rep = launch(n, argv + ["--data", str(data), "--steps", "10", *extra])
+        out["timed"].append({"world": n, "flags": extra, "global_batch": 8 * n,
+                             "step_ms_median": float(np.median(rep["step_ms"][2:])),
+                             "step_ms": rep["step_ms"], "losses": rep["losses"],
+                             "graphs": rep["graphs"]})
+    return out
 
 
 def main():
@@ -3427,8 +3950,10 @@ def main():
     train_profile_phase(train_args, dense["step_ms_median"], per_leaf=True)
     optimizer_profile_phase(train_args)
     lap("train_profile")
-    pretrain_phase(smi)
+    full = pretrain_phase(smi)
     lap("pretrain")
+    remainder_launches = zero_phase(smi, full)
+    lap("zero")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (
@@ -3466,6 +3991,9 @@ def main():
          "apex_tpu/ops/multi_tensor.py:59 (XLA fusion)", results[("mt_scale", "unscale")]),
         ("mt_l2norm", "apex_tpu_torch/csrc/multi_tensor.cu",
          "apex_tpu/ops/multi_tensor.py:90 (XLA fusion)", results[("mt_l2norm", "gpt124")]),
+        ("mt_adam_remainder", "apex_tpu_torch/csrc/multi_tensor.cu",
+         "apex_tpu/contrib/optimizers/distributed_fused_adam.py:200 (XLA fusion)",
+         results[("mt_adam_remainder",)]),
         # the fp16 instantiations (the amp train step's); the reference runs
         # XLA composites at fp16 (the jnp LayerNorm, the flash scan)
         ("layer_norm_fwd_fp16", "apex_tpu_torch/csrc/layer_norm.cu",
@@ -3488,8 +4016,10 @@ def main():
     # (LayerNorm forward and sampling run in several; their lines keep
     # the serve phase's counts); mt_adam the train phase's, mt_scale and
     # mt_l2norm the optimizers phase's amp steps; the fp16 instantiations
-    # the train_fp16 phase's
+    # the train_fp16 phase's; mt_adam_remainder the zero phase's
+    # zero_param_remainders replays
     launches = {**train_counts, **amp_counts, "mt_adam": train_counts["mt_adam"],
+                "mt_adam_remainder": remainder_launches,
                 **{k: counts[k] for k in
                                    ("layer_norm_fwd", "paged_decode_attention",
                                     "fused_sample")},

@@ -253,6 +253,10 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.pretrain_gpt, apex_tpu_torch.io, apex_tpu_torch.utils\n"
         "import apex_tpu_torch.observability, apex_tpu_torch.resilience.elastic\n"
         "import apex_tpu_torch.resilience.preemption, apex_tpu_torch.transformer._data\n"
+        "import apex_tpu_torch.parallel, apex_tpu_torch.parallel.multiproc\n"
+        "import apex_tpu_torch.transformer.parallel_state, apex_tpu_torch.contrib.optimizers\n"
+        "import apex_tpu_torch.contrib.optimizers._zero_engine\n"
+        "import apex_tpu_torch.contrib.optimizers._quantized_sync\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -16,12 +16,26 @@ and its resume from the JAX package's trainer.
   saves at the step it reached and stops, and the same command then
   finishes bitwise equal; ``--keep`` pruning; the ``--data`` token file;
   no host read of a tensor value anywhere in a run (the dispatch-mode
-  guard of tests/test_torch_graphs.py); the flags that raise.
+  guard of tests/test_torch_graphs.py); the flags that raise;
+- data parallelism and ZeRO: ``--zero`` at world 1 (a one-rank gloo
+  group in this process) gives losses bitwise equal to FusedAdam's, and
+  resumes bitwise; ``examples/gpt/pretrain_gpt.py --zero`` at dp 2 on two
+  virtual devices (wide, and ``--grad-sync-dtype int8``) takes 6 steps,
+  saving its elastic checkpoint at step 3; ``torchrun --nproc-per-node 2
+  -m apex_tpu_torch.pretrain_gpt --device cpu --zero`` resumes that JAX
+  checkpoint (params, sharded state and residuals carried across) and
+  takes steps 3-5, and the port at world 1 resumes it too (reshard
+  2 -> 1) beside the JAX package's own dp 1 resume: losses within 1e-3
+  relative (bf16 compute: XLA's bf16 matmuls and the port's plain flash
+  and CE versions round otherwise; both packages' fp32 optimizer math is
+  bitwise, tests/test_torch_zero.py).
 """
 
 import json
 import math
+import re
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,6 +56,7 @@ from apex_tpu_torch.observability import metrics
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.optimizers.tree import tree_leaves
 
+REPO = Path(__file__).resolve().parent.parent
 TINY = ["--device", "cpu", "--layers", "2", "--hidden", "32", "--heads", "4",
         "--vocab", "64", "--seq", "16", "--global-batch", "4"]
 #: the fp32 band of tests/test_torch_amp_training.py
@@ -247,7 +262,6 @@ def test_no_host_read_anywhere_in_a_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"], ["--micro-batches", "4"],
-                                  ["--zero"], ["--grad-sync-dtype", "int8"],
                                   ["--sequence-parallel"], ["--supervise"],
                                   ["--chaos-kill-at-step", "1"], ["--chaos-wedge-step", "1"],
                                   ["--chaos-wedge-secs", "5"]],
@@ -275,3 +289,139 @@ def test_resume_from_nothing(tmp_path, capsys):
     (tmp_path / "step_00000002.ckpt").write_bytes(b"APEXTPU1 torn")
     with pytest.raises(io.AllCheckpointsTornError):
         _run(["--checkpoint", str(tmp_path), "--auto-resume", "--steps", "1"], capsys)
+
+
+# ------------------------------------------------------- data parallel, ZeRO
+#: the JAX driver's tiny shape, the same as TINY's model and batch
+ZERO_SHAPE = ["--layers", "2", "--hidden", "32", "--heads", "4", "--vocab", "64", "--seq",
+              "16", "--global-batch", "4"]
+#: bf16 compute in both packages (see the module docstring)
+ZERO_BAND = 1e-3
+
+
+def _jax_pretrain(args, devices, timeout=600):
+    """``examples/gpt/pretrain_gpt.py`` on ``devices`` virtual CPU devices,
+    started (not waited for)."""
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO),
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}"}
+    return subprocess.Popen([sys.executable, str(REPO / "examples/gpt/pretrain_gpt.py"),
+                             *ZERO_SHAPE, *args], cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _jax_losses(proc, timeout=600):
+    out, _ = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-4000:]
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"^step (\d+): loss=([-\d.]+)", out, re.M)}, out
+
+
+def _torchrun_start(args, nproc=2):
+    """``torchrun --standalone --nproc-per-node N -m apex_tpu_torch.pretrain_gpt``
+    started (a rendezvous port of its own, so parallel test workers never
+    collide)."""
+    import os
+    import subprocess
+    import sys
+
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc-per-node={nproc}", "-m", "apex_tpu_torch.pretrain_gpt",
+                             "--device", "cpu", *ZERO_SHAPE, *args], cwd=REPO, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env={**os.environ, "OMP_NUM_THREADS": "1"})
+
+
+def _torchrun_report(proc, timeout=600):
+    """Rank 0's JSON report and the printed output of a started run."""
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-3000:] + err[-5000:]
+    line = next(ln for ln in out.splitlines() if ln.startswith('{"pretrain_gpt"'))
+    return json.loads(line)["pretrain_gpt"], out
+
+
+def _torchrun(args, nproc=2):
+    return _torchrun_report(_torchrun_start(args, nproc))
+
+
+@pytest.fixture(scope="module")
+def jax_zero(tmp_path_factory):
+    """The JAX driver's ``--zero`` runs at dp 2 (wide and int8), 6 steps,
+    elastic checkpoints at 3 and 6; then its dp 1 resume of the wide one
+    from step 3.  Returns ``{name: (losses by step, checkpoint dir of
+    step 3 alone)}``."""
+    import shutil
+
+    d = tmp_path_factory.mktemp("jax_zero")
+    procs = {name: _jax_pretrain(["--steps", "6", "--zero", "--checkpoint", str(d / name),
+                                  "--save-every", "3", *extra], 2)
+             for name, extra in (("wide", []), ("int8", ["--grad-sync-dtype", "int8"]))}
+    out = {}
+    for name, proc in procs.items():
+        losses, _ = _jax_losses(proc)
+        assert sorted(losses) == list(range(6))
+        step3 = d / f"{name}_at3"
+        shutil.copytree(d / name / "step_00000003", step3 / "step_00000003")
+        out[name] = (losses, step3)
+    resumed, text = _jax_losses(_jax_pretrain(
+        ["--steps", "3", "--zero", "--resume", str(out["wide"][1])], 1))
+    assert "elastic reshard: dp=2 -> dp=1" in text
+    out["wide_dp1"] = (resumed, out["wide"][1])
+    return out
+
+
+def _near(got, want):
+    rel = {s: abs(got[s] - want[s]) / abs(want[s]) for s in want}
+    assert max(rel.values()) <= ZERO_BAND, (got, want, rel)
+    return rel
+
+
+@pytest.mark.parametrize("wire", ["wide", "int8"])
+def test_torchrun_world2_zero_resumes_the_jax_dp2_run(jax_zero, wire):
+    losses, ck = jax_zero[wire]
+    extra = ["--grad-sync-dtype", "int8"] if wire == "int8" else []
+    report, out = _torchrun(["--zero", "--steps", "3", "--resume", str(ck), *extra])
+    assert "mesh: dp=2 pp=1 tp=1 (2 devices)" in out and "resumed at step 3" in out
+    assert report["dp"] == 2 and report["zero"] and report["steps"] == [3, 4, 5]
+    _near(dict(zip(report["steps"], report["losses"])), {s: losses[s] for s in (3, 4, 5)})
+
+
+def test_world1_zero_reshards_the_jax_dp2_checkpoint(jax_zero, capsys):
+    want, ck = jax_zero["wide_dp1"]
+    report, out = _run(["--zero", "--steps", "3", "--resume", str(ck)], capsys)
+    assert "resumed at step 3 (elastic reshard: dp=2 -> dp=1)" in out
+    _near(dict(zip(report["steps"], report["losses"])), want)
+
+
+def test_zero_world1_is_fused_adam_bitwise_and_resumes(tmp_path, capsys):
+    import shutil
+
+    plain, _ = _run(["--steps", "4"], capsys)
+    zero, out = _run(["--zero", "--steps", "4", "--checkpoint", str(tmp_path / "z"),
+                      "--save-every", "2"], capsys)
+    assert "mesh: dp=1 pp=1 tp=1 (1 devices)" in out
+    assert zero["losses"] == plain["losses"] and zero["zero"]
+    assert sorted(p.name for p in (tmp_path / "z").iterdir()) == ["step_00000002",
+                                                                 "step_00000004"]
+    shutil.rmtree(tmp_path / "z" / "step_00000004")
+    part, out = _run(["--zero", "--steps", "2", "--resume", str(tmp_path / "z")], capsys)
+    assert "resumed at step 2" in out and part["losses"] == zero["losses"][2:]
+    with pytest.raises(ValueError, match="resume with --zero"):
+        _run(["--checkpoint", str(tmp_path / "z"), "--auto-resume", "--steps", "1"], capsys)
+    with pytest.raises(SystemExit, match="needs --zero"):
+        _run(["--grad-sync-dtype", "int8"])
+
+
+def test_torchrun_world2_ddp_and_quantized_wires_run():
+    """Without --zero a world of 2 all-reduces the grads (the DDP sync);
+    both fp8 wires run; rank 0 alone prints."""
+    procs = [_torchrun_start(["--steps", "2", *extra])
+             for extra in ([], ["--zero", "--grad-sync-dtype", "float8_e4m3fn"],
+                           ["--zero", "--grad-sync-dtype", "float8_e5m2"])]
+    for proc in procs:
+        report, out = _torchrun_report(proc)
+        assert report["dp"] == 2 and all(math.isfinite(x) for x in report["losses"])
+        assert out.count('{"pretrain_gpt"') == 1 and out.count("mesh: dp=2") == 1
