@@ -24,6 +24,7 @@ from apex_tpu_torch.io.checkpoint import (
     save_distributed_checkpoint,
     save_sharded_checkpoint,
     validate_checkpoint,
+    written_by_jax,
 )
 from apex_tpu_torch.io.prefetch import PrefetchIterator
 
@@ -33,5 +34,5 @@ __all__ = [
     "load_checkpoint", "load_distributed_checkpoint", "load_sharded_checkpoint", "native",
     "open_checkpoint_lazy", "probe_checkpoint", "probe_checkpoint_dir",
     "quarantine_checkpoint", "read_index", "save_checkpoint", "save_distributed_checkpoint",
-    "save_sharded_checkpoint", "validate_checkpoint",
+    "save_sharded_checkpoint", "validate_checkpoint", "written_by_jax",
 ]

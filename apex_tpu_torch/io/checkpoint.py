@@ -375,6 +375,15 @@ def open_checkpoint_lazy(path, template: Any = None) -> Any:
     return _assemble(path, structure, leaves, template)
 
 
+def written_by_jax(path) -> bool:
+    """True for a file the JAX package's ``save_checkpoint`` wrote (its
+    structure a jax ``PyTreeDef``, so loading it takes a template), False
+    for the port's own (its structure inside)."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f, path)
+    return header.get("treedef") != _TREE_TAG
+
+
 # --------------------------------------------------------------- integrity
 def validate_checkpoint(path) -> dict:
     """Cheap integrity check of a single-blob checkpoint: magic, header

@@ -1,8 +1,7 @@
-"""GPT on one device: the forward, the training loss, and the paged-KV
-decode forward.
+"""GPT: the forward, the training loss (on one device or split over a
+tensor-parallel group), and the paged-KV decode forward.
 
-Counterpart of :mod:`apex_tpu.models.gpt` at ``axis_name=None``, with
-the same layouts: activations ``(seq, batch, hidden)``, attention heads
+Counterpart of :mod:`apex_tpu.models.gpt`, with the same layouts: activations ``(seq, batch, hidden)``, attention heads
 ``(batch, heads, seq, head_dim)``, the same parameter tree (names and
 shapes of ``init_params`` there, layers stacked on a leading axis), and
 the same expression for each op, so the JAX package's weights load
@@ -20,9 +19,29 @@ The training path is :func:`gpt_loss`: flash attention
 (``use_flash_attention``, the flash kernels) or the einsum core, layer
 remat (``checkpoint_layers``, policy ``"full"``), and the LM head with
 its cross entropy: the dense fp32 head, or with ``fused_ce`` the fused
-LM-head CE kernels (:mod:`apex_tpu_torch.ops.fused_ce`).  Not in this
-port yet (they raise): tensor/sequence/context parallelism, MoE and the
-``"dots"`` remat policy.
+LM-head CE kernels (:mod:`apex_tpu_torch.ops.fused_ce`).
+
+Tensor and sequence parallelism: :func:`gpt_forward`, :func:`gpt_loss`
+and :func:`lm_head_loss` take ``axis_name``, the tensor-parallel group
+(an ``AxisGroup`` of :mod:`apex_tpu_torch.transformer.parallel_state`),
+where the JAX package runs the same functions inside ``shard_map`` with
+the ``tp`` axis name.  Each rank then holds the slices of
+:func:`param_specs` (:func:`shard_params` cuts them from the JAX
+package's tree, the slice ``shard_map`` gives the same device): q, k, v
+and fc1 split over their output rows (column-parallel), wo and fc2 over
+their input columns (row-parallel), the tied embedding over the vocab;
+the local heads are ``num_attention_heads / tp`` (and ``kv_heads / tp``
+with GQA).  The embedding is vocab-parallel, the head the vocab-parallel
+cross entropy (dense) or the fused CE kernels on the vocab shard with
+the reference's combine.  With ``config.sequence_parallel`` the layers
+see ``S / tp`` rows: the embedding's output is split over the sequence,
+each column linear all-gathers it and each row linear reduce-scatters,
+and the final LayerNorm runs after a gather.  The grads of the LN
+scales and biases and of the row linears' biases then need the sum over
+the group (:func:`sp_grad_sync`).  A group of one rank computes the
+single-device model.  Not in this port yet (they raise): context
+parallelism, MoE, the ``"dots"`` remat policy and tensor-parallel
+decoding.
 """
 
 import dataclasses
@@ -41,11 +60,30 @@ from apex_tpu_torch.ops.decode_attention import paged_decode_attention
 from apex_tpu_torch.ops.fused_ce import check_impl, fused_lm_head_ce
 from apex_tpu_torch.ops.rope import rope_cos_sin, rotate
 from apex_tpu_torch.transformer.functional import scaled_upper_triang_masked_softmax
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    row_parallel_linear,
+    vocab_parallel_embedding,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
+)
 
 #: the stacked per-layer leaves cast to ``compute_dtype`` at load for
 #: serving
 MATMUL_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
                "fc1", "fc1_b", "fc2", "fc2_b")
+
+#: the leaves whose grads a sequence-parallel step sums over tp: used in
+#: the sequence-split region, each rank sees only its own tokens
+SP_KEYS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", "fc2_b")
+
+#: what tensor-parallel decoding waits for
+TP_DECODE_ITEM = "tensor-parallel decoding, ROADMAP.md queue 1 item 8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +125,11 @@ class GPTConfig:
                 f"(got {self.position_embedding_type!r})")
         for name, unsupported in (
                 ("moe_num_experts", self.moe_num_experts > 0),
-                ("sequence_parallel", self.sequence_parallel),
                 ("cp_overlap", self.cp_overlap)):
             if unsupported:
                 raise NotImplementedError(
-                    f"GPTConfig.{name} is not ported yet (MoE, sequence and "
-                    f"context parallelism come in later slices)")
+                    f"GPTConfig.{name} is not ported yet (MoE and context "
+                    f"parallelism come with ROADMAP.md queue 1 item 9)")
         validate_policy(self.remat_policy)
         check_impl(self.fused_ce_impl)
         if self.compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -198,7 +235,8 @@ def _host_f32(a) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=None):
+def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=None,
+                           axis_name=None):
     """The JAX trainer's checkpoint tree as the port's train state.
 
     ``tree`` is what ``examples/gpt/pretrain_gpt.py`` saves (``ckpt_tree``)
@@ -210,17 +248,18 @@ def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=N
     ``AdamState`` holding the moments and master in the same layout, the
     scaler's state through ``loss_scaler.load_state_dict`` (None without
     a ``loss_scaler``; raises if the tree has none to load), and the
-    step count as an int."""
+    step count as an int.  With ``axis_name`` (the tensor-parallel group)
+    the params and every params-shaped state tree are this rank's shard
+    (:func:`shard_params`)."""
     from apex_tpu_torch.optimizers.fused_adam import AdamState
     from apex_tpu_torch.optimizers.tree import tree_map
 
     dev = resolve_device(device)
-    params = params_from_numpy(tree_map(_host_f32, tree["params"]), config, dev,
-                               keep_fp32=True)
-
     def like_params(t):
-        return None if t is None else params_from_numpy(tree_map(_host_f32, t), config, dev,
-                                                        keep_fp32=True)
+        return None if t is None else shard_params(tree_map(_host_f32, t), config, axis_name,
+                                                   dev, keep_fp32=True)
+
+    params = like_params(tree["params"])
 
     st = tree["state"]
     state = AdamState(
@@ -246,10 +285,142 @@ def init_params(config: GPTConfig, seed: int = 0, device="cuda",
     return params_from_numpy(_init_numpy(config, seed), config, dev, keep_fp32)
 
 
+class PartitionSpec:
+    """A param's split over the mesh axes, one entry a dim (an axis name
+    or None), as ``jax.sharding.PartitionSpec``; a leaf of the trees
+    :func:`param_specs` builds."""
+
+    def __init__(self, *axes):
+        self.axes = tuple(axes)
+
+    def __iter__(self):
+        return iter(self.axes)
+
+    def __eq__(self, other):
+        return tuple(self) == tuple(other)
+
+    def __hash__(self):
+        return hash(self.axes)
+
+    def __repr__(self):
+        return f"PartitionSpec{self.axes!r}"
+
+    @property
+    def tp_dim(self) -> Optional[int]:
+        """The dim split over ``"tp"``, or None for a replicated leaf."""
+        return self.axes.index("tp") if "tp" in self.axes else None
+
+
+def param_specs(config: GPTConfig) -> Dict[str, Any]:
+    """The split of each param over the ``"tp"`` axis, the JAX package's
+    ``param_specs`` (apex_tpu/models/gpt.py:187-231) leaf for leaf:
+    column-parallel weights and biases split their output rows,
+    row-parallel weights their input columns, the embedding its vocab;
+    the rest is replicated."""
+    P = PartitionSpec
+    col, colb, row, rep2 = P(None, "tp", None), P(None, "tp"), P(None, None, "tp"), P(None, None)
+    specs = {
+        "embed": P("tp", None),
+        "layers": {"ln1_scale": rep2, "ln1_bias": rep2, "wq": col, "wk": col, "wv": col,
+                   "bq": colb, "bk": colb, "bv": colb, "wo": row, "bo": rep2,
+                   "ln2_scale": rep2, "ln2_bias": rep2, "fc1": col, "fc1_b": colb,
+                   "fc2": row, "fc2_b": rep2},
+        "final_ln_scale": P(None),
+        "final_ln_bias": P(None),
+    }
+    if config.position_embedding_type == "learned":
+        specs["pos_embed"] = P(None, None)
+    return specs
+
+
+def check_tp(config: GPTConfig, tp: int) -> None:
+    """Raise unless ``config`` splits over ``tp`` ranks: the vocab, the
+    heads, the kv heads (GQA: tp above the kv-head count is refused, as
+    the JAX package refuses it) and the FFN width must divide."""
+    if config.kv_heads % tp:
+        raise ValueError(
+            f"num_query_groups ({config.kv_heads}) must be divisible by the "
+            f"tensor-parallel size ({tp}): kv heads shard over tp")
+    for name, n in (("vocab_size", config.vocab_size),
+                    ("num_attention_heads", config.num_attention_heads),
+                    ("ffn width", config.ffn)):
+        if n % tp:
+            raise ValueError(f"{name} ({n}) must be divisible by the tensor-parallel "
+                             f"size ({tp})")
+
+
+def map_specs(fn, tree, config: GPTConfig):
+    """``fn(leaf, spec)`` over a params-shaped tree (nested dicts) with
+    each leaf's :func:`param_specs` entry."""
+    def walk(node, specs):
+        if isinstance(node, dict):
+            return {k: walk(v, specs[k]) for k, v in node.items()}
+        return fn(node, specs)
+
+    return walk(tree, param_specs(config))
+
+
+def shard_tree(tree, config: GPTConfig, rank: int, size: int):
+    """This tp rank's slice of each leaf of a params-shaped tree (numpy
+    arrays or tensors): along the leaf's ``"tp"`` dim of
+    :func:`param_specs`, the ``rank``-th of ``size`` equal pieces -- the
+    block ``shard_map`` gives the device at that tp index."""
+    check_tp(config, size)
+
+    def one(a, spec):
+        d = spec.tp_dim
+        if d is None or size == 1:
+            return a
+        n = a.shape[d] // size
+        if isinstance(a, torch.Tensor):
+            return a.narrow(d, rank * n, n).contiguous()
+        return np.ascontiguousarray(np.take(a, np.arange(rank * n, (rank + 1) * n), axis=d))
+
+    return map_specs(one, tree, config)
+
+
+def shard_params(tree, config: GPTConfig, axis_name, device="cuda",
+                 keep_fp32: bool = False) -> Dict[str, Any]:
+    """The JAX package's params (numpy) as this rank's shard on
+    ``device``: :func:`shard_tree` at ``axis_name``'s rank and size (an
+    ``AxisGroup``; None is the whole tree), then
+    :func:`params_from_numpy`."""
+    rank, size = (0, 1) if axis_name is None else (axis_name.rank(), axis_name.size())
+    return params_from_numpy(shard_tree(tree, config, rank, size), config, device, keep_fp32)
+
+
+def gather_params(tree, config: GPTConfig, axis_name):
+    """The opposite of :func:`shard_tree` on the device: every rank's
+    slices of a params-shaped tree of tensors, all-gathered over
+    ``axis_name`` along each leaf's ``"tp"`` dim into the whole tree (a
+    collective: every rank of the group calls it)."""
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import all_gather_dim
+
+    if axis_name is None or axis_name.size() == 1:
+        return tree
+
+    def one(a, spec):
+        d = spec.tp_dim
+        return a if d is None else all_gather_dim(a.detach(), axis_name, d)
+
+    return map_specs(one, tree, config)
+
+
 def _layer_list(layers):
     """The stacked per-layer leaves as one dict of views per layer."""
     names = list(layers)
     return [dict(zip(names, vals)) for vals in zip(*(layers[k].unbind(0) for k in names))]
+
+
+def _tp(axis_name):
+    """The group the model splits over (``axis_name``, an ``AxisGroup``),
+    or None: a group of one rank computes the single-device model."""
+    if axis_name is None:
+        return None
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import tp_group
+
+    axis_name = tp_group(axis_name)
+    return axis_name if axis_name.size() > 1 else None
 
 
 def _proj(x, w, b):
@@ -258,28 +429,53 @@ def _proj(x, w, b):
     return torch.matmul(x, w.T.to(x.dtype)) + b.to(x.dtype)
 
 
-def _mlp(x, p):
-    h = _proj(x, p["fc1"], p["fc1_b"])
+def _col_in(x, axis_name, sp):
+    """The input of the column-parallel projections that read ``x``: the
+    sequence all-gather under sequence parallelism, else the
+    copy-to-region (whose backward sums the ranks' dx) -- one collective
+    for all the projections of one input, as Megatron's fused QKV
+    linear does.  Without a group, ``x``."""
+    if axis_name is None:
+        return x
+    if sp:
+        return gather_from_sequence_parallel_region(x, axis_name)
+    return copy_to_tensor_model_parallel_region(x, axis_name)
+
+
+def _row_proj(x, w, b, axis_name, sp):
+    """The row-parallel projection (the dense one without a group)."""
+    if axis_name is None:
+        return _proj(x, w, b)
+    return row_parallel_linear(x, w, b, input_is_parallel=True, sequence_parallel_enabled=sp,
+                               axis_name=axis_name)
+
+
+def _mlp(x, p, axis_name=None, sp=False):
+    h = _proj(_col_in(x, axis_name, sp), p["fc1"], p["fc1_b"])
     h = F.gelu(h, approximate="tanh")
-    return _proj(h, p["fc2"], p["fc2_b"])
+    return _row_proj(h, p["fc2"], p["fc2_b"], axis_name, sp)
 
 
-def _attention(x, p, config: GPTConfig, rope):
-    """Causal self attention on (S, B, H).  With ``use_flash_attention``
-    the flash kernels (GQA read in place); otherwise the einsum path:
-    scores in the compute dtype divided by sqrt(head_dim), causal fill,
-    fp32 softmax, probabilities cast to v's dtype.  Returns ``(out, (k,
-    v))`` with the post-RoPE k/v (B, kv_heads, S, head_dim) before any
-    GQA repeat."""
-    S, B, _ = x.shape
-    nh, nkv, hd = config.num_attention_heads, config.kv_heads, config.head_dim
+def _attention(x, p, config: GPTConfig, rope, axis_name=None):
+    """Causal self attention on (S, B, H) (S / tp rows under sequence
+    parallelism).  With ``use_flash_attention`` the flash kernels (GQA
+    read in place); otherwise the einsum path: scores in the compute
+    dtype divided by sqrt(head_dim), causal fill, fp32 softmax,
+    probabilities cast to v's dtype.  Under tensor parallelism q, k and
+    v are this rank's heads.  Returns ``(out, (k, v))`` with the
+    post-RoPE k/v (B, kv_heads, S, head_dim) before any GQA repeat."""
+    tp = 1 if axis_name is None else axis_name.size()
+    sp = config.sequence_parallel and axis_name is not None
+    S, B = x.shape[0] * (tp if sp else 1), x.shape[1]
+    nh, nkv, hd = config.num_attention_heads // tp, config.kv_heads // tp, config.head_dim
 
     def heads(t, n):
         return t.reshape(S, B, n, hd).permute(1, 2, 0, 3)
 
-    q = heads(_proj(x, p["wq"], p["bq"]), nh)
-    k = heads(_proj(x, p["wk"], p["bk"]), nkv)
-    v = heads(_proj(x, p["wv"], p["bv"]), nkv)
+    xin = _col_in(x, axis_name, sp)
+    q = heads(_proj(xin, p["wq"], p["bq"]), nh)
+    k = heads(_proj(xin, p["wk"], p["bk"]), nkv)
+    v = heads(_proj(xin, p["wv"], p["bv"]), nkv)
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
     kv = (k, v)
@@ -293,21 +489,22 @@ def _attention(x, p, config: GPTConfig, rope):
         probs = scaled_upper_triang_masked_softmax(scores, 1.0)
         ctx = torch.matmul(probs.to(v.dtype), v)
     ctx = ctx.permute(2, 0, 1, 3).reshape(S, B, nh * hd)
-    return _proj(ctx, p["wo"], p["bo"]), kv
+    return _row_proj(ctx, p["wo"], p["bo"], axis_name, sp), kv
 
 
-def _layer(x, p, config: GPTConfig, rope):
+def _layer(x, p, config: GPTConfig, rope, axis_name=None):
     """One transformer block on (S, B, H); returns ``(x, (k, v))``."""
     H, eps, cd = config.hidden_size, config.layernorm_eps, config.compute_dtype
+    sp = config.sequence_parallel and axis_name is not None
     ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
-    attn, kv = _attention(ln1.to(cd), p, config, rope)
+    attn, kv = _attention(ln1.to(cd), p, config, rope, axis_name)
     x = x + attn
     ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
-    return x + _mlp(ln2.to(cd), p), kv
+    return x + _mlp(ln2.to(cd), p, axis_name, sp), kv
 
 
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
-                return_kv: bool = False):
+                return_kv: bool = False, axis_name=None):
     """tokens (B, S) -> logits (S, B, V) fp32, or with ``return_hidden``
     the pre-head activations (S, B, H) after the final LayerNorm.  With
     ``return_kv`` a trailing ``(k, v)`` pair is appended, each (L, B,
@@ -315,16 +512,34 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     prefill capture the paged cache stores.  When a gradient is being
     recorded and ``config.checkpoint_layers`` is set, each layer runs
     under :func:`~apex_tpu_torch.models._remat.remat_layer` (the JAX
-    package's remat of ``_layers_segment``)."""
+    package's remat of ``_layers_segment``).
+
+    With ``axis_name`` (the tensor-parallel group; ``params`` this rank's
+    shard) the logits are the vocab-local (S, B, V / tp), and the hidden
+    states (after the copy-to-region, whose backward sums the head's dx
+    over the group) are whole on every rank."""
+    axis_name = _tp(axis_name)
+    if axis_name is not None:
+        if return_kv:
+            raise NotImplementedError(f"gpt_forward(return_kv=True) under tensor "
+                                      f"parallelism is not ported yet: {TP_DECODE_ITEM}")
+        check_tp(config, axis_name.size())
+    sp = config.sequence_parallel and axis_name is not None
     H = config.hidden_size
     eps = config.layernorm_eps
     cd = config.compute_dtype
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     S = tokens.shape[1]
-    x = params["embed"][tokens].transpose(0, 1)  # (S, B, H) fp32
+    if axis_name is None:
+        x = params["embed"][tokens]  # (B, S, H) fp32
+    else:
+        x = vocab_parallel_embedding(tokens, params["embed"], axis_name=axis_name)
+    x = x.transpose(0, 1)  # (S, B, H)
     if config.position_embedding_type == "learned":
         x = x + params["pos_embed"][:S][:, None, :]
     x = x.to(cd).contiguous()
+    if sp:
+        x = scatter_to_sequence_parallel_region(x, axis_name)
     rope = None
     if config.position_embedding_type == "rope":
         rope = rope_cos_sin(torch.arange(S, device=x.device), config.head_dim,
@@ -333,44 +548,101 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     ks, vs = [], []
     for p in _layer_list(params["layers"]):
         if remat:
-            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope)[0],
+            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name)[0],
                             config.remat_policy)(x)
             continue
-        x, (k, v) = _layer(x, p, config, rope)
+        x, (k, v) = _layer(x, p, config, rope, axis_name)
         if return_kv:
             ks.append(k)
             vs.append(v)
+    if sp:
+        # the head's dx is summed by the copy-to-region below, so this
+        # backward splits (tensor_parallel_output_grad=False)
+        x = gather_from_sequence_parallel_region(x, axis_name, False)
     x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
                                 (H,), eps)
+    if axis_name is not None:
+        x = copy_to_tensor_model_parallel_region(x, axis_name)
     out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
     if return_kv:
         return out, (torch.stack(ks), torch.stack(vs))
     return out
 
 
-def lm_head_loss(x, embed, targets, config: GPTConfig):
+def lm_head_loss(x, embed, targets, config: GPTConfig, axis_name=None):
     """Per-token CE (S, B) of the tied LM head on the pre-head
-    activations ``x`` (S, B, H), the JAX package's ``lm_head_loss`` at
-    ``axis_name=None``: with ``config.fused_ce`` and S divisible by
-    ``config.fused_ce_chunk``, :func:`~apex_tpu_torch.ops.fused_ce.
-    fused_lm_head_ce` (the CE kernels); otherwise the dense head -- fp32 logits
-    ``x @ embed.T``, ``logsumexp`` minus the target logit, targets
-    clamped into ``[0, V-1]``."""
+    activations ``x`` (S, B, H), the JAX package's ``lm_head_loss``: with
+    ``config.fused_ce`` and S divisible by ``config.fused_ce_chunk``,
+    :func:`~apex_tpu_torch.ops.fused_ce.fused_lm_head_ce` (the CE
+    kernels); otherwise the dense head -- fp32 logits ``x @ embed.T``,
+    then on one device ``logsumexp`` minus the target logit with targets
+    clamped into ``[0, V-1]``, and under tensor parallelism (``embed``
+    the vocab shard, global targets) the vocab-parallel cross entropy."""
+    axis_name = _tp(axis_name)
     if config.fused_ce and targets.shape[0] % config.fused_ce_chunk == 0:
-        return fused_lm_head_ce(x, embed, targets, config.fused_ce_chunk)
+        return fused_lm_head_ce(x, embed, targets, config.fused_ce_chunk, axis_name)
     logits = torch.matmul(x.float(), embed.float().T)
+    if axis_name is not None:
+        return vocab_parallel_cross_entropy(logits, targets, 0.0, axis_name)
     lse = torch.logsumexp(logits, dim=-1)
     t_cl = targets.long().clamp(0, logits.shape[-1] - 1)
     return lse - logits.gather(-1, t_cl[..., None])[..., 0]
 
 
-def gpt_loss(params, tokens, targets, config: GPTConfig):
+def gpt_loss(params, tokens, targets, config: GPTConfig, axis_name=None):
     """Mean causal-LM cross entropy of ``tokens`` (B, S) against
-    ``targets`` (B, S): the JAX package's ``gpt_loss`` on one device."""
+    ``targets`` (B, S): the JAX package's ``gpt_loss``, over the
+    tensor-parallel group ``axis_name`` when given (``params`` this
+    rank's shard; the loss is the same on every rank)."""
     dev = params["embed"].device
     t = torch.as_tensor(targets, device=dev).transpose(0, 1)  # (S, B)
-    hidden = gpt_forward(params, tokens, config, return_hidden=True)
-    return lm_head_loss(hidden, params["embed"], t, config).mean()
+    hidden = gpt_forward(params, tokens, config, return_hidden=True, axis_name=axis_name)
+    return lm_head_loss(hidden, params["embed"], t, config, axis_name).mean()
+
+
+def sp_grad_sync(grads, axis_name):
+    """The sequence-parallel grad sum: the leaves of :data:`SP_KEYS` (used
+    in the sequence-split region, so each rank's grad covers its own
+    tokens) summed over ``axis_name``, the JAX package's ``sp_grad_sync``
+    (apex_tpu/models/gpt.py:768), in one all-reduce of their
+    concatenation."""
+    from apex_tpu_torch.transformer.layers.layer_norm import (
+        allreduce_sequence_parallel_grads,
+    )
+
+    axis_name = _tp(axis_name)
+    if axis_name is None:
+        return grads
+    mask = {k: ({n: n in SP_KEYS for n in v} if k == "layers" else False)
+            for k, v in grads.items()}
+    return allreduce_sequence_parallel_grads(grads, mask, axis_name)
+
+
+def clip_sumsq_reduce(config: GPTConfig, axis_name):
+    """The global Σx² of a grad clip over a tensor-parallel step, the JAX
+    package's ``clip_sumsq_reduce`` (apex_tpu/models/gpt.py:781-829) on
+    :func:`param_specs`: a split leaf holds only its slice, so its Σx²
+    is summed over the group; a replicated leaf is whole on every rank
+    and is not.  Returns ``reduce(per_leaf_sumsq) -> total`` for the
+    optimizers' ``sumsq_reduce=`` hook, the leaves in the params' tree
+    order; the replicated part first, then the group's sum of the split
+    part, added in rank order (XLA's CPU ``psum`` order)."""
+    from apex_tpu_torch.contrib.optimizers._quantized_sync import rank_order_sum
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    split = [spec.tp_dim is not None for spec in tree_leaves(param_specs(config))]
+
+    def reduce(sq):
+        if len(sq) != len(split):
+            raise ValueError(f"clip_sumsq_reduce built for {len(split)} param leaves got "
+                             f"{len(sq)} sumsq values")
+        rep = torch.stack([q for q, s in zip(sq, split) if not s]).sum()
+        part = torch.stack([q for q, s in zip(sq, split) if s]).sum()
+        if axis_name is not None and axis_name.size() > 1:
+            part = rank_order_sum(part, axis_name.group, axis_name.size())
+        return torch.zeros((), dtype=rep.dtype, device=rep.device) + rep + part
+
+    return reduce
 
 
 def forward_decode(params, tokens, positions, active, kv_pools, page_tables,

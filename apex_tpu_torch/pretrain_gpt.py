@@ -1,6 +1,6 @@
 """GPT pretraining with the trainer's host runtime -- the port's twin of
-``examples/gpt/pretrain_gpt.py`` at tp = pp = 1, data-parallel over a
-``torch.distributed`` group of one process a rank.
+``examples/gpt/pretrain_gpt.py`` at pp = 1: data- and tensor-parallel
+over a ``torch.distributed`` group of one process a rank.
 
     python -m apex_tpu_torch.pretrain_gpt --steps 8                # on the GPU
     python -m apex_tpu_torch.pretrain_gpt --device cpu --steps 4   # plain versions
@@ -8,6 +8,8 @@
     ... --zero --grad-sync-dtype int8            # the quantized grad wire
     torchrun --nproc-per-node 2 -m apex_tpu_torch.pretrain_gpt --device cpu --zero
     #   two ranks under gloo (NCCL and one card a rank on CUDA)
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.pretrain_gpt --tp 2 --sequence-parallel
+    #   tensor (and sequence) parallel over two ranks
     ... --checkpoint /tmp/gpt_ck --steps 4       # then: --resume /tmp/gpt_ck
     ... --checkpoint /tmp/gpt_ck --auto-resume   # SIGTERM saves, drains and
     #   exits 0; rerunning the same line resumes from the newest valid
@@ -33,7 +35,18 @@ grad sync (per-bucket reduce-scatter, the shard update, per-bucket
 all-gather, all inside the captured step); without it a world above one
 all-reduces the grads a bucket at a time (the DDP sync) before
 FusedAdam.  The printed loss is the mean over the ranks.  Only rank 0
-prints and writes the metrics and goodput files.  With ``--metrics-dir`` or
+prints and writes the metrics and goodput files.
+
+Tensor parallelism: ``--tp N`` splits the model over groups of N
+consecutive ranks (:mod:`apex_tpu_torch.transformer.parallel_state`:
+rank = dp_rank * N + tp_rank, the JAX mesh's layout), dp = world / N;
+each rank holds its slices of the params (``models.gpt.shard_params`` of
+the seed-0 tree, the slice ``shard_map`` gives the same device) and of
+FusedAdam's state, and the step runs the loss over the group
+(``train_gpt.make_train_step(tp_group=)``); ``--sequence-parallel``
+splits the layers' activations over the sequence too.  The tp ranks of
+a dp rank take the same rows.  ``--zero`` with ``--tp`` above 1 raises
+(``_zero_engine.TP_ITEM``).  With ``--metrics-dir`` or
 ``--trace-dir`` a :class:`~apex_tpu_torch.observability.StepStats` window
 rides it in fixed device buffers.  The loop reads no device value on the
 host: each step's loss (and scale) goes to an
@@ -47,7 +60,14 @@ save at one world resumes at another, and a JAX ``--zero`` directory
 resumes here.  Other checkpoints are the JAX driver's single-file
 ``step_<N>.ckpt`` in its byte layout and tree (``{"params", "state":
 AdamState, "step", "scaler"}``; rank 0 writes it), written by an :class:`~apex_tpu_torch.io.AsyncCheckpointer`
-that snapshots to host before ``save`` returns; ``--keep`` prunes to the
+that snapshots to host before ``save`` returns.  Under ``--tp`` the
+params and moments are all-gathered over the group into that whole
+tree before the save, and the file gains ``"mesh": {"tp", "pp"}`` (the
+model layout, which the reference records in its elastic checkpoints,
+``mesh_meta``); a resume at the same tp shards the file again, bitwise,
+and one at another tp raises as a layout change (``TP_LAYOUT_ITEM``).  A
+file the JAX trainer wrote is a whole tree and is sharded to this run's
+tp, as the reference resumes it on any mesh; ``--keep`` prunes to the
 newest ``max(keep, 3)``.  ``--resume`` takes that directory (the newest
 valid file in it) or one file.  Batches are Megatron-sampled rows of
 ``seq + 1`` tokens (``--data``: a flat memmapped token file; else a
@@ -55,9 +75,8 @@ random corpus from seed 0), gathered by the native ``gather_rows`` on a
 prefetch thread.
 
 Flags of the reference that need modules not yet ported raise, naming
-the ROADMAP.md queue item that brings them: ``--tp``/``--pp`` above 1,
-``--micro-batches``, ``--sequence-parallel``, ``--supervise`` and the
-``--chaos-*`` faults.  ``--auto-resume`` does not
+the ROADMAP.md queue item that brings them: ``--pp`` above 1,
+``--micro-batches``, ``--supervise`` and the ``--chaos-*`` faults.  ``--auto-resume`` does not
 degrade kernel failures to a fallback as the reference's does: a kernel
 that fails to build or launch raises, as everywhere in the port.
 
@@ -83,15 +102,15 @@ WEIGHT_DECAY = 0.01
 #: ``--fp16``'s scaler (its other settings at their defaults)
 FP16_INIT_SCALE = 2.0 ** 12
 
+#: what a resume at another tp than the checkpoint's waits for
+TP_LAYOUT_ITEM = "resharding a checkpoint across tp, ROADMAP.md queue 1 item 13"
+
 #: flags of the reference whose modules are not ported: (flag, is it set,
 #: what brings it)
 _UNPORTED = (
-    ("--tp > 1", lambda a: a.tp > 1, "tensor parallelism, ROADMAP.md queue 1 item 7"),
     ("--pp > 1", lambda a: a.pp > 1, "pipeline parallelism, ROADMAP.md queue 1 item 9"),
     ("--micro-batches", lambda a: a.micro_batches is not None,
      "pipeline parallelism, ROADMAP.md queue 1 item 9"),
-    ("--sequence-parallel", lambda a: a.sequence_parallel,
-     "sequence parallelism, ROADMAP.md queue 1 item 7"),
     ("--supervise", lambda a: a.supervise,
      "resilience.supervisor, ROADMAP.md queue 1 item 5"),
     ("--chaos-*", lambda a: (a.chaos_kill_at_step is not None or a.chaos_wedge_step is not None
@@ -129,7 +148,7 @@ def build_args():
                         "and the quantization error rides the optimizer state as an "
                         "error-feedback residual (checkpointed; resume must pass the same flag)")
     p.add_argument("--sequence-parallel", action="store_true",
-                   help="sequence parallelism (not ported yet)")
+                   help="Megatron sequence parallelism over the --tp group")
     p.add_argument("--remat-policy", default="full", choices=["full", "dots"],
                    help="layer remat: 'full' saves only layer inputs ('dots' is not "
                         "ported yet)")
@@ -203,6 +222,7 @@ def make_config(args):
         num_attention_heads=args.heads, max_seq_len=args.seq,
         compute_dtype=torch.float16 if args.fp16 else torch.bfloat16,
         checkpoint_layers=True, remat_policy=args.remat_policy,
+        sequence_parallel=args.sequence_parallel,
         position_embedding_type="rope" if args.rope else "learned",
         num_query_groups=args.num_query_groups, use_flash_attention=True,
         fused_ce=args.fused_ce,
@@ -239,6 +259,11 @@ def run(args):
     if args.grad_sync_dtype and not args.zero:
         raise SystemExit("--grad-sync-dtype needs --zero: the quantized wire's error-feedback "
                          "residual lives in the ZeRO optimizer's sharded state")
+    if args.zero and args.tp > 1:
+        from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
+
+        raise NotImplementedError(f"--zero with --tp > 1 is not ported yet: it comes with "
+                                  f"{TP_ITEM}")
     import torch.distributed as dist
 
     from apex_tpu_torch.parallel import multiproc
@@ -247,23 +272,30 @@ def run(args):
     owns_group = not dist.is_initialized()
     dev = multiproc.initialize_distributed(args.device)
     try:
-        dp_group = (ps.get_data_parallel_group() if ps.model_parallel_is_initialized()
-                    else ps.initialize_model_parallel())
-        return _train(args, dev, dp_group)
+        if not ps.model_parallel_is_initialized():
+            ps.initialize_model_parallel(tensor_model_parallel_size_=args.tp)
+        elif ps.get_tensor_model_parallel_world_size() != args.tp:
+            raise ValueError(f"--tp {args.tp}, but the registered tensor-parallel group has "
+                             f"{ps.get_tensor_model_parallel_world_size()} ranks")
+        return _train(args, dev, ps.get_data_parallel_group(),
+                      ps.get_tensor_model_parallel_group())
     finally:
         if owns_group:
             multiproc.destroy_distributed()
 
 
-def _train(args, dev, dp_group):
+def _train(args, dev, dp_group, tp_group):
     """The loop of :func:`run` on ``dev``, data-parallel over
-    ``dp_group``."""
+    ``dp_group`` and tensor-parallel over ``tp_group``."""
     from apex_tpu_torch import io, observability as obs, resilience
     from apex_tpu_torch.amp import DynamicLossScaler
     from apex_tpu_torch.models.gpt import (
         _host_f32,
-        init_params,
+        _init_numpy,
+        gather_params,
+        map_specs,
         params_from_numpy,
+        shard_params,
         train_state_from_numpy,
     )
     from apex_tpu_torch.observability import flightrec, goodput as gp, stepstats, tracing
@@ -278,22 +310,27 @@ def _train(args, dev, dp_group):
         from apex_tpu_torch.ops import _build
 
         _build.load()  # the kernels build before anything runs
+    import torch.distributed as dist
+
     dp, rank = dp_group.size(), dp_group.rank()
-    lead = rank == 0
+    tp = tp_group.size()
+    lead = dist.get_rank() == 0
 
     def say(*a):
         """Rank 0 prints, as in the reference."""
         if lead:
             print(*a, flush=True)
 
-    say(f"mesh: dp={dp} pp=1 tp=1 ({dp} devices)")
+    say(f"mesh: dp={dp} pp=1 tp={tp} ({dp * tp} devices)")
     if args.global_batch % dp:
         raise SystemExit(f"--global-batch {args.global_batch} does not split over dp={dp}")
+    if args.sequence_parallel and args.seq % tp:
+        raise SystemExit(f"--sequence-parallel: --seq {args.seq} does not split over tp={tp}")
     # only rank 0 writes the metrics and goodput files
     metrics_dir = args.metrics_dir if lead else None
 
     config = make_config(args)
-    params = init_params(config, 0, dev, keep_fp32=True)
+    params = shard_params(_init_numpy(config, 0), config, tp_group, dev, keep_fp32=True)
     if args.zero:
         from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
 
@@ -376,16 +413,49 @@ def _train(args, dev, dp_group):
     corpus = load_corpus(args)
     start_step = 0
 
+    def whole(tree_fn, st):
+        """``st`` (a FusedAdam state) with ``tree_fn`` over its
+        params-shaped fields."""
+        return type(st)(step=st.step, exp_avg=tree_fn(st.exp_avg),
+                        exp_avg_sq=tree_fn(st.exp_avg_sq),
+                        master=None if st.master is None else tree_fn(st.master))
+
+    def scaler_dict():
+        """The scaler's state dict, cast on the device to the dtypes the
+        reference's Python scalars take (float64, int64): no host read
+        here, the snapshot copies."""
+        if scaler is None:
+            return None
+        return {"loss_scale": scaler_state.loss_scale.to(torch.float64),
+                "growth_tracker": scaler_state.growth_tracker.to(torch.int64),
+                "hysteresis": scaler_state.hysteresis.to(torch.int64)}
+
+    mesh_layout = {"tp": np.int64(tp), "pp": np.int64(1)}
+
     def ckpt_tree(step_no):
-        """The JAX driver's checkpoint tree.  The scaler's state dict is
-        cast on the device to the dtypes the reference's Python scalars
-        take (float64, int64): no host read here, the snapshot copies."""
-        sd = None
-        if scaler is not None:
-            sd = {"loss_scale": scaler_state.loss_scale.to(torch.float64),
-                  "growth_tracker": scaler_state.growth_tracker.to(torch.int64),
-                  "hysteresis": scaler_state.hysteresis.to(torch.int64)}
-        return {"params": params, "state": state, "step": np.int64(step_no), "scaler": sd}
+        """The reference trainer's checkpoint tree.  Under --tp the params and
+        moments are gathered whole (a collective: every rank calls it)
+        and the tree gains the layout."""
+        if tp == 1 or args.zero:
+            return {"params": params, "state": state, "step": np.int64(step_no),
+                    "scaler": scaler_dict()}
+        gather = lambda t: gather_params(t, config, tp_group)  # noqa: E731
+        return {"params": gather(params), "state": whole(gather, state),
+                "step": np.int64(step_no), "scaler": scaler_dict(), "mesh": mesh_layout}
+
+    def ckpt_template(with_mesh):
+        """The whole tree's structure and shapes (meta tensors), to load
+        a file by."""
+        def one(a, spec):
+            shape = list(a.shape)
+            if spec.tp_dim is not None:
+                shape[spec.tp_dim] *= tp
+            return torch.empty(shape, dtype=a.dtype, device="meta")
+
+        like = lambda t: map_specs(one, t, config)  # noqa: E731
+        tree = {"params": like(params), "state": whole(like, state), "step": np.int64(0),
+                "scaler": scaler_dict()}
+        return {**tree, "mesh": mesh_layout} if with_mesh else tree
 
     ckpt = io.AsyncCheckpointer() if args.checkpoint else None
     # --zero: elastic step_* directories, every rank its own shard
@@ -405,7 +475,7 @@ def _train(args, dev, dp_group):
         # complete) stays loud even under --auto-resume
         restored = resilience.restore_elastic_checkpoint(
             resume_dir, optimizer=optimizer, world_size=dp, mesh_axes=mesh_meta,
-            opt_state=state, params=params, scaler_state=ckpt_tree(0)["scaler"])
+            opt_state=state, params=params, scaler_state=scaler_dict())
         if restored is None and args.resume:
             raise FileNotFoundError(f"no elastic checkpoint under {resume_dir}")
         if restored is not None:
@@ -443,9 +513,20 @@ def _train(args, dev, dp_group):
                         "--zero run); resume with --zero or point at a matching run's dir")
                 path = None  # --auto-resume first launch: fresh start
         if path is not None:
-            ck = io.load_checkpoint(path, template=ckpt_tree(0))
+            # the port's own files carry their layout; the JAX trainer's are
+            # whole trees, sharded to this run's tp
+            saved_tp = tp
+            if not io.written_by_jax(path):
+                lazy = io.open_checkpoint_lazy(path)
+                saved_tp = int(lazy["mesh"]["tp"].load()) if "mesh" in lazy else 1
+            if saved_tp != tp:
+                raise ValueError(f"{path} was saved at tp={saved_tp}; resuming it at tp={tp} "
+                                 f"is a layout change, not ported yet: it comes with "
+                                 f"{TP_LAYOUT_ITEM}")
+            has_mesh = tp > 1 and not io.written_by_jax(path)
+            ck = io.load_checkpoint(path, template=ckpt_template(has_mesh))
             params, state, scaler_state, start_step = train_state_from_numpy(
-                ck, config, dev, loss_scaler=scaler)
+                ck, config, dev, loss_scaler=scaler, axis_name=tp_group)
             say(f"resumed at step {start_step}")
     if acct is not None and start_step:
         acct.add_segment("restore", time.time() - t_restore)
@@ -460,7 +541,7 @@ def _train(args, dev, dp_group):
     step = tracing.TracedStep(
         make_train_step(optimizer, config, loss_scaler=scaler,
                         graphs=False if args.eager else None, telemetry=telemetry,
-                        dp_group=dp_group),
+                        dp_group=dp_group, tp_group=tp_group),
         name="train.step.dispatch")
     tracing.emit_sync_plan(optimizer)
 
@@ -544,6 +625,7 @@ def _train(args, dev, dp_group):
             tree = ckpt_tree(step_no)
             run_ctl.save(step_no, tree["params"], tree["state"], scaler_state=tree["scaler"])
             return
+        tree = ckpt_tree(step_no)  # under --tp every rank joins the gathers
         if not lead:
             return  # a replicated state: rank 0's file holds it
         # step-named files (atomic publish) so a preempted restart picks
@@ -551,7 +633,7 @@ def _train(args, dev, dp_group):
         # max(keep, 3), counting the saves still queued or writing among
         # them before they exist (the reference globs the disk alone, and
         # keeps a file too many for each write still pending)
-        ckpt.save(Path(args.checkpoint) / f"step_{step_no:08d}.ckpt", ckpt_tree(step_no))
+        ckpt.save(Path(args.checkpoint) / f"step_{step_no:08d}.ckpt", tree)
         pending = {Path(f) for f in ckpt.in_flight()}
         files = sorted(set(Path(args.checkpoint).glob("step_*.ckpt")) | pending)
         for f in files[:-max(args.keep, 3)]:
@@ -644,7 +726,7 @@ def _train(args, dev, dp_group):
         acct.finalize("preempted" if (pre is not None and pre.preempted) else "clean")
         report = gp.goodput_report(
             metrics_dir, flops_per_token=gp.model_flops_per_token(
-                gp.param_count(params), args.layers, args.seq, args.hidden))
+                gp.param_count(params) * tp, args.layers, args.seq, args.hidden))
         (Path(metrics_dir) / "goodput_report.json").write_text(json.dumps(report, indent=1))
         say("goodput: " + " ".join(f"{k}={v:.1%}"
                                    for k, v in sorted(report["fractions"].items())))
@@ -667,7 +749,8 @@ def _train(args, dev, dp_group):
     steps = sorted(losses)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "rank": rank, "dp": dp, "zero": bool(args.zero),
+        "rank": dist.get_rank(), "dp": dp, "tp": tp,
+        "sequence_parallel": bool(args.sequence_parallel), "zero": bool(args.zero),
         "grad_sync_dtype": args.grad_sync_dtype,
         "graphs": not args.eager and cuda,
         "start_step": start_step, "steps_done": done,

@@ -15,8 +15,11 @@ three small pieces:
   accepted is durable before the process exits.
 - :func:`apex_tpu_torch.io.latest_checkpoint` — restart-side discovery
   that validates checkpoint headers and sizes and *skips torn files*.
-- The JAX module's RNG-tracker state dict comes with tensor
-  parallelism's ``random`` module.
+- :func:`rng_tracker_state_dict` / :func:`load_rng_tracker_state_dict`
+  — the named RNG streams of
+  :mod:`apex_tpu_torch.transformer.tensor_parallel.random` as plain
+  checkpointable data (each generator's state bytes and the fork
+  counts), so that a resumed run draws what the uninterrupted one would.
 """
 
 import logging
@@ -29,7 +32,7 @@ from apex_tpu_torch.observability import flightrec as _flightrec
 from apex_tpu_torch.observability import metrics as _metrics
 from apex_tpu_torch.utils.logging import get_logger, log_structured
 
-__all__ = ["PreemptionHandler"]
+__all__ = ["PreemptionHandler", "rng_tracker_state_dict", "load_rng_tracker_state_dict"]
 
 _logger = get_logger("apex_tpu_torch.resilience")
 
@@ -191,3 +194,31 @@ class PreemptionHandler:
                 self._draining = False
                 self._drain_done.set()
                 self._drain_done = threading.Event()  # re-arm
+
+
+# ----------------------------------------------------- RNG tracker I/O
+def _tracker(tracker):
+    if tracker is None:
+        from apex_tpu_torch.transformer.tensor_parallel.random import get_rng_state_tracker
+
+        tracker = get_rng_state_tracker()
+    return tracker
+
+
+def rng_tracker_state_dict(tracker=None) -> dict:
+    """The named RNG streams (each generator's state as uint8 numpy, and
+    the fork counts) as plain checkpointable data; by default the global
+    tracker's."""
+    tracker = _tracker(tracker)
+    return {"states": {k: v.numpy() for k, v in tracker.get_states().items()},
+            "counts": dict(tracker.counts_)}
+
+
+def load_rng_tracker_state_dict(d: dict, tracker=None):
+    """Restore a :func:`rng_tracker_state_dict` snapshot into ``tracker``
+    (its streams added already), so that the next draw continues each
+    stream where the save left it."""
+    tracker = _tracker(tracker)
+    tracker.set_states(d["states"])
+    tracker.counts_ = {k: int(v) for k, v in d["counts"].items()}
+    return tracker

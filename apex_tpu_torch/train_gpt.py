@@ -152,16 +152,17 @@ def setup(args, params_tree=None):
     return config, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev)
 
 
-def loss_and_grads(params, tokens, targets, config, post_loss=None):
+def loss_and_grads(params, tokens, targets, config, post_loss=None, axis_name=None):
     """``value_and_grad(gpt_loss)``: the loss and a tree of gradients
     shaped like ``params``; with ``post_loss`` (the loss scaler's
-    ``scale``) of ``post_loss(loss)``.  Leaves that do not require a
-    gradient yet are made to."""
+    ``scale``) of ``post_loss(loss)``; over the tensor-parallel group
+    ``axis_name`` when given.  Leaves that do not require a gradient yet
+    are made to."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         if not leaf.requires_grad:
             leaf.requires_grad_(True)
-    loss = gpt_loss(params, tokens, targets, config)
+    loss = gpt_loss(params, tokens, targets, config, axis_name=axis_name)
     if post_loss is not None:
         loss = post_loss(loss)
     grads = torch.autograd.grad(loss, leaves)
@@ -169,22 +170,27 @@ def loss_and_grads(params, tokens, targets, config, post_loss=None):
 
 
 def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, params,
-                         step_guard=None, guard_state=None, clip_grad_norm=None):
-    """The JAX package's ``_apply_scaled_update`` (apex_tpu/models/gpt.py)
-    on one device: unscale, the finite vote (``sync_found_inf`` with no
-    process group: the vote as it is), the update predicated on it, the
-    scaler's update; with ``step_guard`` the same vote feeds the guard.
-    An engine optimizer does the first three in its one fused pass
-    (``update_scaled``, the clip folded in); any other takes the explicit
-    unscale, vote and ``update(grads_finite=)``.
+                         step_guard=None, guard_state=None, clip_grad_norm=None,
+                         sync_groups=(), clip_sumsq=None):
+    """The JAX package's ``_apply_scaled_update`` (apex_tpu/models/gpt.py):
+    unscale, the finite vote (``sync_found_inf`` over ``sync_groups``,
+    the model-parallel groups; with none, the vote as it is), the update
+    predicated on it, the scaler's update; with ``step_guard`` the same
+    vote feeds the guard.  An engine optimizer does the first three in
+    its one fused pass (``update_scaled``, the clip folded in, its Σx²
+    agreed by ``clip_sumsq``); any other takes the explicit unscale,
+    vote and ``update(grads_finite=)``.
     Returns ``(params, state, scaler_state[, guard_state])``."""
+    def vote(f):
+        return sync_found_inf(f, sync_groups)
+
     if getattr(opt, "supports_update_scaled", False):
         new_params, new_state, finite = opt.update_scaled(
             grads, opt_state, params, scale=scaler_state.loss_scale, clip_norm=clip_grad_norm,
-            finite_sync=sync_found_inf)
+            finite_sync=vote, sumsq_reduce=clip_sumsq)
     else:
         grads, finite = loss_scaler.unscale(scaler_state, grads)
-        finite = sync_found_inf(finite)
+        finite = vote(finite)
         new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
     stepstats.offer("all_finite", finite)
     new_scaler = loss_scaler.update(scaler_state, finite)
@@ -194,16 +200,20 @@ def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, param
 
 
 def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state,
-                          clip_grad_norm=None):
+                          clip_grad_norm=None, sync_groups=(), clip_sumsq=None):
     """The JAX package's ``_apply_guarded_update``: no loss scale; the
-    finite vote alone predicates the update and feeds the guard (an
-    engine optimizer votes in its fused pass, ``scale=None``).  Returns
-    ``(params, state, guard_state)``."""
+    finite vote (agreed over ``sync_groups``) alone predicates the update
+    and feeds the guard (an engine optimizer votes in its fused pass,
+    ``scale=None``).  Returns ``(params, state, guard_state)``."""
+    def vote(f):
+        return sync_found_inf(f, sync_groups)
+
     if getattr(opt, "supports_update_scaled", False):
         new_params, new_state, finite = opt.update_scaled(
-            grads, opt_state, params, clip_norm=clip_grad_norm, finite_sync=sync_found_inf)
+            grads, opt_state, params, clip_norm=clip_grad_norm, finite_sync=vote,
+            sumsq_reduce=clip_sumsq)
     else:
-        finite = sync_found_inf(all_finite(grads))
+        finite = vote(all_finite(grads))
         new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
     stepstats.offer("all_finite", finite)
     return new_params, new_state, step_guard.update(guard_state, finite)
@@ -239,7 +249,7 @@ def _dp_sync(opt, dp_group):
 
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
                     graphs=None, warmup=1, telemetry=None, dp_group=None,
-                    overlap_grad_sync=False):
+                    overlap_grad_sync=False, tp_group=None):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
     [guard_state], [stats], tokens, targets) -> loss``, a scaler state
@@ -274,16 +284,40 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     mean over the group, as the JAX step's ``pmean``.  The collectives
     are captured with the rest of the step.  ``overlap_grad_sync=True``
     (the sync issued inside the backward) is not ported yet and
-    raises."""
+    raises.
+
+    Tensor parallelism: with ``tp_group`` (an ``AxisGroup`` of more than
+    one rank; ``params`` and ``state`` this rank's shards of
+    :func:`~apex_tpu_torch.models.gpt.param_specs`) the loss and its
+    gradients run over the group (:func:`~apex_tpu_torch.models.gpt.
+    gpt_loss` with ``axis_name``); with ``config.sequence_parallel`` the
+    LN and row-bias grads are then summed over it (``sp_grad_sync``); a
+    clip's Σx² sums the split leaves over the group and the replicated
+    ones not (``clip_sumsq_reduce``); the finite vote is agreed over it.
+    The dp sync and the loss mean stay on ``dp_group``.  A ZeRO optimizer
+    with a tp group raises (``_zero_engine.TP_ITEM``)."""
     if overlap_grad_sync:
         from apex_tpu_torch.contrib.optimizers._zero_engine import OVERLAP_ITEM
 
         raise NotImplementedError(f"make_train_step(overlap_grad_sync=True) is not ported "
                                   f"yet: it comes with {OVERLAP_ITEM}")
+    from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce, sp_grad_sync
+
+    tp = _tp(tp_group)
+    if tp is not None:
+        if hasattr(opt, "sharded_state_dict"):
+            from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
+
+            raise NotImplementedError(f"a ZeRO optimizer with a tensor-parallel group is not "
+                                      f"ported yet: it comes with {TP_ITEM}")
+        check_tp(config, tp.size())
     grad_sync, loss_mean = _dp_sync(opt, dp_group)
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
                          "subclass): the clip folds into its fused grad pass")
+    sync_groups = () if tp is None else (tp,)
+    clip_sumsq = (clip_sumsq_reduce(config, tp)
+                  if tp is not None and clip_grad_norm is not None else None)
     n_small = int(loss_scaler is not None) + int(step_guard is not None)
     n_state = n_small + int(telemetry is not None)
 
@@ -309,26 +343,28 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
         """``(loss, (params, state, *small states))`` of one step."""
         scaler_state = small[0] if loss_scaler is not None else None
         guard_state = small[-1] if step_guard is not None else None
+        post = (None if loss_scaler is None
+                else (lambda l: loss_scaler.scale(scaler_state, l)))
+        loss, grads = loss_and_grads(params, tokens, targets, config, post, axis_name=tp)
+        if config.sequence_parallel:
+            grads = sp_grad_sync(grads, tp)
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         if loss_scaler is not None:
-            scaled, grads = loss_and_grads(params, tokens, targets, config,
-                                           lambda l: loss_scaler.scale(scaler_state, l))
-            loss = scaled / scaler_state.loss_scale
-            if grad_sync is not None:
-                grads = grad_sync(grads)
+            loss = loss / scaler_state.loss_scale
             new = _apply_scaled_update(loss_scaler, scaler_state, grads, opt, state, params,
                                        step_guard=step_guard, guard_state=guard_state,
-                                       clip_grad_norm=clip_grad_norm)
+                                       clip_grad_norm=clip_grad_norm, sync_groups=sync_groups,
+                                       clip_sumsq=clip_sumsq)
+        elif step_guard is not None:
+            new = _apply_guarded_update(grads, opt, state, params, step_guard, guard_state,
+                                        clip_grad_norm=clip_grad_norm, sync_groups=sync_groups,
+                                        clip_sumsq=clip_sumsq)
+        elif clip_grad_norm is not None:
+            new = opt.update(grads, state, params, clip_norm=clip_grad_norm,
+                             sumsq_reduce=clip_sumsq)
         else:
-            loss, grads = loss_and_grads(params, tokens, targets, config)
-            if grad_sync is not None:
-                grads = grad_sync(grads)
-            if step_guard is not None:
-                new = _apply_guarded_update(grads, opt, state, params, step_guard,
-                                            guard_state, clip_grad_norm=clip_grad_norm)
-            elif clip_grad_norm is not None:
-                new = opt.update(grads, state, params, clip_norm=clip_grad_norm)
-            else:
-                new = opt.update(grads, state, params)
+            new = opt.update(grads, state, params)
         if loss_mean is not None:
             loss = loss_mean(loss)
         return loss, new

@@ -1,4 +1,8 @@
 """Transformer building blocks of the port (counterpart of
-:mod:`apex_tpu.transformer`); so far the causal softmax of the
-attention's einsum path and the model-parallel ``GradScaler``
-(:mod:`~apex_tpu_torch.transformer.amp`)."""
+:mod:`apex_tpu.transformer`): the causal softmax of the attention's
+einsum path, the model-parallel ``GradScaler``
+(:mod:`~apex_tpu_torch.transformer.amp`), the process groups
+(:mod:`~apex_tpu_torch.transformer.parallel_state`), tensor and sequence
+parallelism (:mod:`~apex_tpu_torch.transformer.tensor_parallel`,
+:mod:`~apex_tpu_torch.transformer.layers`), the utilities and enums,
+and the Megatron batch samplers (``_data``)."""

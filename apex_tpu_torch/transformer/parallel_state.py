@@ -10,12 +10,17 @@ groups into named axes of one device mesh; here they are
 :func:`apex_tpu_torch.parallel.multiproc.initialize_distributed` starts
 (one process a rank: NCCL on CUDA, gloo on the CPU).
 
-Only the data-parallel axis is ported: at tp = pp = cp = 1 the
-data-parallel group is the whole world.  tp, pp or cp above 1 and a
-hierarchical dp split raise, naming the ROADMAP.md queue item that
-brings them.  :class:`AxisGroup` is the handle a getter returns: the
-axis name (it is a ``str``, as the JAX package's handle is), its
-``torch.distributed`` group, its size and this process's rank in it.
+The data-parallel and tensor-parallel axes are ported.  The ranks are
+laid out in the JAX mesh's ``AXIS_ORDER`` (dp, pp, cp, tp) with tp
+innermost: rank = dp_rank * tp + tp_rank, so a tensor-parallel group is
+a run of consecutive ranks (one host's cards) and a rank's (dp, tp)
+coordinates are those of the JAX mesh's device of the same index.  pp
+or cp above 1 and a hierarchical dp split raise, naming the ROADMAP.md
+queue item that brings them.  :class:`AxisGroup` is the handle a getter
+returns: the axis name (it is a ``str``, as the JAX package's handle
+is), its ``torch.distributed`` group (None for a one-rank axis, over
+which no collective runs), its size, this process's rank in it and the
+global ranks it holds.
 """
 
 import dataclasses
@@ -34,7 +39,6 @@ AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
 
 #: what brings each axis that is not ported yet
 _UNPORTED_AXES = {
-    TENSOR_AXIS: "tensor parallelism, ROADMAP.md queue 1 item 7",
     PIPELINE_AXIS: "pipeline parallelism, ROADMAP.md queue 1 item 9",
     CONTEXT_AXIS: "context parallelism, ROADMAP.md queue 1 item 9",
     DCN_AXIS: "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)",
@@ -50,19 +54,21 @@ __all__ = [
     "get_context_parallel_group", "get_data_parallel_group", "get_model_parallel_group",
     "get_tensor_model_parallel_rank", "get_pipeline_model_parallel_rank",
     "get_context_parallel_rank", "get_data_parallel_rank", "get_data_parallel_src_rank",
-    "get_num_distributed_slices",
+    "get_tensor_model_parallel_src_rank", "get_num_distributed_slices",
 ]
 
 
 class AxisGroup(str):
     """A process-group handle: the axis name, with ``group`` (the
-    ``torch.distributed`` ProcessGroup), ``size()`` and ``rank()``."""
+    ``torch.distributed`` ProcessGroup), ``size()``, ``rank()`` and
+    ``ranks`` (the global ranks of the group, in its rank order)."""
 
-    def __new__(cls, axis: str, group, size: int, rank: int):
+    def __new__(cls, axis: str, group, size: int, rank: int, ranks=None):
         self = super().__new__(cls, axis)
         self.group = group
         self._size = int(size)
         self._rank = int(rank)
+        self.ranks = tuple(ranks) if ranks is not None else None
         return self
 
     def size(self) -> int:
@@ -100,13 +106,15 @@ def initialize_model_parallel(
     """Build and register the process groups (reference
     ``parallel_state.initialize_model_parallel``, :155; the JAX
     package's :76 with its argument names).  Needs the default group
-    (:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`).
-    Returns the data-parallel group, the whole world here."""
+    (:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`);
+    its world must divide by the tensor-parallel size, as the JAX mesh's
+    device count must.  Every rank builds every group, in the same
+    order (``torch.distributed.new_group``'s rule).  Returns this rank's
+    data-parallel group."""
     import torch.distributed as dist
 
     global _STATE
-    for size, axis in ((tensor_model_parallel_size_, TENSOR_AXIS),
-                       (pipeline_model_parallel_size_, PIPELINE_AXIS),
+    for size, axis in ((pipeline_model_parallel_size_, PIPELINE_AXIS),
                        (context_parallel_size_, CONTEXT_AXIS),
                        (num_distributed_slices_, DCN_AXIS)):
         if int(size) != 1:
@@ -121,9 +129,25 @@ def initialize_model_parallel(
         raise RuntimeError("initialize_model_parallel needs the default process group: "
                            "call apex_tpu_torch.parallel.multiproc.initialize_distributed")
     world, rank = dist.get_world_size(), dist.get_rank()
-    data = AxisGroup(DATA_AXIS, dist.new_group(list(range(world))), world, rank)
-    _STATE = _State(data=data, tensor=_one_rank_group(TENSOR_AXIS),
-                    pipeline=_one_rank_group(PIPELINE_AXIS),
+    tp = int(tensor_model_parallel_size_)
+    if tp < 1 or world % tp:
+        raise RuntimeError(f"world size ({world}) is not divisible by tp ({tp}) x pp (1) x cp (1)")
+    dp = world // tp
+
+    def axis_group(axis, groups, real):
+        """This rank's group among ``groups`` (lists of global ranks), each
+        built on every rank; without ``real`` a one-rank group has none."""
+        mine = None
+        for ranks in groups:
+            pg = dist.new_group(ranks) if real or len(ranks) > 1 else None
+            if rank in ranks:
+                mine = AxisGroup(axis, pg, len(ranks), ranks.index(rank), ranks)
+        return mine
+
+    data = axis_group(DATA_AXIS, [[d * tp + t for d in range(dp)] for t in range(tp)], True)
+    tensor = axis_group(TENSOR_AXIS, [[d * tp + t for t in range(tp)] for d in range(dp)],
+                        False)
+    _STATE = _State(data=data, tensor=tensor, pipeline=_one_rank_group(PIPELINE_AXIS),
                     context=_one_rank_group(CONTEXT_AXIS))
     return data
 
@@ -182,14 +206,14 @@ def get_context_parallel_group() -> AxisGroup:
 
 
 def get_data_parallel_group() -> AxisGroup:
-    """Reference :462 (the JAX package's :259): the data-parallel
-    group, the whole world at tp = pp = cp = 1."""
+    """Reference :462 (the JAX package's :259): this rank's data-parallel
+    group, the ranks that hold its tensor-parallel rank."""
     return _state().data
 
 
 def get_model_parallel_group() -> tuple:
-    """The (pp, tp) groups a found-inf vote is agreed over; both are
-    one rank here, so a vote over them is the vote as it is."""
+    """The (pp, tp) groups a found-inf vote is agreed over; pp is one
+    rank here, so the vote is agreed over tp."""
     s = _state()
     return (s.pipeline, s.tensor)
 
@@ -214,7 +238,13 @@ def get_data_parallel_rank() -> int:
 
 
 def get_data_parallel_src_rank() -> int:
-    """Reference :520: the group's broadcast source, rank 0 of the
-    world at tp = pp = 1."""
-    _state()
-    return 0
+    """Reference :520: the global rank of this data-parallel group's
+    rank 0 (this rank's tensor-parallel rank)."""
+    return _state().data.ranks[0]
+
+
+def get_tensor_model_parallel_src_rank() -> int:
+    """Reference :512: the global rank of this tensor-parallel group's
+    rank 0, the source of :func:`~apex_tpu_torch.transformer.
+    tensor_parallel.broadcast_data`."""
+    return _state().tensor.ranks[0]

@@ -199,6 +199,24 @@ Phases, each printing one JSON line:
     did not run on a card.  The kernels phase holds ``mt_adam_remainder``
     bitwise against its plain version (with a clip and a false
     predicate) and times it beside ``torch.optim.AdamW(fused=True)``.
+17. tp: ``pretrain_gpt --tp 1`` at GPT-345M (24 layers, hidden 1024, 16
+    heads, vocab 50304, seq 1024, global batch 8, bf16, full remat,
+    FusedAdam) in this process over a one-rank NCCL group registered at
+    tp 1: the fused CE head and the dense head, graphed (6 steps) and
+    ``--eager`` (4): exact launch counts (97 / 49 / 48 / 24 / 24 a step,
+    1 / 1 / 1 CE with the fused head, one ``mt_adam``), graphed = eager,
+    losses bitwise equal to the same step with no tp group
+    (``train_gpt.make_train_step`` alone), step ms (CUDA events), peak
+    memory, a profile of 7 graphed fused steps (idle share, kernel ms by
+    name); then the CE forward, dx and dembed on the halves and quarters
+    of a 50304 x 1024 bf16 embed with shard-local targets (ids on every
+    shard's edges and in its tail tile), combined as ``fused_lm_head_ce``
+    combines them, held against the full-vocab call and their plain
+    versions, and timed at V 50304, 25152 and 12576 with their bounds and
+    the dense bf16 head's time.  With two or more cards,
+    ``tp_multi_card``: ``torchrun --tp 2`` (and 4) against tp 1 (losses
+    within 1e-3), GPT-345M timed at each tp with and without
+    ``--sequence-parallel``, and a profile at the largest.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -1084,7 +1102,8 @@ CE_GRID = tuple((f"x_{xd}_e_{ed}_h{H}".replace("torch.", ""),
 
 def ce_term_scales(x2, e, t, lse, g, rows=1024):
     """The band's allowance for each element of dx and of dembed (plain
-    arithmetic on x2's device): acc_step * K/16 * T + flip * M, with T
+    arithmetic on x2's device; ``t`` may hold ids outside ``[0, V)``, a
+    vocab shard's misses): acc_step * K/16 * T + flip * M, with T
     the sum of its |terms| (|d| . |e|, |d|^T . |x| on the bf16-rounded
     operands) and M a bound on its largest term: the larger of its
     target terms (d at the target id times e or x) and the largest other
@@ -1105,9 +1124,12 @@ def ce_term_scales(x2, e, t, lse, g, rows=1024):
         d = ((p - hit) * g[i:i + rows, None]).to(bf).float().abs()
         t_dx.append(d @ ea)
         t_de += d.T @ xc.abs()
-        d_t = d.gather(1, tc[:, None])  # the target's |d|, (rows, 1)
-        hit_dx.append(d_t * ea[tc])
-        hit_de.index_add_(0, tc, d_t * xc.abs())
+        # the target's |d|, (rows, 1); 0 for an id outside [0, V) (a
+        # vocab shard's miss), which hits nothing
+        tc_in = tc.clamp(0, V - 1)
+        d_t = d.gather(1, tc_in[:, None]) * ((tc >= 0) & (tc < V)).float()[:, None]
+        hit_dx.append(d_t * ea[tc_in])
+        hit_de.index_add_(0, tc_in, d_t * xc.abs())
         other = d * (1 - hit)
         other_row.append(other.max(1).values)
         other_col = torch.maximum(other_col, other.max(0).values)
@@ -3782,6 +3804,349 @@ def zero_multi_card(world, data=None):
     return out
 
 
+# ----------------------------------------------------------------------- tp
+#: GPT-345M, Megatron's tensor-parallel configuration (bench.py:2157-2160,
+#: ``gpt345_s1024``): 24 layers, hidden 1024, 16 heads, vocab 50304, seq
+#: 1024, global batch 8; pretrain_gpt's bf16, full remat, FusedAdam
+GPT345_ARGV = ["--layers", "24", "--hidden", "1024", "--heads", "16", "--vocab", "50304",
+               "--seq", "1024", "--global-batch", "8"]
+#: steps of each one-card tp run (the first with the warm-up and capture)
+TP_STEPS = 6
+#: tp N against tp 1 on the same global batch, relative: bf16 compute over
+#: other row splits (tests/test_torch_pretrain.py ``ZERO_BAND``)
+TP_BAND = 1e-3
+
+
+def _tp345_expect(fused, steps, sizes, L=24):
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+
+    per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "ce_fwd": int(fused), "ce_dx": int(fused), "ce_dembed": int(fused),
+                "mt_adam": mt_plan("adam", sizes).launches, "mt_scale": 0, "mt_l2norm": 0}
+    return per_step, {**{k: steps * v for k, v in per_step.items()},
+                      "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                      "fused_sample": 0}
+
+
+def _tp345_absent(flags, steps):
+    """The pretrain run's step with no tp group (``train_gpt.make_train_step``
+    alone, graphed): the same seed-0 params, FusedAdam and batches (the
+    Megatron sampler's first rows of the seed-0 corpus).  Its losses."""
+    from apex_tpu_torch import pretrain_gpt, train_gpt
+    from apex_tpu_torch.models.gpt import init_params
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    args = pretrain_gpt.build_args().parse_args(GPT345_ARGV + flags)
+    dev = torch.device("cuda", 0)
+    config = pretrain_gpt.make_config(args)
+    params = init_params(config, 0, dev, keep_fp32=True)
+    opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = train_gpt.make_train_step(opt, config)
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = args.global_batch
+    losses = []
+    for i in range(steps):
+        rows = torch.from_numpy(np.ascontiguousarray(corpus[i * gb:(i + 1) * gb], np.int64))
+        losses.append(float(step(params, state, rows[:, :-1].to(dev), rows[:, 1:].to(dev))))
+    del step, params, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _tp345_run(flags, steps=TP_STEPS, profiler=None):
+    """``pretrain_gpt --tp 1`` at GPT-345M in this process over the
+    registered one-rank groups: the report, its launch counts, the peak
+    device memory."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rep = _pretrain_here(GPT345_ARGV + ["--tp", "1", "--steps", str(steps)] + flags,
+                         profiler=profiler)
+    counts = launch_counts()
+    return rep, counts, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _gpt345_sizes():
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    meta = {k: (torch.empty(s, device="meta") if not isinstance(s, dict)
+                else {n: torch.empty(t, device="meta") for n, t in s.items()})
+            for k, s in gpt_param_shapes(L=24, H=1024).items()}
+    return [t.numel() for t in tree_leaves(meta)]
+
+
+def check_ce_vocab_shards(dev, tp, N=8192, H=1024, V=50304):
+    """The CE kernels on the vocab shards of a (V, H) bf16 embed, as tp
+    ranks run them: each shard's forward with targets made shard-local
+    (``t - r * V / tp``, ids off the shard miss), the combine of
+    ``fused_lm_head_ce`` (m_g = max m, l_g = sum l exp(m - m_g), tgt =
+    sum tgt), each shard's dx and dembed with the combined lse.  Held
+    against the full-vocab kernel call (lse and tgt; dembed's rows; the
+    sum of the shards' dx) and each shard call against its plain version
+    with bf16 dots, in the per-element bands of ``check_fused_ce``.
+    Targets sit on each shard's first and last row and in each shard's
+    tail tile (V / tp is not a multiple of the forward's 256-row tile).
+    Times: the first shard's calls (``tp`` 1: the full vocab)."""
+    from apex_tpu_torch.ops import fused_ce_kernels as K
+
+    bf = torch.bfloat16
+    Vl = V // tp
+    rng = np.random.default_rng(N + V + H + tp)
+    x = torch.from_numpy(rng.standard_normal((N, H), dtype=np.float32)).to(dev, bf)
+    e = torch.from_numpy(0.02 * rng.standard_normal((V, H), dtype=np.float32)).to(dev, bf)
+    t_np = rng.integers(0, V, size=N)
+    special = []
+    for r in range(tp):
+        lo, tail = r * Vl, r * Vl + (Vl // 256) * 256
+        special += [lo, lo + 1, lo + Vl - 1, tail, tail + 7, lo + Vl - 2]
+    special += [V - 1, (V // 256) * 256]
+    t_np[:len(special)] = special
+    t = torch.from_numpy(t_np.astype(np.int32)).to(dev)
+    g = torch.full((N,), 1.0 / N, device=dev)
+    m, l, tgt = K.ce_fwd(x, e, t)
+    lse = m + torch.log(l)
+    dx_full = K.ce_dx(x, e, t, lse, g)
+    de_full = K.ce_dembed(x, e, t, lse, g)
+    shards = [(e[r * Vl:(r + 1) * Vl], (t.long() - r * Vl).to(torch.int32)) for r in range(tp)]
+    stats = [K.ce_fwd(x, e_r, t_r) for e_r, t_r in shards]
+    ms = torch.stack([s[0] for s in stats])
+    m_g = ms.max(0).values
+    l_g = sum(s[1] * torch.exp(s[0] - m_g) for s in stats)
+    lse_g, tgt_g = m_g + torch.log(l_g), sum(s[2] for s in stats)
+    logit_scale = max(1.0, float(m.abs().max()))
+    fwd_tol = CE_TOL["fwd"] * logit_scale
+    errs = {"lse_vs_full": float((lse_g - lse).abs().max()),
+            "tgt_vs_full": float((tgt_g - tgt).abs().max())}
+    band, dxs, des = {}, [], []
+    for r, (e_r, t_r) in enumerate(shards):
+        pm, pl, ptgt = K.ce_fwd_plain(x, e_r, t_r, dot_dtype=bf)
+        errs[f"m_{r}"] = float((stats[r][0] - pm).abs().max())
+        errs[f"tgt_{r}"] = float((stats[r][2] - ptgt).abs().max())
+        errs[f"l_rel_{r}"] = rel_err(stats[r][1], pl)
+        dx_r, de_r = K.ce_dx(x, e_r, t_r, lse_g, g), K.ce_dembed(x, e_r, t_r, lse_g, g)
+        allow = ce_term_scales(x, e_r, t_r, lse_g, g)
+        band[f"dx_{r}"] = ce_band(dx_r, K.ce_dx_plain(x, e_r, t_r, lse_g, g, dot_dtype=bf),
+                                  allow["dx"])
+        band[f"dembed_{r}"] = ce_band(de_r, K.ce_dembed_plain(x, e_r, t_r, lse_g, g,
+                                                              dot_dtype=bf), allow["dembed"])
+        if r == 0:
+            lse_c = lse_g + math.log(2.0)
+            band["control_dx_0"] = ce_band(K.ce_dx(x, e_r, t_r, lse_c, g),
+                                           K.ce_dx_plain(x, e_r, t_r, lse_g, g, dot_dtype=bf),
+                                           allow["dx"])
+        dxs.append(dx_r)
+        des.append(de_r)
+        del allow
+    allow = ce_term_scales(x, e, t, lse, g)
+    band["dembed_vs_full"] = ce_band(torch.cat(des), de_full, allow["dembed"])
+    # the shards' bf16 dx summed in fp32: each partial and the full call
+    # carry one bf16 rounding of their own
+    rounding = 2.0 ** -8 * (sum(d.float().abs() for d in dxs) + dx_full.float().abs())
+    band["dx_sum_vs_full"] = ce_band(sum(d.float() for d in dxs), dx_full.float(),
+                                     allow["dx"] + rounding)
+    del allow
+    problems = [f"{k} err {v} > {fwd_tol}" for k, v in errs.items()
+                if not k.startswith("l_rel") and not v <= fwd_tol]
+    problems += [f"{k} rel err {v} > {CE_TOL['fwd']}" for k, v in errs.items()
+                 if k.startswith("l_rel") and not v <= CE_TOL["fwd"]]
+    problems += [f"{k} uses {v} of its band" for k, v in band.items()
+                 if not k.startswith("control") and not v <= 1.0]
+    if not band["control_dx_0"] > 1.0:
+        problems.append(f"control (lse + log 2) passed: {band['control_dx_0']}")
+    if problems:
+        raise AssertionError(f"ce vocab shards tp {tp}: {problems}")
+    # times of the first shard's calls at V / tp rows
+    F = torch.nn.functional
+    e0, t0 = shards[0]
+    xl = x.detach().requires_grad_()
+    el = e0.detach().requires_grad_()
+    loss = F.cross_entropy(torch.matmul(xl, el.T).float(), t0.long().clamp(0, Vl - 1))
+    lib_fwd = lambda: F.cross_entropy(torch.matmul(x, e0.T).float(),  # noqa: E731
+                                      t0.long().clamp(0, Vl - 1))
+    lib_bwd = lambda: torch.autograd.grad(loss, (xl, el), retain_graph=True)  # noqa: E731
+    timed = {"fwd": timings(lambda: K.ce_fwd(x, e0, t0),
+                            lambda: K.ce_fwd_plain(x, e0, t0, dot_dtype=bf), lib_fwd),
+             "dx": timings(lambda: K.ce_dx(x, e0, t0, lse_g, g),
+                           lambda: K.ce_dx_plain(x, e0, t0, lse_g, g, dot_dtype=bf), lib_bwd),
+             "dembed": timings(lambda: K.ce_dembed(x, e0, t0, lse_g, g),
+                               lambda: K.ce_dembed_plain(x, e0, t0, lse_g, g, dot_dtype=bf),
+                               lib_bwd)}
+    del loss
+    row, flops = N * 4, 2.0 * N * Vl * H
+    bounds = {"fwd": bound(N * H * 2 + Vl * H * 2 + 4 * row, flops, PEAK_BF16),
+              "dx": bound(2 * N * H * 2 + Vl * H * 2 + 3 * row, 2 * flops, PEAK_BF16),
+              "dembed": bound(N * H * 2 + Vl * H * 2 + Vl * H * 4 + 3 * row, 2 * flops,
+                              PEAK_BF16)}
+    return {"tp": tp, "N": N, "H": H, "V": V, "V_local": Vl, "targets_placed": special,
+            "errors": errs, "band_used": band, "logit_scale": logit_scale,
+            "tolerance": CE_TOL,
+            "tolerance_why": "lse and tgt combined over the shards against the full-vocab "
+                             "call and each shard's m, tgt against its plain version: abs, "
+                             "times max(1, max |logit|); l relative; dx, dembed per element "
+                             "as check_fused_ce (each shard against its plain version with "
+                             "the combined lse; dembed's rows and the fp32 sum of the "
+                             "shards' bf16 dx against the full call, the latter with one "
+                             "bf16 rounding of each partial and of the full dx); the "
+                             "control (lse + log 2) must exceed the band",
+            "timed": {k: {**timed[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+                      for k in timed}}
+
+
+def tp_phase(smi):
+    """``pretrain_gpt --tp 1`` at GPT-345M in this process, over a
+    one-rank NCCL group registered at tp 1 (the tensor-parallel code
+    path with a one-rank group): the fused CE head and the dense head,
+    graphed and ``--eager``, exact launch counts (97 / 49 / 48 / 24 / 24
+    a step, 1 / 1 / 1 CE with the fused head, ``mt_plan``'s ``mt_adam``),
+    losses bitwise equal to the same step with no tp group and graphed
+    equal to eager; step ms (CUDA events), peak memory, and a profile of
+    7 graphed fused steps.  Then the CE kernels on the halves and the
+    quarters of the vocab (``check_ce_vocab_shards``), timed at V / tp
+    rows.  With two or more cards, ``tp_multi_card``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    sizes = _gpt345_sizes()
+    runs, absent = {}, {}
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(tensor_model_parallel_size_=1)
+    try:
+        for name, flags, steps in (("fused", ["--fused-ce"], TP_STEPS),
+                                   ("fused_eager", ["--fused-ce", "--eager"], 4),
+                                   ("dense", [], TP_STEPS), ("dense_eager", ["--eager"], 4)):
+            rep, counts, peak = _tp345_run(flags, steps)
+            per_step, expect = _tp345_expect(name.startswith("fused"), steps, sizes)
+            if counts != expect:
+                raise AssertionError(f"tp {name} launch counts {counts} != expected {expect}")
+            ls = rep["losses"]
+            if not all(map(math.isfinite, ls)) or rep["tp"] != 1:
+                raise AssertionError(f"tp {name}: losses {ls}, tp {rep['tp']}")
+            runs[name] = {"losses": ls, "step_ms": rep["step_ms"],
+                          "step_ms_median": float(np.median(rep["step_ms"][1:])),
+                          "tokens_per_sec": 8 * 1024 / (np.median(rep["step_ms"][1:]) / 1e3),
+                          "peak_memory_gb": peak, "graphs": rep["graphs"],
+                          "launches_per_step": per_step, "launches": counts}
+        for head in ("fused", "dense"):
+            eager, graphed = runs[head + "_eager"]["losses"], runs[head]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+            if rel > TRAIN_AB_TOL:
+                raise AssertionError(f"tp {head}: graphed {graphed} against eager {eager}")
+            runs[head]["graphed_vs_eager"] = "bitwise" if rel == 0 else rel
+            absent[head] = _tp345_absent(["--fused-ce"] if head == "fused" else [], TP_STEPS)
+            if absent[head] != runs[head]["losses"]:
+                raise AssertionError(f"tp 1 {head}: losses {runs[head]['losses']} with the "
+                                     f"tp group, {absent[head]} without: not bitwise")
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        rep, _, _ = _tp345_run(["--fused-ce"], 7, profiler=prof)
+        idle = _busy_share(prof)
+        del prof
+    finally:
+        multiproc.destroy_distributed()
+    dev = torch.device("cuda", 0)
+    shards = {tp: check_ce_vocab_shards(dev, tp) for tp in (1, 2, 4)}
+    n_cards = torch.cuda.device_count()
+    multi = {"ran": False, "cards": n_cards,
+             "note": "tp > 1 did not run on a card here: one card"}
+    if n_cards >= 2:
+        multi = tp_multi_card(min(4, n_cards))
+    emit({"phase": "tp", "argv": GPT345_ARGV + ["--tp", "1"], "nvidia_smi": smi,
+          "runs": runs, "bitwise_vs_no_tp_group": {h: absent[h] for h in absent},
+          "profile_fused": {"idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+                            "window_ms": idle["window_ms"],
+                            "window_steps": idle["window_steps"],
+                            "top_kernels_ms_per_step": dict(
+                                list(idle["kernel_ms_per_step"].items())[:20])},
+          "ce_vocab_shards": shards, "tp_gt_1": multi,
+          "seconds": time.monotonic() - t_phase})
+    return shards
+
+
+def _torchrun_pretrain(n, argv, timeout=900):
+    res = subprocess.run(["torchrun", "--standalone", f"--nproc-per-node={n}", "-m",
+                          "apex_tpu_torch.pretrain_gpt", *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    rep = next((json.loads(ln)["pretrain_gpt"] for ln in res.stdout.splitlines()
+                if ln.startswith('{"pretrain_gpt"')), None)
+    if res.returncode != 0 or rep is None:
+        raise AssertionError(f"torchrun world {n} {argv}: exit {res.returncode}\n"
+                             + res.stdout[-3000:] + res.stderr[-3000:])
+    return rep
+
+
+def tp_multi_card(world):
+    """``torchrun --nproc-per-node N -m apex_tpu_torch.pretrain_gpt --tp N``
+    (one card a rank, NCCL) against ``--tp 1`` on one card, the same
+    global batch: a 2-layer model at tp 2 (and 4 with four cards), the
+    dense head, then ``--sequence-parallel --fused-ce``; losses within
+    ``TP_BAND``.  Then GPT-345M at each tp (``--fused-ce``, with and
+    without ``--sequence-parallel``; the dense head at the largest tp),
+    10 steps, step ms from CUDA events (median past the second), and a
+    profile of 7 steps at the largest tp with SP (this script's
+    ``tp_child`` mode, rank 0's device time by kernel and idle share)."""
+    tiny = ["--layers", "2", "--hidden", "256", "--heads", "4", "--vocab", "4096",
+            "--seq", "256", "--global-batch", "8", "--steps", "4"]
+    tps = [n for n in (2, 4) if n <= world]
+    out = {"ran": True, "cards": torch.cuda.device_count(), "world": world, "band": TP_BAND,
+           "parity": [], "timed": []}
+    for flags in ([], ["--sequence-parallel", "--fused-ce"]):
+        one = _torchrun_pretrain(1, tiny + ["--tp", "1"] + [f for f in flags
+                                                             if f == "--fused-ce"])
+        for n in tps:
+            many = _torchrun_pretrain(n, tiny + ["--tp", str(n)] + flags)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(many["losses"], one["losses"]))
+            if rel > TP_BAND or many["tp"] != n:
+                raise AssertionError(f"tp {n} {flags} against tp 1: relative {rel}")
+            out["parity"].append({"tp": n, "flags": flags, "losses_tp_1": one["losses"],
+                                  "losses": many["losses"], "max_rel_diff": rel})
+    for n, flags in [(1, ["--fused-ce"])] + [(n, f) for n in tps for f in (
+            ["--fused-ce"], ["--fused-ce", "--sequence-parallel"])] + [(tps[-1], [])]:
+        rep = _torchrun_pretrain(n, GPT345_ARGV + ["--tp", str(n), "--steps", "10", *flags])
+        out["timed"].append({"tp": n, "flags": flags, "graphs": rep["graphs"],
+                             "step_ms_median": float(np.median(rep["step_ms"][2:])),
+                             "step_ms": rep["step_ms"], "losses": rep["losses"]})
+    n = tps[-1]
+    res = subprocess.run(["torchrun", "--standalone", f"--nproc-per-node={n}",
+                          str(ROOT / "chip_smoke.py"), "tp_child", *GPT345_ARGV, "--tp", str(n),
+                          "--steps", "7", "--fused-ce", "--sequence-parallel"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=900)
+    prof = next((json.loads(ln)["tp_profile"] for ln in res.stdout.splitlines()
+                 if ln.startswith('{"tp_profile"')), None)
+    if res.returncode != 0 or prof is None:
+        raise AssertionError(f"tp_child world {n}: exit {res.returncode}\n"
+                             + res.stdout[-3000:] + res.stderr[-3000:])
+    out["profile"] = {"tp": n, "flags": ["--fused-ce", "--sequence-parallel"], **prof}
+    return out
+
+
+def tp_child(argv):
+    """One rank of ``torchrun ... chip_smoke.py tp_child <pretrain_gpt
+    flags>``: the run under the profiler; rank 0 prints the device's
+    busy share over the last steps and its device ms a step by kernel,
+    NCCL's beside the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rep = _pretrain_here(argv, profiler=prof)
+    idle = _busy_share(prof)
+    if rep["rank"] == 0:
+        k = idle["kernel_ms_per_step"]
+        nccl = sum(ms for name, ms in k.items() if "nccl" in name.lower())
+        print(json.dumps({"tp_profile": {
+            "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+            "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
+            "nccl_ms_per_step": nccl, "losses": rep["losses"],
+            "top_kernels_ms_per_step": dict(list(k.items())[:25])}}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3792,6 +4157,8 @@ def main():
     except ImportError as exc:
         raise SystemExit(f"chip_smoke: the apex_tpu_torch package is not beside "
                          f"this script ({exc})")
+    if sys.argv[1:2] == ["tp_child"]:
+        return tp_child(sys.argv[2:])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3954,6 +4321,8 @@ def main():
     lap("pretrain")
     remainder_launches = zero_phase(smi, full)
     lap("zero")
+    tp_phase(smi)
+    lap("tp")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (

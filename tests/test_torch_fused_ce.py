@@ -165,8 +165,13 @@ def test_refusals():
     for impl in ("interpret", "on", "off"):
         with pytest.raises(ValueError, match="one implementation"):
             fused_lm_head_ce(x, e, t, 8, impl=impl)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        fused_lm_head_ce(x, e, t, 8, axis_name="tp")
+    # the vocab-parallel combine runs: over a one-rank group it is the
+    # single-device head (world 2 and 4 in tests/test_torch_tensor_parallel.py)
+    from apex_tpu_torch.transformer.parallel_state import AxisGroup
+
+    one = AxisGroup("tp", None, 1, 0, (0,))
+    torch.testing.assert_close(fused_lm_head_ce(x, e, t, 8, axis_name=one),
+                               fused_lm_head_ce(x, e, t, 8), rtol=0, atol=0)
     with pytest.raises(ValueError, match="divisible"):
         fused_lm_head_ce(x, e, t, 5)
 

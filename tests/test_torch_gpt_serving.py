@@ -188,14 +188,14 @@ def test_serve_gpt_main_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """What is still unported raises: MoE, sequence parallelism and the
-    overlapped ring schedule.  (Speculative decoding, chunked prefill,
-    prefix sharing and the best-effort lane are ported; their positive
-    cases are in tests/test_torch_serving_v2.py.)"""
+    """What is still unported raises: MoE and the overlapped ring
+    schedule.  (Speculative decoding, chunked prefill, prefix sharing and
+    the best-effort lane are ported, their positive cases in
+    tests/test_torch_serving_v2.py; sequence parallelism too, in
+    tests/test_torch_gpt_tp.py: it builds here.)"""
     with pytest.raises(NotImplementedError, match="moe_num_experts"):
         tgpt.GPTConfig(moe_num_experts=4)
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        tgpt.GPTConfig(sequence_parallel=True)
+    assert tgpt.GPTConfig(sequence_parallel=True).sequence_parallel
     with pytest.raises(NotImplementedError, match="cp_overlap"):
         tgpt.GPTConfig(cp_overlap=True)
 
@@ -257,6 +257,8 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.transformer.parallel_state, apex_tpu_torch.contrib.optimizers\n"
         "import apex_tpu_torch.contrib.optimizers._zero_engine\n"
         "import apex_tpu_torch.contrib.optimizers._quantized_sync\n"
+        "import apex_tpu_torch.transformer.tensor_parallel, apex_tpu_torch.transformer.layers\n"
+        "import apex_tpu_torch.transformer.enums, apex_tpu_torch.transformer.utils\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -205,13 +205,27 @@ def test_parallel_state_world1_getters_match_jax(world1, devices8):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tensor_model_parallel_size_": 2}, "queue 1 item 7"),
+    ({"tensor_model_parallel_size_": 2}, None),
     ({"pipeline_model_parallel_size_": 2}, "queue 1 item 9"),
     ({"context_parallel_size_": 2}, "queue 1 item 9"),
     ({"num_distributed_slices_": 2}, "queue 1 item 6"),
     ({"virtual_pipeline_model_parallel_size_": 2}, "queue 1 item 9"),
 ], ids=["tp", "pp", "cp", "dcn", "virtual_pp"])
 def test_parallel_state_refusals_name_their_queue_item(kw, item):
+    if item is None:
+        # tensor parallelism is ported: on a world it does not divide it is
+        # refused as the JAX mesh refuses it, and tp 1 runs (worlds 2 and 4
+        # at tp 2 and 4 in tests/test_torch_tensor_parallel.py)
+        multiproc.initialize_distributed("cpu")
+        try:
+            with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
+                ps.initialize_model_parallel(**kw)
+            ps.initialize_model_parallel(tensor_model_parallel_size_=1)
+            assert ps.get_tensor_model_parallel_world_size() == 1
+            assert ps.get_tensor_model_parallel_src_rank() == 0
+        finally:
+            multiproc.destroy_distributed()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         ps.initialize_model_parallel(**kw)
 

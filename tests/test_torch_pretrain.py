@@ -261,12 +261,20 @@ def test_no_host_read_anywhere_in_a_run(tmp_path, capsys):
         float(torch.ones(()))
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--pp", "2"], ["--micro-batches", "4"],
+@pytest.mark.parametrize("flag", [["--tp", "1"], ["--pp", "2"], ["--micro-batches", "4"],
                                   ["--sequence-parallel"], ["--supervise"],
                                   ["--chaos-kill-at-step", "1"], ["--chaos-wedge-step", "1"],
                                   ["--chaos-wedge-secs", "5"]],
                          ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_raise_with_their_queue_item(flag):
+def test_unported_flags_raise_with_their_queue_item(flag, capsys):
+    if flag[0] in ("--tp", "--sequence-parallel"):
+        # ported: they run here at world 1 (tp 2 and dp 2 x tp 2 under
+        # torchrun in tests/test_torch_pretrain_tp.py)
+        report, out = _run(flag + ["--steps", "2"], capsys)
+        assert "mesh: dp=1 pp=1 tp=1 (1 devices)" in out and report["tp"] == 1
+        assert report["sequence_parallel"] == (flag[0] == "--sequence-parallel")
+        assert all(math.isfinite(x) for x in report["losses"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         _run(flag + ["--steps", "1"])
 

@@ -648,7 +648,7 @@ def test_unported_knobs_raise_with_their_queue_item(group1):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
         DistributedFusedLAMB(**HYPER, dp_axes=("dp_out", "dp_in"))
     opt = DistributedFusedAdam(**HYPER)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
         opt.init(_torch_tree(params_np(), False), param_specs={}, axis_sizes={"tp": 2})
     opt.init(_torch_tree(params_np(), False))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
