@@ -66,7 +66,7 @@ _QUANTIZED_GRAD_SYNC = ("int8", "float8_e4m3fn", "float8_e5m2")
 #: what brings the parts of the JAX engine not ported yet
 HIER_ITEM = "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)"
 OVERLAP_ITEM = "the backward-overlapped grad sync, ROADMAP.md queue 1 item 6 (what it left)"
-TP_ITEM = "ZeRO composed with tensor parallelism, ROADMAP.md queue 1 item 12"
+TP_ITEM = "ZeRO composed with tensor and pipeline parallelism, ROADMAP.md queue 1 item 12"
 
 
 def resolve_sync_dtype(value, knob: str) -> Optional[torch.dtype]:

@@ -236,7 +236,7 @@ def _host_f32(a) -> np.ndarray:
 
 
 def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=None,
-                           axis_name=None):
+                           axis_name=None, pp_group=None):
     """The JAX trainer's checkpoint tree as the port's train state.
 
     ``tree`` is what ``examples/gpt/pretrain_gpt.py`` saves (``ckpt_tree``)
@@ -249,15 +249,15 @@ def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=N
     scaler's state through ``loss_scaler.load_state_dict`` (None without
     a ``loss_scaler``; raises if the tree has none to load), and the
     step count as an int.  With ``axis_name`` (the tensor-parallel group)
-    the params and every params-shaped state tree are this rank's shard
-    (:func:`shard_params`)."""
+    and ``pp_group`` (the pipeline group) the params and every
+    params-shaped state tree are this rank's shard (:func:`shard_params`)."""
     from apex_tpu_torch.optimizers.fused_adam import AdamState
     from apex_tpu_torch.optimizers.tree import tree_map
 
     dev = resolve_device(device)
     def like_params(t):
         return None if t is None else shard_params(tree_map(_host_f32, t), config, axis_name,
-                                                   dev, keep_fp32=True)
+                                                   dev, keep_fp32=True, pp_group=pp_group)
 
     params = like_params(tree["params"])
 
@@ -310,13 +310,23 @@ class PartitionSpec:
         """The dim split over ``"tp"``, or None for a replicated leaf."""
         return self.axes.index("tp") if "tp" in self.axes else None
 
+    @property
+    def pp_dim(self) -> Optional[int]:
+        """The dim split over ``"pp"`` (the stacked layers' under a
+        pipeline), or None."""
+        return self.axes.index("pp") if "pp" in self.axes else None
 
-def param_specs(config: GPTConfig) -> Dict[str, Any]:
+
+def param_specs(config: GPTConfig, pp: bool = False) -> Dict[str, Any]:
     """The split of each param over the ``"tp"`` axis, the JAX package's
     ``param_specs`` (apex_tpu/models/gpt.py:187-231) leaf for leaf:
     column-parallel weights and biases split their output rows,
     row-parallel weights their input columns, the embedding its vocab;
-    the rest is replicated."""
+    the rest is replicated.  With ``pp`` the stacked layers also split
+    their layer axis over ``"pp"`` (``P("pp", ...)``, each stage its L /
+    pp layers, as ``make_pp_train_step`` shards them there); the
+    embedding, position table and final LayerNorm stay replicated over
+    the stages."""
     P = PartitionSpec
     col, colb, row, rep2 = P(None, "tp", None), P(None, "tp"), P(None, None, "tp"), P(None, None)
     specs = {
@@ -330,7 +340,17 @@ def param_specs(config: GPTConfig) -> Dict[str, Any]:
     }
     if config.position_embedding_type == "learned":
         specs["pos_embed"] = P(None, None)
+    if pp:
+        specs["layers"] = {k: P("pp", *tuple(v)[1:]) for k, v in specs["layers"].items()}
     return specs
+
+
+def check_pp(config: GPTConfig, pp: int, vpp: int = 1) -> None:
+    """Raise unless the layers split into ``pp`` x ``vpp`` equal chunks
+    (the JAX package's rule, apex_tpu/models/gpt.py:1941-1947)."""
+    if config.num_layers % (pp * vpp):
+        raise ValueError(f"num_layers ({config.num_layers}) must divide into pp ({pp}) x "
+                         f"vpp ({vpp}) chunks")
 
 
 def check_tp(config: GPTConfig, tp: int) -> None:
@@ -349,61 +369,112 @@ def check_tp(config: GPTConfig, tp: int) -> None:
                              f"size ({tp})")
 
 
-def map_specs(fn, tree, config: GPTConfig):
+def map_specs(fn, tree, config: GPTConfig, pp: bool = False):
     """``fn(leaf, spec)`` over a params-shaped tree (nested dicts) with
-    each leaf's :func:`param_specs` entry."""
+    each leaf's :func:`param_specs` entry (``pp``: the pipeline's)."""
     def walk(node, specs):
         if isinstance(node, dict):
             return {k: walk(v, specs[k]) for k, v in node.items()}
         return fn(node, specs)
 
-    return walk(tree, param_specs(config))
+    return walk(tree, param_specs(config, pp))
 
 
-def shard_tree(tree, config: GPTConfig, rank: int, size: int):
-    """This tp rank's slice of each leaf of a params-shaped tree (numpy
+def _narrow(a, d, rank, size):
+    """The ``rank``-th of ``size`` equal pieces of ``a`` along ``d``."""
+    n = a.shape[d] // size
+    if isinstance(a, torch.Tensor):
+        return a.narrow(d, rank * n, n).contiguous()
+    return np.ascontiguousarray(np.take(a, np.arange(rank * n, (rank + 1) * n), axis=d))
+
+
+def shard_tree(tree, config: GPTConfig, rank: int, size: int, pp_rank: int = 0,
+               pp_size: int = 1):
+    """This rank's slice of each leaf of a params-shaped tree (numpy
     arrays or tensors): along the leaf's ``"tp"`` dim of
     :func:`param_specs`, the ``rank``-th of ``size`` equal pieces -- the
-    block ``shard_map`` gives the device at that tp index."""
+    block ``shard_map`` gives the device at that tp index -- and with
+    ``pp_size`` above 1 along the stacked layers, stage ``pp_rank``'s L /
+    pp layers (``P("pp", ...)``; for the interleaved schedule the tree
+    is in :func:`params_to_vpp_layout`'s order)."""
     check_tp(config, size)
+    check_pp(config, pp_size)
 
     def one(a, spec):
-        d = spec.tp_dim
-        if d is None or size == 1:
-            return a
-        n = a.shape[d] // size
-        if isinstance(a, torch.Tensor):
-            return a.narrow(d, rank * n, n).contiguous()
-        return np.ascontiguousarray(np.take(a, np.arange(rank * n, (rank + 1) * n), axis=d))
+        if spec.tp_dim is not None and size > 1:
+            a = _narrow(a, spec.tp_dim, rank, size)
+        if spec.pp_dim is not None and pp_size > 1:
+            a = _narrow(a, spec.pp_dim, pp_rank, pp_size)
+        return a
 
-    return map_specs(one, tree, config)
+    return map_specs(one, tree, config, pp=True)
 
 
 def shard_params(tree, config: GPTConfig, axis_name, device="cuda",
-                 keep_fp32: bool = False) -> Dict[str, Any]:
+                 keep_fp32: bool = False, pp_group=None) -> Dict[str, Any]:
     """The JAX package's params (numpy) as this rank's shard on
     ``device``: :func:`shard_tree` at ``axis_name``'s rank and size (an
-    ``AxisGroup``; None is the whole tree), then
-    :func:`params_from_numpy`."""
+    ``AxisGroup``; None is the whole tree) and at ``pp_group``'s stage,
+    then :func:`params_from_numpy`."""
     rank, size = (0, 1) if axis_name is None else (axis_name.rank(), axis_name.size())
-    return params_from_numpy(shard_tree(tree, config, rank, size), config, device, keep_fp32)
+    pp_rank, pp_size = (0, 1) if pp_group is None else (pp_group.rank(), pp_group.size())
+    return params_from_numpy(shard_tree(tree, config, rank, size, pp_rank, pp_size), config,
+                             device, keep_fp32)
 
 
-def gather_params(tree, config: GPTConfig, axis_name):
+def gather_params(tree, config: GPTConfig, axis_name, pp_group=None):
     """The opposite of :func:`shard_tree` on the device: every rank's
     slices of a params-shaped tree of tensors, all-gathered over
-    ``axis_name`` along each leaf's ``"tp"`` dim into the whole tree (a
-    collective: every rank of the group calls it)."""
+    ``axis_name`` along each leaf's ``"tp"`` dim and over ``pp_group``
+    along the stacked layers, into the whole tree (collectives: every
+    rank of the groups calls it).  Under the interleaved schedule the
+    result is in the vpp layout (:func:`params_from_vpp_layout` undoes
+    it)."""
     from apex_tpu_torch.transformer.tensor_parallel.mappings import all_gather_dim
 
-    if axis_name is None or axis_name.size() == 1:
-        return tree
+    tp = axis_name is not None and axis_name.size() > 1
+    pp = pp_group is not None and pp_group.size() > 1
 
     def one(a, spec):
-        d = spec.tp_dim
-        return a if d is None else all_gather_dim(a.detach(), axis_name, d)
+        a = a.detach()
+        if tp and spec.tp_dim is not None:
+            a = all_gather_dim(a, axis_name, spec.tp_dim)
+        if pp and spec.pp_dim is not None:
+            a = all_gather_dim(a, pp_group, spec.pp_dim)
+        return a
 
-    return map_specs(one, tree, config)
+    return tree if not (tp or pp) else map_specs(one, tree, config, pp=True)
+
+
+def _vpp_perm(a, pp: int, vpp: int, inverse: bool):
+    """The layer axis of ``a`` reordered between execution order (global
+    block ``j = v·pp + s``) and the stage-major order (``[s][v]``)."""
+    L = a.shape[0]
+    lpc = L // (pp * vpp)
+    first, second = (pp, vpp) if inverse else (vpp, pp)
+    shape = (first, second, lpc) + tuple(a.shape[1:])
+    if isinstance(a, torch.Tensor):
+        return a.reshape(shape).transpose(0, 1).reshape(a.shape).contiguous()
+    return np.ascontiguousarray(np.swapaxes(np.reshape(a, shape), 0, 1).reshape(a.shape))
+
+
+def params_to_vpp_layout(params, pp: int, vpp: int):
+    """Reorder the stacked layers from execution order to the stage-major
+    layout the interleaved schedule shards (the JAX package's
+    ``params_to_vpp_layout``, apex_tpu/models/gpt.py:1812): stage s holds
+    chunks s, s + pp, ... back to back, ``out[(s·vpp + v)·lpc + i] =
+    in[(v·pp + s)·lpc + i]``.  Numpy arrays or tensors; the other leaves
+    pass through.  Inverse: :func:`params_from_vpp_layout`."""
+    out = dict(params)
+    out["layers"] = {k: _vpp_perm(v, pp, vpp, False) for k, v in params["layers"].items()}
+    return out
+
+
+def params_from_vpp_layout(params, pp: int, vpp: int):
+    """The inverse of :func:`params_to_vpp_layout`."""
+    out = dict(params)
+    out["layers"] = {k: _vpp_perm(v, pp, vpp, True) for k, v in params["layers"].items()}
+    return out
 
 
 def _layer_list(layers):
@@ -503,6 +574,74 @@ def _layer(x, p, config: GPTConfig, rope, axis_name=None):
     return x + _mlp(ln2.to(cd), p, axis_name, sp), kv
 
 
+def _embed(params, tokens, config: GPTConfig, axis_name=None):
+    """tokens (B, S) -> the first layer's input (S, B, H) in the compute
+    dtype, split over the sequence under sequence parallelism (S / tp
+    rows): the embedding (vocab-parallel with a group) plus the learned
+    positions.  A pipeline's first stage runs this (``pre_fn``)."""
+    sp = config.sequence_parallel and axis_name is not None
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    S = tokens.shape[1]
+    if axis_name is None:
+        x = params["embed"][tokens]  # (B, S, H) fp32
+    else:
+        x = vocab_parallel_embedding(tokens, params["embed"], axis_name=axis_name)
+    x = x.transpose(0, 1)  # (S, B, H)
+    if config.position_embedding_type == "learned":
+        x = x + params["pos_embed"][:S][:, None, :]
+    x = x.to(config.compute_dtype).contiguous()
+    if sp:
+        x = scatter_to_sequence_parallel_region(x, axis_name)
+    return x
+
+
+def _rope(config: GPTConfig, S: int, device):
+    """RoPE's (cos, sin) at positions 0..S-1, or None."""
+    if config.position_embedding_type != "rope":
+        return None
+    return rope_cos_sin(torch.arange(S, device=device), config.head_dim, config.rope_theta)
+
+
+def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = False):
+    """The stacked ``layers`` over ``x`` (S or S / tp, B, H): the
+    transformer blocks, under :func:`~apex_tpu_torch.models._remat.
+    remat_layer` when a gradient is recorded and ``config.
+    checkpoint_layers`` is set.  Returns ``(x, ks, vs)``, the lists of
+    every layer's post-RoPE k/v with ``return_kv``.  A pipeline stage
+    runs this on its layers (``stage_fn``)."""
+    sp = config.sequence_parallel and axis_name is not None
+    S = x.shape[0] * (axis_name.size() if sp else 1)
+    rope = _rope(config, S, x.device)
+    remat = config.checkpoint_layers and torch.is_grad_enabled() and not return_kv
+    ks, vs = [], []
+    for p in _layer_list(layers):
+        if remat:
+            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name)[0],
+                            config.remat_policy)(x)
+            continue
+        x, (k, v) = _layer(x, p, config, rope, axis_name)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, ks, vs
+
+
+def _final(params, x, config: GPTConfig, axis_name=None):
+    """The last layer's output -> the head's input (S, B, H): the
+    sequence gathered under sequence parallelism, the final LayerNorm,
+    and with a group the copy-to-region (whose backward sums the head's
+    dx over it).  A pipeline's last stage runs this (``post_fn``)."""
+    if config.sequence_parallel and axis_name is not None:
+        # the head's dx is summed by the copy-to-region below, so this
+        # backward splits (tensor_parallel_output_grad=False)
+        x = gather_from_sequence_parallel_region(x, axis_name, False)
+    x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
+                                (config.hidden_size,), config.layernorm_eps)
+    if axis_name is not None:
+        x = copy_to_tensor_model_parallel_region(x, axis_name)
+    return x
+
+
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
                 return_kv: bool = False, axis_name=None):
     """tokens (B, S) -> logits (S, B, V) fp32, or with ``return_hidden``
@@ -524,45 +663,9 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
             raise NotImplementedError(f"gpt_forward(return_kv=True) under tensor "
                                       f"parallelism is not ported yet: {TP_DECODE_ITEM}")
         check_tp(config, axis_name.size())
-    sp = config.sequence_parallel and axis_name is not None
-    H = config.hidden_size
-    eps = config.layernorm_eps
-    cd = config.compute_dtype
-    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    S = tokens.shape[1]
-    if axis_name is None:
-        x = params["embed"][tokens]  # (B, S, H) fp32
-    else:
-        x = vocab_parallel_embedding(tokens, params["embed"], axis_name=axis_name)
-    x = x.transpose(0, 1)  # (S, B, H)
-    if config.position_embedding_type == "learned":
-        x = x + params["pos_embed"][:S][:, None, :]
-    x = x.to(cd).contiguous()
-    if sp:
-        x = scatter_to_sequence_parallel_region(x, axis_name)
-    rope = None
-    if config.position_embedding_type == "rope":
-        rope = rope_cos_sin(torch.arange(S, device=x.device), config.head_dim,
-                            config.rope_theta)
-    remat = config.checkpoint_layers and torch.is_grad_enabled() and not return_kv
-    ks, vs = [], []
-    for p in _layer_list(params["layers"]):
-        if remat:
-            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name)[0],
-                            config.remat_policy)(x)
-            continue
-        x, (k, v) = _layer(x, p, config, rope, axis_name)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
-    if sp:
-        # the head's dx is summed by the copy-to-region below, so this
-        # backward splits (tensor_parallel_output_grad=False)
-        x = gather_from_sequence_parallel_region(x, axis_name, False)
-    x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
-                                (H,), eps)
-    if axis_name is not None:
-        x = copy_to_tensor_model_parallel_region(x, axis_name)
+    x = _embed(params, tokens, config, axis_name)
+    x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv)
+    x = _final(params, x, config, axis_name)
     out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
     if return_kv:
         return out, (torch.stack(ks), torch.stack(vs))
@@ -618,29 +721,43 @@ def sp_grad_sync(grads, axis_name):
     return allreduce_sequence_parallel_grads(grads, mask, axis_name)
 
 
-def clip_sumsq_reduce(config: GPTConfig, axis_name):
-    """The global Σx² of a grad clip over a tensor-parallel step, the JAX
+def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None):
+    """The global Σx² of a grad clip over a model-parallel step, the JAX
     package's ``clip_sumsq_reduce`` (apex_tpu/models/gpt.py:781-829) on
     :func:`param_specs`: a split leaf holds only its slice, so its Σx²
-    is summed over the group; a replicated leaf is whole on every rank
-    and is not.  Returns ``reduce(per_leaf_sumsq) -> total`` for the
-    optimizers' ``sumsq_reduce=`` hook, the leaves in the params' tree
-    order; the replicated part first, then the group's sum of the split
-    part, added in rank order (XLA's CPU ``psum`` order)."""
+    is summed over the groups it is split over (``axis_name``, the
+    tensor-parallel group, for the tp-split leaves; ``pp_group``, the
+    pipeline, for the stacked layers of a pipelined step); a replicated
+    leaf is whole on every rank and is not (the embedding, positions and
+    final LayerNorm count once, though every stage holds them).  Returns
+    ``reduce(per_leaf_sumsq) -> total`` for the optimizers' ``sumsq_
+    reduce=`` hook, the leaves in the params' tree order.  As in the JAX
+    package the leaves are grouped by the axes they are split over, each
+    group summed locally and then over its axes (in rank order, XLA's
+    CPU ``psum`` order; tp before pp), the groups added in the order of
+    their sorted axis names: replicated, pp, pp+tp, tp."""
     from apex_tpu_torch.contrib.optimizers._quantized_sync import rank_order_sum
     from apex_tpu_torch.optimizers.tree import tree_leaves
 
-    split = [spec.tp_dim is not None for spec in tree_leaves(param_specs(config))]
+    pp = pp_group is not None
+    specs = tree_leaves(param_specs(config, pp))
+    axes = [tuple(sorted(a for a in spec if a is not None)) for spec in specs]
+    order = sorted(set(axes))
+    groups = {"tp": axis_name, "pp": pp_group}
 
     def reduce(sq):
-        if len(sq) != len(split):
-            raise ValueError(f"clip_sumsq_reduce built for {len(split)} param leaves got "
+        if len(sq) != len(specs):
+            raise ValueError(f"clip_sumsq_reduce built for {len(specs)} param leaves got "
                              f"{len(sq)} sumsq values")
-        rep = torch.stack([q for q, s in zip(sq, split) if not s]).sum()
-        part = torch.stack([q for q, s in zip(sq, split) if s]).sum()
-        if axis_name is not None and axis_name.size() > 1:
-            part = rank_order_sum(part, axis_name.group, axis_name.size())
-        return torch.zeros((), dtype=rep.dtype, device=rep.device) + rep + part
+        total = torch.zeros((), dtype=sq[0].dtype, device=sq[0].device)
+        for key in order:
+            part = torch.stack([q for q, a in zip(sq, axes) if a == key]).sum()
+            for ax in sorted(key, reverse=True):  # tp, then pp
+                g = groups[ax]
+                if g is not None and g.size() > 1:
+                    part = rank_order_sum(part, g.group, g.size())
+            total = total + part
+        return total
 
     return reduce
 
@@ -719,3 +836,123 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
     x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
                                 (H,), eps)
     return x[0], kv_pools
+
+
+#: what MoE and context parallelism inside the pipeline step wait for
+PP_ITEM = "MoE and context parallelism, ROADMAP.md queue 1 item 9"
+
+
+def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
+                       virtual_pipeline_size: int = 1, *, loss_scaler=None, step_guard=None,
+                       clip_grad_norm=None, graphs=None, warmup: int = 1, telemetry=None,
+                       dp_group=None, tp_group=None, pp_group=None, cp_axis=None):
+    """The pipelined (pp x tp x dp) train step, the twin of the JAX
+    package's ``make_pp_train_step`` (apex_tpu/models/gpt.py:1854):
+    ``step(params, state, [scaler_state], [guard_state], [stats], tokens,
+    targets) -> loss`` with the variants of
+    :func:`apex_tpu_torch.train_gpt.make_train_step`.
+
+    ``params`` (and the optimizer state) are this rank's: its stage's L /
+    pp stacked layers (``param_specs(config, pp=True)``, cut by
+    :func:`shard_params` with ``pp_group``; for ``virtual_pipeline_size``
+    vpp > 1 from a tree in :func:`params_to_vpp_layout`'s order), its tp
+    slices, and the embedding, positions and final LayerNorm, which every
+    stage holds.  ``tokens`` / ``targets`` (B, S) are this dp rank's rows,
+    the same on every stage; they split into ``num_microbatches`` M
+    microbatches of B / M rows (microbatch m = rows ``[m·B/M,
+    (m+1)·B/M)``, the JAX step's reshape).  The JAX step's pre / stage /
+    post split (:1973-2017): the first stage embeds, every stage runs its
+    layers (remat as configured), the last applies the final LayerNorm
+    and the loss head (the dense head or the fused CE kernels); the
+    1F1B schedule, or the interleaved one with vpp > 1 (the layers
+    divisible by pp x vpp and M by pp), runs them
+    (:mod:`apex_tpu_torch.transformer.pipeline_parallel`).  The loss is
+    the mean over microbatches of each one's mean loss, on every stage;
+    the shared params' grads are summed over the pipeline, the
+    sequence-parallel LN and bias grads over tp, and all of them averaged
+    over ``dp_group`` (the DDP all-reduce) before the update.  The finite
+    vote of ``loss_scaler`` / ``step_guard`` is agreed over (pp, tp), so
+    every stage skips a step together; the clip's Σx² and the
+    telemetry's norms sum the stage leaves over pp (and tp where split)
+    and count the replicated leaves once (:func:`clip_sumsq_reduce`).
+
+    ``dp_group`` / ``tp_group``: ``AxisGroup`` handles of
+    :mod:`~apex_tpu_torch.transformer.parallel_state`; ``pp_group``: the
+    pipeline group (default the registered one).  Compiled unless
+    ``graphs=False``: the whole step, the stage-to-stage messages with it,
+    is one CUDA graph after the eager warm-up (which makes every NCCL
+    channel before the capture).
+    A ZeRO optimizer raises (ROADMAP.md queue 1 item 12), and so do MoE
+    (``GPTConfig``) and ``cp_axis`` (item 9), and vpp > 1 over NCCL
+    (ROADMAP.md section 3: not yet run to its end on cards)."""
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.train_gpt import _make_step, _refuse_zero_with_model_parallel
+    from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        forward_backward_pipelining_with_interleaving,
+        forward_backward_pipelining_without_interleaving,
+    )
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule import (
+        check_interleaved_backend,
+    )
+
+    if cp_axis is not None:
+        raise NotImplementedError(f"context parallelism inside the pipeline step is not "
+                                  f"ported yet: it comes with {PP_ITEM}")
+    _refuse_zero_with_model_parallel(optimizer)
+    group = p2p._group(pp_group)
+    P = group.size()
+    vpp = int(virtual_pipeline_size)
+    M = int(num_microbatches)
+    check_pp(config, P, vpp)
+    check_interleaved_backend(group, vpp)
+    if vpp > 1 and M % P:
+        raise ValueError(f"num_microbatches ({M}) must be a multiple of pp ({P}) when "
+                         f"virtual_pipeline_size > 1")
+    tp = _tp(tp_group)
+    if tp is not None:
+        check_tp(config, tp.size())
+    sp = config.sequence_parallel and tp is not None
+    pipe = group if P > 1 else None
+    reduce = clip_sumsq_reduce(config, tp, pipe) if (tp is not None or pipe is not None) \
+        else None
+
+    def pre_fn(shared, mb):
+        return _embed(shared, mb["tokens"], config, tp)
+
+    def stage_fn(layers, x):
+        return _layers(layers, x, config, tp)[0]
+
+    def post_fn(shared, y, mb):
+        h = _final(shared, y, config, tp)
+        return lm_head_loss(h, shared["embed"], mb["targets"].transpose(0, 1), config,
+                            tp).mean()
+
+    def grads_fn(params, tokens, targets, post):
+        for leaf in tree_leaves(params):
+            if not leaf.requires_grad:
+                leaf.requires_grad_(True)
+        B, S = tokens.shape
+        if B % M:
+            raise ValueError(f"the batch's {B} rows do not split into {M} microbatches")
+        mbs = {"tokens": tokens.reshape(M, B // M, S), "targets": targets.reshape(M, B // M, S)}
+        post_ = post_fn if post is None else (lambda sh, y, mb: post(post_fn(sh, y, mb)))
+        shared = {k: v for k, v in params.items() if k != "layers"}
+        shape = (S // tp.size() if sp else S, B // M, config.hidden_size)
+        kw = dict(tensor_shape=shape, dtype=config.compute_dtype, axis_name=group)
+        if vpp > 1:
+            loss, (g_sh, g_st) = forward_backward_pipelining_with_interleaving(
+                pre_fn, stage_fn, post_, shared, params["layers"], mbs,
+                virtual_pipeline_model_parallel_size=vpp, **kw)
+        else:
+            loss, (g_sh, g_st) = forward_backward_pipelining_without_interleaving(
+                pre_fn, stage_fn, post_, shared, params["layers"], mbs, **kw)
+        return loss.detach(), {**g_sh, "layers": g_st}
+
+    sync = tuple(g for g in (pipe, tp) if g is not None)
+    return _make_step(optimizer, config, grads_fn, loss_scaler=loss_scaler,
+                      step_guard=step_guard, clip_grad_norm=clip_grad_norm, graphs=graphs,
+                      warmup=warmup, telemetry=telemetry, dp_group=dp_group, tp_group=tp,
+                      sync_groups=sync,
+                      clip_sumsq=reduce if clip_grad_norm is not None else None,
+                      norm_sumsq=reduce)

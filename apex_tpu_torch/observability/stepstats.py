@@ -76,6 +76,8 @@ _INIT = (
 
 # ------------------------------------------------------------ capture seam
 _CAPTURE: List[Dict[str, Any]] = []
+#: each active capture's Σx² reduce (None: the norms are this rank's)
+_REDUCE: List[Any] = []
 
 
 def capturing() -> bool:
@@ -92,27 +94,35 @@ def offer(key: str, value) -> None:
 
 
 @contextlib.contextmanager
-def capture():
+def capture(sumsq_reduce=None):
     """``with capture() as cap:`` around a step body; ``cap`` collects
-    everything the interior :func:`offer`'d."""
+    everything the interior :func:`offer`'d.  ``sumsq_reduce`` (a
+    model-parallel step's clip reduce: per-leaf Σx² -> the global Σx²)
+    makes the no-clip grad norm global too."""
     cap: Dict[str, Any] = {}
     _CAPTURE.append(cap)
+    _REDUCE.append(sumsq_reduce)
     try:
         yield cap
     finally:
         _CAPTURE.pop()
+        _REDUCE.pop()
 
 
 def offer_local_grad_norm(tensors) -> None:
     """The no-clip grad-norm stat, in ONE place for the engine's and the
     per-leaf path: when a telemetry wrapper captures and no clip
     reduction exists to reuse, offer the L2 norm of ``tensors`` from one
-    ``mt_l2norm`` pass.  No-op when nothing captures."""
+    ``mt_l2norm`` pass, over the model-parallel groups when the capture
+    has a Σx² reduce.  No-op when nothing captures."""
     if not _CAPTURE:
         return
     from apex_tpu_torch.ops.multi_tensor import mt_l2norm
 
-    total_sq, _ = mt_l2norm([t.detach() for t in tensors])
+    tensors = [t.detach() for t in tensors]
+    total_sq, per = mt_l2norm(tensors)
+    if _REDUCE[-1] is not None:
+        total_sq = _REDUCE[-1](list(per.unbind(0)))
     offer("grad_norm", torch.sqrt(total_sq))
 
 
@@ -143,12 +153,14 @@ class StepTelemetry:
 
     def accumulate(self, stats: StepStats, *, loss, grad_norm=None,
                    finite=None, loss_scale=None, new_params=None,
-                   old_params=None) -> StepStats:
+                   old_params=None, sumsq_reduce=None) -> StepStats:
         """One step's accounting as new tensors (branch-free, on the
         device).  ``grad_norm``/``finite`` come from the capture seam and
         may be absent (unguarded unscaled steps have no vote): absent
         ``finite`` counts as finite, absent ``grad_norm`` keeps the nan
-        placeholder."""
+        placeholder.  ``sumsq_reduce`` (per-leaf Σx² -> global) makes
+        the param and update norms those of the whole model when the
+        params are this rank's slices."""
         from apex_tpu_torch.ops.multi_tensor import mt_l2norm
         from apex_tpu_torch.optimizers.tree import tree_leaves
 
@@ -166,9 +178,12 @@ class StepTelemetry:
         if self.norms and new_params is not None and old_params is not None:
             new = [p.detach() for p in tree_leaves(new_params)]
             old = [p.detach() for p in tree_leaves(old_params)]
-            psq, _ = mt_l2norm(new)
-            usq, _ = mt_l2norm(torch._foreach_sub([n.to(torch.float32) for n in new],
-                                                  [o.to(torch.float32) for o in old]))
+            psq, pper = mt_l2norm(new)
+            usq, uper = mt_l2norm(torch._foreach_sub([n.to(torch.float32) for n in new],
+                                                     [o.to(torch.float32) for o in old]))
+            if sumsq_reduce is not None:
+                psq = sumsq_reduce(list(pper.unbind(0)))
+                usq = sumsq_reduce(list(uper.unbind(0)))
             pn, un = torch.sqrt(psq), torch.sqrt(usq)
         return StepStats(
             steps=stats.steps + 1, loss_sum=stats.loss_sum + loss, loss_last=loss,

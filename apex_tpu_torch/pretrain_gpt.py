@@ -1,5 +1,5 @@
 """GPT pretraining with the trainer's host runtime -- the port's twin of
-``examples/gpt/pretrain_gpt.py`` at pp = 1: data- and tensor-parallel
+``examples/gpt/pretrain_gpt.py``: data-, tensor- and pipeline-parallel
 over a ``torch.distributed`` group of one process a rank.
 
     python -m apex_tpu_torch.pretrain_gpt --steps 8                # on the GPU
@@ -10,6 +10,9 @@ over a ``torch.distributed`` group of one process a rank.
     #   two ranks under gloo (NCCL and one card a rank on CUDA)
     torchrun --nproc-per-node 2 -m apex_tpu_torch.pretrain_gpt --tp 2 --sequence-parallel
     #   tensor (and sequence) parallel over two ranks
+    torchrun --nproc-per-node 4 -m apex_tpu_torch.pretrain_gpt --tp 2 --pp 2
+    #   two pipeline stages of two tensor-parallel ranks each (1F1B over
+    #   --micro-batches 2)
     ... --checkpoint /tmp/gpt_ck --steps 4       # then: --resume /tmp/gpt_ck
     ... --checkpoint /tmp/gpt_ck --auto-resume   # SIGTERM saves, drains and
     #   exits 0; rerunning the same line resumes from the newest valid
@@ -45,8 +48,19 @@ the seed-0 tree, the slice ``shard_map`` gives the same device) and of
 FusedAdam's state, and the step runs the loss over the group
 (``train_gpt.make_train_step(tp_group=)``); ``--sequence-parallel``
 splits the layers' activations over the sequence too.  The tp ranks of
-a dp rank take the same rows.  ``--zero`` with ``--tp`` above 1 raises
-(``_zero_engine.TP_ITEM``).  With ``--metrics-dir`` or
+a dp rank take the same rows.
+
+Pipeline parallelism: ``--pp N`` splits the layers into N stages of L /
+N (rank = (dp_rank * N + pp_rank) * tp + tp_rank) and trains with
+``models.gpt.make_pp_train_step``: each dp rank's rows split into
+``--micro-batches`` microbatches driven through the 1F1B schedule, the
+stages exchanging activations and cotangents point to point
+(:mod:`apex_tpu_torch.transformer.pipeline_parallel`); every stage holds
+the embedding and the final LayerNorm, whose grads are summed over the
+stages, and every rank of a dp replica reads the same rows.  At pp 1
+``--micro-batches`` changes nothing, as in the reference.  ``--zero``
+with ``--tp`` or ``--pp`` above 1 raises (``_zero_engine.TP_ITEM``).
+With ``--metrics-dir`` or
 ``--trace-dir`` a :class:`~apex_tpu_torch.observability.StepStats` window
 rides it in fixed device buffers.  The loop reads no device value on the
 host: each step's loss (and scale) goes to an
@@ -60,14 +74,15 @@ save at one world resumes at another, and a JAX ``--zero`` directory
 resumes here.  Other checkpoints are the JAX driver's single-file
 ``step_<N>.ckpt`` in its byte layout and tree (``{"params", "state":
 AdamState, "step", "scaler"}``; rank 0 writes it), written by an :class:`~apex_tpu_torch.io.AsyncCheckpointer`
-that snapshots to host before ``save`` returns.  Under ``--tp`` the
-params and moments are all-gathered over the group into that whole
-tree before the save, and the file gains ``"mesh": {"tp", "pp"}`` (the
-model layout, which the reference records in its elastic checkpoints,
-``mesh_meta``); a resume at the same tp shards the file again, bitwise,
-and one at another tp raises as a layout change (``TP_LAYOUT_ITEM``).  A
-file the JAX trainer wrote is a whole tree and is sharded to this run's
-tp, as the reference resumes it on any mesh; ``--keep`` prunes to the
+that snapshots to host before ``save`` returns.  Under ``--tp`` or
+``--pp`` the params and moments are all-gathered over the groups into
+that whole tree before the save, and the file gains ``"mesh": {"tp",
+"pp"}`` (the model layout, which the reference records in its elastic
+checkpoints, ``mesh_meta``); a resume at the same tp and pp shards the
+file again, bitwise, and one at another raises as a layout change
+(``TP_LAYOUT_ITEM``).  A file the JAX trainer wrote is a whole tree and
+is sharded to this run's tp and pp, as the reference resumes it on any
+mesh; ``--keep`` prunes to the
 newest ``max(keep, 3)``.  ``--resume`` takes that directory (the newest
 valid file in it) or one file.  Batches are Megatron-sampled rows of
 ``seq + 1`` tokens (``--data``: a flat memmapped token file; else a
@@ -75,8 +90,8 @@ random corpus from seed 0), gathered by the native ``gather_rows`` on a
 prefetch thread.
 
 Flags of the reference that need modules not yet ported raise, naming
-the ROADMAP.md queue item that brings them: ``--pp`` above 1,
-``--micro-batches``, ``--supervise`` and the ``--chaos-*`` faults.  ``--auto-resume`` does not
+the ROADMAP.md queue item that brings them: ``--supervise`` and the
+``--chaos-*`` faults.  ``--auto-resume`` does not
 degrade kernel failures to a fallback as the reference's does: a kernel
 that fails to build or launch raises, as everywhere in the port.
 
@@ -102,15 +117,12 @@ WEIGHT_DECAY = 0.01
 #: ``--fp16``'s scaler (its other settings at their defaults)
 FP16_INIT_SCALE = 2.0 ** 12
 
-#: what a resume at another tp than the checkpoint's waits for
-TP_LAYOUT_ITEM = "resharding a checkpoint across tp, ROADMAP.md queue 1 item 13"
+#: what a resume at another tp or pp than the checkpoint's waits for
+TP_LAYOUT_ITEM = "resharding a checkpoint across tp and pp, ROADMAP.md queue 1 item 13"
 
 #: flags of the reference whose modules are not ported: (flag, is it set,
 #: what brings it)
 _UNPORTED = (
-    ("--pp > 1", lambda a: a.pp > 1, "pipeline parallelism, ROADMAP.md queue 1 item 9"),
-    ("--micro-batches", lambda a: a.micro_batches is not None,
-     "pipeline parallelism, ROADMAP.md queue 1 item 9"),
     ("--supervise", lambda a: a.supervise,
      "resilience.supervisor, ROADMAP.md queue 1 item 5"),
     ("--chaos-*", lambda a: (a.chaos_kill_at_step is not None or a.chaos_wedge_step is not None
@@ -124,8 +136,9 @@ def build_args():
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--micro-batches", type=int, default=None,
-                   help="pipeline micro-batches, 2 in the reference (not ported yet)")
+    p.add_argument("--micro-batches", type=int, default=2,
+                   help="pipeline microbatches a step (each dp rank's rows split into "
+                        "them; at --pp 1 unused)")
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=64)
     p.add_argument("--layers", type=int, default=4)
@@ -259,11 +272,11 @@ def run(args):
     if args.grad_sync_dtype and not args.zero:
         raise SystemExit("--grad-sync-dtype needs --zero: the quantized wire's error-feedback "
                          "residual lives in the ZeRO optimizer's sharded state")
-    if args.zero and args.tp > 1:
+    if args.zero and (args.tp > 1 or args.pp > 1):
         from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
 
-        raise NotImplementedError(f"--zero with --tp > 1 is not ported yet: it comes with "
-                                  f"{TP_ITEM}")
+        raise NotImplementedError(f"--zero with --tp or --pp > 1 is not ported yet: it comes "
+                                  f"with {TP_ITEM}")
     import torch.distributed as dist
 
     from apex_tpu_torch.parallel import multiproc
@@ -273,26 +286,31 @@ def run(args):
     dev = multiproc.initialize_distributed(args.device)
     try:
         if not ps.model_parallel_is_initialized():
-            ps.initialize_model_parallel(tensor_model_parallel_size_=args.tp)
-        elif ps.get_tensor_model_parallel_world_size() != args.tp:
-            raise ValueError(f"--tp {args.tp}, but the registered tensor-parallel group has "
-                             f"{ps.get_tensor_model_parallel_world_size()} ranks")
+            ps.initialize_model_parallel(tensor_model_parallel_size_=args.tp,
+                                         pipeline_model_parallel_size_=args.pp)
+        for flag, n, have in (("--tp", args.tp, ps.get_tensor_model_parallel_world_size()),
+                              ("--pp", args.pp, ps.get_pipeline_model_parallel_world_size())):
+            if n != have:
+                raise ValueError(f"{flag} {n}, but the registered group has {have} ranks")
         return _train(args, dev, ps.get_data_parallel_group(),
-                      ps.get_tensor_model_parallel_group())
+                      ps.get_tensor_model_parallel_group(),
+                      ps.get_pipeline_model_parallel_group())
     finally:
         if owns_group:
             multiproc.destroy_distributed()
 
 
-def _train(args, dev, dp_group, tp_group):
+def _train(args, dev, dp_group, tp_group, pp_group):
     """The loop of :func:`run` on ``dev``, data-parallel over
-    ``dp_group`` and tensor-parallel over ``tp_group``."""
+    ``dp_group``, tensor-parallel over ``tp_group`` and pipelined over
+    ``pp_group``."""
     from apex_tpu_torch import io, observability as obs, resilience
     from apex_tpu_torch.amp import DynamicLossScaler
     from apex_tpu_torch.models.gpt import (
         _host_f32,
         _init_numpy,
         gather_params,
+        make_pp_train_step,
         map_specs,
         params_from_numpy,
         shard_params,
@@ -313,7 +331,8 @@ def _train(args, dev, dp_group, tp_group):
     import torch.distributed as dist
 
     dp, rank = dp_group.size(), dp_group.rank()
-    tp = tp_group.size()
+    tp, pp = tp_group.size(), pp_group.size()
+    pipe = pp_group if pp > 1 else None
     lead = dist.get_rank() == 0
 
     def say(*a):
@@ -321,16 +340,20 @@ def _train(args, dev, dp_group, tp_group):
         if lead:
             print(*a, flush=True)
 
-    say(f"mesh: dp={dp} pp=1 tp={tp} ({dp * tp} devices)")
+    say(f"mesh: dp={dp} pp={pp} tp={tp} ({dp * pp * tp} devices)")
     if args.global_batch % dp:
         raise SystemExit(f"--global-batch {args.global_batch} does not split over dp={dp}")
     if args.sequence_parallel and args.seq % tp:
         raise SystemExit(f"--sequence-parallel: --seq {args.seq} does not split over tp={tp}")
+    if pp > 1 and (args.global_batch // dp) % args.micro_batches:
+        raise SystemExit(f"--global-batch {args.global_batch} over dp={dp} does not split into "
+                         f"--micro-batches {args.micro_batches}")
     # only rank 0 writes the metrics and goodput files
     metrics_dir = args.metrics_dir if lead else None
 
     config = make_config(args)
-    params = shard_params(_init_numpy(config, 0), config, tp_group, dev, keep_fp32=True)
+    params = shard_params(_init_numpy(config, 0), config, tp_group, dev, keep_fp32=True,
+                          pp_group=pipe)
     if args.zero:
         from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
 
@@ -349,7 +372,8 @@ def _train(args, dev, dp_group, tp_group):
     # goes through the async fetcher.
     obs.set_step_context(run_id=args.run_id, step=0)
     fetcher = stepstats.AsyncFetcher()
-    telemetry = (stepstats.StepTelemetry() if (metrics_dir or args.trace_dir) else None)
+    # every rank runs the window: under tp or pp its norms are collectives
+    telemetry = (stepstats.StepTelemetry() if (args.metrics_dir or args.trace_dir) else None)
     registry = obs.get_metrics()
     tracer = None
     if args.trace_dir:
@@ -430,16 +454,17 @@ def _train(args, dev, dp_group, tp_group):
                 "growth_tracker": scaler_state.growth_tracker.to(torch.int64),
                 "hysteresis": scaler_state.hysteresis.to(torch.int64)}
 
-    mesh_layout = {"tp": np.int64(tp), "pp": np.int64(1)}
+    mesh_layout = {"tp": np.int64(tp), "pp": np.int64(pp)}
+    split = tp > 1 or pp > 1
 
     def ckpt_tree(step_no):
-        """The reference trainer's checkpoint tree.  Under --tp the params and
-        moments are gathered whole (a collective: every rank calls it)
-        and the tree gains the layout."""
-        if tp == 1 or args.zero:
+        """The reference trainer's checkpoint tree.  Under --tp or --pp the
+        params and moments are gathered whole (collectives: every rank
+        calls them) and the tree gains the layout."""
+        if not split or args.zero:
             return {"params": params, "state": state, "step": np.int64(step_no),
                     "scaler": scaler_dict()}
-        gather = lambda t: gather_params(t, config, tp_group)  # noqa: E731
+        gather = lambda t: gather_params(t, config, tp_group, pipe)  # noqa: E731
         return {"params": gather(params), "state": whole(gather, state),
                 "step": np.int64(step_no), "scaler": scaler_dict(), "mesh": mesh_layout}
 
@@ -450,9 +475,11 @@ def _train(args, dev, dp_group, tp_group):
             shape = list(a.shape)
             if spec.tp_dim is not None:
                 shape[spec.tp_dim] *= tp
+            if spec.pp_dim is not None:
+                shape[spec.pp_dim] *= pp
             return torch.empty(shape, dtype=a.dtype, device="meta")
 
-        like = lambda t: map_specs(one, t, config)  # noqa: E731
+        like = lambda t: map_specs(one, t, config, pp=True)  # noqa: E731
         tree = {"params": like(params), "state": whole(like, state), "step": np.int64(0),
                 "scaler": scaler_dict()}
         return {**tree, "mesh": mesh_layout} if with_mesh else tree
@@ -514,19 +541,20 @@ def _train(args, dev, dp_group, tp_group):
                 path = None  # --auto-resume first launch: fresh start
         if path is not None:
             # the port's own files carry their layout; the JAX trainer's are
-            # whole trees, sharded to this run's tp
-            saved_tp = tp
+            # whole trees, sharded to this run's tp and pp
+            saved = (tp, pp)
             if not io.written_by_jax(path):
                 lazy = io.open_checkpoint_lazy(path)
-                saved_tp = int(lazy["mesh"]["tp"].load()) if "mesh" in lazy else 1
-            if saved_tp != tp:
-                raise ValueError(f"{path} was saved at tp={saved_tp}; resuming it at tp={tp} "
-                                 f"is a layout change, not ported yet: it comes with "
-                                 f"{TP_LAYOUT_ITEM}")
-            has_mesh = tp > 1 and not io.written_by_jax(path)
+                saved = ((int(lazy["mesh"]["tp"].load()), int(lazy["mesh"]["pp"].load()))
+                         if "mesh" in lazy else (1, 1))
+            if saved != (tp, pp):
+                raise ValueError(f"{path} was saved at tp={saved[0]}, pp={saved[1]}; resuming "
+                                 f"it at tp={tp}, pp={pp} is a layout change, not ported yet: "
+                                 f"it comes with {TP_LAYOUT_ITEM}")
+            has_mesh = split and not io.written_by_jax(path)
             ck = io.load_checkpoint(path, template=ckpt_template(has_mesh))
             params, state, scaler_state, start_step = train_state_from_numpy(
-                ck, config, dev, loss_scaler=scaler, axis_name=tp_group)
+                ck, config, dev, loss_scaler=scaler, axis_name=tp_group, pp_group=pipe)
             say(f"resumed at step {start_step}")
     if acct is not None and start_step:
         acct.add_segment("restore", time.time() - t_restore)
@@ -538,11 +566,15 @@ def _train(args, dev, dp_group, tp_group):
         leaf.requires_grad_(True)
     stats = telemetry.init(dev) if telemetry is not None else None
     small = [] if scaler is None else [scaler_state]
-    step = tracing.TracedStep(
-        make_train_step(optimizer, config, loss_scaler=scaler,
-                        graphs=False if args.eager else None, telemetry=telemetry,
-                        dp_group=dp_group, tp_group=tp_group),
-        name="train.step.dispatch")
+    graphs = False if args.eager else None
+    if pp > 1:
+        built = make_pp_train_step(config, optimizer, args.micro_batches, loss_scaler=scaler,
+                                   graphs=graphs, telemetry=telemetry, dp_group=dp_group,
+                                   tp_group=tp_group)
+    else:
+        built = make_train_step(optimizer, config, loss_scaler=scaler, graphs=graphs,
+                                telemetry=telemetry, dp_group=dp_group, tp_group=tp_group)
+    step = tracing.TracedStep(built, name="train.step.dispatch")
     tracing.emit_sync_plan(optimizer)
 
     def epoch_cycling_batches(consumed):
@@ -724,9 +756,13 @@ def _train(args, dev, dp_group, tp_group):
         (Path(metrics_dir) / "metrics.prom").write_text(registry.prometheus_text())
     if acct is not None:
         acct.finalize("preempted" if (pre is not None and pre.preempted) else "clean")
+        # the whole model's params: each leaf's count times its splits
+        whole = sum(tree_leaves(map_specs(
+            lambda a, spec: a.numel() * (tp if spec.tp_dim is not None else 1)
+            * (pp if spec.pp_dim is not None else 1), params, config, pp=True)))
         report = gp.goodput_report(
             metrics_dir, flops_per_token=gp.model_flops_per_token(
-                gp.param_count(params) * tp, args.layers, args.seq, args.hidden))
+                whole, args.layers, args.seq, args.hidden))
         (Path(metrics_dir) / "goodput_report.json").write_text(json.dumps(report, indent=1))
         say("goodput: " + " ".join(f"{k}={v:.1%}"
                                    for k, v in sorted(report["fractions"].items())))
@@ -749,7 +785,8 @@ def _train(args, dev, dp_group, tp_group):
     steps = sorted(losses)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "rank": dist.get_rank(), "dp": dp, "tp": tp,
+        "rank": dist.get_rank(), "dp": dp, "tp": tp, "pp": pp,
+        "micro_batches": args.micro_batches if pp > 1 else None,
         "sequence_parallel": bool(args.sequence_parallel), "zero": bool(args.zero),
         "grad_sync_dtype": args.grad_sync_dtype,
         "graphs": not args.eager and cuda,
@@ -764,6 +801,7 @@ def _train(args, dev, dp_group, tp_group):
         "writes": [] if ckpt is None else list(ckpt.writes),
         "wall_secs": dt,
         "tokens_per_sec": args.global_batch * args.seq * done / dt,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
     }
 
 

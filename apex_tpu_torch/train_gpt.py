@@ -293,31 +293,60 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     gpt_loss` with ``axis_name``); with ``config.sequence_parallel`` the
     LN and row-bias grads are then summed over it (``sp_grad_sync``); a
     clip's Σx² sums the split leaves over the group and the replicated
-    ones not (``clip_sumsq_reduce``); the finite vote is agreed over it.
-    The dp sync and the loss mean stay on ``dp_group``.  A ZeRO optimizer
-    with a tp group raises (``_zero_engine.TP_ITEM``)."""
+    ones not (``clip_sumsq_reduce``); the finite vote is agreed over it,
+    and the telemetry's norms are those of the whole model (the clip's
+    reduce).  The dp sync and the loss mean stay on ``dp_group``.  A
+    ZeRO optimizer with a tp group raises (``_zero_engine.TP_ITEM``)."""
     if overlap_grad_sync:
         from apex_tpu_torch.contrib.optimizers._zero_engine import OVERLAP_ITEM
 
         raise NotImplementedError(f"make_train_step(overlap_grad_sync=True) is not ported "
                                   f"yet: it comes with {OVERLAP_ITEM}")
-    from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce, sp_grad_sync
+    from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce
 
     tp = _tp(tp_group)
     if tp is not None:
-        if hasattr(opt, "sharded_state_dict"):
-            from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
-
-            raise NotImplementedError(f"a ZeRO optimizer with a tensor-parallel group is not "
-                                      f"ported yet: it comes with {TP_ITEM}")
+        _refuse_zero_with_model_parallel(opt)
         check_tp(config, tp.size())
+    clip_sumsq = (clip_sumsq_reduce(config, tp)
+                  if tp is not None and clip_grad_norm is not None else None)
+
+    def grads_fn(params, tokens, targets, post):
+        return loss_and_grads(params, tokens, targets, config, post, axis_name=tp)
+
+    return _make_step(opt, config, grads_fn, loss_scaler=loss_scaler, step_guard=step_guard,
+                      clip_grad_norm=clip_grad_norm, graphs=graphs, warmup=warmup,
+                      telemetry=telemetry, dp_group=dp_group, tp_group=tp,
+                      sync_groups=() if tp is None else (tp,), clip_sumsq=clip_sumsq,
+                      norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp))
+
+
+def _refuse_zero_with_model_parallel(opt):
+    if hasattr(opt, "sharded_state_dict"):
+        from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
+
+        raise NotImplementedError(f"a ZeRO optimizer with a tensor- or pipeline-parallel "
+                                  f"group is not ported yet: it comes with {TP_ITEM}")
+
+
+def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
+               clip_grad_norm=None, graphs=None, warmup=1, telemetry=None, dp_group=None,
+               tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None):
+    """The step that :func:`make_train_step` and
+    :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
+    params, tokens, targets, post_loss) -> (loss, grads)`` gives the
+    (scaled) loss and this rank's grads; then the sequence-parallel sum
+    over ``tp_group``, the dp sync over ``dp_group``, the update (the
+    finite vote agreed over ``sync_groups``, the clip's Σx² by
+    ``clip_sumsq``), the telemetry window (its norms reduced by
+    ``norm_sumsq`` when the params are slices) and the loss mean over
+    dp; compiled unless ``graphs=False``.  See :func:`make_train_step`."""
+    from apex_tpu_torch.models.gpt import sp_grad_sync
+
     grad_sync, loss_mean = _dp_sync(opt, dp_group)
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
                          "subclass): the clip folds into its fused grad pass")
-    sync_groups = () if tp is None else (tp,)
-    clip_sumsq = (clip_sumsq_reduce(config, tp)
-                  if tp is not None and clip_grad_norm is not None else None)
     n_small = int(loss_scaler is not None) + int(step_guard is not None)
     n_state = n_small + int(telemetry is not None)
 
@@ -326,13 +355,13 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
         if telemetry is None:
             loss, new = body(params, state, small, tokens, targets)
         else:
-            with stepstats.capture() as cap:
+            with stepstats.capture(norm_sumsq) as cap:
                 loss, new = body(params, state, small, tokens, targets)
             telemetry.accumulate_(
                 rest[n_small], loss=loss, grad_norm=cap.get("grad_norm"),
                 finite=cap.get("all_finite"),
                 loss_scale=new[2].loss_scale if loss_scaler is not None else None,
-                new_params=new[0], old_params=params)
+                new_params=new[0], old_params=params, sumsq_reduce=norm_sumsq)
         with torch.no_grad():
             for dst, src in zip(tensor_leaves((params, state, *small)), tensor_leaves(new),
                                 strict=True):
@@ -345,9 +374,9 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
         guard_state = small[-1] if step_guard is not None else None
         post = (None if loss_scaler is None
                 else (lambda l: loss_scaler.scale(scaler_state, l)))
-        loss, grads = loss_and_grads(params, tokens, targets, config, post, axis_name=tp)
+        loss, grads = grads_fn(params, tokens, targets, post)
         if config.sequence_parallel:
-            grads = sp_grad_sync(grads, tp)
+            grads = sp_grad_sync(grads, tp_group)
         if grad_sync is not None:
             grads = grad_sync(grads)
         if loss_scaler is not None:

@@ -10,17 +10,22 @@ groups into named axes of one device mesh; here they are
 :func:`apex_tpu_torch.parallel.multiproc.initialize_distributed` starts
 (one process a rank: NCCL on CUDA, gloo on the CPU).
 
-The data-parallel and tensor-parallel axes are ported.  The ranks are
-laid out in the JAX mesh's ``AXIS_ORDER`` (dp, pp, cp, tp) with tp
-innermost: rank = dp_rank * tp + tp_rank, so a tensor-parallel group is
-a run of consecutive ranks (one host's cards) and a rank's (dp, tp)
-coordinates are those of the JAX mesh's device of the same index.  pp
-or cp above 1 and a hierarchical dp split raise, naming the ROADMAP.md
-queue item that brings them.  :class:`AxisGroup` is the handle a getter
-returns: the axis name (it is a ``str``, as the JAX package's handle
-is), its ``torch.distributed`` group (None for a one-rank axis, over
-which no collective runs), its size, this process's rank in it and the
-global ranks it holds.
+The data-parallel, pipeline-parallel and tensor-parallel axes are
+ported.  The ranks are laid out in the JAX mesh's ``AXIS_ORDER`` (dp,
+pp, cp, tp) with tp innermost: rank = (dp_rank * pp + pp_rank) * tp +
+tp_rank, so a tensor-parallel group is a run of consecutive ranks (one
+host's cards) and a rank's (dp, pp, tp) coordinates are those of the JAX
+mesh's device of the same index.  A pipeline group holds the ranks of
+one (dp, tp) pair, stage by stage; its first and last ranks make the
+embedding group, its first the position-embedding group (reference
+:339-372).  cp above 1 and a hierarchical dp split raise, naming the
+ROADMAP.md queue item that brings them.  :class:`AxisGroup` is the
+handle a getter returns: the axis name (it is a ``str``, as the JAX
+package's handle is), its ``torch.distributed`` group (None for a
+one-rank axis, over which no collective runs), its size, this process's
+rank in it and the global ranks it holds.  Where the JAX package reads
+a stage index off the mesh inside ``shard_map``, the port's getters
+return this process's own.
 """
 
 import dataclasses
@@ -39,7 +44,6 @@ AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
 
 #: what brings each axis that is not ported yet
 _UNPORTED_AXES = {
-    PIPELINE_AXIS: "pipeline parallelism, ROADMAP.md queue 1 item 9",
     CONTEXT_AXIS: "context parallelism, ROADMAP.md queue 1 item 9",
     DCN_AXIS: "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)",
 }
@@ -55,6 +59,14 @@ __all__ = [
     "get_tensor_model_parallel_rank", "get_pipeline_model_parallel_rank",
     "get_context_parallel_rank", "get_data_parallel_rank", "get_data_parallel_src_rank",
     "get_tensor_model_parallel_src_rank", "get_num_distributed_slices",
+    "get_virtual_pipeline_model_parallel_world_size", "get_pipeline_model_parallel_split_rank",
+    "get_virtual_pipeline_model_parallel_rank", "set_virtual_pipeline_model_parallel_rank",
+    "get_pipeline_model_parallel_next_rank", "get_pipeline_model_parallel_prev_rank",
+    "get_pipeline_model_parallel_first_rank", "get_pipeline_model_parallel_last_rank",
+    "is_pipeline_first_stage", "is_pipeline_last_stage", "get_embedding_group",
+    "get_position_embedding_group", "get_rank_info", "is_unitialized",
+    "is_rank_in_embedding_group",
+    "is_rank_in_position_embedding_group",
 ]
 
 
@@ -84,6 +96,13 @@ class _State:
     tensor: AxisGroup
     pipeline: AxisGroup
     context: AxisGroup
+    embedding: AxisGroup
+    position_embedding: AxisGroup
+    virtual_pipeline_size: Optional[int] = None
+    split_rank: Optional[int] = None
+    # the model chunk being built or run (reference :679), set by the
+    # interleaved schedule
+    virtual_pipeline_rank: Optional[int] = None
 
 
 _STATE: Optional[_State] = None
@@ -107,32 +126,35 @@ def initialize_model_parallel(
     ``parallel_state.initialize_model_parallel``, :155; the JAX
     package's :76 with its argument names).  Needs the default group
     (:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`);
-    its world must divide by the tensor-parallel size, as the JAX mesh's
-    device count must.  Every rank builds every group, in the same
-    order (``torch.distributed.new_group``'s rule).  Returns this rank's
+    its world must divide by tp x pp, as the JAX mesh's device count
+    must, and the interleaved schedule needs pp of 2 or more (the JAX
+    package's rule).  Every rank builds every group, in the same order
+    (``torch.distributed.new_group``'s rule).  Returns this rank's
     data-parallel group."""
     import torch.distributed as dist
 
     global _STATE
-    for size, axis in ((pipeline_model_parallel_size_, PIPELINE_AXIS),
-                       (context_parallel_size_, CONTEXT_AXIS),
+    for size, axis in ((context_parallel_size_, CONTEXT_AXIS),
                        (num_distributed_slices_, DCN_AXIS)):
         if int(size) != 1:
             raise NotImplementedError(
                 f"{axis} size {size} is not ported yet: it comes with "
                 f"{_UNPORTED_AXES[axis]}")
-    if virtual_pipeline_model_parallel_size_ is not None:
-        raise NotImplementedError(
-            f"the interleaved schedule is not ported yet: it comes with "
-            f"{_UNPORTED_AXES[PIPELINE_AXIS]}")
     if not dist.is_initialized():
         raise RuntimeError("initialize_model_parallel needs the default process group: "
                            "call apex_tpu_torch.parallel.multiproc.initialize_distributed")
     world, rank = dist.get_world_size(), dist.get_rank()
-    tp = int(tensor_model_parallel_size_)
-    if tp < 1 or world % tp:
-        raise RuntimeError(f"world size ({world}) is not divisible by tp ({tp}) x pp (1) x cp (1)")
-    dp = world // tp
+    tp, pp = int(tensor_model_parallel_size_), int(pipeline_model_parallel_size_)
+    if tp < 1 or pp < 1 or world % (tp * pp):
+        raise RuntimeError(f"world size ({world}) is not divisible by tp ({tp}) x pp ({pp}) "
+                           f"x cp (1)")
+    if virtual_pipeline_model_parallel_size_ is not None and pp < 2:
+        raise RuntimeError(
+            "pipeline-model-parallel size should be greater than 2 with interleaved schedule")
+    dp = world // (tp * pp)
+
+    def at(d, p, t):
+        return (d * pp + p) * tp + t
 
     def axis_group(axis, groups, real):
         """This rank's group among ``groups`` (lists of global ranks), each
@@ -144,12 +166,30 @@ def initialize_model_parallel(
                 mine = AxisGroup(axis, pg, len(ranks), ranks.index(rank), ranks)
         return mine
 
-    data = axis_group(DATA_AXIS, [[d * tp + t for d in range(dp)] for t in range(tp)], True)
-    tensor = axis_group(TENSOR_AXIS, [[d * tp + t for t in range(tp)] for d in range(dp)],
-                        False)
-    _STATE = _State(data=data, tensor=tensor, pipeline=_one_rank_group(PIPELINE_AXIS),
-                    context=_one_rank_group(CONTEXT_AXIS))
+    data = axis_group(DATA_AXIS, [[at(d, p, t) for d in range(dp)]
+                                  for p in range(pp) for t in range(tp)], True)
+    tensor = axis_group(TENSOR_AXIS, [[at(d, p, t) for t in range(tp)]
+                                      for d in range(dp) for p in range(pp)], False)
+    pipes = [[at(d, p, t) for p in range(pp)] for d in range(dp) for t in range(tp)]
+    pipeline = axis_group(PIPELINE_AXIS, pipes, False)
+    split = pipeline_model_parallel_split_rank_
+    emb = [sorted({r[0], r[-1]} | ({r[split]} if pp > 1 and split is not None else set()))
+           for r in pipes]
+    pos = [sorted({r[0]} | ({r[split]} if pp > 1 and split is not None else set()))
+           for r in pipes]
+    _STATE = _State(data=data, tensor=tensor, pipeline=pipeline,
+                    context=_one_rank_group(CONTEXT_AXIS),
+                    embedding=axis_group(PIPELINE_AXIS, emb, False) or _outside(),
+                    position_embedding=axis_group(PIPELINE_AXIS, pos, False) or _outside(),
+                    virtual_pipeline_size=virtual_pipeline_model_parallel_size_,
+                    split_rank=split)
     return data
+
+
+def _outside() -> AxisGroup:
+    """The handle of a group this rank is not in (a middle stage's
+    embedding group): no collective, size 0."""
+    return AxisGroup(PIPELINE_AXIS, None, 0, -1, ())
 
 
 def model_parallel_is_initialized() -> bool:
@@ -212,8 +252,8 @@ def get_data_parallel_group() -> AxisGroup:
 
 
 def get_model_parallel_group() -> tuple:
-    """The (pp, tp) groups a found-inf vote is agreed over; pp is one
-    rank here, so the vote is agreed over tp."""
+    """The (pp, tp) groups a found-inf vote is agreed over, one after the
+    other (the JAX package's combined (pp, tp) axes)."""
     s = _state()
     return (s.pipeline, s.tensor)
 
@@ -243,8 +283,119 @@ def get_data_parallel_src_rank() -> int:
     return _state().data.ranks[0]
 
 
+def get_embedding_group() -> AxisGroup:
+    """Reference :471: the first and last stages of this rank's pipeline
+    (the tied embedding), plus the split stage under an encoder/decoder
+    split.  A middle stage is in none: size 0."""
+    return _state().embedding
+
+
+def get_position_embedding_group() -> AxisGroup:
+    """Reference :480: the first stage of this rank's pipeline (plus the
+    split stage)."""
+    return _state().position_embedding
+
+
 def get_tensor_model_parallel_src_rank() -> int:
     """Reference :512: the global rank of this tensor-parallel group's
     rank 0, the source of :func:`~apex_tpu_torch.transformer.
     tensor_parallel.broadcast_data`."""
     return _state().tensor.ranks[0]
+
+
+def get_pipeline_model_parallel_next_rank() -> int:
+    """Reference :730: the global rank of the next stage of this rank's
+    pipeline (a ring: the last stage's next is the first)."""
+    p = _state().pipeline
+    return p.ranks[(p.rank() + 1) % p.size()]
+
+
+def get_pipeline_model_parallel_prev_rank() -> int:
+    """Reference :739: the global rank of the previous stage (a ring)."""
+    p = _state().pipeline
+    return p.ranks[(p.rank() - 1) % p.size()]
+
+
+def get_pipeline_model_parallel_first_rank() -> int:
+    """Reference :711: the global rank of this pipeline's first stage."""
+    return _state().pipeline.ranks[0]
+
+
+def get_pipeline_model_parallel_last_rank() -> int:
+    """Reference :718: the global rank of this pipeline's last stage."""
+    return _state().pipeline.ranks[-1]
+
+
+def get_virtual_pipeline_model_parallel_world_size() -> Optional[int]:
+    return _state().virtual_pipeline_size
+
+
+def get_pipeline_model_parallel_split_rank() -> Optional[int]:
+    return _state().split_rank
+
+
+def get_virtual_pipeline_model_parallel_rank() -> Optional[int]:
+    """Reference :679: the model chunk being run."""
+    return _state().virtual_pipeline_rank
+
+
+def set_virtual_pipeline_model_parallel_rank(rank: Optional[int]) -> None:
+    _state().virtual_pipeline_rank = rank
+
+
+def is_pipeline_first_stage(ignore_virtual: bool = False, stage: Optional[int] = None) -> bool:
+    """Reference :508: this rank (or ``stage``, a pp index) is the first
+    stage and, unless ``ignore_virtual``, runs the first model chunk."""
+    s = _state()
+    if not ignore_virtual and s.virtual_pipeline_size is not None and \
+            s.virtual_pipeline_rank not in (None, 0):
+        return False
+    return (s.pipeline.rank() if stage is None else stage) == 0
+
+
+def is_pipeline_last_stage(ignore_virtual: bool = False, stage: Optional[int] = None) -> bool:
+    """Reference :522: this rank (or ``stage``) is the last stage and,
+    unless ``ignore_virtual``, runs the last model chunk."""
+    s = _state()
+    if not ignore_virtual and s.virtual_pipeline_size is not None and \
+            s.virtual_pipeline_rank not in (None, s.virtual_pipeline_size - 1):
+        return False
+    return (s.pipeline.rank() if stage is None else stage) == s.pipeline.size() - 1
+
+
+def is_rank_in_embedding_group(ignore_virtual: bool = False) -> bool:
+    """Reference :504-517: this rank takes part in the tied embedding's
+    grad sync -- it is in the embedding group and, unless
+    ``ignore_virtual``, runs the first chunk on the first stage or the
+    last chunk on the last."""
+    s = _state()
+    if s.embedding.size() == 0:
+        return False
+    if ignore_virtual:
+        return True
+    me, ranks = s.pipeline.ranks[s.pipeline.rank()], s.embedding.ranks
+    if me == ranks[0]:
+        return is_pipeline_first_stage()
+    if me == ranks[-1]:
+        return is_pipeline_last_stage()
+    return True  # the split stage (reference :515-516: plain membership)
+
+
+def is_rank_in_position_embedding_group() -> bool:
+    """Reference :520: this rank holds the position embeddings (the first
+    stage, plus the split stage)."""
+    return _state().position_embedding.size() > 0
+
+
+def get_rank_info() -> str:
+    """Reference :421: the sizes, as the JAX package's debug string."""
+    if _STATE is None:
+        return "model parallel not initialized"
+    s = _STATE
+    return (f"tp={s.tensor.size()} pp={s.pipeline.size()} cp={s.context.size()} "
+            f"dp={s.data.size()}")
+
+
+def is_unitialized() -> bool:
+    """Reference :79 (its spelling): no model-parallel state is registered."""
+    return _STATE is None

@@ -217,14 +217,34 @@ Phases, each printing one JSON line:
     ``tp_multi_card``: ``torchrun --tp 2`` (and 4) against tp 1 (losses
     within 1e-3), GPT-345M timed at each tp with and without
     ``--sequence-parallel``, and a profile at the largest.
+18. pp: ``models.gpt.make_pp_train_step`` at GPT-345M over one-rank NCCL
+    pipeline, tp and dp groups (the 1F1B schedule at pp 1: every
+    microbatch's forward and backward in turn), 4 microbatches of 2 rows:
+    the fused CE head and the dense head, graphed (6 steps) and eager
+    (4): exact launch counts (4 x 97 / 49 / 48 / 24 / 24 a step, 4 x 1 CE
+    with the fused head, one ``mt_adam``), graphed = eager, the losses
+    against the tp phase's ``make_train_step`` on the same batches (the
+    first step's within 1e-5 relative, every step's within 1e-3: each
+    microbatch's bf16 weight grads round before their fp32 sum; with one
+    microbatch, eager, both heads, every step within 1e-5), step ms
+    (CUDA events), peak memory.  With two or more
+    cards, ``pp_multi_card``: GPT-345M timed at pp 1, pp 4 (8
+    microbatches, and profiled: the first and the last stage's idle share
+    and NCCL ms), tp 2 x pp 2 and pp 2 (8) and pp 4 at 2 (the reference's
+    default), each within 1e-3 of pp 1's losses (the interleaved schedule
+    is refused over NCCL).  ``python3 chip_smoke.py pp_multi_card`` runs
+    that check alone.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code
-is nonzero and the last line is not printed.  Without a CUDA device,
+is nonzero and the last line is not printed.  A run whose one-card
+phases pass ``STALL_SECONDS``, or a multi-card check that passes its own
+limit, exits nonzero with every thread's stack.  Without a CUDA device,
 or without the package beside this file, it exits nonzero at once.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -237,6 +257,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+#: a run still going after this many seconds of its one-card phases has
+#: stalled: it exits nonzero
+STALL_SECONDS = 1140
+#: the same for each multi-card check (``*_multi_card``), which runs only
+#: with two or more cards and outside the one-card wall
+MULTI_CARD_STALL_SECONDS = 1800
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s,
 #: fp32 flops/s outside the tensor cores, bf16 and tf32 tensor-core flops/s
@@ -266,6 +292,41 @@ TRAIN_PARITY_TOL = {"loss": 1e-5, "grads": 1e-3}
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class _StallGuard:
+    """``faulthandler``'s deadline: every thread's stack on stderr and a
+    nonzero exit once the one-card phases have run ``STALL_SECONDS``.  A
+    multi-card check runs under :meth:`multi_card`, with a limit of its
+    own, and its time does not count against the one-card wall."""
+
+    def __init__(self):
+        self.left, self.since = None, None
+
+    def _arm(self, seconds):
+        import faulthandler
+
+        faulthandler.dump_traceback_later(max(1.0, seconds), exit=True)
+
+    def start(self, seconds=STALL_SECONDS):
+        self.left, self.since = seconds, time.monotonic()
+        self._arm(seconds)
+
+    @contextlib.contextmanager
+    def multi_card(self, seconds=MULTI_CARD_STALL_SECONDS):
+        if self.left is None:  # not armed: a child mode or a lone check
+            yield
+            return
+        self.left -= time.monotonic() - self.since
+        self._arm(seconds)
+        try:
+            yield
+        finally:
+            self.since = time.monotonic()
+            self._arm(self.left)
+
+
+STALL = _StallGuard()
 
 
 def bound(nbytes, flops, peak=PEAK_FP32):
@@ -3044,18 +3105,31 @@ def _pretrain_proc(argv, sigterm_after=None, timeout=300):
     the JSON report)``."""
     import signal
 
+    import queue
+    import threading
+
     proc = subprocess.Popen(
         [sys.executable, "-m", "apex_tpu_torch.pretrain_gpt", *argv], cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a reader thread, so that a child that prints nothing still meets the
+    # deadline
+    got = queue.Queue()
+    threading.Thread(target=lambda: ([got.put(ln) for ln in proc.stdout], got.put(None)),
+                     daemon=True).start()
     lines, deadline = [], time.monotonic() + timeout
     try:
-        for line in proc.stdout:
+        while True:
+            try:
+                line = got.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(f"pretrain_gpt {argv} ran past {timeout} s:\n"
+                                   + "\n".join(lines[-40:])) from None
+            if line is None:
+                break
             lines.append(line.rstrip("\n"))
             if sigterm_after is not None and line.startswith(f"step {sigterm_after}:"):
                 proc.send_signal(signal.SIGTERM)
                 sigterm_after = None
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"pretrain_gpt {argv} ran past {timeout} s")
         rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
         if proc.poll() is None:
@@ -3072,7 +3146,6 @@ def _pretrain_here(argv, profiler=None):
     """``pretrain_gpt.run`` in this process (its lines kept out of this
     script's output) in a metrics scope of its own; with ``profiler`` (a
     ``torch.profiler.profile``) under it.  Returns the JSON report."""
-    import contextlib
     import gc
     import io as stdio
 
@@ -3719,7 +3792,8 @@ def zero_phase(smi, full):
         np.random.RandomState(0).randint(0, vocab, size=PRETRAIN_TOKENS).astype(
             np.uint16).tofile(data)
         try:
-            multi = zero_multi_card(min(4, n_cards), data)
+            with STALL.multi_card():
+                multi = zero_multi_card(min(4, n_cards), data)
         finally:
             shutil.rmtree(data.parent, ignore_errors=True)
 
@@ -4056,7 +4130,8 @@ def tp_phase(smi):
     multi = {"ran": False, "cards": n_cards,
              "note": "tp > 1 did not run on a card here: one card"}
     if n_cards >= 2:
-        multi = tp_multi_card(min(4, n_cards))
+        with STALL.multi_card():
+            multi = tp_multi_card(min(4, n_cards))
     emit({"phase": "tp", "argv": GPT345_ARGV + ["--tp", "1"], "nvidia_smi": smi,
           "runs": runs, "bitwise_vs_no_tp_group": {h: absent[h] for h in absent},
           "profile_fused": {"idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
@@ -4066,7 +4141,7 @@ def tp_phase(smi):
                                 list(idle["kernel_ms_per_step"].items())[:20])},
           "ce_vocab_shards": shards, "tp_gt_1": multi,
           "seconds": time.monotonic() - t_phase})
-    return shards
+    return absent
 
 
 def _torchrun_pretrain(n, argv, timeout=900):
@@ -4147,6 +4222,267 @@ def tp_child(argv):
     return 0
 
 
+# ----------------------------------------------------------------------- pp
+#: the one-card pp phase's microbatches: 4 of 2 rows of the global batch 8
+PP_MICRO = 4
+
+
+def _pp345_expect(fused, steps, sizes, M=PP_MICRO):
+    """Launches a step of the pipelined step at GPT-345M: every microbatch
+    runs the whole model (the tp phase's counts, M times), one update."""
+    per_mb, _ = _tp345_expect(fused, 1, sizes)
+    per_step = {k: (v if k.startswith("mt_") else M * v) for k, v in per_mb.items()}
+    return per_step, {**{k: steps * v for k, v in per_step.items()},
+                      "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                      "fused_sample": 0}
+
+
+def _pp345_run(tree, fused, eager, steps, M=PP_MICRO, profiler=None):
+    """``make_pp_train_step`` at GPT-345M (pretrain_gpt's config, the
+    seed-0 params ``tree``, FusedAdam(wd 0.01), the seed-0 corpus's first rows, the
+    batches the tp phase's steps take) over the registered one-rank
+    groups: its losses, step ms (CUDA events after each step; the
+    batches are on the card first, no host read in the loop), launch
+    counts and peak memory; with ``profiler`` the steps run under it."""
+    import gc
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.models.gpt import make_pp_train_step, params_from_numpy
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    args = pretrain_gpt.build_args().parse_args(GPT345_ARGV + (["--fused-ce"] if fused else []))
+    dev = torch.device("cuda", 0)
+    config = pretrain_gpt.make_config(args)
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = args.global_batch
+    rows = [torch.from_numpy(np.ascontiguousarray(corpus[i * gb:(i + 1) * gb], np.int64)).to(dev)
+            for i in range(steps)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params = params_from_numpy(tree, config, dev, keep_fp32=True)
+    opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = make_pp_train_step(config, opt, M, graphs=False if eager else None,
+                              dp_group=ps.get_data_parallel_group(),
+                              tp_group=ps.get_tensor_model_parallel_group())
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    with profiler if profiler is not None else contextlib.nullcontext():
+        for r in rows:
+            losses.append(step(params, state, r[:, :-1], r[:, 1:]).detach().clone())
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses],
+           "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+           "launches": launch_counts(), "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graphs": not eager}
+    del step, params, state, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_phase(smi, absent):
+    """``make_pp_train_step`` at GPT-345M in this process over one-rank
+    NCCL pipeline, tp and dp groups (the 1F1B runtime at pp 1: the 4
+    microbatches' forwards and backwards in turn, grads accumulated): the
+    fused CE head and the dense head, graphed and eager, exact launch
+    counts, graphed = eager, and the losses against ``absent`` (the tp
+    phase's ``make_train_step`` losses on the same batches): the first
+    step's (the same params, the forward over other row splits) within
+    ``TRAIN_AB_TOL``, every step's within ``TP_BAND`` (each microbatch's
+    bf16 weight grads are rounded before they are summed in fp32, as in
+    the JAX package's pipeline, and Adam's normalized update carries the
+    difference into the later losses); with one microbatch (eager, both
+    heads), which takes the split away and leaves the schedule, every
+    step within ``TRAIN_AB_TOL``; step ms, peak memory.  With two or
+    more cards, ``pp_multi_card``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.models.gpt import _init_numpy
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t_phase = time.monotonic()
+    sizes = _gpt345_sizes()
+    # the seed-0 params once (both heads share the tree)
+    tree = _init_numpy(pretrain_gpt.make_config(pretrain_gpt.build_args().parse_args(
+        GPT345_ARGV)), 0)
+    runs = {}
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(tensor_model_parallel_size_=1, pipeline_model_parallel_size_=1)
+    try:
+        for name, fused, eager, steps, M in (("fused", True, False, TP_STEPS, PP_MICRO),
+                                             ("fused_eager", True, True, 4, PP_MICRO),
+                                             ("dense", False, False, TP_STEPS, PP_MICRO),
+                                             ("dense_eager", False, True, 4, PP_MICRO),
+                                             ("fused_m1", True, True, 4, 1),
+                                             ("dense_m1", False, True, 4, 1)):
+            run = _pp345_run(tree, fused, eager, steps, M=M)
+            per_step, expect = _pp345_expect(fused, steps, sizes, M=M)
+            if run["launches"] != expect:
+                raise AssertionError(f"pp {name} launch counts {run['launches']} != expected "
+                                     f"{expect}")
+            if not all(map(math.isfinite, run["losses"])):
+                raise AssertionError(f"pp {name}: losses {run['losses']}")
+            med = float(np.median(run["step_ms"][1:]))
+            runs[name] = {**run, "launches_per_step": per_step, "step_ms_median": med,
+                          "tokens_per_sec": 8 * 1024 / (med / 1e3)}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        _pp345_run(tree, True, False, 7, profiler=prof)
+        idle = _busy_share(prof)
+        del prof
+    finally:
+        multiproc.destroy_distributed()
+    for head in ("fused", "dense"):
+        graphed, eager = runs[head]["losses"], runs[head + "_eager"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+        if rel > TRAIN_AB_TOL:
+            raise AssertionError(f"pp {head}: graphed {graphed} against eager {eager}")
+        runs[head]["graphed_vs_eager"] = "bitwise" if rel == 0 else rel
+        rels = [abs(a - b) / abs(b) for a, b in zip(graphed, absent[head])]
+        if rels[0] > TRAIN_AB_TOL or max(rels) > TP_BAND:
+            raise AssertionError(f"pp {head}: losses {graphed} against make_train_step's "
+                                 f"{absent[head]}: relative {rels}, the first step's beyond "
+                                 f"{TRAIN_AB_TOL} or a later one's beyond {TP_BAND}")
+        runs[head]["vs_make_train_step"] = {"losses": absent[head], "rel_diff": rels}
+        # one microbatch: the schedule alone, without the microbatch split
+        one = runs[head + "_m1"]["losses"]
+        rels = [abs(a - b) / abs(b) for a, b in zip(one, absent[head])]
+        if max(rels) > TRAIN_AB_TOL:
+            raise AssertionError(f"pp {head} with one microbatch: losses {one} against "
+                                 f"make_train_step's {absent[head]}: relative {rels} beyond "
+                                 f"{TRAIN_AB_TOL}")
+        runs[head + "_m1"]["vs_make_train_step"] = {"rel_diff": rels}
+    n_cards = torch.cuda.device_count()
+    multi = {"ran": False, "cards": n_cards,
+             "note": "pp > 1 did not run on a card here: one card"}
+    if n_cards >= 2:
+        with STALL.multi_card():
+            multi = pp_multi_card(min(4, n_cards))
+    emit({"phase": "pp", "argv": GPT345_ARGV, "micro_batches": PP_MICRO, "nvidia_smi": smi,
+          "runs": runs, "tolerance": {"first_step": TRAIN_AB_TOL, "every_step": TP_BAND},
+          "profile_fused": {"idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+                            "window_ms": idle["window_ms"],
+                            "window_steps": idle["window_steps"],
+                            "top_kernels_ms_per_step": dict(
+                                list(idle["kernel_ms_per_step"].items())[:30])},
+          "pp_gt_1": multi,
+          "seconds": time.monotonic() - t_phase})
+
+
+def _pp_children(n, args, timeout=900):
+    """``torchrun --nproc-per-node n chip_smoke.py pp_child <args>``: the
+    JSON objects its ranks print."""
+    res = subprocess.run(["torchrun", "--standalone", f"--nproc-per-node={n}",
+                          str(ROOT / "chip_smoke.py"), "pp_child", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith('{"pp_')]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"pp_child world {n} {args}: exit {res.returncode}\n"
+                             + res.stdout[-3000:] + res.stderr[-3000:])
+    return lines
+
+
+def pp_multi_card(world, eager=False):
+    """``torchrun -m apex_tpu_torch.pretrain_gpt --pp N`` (one card a rank,
+    NCCL, the stages' messages point to point) at GPT-345M with
+    ``--fused-ce``, 10 steps, step ms from CUDA events (median past the
+    second): pp 1 on one card (``make_train_step``: at pp 1 ``pretrain_gpt``
+    does not split the batch), pp 4 at 8 microbatches and a profile of 7
+    such steps (``pp_child``: the first and the last stage's idle share
+    and NCCL ms a step), tp 2 x pp 2 at 8, pp 2 at 8, pp 4 at 2 (the
+    reference's default, the larger bubble), each one's losses within
+    ``TP_BAND`` of pp 1's (the same global batch).  The interleaved
+    schedule is refused over NCCL (ROADMAP.md section 3) and does not run
+    here.  Each result is printed (a ``pp_multi_card`` line) as it comes,
+    so a later failure keeps the earlier numbers.  ``eager`` runs every
+    step eagerly."""
+    ex = ["--eager"] if eager else []
+    out = {"ran": True, "cards": torch.cuda.device_count(), "world": world, "band": TP_BAND,
+           "eager": eager, "timed": []}
+    n = 4 if world >= 4 else 2
+    runs = [(1, 1, 8), (n, 1, 8), "profile"] + ([(2, 2, 8), (2, 1, 8)] if world >= 4 else []) \
+        + [(n, 1, 2)]
+    for run in runs:
+        if run == "profile":
+            out["profile"] = {"pp": n, "micro_batches": 8, "stages": [
+                ln["pp_profile"] for ln in _pp_children(n, GPT345_ARGV + [
+                    "--pp", str(n), "--micro-batches", "8", "--steps", "7", "--fused-ce"] + ex)]}
+            emit({"pp_multi_card": {"profile": out["profile"]}})
+            continue
+        pp, tp, M = run
+        rep = _torchrun_pretrain(pp * tp, GPT345_ARGV + [
+            "--pp", str(pp), "--tp", str(tp), "--micro-batches", str(M), "--steps", "10",
+            "--fused-ce"] + ex)
+        row = {"pp": pp, "tp": tp, "micro_batches": M if pp > 1 else None,
+               "graphs": rep["graphs"],
+               "step_ms_median": float(np.median(rep["step_ms"][2:])),
+               "step_ms": rep["step_ms"], "losses": rep["losses"],
+               "peak_memory_gb_rank0": rep["peak_memory_gb"],
+               "bubble_share": (pp - 1) / (M + pp - 1)}
+        if out["timed"]:
+            want = out["timed"][0]["losses"]
+            row["max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], want))
+            if not row["max_rel_diff"] <= TP_BAND:
+                raise AssertionError(f"pp {row} against pp 1's {want}: beyond {TP_BAND}")
+        emit({"pp_multi_card": {"timed": row}})
+        out["timed"].append(row)
+    return out
+
+
+def pp_multi_card_main():
+    """``chip_smoke.py pp_multi_card``: the kernels built, then
+    :func:`pp_multi_card` alone over the host's cards (two or more, up to
+    four), its result as the last line."""
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        raise SystemExit(f"chip_smoke pp_multi_card: needs two or more cards, has {n_cards}")
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    secs = _build.build(force=True)
+    _build.load()
+    emit({"phase": "build", "seconds": secs})
+    t0 = time.monotonic()
+    out = pp_multi_card(min(4, n_cards))
+    emit({"phase": "pp_multi_card", **out, "seconds": time.monotonic() - t0})
+    return 0
+
+
+def pp_child(argv):
+    """One rank of ``torchrun ... chip_smoke.py pp_child <pretrain_gpt
+    flags>``: the run under the profiler; the first and the last stage
+    print their device's busy share over the last steps, NCCL's ms a step
+    and their top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rep = _pretrain_here(argv, profiler=prof)
+    idle = _busy_share(prof)
+    rank, world = rep["rank"], rep["dp"] * rep["pp"] * rep["tp"]
+    if rank in (0, world - 1):
+        k = idle["kernel_ms_per_step"]
+        nccl = sum(ms for name, ms in k.items() if "nccl" in name.lower())
+        print(json.dumps({"pp_profile": {
+            "rank": rank, "stage": "first" if rank == 0 else "last",
+            "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+            "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
+            "nccl_ms_per_step": nccl, "losses": rep["losses"],
+            "peak_memory_gb": rep["peak_memory_gb"],
+            "top_kernels_ms_per_step": dict(list(k.items())[:25])}}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -4159,9 +4495,16 @@ def main():
                          f"this script ({exc})")
     if sys.argv[1:2] == ["tp_child"]:
         return tp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["pp_child"]:
+        return pp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["pp_multi_card"]:
+        return pp_multi_card_main()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a run that stalls ends, with every thread's stack on stderr, inside
+    # the 1200 s it is given
+    STALL.start()
     smi = _smi()
     dev = torch.device("cuda", 0)
     emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4321,8 +4664,10 @@ def main():
     lap("pretrain")
     remainder_launches = zero_phase(smi, full)
     lap("zero")
-    tp_phase(smi)
+    absent = tp_phase(smi)
     lap("tp")
+    pp_phase(smi, absent)
+    lap("pp")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (

@@ -259,6 +259,9 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.contrib.optimizers._quantized_sync\n"
         "import apex_tpu_torch.transformer.tensor_parallel, apex_tpu_torch.transformer.layers\n"
         "import apex_tpu_torch.transformer.enums, apex_tpu_torch.transformer.utils\n"
+        "import apex_tpu_torch.transformer.pipeline_parallel, apex_tpu_torch.transformer.microbatches\n"
+        "import apex_tpu_torch.transformer.pipeline_parallel.utils\n"
+        "import apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -206,23 +206,40 @@ def test_parallel_state_world1_getters_match_jax(world1, devices8):
 
 @pytest.mark.parametrize("kw,item", [
     ({"tensor_model_parallel_size_": 2}, None),
-    ({"pipeline_model_parallel_size_": 2}, "queue 1 item 9"),
+    ({"pipeline_model_parallel_size_": 2}, None),
     ({"context_parallel_size_": 2}, "queue 1 item 9"),
     ({"num_distributed_slices_": 2}, "queue 1 item 6"),
-    ({"virtual_pipeline_model_parallel_size_": 2}, "queue 1 item 9"),
+    ({"virtual_pipeline_model_parallel_size_": 2}, None),
 ], ids=["tp", "pp", "cp", "dcn", "virtual_pp"])
-def test_parallel_state_refusals_name_their_queue_item(kw, item):
+def test_parallel_state_refusals_name_their_queue_item(kw, item, devices8):
     if item is None:
-        # tensor parallelism is ported: on a world it does not divide it is
-        # refused as the JAX mesh refuses it, and tp 1 runs (worlds 2 and 4
-        # at tp 2 and 4 in tests/test_torch_tensor_parallel.py)
+        # tensor and pipeline parallelism are ported: on a world they do
+        # not divide they are refused as the JAX mesh refuses them, and
+        # size 1 runs (worlds 2 and 4 in tests/test_torch_tensor_parallel.py
+        # and tests/test_torch_pipeline_parallel.py); the interleaved
+        # schedule wants pp of 2 or more, as the JAX package does
         multiproc.initialize_distributed("cpu")
         try:
-            with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
-                ps.initialize_model_parallel(**kw)
-            ps.initialize_model_parallel(tensor_model_parallel_size_=1)
+            if "virtual_pipeline_model_parallel_size_" in kw:
+                msg = "greater than 2 with interleaved schedule"
+                with pytest.raises(RuntimeError, match=msg):
+                    ps.initialize_model_parallel(**kw)
+                with pytest.raises(RuntimeError, match=msg):
+                    jps.initialize_model_parallel(devices=devices8[:1], **kw)
+                with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
+                    ps.initialize_model_parallel(pipeline_model_parallel_size_=2, **kw)
+            else:
+                with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
+                    ps.initialize_model_parallel(**kw)
+            ps.initialize_model_parallel(tensor_model_parallel_size_=1,
+                                         pipeline_model_parallel_size_=1)
             assert ps.get_tensor_model_parallel_world_size() == 1
             assert ps.get_tensor_model_parallel_src_rank() == 0
+            assert ps.get_pipeline_model_parallel_world_size() == 1
+            assert ps.is_pipeline_first_stage() and ps.is_pipeline_last_stage()
+            assert ps.get_pipeline_model_parallel_next_rank() == 0
+            assert ps.get_embedding_group().ranks == (0,)
+            assert ps.get_virtual_pipeline_model_parallel_world_size() is None
         finally:
             multiproc.destroy_distributed()
         return

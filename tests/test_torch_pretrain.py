@@ -267,13 +267,23 @@ def test_no_host_read_anywhere_in_a_run(tmp_path, capsys):
                                   ["--chaos-wedge-secs", "5"]],
                          ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise_with_their_queue_item(flag, capsys):
-    if flag[0] in ("--tp", "--sequence-parallel"):
+    if flag[0] in ("--tp", "--sequence-parallel", "--micro-batches"):
         # ported: they run here at world 1 (tp 2 and dp 2 x tp 2 under
-        # torchrun in tests/test_torch_pretrain_tp.py)
+        # torchrun in tests/test_torch_pretrain_tp.py; pp 2 with its
+        # micro-batches in tests/test_torch_pretrain_pp.py); at pp 1
+        # --micro-batches changes nothing, as in the reference
         report, out = _run(flag + ["--steps", "2"], capsys)
         assert "mesh: dp=1 pp=1 tp=1 (1 devices)" in out and report["tp"] == 1
+        assert report["pp"] == 1 and report["micro_batches"] is None
         assert report["sequence_parallel"] == (flag[0] == "--sequence-parallel")
         assert all(math.isfinite(x) for x in report["losses"])
+        return
+    if flag[0] == "--pp":
+        # ported: one rank does not split into two stages, as the JAX
+        # mesh refuses it (pp 2 under torchrun in
+        # tests/test_torch_pretrain_pp.py)
+        with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
+            _run(flag + ["--steps", "1"])
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         _run(flag + ["--steps", "1"])
