@@ -197,6 +197,13 @@ class ZeroOptimizerBase:
         # the CPU path's per-leaf sums (the JAX package's segment_sum)
         self._seg_ids = [torch.from_numpy(self._shard_of(b, bucketing.seg_ids(self._plan, b)))
                          .to(torch.int64) for b in self._plan.buckets]
+        # record-only uniformity seam: the bucket plan is the step's
+        # collective schedule (a reduce-scatter and an all-gather a
+        # bucket), so a rank with another plan wedges every rank;
+        # check_uniform() names this tag instead
+        from apex_tpu_torch.resilience.uniformity import assert_uniform
+
+        assert_uniform("zero.bucket_plan", self.plan_fingerprint())
         return self._plan
 
     def _require_plan(self) -> bucketing.BucketPlan:

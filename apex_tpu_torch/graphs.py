@@ -31,19 +31,48 @@ donate_argnums=...)``.
   Counts then equal an eager run's.
 
 A capture or a replay that fails raises.  Nothing falls back to eager.
+
+**Teardown.** A graph that captured NCCL work (a collective or a
+stage-to-stage exchange) must be freed before its process group is
+destroyed: ``destroy_process_group`` with such a graph alive waited for
+good on four H100s (ROADMAP.md section 3).
+:func:`release_graphs` frees every live graph, and
+:func:`apex_tpu_torch.parallel.destroy_distributed` calls it first; a
+released step raises if called again.
 """
 
 import time
+import weakref
 
 import torch
 
 from apex_tpu_torch import ops
 from apex_tpu_torch.optimizers.bucketing import Buckets
 
-__all__ = ["CapturedStep", "add_counts", "capture_counted", "tensor_leaves"]
+__all__ = ["CapturedStep", "add_counts", "capture_counted", "release_graphs",
+           "tensor_leaves"]
 
 #: the side stream of each device's warm-ups and captures
 _SIDE_STREAMS = {}
+#: the steps whose graphs are alive
+_LIVE = weakref.WeakSet()
+
+
+def release_graphs() -> int:
+    """Free the graph of every live :class:`CapturedStep` (after the
+    device has finished its replays) and return how many were freed.
+    Call it before destroying a process group whose collectives a graph
+    captured; a released step raises if it is called again."""
+    n = 0
+    for step in list(_LIVE):
+        if step.graph is not None:
+            if step.device.type == "cuda":
+                torch.cuda.synchronize(step.device)
+            step.graph.reset()
+            step.graph, step._out, step.released = None, None, True
+            n += 1
+    _LIVE.clear()
+    return n
 
 
 def tensor_leaves(tree):
@@ -104,8 +133,12 @@ class CapturedStep:
         self._donated = None    # per donated position: its tensors' data_ptrs
         self._out = None
         self._delta = None
+        self.released = False
 
     def __call__(self, *args):
+        if self.released:
+            raise RuntimeError("this step's graph was released (release_graphs, before its "
+                               "process group was destroyed): build the step again")
         if self._static is None:
             self._setup(args)
         elif len(args) != len(self._static):
@@ -190,5 +223,6 @@ class CapturedStep:
             self._out, self._delta = capture_counted(capture)
             current.wait_stream(side)
             self.graph = graph
+            _LIVE.add(self)
             self.capture_seconds = time.perf_counter() - t0
         return out

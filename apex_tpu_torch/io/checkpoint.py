@@ -108,15 +108,29 @@ _RAW_NAMES = {torch.bfloat16: ("bfloat16", torch.int16),
               torch.float8_e5m2: ("float8_e5m2", torch.uint8)}
 
 
+def _chaos_io(site: str) -> None:
+    """The fault-injection seam for slow or failing checkpoint I/O
+    (:func:`apex_tpu_torch.resilience.chaos.check_io`, the JAX module's
+    :51-59).  It runs inside each retried attempt, so an injected
+    failure budget burns down across attempts as a recovering
+    filesystem would."""
+    from apex_tpu_torch.resilience.chaos import check_io
+
+    check_io(site)
+
+
 def _with_io_retries(fn, op: str, path, retries=None):
     """Run one checkpoint I/O operation with bounded, jittered,
     structured-logged retry-with-backoff on transient ``OSError``s.
-    Never retried: deterministic OSErrors (``_IO_NO_RETRY``) and
-    ``ValueError`` (short reads / bad headers — corrupt bytes don't
-    heal).  The final attempt's error propagates unwrapped."""
+    Each attempt first passes the chaos seam ``ckpt.<op>``
+    (:func:`_chaos_io`).  Never retried: deterministic OSErrors
+    (``_IO_NO_RETRY``) and ``ValueError`` (short reads / bad headers —
+    corrupt bytes don't heal).  The final attempt's error propagates
+    unwrapped."""
     n = _IO_RETRIES if retries is None else int(retries)
     for attempt in range(n + 1):
         try:
+            _chaos_io(f"ckpt.{op}")
             return fn()
         except OSError as e:
             if isinstance(e, _IO_NO_RETRY) or attempt >= n:
@@ -472,13 +486,38 @@ def _candidates(d: Path, suffixes):
 
 
 def probe_checkpoint_dir(dir_path) -> Optional[CorruptCheckpoint]:
-    """Deep-probe the file the NEXT restore would load (the newest
-    validating ``.ckpt``/``.apex`` file).  Returns ``None`` when it is
-    healthy or there is nothing to probe, and a :class:`CorruptCheckpoint`
-    naming it when its bytes are corrupt beyond what the torn-size check
-    sees."""
+    """Deep-probe what the NEXT restore would load (the JAX module's
+    decisions): the newest complete ``step_*`` directory (every shard
+    through :func:`probe_checkpoint`) or, in the single-file layout, the
+    newest validating ``.ckpt``/``.apex`` file.  Returns ``None`` when
+    it is healthy or there is nothing to probe, and a
+    :class:`CorruptCheckpoint` naming it when its bytes are corrupt
+    beyond what the torn-size check sees — or when step directories
+    exist and none is complete (a hard-killed first publish), which the
+    resume side can only refuse: the supervisor's quarantine trigger, so
+    an interrupted save costs one save interval and never a crash loop."""
     d = Path(dir_path)
     if not d.is_dir():
+        return None
+    if any(p.is_dir() for p in d.glob("step_*")):
+        try:
+            step = latest_distributed_step(d)
+        except AllCheckpointsTornError as e:
+            # none complete: report the newest for quarantine (its bytes
+            # kept for the postmortem); the relaunch then resumes from an
+            # older directory or starts fresh
+            dirs = sorted((p for p in d.glob("step_*") if p.is_dir()), key=checkpoint_step)
+            return CorruptCheckpoint(str(dirs[-1]),
+                                     f"incomplete publish (hard-killed writer?): {e}")
+        if step < 0:
+            return None
+        sd = d / f"step_{step:08d}"
+        try:
+            world = int(read_index(sd)["world_size"])
+            for r in range(world):
+                probe_checkpoint(sd / _shard_name(r, world))
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            return CorruptCheckpoint(str(sd), f"{type(e).__name__}: {e}")
         return None
     for p in _candidates(d, (".ckpt", ".apex")):
         try:
@@ -494,14 +533,20 @@ def probe_checkpoint_dir(dir_path) -> Optional[CorruptCheckpoint]:
 
 
 def quarantine_checkpoint(dir_path, target, reason: str) -> str:
-    """Atomically move a corrupt checkpoint file into a ``quarantine/``
-    sibling with a reason file, so the next restore resumes from the
-    previous step and the bad bytes stay available for the postmortem.
+    """Atomically move a corrupt checkpoint (a ``step_*`` directory or a
+    single file) into a ``quarantine/`` sibling with a reason file, so
+    the next restore resumes from the previous step and the bad bytes
+    stay available for the postmortem.  One same-filesystem
+    ``os.replace``; a same-named earlier quarantine entry is replaced.
     Returns the quarantined path."""
     t = Path(target)
     q = Path(dir_path) / "quarantine"
     q.mkdir(parents=True, exist_ok=True)
     dest = q / t.name
+    if dest.is_dir():
+        import shutil
+
+        shutil.rmtree(dest, ignore_errors=True)
     os.replace(str(t), str(dest))
     payload = json.dumps({
         "path": str(t), "quarantined_to": str(dest),

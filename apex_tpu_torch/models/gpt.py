@@ -845,7 +845,7 @@ PP_ITEM = "MoE and context parallelism, ROADMAP.md queue 1 item 9"
 def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
                        virtual_pipeline_size: int = 1, *, loss_scaler=None, step_guard=None,
                        clip_grad_norm=None, graphs=None, warmup: int = 1, telemetry=None,
-                       dp_group=None, tp_group=None, pp_group=None, cp_axis=None):
+                       dp_group=None, tp_group=None, pp_group=None, cp_axis=None, chaos=None):
     """The pipelined (pp x tp x dp) train step, the twin of the JAX
     package's ``make_pp_train_step`` (apex_tpu/models/gpt.py:1854):
     ``step(params, state, [scaler_state], [guard_state], [stats], tokens,
@@ -875,6 +875,10 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     every stage skips a step together; the clip's Σx² and the
     telemetry's norms sum the stage leaves over pp (and tp where split)
     and count the replicated leaves once (:func:`clip_sumsq_reduce`).
+    ``chaos`` (with ``step_guard``) scales every microbatch loss by its
+    planned fault before the loss scale, so a planned NaN seeds every
+    stage's backward and the vote skips the step everywhere (the JAX
+    step's ``_scaled_fns``).
 
     ``dp_group`` / ``tp_group``: ``AxisGroup`` handles of
     :mod:`~apex_tpu_torch.transformer.parallel_state`; ``pp_group``: the
@@ -883,8 +887,9 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     is one CUDA graph after the eager warm-up (which makes every NCCL
     channel before the capture).
     A ZeRO optimizer raises (ROADMAP.md queue 1 item 12), and so do MoE
-    (``GPTConfig``) and ``cp_axis`` (item 9), and vpp > 1 over NCCL
-    (ROADMAP.md section 3: not yet run to its end on cards)."""
+    (``GPTConfig``) and ``cp_axis`` (item 9), and over NCCL vpp > 1 and
+    tp > 1 with pp > 1 (ROADMAP.md section 3: the first not yet run to
+    its end on cards at GPT-345M, the second NaN there)."""
     from apex_tpu_torch.optimizers.tree import tree_leaves
     from apex_tpu_torch.train_gpt import _make_step, _refuse_zero_with_model_parallel
     from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
@@ -893,7 +898,7 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
         forward_backward_pipelining_without_interleaving,
     )
     from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule import (
-        check_interleaved_backend,
+        check_interleaved_backend, check_tp_backend,
     )
 
     if cp_axis is not None:
@@ -912,6 +917,8 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     tp = _tp(tp_group)
     if tp is not None:
         check_tp(config, tp.size())
+        if P > 1:
+            check_tp_backend(group, tp.size())
     sp = config.sequence_parallel and tp is not None
     pipe = group if P > 1 else None
     reduce = clip_sumsq_reduce(config, tp, pipe) if (tp is not None or pipe is not None) \
@@ -955,4 +962,4 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
                       warmup=warmup, telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=sync,
                       clip_sumsq=reduce if clip_grad_norm is not None else None,
-                      norm_sumsq=reduce)
+                      norm_sumsq=reduce, chaos=chaos)

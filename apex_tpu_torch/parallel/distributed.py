@@ -25,6 +25,8 @@ skips it).  The backward-overlapped sync (hooks on a side stream) is
 not ported yet (ROADMAP.md queue 1 item 6, what it left).
 """
 
+import contextlib
+
 import torch
 
 from apex_tpu_torch.optimizers import bucketing
@@ -119,7 +121,8 @@ class Reducer:
 class DistributedDataParallel:
     """``ddp = DistributedDataParallel(module, ...)``; ``grads =
     ddp.sync(grads)`` in the step.  The reference's overlap-engine
-    options (``message_size`` becomes the bucket cap, the rest is
+    options (``message_size`` becomes the bucket cap, ``prof`` wraps the
+    sync in an ``allreduce_gradients`` profiler range, the rest is
     accepted and ignored: the sync runs after the backward)."""
 
     def __init__(self, module=None, message_size: int = 10000000, delay_allreduce: bool = False,
@@ -134,12 +137,20 @@ class DistributedDataParallel:
         self.allreduce_always_fp32 = allreduce_always_fp32
         self.gradient_average = gradient_average
         self.gradient_predivide_factor = gradient_predivide_factor
+        self.prof = prof
 
     def sync(self, grads):
-        return allreduce_gradients(
-            grads, group=self.group, gradient_average=self.gradient_average,
-            gradient_predivide_factor=self.gradient_predivide_factor,
-            allreduce_always_fp32=self.allreduce_always_fp32, bucket_cap_mb=self.bucket_cap_mb)
+        ctx = contextlib.nullcontext()
+        if self.prof:  # reference distributed.py:363's NVTX range
+            from apex_tpu_torch.utils.profiler import nvtx_range
+
+            ctx = nvtx_range("allreduce_gradients")
+        with ctx:
+            return allreduce_gradients(
+                grads, group=self.group, gradient_average=self.gradient_average,
+                gradient_predivide_factor=self.gradient_predivide_factor,
+                allreduce_always_fp32=self.allreduce_always_fp32,
+                bucket_cap_mb=self.bucket_cap_mb)
 
     def __call__(self, *args, **kwargs):
         if self.module is None:

@@ -83,11 +83,16 @@ def initialize_distributed(device="cuda", init_method: Optional[str] = None,
 
 
 def destroy_distributed() -> None:
-    """Tear the default group (and every group built over it) down."""
+    """Tear the default group (and every group built over it) down, after
+    freeing every captured graph (:func:`apex_tpu_torch.graphs
+    .release_graphs`): a graph alive with captured NCCL work keeps
+    ``destroy_process_group`` waiting for good."""
     import torch.distributed as dist
 
+    from apex_tpu_torch.graphs import release_graphs
     from apex_tpu_torch.transformer import parallel_state
 
+    release_graphs()
     parallel_state.destroy_model_parallel()
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -10,9 +10,10 @@ over a ``torch.distributed`` group of one process a rank.
     #   two ranks under gloo (NCCL and one card a rank on CUDA)
     torchrun --nproc-per-node 2 -m apex_tpu_torch.pretrain_gpt --tp 2 --sequence-parallel
     #   tensor (and sequence) parallel over two ranks
-    torchrun --nproc-per-node 4 -m apex_tpu_torch.pretrain_gpt --tp 2 --pp 2
+    torchrun --nproc-per-node 4 -m apex_tpu_torch.pretrain_gpt --device cpu --tp 2 --pp 2
     #   two pipeline stages of two tensor-parallel ranks each (1F1B over
-    #   --micro-batches 2)
+    #   --micro-batches 2); over NCCL, tp > 1 with pp > 1 raises
+    #   (ROADMAP.md section 3: NaN losses on four H100s)
     ... --checkpoint /tmp/gpt_ck --steps 4       # then: --resume /tmp/gpt_ck
     ... --checkpoint /tmp/gpt_ck --auto-resume   # SIGTERM saves, drains and
     #   exits 0; rerunning the same line resumes from the newest valid
@@ -20,6 +21,14 @@ over a ``torch.distributed`` group of one process a rank.
     ... --data tokens.bin --data-dtype uint16    # a memmapped token corpus
     ... --metrics-dir /tmp/m --trace-dir /tmp/t  # telemetry, goodput, spans
     ... --watchdog-secs 60                       # wedged step: drain, exit 75
+    ... --chaos-kill-at-step 3                   # chaos: die hard (exit 137, no save)
+    ... --chaos-wedge-step 4 --chaos-wedge-secs 300 --watchdog-secs 3   # a wedged step
+    ... --supervise --zero --checkpoint /tmp/gpt_ck --auto-resume --save-every 1
+    #   self-healing: a supervisor relaunches this same command as its
+    #   child on 75 / 137 / a crash with full-jitter backoff, quarantines
+    #   a corrupt newest checkpoint, opens its breaker (exit 76) after
+    #   --crash-loop-threshold failures with no progress, and prints the
+    #   whole job's goodput (apex_tpu_torch.resilience.supervisor)
 
 The flags, their defaults and the printed lines are the reference
 driver's where they apply.  The step is :func:`apex_tpu_torch.train_gpt
@@ -89,11 +98,17 @@ valid file in it) or one file.  Batches are Megatron-sampled rows of
 random corpus from seed 0), gathered by the native ``gather_rows`` on a
 prefetch thread.
 
-Flags of the reference that need modules not yet ported raise, naming
-the ROADMAP.md queue item that brings them: ``--supervise`` and the
-``--chaos-*`` faults.  ``--auto-resume`` does not
-degrade kernel failures to a fallback as the reference's does: a kernel
-that fails to build or launch raises, as everywhere in the port.
+``--supervise`` is handled by :func:`main` before anything touches the
+device (the parent must not hold the card its child needs): it runs
+:func:`apex_tpu_torch.resilience.supervisor.run_supervised_cli` over
+``python -m apex_tpu_torch.pretrain_gpt`` and the same flags less the
+supervisor's own.  The ``--chaos-*`` faults are delivered at the top of
+the planned step, after the watchdog's heartbeat: a kill raises
+:class:`~apex_tpu_torch.resilience.chaos.ChaosHostKilled` (exit 137, no
+save, no drain) on rank 0, a wedge sleeps the step's dispatch.
+``--auto-resume`` does not degrade kernel failures to a fallback as the
+reference's does: a kernel that fails to build or launch raises, as
+everywhere in the port.
 
 Before the reference's final ``N steps in Xs (T tokens/s)`` line the
 port prints one JSON line, ``{"pretrain_gpt": {...}}``: every step's loss
@@ -119,17 +134,6 @@ FP16_INIT_SCALE = 2.0 ** 12
 
 #: what a resume at another tp or pp than the checkpoint's waits for
 TP_LAYOUT_ITEM = "resharding a checkpoint across tp and pp, ROADMAP.md queue 1 item 13"
-
-#: flags of the reference whose modules are not ported: (flag, is it set,
-#: what brings it)
-_UNPORTED = (
-    ("--supervise", lambda a: a.supervise,
-     "resilience.supervisor, ROADMAP.md queue 1 item 5"),
-    ("--chaos-*", lambda a: (a.chaos_kill_at_step is not None or a.chaos_wedge_step is not None
-                             or a.chaos_wedge_secs is not None),
-     "resilience.chaos, ROADMAP.md queue 1 item 5"),
-)
-
 
 def build_args():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -187,12 +191,12 @@ def build_args():
                    help="the FIRST step's watchdog allowance (the kernels' build and "
                         "the graph capture make it legitimately slow)")
     p.add_argument("--chaos-kill-at-step", type=int, default=None,
-                   help="chaos: die hard at this step (not ported yet)")
+                   help="chaos: die hard (exit 137, no save, no drain) at this loop "
+                        "step; rerunning the same command resumes")
     p.add_argument("--chaos-wedge-step", type=int, default=None,
-                   help="chaos: wedge this step's dispatch (not ported yet)")
-    p.add_argument("--chaos-wedge-secs", type=float, default=None,
-                   help="chaos: the wedged step's seconds, 120 in the reference "
-                        "(not ported yet)")
+                   help="chaos: wedge this loop step's dispatch for --chaos-wedge-secs "
+                        "(pair with --watchdog-secs for the drain-and-exit path)")
+    p.add_argument("--chaos-wedge-secs", type=float, default=120.0)
     p.add_argument("--metrics-dir", default=None,
                    help="observability sink dir: device-side StepStats telemetry "
                         "fetched asynchronously, windows in metrics.jsonl, a final "
@@ -217,13 +221,14 @@ def build_args():
                         "flushes before exiting; the same command line works for the "
                         "first launch and every restart.  Unlike the reference, kernel "
                         "failures are not degraded to a fallback: they raise")
-    p.add_argument("--supervise", action="store_true",
-                   help="self-healing outer supervisor (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for the "
                         "kernels' plain versions")
     p.add_argument("--eager", action="store_true",
                    help="run the step eagerly instead of as a captured CUDA graph")
+    from apex_tpu_torch.resilience.supervisor import add_supervisor_args
+
+    add_supervisor_args(p)
     return p
 
 
@@ -261,9 +266,9 @@ def run(args):
     """The training loop; returns the report the JSON line prints.  The
     process group is started here unless one is up already, and torn
     down with the run when it was started here."""
-    for flag, is_set, brings in _UNPORTED:
-        if is_set(args):
-            raise NotImplementedError(f"{flag} is not ported yet: it comes with {brings}")
+    if args.supervise:
+        raise ValueError("--supervise runs this command as a supervised child process: "
+                         "call main(), not run()")
     if args.auto_resume and not args.checkpoint:
         raise SystemExit("--auto-resume needs --checkpoint (the dir it both resumes "
                          "from and saves into)")
@@ -320,6 +325,7 @@ def _train(args, dev, dp_group, tp_group, pp_group):
     from apex_tpu_torch.observability.tracing import span
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+    from apex_tpu_torch.resilience.elastic import top_of_step
     from apex_tpu_torch.train_gpt import make_train_step
     from apex_tpu_torch.transformer._data import MegatronPretrainingSampler
 
@@ -609,6 +615,15 @@ def _train(args, dev, dp_group, tp_group, pp_group):
     # SIGTERM -> finish the current step, save, flush the queue, exit 0
     pre = resilience.PreemptionHandler().install() if args.auto_resume else None
 
+    # the faults armed from the command line: a hard kill of rank 0, a
+    # wedged step
+    chaos = None
+    if args.chaos_kill_at_step is not None or args.chaos_wedge_step is not None:
+        chaos = resilience.ChaosMonkey(resilience.ChaosPlan.make(
+            kill_at=({0: args.chaos_kill_at_step}
+                     if args.chaos_kill_at_step is not None else None),
+            wedge_step_at=args.chaos_wedge_step, wedge_step_seconds=args.chaos_wedge_secs))
+
     def on_wedge(info):
         """Watchdog pre-exit hook, each piece best-effort on its own: the
         forced step-time alert, a final metrics snapshot, the trace, and
@@ -686,8 +701,9 @@ def _train(args, dev, dp_group, tp_group, pp_group):
     done = 0
     for i in range(start_step, start_step + args.steps):
         done = i - start_step + 1
-        if watchdog is not None:
-            watchdog.beat(i, deadline=(args.watchdog_compile_grace if i == start_step else None))
+        # a wedge sleeps past the watchdog's deadline; a kill exits 137
+        top_of_step(i, watchdog, chaos, dist.get_rank(),
+                    deadline=args.watchdog_compile_grace if i == start_step else None)
         obs.set_step_context(step=i)
         with span("train.data_wait"):
             tokens, targets = next(prefetch)
@@ -807,6 +823,16 @@ def _train(args, dev, dp_group, tp_group, pp_group):
 
 def main(argv=None):
     args = build_args().parse_args(argv)
+    if args.supervise:
+        # before anything touches the device: the child needs the card
+        from apex_tpu_torch.resilience.supervisor import run_supervised_cli
+
+        if args.checkpoint and not args.auto_resume:
+            raise SystemExit("--supervise needs --auto-resume with --checkpoint: a "
+                             "restarted child that does not resume would retrain from "
+                             "step 0")
+        return run_supervised_cli(args, None if argv is None else ["pretrain_gpt", *argv],
+                                  module="apex_tpu_torch.pretrain_gpt")
     report = run(args)
     if report["rank"] == 0:
         print(json.dumps({"pretrain_gpt": report}), flush=True)

@@ -6,12 +6,15 @@ recorder dump, a bounded drain of the async checkpointer (every
 ACCEPTED save durable; the wedged step itself is lost by definition),
 then ``os._exit(EXIT_WEDGED)`` so a supervisor restarts with backoff.
 
-Exit-code contract (what a supervisor keys restart policy on)::
+Exit-code contract (what :class:`~apex_tpu_torch.resilience.supervisor
+.Supervisor` keys its restart policy on)::
 
     0            clean finish, or preemption save+drain (resume freely)
     EXIT_WEDGED  (75, EX_TEMPFAIL) the watchdog killed a wedged step —
-                 restart with backoff; the run resumes from its newest
-                 valid checkpoint
+                 restart with backoff (:func:`restart_backoff`); the run
+                 resumes from its newest valid checkpoint
+    EXIT_KILLED  (137, 128+SIGKILL) a hard kill, or the chaos harness's
+                 stand-in for one — restart
     anything else: a real crash; do not blindly restart
 
 Elastic checkpoints (:func:`save_elastic_checkpoint` /
@@ -24,8 +27,8 @@ pieces (params, the step, the loss-scaler / StepGuard / RNG state
 dicts).  A ZeRO state saved at one world restores at another through
 ``load_sharded_state_dicts``, residuals included; a JAX-saved directory
 restores here and the reverse.  :class:`ElasticRunController` is the
-loop's side of it (restore-or-fresh, saves with bounded disk); its
-chaos delivery is not ported (ROADMAP.md queue 1 item 5).
+loop's side of it (restore-or-fresh, the heartbeat and the chaos
+faults planned for a step, saves with bounded disk).
 """
 
 import logging
@@ -42,8 +45,9 @@ from apex_tpu_torch.observability import flightrec as _flightrec
 from apex_tpu_torch.observability import metrics as _metrics
 from apex_tpu_torch.utils.logging import get_logger, log_structured
 
-__all__ = ["EXIT_WEDGED", "ElasticRestore", "ElasticRunController", "StepWatchdog",
-           "restore_elastic_checkpoint", "save_elastic_checkpoint"]
+__all__ = ["EXIT_KILLED", "EXIT_WEDGED", "ElasticRestore", "ElasticRunController",
+           "StepWatchdog", "restart_backoff", "restore_elastic_checkpoint",
+           "save_elastic_checkpoint"]
 
 _logger = get_logger("apex_tpu_torch.resilience")
 
@@ -52,6 +56,28 @@ _logger = get_logger("apex_tpu_torch.resilience")
 #: Python's generic 1 so a supervisor can apply restart-with-backoff to
 #: exactly the wedged-step case.
 EXIT_WEDGED = 75
+
+#: 128+SIGKILL — what a hard-killed process reports; the chaos harness's
+#: :class:`~apex_tpu_torch.resilience.chaos.ChaosHostKilled` carries it,
+#: so a supervisor cannot tell the simulated death from a real one.
+EXIT_KILLED = 137
+
+
+def restart_backoff(attempt: int, base: float = 2.0, cap: float = 300.0,
+                    seed: int = 0, rng=None) -> float:
+    """The supervisor's backoff (the JAX module's, to the bit): full
+    jitter, attempt ``k`` sleeps ``uniform(0, min(cap, base·2^k))``
+    seconds, deterministic per ``(seed, attempt)``; a host seeds by its
+    rank so a pod's restarts do not land in lockstep.  ``rng`` (anything
+    with ``uniform(a, b)``) overrides the per-(seed, attempt) stream."""
+    import random
+
+    if attempt < 0:
+        raise ValueError(f"attempt must be >= 0, got {attempt}")
+    hi = min(float(cap), float(base) * (2.0 ** int(attempt)))
+    if rng is None:
+        rng = random.Random(int(seed) * 1000003 + int(attempt))
+    return rng.uniform(0.0, hi)
 
 
 # ---------------------------------------------------------- step watchdog
@@ -412,10 +438,23 @@ def restore_elastic_checkpoint(dir_path, *, optimizer, world_size: int,
 
 
 # ---------------------------------------------------------- run controller
+def top_of_step(step: int, watchdog=None, chaos=None, rank: int = 0,
+                deadline: Optional[float] = None) -> None:
+    """A training loop's top-of-iteration hooks, in their one order: the
+    watchdog's heartbeat (``deadline`` overrides this interval's
+    allowance), then ``chaos``'s faults planned for ``step``: a wedged
+    dispatch the watchdog should catch, then a hard kill of ``rank``."""
+    if watchdog is not None:
+        watchdog.beat(step, deadline=deadline)
+    if chaos is not None:
+        chaos.maybe_wedge_step(step)
+        chaos.maybe_kill(step, rank=rank)
+
+
 class ElasticRunController:
     """The loop's side of elastic checkpoints: restore-or-fresh, the
-    per-step watchdog heartbeat, saves with bounded disk (the JAX
-    module's :464 without its chaos delivery)::
+    per-step watchdog heartbeat and chaos delivery, saves with bounded
+    disk (the JAX module's :464)::
 
         ctl = ElasticRunController(ckdir, optimizer, world_size=dp,
                                    mesh_axes={"tp": 1, "pp": 1}, checkpointer=ckpt)
@@ -425,11 +464,15 @@ class ElasticRunController:
             ...train...
             ctl.save(step + 1, params, state)
 
-    Every rank runs it: each saves its own shard, and rank 0 prunes."""
+    Every rank runs it: each saves its own shard, and rank 0 prunes.
+    ``chaos``: a :class:`~apex_tpu_torch.resilience.chaos.ChaosMonkey`
+    whose wedged dispatch and per-rank hard kill :meth:`on_step`
+    delivers; ``rank`` is this host's index for its kill plan."""
 
     def __init__(self, checkpoint_dir, optimizer, world_size: int,
                  mesh_axes: Optional[Mapping[str, int]] = None, checkpointer=None,
-                 watchdog: Optional[StepWatchdog] = None, keep: int = 3):
+                 watchdog: Optional[StepWatchdog] = None, keep: int = 3, chaos=None,
+                 rank: int = 0):
         self.dir = checkpoint_dir
         self.optimizer = optimizer
         self.world_size = int(world_size)
@@ -437,6 +480,8 @@ class ElasticRunController:
         self.checkpointer = checkpointer
         self.watchdog = watchdog
         self.keep = max(int(keep), 1)
+        self.chaos = chaos
+        self.rank = int(rank)
 
     def __enter__(self):
         if self.watchdog is not None:
@@ -449,9 +494,11 @@ class ElasticRunController:
         return False
 
     def on_step(self, step: int, deadline: Optional[float] = None) -> None:
-        """Top-of-iteration hook: the watchdog's heartbeat."""
-        if self.watchdog is not None:
-            self.watchdog.beat(step, deadline=deadline)
+        """Top-of-iteration hook: the watchdog's heartbeat (``deadline``
+        overrides this interval's allowance), then the chaos faults
+        planned for ``step``: a wedged dispatch the watchdog should
+        catch, a hard kill of this rank."""
+        top_of_step(step, self.watchdog, self.chaos, self.rank, deadline)
 
     def restore(self, opt_state=None, params=None, scaler_state=None) -> Optional[ElasticRestore]:
         return restore_elastic_checkpoint(

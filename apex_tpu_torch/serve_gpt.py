@@ -27,12 +27,31 @@ counterpart of ``JAX_DISABLE_JIT=1``.  The kernel library is built (or
 found current) before the clock starts; the graphs are captured on the
 clock, at each step's first call, as the reference compiles its steps,
 and ``capture_ms`` reports the host time the captures took.
+
+The reference driver's observability and resilience flags (the
+scheduler's hooks, host code around the steps):
+
+    python -m apex_tpu_torch.serve_gpt --metrics-dir /tmp/m --trace-dir /tmp/t
+    #   serving gauges and latency histograms (with trace-id exemplars) in
+    #   metrics[_<replica>].jsonl / .prom, per-request spans in a
+    #   Perfetto trace, a flight recorder, per-lane anomaly counts
+    python -m apex_tpu_torch.serve_gpt --watchdog-secs 10 \
+        --chaos-wedge-decode-step 5 --chaos-wedge-secs 60
+    #   a wedged decode step: the serve.step_wedged manifest (every
+    #   queued and in-flight request), exit 75
+    python -m apex_tpu_torch.serve_gpt --supervise --watchdog-secs 10
+    #   the same command as a supervised child, restarted after exit 75
+
+``--watchdog-compile-grace`` is the first step's allowance: in the port
+it covers the kernels' build and the graph captures.  ``--supervise`` is
+handled by :func:`main` before anything touches the device.
 """
 
 import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -97,6 +116,36 @@ def build_args():
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu' for "
                         "the kernels' plain versions")
+    # ---- observability and resilience (the reference driver's flags) ----
+    p.add_argument("--metrics-dir", default=None,
+                   help="observability sink dir: the serving gauges and latency "
+                        "histograms land in metrics.jsonl plus a Prometheus snapshot "
+                        "metrics.prom")
+    p.add_argument("--run-id", default="serve",
+                   help="correlation id on metrics points and trace spans")
+    p.add_argument("--replica-id", default=None,
+                   help="this process's fleet replica id: suffixes the metrics files "
+                        "(metrics_<id>.jsonl / .prom) and folds into --run-id, so "
+                        "replicas share one --metrics-dir / --trace-dir")
+    p.add_argument("--trace-dir", default=None,
+                   help="per-request spans (admission wait, prefill chunks, decode and "
+                        "verify steps with their accept counts), each with the "
+                        "request's trace_id, exported as trace_<run-id>_<pid>.json; a "
+                        "flight recorder dumps here on a wedged step")
+    p.add_argument("--watchdog-secs", type=float, default=None,
+                   help="serving step watchdog: a step exceeding this many seconds logs "
+                        "the requeue manifest (serve.step_wedged), records "
+                        "apex_serve_wedges_total and exits 75 for a supervisor")
+    p.add_argument("--watchdog-compile-grace", type=float, default=600.0,
+                   help="the FIRST step's watchdog allowance (the kernels' build and "
+                        "the graph captures make it slow)")
+    p.add_argument("--chaos-wedge-decode-step", type=int, default=None,
+                   help="chaos: wedge the step after this many decode steps for "
+                        "--chaos-wedge-secs (pair with --watchdog-secs)")
+    p.add_argument("--chaos-wedge-secs", type=float, default=120.0)
+    from apex_tpu_torch.resilience.supervisor import add_supervisor_args
+
+    add_supervisor_args(p)
     return p
 
 
@@ -214,18 +263,67 @@ def setup(args):
 
 def run(args):
     """Serve ``args.requests`` requests; returns ``(report, scheduler,
-    params, config)``."""
-    config, params, dcfg = setup(args)
-    sched = ContinuousBatchingScheduler(params, config, dcfg, device=args.device,
-                                        graphs=False if args.eager else None)
-    if sched.device.type == "cuda":
-        from apex_tpu_torch.ops import _build
+    params, config)``.  The hooks this run installs (tracer, flight
+    recorder, watchdog, chaos plan) go with it."""
+    from apex_tpu_torch.observability import AnomalyMonitor, flightrec, tracing
+    from apex_tpu_torch.observability import get_metrics, set_step_context
+    from apex_tpu_torch.resilience import ChaosMonkey, ChaosPlan, StepWatchdog
 
-        _build.load()  # set-up: build or load the kernels before the clock
-    reqs, arrivals = make_requests(args, np.random.RandomState(args.seed))
-    t0 = time.monotonic()
-    completions = serve(sched, reqs, arrivals)
-    wall = time.monotonic() - t0
+    if args.supervise:
+        raise ValueError("--supervise runs this command as a supervised child process: "
+                         "call main(), not run()")
+    config, params, dcfg = setup(args)
+    rep_sfx = f"_{args.replica_id}" if args.replica_id else ""
+    run_id = f"{args.run_id}_{args.replica_id}" if args.replica_id else args.run_id
+    set_step_context(run_id=run_id, step=0)
+    registry = get_metrics()  # where the scheduler's gauges and histograms land
+    tracer = None
+    if args.trace_dir:
+        Path(args.trace_dir).mkdir(parents=True, exist_ok=True)
+        tracer = tracing.configure()
+    flight_dir = flightrec.default_dir(metrics_dir=args.metrics_dir, trace_dir=args.trace_dir)
+    recorder = None
+    if flight_dir is not None:
+        recorder = flightrec.install(flightrec.FlightRecorder(flight_dir, run_id=run_id))
+        if tracer is not None:
+            recorder.attach(tracer)
+    anomaly = AnomalyMonitor() if (args.metrics_dir or args.trace_dir) else None
+    # a wedged step logs the requeue manifest and exits 75 (no
+    # checkpointer to drain: a server's state is its requests)
+    watchdog = None
+    if args.watchdog_secs is not None:
+        watchdog = StepWatchdog(args.watchdog_secs,
+                                first_deadline_sec=args.watchdog_compile_grace)
+    monkey = None
+    if args.chaos_wedge_decode_step is not None:
+        monkey = ChaosMonkey(ChaosPlan.make(wedge_step_at=args.chaos_wedge_decode_step,
+                                            wedge_step_seconds=args.chaos_wedge_secs))
+    try:
+        sched = ContinuousBatchingScheduler(params, config, dcfg, device=args.device,
+                                            graphs=False if args.eager else None,
+                                            watchdog=watchdog, anomaly=anomaly,
+                                            metrics=bool(args.metrics_dir))
+        if sched.device.type == "cuda":
+            from apex_tpu_torch.ops import _build
+
+            _build.load()  # set-up: build or load the kernels before the clock
+        reqs, arrivals = make_requests(args, np.random.RandomState(args.seed))
+        if watchdog is not None:
+            watchdog.start()
+        t0 = time.monotonic()
+        if monkey is not None:
+            with monkey.active():
+                completions = serve(sched, reqs, arrivals)
+        else:
+            completions = serve(sched, reqs, arrivals)
+        wall = time.monotonic() - t0
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if recorder is not None:
+            flightrec.uninstall()
+        if tracer is not None:
+            tracing.disable()
     out = report(completions, wall)
     out["graphs"] = sched.device.type == "cuda" and not args.eager
     out["capture_ms"] = round(1e3 * sched.capture_seconds, 2)
@@ -237,11 +335,31 @@ def run(args):
         full_per = args.system_prompt_len // args.page_size
         out["page_dedupe_ratio"] = round(
             sched.stats["shared_full_pages"] / max(len(completions) * full_per, 1), 3)
+    if args.metrics_dir:
+        mdir = Path(args.metrics_dir)
+        mdir.mkdir(parents=True, exist_ok=True)
+        registry.snapshot_jsonl(mdir / f"metrics{rep_sfx}.jsonl")
+        (mdir / f"metrics{rep_sfx}.prom").write_text(registry.prometheus_text())
+        out["metrics_dir"] = str(mdir)
+    if anomaly is not None:
+        anomaly.persist(args.metrics_dir or args.trace_dir)
+        out["anomaly"] = {"counts": anomaly.counts(), "by_lane": anomaly.counts_by("lane")}
+    if tracer is not None:
+        out["trace_file"] = tracing.export_run(args.trace_dir, run_id, tracer)["chrome"]
     return out, sched, params, config
 
 
 def main(argv=None):
-    out = run(build_args().parse_args(argv))[0]
+    args = build_args().parse_args(argv)
+    if args.supervise:
+        # the trainer's supervisor, with no checkpoint dir: a serving
+        # restart is stateless (the wedge manifest in the log is what a
+        # frontend replays)
+        from apex_tpu_torch.resilience.supervisor import run_supervised_cli
+
+        return run_supervised_cli(args, None if argv is None else ["serve_gpt", *argv],
+                                  module="apex_tpu_torch.serve_gpt", checkpoint_dir=None)
+    out = run(args)[0]
     print(json.dumps(out))
     return 0
 

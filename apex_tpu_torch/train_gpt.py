@@ -249,7 +249,7 @@ def _dp_sync(opt, dp_group):
 
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
                     graphs=None, warmup=1, telemetry=None, dp_group=None,
-                    overlap_grad_sync=False, tp_group=None):
+                    overlap_grad_sync=False, tp_group=None, chaos=None):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
     [guard_state], [stats], tokens, targets) -> loss``, a scaler state
@@ -296,7 +296,14 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     ones not (``clip_sumsq_reduce``); the finite vote is agreed over it,
     and the telemetry's norms are those of the whole model (the clip's
     reduce).  The dp sync and the loss mean stay on ``dp_group``.  A
-    ZeRO optimizer with a tp group raises (``_zero_engine.TP_ITEM``)."""
+    ZeRO optimizer with a tp group raises (``_zero_engine.TP_ITEM``).
+
+    ``chaos``: a :class:`~apex_tpu_torch.resilience.chaos.ChaosMonkey`
+    whose planned NaN steps poison the guarded step's gradients (it needs
+    ``step_guard``, whose device step counter keys the plan): the loss is
+    multiplied by :meth:`~apex_tpu_torch.resilience.chaos.ChaosMonkey
+    .grad_fault` before the backward, on the device, so a captured step
+    replays the plan with no host read; the guard then skips the step."""
     if overlap_grad_sync:
         from apex_tpu_torch.contrib.optimizers._zero_engine import OVERLAP_ITEM
 
@@ -318,7 +325,23 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                       clip_grad_norm=clip_grad_norm, graphs=graphs, warmup=warmup,
                       telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=() if tp is None else (tp,), clip_sumsq=clip_sumsq,
-                      norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp))
+                      norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp),
+                      chaos=chaos)
+
+
+def _post_loss(loss_scaler, scaler_state, fault):
+    """What the step applies to the loss before its backward: the chaos
+    ``fault`` (NaN or 1) and then the loss scale, as the JAX steps'
+    ``post_loss``; None when neither is there."""
+    if loss_scaler is None and fault is None:
+        return None
+
+    def post(loss):
+        if fault is not None:
+            loss = loss * fault
+        return loss if loss_scaler is None else loss_scaler.scale(scaler_state, loss)
+
+    return post
 
 
 def _refuse_zero_with_model_parallel(opt):
@@ -331,7 +354,7 @@ def _refuse_zero_with_model_parallel(opt):
 
 def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                clip_grad_norm=None, graphs=None, warmup=1, telemetry=None, dp_group=None,
-               tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None):
+               tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None, chaos=None):
     """The step that :func:`make_train_step` and
     :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
     params, tokens, targets, post_loss) -> (loss, grads)`` gives the
@@ -340,9 +363,14 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
     finite vote agreed over ``sync_groups``, the clip's Σx² by
     ``clip_sumsq``), the telemetry window (its norms reduced by
     ``norm_sumsq`` when the params are slices) and the loss mean over
-    dp; compiled unless ``graphs=False``.  See :func:`make_train_step`."""
+    dp; compiled unless ``graphs=False``.  ``chaos`` scales the loss by
+    its planned fault before the scaler (the JAX steps' ``post_loss``).
+    See :func:`make_train_step`."""
     from apex_tpu_torch.models.gpt import sp_grad_sync
 
+    if chaos is not None and step_guard is None:
+        raise ValueError("chaos NaN injection needs step_guard (the injection step counter "
+                         "lives in GuardState)")
     grad_sync, loss_mean = _dp_sync(opt, dp_group)
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
@@ -372,8 +400,8 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
         """``(loss, (params, state, *small states))`` of one step."""
         scaler_state = small[0] if loss_scaler is not None else None
         guard_state = small[-1] if step_guard is not None else None
-        post = (None if loss_scaler is None
-                else (lambda l: loss_scaler.scale(scaler_state, l)))
+        fault = chaos.grad_fault(guard_state.step) if chaos is not None else None
+        post = _post_loss(loss_scaler, scaler_state, fault)
         loss, grads = grads_fn(params, tokens, targets, post)
         if config.sequence_parallel:
             grads = sp_grad_sync(grads, tp_group)

@@ -21,7 +21,10 @@ over the pipeline group (NCCL on CUDA, gloo on the CPU).
   that every schedule posts the same sequence on both sides of a pair).
   Two communicators used at once would not be safe: NCCL gives no
   progress guarantee to kernels of different communicators that the
-  ranks launch in different orders.
+  ranks launch in different orders.  On torch 2.11 with the group
+  started eagerly (``device_id``), a batched exchange (of one op or
+  more) runs on the group's one communicator, as its collectives do
+  (a probe on four H100s counted one communicator a group).
 - Shapes and dtypes are static (``(S or S / tp, B / M, H)`` and the
   compute dtype, known from the config), so no handshake is needed.
 - The ring wraps: the last stage's next is the first (the interleaved

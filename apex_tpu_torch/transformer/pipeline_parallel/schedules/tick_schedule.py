@@ -54,11 +54,15 @@ from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map, tree_unflatten
 from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
 
 __all__ = ["pipelined_fwd_bwd", "interleaved_warmup", "chunk_and_microbatch",
-           "check_interleaved_backend"]
+           "check_interleaved_backend", "check_tp_backend"]
 
 #: why the interleaved order is refused over NCCL
 INTERLEAVED_NCCL_ITEM = ("the interleaved schedule over NCCL has not yet run to its end on "
                          "cards (ROADMAP.md section 3)")
+
+#: why tp > 1 inside an NCCL pipeline is refused
+TP_PP_NCCL_ITEM = ("tp > 1 with pp > 1 over NCCL gave NaN losses on four H100s "
+                   "(ROADMAP.md section 3)")
 
 #: groups a collective has already run over (their communicators exist)
 _WARMED = set()
@@ -76,15 +80,29 @@ def _warm(group, device) -> None:
     _WARMED.add(id(group.group))
 
 
-def check_interleaved_backend(group, vpp: int) -> None:
-    """Refuse ``vpp`` > 1 over an NCCL pipeline group: its only four-card
-    run stalled (on an earlier design of the messages) and the design
-    since has not met cards.  gloo runs it."""
+def _nccl(group) -> bool:
     import torch.distributed as dist
 
-    if vpp > 1 and group.group is not None and dist.get_backend(group.group) == "nccl":
+    return group.group is not None and dist.get_backend(group.group) == "nccl"
+
+
+def check_interleaved_backend(group, vpp: int) -> None:
+    """Refuse ``vpp`` > 1 over an NCCL pipeline group: its four-card runs
+    stalled in the teardown (fixed by releasing the graphs first) and the
+    fixed design has not yet ended a GPT-345M run on cards.  gloo runs
+    it."""
+    if vpp > 1 and _nccl(group):
         raise NotImplementedError(f"virtual_pipeline_size={vpp} over NCCL is refused: "
                                   f"{INTERLEAVED_NCCL_ITEM}")
+
+
+def check_tp_backend(group, tp: int) -> None:
+    """Refuse a pipeline over NCCL whose stages are split over ``tp`` > 1
+    ranks: its only four-card run (tp 2 x pp 2, GPT-345M) trained on NaN
+    from the first step.  gloo runs it."""
+    if tp > 1 and _nccl(group):
+        raise NotImplementedError(f"tensor_model_parallel_size={tp} inside a pipeline over "
+                                  f"NCCL is refused: {TP_PP_NCCL_ITEM}")
 
 
 def chunk_and_microbatch(k: int, P: int, vpp: int, forward: bool = True):

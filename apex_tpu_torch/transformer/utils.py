@@ -11,19 +11,10 @@ axis inside ``shard_map``; here it is the process's rank in the group.
 
 import torch
 
+from apex_tpu_torch.utils.misc import divide, ensure_divisibility  # noqa: F401 — re-export
+
 __all__ = ["divide", "ensure_divisibility", "split_tensor_into_1d_equal_chunks",
            "gather_split_1d_tensor"]
-
-
-def ensure_divisibility(numerator: int, denominator: int) -> None:
-    if numerator % denominator != 0:
-        raise ValueError(f"{numerator} is not divisible by {denominator}")
-
-
-def divide(numerator: int, denominator: int) -> int:
-    """Integer division asserting exact divisibility."""
-    ensure_divisibility(numerator, denominator)
-    return numerator // denominator
 
 
 def _tp_group(group):

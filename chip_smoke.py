@@ -229,11 +229,28 @@ Phases, each printing one JSON line:
     microbatch, eager, both heads, every step within 1e-5), step ms
     (CUDA events), peak memory.  With two or more
     cards, ``pp_multi_card``: GPT-345M timed at pp 1, pp 4 (8
-    microbatches, and profiled: the first and the last stage's idle share
-    and NCCL ms), tp 2 x pp 2 and pp 2 (8) and pp 4 at 2 (the reference's
-    default), each within 1e-3 of pp 1's losses (the interleaved schedule
-    is refused over NCCL).  ``python3 chip_smoke.py pp_multi_card`` runs
-    that check alone.
+    microbatches, and profiled: every stage's idle share, NCCL ms and
+    peak memory), pp 2 (8) and pp 4 at 2 (the reference's default),
+    each within 1e-3 of pp 1's losses (tp x pp and the interleaved
+    schedule are refused over NCCL, ROADMAP.md section 3).
+    ``python3 chip_smoke.py pp_multi_card`` runs that check alone.
+19. supervised: a ``Supervisor`` runs ``pretrain_gpt --zero
+    --auto-resume --save-every 1 --steps 3`` at the pretrain phase's
+    GPT-124M shape as its child, a fault script killing attempt 0 at
+    step 1 (exit 137): rc 0, one restart, the resumed losses bitwise an
+    unkilled run's (in this process, exact launch counts); the backoffs
+    and the wall seconds.
+20. serve_resilience: ``serve_gpt`` at its defaults with
+    ``--metrics-dir`` and ``--trace-dir`` off and on (exact launch
+    counts, streams equal token for token, the hooks' cost in tokens/s);
+    then ``serve_gpt --watchdog-secs 5 --supervise`` as a child whose
+    attempt 0 wedges after 20 decode steps: exit 75 with a manifest of
+    all 32 requests (8 in flight), one restart, every request served.
+21. fleet: two ``LocalReplica`` s of GPT-124M (fp32, T = 0) behind a
+    ``FleetFrontend`` on this card, r0 killed at its step 3: no request
+    dropped or duplicated, every stream bitwise the single-replica run,
+    exact LN, decode attention and sampling launches of every scheduler
+    built.  ``python3 chip_smoke.py resilience`` runs 19-21 alone.
 
 Then a line with every phase's seconds (the build's included), the
 kernels summary line, the ``nvidia-smi`` line, and last
@@ -4399,19 +4416,20 @@ def pp_multi_card(world, eager=False):
     second): pp 1 on one card (``make_train_step``: at pp 1 ``pretrain_gpt``
     does not split the batch), pp 4 at 8 microbatches and a profile of 7
     such steps (``pp_child``: the first and the last stage's idle share
-    and NCCL ms a step), tp 2 x pp 2 at 8, pp 2 at 8, pp 4 at 2 (the
+    and NCCL ms a step), pp 2 at 8 (with four cards), pp 4 at 2 (the
     reference's default, the larger bubble), each one's losses within
-    ``TP_BAND`` of pp 1's (the same global batch).  The interleaved
-    schedule is refused over NCCL (ROADMAP.md section 3) and does not run
-    here.  Each result is printed (a ``pp_multi_card`` line) as it comes,
-    so a later failure keeps the earlier numbers.  ``eager`` runs every
-    step eagerly."""
+    ``TP_BAND`` of pp 1's (the same global batch).  tp x pp and the
+    interleaved schedule are refused over NCCL (ROADMAP.md section 3) and
+    do not run here.  Each result is printed (a ``pp_multi_card`` line)
+    as it comes, and a run beyond the band fails the check only after
+    every run has printed.  ``eager`` runs every step eagerly."""
     ex = ["--eager"] if eager else []
     out = {"ran": True, "cards": torch.cuda.device_count(), "world": world, "band": TP_BAND,
            "eager": eager, "timed": []}
     n = 4 if world >= 4 else 2
-    runs = [(1, 1, 8), (n, 1, 8), "profile"] + ([(2, 2, 8), (2, 1, 8)] if world >= 4 else []) \
+    runs = [(1, 1, 8), (n, 1, 8), "profile"] + ([(2, 1, 8)] if world >= 4 else []) \
         + [(n, 1, 2)]
+    failed = []
     for run in runs:
         if run == "profile":
             out["profile"] = {"pp": n, "micro_batches": 8, "stages": [
@@ -4432,11 +4450,86 @@ def pp_multi_card(world, eager=False):
         if out["timed"]:
             want = out["timed"][0]["losses"]
             row["max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], want))
-            if not row["max_rel_diff"] <= TP_BAND:
-                raise AssertionError(f"pp {row} against pp 1's {want}: beyond {TP_BAND}")
+            if not row["max_rel_diff"] <= TP_BAND:  # NaN fails too
+                failed.append(f"pp {pp} x tp {tp} at M {M}: losses {row['losses']} against "
+                              f"pp 1's {want}, beyond {TP_BAND}")
         emit({"pp_multi_card": {"timed": row}})
         out["timed"].append(row)
+    if failed:  # after every run, so that one fault keeps the others' numbers
+        raise AssertionError("pp_multi_card: " + "; ".join(failed))
     return out
+
+
+def vpp_child(argv):
+    """One rank of ``torchrun ... chip_smoke.py vpp_child --pp N --vpp V
+    --micro-batches M --steps S [--eager]``: ``make_pp_train_step`` at
+    GPT-345M (pretrain_gpt's config with the fused head, the seed-0
+    params in ``params_to_vpp_layout``'s order, FusedAdam(wd 0.01)) over
+    NCCL, the seed-0 corpus's rows ``[8i, 8i + 8)`` at step i, CUDA
+    events after each step.  The world is torn down with the step (and
+    its graph) alive: :func:`apex_tpu_torch.parallel.destroy_distributed`
+    frees the graphs first.  Rank 0 prints the losses, step ms, peak
+    memory and the teardown's seconds.  Over NCCL ``make_pp_train_step``
+    refuses vpp > 1 (ROADMAP.md section 3): this is the run, made
+    ``torchrun --standalone --nproc-per-node N chip_smoke.py vpp_child``
+    in a copy without the refusal, that would lift it."""
+    import argparse
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.models.gpt import (
+        _init_numpy, make_pp_train_step, params_to_vpp_layout, shard_params,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pp", type=int, required=True)
+    ap.add_argument("--vpp", type=int, default=1)
+    ap.add_argument("--micro-batches", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--eager", action="store_true")
+    a = ap.parse_args(argv)
+    dev = multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(pipeline_model_parallel_size_=a.pp,
+                                 virtual_pipeline_model_parallel_size_=a.vpp if a.vpp > 1
+                                 else None)
+    args = pretrain_gpt.build_args().parse_args(GPT345_ARGV + ["--fused-ce"])
+    config = pretrain_gpt.make_config(args)
+    tree = _init_numpy(config, 0)
+    if a.vpp > 1:
+        tree = params_to_vpp_layout(tree, a.pp, a.vpp)
+    params = shard_params(tree, config, ps.get_tensor_model_parallel_group(), dev,
+                          keep_fp32=True, pp_group=ps.get_pipeline_model_parallel_group())
+    opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    step = make_pp_train_step(config, opt, a.micro_batches, a.vpp,
+                              graphs=False if a.eager else None,
+                              dp_group=ps.get_data_parallel_group(),
+                              tp_group=ps.get_tensor_model_parallel_group())
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = args.global_batch
+    rows = [torch.from_numpy(np.ascontiguousarray(corpus[i * gb:(i + 1) * gb], np.int64)).to(dev)
+            for i in range(a.steps)]
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    for r in rows:
+        losses.append(step(params, state, r[:, :-1], r[:, 1:]).detach().clone())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    rep = {"losses": [float(x) for x in losses],
+           "step_ms": [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    t0 = time.monotonic()
+    rank = torch.distributed.get_rank()
+    multiproc.destroy_distributed()  # the step, its graph with it, still alive here
+    rep["teardown_s"] = time.monotonic() - t0
+    if rank == 0:
+        print(json.dumps({"vpp_child": rep}), flush=True)
+    del step
+    return 0
 
 
 def pp_multi_card_main():
@@ -4461,25 +4554,453 @@ def pp_multi_card_main():
 
 def pp_child(argv):
     """One rank of ``torchrun ... chip_smoke.py pp_child <pretrain_gpt
-    flags>``: the run under the profiler; the first and the last stage
-    print their device's busy share over the last steps, NCCL's ms a step
-    and their top kernels."""
+    flags>``: the run under the profiler; every rank prints its device's
+    busy share over the last steps, NCCL's ms a step, its peak memory and
+    its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     rep = _pretrain_here(argv, profiler=prof)
     idle = _busy_share(prof)
-    rank, world = rep["rank"], rep["dp"] * rep["pp"] * rep["tp"]
-    if rank in (0, world - 1):
-        k = idle["kernel_ms_per_step"]
-        nccl = sum(ms for name, ms in k.items() if "nccl" in name.lower())
-        print(json.dumps({"pp_profile": {
-            "rank": rank, "stage": "first" if rank == 0 else "last",
-            "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
-            "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
-            "nccl_ms_per_step": nccl, "losses": rep["losses"],
-            "peak_memory_gb": rep["peak_memory_gb"],
-            "top_kernels_ms_per_step": dict(list(k.items())[:25])}}), flush=True)
+    k = idle["kernel_ms_per_step"]
+    nccl = sum(ms for name, ms in k.items() if "nccl" in name.lower())
+    print(json.dumps({"pp_profile": {
+        "rank": rep["rank"], "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+        "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
+        "nccl_ms_per_step": nccl, "losses": rep["losses"],
+        "peak_memory_gb": rep["peak_memory_gb"],
+        "top_kernels_ms_per_step": dict(list(k.items())[:12])}}), flush=True)
+    return 0
+
+
+# ------------------------------------------------------------ resilience
+def _child(cmd, timeout):
+    """``cmd`` in a session of its own (a supervisor's children with it):
+    ``(returncode, stdout lines, stderr lines, seconds)``.  Past
+    ``timeout`` the whole session is killed and this raises with the last
+    lines, so a hung child fails the phase instead of the script."""
+    import os
+    import signal
+    import tempfile
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err, text=True,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)  # whatever the session left
+            except ProcessLookupError:
+                pass
+        out.seek(0)
+        err.seek(0)
+        lines, errs = out.read().splitlines(), err.read().splitlines()
+    if rc is None:
+        raise TimeoutError(f"{cmd[2:5]} ran past {timeout} s:\n" + "\n".join(
+            lines[-20:] + errs[-40:]))
+    return rc, lines, errs, time.monotonic() - t0
+
+
+def _events(errs, event):
+    """The JSON fields of each ``event`` record in ``errs``."""
+    return [json.loads(ln.split(f"{event} ", 1)[1]) for ln in errs if f" {event} {{" in ln]
+
+
+def supervised_phase(smi):
+    """The twin of bench.py's supervised elastic-resume section
+    (``bench.py:1055-1110``): a :class:`~apex_tpu_torch.resilience
+    .Supervisor` runs ``python -m apex_tpu_torch.pretrain_gpt --zero
+    --auto-resume --save-every 1 --steps 3 --supervise`` at the pretrain
+    phase's GPT-124M shape as its child on this card, its fault script
+    killing attempt 0 at step 1 (``--chaos-kill-at-step``, exit 137).
+    rc 0 with exactly one restart; the resumed child's losses, its final
+    one included, bitwise equal to an unkilled run's at the same steps
+    (``--zero`` in this process, 4 steps, exact launch counts).  Prints
+    the backoffs and the wall seconds."""
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+
+    work = Path(tempfile.mkdtemp(prefix="supervised_"))
+    try:
+        script = work / "faults.json"
+        script.write_text(json.dumps({"0": {"args": ["--chaos-kill-at-step", "1"]}}))
+        cmd = [sys.executable, "-m", "apex_tpu_torch.pretrain_gpt", *PRETRAIN_ARGV, "--zero",
+               "--auto-resume", "--checkpoint", str(work / "ck"), "--save-every", "1",
+               "--steps", "3", "--watchdog-secs", "120", "--supervise",
+               "--fault-script", str(script), "--backoff-base", "1"]
+        rc, lines, errs, wall = _child(cmd, 400)
+        restarts = _events(errs, "supervisor.restarting")
+        reports = [json.loads(ln)["pretrain_gpt"] for ln in lines
+                   if ln.startswith('{"pretrain_gpt"')]
+        if rc != 0 or len(restarts) != 1 or restarts[0]["exit_code"] != 137 \
+                or len(reports) != 1:
+            raise AssertionError(f"supervised pretrain: rc {rc}, restarts {restarts}, "
+                                 f"{len(reports)} reports:\n" + "\n".join(errs[-40:]))
+        final = reports[0]
+        reset_counts()
+        clean = _pretrain_here(PRETRAIN_ARGV + ["--zero", "--steps", "4"])
+        counts = launch_counts()
+        L = 12
+        per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                    "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                    "ce_fwd": 1, "ce_dx": 1, "ce_dembed": 1,
+                    "mt_adam": mt_plan("adam", _zero_shard_sizes()).launches, "mt_scale": 0,
+                    "mt_l2norm": 0}
+        expect = {**{k: 4 * v for k, v in per_step.items()},
+                  "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                  "fused_sample": 0}
+        if counts != expect:
+            raise AssertionError(f"supervised reference counts {counts} != {expect}")
+        want = dict(zip(clean["steps"], clean["losses"]))
+        if final["start_step"] not in (0, 1) or final["steps_done"] != 3 or any(
+                want.get(st) != loss for st, loss in zip(final["steps"], final["losses"])):
+            raise AssertionError(f"supervised losses {final['steps']} {final['losses']} "
+                                 f"against the unkilled run's {want}")
+        out = {"phase": "supervised", "argv": cmd[3:], "rc": rc, "restarts": len(restarts),
+               "exit_codes": [r["exit_code"] for r in restarts],
+               "backoffs_s": [r["delay_s"] for r in restarts], "wall_s": wall,
+               "resumed_at": final["start_step"], "steps": final["steps"],
+               "losses": final["losses"], "unkilled_losses": clean["losses"],
+               "bitwise": True, "launches_unkilled": counts, "nvidia_smi": smi}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_resilience_phase(smi):
+    """``serve_gpt`` at its defaults (GPT-124M, 32 requests), graphed, in
+    this process with ``--metrics-dir`` and ``--trace-dir`` off, on, on
+    and off: exact launch counts every time, the streams equal token for
+    token (the hooks' cost is the mean tokens/s of the two runs on
+    against the two off), the metrics files and one ``serve.request``
+    span a request.  Then, as a child on this card, ``serve_gpt
+    --watchdog-secs 5 --supervise`` with a fault script that
+    wedges attempt 0 after 20 decode steps (``--chaos-wedge-decode-step
+    20 --chaos-wedge-secs 120``): attempt 0 exits 75 with a
+    ``serve.step_wedged`` manifest naming every queued and in-flight
+    request, the supervisor restarts it once, and attempt 1 serves every
+    request."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="serve_resilience_"))
+    try:
+        # off, on, on, off: the hooks' cost is the mean of each pair, the
+        # first run's warm-up on neither side alone
+        hooks_on = ["--metrics-dir", str(work / "m"), "--trace-dir", str(work / "t")]
+        runs = [serve_run(argv) for argv in ([], hooks_on, hooks_on, [])]
+        same = all(streams(r[1]) == streams(runs[0][1]) for r in runs)
+        prom = (work / "m" / "metrics.prom").read_text()
+        trace = json.loads(Path(runs[2][0]["trace_file"]).read_text())
+        requests = sum(1 for e in trace["traceEvents"] if e.get("name") == "serve.request")
+        if not same or requests != 32 or "apex_serve_ttft_seconds_count" not in prom:
+            raise AssertionError(f"serve hooks: streams equal {same}, {requests} request "
+                                 f"spans")
+        tps = [r[0]["tokens_per_sec"] for r in runs]
+        hooks = {"runs": [{"hooks": bool(i in (1, 2)),
+                           **{k: r[0][k] for k in SERVE_AB_KEYS if k in r[0]}}
+                          for i, r in enumerate(runs)],
+                 "streams_equal": same, "request_spans": requests,
+                 "tokens_per_sec_off": (tps[0] + tps[3]) / 2,
+                 "tokens_per_sec_on": (tps[1] + tps[2]) / 2}
+        hooks["cost_share"] = 1 - hooks["tokens_per_sec_on"] / hooks["tokens_per_sec_off"]
+        del runs
+        script = work / "faults.json"
+        script.write_text(json.dumps({"0": {"args": ["--chaos-wedge-decode-step", "20",
+                                                     "--chaos-wedge-secs", "120"]}}))
+        cmd = [sys.executable, "-m", "apex_tpu_torch.serve_gpt", "--watchdog-secs", "5",
+               "--supervise", "--fault-script", str(script), "--backoff-base", "1"]
+        rc, lines, errs, wall = _child(cmd, 400)
+        restarts = _events(errs, "supervisor.restarting")
+        wedged = _events(errs, "serve.step_wedged")
+        report = next((json.loads(ln) for ln in reversed(lines)
+                       if ln.startswith('{"requests"')), None)
+        if rc != 0 or len(restarts) != 1 or restarts[0]["exit_code"] != 75 \
+                or len(wedged) != 1 or report is None:
+            raise AssertionError(f"supervised serve: rc {rc}, restarts {restarts}, "
+                                 f"{len(wedged)} wedges:\n" + "\n".join(errs[-40:]))
+        w = wedged[0]
+        named = sorted(w["queued_rids"] + w["inflight_rids"])
+        if named != list(range(32)) or w["inflight"] != 8 or report["requests"] != 32 \
+                or report["generated_tokens"] != 32 * 32:
+            raise AssertionError(f"wedge manifest {w['queued']} queued + {w['inflight']} in "
+                                 f"flight; then served {report['requests']}")
+        out = {"phase": "serve_resilience", "hooks": hooks,
+               "wedge": {"argv": cmd[3:], "exit_code": restarts[0]["exit_code"],
+                         "decode_step": w["decode_step"], "queued": w["queued"],
+                         "inflight": w["inflight"],
+                         "emitted_in_flight": sum(len(m["emitted"]) for m in w["manifest"])},
+               "supervised": {"rc": rc, "restarts": len(restarts),
+                              "backoffs_s": [r["delay_s"] for r in restarts],
+                              "requests": report["requests"],
+                              "tokens_per_sec": report["tokens_per_sec"], "wall_s": wall},
+               "nvidia_smi": smi}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fleet_phase(smi):
+    """The twin of bench.py's fleet row (``bench.py:1445-1502``): two
+    :class:`~apex_tpu_torch.inference.fleet.LocalReplica` s of GPT-124M
+    (fp32, T = 0, 8 slots each) share this card behind a
+    ``FleetFrontend``; 16 requests of 32..64 prompt tokens and 32 new
+    ones; replica r0 is killed at its step 3 (``kill_replica_at``, the
+    exit-137 shape: its requests replay from the frontend's journal).
+    No request dropped or duplicated, every stream bitwise the unkilled
+    single-replica run's (the same scheduler shape alone), one death,
+    a replay or more; the LN, decode attention and sampling launches of
+    every scheduler the fleet built (r0 twice) exactly
+    :func:`serve_expect`'s, and the single run's too.  Reports the
+    fleet's tokens/s and the longest stall a replayed stream saw."""
+    from apex_tpu_torch.inference import (
+        ContinuousBatchingScheduler, DecodeConfig, KVCacheConfig, Request, pages_needed,
+    )
+    from apex_tpu_torch.inference.fleet import FleetFrontend, LocalReplica, RouterConfig
+    from apex_tpu_torch.models.gpt import GPTConfig, init_params
+    from apex_tpu_torch.resilience.chaos import ChaosMonkey, ChaosPlan
+
+    dev = torch.device("cuda", 0)
+    n, prompt_len, max_new, page, L = 8, 64, 32, 16, 12
+    config = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=L, num_attention_heads=12,
+                       max_seq_len=prompt_len + 2 * max_new + 1,
+                       position_embedding_type="rope", compute_dtype=torch.float32,
+                       checkpoint_layers=False)
+    params = init_params(config, 0, device=dev)
+    per = pages_needed(prompt_len + 2 * max_new, page)
+    built = []
+
+    def make():
+        # max_prompt_len covers a continuation leg's prompt (the original
+        # prompt and the tokens already emitted)
+        dcfg = DecodeConfig(
+            cache=KVCacheConfig(num_pages=1 + n * per, page_size=page, pages_per_seq=per,
+                                dtype=torch.float32),
+            max_batch=n, max_prompt_len=prompt_len + max_new, temperature=0.0, top_k=0,
+            base_seed=0)
+        built.append(ContinuousBatchingScheduler(params, config, dcfg, device=dev))
+        return built[-1]
+
+    def expect(scheds):
+        tot = {}
+        for sc in scheds:
+            for k, v in serve_expect(sc.stats, L, False).items():
+                tot[k] = tot.get(k, 0) + v
+        return tot
+
+    rng = np.random.RandomState(0)
+    reqs = [(rid, rng.randint(0, 50304, size=int(rng.randint(prompt_len // 2, prompt_len + 1)))
+             .tolist()) for rid in range(2 * n)]
+    reset_counts()
+    single = make()
+    for rid, prompt in reqs:
+        single.submit(Request(rid, list(prompt), max_new))
+    want = {c.rid: list(c.tokens) for c in single.run_until_drained()}
+    if launch_counts() != expect([single]):
+        raise AssertionError(f"fleet baseline counts {launch_counts()} != {expect([single])}")
+    reset_counts()
+    monkey = ChaosMonkey(ChaosPlan.make(kill_replica_at={"r0": 3}))
+    with monkey.active():
+        fe = FleetFrontend([LocalReplica(f"r{i}", make) for i in range(2)],
+                           config=RouterConfig(hedge_after_s=0.0,
+                                               be_shed_queue_depth=10 ** 6,
+                                               reject_queue_depth=10 ** 6,
+                                               affinity_min_tokens=10 ** 6)).start()
+        t0 = time.perf_counter()
+        for rid, prompt in reqs:
+            fe.submit(Request(rid, list(prompt), max_new))
+        done = fe.run_until_drained()
+        wall = time.perf_counter() - t0
+    counts, want_counts = launch_counts(), expect(built[1:])
+    rids = [c.rid for c in done]
+    got = {c.rid: list(c.tokens) for c in done}
+    if sorted(rids) != sorted(want) or len(rids) != len(set(rids)) or got != want \
+            or fe.stats["replica_deaths"] != 1 or fe.stats["replays"] < 1 \
+            or monkey.injected.get("kill_replica:r0") != 1 or len(built) != 4:
+        raise AssertionError(f"fleet: {len(rids)} completions ({len(set(rids))} distinct) of "
+                             f"{len(want)}, streams equal {got == want}, stats {fe.stats}")
+    if counts != want_counts:
+        raise AssertionError(f"fleet launch counts {counts} != {want_counts}")
+    stalls = [float(np.max(np.diff(c.token_times))) for c in done
+              if c.replays and len(c.token_times) > 1]
+    out = {"phase": "fleet", "replicas": 2, "requests": len(done), "dropped": 0,
+           "duplicates": 0, "bitwise_vs_single": True, "stats": dict(fe.stats),
+           "replayed_requests": sum(1 for c in done if c.replays),
+           "tokens_per_sec": sum(len(c.tokens) for c in done) / wall, "wall_s": wall,
+           "max_replay_stall_ms": 1e3 * max(stalls) if stalls else None,
+           "launches": counts, "nvidia_smi": smi}
+    emit(out)
+    del fe, built, single, params
+    torch.cuda.empty_cache()
+    return out
+
+
+#: one process of :func:`serve_hooks_main`, run with the checkout under
+#: test as its working directory (so that it imports that checkout's
+#: package): ``argv[1]`` is a JSON list of variants, each "default"
+#: (``serve_gpt.run`` at its defaults, the serve phase's run) or a list of
+#: the hooks to install around the scheduler alone ("metrics", "tracer",
+#: "recorder", "anomaly"; [] is none).  Each run prints one line.
+SERVE_HOOKS_CHILD = r"""
+import hashlib, json, sys, tempfile, time
+import numpy as np
+from apex_tpu_torch import serve_gpt
+
+def hooked(hooks):
+    from apex_tpu_torch.inference import ContinuousBatchingScheduler
+    from apex_tpu_torch.observability import AnomalyMonitor, MetricsScope, flightrec, tracing
+    from apex_tpu_torch.ops import _build
+    args = serve_gpt.build_args().parse_args([])
+    config, params, dcfg = serve_gpt.setup(args)
+    _build.load()
+    tracer = tracing.configure() if "tracer" in hooks else None
+    rec = None
+    if "recorder" in hooks:
+        rec = flightrec.install(flightrec.FlightRecorder(tempfile.mkdtemp(), run_id="serve"))
+        if tracer is not None:
+            rec.attach(tracer)
+    try:
+        with MetricsScope():
+            sched = ContinuousBatchingScheduler(
+                params, config, dcfg, device="cuda", metrics="metrics" in hooks,
+                anomaly=AnomalyMonitor() if "anomaly" in hooks else None)
+            reqs, arrivals = serve_gpt.make_requests(args, np.random.RandomState(args.seed))
+            t0 = time.monotonic()
+            done = serve_gpt.serve(sched, reqs, arrivals)
+            wall = time.monotonic() - t0
+    finally:
+        if rec is not None:
+            flightrec.uninstall()
+        if tracer is not None:
+            tracing.disable()
+    out = serve_gpt.report(done, wall)
+    out["capture_ms"] = 1e3 * sched.capture_seconds
+    return out, sched
+
+for variant in json.loads(sys.argv[1]):
+    if variant == "default":
+        out, sched = serve_gpt.run(serve_gpt.build_args().parse_args([]))[:2]
+        out["capture_ms"] = 1e3 * sched.capture_seconds
+    else:
+        out, sched = hooked(variant)
+    streams = sorted((c.rid, c.tokens) for c in sched.completed)
+    steps = sched.stats["decode_steps"]
+    print(json.dumps({"serve_hooks_run": {
+        "variant": variant, "tokens_per_sec": out["tokens_per_sec"],
+        "wall_secs": out["wall_secs"], "capture_ms": out["capture_ms"],
+        "decode_steps": steps, "prefills": sched.stats["prefills"],
+        "ms_per_decode_step": (1e3 * out["wall_secs"] - out["capture_ms"]) / steps,
+        "per_token_p50_ms": out["per_token_p50_ms"],
+        "streams": hashlib.sha256(repr(streams).encode()).hexdigest()[:16]}}), flush=True)
+"""
+
+
+def serve_hooks_main(argv):
+    """``chip_smoke.py serve_hooks [--tree NAME=DIR ...] [--pairs P]``: the
+    serving hooks' cost on one card.  Each ``--tree`` is another checkout
+    of the repo (an unpacked ``git archive``); this checkout is ``this``.
+    Every tree's kernels are built, then ``serve_gpt`` at its defaults
+    (the serve phase's run: GPT-124M, 32 requests of 32 new tokens,
+    graphed) runs in ``P`` pairs of processes for each other tree, that
+    tree and this one, which goes first alternating; a process makes one
+    warm-up and five timed runs.  A pair is won by the process with the
+    lower median ``ms_per_decode_step`` (a run's wall less its graph
+    captures, over its decode steps).  Then, on this tree, one process
+    runs the scheduler with each hook alone and all together, five rounds
+    of every variant in turn: the cost of each.  Every run's streams must
+    be equal.  Prints each run, then a summary (medians and quartiles of
+    the runs, the pairs won) with the card."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=[])
+    ap.add_argument("--pairs", type=int, default=8)
+    a = ap.parse_args(argv)
+    trees = [(n, str((ROOT / d).resolve())) for n, d in (t.split("=", 1) for t in a.tree)]
+    smi = _smi()
+    emit({"phase": "card", "torch": torch.__version__, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi})
+    this = ("this", str(ROOT))
+    for name, path in trees + [this]:
+        t0 = time.monotonic()
+        subprocess.run([sys.executable, "-c", "from apex_tpu_torch.ops import _build; "
+                        "_build.build(force=True)"], cwd=path, check=True, timeout=600)
+        emit({"serve_hooks_build": name, "seconds": time.monotonic() - t0})
+
+    def child(name, path, variants):
+        res = subprocess.run([sys.executable, "-c", SERVE_HOOKS_CHILD, json.dumps(variants)],
+                             cwd=path, capture_output=True, text=True, timeout=600)
+        runs = [json.loads(ln)["serve_hooks_run"] for ln in res.stdout.splitlines()
+                if ln.startswith('{"serve_hooks_run"')]
+        if res.returncode != 0 or len(runs) != len(variants):
+            raise AssertionError(f"serve_hooks in {path}: exit {res.returncode}\n"
+                                 + res.stderr[-3000:])
+        for r in runs[1:]:  # the first is the warm-up
+            emit({"serve_hooks": {"tree": name, **r}})
+        return runs[1:]
+
+    def med(rs):
+        return float(np.median([r["ms_per_decode_step"] for r in rs]))
+
+    runs = {name: [] for name, _ in trees + [this]}
+    pairs = {name: {"this_won": 0, "lost": 0} for name, _ in trees}
+    for i in range(a.pairs):
+        for other in trees:
+            got = {}
+            for name, path in ((other, this) if i % 2 == 0 else (this, other)):
+                got[name] = child(name, path, ["default"] * 6)
+                runs[name] += got[name]
+            pairs[other[0]]["this_won" if med(got["this"]) < med(got[other[0]]) else "lost"] += 1
+    variants = [[], ["metrics"], ["tracer"], ["tracer", "recorder"], ["anomaly"],
+                ["metrics", "tracer", "recorder", "anomaly"]]
+    for r in child("this", str(ROOT), [[]] + variants * 5):
+        runs.setdefault("hooks:" + ("+".join(r["variant"]) or "none"), []).append(r)
+    digests = {r["streams"] for rs in runs.values() for r in rs}
+    if len(digests) != 1:
+        raise AssertionError(f"serve_hooks: the streams differ across runs: {digests}")
+
+    def stats(rs):
+        ms = np.asarray([r["ms_per_decode_step"] for r in rs])
+        return {"ms_per_decode_step_median": float(np.median(ms)),
+                "ms_per_decode_step_quartiles": [float(np.percentile(ms, 25)),
+                                                 float(np.percentile(ms, 75))],
+                "tokens_per_sec_median": float(np.median([r["tokens_per_sec"] for r in rs])),
+                "per_token_p50_ms_median": float(np.median([r["per_token_p50_ms"]
+                                                             for r in rs])),
+                "runs": len(rs)}
+
+    emit({"phase": "serve_hooks", "streams_equal": True, "pairs": pairs,
+          "summary": {k: stats(rs) for k, rs in runs.items()}, "nvidia_smi": smi})
+    return 0
+
+
+def resilience_main():
+    """``chip_smoke.py resilience``: the kernels built, then the
+    supervised, serve_resilience and fleet phases alone on one card."""
+    from apex_tpu_torch.ops import _build
+
+    smi = _smi()
+    emit({"phase": "card", "torch": torch.__version__, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi})
+    secs = _build.build(force=True)
+    _build.load()
+    seconds = {"build": secs}
+    for name, fn in (("supervised", supervised_phase),
+                     ("serve_resilience", serve_resilience_phase), ("fleet", fleet_phase)):
+        t0 = time.monotonic()
+        fn(smi)
+        seconds[name] = time.monotonic() - t0
+    emit({"phase": "seconds", **seconds})
     return 0
 
 
@@ -4497,8 +5018,14 @@ def main():
         return tp_child(sys.argv[2:])
     if sys.argv[1:2] == ["pp_child"]:
         return pp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["vpp_child"]:
+        return vpp_child(sys.argv[2:])
     if sys.argv[1:2] == ["pp_multi_card"]:
         return pp_multi_card_main()
+    if sys.argv[1:2] == ["resilience"]:
+        return resilience_main()
+    if sys.argv[1:2] == ["serve_hooks"]:
+        return serve_hooks_main(sys.argv[2:])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4668,6 +5195,12 @@ def main():
     lap("tp")
     pp_phase(smi, absent)
     lap("pp")
+    supervised_phase(smi)
+    lap("supervised")
+    serve_resilience_phase(smi)
+    lap("serve_resilience")
+    fleet_phase(smi)
+    lap("fleet")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (

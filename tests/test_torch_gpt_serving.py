@@ -262,6 +262,10 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.transformer.pipeline_parallel, apex_tpu_torch.transformer.microbatches\n"
         "import apex_tpu_torch.transformer.pipeline_parallel.utils\n"
         "import apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule\n"
+        "import apex_tpu_torch.resilience.supervisor, apex_tpu_torch.resilience.chaos\n"
+        "import apex_tpu_torch.resilience.uniformity, apex_tpu_torch.resilience.locks\n"
+        "import apex_tpu_torch.utils.profiler, apex_tpu_torch.utils.misc\n"
+        "import apex_tpu_torch.inference.fleet, apex_tpu_torch.graphs\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

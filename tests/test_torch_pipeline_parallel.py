@@ -431,6 +431,104 @@ def test_interleaved_schedule_is_refused_over_nccl(monkeypatch):
     check_interleaved_backend(group, 2)
 
 
+@pytest.mark.parametrize("P", [2, 4])
+def test_interleaved_schedule_posts_every_exchange(monkeypatch, P):
+    """``pipelined_fwd_bwd`` with vpp 2 over a gloo pipeline group posts
+    every exchange of its program (rank 0's, as :func:`_exchanges` lists
+    it) and returns the loss and the grads."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import tick_schedule as ts
+
+    group = _OneRank(P, 0)
+    group.group = object()
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    monkeypatch.setattr(dist, "all_reduce", lambda t, group=None: None)
+    monkeypatch.setattr(ts, "_warm", lambda group, device: None)
+    posted = []
+
+    def record(send_next, send_prev, recv_prev, recv_next, shape, dtype, device, group=None):
+        posted.append((send_next is not None, recv_prev, send_prev is not None, recv_next))
+        return (torch.zeros(shape) if recv_prev else None,
+                torch.zeros(shape) if recv_next else None)
+
+    monkeypatch.setattr(p2p, "_communicate", record)
+    shared = {"w": torch.ones(H, H, requires_grad=True)}
+    stages = {"w": torch.ones(2, H, requires_grad=True)}
+    loss, (g_sh, g_st) = ts.pipelined_fwd_bwd(
+        lambda sh, mb: mb @ sh["w"], lambda c, x: x * c["w"].sum(0),
+        lambda sh, y, mb: (y @ sh["w"]).sum(), shared, stages, torch.ones(P, MB, H),
+        tensor_shape=(MB, H), dtype=torch.float32, num_chunks=2, axis_name=group)
+    want = _exchanges(monkeypatch, P, 0, 2, P)
+    assert len(posted) == len(want) > 0
+    assert g_st["w"].shape == (2, H) and loss.dim() == 0
+
+
+@pytest.mark.parametrize("vpp,tp,backend,refused", [
+    (2, 1, "nccl", "virtual_pipeline_size=2"),
+    (1, 2, "nccl", "tensor_model_parallel_size=2"),
+    (1, 1, "nccl", None),
+    (2, 2, "gloo", None),
+])
+def test_make_pp_train_step_refuses_vpp_and_tp_over_nccl(monkeypatch, vpp, tp, backend,
+                                                         refused):
+    """``make_pp_train_step`` over a pipeline group on NCCL refuses vpp >
+    1 and tp > 1 (ROADMAP.md section 3: the first has not yet ended a
+    GPT-345M run on cards, the second gave NaN losses there); 1F1B at tp
+    1 over NCCL, and both over gloo, build their step."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models import gpt as tgpt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.parallel_state import AxisGroup
+
+    group = _OneRank(2, 0)
+    group.group = object()
+    tp_group = AxisGroup("tp", object(), tp, 0, range(tp))
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    cfg = tgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=4, num_attention_heads=4,
+                         max_seq_len=16)
+
+    def build():
+        return tgpt.make_pp_train_step(cfg, FusedAdam(lr=1e-3), 2, vpp, pp_group=group,
+                                       tp_group=tp_group, graphs=False)
+
+    if refused:
+        with pytest.raises(NotImplementedError, match=f"{refused}.*ROADMAP.md section 3"):
+            build()
+    else:
+        assert callable(build())
+
+
+def test_release_graphs_before_the_group_is_destroyed():
+    """``destroy_distributed`` frees every live captured graph first (a
+    graph holding captured NCCL work kept ``destroy_process_group``
+    waiting on four H100s, ROADMAP.md section 3); a released step raises
+    when called again."""
+    from apex_tpu_torch import graphs
+    from apex_tpu_torch.graphs import CapturedStep
+    from apex_tpu_torch.parallel import multiproc
+
+    class FakeGraph:
+        resets = 0
+
+        def reset(self):
+            FakeGraph.resets += 1
+
+    step = CapturedStep(lambda x: x + 1)
+    assert float(step(torch.ones(()))) == 2.0  # the CPU path: no graph
+    step.graph = FakeGraph()
+    graphs._LIVE.add(step)
+    multiproc.initialize_distributed("cpu")
+    multiproc.destroy_distributed()
+    assert FakeGraph.resets == 1 and step.graph is None and step.released
+    assert not list(graphs._LIVE)
+    with pytest.raises(RuntimeError, match="released"):
+        step(torch.ones(()))
+    assert graphs.release_graphs() == 0
+
+
 def test_no_pipelining_matches_the_oracle_and_the_selector():
     shared, stages, batch = make_problem(6, 2)
     loss, gs, gst = jax_oracle(shared, stages, batch)

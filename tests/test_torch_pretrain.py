@@ -16,7 +16,8 @@ and its resume from the JAX package's trainer.
   saves at the step it reached and stops, and the same command then
   finishes bitwise equal; ``--keep`` pruning; the ``--data`` token file;
   no host read of a tensor value anywhere in a run (the dispatch-mode
-  guard of tests/test_torch_graphs.py); the flags that raise;
+  guard of tests/test_torch_graphs.py); the flags once refused, which now
+  run (``--supervise`` through ``main``, the ``--chaos-*`` faults);
 - data parallelism and ZeRO: ``--zero`` at world 1 (a one-rank gloo
   group in this process) gives losses bitwise equal to FusedAdam's, and
   resumes bitwise; ``examples/gpt/pretrain_gpt.py --zero`` at dp 2 on two
@@ -285,8 +286,30 @@ def test_unported_flags_raise_with_their_queue_item(flag, capsys):
         with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
             _run(flag + ["--steps", "1"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        _run(flag + ["--steps", "1"])
+    if flag[0] == "--supervise":
+        # ported: main() runs the command as a supervised child (the round
+        # trip is in tests/test_torch_supervisor.py); run() trains in this
+        # process and refuses it, and a checkpointing run must auto-resume
+        with pytest.raises(ValueError, match=r"call main\(\), not run\(\)"):
+            _run(flag + ["--steps", "1"])
+        with pytest.raises(SystemExit, match="--supervise needs --auto-resume"):
+            pretrain_gpt.main(TINY + flag + ["--checkpoint", "/nonexistent/ck"])
+        return
+    if flag[0] == "--chaos-kill-at-step":
+        # ported: rank 0 dies hard at step 1 (exit 137, no save)
+        from apex_tpu_torch.resilience import ChaosHostKilled
+
+        with pytest.raises(ChaosHostKilled) as ei:
+            _run(flag + ["--steps", "3"])
+        assert ei.value.code == 137 and (ei.value.rank, ei.value.step) == (0, 1)
+        return
+    # ported: the wedge sleeps step 1's dispatch (--chaos-wedge-secs, 120
+    # by default); with no wedge step the seconds alone do nothing
+    extra = ["--chaos-wedge-secs", "0.3"] if flag[0] == "--chaos-wedge-step" else []
+    t0 = time.monotonic()
+    report, _ = _run(flag + extra + ["--steps", "2"], capsys)
+    assert report["steps_done"] == 2 and all(math.isfinite(x) for x in report["losses"])
+    assert (time.monotonic() - t0 >= 0.3) or flag[0] == "--chaos-wedge-secs"
 
 
 def test_refusals():
