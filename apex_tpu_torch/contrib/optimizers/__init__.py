@@ -31,8 +31,9 @@ def zero_state_from_numpy(optimizer, shards, device=None):
     ``sharded_state_dict`` (numpy arrays from the JAX package, or CPU
     tensors), e.g. the ``"opt"`` entries of an elastic checkpoint's shard
     files.  The state is resharded for the optimizer's world
-    (``load_sharded_state_dicts``), checked against its master precision
-    and wire, and put on ``device`` (the optimizer's by default).  The
+    (``load_sharded_state_dicts``; with model-parallel params this rank's
+    model segment), checked against its master precision and wire, and
+    put on ``device`` (the optimizer's by default).  The
     ZeRO twin of ``models.gpt.params_from_numpy`` and
     ``train_state_from_numpy``."""
     if optimizer.world_size is None:
@@ -42,4 +43,5 @@ def zero_state_from_numpy(optimizer, shards, device=None):
         shards, world_size=optimizer.world_size, rank=optimizer.rank,
         store_param_remainders=optimizer.store_param_remainders,
         grad_sync_dtype=optimizer.grad_sync_dtype,
-        device=optimizer._device if device is None else device)
+        device=optimizer._device if device is None else device,
+        model_index=optimizer.model_index)

@@ -211,14 +211,28 @@ def quantized_pmean(grads, pg, spec: QSpec, world: int, block: int = QBLOCK):
     return bucketing.unpack(plan, out)
 
 
-def grad_sync_bytes(total: int, sync_dtype, block: int = QBLOCK, flat_hop: str = "dp"):
+def grad_sync_bytes(total: int, sync_dtype, block: int = QBLOCK, hier=None,
+                    flat_hop: str = "dp"):
     """``{hop: {"payload": bytes, "scales": bytes}}`` one bucket's grad
-    sync puts on the wire a step, per rank (the flat plan: one hop).
-    The quantized wires' fp32 scale vector is counted on its own."""
+    sync puts on the wire a step, per rank: one hop keyed ``flat_hop`` on
+    the flat plan; on a hierarchical one (``hier``, a
+    :class:`~._hierarchical_sync.HierarchicalSyncPlan`) the fast hop
+    carries the whole bucket and each slower hop the chunk every faster
+    one scattered, all at the wire dtype.  The quantized wires' fp32
+    scale vector is counted on its own, a hop at a time."""
     spec = qspec_of(sync_dtype)
     if spec is not None:
         item = torch.empty((), dtype=spec.wire_dtype).element_size()
     else:
         item = torch.empty((), dtype=bucketing.torch_dtype(_name(sync_dtype))).element_size()
-    return {flat_hop: {"payload": total * item,
-                       "scales": (total // block) * 4 if spec is not None else 0}}
+
+    def hop(n):
+        return {"payload": n * item, "scales": (n // block) * 4 if spec is not None else 0}
+
+    if hier is None:
+        return {flat_hop: hop(total)}
+    out, n = {}, total
+    for axis, size in zip(reversed(hier.hop_axes), reversed(hier.hop_sizes)):  # fast first
+        out[axis] = hop(n)
+        n //= max(size, 1)
+    return out

@@ -36,37 +36,51 @@ Nothing reads a device value on the host, so the step captures as one
 CUDA graph with its collectives.  A collective that fails raises;
 nothing falls back.
 
-Not ported yet, each raising with its ROADMAP.md item: ``dp_axes``
-(the hierarchical sync), ``param_specs`` (ZeRO composed with tensor
-parallelism), and the backward-overlapped sync (``make_train_step(
-overlap_grad_sync=True)``).
+Composition with model parallelism (``init(..., param_specs=,
+axis_sizes=)``): each process holds its own (pp, tp) shard of the params
+(the step's local leaves), so its plan is the plan of the local shapes
+and its state the dp shard of its own model segment, as the JAX
+engine's ``(model axes..., dp)`` sharding places it.  ``model_mult`` is
+the product of the model axes' sizes; a saved piece is ``(model_mult,
+shard)``, the segments gathered over the model groups in ``np.ndindex``
+order over the sorted model axes (pp major, tp minor).
+
+``dp_axes=(outer, inner)`` or ``("dcn", outer, inner)`` makes the syncs
+hierarchical (:mod:`._hierarchical_sync`): a multi-hop reduce-scatter
+over nested groups of the data-parallel group, the gathers mirrored.
+The shard a rank owns stays the flat plan's chunk (its ``zero_rank``),
+so checkpoints cross flat and hierarchical worlds unchanged.
+
+Not ported yet: the backward-overlapped sync (``make_train_step(
+overlap_grad_sync=True)``, :data:`OVERLAP_ITEM`).
 """
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from apex_tpu_torch.contrib.optimizers import _hierarchical_sync as hs
 from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
 from apex_tpu_torch.observability import stepstats as _stepstats
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers import bucketing
+from apex_tpu_torch.optimizers import tree as _tree
 from apex_tpu_torch.optimizers.base import _clip_coef, _mult, bias_corrections
 from apex_tpu_torch.optimizers.tree import tree_leaves, tree_unflatten
 from apex_tpu_torch.parallel.distributed import all_gather_flat, reduce_scatter_flat
 from apex_tpu_torch.transformer.parallel_state import DATA_AXIS
 
-__all__ = ["ZeroOptimizerBase", "resolve_sync_dtype", "HIER_ITEM", "OVERLAP_ITEM"]
+__all__ = ["ZeroOptimizerBase", "resolve_sync_dtype", "local_leaf_info", "OVERLAP_ITEM"]
 
 #: wide sync dtypes: the wire carries the values themselves
 _SUPPORTED_SYNC = ("float32", "bfloat16", "float16")
 #: quantized wire dtypes (grad sync only)
 _QUANTIZED_GRAD_SYNC = ("int8", "float8_e4m3fn", "float8_e5m2")
 
-#: what brings the parts of the JAX engine not ported yet
-HIER_ITEM = "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)"
+#: what brings the part of the JAX engine not ported yet
 OVERLAP_ITEM = "the backward-overlapped grad sync, ROADMAP.md queue 1 item 6 (what it left)"
-TP_ITEM = "ZeRO composed with tensor and pipeline parallelism, ROADMAP.md queue 1 item 12"
 
 
 def resolve_sync_dtype(value, knob: str) -> Optional[torch.dtype]:
@@ -88,6 +102,80 @@ def resolve_sync_dtype(value, knob: str) -> Optional[torch.dtype]:
         f"{knob}={name!r} is not supported: pass one of {_SUPPORTED_SYNC}, None (the "
         f"bucket's dtype for bf16/fp16 buckets, float32 otherwise), or for "
         f"grad_sync_dtype a quantized wire dtype {_QUANTIZED_GRAD_SYNC}")
+
+
+def _spec_dim_axes(entry):
+    """The mesh axes one dim of a spec is split over."""
+    return tuple(ax for ax in (entry if isinstance(entry, tuple) else (entry,))
+                 if ax is not None)
+
+
+def _spec_leaves(params, param_specs):
+    """The spec of each leaf of ``params``, in leaf order: ``param_specs``
+    matches ``params`` node for node down to the leaves, where it holds a
+    ``PartitionSpec`` (any iterable of axis entries; None: replicated)."""
+    out = []
+
+    def walk(node, spec):
+        kids = _tree._children(node)
+        if kids is None:
+            out.append(() if spec is None else tuple(spec))
+            return
+        kind, keys, children = kids
+        if kind == "dict":
+            for k, c in zip(keys, children):
+                walk(c, spec[k])
+        elif kind != "none":
+            for i, c in enumerate(children):
+                walk(c, spec[i])
+
+    walk(params, param_specs)
+    return out
+
+
+def local_leaf_info(params, param_specs, axis_sizes, zero_axis, local: bool = False):
+    """The JAX engine's ``local_leaf_info``: ``(local_shapes, model_axes,
+    repl)``, each leaf's shard shape under ``param_specs``, the sorted
+    model axes the params split over, and each leaf's replication factor
+    over them (1 for a leaf split over every model axis).  ``zero_axis``
+    is the ZeRO axis or the hierarchical tuple.  Raises if a param is
+    split over a ZeRO axis, or a split dim is indivisible (the flat layout
+    would misalign).  With ``local`` the leaves are already this rank's
+    shards (the port's step holds those): their shapes are kept, and
+    :func:`apex_tpu_torch.models.gpt.shard_tree` cuts such a shard (the
+    JAX engine's ``_leaf_shard_np`` block)."""
+    zero_axes = set(zero_axis) if isinstance(zero_axis, (tuple, list)) else {zero_axis}
+    leaves = tree_leaves(params)
+    specs = _spec_leaves(params, param_specs)
+    used, leaf_axes, local_shapes = [], [], []
+    for leaf, spec in zip(leaves, specs, strict=True):
+        shape = list(leaf.shape)
+        here = set()
+        for dim, entry in enumerate(spec):
+            dim_axes = _spec_dim_axes(entry)
+            if not dim_axes:
+                continue
+            for ax in dim_axes:
+                if ax in zero_axes:
+                    raise ValueError(f"params must not be sharded over the ZeRO axis {ax!r}")
+            shard = int(np.prod([axis_sizes[ax] for ax in dim_axes]))
+            if not local:
+                if leaf.shape[dim] % shard:
+                    raise ValueError(
+                        f"param dim {dim} of shape {tuple(leaf.shape)} is not divisible by "
+                        f"mesh axes {dim_axes!r} (total size {shard}); the flat ZeRO layout "
+                        "would silently misalign")
+                shape[dim] //= shard
+            for ax in dim_axes:
+                here.add(ax)
+                if ax not in used:
+                    used.append(ax)
+        leaf_axes.append(here)
+        local_shapes.append(tuple(shape))
+    model_axes = tuple(sorted(used))
+    repl = [int(np.prod([axis_sizes[ax] for ax in model_axes if ax not in h] or [1]))
+            for h in leaf_axes]
+    return local_shapes, model_axes, repl
 
 
 def _py(v):
@@ -129,11 +217,19 @@ class ZeroOptimizerBase:
                  store_param_remainders: bool = False, dtype=torch.float32,
                  dp_axes: Optional[Sequence[str]] = None, process_group=None,
                  distributed_process_group=None, redundant_process_group=None):
-        if dp_axes is not None or distributed_process_group is not None \
-                or redundant_process_group is not None:
-            raise NotImplementedError(
-                f"dp_axes={dp_axes!r} (a hierarchical data-parallel split) is not ported "
-                f"yet: it comes with {HIER_ITEM}")
+        if distributed_process_group is not None or redundant_process_group is not None:
+            raise ValueError("distributed_process_group / redundant_process_group (the "
+                             "reference's hierarchical split): pass dp_axes=(outer, inner) "
+                             "and init(axis_sizes=) instead")
+        if dp_axes is not None:
+            dp_axes = tuple(dp_axes)
+            if not (2 <= len(dp_axes) <= 3) or len(set(dp_axes)) != len(dp_axes) \
+                    or not all(isinstance(a, str) for a in dp_axes):
+                raise ValueError(
+                    f"dp_axes must be two or three distinct mesh axis names ordered slow to "
+                    f"fast — (outer, inner) or (dcn, dp_out, dp_in) — got {dp_axes!r}")
+        self.dp_axes = dp_axes
+        self._hier_plan = None
         self.lr = lr
         self.weight_decay = weight_decay
         self.axis_name = axis_name
@@ -177,14 +273,58 @@ class ZeroOptimizerBase:
 
     # --------------------------------------------------------------- plan
     def _init_plan(self, params, world_size, param_specs, axis_sizes):
-        if param_specs is not None or axis_sizes is not None:
-            raise NotImplementedError(f"param_specs is not ported yet: it comes with {TP_ITEM}")
-        self._pg, world, self._rank = self._resolve_group()
+        """The plan over ``params``, this rank's leaves (with
+        ``param_specs``, its shard of the model-parallel params, as the
+        step holds them), the data-parallel layout (flat, or the
+        hierarchical split of ``dp_axes`` with its sizes in
+        ``axis_sizes``) and the model axes, their groups and this rank's
+        model segment."""
+        from apex_tpu_torch.transformer import parallel_state
+
+        self._pg, world, pos = self._resolve_group()
+        plan = None if self.dp_axes is None else hs.hierarchical_plan(
+            self.dp_axes, axis_sizes, grad_wire_dtype=self.grad_sync_dtype,
+            param_wire_dtype=self.param_sync_dtype)
         if world_size is not None and int(world_size) != world:
             raise ValueError(f"world_size={world_size} but the data-parallel group has "
                              f"{world} ranks")
         self._world = world
+        self._hier_plan, self._rank, self._chunk_of_pos = None, pos, None
+        if plan is not None:
+            if plan.world != world:
+                raise ValueError(
+                    f"dp_axes={self.dp_axes!r} sizes {plan.hop_sizes} multiply to "
+                    f"{plan.world}, but world_size={world}: the hierarchical split must "
+                    "cover exactly the flat dp world (same 1/dp shards, same padded_total "
+                    "formula)")
+            self._hier_plan = dataclasses.replace(
+                plan, groups=parallel_state.get_data_parallel_hop_groups(plan.hop_axes,
+                                                                         plan.hop_sizes))
+            self._rank = self._hier_plan.zero_rank()
+            # the flat chunk each data-parallel position owns
+            self._chunk_of_pos = [
+                hs.zero_rank_of(np.unravel_index(d, plan.hop_sizes), plan.hop_sizes)
+                for d in range(world)]
         leaves = tree_leaves(params)
+        if param_specs is not None:
+            if axis_sizes is None:
+                raise ValueError("param_specs requires axis_sizes")
+            _, self._model_axes, self._leaf_repl = local_leaf_info(
+                params, param_specs, axis_sizes, self.dp_axes or self.axis_name, local=True)
+        else:
+            self._model_axes, self._leaf_repl = (), [1] * len(leaves)
+        self._axis_sizes = dict(axis_sizes or {})
+        self._model_mult = int(np.prod([self._axis_sizes[ax] for ax in self._model_axes]
+                                       or [1]))
+        self._model_groups = (parallel_state.get_model_parallel_groups(self._model_axes)
+                              if self._model_axes else ())
+        for ax, g in zip(self._model_axes, self._model_groups):
+            if g.size() != self._axis_sizes[ax]:
+                raise ValueError(f"axis_sizes[{ax!r}]={self._axis_sizes[ax]} but the "
+                                 f"registered {ax} group has {g.size()} ranks")
+        self._model_index = 0
+        for g in self._model_groups:
+            self._model_index = self._model_index * g.size() + g.rank()
         if self.store_param_remainders:
             bad = [l.dtype for l in leaves if l.dtype != torch.bfloat16]
             if bad:
@@ -220,14 +360,34 @@ class ZeroOptimizerBase:
 
     @property
     def rank(self) -> Optional[int]:
+        """This rank's flat dp rank: the chunk of every bucket it owns."""
         return getattr(self, "_rank", None)
+
+    @property
+    def hier_plan(self) -> Optional[hs.HierarchicalSyncPlan]:
+        """The hierarchical plan built at ``init`` (None on flat dp)."""
+        return getattr(self, "_hier_plan", None)
+
+    @property
+    def model_mult(self) -> int:
+        """The model segments the state is split into (1 without model
+        parallelism)."""
+        return getattr(self, "_model_mult", 1)
+
+    @property
+    def model_index(self) -> int:
+        """This rank's model segment, ``np.ndindex`` order over the sorted
+        model axes."""
+        return getattr(self, "_model_index", 0)
 
     def plan_fingerprint(self) -> dict:
         """Every input that shapes the collective schedule."""
         plan = self._require_plan()
-        return {"world": self._world, "cap_bytes": self._cap_bytes, "model_mult": 1,
-                "hier": None, "buckets": [[b.dtype, b.size, b.total, len(b.leaves)]
-                                          for b in plan.buckets]}
+        hier = self._hier_plan
+        return {"world": self._world, "cap_bytes": self._cap_bytes,
+                "model_mult": self._model_mult,
+                "hier": None if hier is None else [list(hier.shard_axes), *hier.hop_sizes],
+                "buckets": [[b.dtype, b.size, b.total, len(b.leaves)] for b in plan.buckets]}
 
     def _grad_dtype(self, b) -> torch.dtype:
         if self.grad_sync_dtype is not None:
@@ -331,15 +491,21 @@ class ZeroOptimizerBase:
                                  "error-feedback residual (state.residual[bi])")
             h = bucketing.pack_bucket(b, leaves, torch.float32, scale=inv)
             h = h + residual.to(torch.float32)
-            g_sum, res_new = qs.quantized_reduce_scatter(h, pg, spec, rank, world)
+            if self._hier_plan is not None:
+                g_sum, res_new = hs.quantized_multi_hop_reduce_scatter(h, self._hier_plan, spec)
+            else:
+                g_sum, res_new = qs.quantized_reduce_scatter(h, pg, spec, rank, world)
             g32 = g_sum / world if self.grad_average else g_sum
             return g32, res_new.to(bucketing.torch_dtype(b.dtype)), h
         # fp16 sync pre-divides (a world-sized fp16 sum would overflow);
         # fp32/bf16 divide after, in fp32
         predivide = self.grad_average and sdt == torch.float16
         bucket = bucketing.pack_bucket(b, leaves, sdt, scale=(1.0 / world) if predivide else None)
-        g_loc = torch.empty(b.total // world, dtype=sdt, device=bucket.device)
-        reduce_scatter_flat(g_loc, bucket, pg)
+        if self._hier_plan is not None:
+            g_loc = hs.multi_hop_reduce_scatter(bucket, self._hier_plan)
+        else:
+            g_loc = torch.empty(b.total // world, dtype=sdt, device=bucket.device)
+            reduce_scatter_flat(g_loc, bucket, pg)
         g32 = g_loc.to(torch.float32)
         if self.grad_average and not predivide and world != 1:
             g32 = g32 / world
@@ -446,8 +612,11 @@ class ZeroOptimizerBase:
         new_leaves: List[Optional[torch.Tensor]] = [None] * plan.n_leaves
         for b, shard in zip(plan.buckets, shard_out):
             shard = shard.to(self._param_dtype(b))
-            full = torch.empty(b.total, dtype=shard.dtype, device=shard.device)
-            all_gather_flat(full, shard, self._pg)
+            if self._hier_plan is not None:
+                full = hs.multi_hop_all_gather(shard, self._hier_plan)
+            else:
+                full = torch.empty(b.total, dtype=shard.dtype, device=shard.device)
+                all_gather_flat(full, shard, self._pg)
             for bl in b.leaves:
                 old = leaves[bl.leaf_id]
                 leaf = full[bl.offset:bl.offset + bl.size].view(bl.shape).to(old.dtype)
@@ -518,21 +687,37 @@ class ZeroOptimizerBase:
     def wire_bytes_per_step(self) -> Dict[str, Any]:
         """Static per-step wire accounting off the bucket plan (what the
         ``zero_gpt124`` bench reports): ``grad_payload``, ``grad_scales``,
-        ``grad_sync``, ``param_sync``, ``total`` and ``hops`` (one, the
-        flat dp group)."""
+        ``grad_sync``, ``param_sync``, ``total`` and ``hops``, the same a
+        hop (one, the flat dp group; on a hierarchical plan each slower hop
+        carries ``1/prod(faster sizes)`` of the bucket)."""
         plan = self._require_plan()
-        d = {"grad_payload": 0, "grad_scales": 0, "param_sync": 0}
+        hier = self._hier_plan
+        hops: Dict[str, Dict[str, int]] = {}
+
+        def add(hop, key, n):
+            d = hops.setdefault(hop, {"grad_payload": 0, "grad_scales": 0, "param_sync": 0})
+            d[key] += n
+
         for b in plan.buckets:
-            hb = qs.grad_sync_bytes(b.total, self._grad_dtype(b), flat_hop=self.axis_name)
-            d["grad_payload"] += hb[self.axis_name]["payload"]
-            d["grad_scales"] += hb[self.axis_name]["scales"]
-            d["param_sync"] += b.total * torch.empty(
-                (), dtype=self._param_dtype(b)).element_size()
-        d["grad_sync"] = d["grad_payload"] + d["grad_scales"]
-        d["total"] = d["grad_sync"] + d["param_sync"]
-        out = {k: d[k] for k in ("grad_payload", "grad_scales", "grad_sync", "param_sync",
-                                  "total")}
-        out["hops"] = {self.axis_name: dict(d)}
+            for hop, hb in qs.grad_sync_bytes(b.total, self._grad_dtype(b), hier=hier,
+                                              flat_hop=self.axis_name).items():
+                add(hop, "grad_payload", hb["payload"])
+                add(hop, "grad_scales", hb["scales"])
+            item = torch.empty((), dtype=self._param_dtype(b)).element_size()
+            if hier is not None:
+                n = b.total
+                for axis, size in zip(reversed(hier.hop_axes), reversed(hier.hop_sizes)):
+                    add(axis, "param_sync", n * item)
+                    n //= max(size, 1)
+            else:
+                add(self.axis_name, "param_sync", b.total * item)
+        for d in hops.values():
+            d["grad_sync"] = d["grad_payload"] + d["grad_scales"]
+            d["total"] = d["grad_sync"] + d["param_sync"]
+        out: Dict[str, Any] = {k: sum(d[k] for d in hops.values())
+                               for k in ("grad_payload", "grad_scales", "grad_sync",
+                                         "param_sync", "total")}
+        out["hops"] = hops
         return out
 
     def sync_plan_hops(self):
@@ -540,7 +725,8 @@ class ZeroOptimizerBase:
         plan = self._require_plan()
         out = []
         for i, b in enumerate(plan.buckets):
-            hb = qs.grad_sync_bytes(b.total, self._grad_dtype(b), flat_hop=self.axis_name)
+            hb = qs.grad_sync_bytes(b.total, self._grad_dtype(b), hier=self._hier_plan,
+                                    flat_hop=self.axis_name)
             for hop, v in hb.items():
                 out.append({"bucket": i, "hop": hop, "bucket_dtype": b.dtype,
                             "wire_dtype": bucketing.dtype_name(self._grad_dtype(b)),
@@ -583,25 +769,64 @@ class ZeroOptimizerBase:
     def _state_arrays(self, state) -> Dict[str, Sequence]:
         return {f: getattr(state, f) for f in state._fields if f != "step"}
 
+    def _gather_model(self, x) -> torch.Tensor:
+        """``(model_mult, x.numel())``: every model segment's ``x``,
+        gathered over the model groups, ``np.ndindex`` order over the
+        sorted model axes (the last axis gathered first).  A collective
+        over the model groups; a view of ``x`` without them."""
+        out = x.reshape(1, -1)
+        for g in reversed(self._model_groups):
+            if g.size() == 1:
+                continue
+            # as bytes: gloo gathers no 16-bit integers
+            wire = out.contiguous().view(torch.uint8)
+            full = torch.empty((g.size(),) + tuple(wire.shape), dtype=torch.uint8,
+                               device=wire.device)
+            all_gather_flat(full.view(-1), wire.view(-1), g.group)
+            out = full.view(x.dtype).reshape(-1, x.numel())
+        return out
+
+    def _model_sum(self, x) -> torch.Tensor:
+        """The sum of ``x`` over every model segment, added in the
+        combined model group's rank order (XLA's CPU ``psum`` over the
+        model axes)."""
+        parts = self._gather_model(x).view((-1,) + tuple(x.shape))
+        acc = parts[0]
+        for r in range(1, parts.shape[0]):
+            acc = acc + parts[r]
+        return acc
+
+    def _chunk_order(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows`` (world, n), one a data-parallel position, in the order
+        of the chunks they own (the positions' order on the flat plan)."""
+        if self._chunk_of_pos is None:
+            return rows
+        inv = [0] * self._world
+        for pos, chunk in enumerate(self._chunk_of_pos):
+            inv[chunk] = pos
+        return rows[inv]
+
     def state_dict(self, state):
         """The whole state (the reference's ``gather_on_root=True``):
         every rank's shards all-gathered into full per-bucket CPU
-        tensors, the residuals as ``(world, total)``.  A collective:
-        every rank calls it."""
+        tensors in chunk order, the residuals as ``(world, total)``; with
+        model-parallel params the segments follow one another
+        (``model_mult`` x the bucket; residuals ``(model_mult x world,
+        total)``).  A collective: every rank calls it."""
         d = {"format": self.SHARD_FORMAT, "step": int(state.step),
              "master_kind": self._master_kind, "residual_kind": self._residual_kind,
              "buckets": self._bucket_meta()}
         for name, slot in self._state_arrays(state).items():
             pieces = []
             for arr in slot:
-                src = arr.contiguous()
-                if src.dtype == torch.uint16:
-                    src = src.view(torch.int16)
-                full = torch.empty(self._world * src.numel(), dtype=src.dtype,
+                src = arr.contiguous().view(torch.uint8)  # gloo gathers no 16-bit ints
+                full = torch.empty(self._world * src.numel(), dtype=torch.uint8,
                                    device=src.device)
                 all_gather_flat(full, src, self._pg)
-                a = full.view(arr.dtype).cpu()
-                pieces.append(a.view(self._world, -1) if name == "residual" else a)
+                full = self._chunk_order(full.view(self._world, -1)).view(arr.dtype)
+                a = self._gather_model(full).cpu()
+                pieces.append(a.reshape(-1, arr.numel()) if name == "residual"
+                              else a.reshape(-1))
             d[name] = pieces
         return d
 
@@ -621,7 +846,7 @@ class ZeroOptimizerBase:
             src = d.get(f, ()) if f == "residual" else d[f]
             out = []
             for a, b in zip(src, plan.buckets):
-                a = _t(a)
+                a = _t(a).view(self._model_mult, -1)[self._model_index]
                 a = a.view(-1, b.total)[self._rank] if f == "residual" else self._shard_of(b, a)
                 out.append(a.clone().to(self._device))
             fields[f] = tuple(out)
@@ -632,11 +857,13 @@ class ZeroOptimizerBase:
         """This rank's shard of the state with the layout metadata that a
         reshard needs (the reference's ``state_dict(gather_on_root=
         False)``), in the JAX package's format: each bucket's piece is
-        ``(model_mult, shard)`` numpy, a residual ``(model_mult,
-        total)``: views of the live state, not copies (a checkpointer's
+        ``(model_mult, shard)``, a residual ``(model_mult, total)``.  A
+        process holds only its own shard, so ``rank`` (the flat dp rank)
+        and ``world_size`` must be its own.  Without model parallelism the
+        pieces are views of the live state, not copies (a checkpointer's
         snapshot copies them to host once; copy them before the next step
-        otherwise).  A process holds only its own shard, so ``rank`` and
-        ``world_size`` must be its own."""
+        otherwise); with it they are the segments gathered over the model
+        groups, a collective every rank of them calls."""
         plan = self._require_plan()
         rank = self._rank if rank is None else int(rank)
         world_size = self._world if world_size is None else int(world_size)
@@ -647,10 +874,11 @@ class ZeroOptimizerBase:
             raise ValueError(f"this process holds rank {self._rank}'s shard, not rank {rank}'s")
         d = {"format": self.SHARD_FORMAT, "master_kind": self._master_kind,
              "residual_kind": self._residual_kind, "rank": rank, "world_size": world_size,
-             "model_mult": 1, "step": int(state.step), "buckets": self._bucket_meta(),
+             "model_mult": self._model_mult, "step": int(state.step),
+             "buckets": self._bucket_meta(),
              "total_numel": int(sum(b.size for b in plan.buckets))}
         for name, slot in self._state_arrays(state).items():
-            d[name] = [arr.detach().reshape(1, -1) for arr in slot]
+            d[name] = [self._gather_model(arr.detach()) for arr in slot]
         return d
 
     #: "caller did not say" (None is a meaningful grad_sync_dtype)
@@ -659,16 +887,21 @@ class ZeroOptimizerBase:
     @classmethod
     def load_sharded_state_dicts(cls, shards, world_size: int, rank: int = 0,
                                  store_param_remainders: Optional[bool] = None,
-                                 grad_sync_dtype=_UNSPECIFIED, device="cpu"):
+                                 grad_sync_dtype=_UNSPECIFIED, device="cpu",
+                                 model_index: Optional[int] = None):
         """Rank ``rank``'s state for a world of ``world_size`` from every
         saved rank's shard dict (which may come from another world, or
-        from the JAX package, whose buckets pad otherwise): per bucket,
-        concat the saved slices, trim to the payload, re-pad with this
-        package's ZeRO formula, cut this rank's shard.  Residuals: the
-        saved per-rank buckets at the same world, else their sum on rank
-        0 (zeros elsewhere): what the trajectory sees is ``Σ_r (g_r +
-        residual_r)``.  ``grad_sync_dtype`` / ``store_param_remainders``
-        refuse a checkpoint of the other kind up front."""
+        from the JAX package, whose buckets pad otherwise): per bucket
+        and per model segment, concat the saved slices, trim to the
+        payload, re-pad with this package's ZeRO formula, cut this rank's
+        shard.  With model-parallel params (``model_mult`` > 1)
+        ``model_index`` names the segment this rank holds (the
+        optimizer's ``model_index``); a dp reshard keeps the model
+        layout.  Residuals: the saved per-rank buckets at the same world,
+        else their sum on rank 0 (zeros elsewhere): what the trajectory
+        sees is ``Σ_r (g_r + residual_r)``.  ``grad_sync_dtype`` /
+        ``store_param_remainders`` refuse a checkpoint of the other kind
+        up front."""
         skip = set(cls._STATE_CLS._fields) | {"buckets"}
         shards = [{k: (v if k in skip else _py(v)) for k, v in d.items()} for d in shards]
         for d in shards:
@@ -691,9 +924,16 @@ class ZeroOptimizerBase:
             for kind_key, default in (("master_kind", "fp32"), ("residual_kind", "none")):
                 if d.get(kind_key, default) != meta.get(kind_key, default):
                     raise ValueError(f"shard {d['rank']} disagrees on {kind_key}")
-        if meta["model_mult"] != 1:
-            raise NotImplementedError(f"a state saved with model-parallel shards "
-                                      f"(model_mult={meta['model_mult']}): {TP_ITEM}")
+        mm = int(meta["model_mult"])
+        if model_index is None:
+            if mm != 1:
+                raise ValueError(f"a state saved with model-parallel shards (model_mult={mm}) "
+                                 "needs model_index= (the segment this rank holds)")
+            model_index = 0
+        if not 0 <= int(model_index) < mm:
+            raise ValueError(f"model_index={model_index} is outside the saved state's "
+                             f"{mm} model segments (a tp/pp change is a layout change)")
+        mi = int(model_index)
         if store_param_remainders is not None:
             want = "remainder_u16" if store_param_remainders else "fp32"
             got = meta.get("master_kind", "fp32")
@@ -714,12 +954,12 @@ class ZeroOptimizerBase:
         fields = {"step": torch.tensor(int(meta["step"]), dtype=torch.int32, device=dev)}
         for name in [f for f in cls._STATE_CLS._fields if f != "step"]:
             if name == "residual":
-                fields[name] = cls._reshard_residuals(shards, meta, world_size, rank, dev) \
+                fields[name] = cls._reshard_residuals(shards, meta, world_size, rank, dev, mi) \
                     if res_kind == "ef" else ()
                 continue
             out = []
             for bi, bm in enumerate(meta["buckets"]):
-                full = torch.cat([_t(d[name][bi]) for d in shards])
+                full = torch.cat([_t(d[name][bi]).view(mm, -1)[mi] for d in shards])
                 new_total = bucketing.padded_total(bm["size"], bm["dtype"], world_size,
                                                    qs.QBLOCK)
                 padded = torch.zeros(new_total, dtype=full.dtype)
@@ -730,11 +970,11 @@ class ZeroOptimizerBase:
         return cls._STATE_CLS(**fields)
 
     @classmethod
-    def _reshard_residuals(cls, shards, meta, world_size: int, rank: int, dev):
-        saved_world = meta["world_size"]
+    def _reshard_residuals(cls, shards, meta, world_size: int, rank: int, dev, mi: int = 0):
+        saved_world, mm = meta["world_size"], int(meta["model_mult"])
         out = []
         for bi, bm in enumerate(meta["buckets"]):
-            pieces = [_t(d["residual"][bi]) for d in shards]
+            pieces = [_t(d["residual"][bi]).view(mm, -1)[mi] for d in shards]
             new_total = bucketing.padded_total(bm["size"], bm["dtype"], world_size, qs.QBLOCK)
             new = torch.zeros(new_total, dtype=pieces[0].dtype)
             if world_size == saved_world:

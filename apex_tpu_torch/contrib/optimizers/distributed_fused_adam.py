@@ -24,15 +24,16 @@ exact either way.
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from apex_tpu_torch.contrib.optimizers._zero_engine import ZeroOptimizerBase
+from apex_tpu_torch.contrib.optimizers._zero_engine import ZeroOptimizerBase, local_leaf_info
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops.multi_tensor import master_from_remainder as _master_from_remainder  # noqa: F401
 from apex_tpu_torch.ops.multi_tensor import split_master as _split_master  # noqa: F401
 from apex_tpu_torch.transformer.parallel_state import DATA_AXIS
 
-__all__ = ["DistributedFusedAdam", "DistributedFusedAdamState"]
+__all__ = ["DistributedFusedAdam", "DistributedFusedAdamState", "local_total_and_axes"]
 
 
 class DistributedFusedAdamState(NamedTuple):
@@ -45,6 +46,15 @@ class DistributedFusedAdamState(NamedTuple):
     # quantized grad sync only: the full-bucket error-feedback residuals
     # in the bucket's dtype; () on wide wires
     residual: Tuple[torch.Tensor, ...] = ()
+
+
+def local_total_and_axes(params, param_specs, axis_sizes, zero_axis):
+    """``(local_total_numel, model_axes, leaf_repl)``: the flat summary of
+    :func:`~apex_tpu_torch.contrib.optimizers._zero_engine.local_leaf_info`
+    on the whole params (the JAX package's helper of the same name)."""
+    shapes, model_axes, repl = local_leaf_info(params, param_specs, axis_sizes, zero_axis)
+    total = sum(int(np.prod(s)) if s else 1 for s in shapes)
+    return total, model_axes, repl
 
 
 class DistributedFusedAdam(ZeroOptimizerBase):
@@ -79,7 +89,14 @@ class DistributedFusedAdam(ZeroOptimizerBase):
         """This rank's state: zero m and v shards, the fp32 master shard
         packed from ``params`` (or zero remainders, which rebuild exactly
         the bf16 params' fp32 extension), zero residuals on a quantized
-        wire.  ``world_size``, when given, must be the group's."""
+        wire.  ``world_size``, when given, must be the group's.
+
+        Composition with model parallelism: ``params`` are this rank's
+        shard of params split over model axes (what the step holds),
+        ``param_specs`` their specs and ``axis_sizes`` the axes' sizes
+        (``{"tp": N, "pp": M}``); the plan is that of the local leaves,
+        and the state the dp shard of this rank's model segment.  With
+        ``dp_axes``, ``axis_sizes`` also gives each dp hop's size."""
         self._init_plan(params, world_size, param_specs, axis_sizes)
         return DistributedFusedAdamState(
             step=torch.zeros((), dtype=torch.int32, device=self._device),

@@ -5,9 +5,10 @@ Reference: ``apex/contrib/optimizers/distributed_fused_lamb.py:1061``.
 LAMB's trust ratio is per TENSOR, so the shard math reads tensor
 boundaries through the plan's static segment map: per-leaf Σp² and Σu²
 of this rank's shards (the engine's ``_per_leaf_sumsq``), summed over
-the group in rank order, give the global per-leaf norms; the ratios
-broadcast back onto the shard, and the all-gather stays a pure param
-sync.  Stage 1 and stage 2 are the per-leaf FusedLAMB's expressions
+the group in rank order, give the global per-leaf norms (with
+model-parallel params also summed over the model groups, each leaf
+divided by its replication factor first); the ratios broadcast back
+onto the shard, and the all-gather stays a pure param sync.  Stage 1 and stage 2 are the per-leaf FusedLAMB's expressions
 (:mod:`apex_tpu_torch.optimizers.fused_lamb`) as PyTorch ops over the
 shard buffers, as the port's FusedLAMB runs them.
 """
@@ -74,8 +75,23 @@ class DistributedFusedLAMB(ZeroOptimizerBase):
 
     def _global_leaf_sumsq(self, plan, shards) -> torch.Tensor:
         """Global per-leaf Σx² from the shards: segment sums, summed over
-        the group in rank order (the shards are disjoint)."""
-        return qs.rank_order_sum(self._per_leaf_sumsq(plan, shards), self._pg, self._world)
+        the group in rank order (the shards are disjoint); with
+        model-parallel params then divided by each leaf's replication
+        factor and summed over the model groups, so a leaf every model
+        rank holds whole counts once."""
+        leaf_sq = qs.rank_order_sum(self._per_leaf_sumsq(plan, shards), self._pg, self._world)
+        if self._model_axes:
+            leaf_sq = self._model_sum(leaf_sq / self._repl_vector(leaf_sq.device))
+        return leaf_sq
+
+    def _repl_vector(self, dev) -> torch.Tensor:
+        """The leaves' replication factors on ``dev`` (made once, on the
+        first, eager call)."""
+        cache = self.__dict__.setdefault("_dev_cache", {})
+        key = ("repl", dev)
+        if key not in cache:
+            cache[key] = torch.tensor(self._leaf_repl, dtype=torch.float32, device=dev)
+        return cache[key]
 
     def _zero_step(self, grads, state: DistributedFusedLAMBState, params, grads_finite=None,
                    lr=None, scale=None, clip_norm=None, finite_sync=None, sumsq_reduce=None,

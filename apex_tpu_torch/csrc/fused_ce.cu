@@ -298,7 +298,15 @@ ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e, const int*
           for (int j = 0; j < NT; ++j)
 #pragma unroll
             for (int q = 0; q < 2; ++q) sum += fast_exp2(fmaf(acc[i][j][2 * h + q], kLog2e, -ms));
-          l[i][h] = l[i][h] * fast_exp2(fmaf(m[i][h], kLog2e, -ms)) + sum;
+          // a lane whose columns were all past V so far holds l = 0 at the
+          // initial kNegInf, and when this tile leaves its max there, fmaf's
+          // residual of kNegInf log2 e is +6.4e21: exp2 gives inf and 0 inf
+          // NaN.  Such an l stays 0 (bitwise what a finite factor gives).
+          // A vocab split of the last, partial tile alone has such lanes
+          // (tp 2 at GPT-345M's vocab, 1024 rows: ROADMAP.md section 3).
+          const float kept = l[i][h] == 0.f ? 0.f
+                                            : l[i][h] * fast_exp2(fmaf(m[i][h], kLog2e, -ms));
+          l[i][h] = kept + sum;
           m[i][h] = mx;
           const int rel = sT[wm * MW + 16 * i + g + 8 * h] - col0;
           if (rel >= 0 && rel < NW && (rel & 6) == 0) {  // the target is this lane's column

@@ -870,9 +870,13 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     the mean over microbatches of each one's mean loss, on every stage;
     the shared params' grads are summed over the pipeline, the
     sequence-parallel LN and bias grads over tp, and all of them averaged
-    over ``dp_group`` (the DDP all-reduce) before the update.  The finite
-    vote of ``loss_scaler`` / ``step_guard`` is agreed over (pp, tp), so
-    every stage skips a step together; the clip's Σx² and the
+    over ``dp_group`` (the DDP all-reduce) before the update, or with a
+    ZeRO optimizer by its reduce-scatter (its state the dp shard of this
+    rank's (pp, tp) segment: ``init(params, param_specs=param_specs(
+    config, pp=True), axis_sizes={"tp": N, "pp": M})``).  The finite
+    vote of ``loss_scaler`` / ``step_guard`` is agreed over (pp, tp), and
+    by a ZeRO optimizer over dp as well, so every stage skips a step
+    together; the clip's Σx² and the
     telemetry's norms sum the stage leaves over pp (and tp where split)
     and count the replicated leaves once (:func:`clip_sumsq_reduce`).
     ``chaos`` (with ``step_guard``) scales every microbatch loss by its
@@ -886,39 +890,35 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     ``graphs=False``: the whole step, the stage-to-stage messages with it,
     is one CUDA graph after the eager warm-up (which makes every NCCL
     channel before the capture).
-    A ZeRO optimizer raises (ROADMAP.md queue 1 item 12), and so do MoE
-    (``GPTConfig``) and ``cp_axis`` (item 9), and over NCCL vpp > 1 and
-    tp > 1 with pp > 1 (ROADMAP.md section 3: the first not yet run to
-    its end on cards at GPT-345M, the second NaN there)."""
+    MoE (``GPTConfig``) and ``cp_axis`` raise (ROADMAP.md queue 1 item
+    9), and so does a hierarchical ``dp_group``, as in the JAX
+    package."""
     from apex_tpu_torch.optimizers.tree import tree_leaves
-    from apex_tpu_torch.train_gpt import _make_step, _refuse_zero_with_model_parallel
+    from apex_tpu_torch.train_gpt import _check_zero_axis, _make_step
     from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
     from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
         forward_backward_pipelining_with_interleaving,
         forward_backward_pipelining_without_interleaving,
     )
-    from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule import (
-        check_interleaved_backend, check_tp_backend,
-    )
 
     if cp_axis is not None:
         raise NotImplementedError(f"context parallelism inside the pipeline step is not "
                                   f"ported yet: it comes with {PP_ITEM}")
-    _refuse_zero_with_model_parallel(optimizer)
+    if isinstance(dp_group, (tuple, list)):
+        raise NotImplementedError("the pipeline step's dp sync is flat: a hierarchical dp "
+                                  "split runs through make_train_step, as in the JAX package")
+    _check_zero_axis(optimizer, dp_group)
     group = p2p._group(pp_group)
     P = group.size()
     vpp = int(virtual_pipeline_size)
     M = int(num_microbatches)
     check_pp(config, P, vpp)
-    check_interleaved_backend(group, vpp)
     if vpp > 1 and M % P:
         raise ValueError(f"num_microbatches ({M}) must be a multiple of pp ({P}) when "
                          f"virtual_pipeline_size > 1")
     tp = _tp(tp_group)
     if tp is not None:
         check_tp(config, tp.size())
-        if P > 1:
-            check_tp_backend(group, tp.size())
     sp = config.sequence_parallel and tp is not None
     pipe = group if P > 1 else None
     reduce = clip_sumsq_reduce(config, tp, pipe) if (tp is not None or pipe is not None) \

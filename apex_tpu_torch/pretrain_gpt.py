@@ -12,8 +12,12 @@ over a ``torch.distributed`` group of one process a rank.
     #   tensor (and sequence) parallel over two ranks
     torchrun --nproc-per-node 4 -m apex_tpu_torch.pretrain_gpt --device cpu --tp 2 --pp 2
     #   two pipeline stages of two tensor-parallel ranks each (1F1B over
-    #   --micro-batches 2); over NCCL, tp > 1 with pp > 1 raises
-    #   (ROADMAP.md section 3: NaN losses on four H100s)
+    #   --micro-batches 2)
+    torchrun --nproc-per-node 4 -m apex_tpu_torch.pretrain_gpt --zero --tp 2 --pp 2 \
+        --micro-batches 8 --fused-ce
+    #   ZeRO over the same layout: each rank's optimizer state is the dp
+    #   shard of its own (pp, tp) slice (dp 1 here; --zero --tp 2 on four
+    #   ranks is dp 2)
     ... --checkpoint /tmp/gpt_ck --steps 4       # then: --resume /tmp/gpt_ck
     ... --checkpoint /tmp/gpt_ck --auto-resume   # SIGTERM saves, drains and
     #   exits 0; rerunning the same line resumes from the newest valid
@@ -68,8 +72,10 @@ stages exchanging activations and cotangents point to point
 the embedding and the final LayerNorm, whose grads are summed over the
 stages, and every rank of a dp replica reads the same rows.  At pp 1
 ``--micro-batches`` changes nothing, as in the reference.  ``--zero``
-with ``--tp`` or ``--pp`` above 1 raises (``_zero_engine.TP_ITEM``).
-With ``--metrics-dir`` or
+composes with both (``examples/gpt/pretrain_gpt.py``'s ``init(params,
+world_size=dp, param_specs=train_param_specs(), axis_sizes={"tp": N,
+"pp": M})``): each rank's ZeRO state is the dp shard of its own (pp, tp)
+slice of the params.  With ``--metrics-dir`` or
 ``--trace-dir`` a :class:`~apex_tpu_torch.observability.StepStats` window
 rides it in fixed device buffers.  The loop reads no device value on the
 host: each step's loss (and scale) goes to an
@@ -78,10 +84,12 @@ copy has landed; the telemetry window is fetched every
 ``--telemetry-every`` steps and reset in stream order.
 
 ``--zero`` checkpoints are elastic ``step_<N>/`` directories (one shard
-file a rank and an index, :mod:`apex_tpu_torch.resilience.elastic`): a
-save at one world resumes at another, and a JAX ``--zero`` directory
-resumes here.  Other checkpoints are the JAX driver's single-file
-``step_<N>.ckpt`` in its byte layout and tree (``{"params", "state":
+file a dp rank and an index, :mod:`apex_tpu_torch.resilience.elastic`;
+under ``--tp`` / ``--pp`` the params whole and each dp rank's state with
+its model segments, ``mesh_axes`` the layout): a save at one dp world
+resumes at another, one at another tp or pp is refused as the reference
+refuses it, and a JAX ``--zero`` directory resumes here.  Other
+checkpoints are the JAX trainer's single-file ``step_<N>.ckpt`` in its byte layout and tree (``{"params", "state":
 AdamState, "step", "scaler"}``; rank 0 writes it), written by an :class:`~apex_tpu_torch.io.AsyncCheckpointer`
 that snapshots to host before ``save`` returns.  Under ``--tp`` or
 ``--pp`` the params and moments are all-gathered over the groups into
@@ -133,7 +141,8 @@ WEIGHT_DECAY = 0.01
 FP16_INIT_SCALE = 2.0 ** 12
 
 #: what a resume at another tp or pp than the checkpoint's waits for
-TP_LAYOUT_ITEM = "resharding a checkpoint across tp and pp, ROADMAP.md queue 1 item 13"
+TP_LAYOUT_ITEM = ("a tp/pp reshape is a state-layout change, which the reference refuses too "
+                  "(ROADMAP.md queue 1 item 13)")
 
 def build_args():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -277,11 +286,6 @@ def run(args):
     if args.grad_sync_dtype and not args.zero:
         raise SystemExit("--grad-sync-dtype needs --zero: the quantized wire's error-feedback "
                          "residual lives in the ZeRO optimizer's sharded state")
-    if args.zero and (args.tp > 1 or args.pp > 1):
-        from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
-
-        raise NotImplementedError(f"--zero with --tp or --pp > 1 is not ported yet: it comes "
-                                  f"with {TP_ITEM}")
     import torch.distributed as dist
 
     from apex_tpu_torch.parallel import multiproc
@@ -317,7 +321,7 @@ def _train(args, dev, dp_group, tp_group, pp_group):
         gather_params,
         make_pp_train_step,
         map_specs,
-        params_from_numpy,
+        param_specs,
         shard_params,
         train_state_from_numpy,
     )
@@ -365,9 +369,14 @@ def _train(args, dev, dp_group, tp_group, pp_group):
 
         optimizer = DistributedFusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY, axis_name="dp",
                                          grad_sync_dtype=args.grad_sync_dtype)
+        # the JAX trainer's init: the specs of every model axis the params
+        # split over, each rank's state its model segment's dp shard
+        axis_sizes = {"tp": tp, **({"pp": pp} if pp > 1 else {})}
+        state = optimizer.init(params, world_size=dp, param_specs=param_specs(config, pp > 1),
+                               axis_sizes=axis_sizes)
     else:
         optimizer = FusedAdam(lr=args.lr, weight_decay=WEIGHT_DECAY)
-    state = optimizer.init(params)
+        state = optimizer.init(params)
     # the model layout an elastic checkpoint must match (only dp is elastic)
     mesh_meta = {"tp": args.tp, "pp": args.pp}
     scaler = DynamicLossScaler(init_scale=FP16_INIT_SCALE) if args.fp16 else None
@@ -467,16 +476,17 @@ def _train(args, dev, dp_group, tp_group, pp_group):
         """The reference trainer's checkpoint tree.  Under --tp or --pp the
         params and moments are gathered whole (collectives: every rank
         calls them) and the tree gains the layout."""
-        if not split or args.zero:
-            return {"params": params, "state": state, "step": np.int64(step_no),
-                    "scaler": scaler_dict()}
         gather = lambda t: gather_params(t, config, tp_group, pipe)  # noqa: E731
+        if not split or args.zero:
+            # ZeRO: the state is each rank's shard; the params whole
+            return {"params": gather(params) if split else params, "state": state,
+                    "step": np.int64(step_no), "scaler": scaler_dict()}
         return {"params": gather(params), "state": whole(gather, state),
                 "step": np.int64(step_no), "scaler": scaler_dict(), "mesh": mesh_layout}
 
-    def ckpt_template(with_mesh):
-        """The whole tree's structure and shapes (meta tensors), to load
-        a file by."""
+    def whole_meta(t):
+        """A params-shaped tree of this rank's slices as the whole tree's
+        shapes (meta tensors)."""
         def one(a, spec):
             shape = list(a.shape)
             if spec.tp_dim is not None:
@@ -485,9 +495,13 @@ def _train(args, dev, dp_group, tp_group, pp_group):
                 shape[spec.pp_dim] *= pp
             return torch.empty(shape, dtype=a.dtype, device="meta")
 
-        like = lambda t: map_specs(one, t, config, pp=True)  # noqa: E731
-        tree = {"params": like(params), "state": whole(like, state), "step": np.int64(0),
-                "scaler": scaler_dict()}
+        return map_specs(one, t, config, pp=True)
+
+    def ckpt_template(with_mesh):
+        """The whole tree's structure and shapes (meta tensors), to load
+        a file by."""
+        tree = {"params": whole_meta(params), "state": whole(whole_meta, state),
+                "step": np.int64(0), "scaler": scaler_dict()}
         return {**tree, "mesh": mesh_layout} if with_mesh else tree
 
     ckpt = io.AsyncCheckpointer() if args.checkpoint else None
@@ -508,12 +522,13 @@ def _train(args, dev, dp_group, tp_group, pp_group):
         # complete) stays loud even under --auto-resume
         restored = resilience.restore_elastic_checkpoint(
             resume_dir, optimizer=optimizer, world_size=dp, mesh_axes=mesh_meta,
-            opt_state=state, params=params, scaler_state=scaler_dict())
+            opt_state=state, params=whole_meta(params) if split else params,
+            scaler_state=scaler_dict())
         if restored is None and args.resume:
             raise FileNotFoundError(f"no elastic checkpoint under {resume_dir}")
         if restored is not None:
-            params = params_from_numpy(tree_map(_host_f32, restored.params), config, dev,
-                                       keep_fp32=True)
+            params = shard_params(tree_map(_host_f32, restored.params), config, tp_group, dev,
+                                  keep_fp32=True, pp_group=pipe)
             state = restored.opt_state
             start_step = restored.step
             if scaler is not None:
@@ -555,8 +570,7 @@ def _train(args, dev, dp_group, tp_group, pp_group):
                          if "mesh" in lazy else (1, 1))
             if saved != (tp, pp):
                 raise ValueError(f"{path} was saved at tp={saved[0]}, pp={saved[1]}; resuming "
-                                 f"it at tp={tp}, pp={pp} is a layout change, not ported yet: "
-                                 f"it comes with {TP_LAYOUT_ITEM}")
+                                 f"it at tp={tp}, pp={pp} is refused: {TP_LAYOUT_ITEM}")
             has_mesh = split and not io.written_by_jax(path)
             ck = io.load_checkpoint(path, template=ckpt_template(has_mesh))
             params, state, scaler_state, start_step = train_state_from_numpy(

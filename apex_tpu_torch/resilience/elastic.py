@@ -308,8 +308,11 @@ def save_elastic_checkpoint(dir_path, step: int, *, params, opt_state, optimizer
                             rng_state: Optional[dict] = None, checkpointer=None) -> str:
     """Publish this rank's part of the train state as an elastic
     ``step_<N>/`` directory.  A ZeRO optimizer's rank writes its
-    :meth:`sharded_state_dict`; a replicated one's rank 0 writes its
-    state as a world-1 shard (the state is the same on every rank).
+    :meth:`sharded_state_dict` (with model-parallel params every rank
+    joins its gather over the model groups and the first model segment's
+    rank of each dp rank writes it; ``params`` is then the whole tree); a
+    replicated one's rank 0 writes its state as a world-1 shard (the
+    state is the same on every rank).
     Rank 0 writes the index first, then its shard with the replicated
     pieces.  ``scaler_state`` / ``guard_state`` / ``rng_state`` are the
     owners' plain state dicts.  With a ``checkpointer``
@@ -328,6 +331,8 @@ def save_elastic_checkpoint(dir_path, step: int, *, params, opt_state, optimizer
         return str(sd)
     tree: Dict[str, Any] = {"opt": optimizer.sharded_state_dict(opt_state) if zero
                             else opt_state}
+    if zero and optimizer.model_index != 0:
+        return str(sd)  # the segment's gather is done; model segment 0's rank writes
     if rank == 0:
         tree.update({"params": params, "step": np.int64(step), "scaler": scaler_state,
                      "guard": guard_state, "rng": rng_state})
@@ -512,7 +517,7 @@ class ElasticRunController:
             self.dir, step, params=params, opt_state=opt_state, optimizer=self.optimizer,
             world_size=self.world_size, mesh_axes=self.mesh_axes, scaler_state=scaler_state,
             guard_state=guard_state, rng_state=rng_state, checkpointer=self.checkpointer)
-        if _live_rank(self.optimizer) == 0:
+        if _live_rank(self.optimizer) == 0 and getattr(self.optimizer, "model_index", 0) == 0:
             self.prune()
         return path
 

@@ -219,20 +219,63 @@ def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state
     return new_params, new_state, step_guard.update(guard_state, finite)
 
 
+def _check_zero_axis(opt, dp_group):
+    """The JAX package's ``_check_zero_axis``: a ZeRO optimizer syncs over
+    its own dp group (or its hierarchical ``dp_axes`` split), and the
+    step keys its grad calculus on ``dp_group``; a mismatch would un- or
+    double-sync the grads, so it raises when the step is built.  A
+    hierarchical ``dp_group`` (a tuple of hop groups, slow to fast) needs
+    an optimizer with the same ``dp_axes``, and a hierarchical optimizer
+    refuses a flat group.  No check without a ``dp_group`` (the optimizer
+    owns its group)."""
+    if not hasattr(opt, "sharded_state_dict") or dp_group is None:
+        return
+    opt_axes = getattr(opt, "dp_axes", None)
+    if isinstance(dp_group, (tuple, list)):
+        axes = tuple(str(g) for g in dp_group)
+        if opt_axes is None or tuple(opt_axes) != axes:
+            have = tuple(opt_axes) if opt_axes is not None else opt.axis_name
+            raise ValueError(f"the train step's dp axis is the hierarchical split {axes!r} but "
+                             f"the ZeRO optimizer syncs over {have!r}; construct it with "
+                             f"dp_axes={axes!r} (the optimizer owns both hops of the grad "
+                             "sync)")
+        return
+    if opt_axes is not None:
+        raise ValueError(f"ZeRO optimizer was built for the hierarchical dp split "
+                         f"{tuple(opt_axes)!r} but the train step's dp group is the flat "
+                         f"{str(dp_group)!r}; pass the hop groups as dp_group (or drop the "
+                         "optimizer's dp_axes)")
+    if isinstance(dp_group, str) and str(dp_group) != opt.axis_name:
+        raise ValueError(f"ZeRO optimizer shards over axis {opt.axis_name!r} but the train "
+                         f"step's dp group is {str(dp_group)!r}")
+
+
 def _dp_sync(opt, dp_group):
     """``(grad sync or None, loss mean or None)`` of a step: a ZeRO
     optimizer owns the grad sync (its reduce-scatter), so the step only
     averages the loss over its group; a replicated optimizer over a
     ``dp_group`` of more than one rank gets the DDP all-reduce
     (:func:`apex_tpu_torch.parallel.allreduce_gradients`) and the loss
-    mean; otherwise neither.  The loss mean adds in rank order, the
-    JAX step's ``pmean``."""
+    mean; otherwise neither.  The loss mean adds in rank order, the JAX
+    step's ``pmean``.  A hierarchical ``dp_group`` with a replicated
+    optimizer syncs over the flat data-parallel group of the same ranks,
+    as the JAX step's one ``pmean`` over both axes does."""
     from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
     from apex_tpu_torch.parallel.distributed import allreduce_gradients, process_group
 
     if hasattr(opt, "sharded_state_dict"):
         pg, world = opt._pg, opt.world_size
         grad_sync = None
+    elif isinstance(dp_group, (tuple, list)):
+        from apex_tpu_torch.transformer import parallel_state as ps
+
+        flat, covered = ps.get_data_parallel_group(), 1
+        for g in dp_group:
+            covered *= g.size()
+        if covered != flat.size() or any(not set(g.ranks) <= set(flat.ranks) for g in dp_group):
+            raise ValueError(f"the hop groups {tuple(str(g) for g in dp_group)!r} do not split "
+                             f"this rank's data-parallel group of {flat.size()} ranks")
+        return _dp_sync(opt, flat)
     elif dp_group is not None and process_group(dp_group)[1] > 1:
         pg, world = process_group(dp_group)
 
@@ -280,11 +323,15 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     (:mod:`apex_tpu_torch.contrib.optimizers`) owns the grad sync over
     its group and the step adds none; a replicated optimizer gets the
     DDP all-reduce of the grads over ``dp_group`` (an ``AxisGroup``)
-    when it has more than one rank.  Either way the loss returned is the
-    mean over the group, as the JAX step's ``pmean``.  The collectives
-    are captured with the rest of the step.  ``overlap_grad_sync=True``
-    (the sync issued inside the backward) is not ported yet and
-    raises.
+    when it has more than one rank.  ``dp_group`` may be a hierarchical
+    split, the tuple of its hop groups slow to fast
+    (``parallel_state.get_data_parallel_hop_groups``): a ZeRO optimizer
+    must then have the same ``dp_axes`` (``_check_zero_axis``), and a
+    replicated one syncs over the flat data-parallel group.  Either
+    way the loss returned is the mean over the group, as the JAX step's
+    ``pmean``.  The collectives are captured with the rest of the step.
+    ``overlap_grad_sync=True`` (the sync issued inside the backward) is
+    not ported yet and raises.
 
     Tensor parallelism: with ``tp_group`` (an ``AxisGroup`` of more than
     one rank; ``params`` and ``state`` this rank's shards of
@@ -296,7 +343,9 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     ones not (``clip_sumsq_reduce``); the finite vote is agreed over it,
     and the telemetry's norms are those of the whole model (the clip's
     reduce).  The dp sync and the loss mean stay on ``dp_group``.  A
-    ZeRO optimizer with a tp group raises (``_zero_engine.TP_ITEM``).
+    ZeRO optimizer then holds the dp shard of this rank's tp slice
+    (``init(params, param_specs=param_specs(config), axis_sizes={"tp":
+    N})``); its reduce-scatter is the dp sync and its vote covers dp.
 
     ``chaos``: a :class:`~apex_tpu_torch.resilience.chaos.ChaosMonkey`
     whose planned NaN steps poison the guarded step's gradients (it needs
@@ -311,9 +360,9 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                                   f"yet: it comes with {OVERLAP_ITEM}")
     from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce
 
+    _check_zero_axis(opt, dp_group)
     tp = _tp(tp_group)
     if tp is not None:
-        _refuse_zero_with_model_parallel(opt)
         check_tp(config, tp.size())
     clip_sumsq = (clip_sumsq_reduce(config, tp)
                   if tp is not None and clip_grad_norm is not None else None)
@@ -342,14 +391,6 @@ def _post_loss(loss_scaler, scaler_state, fault):
         return loss if loss_scaler is None else loss_scaler.scale(scaler_state, loss)
 
     return post
-
-
-def _refuse_zero_with_model_parallel(opt):
-    if hasattr(opt, "sharded_state_dict"):
-        from apex_tpu_torch.contrib.optimizers._zero_engine import TP_ITEM
-
-        raise NotImplementedError(f"a ZeRO optimizer with a tensor- or pipeline-parallel "
-                                  f"group is not ported yet: it comes with {TP_ITEM}")
 
 
 def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,

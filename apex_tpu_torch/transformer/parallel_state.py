@@ -26,6 +26,16 @@ one-rank axis, over which no collective runs), its size, this process's
 rank in it and the global ranks it holds.  Where the JAX package reads
 a stage index off the mesh inside ``shard_map``, the port's getters
 return this process's own.
+
+A hierarchical data-parallel split (the ZeRO optimizers' ``dp_axes=
+(outer, inner)`` or ``("dcn", outer, inner)``) is a set of nested groups
+of each data-parallel group, one a hop
+(:func:`get_data_parallel_hop_groups`): data-parallel rank ``d =
+(i_slow * s_next + i_next) * ... + i_fast``, so the fast axis's ranks are
+consecutive, as on the JAX package's ``(dp_out, dp_in)`` mesh.
+``num_distributed_slices_`` (the JAX package's outer ``dcn`` axis) is
+the size of a split's ``dcn`` hop: a split over more than one slice
+must lead with that hop, and a ``dcn`` hop must span the slices.
 """
 
 import dataclasses
@@ -45,7 +55,6 @@ AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
 #: what brings each axis that is not ported yet
 _UNPORTED_AXES = {
     CONTEXT_AXIS: "context parallelism, ROADMAP.md queue 1 item 9",
-    DCN_AXIS: "the hierarchical dp sync, ROADMAP.md queue 1 item 6 (what it left)",
 }
 
 __all__ = [
@@ -59,6 +68,7 @@ __all__ = [
     "get_tensor_model_parallel_rank", "get_pipeline_model_parallel_rank",
     "get_context_parallel_rank", "get_data_parallel_rank", "get_data_parallel_src_rank",
     "get_tensor_model_parallel_src_rank", "get_num_distributed_slices",
+    "get_data_parallel_hop_groups", "get_model_parallel_groups",
     "get_virtual_pipeline_model_parallel_world_size", "get_pipeline_model_parallel_split_rank",
     "get_virtual_pipeline_model_parallel_rank", "set_virtual_pipeline_model_parallel_rank",
     "get_pipeline_model_parallel_next_rank", "get_pipeline_model_parallel_prev_rank",
@@ -100,6 +110,13 @@ class _State:
     position_embedding: AxisGroup
     virtual_pipeline_size: Optional[int] = None
     split_rank: Optional[int] = None
+    #: every data-parallel group's global ranks, in the order they were
+    #: built (the hop groups split each one, on every rank alike)
+    data_groups: tuple = ()
+    #: the outer ``dcn`` split of the data-parallel group
+    num_distributed_slices: int = 1
+    #: (axes, sizes) -> this rank's hop groups
+    hop_groups: dict = dataclasses.field(default_factory=dict)
     # the model chunk being built or run (reference :679), set by the
     # interleaved schedule
     virtual_pipeline_rank: Optional[int] = None
@@ -134,12 +151,10 @@ def initialize_model_parallel(
     import torch.distributed as dist
 
     global _STATE
-    for size, axis in ((context_parallel_size_, CONTEXT_AXIS),
-                       (num_distributed_slices_, DCN_AXIS)):
-        if int(size) != 1:
-            raise NotImplementedError(
-                f"{axis} size {size} is not ported yet: it comes with "
-                f"{_UNPORTED_AXES[axis]}")
+    if int(context_parallel_size_) != 1:
+        raise NotImplementedError(
+            f"{CONTEXT_AXIS} size {context_parallel_size_} is not ported yet: it comes with "
+            f"{_UNPORTED_AXES[CONTEXT_AXIS]}")
     if not dist.is_initialized():
         raise RuntimeError("initialize_model_parallel needs the default process group: "
                            "call apex_tpu_torch.parallel.multiproc.initialize_distributed")
@@ -152,6 +167,10 @@ def initialize_model_parallel(
         raise RuntimeError(
             "pipeline-model-parallel size should be greater than 2 with interleaved schedule")
     dp = world // (tp * pp)
+    slices = int(num_distributed_slices_)
+    if slices < 1 or dp % slices:
+        raise RuntimeError(f"data-parallel size ({dp}) not divisible by slices ({slices}): "
+                           "model axes must fit inside one slice")
 
     def at(d, p, t):
         return (d * pp + p) * tp + t
@@ -166,8 +185,8 @@ def initialize_model_parallel(
                 mine = AxisGroup(axis, pg, len(ranks), ranks.index(rank), ranks)
         return mine
 
-    data = axis_group(DATA_AXIS, [[at(d, p, t) for d in range(dp)]
-                                  for p in range(pp) for t in range(tp)], True)
+    data_groups = [[at(d, p, t) for d in range(dp)] for p in range(pp) for t in range(tp)]
+    data = axis_group(DATA_AXIS, data_groups, True)
     tensor = axis_group(TENSOR_AXIS, [[at(d, p, t) for t in range(tp)]
                                       for d in range(dp) for p in range(pp)], False)
     pipes = [[at(d, p, t) for p in range(pp)] for d in range(dp) for t in range(tp)]
@@ -182,7 +201,8 @@ def initialize_model_parallel(
                     embedding=axis_group(PIPELINE_AXIS, emb, False) or _outside(),
                     position_embedding=axis_group(PIPELINE_AXIS, pos, False) or _outside(),
                     virtual_pipeline_size=virtual_pipeline_model_parallel_size_,
-                    split_rank=split)
+                    split_rank=split, data_groups=tuple(tuple(r) for r in data_groups),
+                    num_distributed_slices=slices)
     return data
 
 
@@ -228,8 +248,8 @@ def get_data_parallel_world_size() -> int:
 
 
 def get_num_distributed_slices() -> int:
-    _state()
-    return 1
+    """The outer ``dcn`` split of the data-parallel group (1: one slice)."""
+    return _state().num_distributed_slices
 
 
 # ------------------------------------------------------------------ groups
@@ -256,6 +276,71 @@ def get_model_parallel_group() -> tuple:
     other (the JAX package's combined (pp, tp) axes)."""
     s = _state()
     return (s.pipeline, s.tensor)
+
+
+def get_model_parallel_groups(axes) -> tuple:
+    """The groups of the model axes ``axes`` (names among ``"pp"`` and
+    ``"tp"``), in that order: what a ZeRO optimizer gathers its model
+    segments over."""
+    s = _state()
+    by_axis = {PIPELINE_AXIS: s.pipeline, TENSOR_AXIS: s.tensor}
+    unknown = [a for a in axes if a not in by_axis]
+    if unknown:
+        raise ValueError(f"model axes {unknown} have no process group here (the port's model "
+                         f"axes are {sorted(by_axis)})")
+    return tuple(by_axis[a] for a in axes)
+
+
+def get_data_parallel_hop_groups(axes, sizes) -> tuple:
+    """This rank's hop groups of a hierarchical split of its
+    data-parallel group: ``axes`` / ``sizes`` ordered slow to fast, their
+    product the data-parallel size.  Data-parallel rank ``d`` has index
+    ``i_j`` on hop ``j`` with ``d`` = Horner's rule over the indices,
+    slow to fast (the fast ranks consecutive); hop ``j``'s group holds
+    the ranks whose other indices are this rank's.  Built on first use,
+    on every rank in the same order (``torch.distributed.new_group``'s
+    rule), and cached.  The slowest hop is ``"dcn"``, of the slice
+    count's size, exactly when ``num_distributed_slices_`` is above 1
+    or the split names a ``"dcn"`` hop."""
+    import itertools
+
+    import torch.distributed as dist
+
+    s = _state()
+    axes, sizes = tuple(axes), tuple(int(n) for n in sizes)
+    key = (axes, sizes)
+    if key in s.hop_groups:
+        return s.hop_groups[key]
+    slices = s.num_distributed_slices
+    if (slices > 1 or DCN_AXIS in axes) and (axes[0] != DCN_AXIS or sizes[0] != slices):
+        raise ValueError(f"the split {dict(zip(axes, sizes))} does not lead with a "
+                         f"{DCN_AXIS!r} hop over the {slices} slice(s) of "
+                         "initialize_model_parallel(num_distributed_slices_=)")
+    world = 1
+    for n in sizes:
+        world *= n
+    if world != s.data.size():
+        raise ValueError(f"the split {dict(zip(axes, sizes))} covers {world} ranks; the "
+                         f"data-parallel group has {s.data.size()}")
+    me = dist.get_rank()
+    mine = [None] * len(axes)
+    for ranks in s.data_groups:
+        for j, axis in enumerate(axes):
+            others = [range(n) for i, n in enumerate(sizes) if i != j]
+            for rest in itertools.product(*others):
+                members = []
+                for i_j in range(sizes[j]):
+                    idx = list(rest)
+                    idx.insert(j, i_j)
+                    d = 0
+                    for i, n in zip(idx, sizes):
+                        d = d * n + i
+                    members.append(ranks[d])
+                pg = dist.new_group(members)
+                if me in members:
+                    mine[j] = AxisGroup(axis, pg, len(members), members.index(me), members)
+    s.hop_groups[key] = tuple(mine)
+    return s.hop_groups[key]
 
 
 # ------------------------------------------------------------------- ranks

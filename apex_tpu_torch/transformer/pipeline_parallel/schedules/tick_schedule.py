@@ -53,16 +53,7 @@ import torch
 from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map, tree_unflatten
 from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
 
-__all__ = ["pipelined_fwd_bwd", "interleaved_warmup", "chunk_and_microbatch",
-           "check_interleaved_backend", "check_tp_backend"]
-
-#: why the interleaved order is refused over NCCL
-INTERLEAVED_NCCL_ITEM = ("the interleaved schedule over NCCL has not yet run to its end on "
-                         "cards (ROADMAP.md section 3)")
-
-#: why tp > 1 inside an NCCL pipeline is refused
-TP_PP_NCCL_ITEM = ("tp > 1 with pp > 1 over NCCL gave NaN losses on four H100s "
-                   "(ROADMAP.md section 3)")
+__all__ = ["pipelined_fwd_bwd", "interleaved_warmup", "chunk_and_microbatch"]
 
 #: groups a collective has already run over (their communicators exist)
 _WARMED = set()
@@ -78,31 +69,6 @@ def _warm(group, device) -> None:
         return
     dist.all_reduce(torch.zeros(1, device=device), group=group.group)
     _WARMED.add(id(group.group))
-
-
-def _nccl(group) -> bool:
-    import torch.distributed as dist
-
-    return group.group is not None and dist.get_backend(group.group) == "nccl"
-
-
-def check_interleaved_backend(group, vpp: int) -> None:
-    """Refuse ``vpp`` > 1 over an NCCL pipeline group: its four-card runs
-    stalled in the teardown (fixed by releasing the graphs first) and the
-    fixed design has not yet ended a GPT-345M run on cards.  gloo runs
-    it."""
-    if vpp > 1 and _nccl(group):
-        raise NotImplementedError(f"virtual_pipeline_size={vpp} over NCCL is refused: "
-                                  f"{INTERLEAVED_NCCL_ITEM}")
-
-
-def check_tp_backend(group, tp: int) -> None:
-    """Refuse a pipeline over NCCL whose stages are split over ``tp`` > 1
-    ranks: its only four-card run (tp 2 x pp 2, GPT-345M) trained on NaN
-    from the first step.  gloo runs it."""
-    if tp > 1 and _nccl(group):
-        raise NotImplementedError(f"tensor_model_parallel_size={tp} inside a pipeline over "
-                                  f"NCCL is refused: {TP_PP_NCCL_ITEM}")
 
 
 def chunk_and_microbatch(k: int, P: int, vpp: int, forward: bool = True):
@@ -362,7 +328,6 @@ def pipelined_fwd_bwd(pre_fn: Callable, stage_fn: Callable, post_fn: Callable, s
     if vpp < 1 or (vpp > 1 and P < 2):
         raise ValueError(f"num_chunks={vpp}: the interleaved schedule needs pp >= 2 "
                          f"(pp is {P})")
-    check_interleaved_backend(group, vpp)
     u = _Units(pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches, vpp,
                P, rank, forward_only, schedule_log)
     device = u.loss_sum.device

@@ -3881,6 +3881,8 @@ def zero_multi_card(world, data=None):
     out = {"ran": True, "cards": torch.cuda.device_count(), "world": world,
            "losses_world_1": one["losses"], f"losses_world_{world}": many["losses"],
            "max_rel_diff": rel, "band": 1e-3, "timed": []}
+    if world >= 4:
+        out["model_parallel"] = zero_mp_multi_card()
     if data is None:
         return out
     argv = list(PRETRAIN_ARGV)
@@ -3893,6 +3895,75 @@ def zero_multi_card(world, data=None):
                              "step_ms": rep["step_ms"], "losses": rep["losses"],
                              "graphs": rep["graphs"]})
     return out
+
+
+def zero_mp_multi_card():
+    """ZeRO composed with model parallelism on four cards (``zero_child``,
+    GPT-345M, fused CE, graphed, 8 rows a dp rank): ``--tp 2`` (dp 2),
+    ``--pp 2 --micro-batches 8`` (dp 2) and ``--tp 2 --pp 2
+    --micro-batches 8`` (dp 1, ``model_mult`` 4), each against FusedAdam
+    in the same layout within 1e-3 relative; then the (2, 2) split's wide
+    and int8 wires at dp 4 against the flat ZeRO wire, within 1e-3 and
+    ``QUANT_BAND``.  Every run's step ms, peak GB a rank, NCCL ms a step
+    and idle share are printed (a ``zero_multi_card`` line) as they come;
+    a run beyond its band fails only after the last."""
+    out, failed = [], []
+    for flags, pairs in ((["--tp", "2"], (("zero", "fused_adam", 1e-3),)),
+                         (["--pp", "2", "--micro-batches", "8"], (("zero", "fused_adam", 1e-3),)),
+                         (["--tp", "2", "--pp", "2", "--micro-batches", "8"],
+                          (("zero", "fused_adam", 1e-3),)),
+                         (["--hier"], (("zero_hier", "zero_flat", 1e-3),
+                                       ("zero_hier_int8", "zero_flat", QUANT_BAND)))):
+        rep = _pp_children(4, flags, timeout=400, script="zero_child",
+                           prefix='{"zero_child"')[0]["zero_child"]
+        row = {"flags": flags, "dp": rep["dp"], "micro_batches": rep["micro_batches"]}
+        for name in [k for k in rep if isinstance(rep[k], dict)]:
+            r = rep[name]
+            row[name] = {"losses": r["losses"], "step_ms_median": r["step_ms_median"],
+                         "peak_memory_gb_per_rank": [x["peak_memory_gb"] for x in r["ranks"]],
+                         "nccl_ms_per_step_per_rank": [x["nccl_ms_per_step"] for x in r["ranks"]],
+                         "idle_share_per_rank": [x["idle_share"] for x in r["ranks"]]}
+        for got, want, band in pairs:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(row[got]["losses"],
+                                                         row[want]["losses"]))
+            row[got]["max_rel_diff_vs_" + want] = rel
+            if not rel <= band:  # NaN fails too
+                failed.append(f"{flags} {got}: {row[got]['losses']} against {want}'s "
+                              f"{row[want]['losses']}, beyond {band}")
+        emit({"zero_multi_card": row})
+        out.append(row)
+    if failed:
+        raise AssertionError("zero_mp_multi_card: " + "; ".join(failed))
+    return out
+
+
+def multi_card_main():
+    """``chip_smoke.py multi_card`` on four cards: the kernels built once,
+    then :func:`pp_multi_card` and :func:`zero_mp_multi_card` (ZeRO
+    composed with tp and pp, and the hierarchical wire), each result
+    printed as it comes; fails after both if either did."""
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        raise SystemExit(f"chip_smoke multi_card: needs four cards, has {n_cards}")
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    errors = []
+    for name, fn in (("pp_multi_card", lambda: pp_multi_card(4)),
+                     ("zero_mp_multi_card", zero_mp_multi_card)):
+        t0 = time.monotonic()
+        try:
+            fn()  # its rows printed as they came
+            emit({"phase": name, "ok": True, "seconds": time.monotonic() - t0})
+        except Exception as exc:  # noqa: BLE001 - the other check still runs
+            errors.append(f"{name}: {exc}")
+            emit({"phase": name, "error": str(exc)[-6000:], "seconds": time.monotonic() - t0})
+    if errors:
+        raise SystemExit("multi_card: " + " | ".join(e[:2000] for e in errors))
+    return 0
 
 
 # ----------------------------------------------------------------------- tp
@@ -4254,17 +4325,21 @@ def _pp345_expect(fused, steps, sizes, M=PP_MICRO):
                       "fused_sample": 0}
 
 
-def _pp345_run(tree, fused, eager, steps, M=PP_MICRO, profiler=None):
+def _pp345_run(tree, fused, eager, steps, M=PP_MICRO, profiler=None, zero=False):
     """``make_pp_train_step`` at GPT-345M (pretrain_gpt's config, the
     seed-0 params ``tree``, FusedAdam(wd 0.01), the seed-0 corpus's first rows, the
     batches the tp phase's steps take) over the registered one-rank
     groups: its losses, step ms (CUDA events after each step; the
     batches are on the card first, no host read in the loop), launch
-    counts and peak memory; with ``profiler`` the steps run under it."""
+    counts and peak memory; with ``profiler`` the steps run under it.
+    ``zero``: DistributedFusedAdam (the same lr and decay) in FusedAdam's
+    place, its state over the model-parallel specs (pretrain_gpt's
+    ``--zero`` init)."""
     import gc
 
     from apex_tpu_torch import pretrain_gpt
-    from apex_tpu_torch.models.gpt import make_pp_train_step, params_from_numpy
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import make_pp_train_step, param_specs, params_from_numpy
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.optimizers.tree import tree_leaves
     from apex_tpu_torch.transformer import parallel_state as ps
@@ -4280,8 +4355,13 @@ def _pp345_run(tree, fused, eager, steps, M=PP_MICRO, profiler=None):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     params = params_from_numpy(tree, config, dev, keep_fp32=True)
-    opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
-    state = opt.init(params)
+    if zero:
+        opt = DistributedFusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+        state = opt.init(params, world_size=1, param_specs=param_specs(config),
+                         axis_sizes={"tp": 1})
+    else:
+        opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+        state = opt.init(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
     step = make_pp_train_step(config, opt, M, graphs=False if eager else None,
@@ -4342,8 +4422,10 @@ def pp_phase(smi, absent):
                                              ("dense", False, False, TP_STEPS, PP_MICRO),
                                              ("dense_eager", False, True, 4, PP_MICRO),
                                              ("fused_m1", True, True, 4, 1),
-                                             ("dense_m1", False, True, 4, 1)):
-            run = _pp345_run(tree, fused, eager, steps, M=M)
+                                             ("dense_m1", False, True, 4, 1),
+                                             ("zero_fused", True, False, TP_STEPS, PP_MICRO),
+                                             ("zero_fused_eager", True, True, 4, PP_MICRO)):
+            run = _pp345_run(tree, fused, eager, steps, M=M, zero=name.startswith("zero"))
             per_step, expect = _pp345_expect(fused, steps, sizes, M=M)
             if run["launches"] != expect:
                 raise AssertionError(f"pp {name} launch counts {run['launches']} != expected "
@@ -4379,6 +4461,19 @@ def pp_phase(smi, absent):
                                  f"make_train_step's {absent[head]}: relative {rels} beyond "
                                  f"{TRAIN_AB_TOL}")
         runs[head + "_m1"]["vs_make_train_step"] = {"rel_diff": rels}
+    # ZeRO through the pipelined step (world 1, pp 1, its state over the
+    # model specs): every loss bitwise FusedAdam's, graphed and eager
+    zero = {}
+    for name in ("fused", "fused_eager"):
+        got, want = runs["zero_" + name]["losses"], runs[name]["losses"]
+        if got != want:
+            raise AssertionError(f"zero pp {name}: losses {got} against FusedAdam's {want}")
+        zero[name] = {k: runs["zero_" + name][k] for k in (
+            "losses", "step_ms_median", "peak_memory_gb", "launches_per_step", "graphs")}
+        zero[name]["fused_adam"] = {k: runs[name][k] for k in ("step_ms_median",
+                                                                "peak_memory_gb")}
+    emit({"phase": "zero_pp", "argv": GPT345_ARGV + ["--fused-ce"], "micro_batches": PP_MICRO,
+          "nvidia_smi": smi, "vs_fused_adam": "bitwise", "runs": zero})
     n_cards = torch.cuda.device_count()
     multi = {"ran": False, "cards": n_cards,
              "note": "pp > 1 did not run on a card here: one card"}
@@ -4396,63 +4491,98 @@ def pp_phase(smi, absent):
           "seconds": time.monotonic() - t_phase})
 
 
-def _pp_children(n, args, timeout=900):
-    """``torchrun --nproc-per-node n chip_smoke.py pp_child <args>``: the
-    JSON objects its ranks print."""
-    res = subprocess.run(["torchrun", "--standalone", f"--nproc-per-node={n}",
-                          str(ROOT / "chip_smoke.py"), "pp_child", *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=timeout)
-    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith('{"pp_')]
-    if res.returncode != 0 or not lines:
-        raise AssertionError(f"pp_child world {n} {args}: exit {res.returncode}\n"
-                             + res.stdout[-3000:] + res.stderr[-3000:])
+def _pp_children(n, args, timeout=300, script="pp_child", extra=(), prefix='{"pp_'):
+    """``torchrun --nproc-per-node n chip_smoke.py <script> <args>`` (its
+    session killed past ``timeout``): the JSON objects its ranks print."""
+    rc, out, errs, _ = _child(["torchrun", "--standalone", f"--nproc-per-node={n}",
+                               str(ROOT / "chip_smoke.py"), script, *args, *extra], timeout)
+    lines = [json.loads(ln) for ln in out if ln.startswith(prefix)]
+    if rc != 0 or not lines:
+        raise AssertionError(f"{script} world {n} {args} {list(extra)}: exit {rc}\n"
+                             + "\n".join(out[-20:] + errs[-40:]))
     return lines
 
 
+def _profile_window(step, args_of, n=4):
+    """``n`` more steps of ``step`` under the profiler (``args_of(i)`` the
+    i-th call's arguments): the busy and idle share between the first and
+    the last step's update and NCCL's device ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        for i in range(n):
+            step(*args_of(i))
+        torch.cuda.synchronize()
+    idle = _busy_share(prof, skip=1)
+    k = idle["kernel_ms_per_step"]
+    return {"idle_share": idle["idle_share"], "window_steps": idle["window_steps"],
+            "nccl_ms_per_step": sum(ms for name, ms in k.items() if "nccl" in name.lower()),
+            "top_kernels_ms_per_step": dict(list(k.items())[:8])}
+
+
+def _stages(ranks):
+    """A run's per-rank records (``rank``, ``pp_rank``, idle share, NCCL ms,
+    peak) as one row a pipeline stage, the stage's first rank's."""
+    out = {}
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        out.setdefault(r["pp_rank"], {k: r[k] for k in (
+            "rank", "idle_share", "nccl_ms_per_step", "peak_memory_gb") if k in r})
+    return [out[k] for k in sorted(out)]
+
+
 def pp_multi_card(world, eager=False):
-    """``torchrun -m apex_tpu_torch.pretrain_gpt --pp N`` (one card a rank,
-    NCCL, the stages' messages point to point) at GPT-345M with
-    ``--fused-ce``, 10 steps, step ms from CUDA events (median past the
-    second): pp 1 on one card (``make_train_step``: at pp 1 ``pretrain_gpt``
-    does not split the batch), pp 4 at 8 microbatches and a profile of 7
-    such steps (``pp_child``: the first and the last stage's idle share
-    and NCCL ms a step), pp 2 at 8 (with four cards), pp 4 at 2 (the
-    reference's default, the larger bubble), each one's losses within
-    ``TP_BAND`` of pp 1's (the same global batch).  tp x pp and the
-    interleaved schedule are refused over NCCL (ROADMAP.md section 3) and
-    do not run here.  Each result is printed (a ``pp_multi_card`` line)
-    as it comes, and a run beyond the band fails the check only after
-    every run has printed.  ``eager`` runs every step eagerly."""
+    """The pipelined layouts over NCCL, one card a rank, at GPT-345M with
+    ``--fused-ce``, 10 steps each, held within ``TP_BAND`` of ``--pp 1``'s
+    losses on the same global batch: ``torchrun -m
+    apex_tpu_torch.pretrain_gpt --pp 1`` (one card, ``make_train_step``),
+    then under the profiler (``pp_child``: every rank's step ms from CUDA
+    events, idle share and NCCL ms a step, peak) pp 2 at 8 microbatches
+    (with four cards), pp 4 at 8 and at 2 (the reference's default),
+    tp 2 x pp 2 at 8 with the fused and the dense head (four cards), and
+    the interleaved schedule (``vpp_child``, vpp 2) at pp 2 and pp 4.
+    The bubble share is ``(pp - 1) / (vpp M + pp - 1)``.  Each result is
+    printed (a ``pp_multi_card`` line) as it comes, and a run beyond the
+    band fails the check only after every run has printed.  ``eager``
+    runs every step eagerly."""
     ex = ["--eager"] if eager else []
     out = {"ran": True, "cards": torch.cuda.device_count(), "world": world, "band": TP_BAND,
            "eager": eager, "timed": []}
     n = 4 if world >= 4 else 2
-    runs = [(1, 1, 8), (n, 1, 8), "profile"] + ([(2, 1, 8)] if world >= 4 else []) \
-        + [(n, 1, 2)]
+    runs = [(1, 1, 8, 1, "fused")] + ([(2, 1, 8, 1, "fused")] if world >= 4 else []) \
+        + [(n, 1, 8, 1, "fused"), (n, 1, 2, 1, "fused")] \
+        + ([(2, 2, 8, 1, "fused"), (2, 2, 8, 1, "dense")] if world >= 4 else []) \
+        + [(2, 1, 8, 2, "fused")] + ([(4, 1, 8, 2, "fused")] if world >= 4 else [])
     failed = []
-    for run in runs:
-        if run == "profile":
-            out["profile"] = {"pp": n, "micro_batches": 8, "stages": [
-                ln["pp_profile"] for ln in _pp_children(n, GPT345_ARGV + [
-                    "--pp", str(n), "--micro-batches", "8", "--steps", "7", "--fused-ce"] + ex)]}
-            emit({"pp_multi_card": {"profile": out["profile"]}})
-            continue
-        pp, tp, M = run
-        rep = _torchrun_pretrain(pp * tp, GPT345_ARGV + [
-            "--pp", str(pp), "--tp", str(tp), "--micro-batches", str(M), "--steps", "10",
-            "--fused-ce"] + ex)
-        row = {"pp": pp, "tp": tp, "micro_batches": M if pp > 1 else None,
-               "graphs": rep["graphs"],
-               "step_ms_median": float(np.median(rep["step_ms"][2:])),
-               "step_ms": rep["step_ms"], "losses": rep["losses"],
-               "peak_memory_gb_rank0": rep["peak_memory_gb"],
-               "bubble_share": (pp - 1) / (M + pp - 1)}
+    for pp, tp, M, vpp, head in runs:
+        head_flag = ["--fused-ce"] if head == "fused" else []
+        if pp == 1:
+            rep = _torchrun_pretrain(1, GPT345_ARGV + ["--steps", "10"] + head_flag + ex)
+            ranks, losses, step_ms = [], rep["losses"], rep["step_ms"]
+        elif vpp > 1:
+            lines = _pp_children(pp, [], script="vpp_child", extra=[
+                "--pp", str(pp), "--vpp", str(vpp), "--micro-batches", str(M), "--steps",
+                "10"] + ex, prefix='{"vpp_child"')
+            rep = lines[0]["vpp_child"]
+            ranks, losses, step_ms = rep["ranks"], rep["losses"], rep["step_ms"]
+        else:
+            lines = _pp_children(pp * tp, GPT345_ARGV + [
+                "--pp", str(pp), "--tp", str(tp), "--micro-batches", str(M), "--steps", "10"]
+                + head_flag + ex)
+            ranks = [ln["pp_profile"] for ln in lines]
+            r0 = next(r for r in ranks if r["rank"] == 0)
+            losses, step_ms = r0["losses"], r0["step_ms"]
+        row = {"pp": pp, "tp": tp, "vpp": vpp, "head": head,
+               "micro_batches": M if pp > 1 else None,
+               "step_ms_median": float(np.median(step_ms[2:])), "step_ms": step_ms,
+               "losses": losses, "profiled": pp > 1,
+               "bubble_share": (pp - 1) / (vpp * M + pp - 1), "stages": _stages(ranks)}
         if out["timed"]:
             want = out["timed"][0]["losses"]
             row["max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], want))
             if not row["max_rel_diff"] <= TP_BAND:  # NaN fails too
-                failed.append(f"pp {pp} x tp {tp} at M {M}: losses {row['losses']} against "
-                              f"pp 1's {want}, beyond {TP_BAND}")
+                failed.append(f"pp {pp} x tp {tp} vpp {vpp} at M {M} ({head}): losses "
+                              f"{row['losses']} against pp 1's {want}, beyond {TP_BAND}")
         emit({"pp_multi_card": {"timed": row}})
         out["timed"].append(row)
     if failed:  # after every run, so that one fault keeps the others' numbers
@@ -4466,13 +4596,13 @@ def vpp_child(argv):
     GPT-345M (pretrain_gpt's config with the fused head, the seed-0
     params in ``params_to_vpp_layout``'s order, FusedAdam(wd 0.01)) over
     NCCL, the seed-0 corpus's rows ``[8i, 8i + 8)`` at step i, CUDA
-    events after each step.  The world is torn down with the step (and
-    its graph) alive: :func:`apex_tpu_torch.parallel.destroy_distributed`
-    frees the graphs first.  Rank 0 prints the losses, step ms, peak
-    memory and the teardown's seconds.  Over NCCL ``make_pp_train_step``
-    refuses vpp > 1 (ROADMAP.md section 3): this is the run, made
-    ``torchrun --standalone --nproc-per-node N chip_smoke.py vpp_child``
-    in a copy without the refusal, that would lift it."""
+    events after each step, then 4 steps under the profiler (each rank's
+    idle share and NCCL ms a step).  The world is torn down with the step
+    (and its graph) alive: :func:`apex_tpu_torch.parallel.destroy_distributed`
+    frees the graphs first.  Rank 0 prints the losses, step ms, every
+    rank's profile and peak memory, and the teardown's seconds: the run
+    that lifted the interleaved schedule's refusal over NCCL (ROADMAP.md
+    section 3)."""
     import argparse
 
     from apex_tpu_torch import pretrain_gpt
@@ -4503,6 +4633,7 @@ def vpp_child(argv):
                           keep_fp32=True, pp_group=ps.get_pipeline_model_parallel_group())
     opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
     state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
     step = make_pp_train_step(config, opt, a.micro_batches, a.vpp,
                               graphs=False if a.eager else None,
                               dp_group=ps.get_data_parallel_group(),
@@ -4519,16 +4650,361 @@ def vpp_child(argv):
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
     torch.cuda.synchronize()
+    rank = torch.distributed.get_rank()
+    mine = {"rank": rank, "pp_rank": ps.get_pipeline_model_parallel_rank(),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **_profile_window(step, lambda i: (params, state, rows[i][:, :-1],
+                                               rows[i][:, 1:]))}
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
     rep = {"losses": [float(x) for x in losses],
            "step_ms": [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])],
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "ranks": ranks}
     t0 = time.monotonic()
-    rank = torch.distributed.get_rank()
     multiproc.destroy_distributed()  # the step, its graph with it, still alive here
     rep["teardown_s"] = time.monotonic() - t0
     if rank == 0:
         print(json.dumps({"vpp_child": rep}), flush=True)
     del step
+    return 0
+
+
+#: ``zero_child``'s dp split for the hierarchical wire (2 x 2 at world 4)
+ZERO_HIER = {"dp_out": 2, "dp_in": 2}
+
+
+def zero_child(argv):
+    """One rank of ``torchrun --nproc-per-node N chip_smoke.py zero_child
+    --tp T --pp P [--micro-batches M] [--hier] [--steps S]``: GPT-345M
+    (pretrain_gpt's config, the fused head, the seed-0 params), graphed,
+    8 rows of the seed-0 corpus a dp rank a step, through
+    ``make_train_step`` (pp 1) or ``make_pp_train_step``.  For each
+    optimizer in turn -- FusedAdam, then ``DistributedFusedAdam`` over
+    the model specs (pretrain_gpt's ``--zero``); with ``--hier`` the flat
+    ZeRO wire, then the (2, 2) split's wide and int8 wires -- S timed
+    steps (CUDA events), then 4 under the profiler; every rank's peak
+    memory, idle share and NCCL ms a step gathered to rank 0, which
+    prints one ``zero_child`` line."""
+    import argparse
+    import gc
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import (
+        _init_numpy, make_pp_train_step, param_specs, shard_params,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.train_gpt import make_train_step
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1)
+    ap.add_argument("--micro-batches", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--hier", action="store_true")
+    a = ap.parse_args(argv)
+    dev = multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(tensor_model_parallel_size_=a.tp,
+                                 pipeline_model_parallel_size_=a.pp)
+    args = pretrain_gpt.build_args().parse_args(GPT345_ARGV + ["--fused-ce"])
+    config = pretrain_gpt.make_config(args)
+    tree = _init_numpy(config, 0)
+    dp_g, tp_g, pp_g = (ps.get_data_parallel_group(), ps.get_tensor_model_parallel_group(),
+                        ps.get_pipeline_model_parallel_group())
+    pipe = pp_g if a.pp > 1 else None
+    dp = dp_g.size()
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = 8 * dp
+    rows = [torch.from_numpy(np.ascontiguousarray(
+        corpus[i * gb + 8 * dp_g.rank():i * gb + 8 * dp_g.rank() + 8], np.int64)).to(dev)
+        for i in range(a.steps + 4)]
+    sizes = {"tp": a.tp, **({"pp": a.pp} if a.pp > 1 else {})}
+    hier = {"dp_axes": tuple(ZERO_HIER)}
+    variants = ([("zero_flat", {}), ("zero_hier", hier),
+                 ("zero_hier_int8", {**hier, "grad_sync_dtype": "int8"})] if a.hier
+                else [("fused_adam", None), ("zero", {})])
+    rank = torch.distributed.get_rank()
+    out = {}
+    for name, kw in variants:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = shard_params(tree, config, tp_g, dev, keep_fp32=True, pp_group=pipe)
+        dp_group = dp_g
+        if kw is None:
+            opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+            state = opt.init(params)
+        else:
+            opt = DistributedFusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY, **kw)
+            state = opt.init(params, world_size=dp, param_specs=param_specs(config, a.pp > 1),
+                             axis_sizes={**sizes, **(ZERO_HIER if "dp_axes" in kw else {})})
+            if "dp_axes" in kw:
+                dp_group = ps.get_data_parallel_hop_groups(tuple(ZERO_HIER),
+                                                           tuple(ZERO_HIER.values()))
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        step = (make_pp_train_step(config, opt, a.micro_batches, dp_group=dp_group,
+                                   tp_group=tp_g) if a.pp > 1
+                else make_train_step(opt, config, dp_group=dp_group, tp_group=tp_g))
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        losses = []
+        for r in rows[:a.steps]:
+            losses.append(step(params, state, r[:, :-1], r[:, 1:]).detach().clone())
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        torch.cuda.synchronize()
+        mine = {"rank": rank, "pp_rank": pp_g.rank(),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                **_profile_window(step, lambda i: (params, state, rows[a.steps + i][:, :-1],
+                                                   rows[a.steps + i][:, 1:]))}
+        ranks = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(ranks, mine)
+        step_ms = [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])]
+        out[name] = {"losses": [float(x) for x in losses], "step_ms": step_ms,
+                     "step_ms_median": float(np.median(step_ms[2:])), "ranks": ranks}
+        del step, params, state, opt
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"zero_child": {"tp": a.tp, "pp": a.pp, "dp": dp,
+                                         "micro_batches": a.micro_batches if a.pp > 1 else None,
+                                         **out}}), flush=True)
+    return 0
+
+
+#: the tp 2 x pp 2 bisection (ROADMAP.md section 3): each variant one
+#: ``torchrun --nproc-per-node 4 chip_smoke.py pp_bisect_child`` at GPT-345M
+#: width (hidden 1024, 16 heads, vocab 50304, seq 1024, global batch 8)
+BISECT_VARIANTS = (
+    ("tp2pp2_24L_m8_fused_graphed", ["--tp", "2", "--layers", "24"]),
+    ("pp2_24L_m8_fused_graphed", ["--tp", "1", "--pp", "2", "--layers", "24"]),
+    ("tp2pp2_4L_m8_fused_eager", ["--tp", "2", "--layers", "4", "--eager", "--probe"]),
+    ("tp2pp2_4L_m8_dense_eager", ["--tp", "2", "--layers", "4", "--eager", "--dense",
+                                  "--probe"]),
+    ("tp2pp2_4L_m2_fused_eager", ["--tp", "2", "--layers", "4", "--eager",
+                                  "--micro-batches", "2", "--probe"]),
+    ("tp2pp2_4L_m8_fused_eager_sp", ["--tp", "2", "--layers", "4", "--eager",
+                                     "--sequence-parallel", "--probe"]),
+    ("tp2pp2_24L_m8_fused_eager", ["--tp", "2", "--layers", "24", "--eager", "--probe"]),
+    ("pp2_4L_m8_fused_eager", ["--tp", "1", "--pp", "2", "--layers", "4", "--eager",
+                               "--probe"]),
+    ("tp2pp2_4L_m8_fused_eager_sync", ["--tp", "2", "--layers", "4", "--eager", "--probe",
+                                       "--sync-p2p"]),
+)
+
+
+def pp_bisect_child(argv):
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py pp_bisect_child
+    --tp T [--pp P] --layers L [--micro-batches M] [--steps S] [--eager]
+    [--dense] [--sequence-parallel] [--probe] [--sync-p2p]``:
+    ``make_pp_train_step`` at GPT-345M width (pretrain_gpt's config, the
+    seed-0 params, FusedAdam(wd 0.01), the seed-0 corpus's rows) over
+    NCCL, with ``faulthandler`` on.  ``--probe`` checks every unit's
+    input, output and cotangents for non-finite values (the first one a
+    rank meets is reported with its step, unit, chunk and microbatch),
+    keeps a float64 sum of every message sent and received (each pair's
+    sequences are compared after the run), and on the last stage holds
+    each microbatch's fused CE head against the dense one on the same
+    activations; ``--sync-p2p`` synchronizes the device after each
+    stage-to-stage exchange.  Rank 0 prints one ``pp_bisect`` line."""
+    import argparse
+    import dataclasses
+    import faulthandler
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.models import gpt as tgpt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import tick_schedule as ts
+
+    faulthandler.enable()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tp", type=int, default=2)
+    ap.add_argument("--pp", type=int, default=2)
+    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--micro-batches", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--sequence-parallel", action="store_true")
+    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--sync-p2p", action="store_true")
+    a = ap.parse_args(argv)
+    dev = multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(tensor_model_parallel_size_=a.tp,
+                                 pipeline_model_parallel_size_=a.pp)
+    flags = list(GPT345_ARGV)
+    flags[flags.index("--layers") + 1] = str(a.layers)
+    flags += ([] if a.dense else ["--fused-ce"]) + (
+        ["--sequence-parallel"] if a.sequence_parallel else [])
+    args = pretrain_gpt.build_args().parse_args(flags)
+    config = pretrain_gpt.make_config(args)
+    tp_g, pp_g = ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group()
+    params = tgpt.shard_params(tgpt._init_numpy(config, 0), config, tp_g, dev, keep_fp32=True,
+                               pp_group=pp_g)
+    rank = torch.distributed.get_rank()
+    rec = {"rank": rank, "pp_rank": pp_g.rank(), "tp_rank": tp_g.rank(),
+           "params_finite": all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+           "first_nonfinite": None, "messages": [], "head": []}
+    where = {"step": -1}
+
+    def csum(t):
+        return float(t.detach().double().sum())
+
+    def check(what, t):
+        if t is None or rec["first_nonfinite"] is not None:
+            return
+        if not bool(torch.isfinite(t).all()):
+            rec["first_nonfinite"] = {"step": where["step"], "at": what,
+                                      "nan": int(torch.isnan(t).sum()),
+                                      "inf": int(torch.isinf(t).sum()), "numel": t.numel()}
+
+    comm = p2p._communicate
+
+    def communicate(send_next, send_prev, recv_prev, recv_next, shape, dtype, device,
+                    group=None):
+        g = p2p._group(group)
+        n, me = g.size(), g.rank()
+        nxt, prv = g.ranks[(me + 1) % n], g.ranks[(me - 1) % n]
+        if a.probe:
+            for t, peer, kind in ((send_next, nxt, "act"), (send_prev, prv, "grad")):
+                if t is not None:
+                    rec["messages"].append(["send", peer, kind, csum(t)])
+        out = comm(send_next, send_prev, recv_prev, recv_next, shape, dtype, device, group)
+        if a.sync_p2p:
+            torch.cuda.synchronize()
+        if a.probe:
+            for t, peer, kind in ((out[0], prv, "act"), (out[1], nxt, "grad")):
+                if t is not None:
+                    rec["messages"].append(["recv", peer, kind, csum(t)])
+        return out
+
+    p2p._communicate = communicate
+    if a.probe:
+        fwd, bwd, head = ts._Units.forward, ts._Units.backward, tgpt.lm_head_loss
+
+        def forward(self, v, m, x_in):
+            check(f"F chunk {v} mb {m} input", x_in)
+            y = fwd(self, v, m, x_in)
+            check(f"F chunk {v} mb {m} output", y if y is not None else self.loss_sum)
+            return y
+
+        def backward(self, v, m, dy):
+            check(f"B chunk {v} mb {m} cotangent in", dy)
+            dx = bwd(self, v, m, dy)
+            check(f"B chunk {v} mb {m} cotangent out", dx)
+            return dx
+
+        def lm_head_loss(x, embed, targets, cfg, axis_name=None):
+            check("head input", x)
+            out = head(x, embed, targets, cfg, axis_name)
+            if cfg.fused_ce and torch.is_grad_enabled():
+                with torch.no_grad():
+                    ref = head(x, embed, targets, dataclasses.replace(cfg, fused_ce=False),
+                               axis_name)
+                rec["head"].append([where["step"], float(out.detach().mean()),
+                                    float(ref.mean())])
+            return out
+
+        ts._Units.forward, ts._Units.backward = forward, backward
+        tgpt.lm_head_loss = lm_head_loss
+    opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    step = tgpt.make_pp_train_step(config, opt, a.micro_batches,
+                                   graphs=False if a.eager else None,
+                                   dp_group=ps.get_data_parallel_group(), tp_group=tp_g)
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = args.global_batch
+    losses = []
+    for i in range(a.steps):
+        where["step"] = i
+        r = torch.from_numpy(np.ascontiguousarray(corpus[i * gb:(i + 1) * gb], np.int64)).to(dev)
+        losses.append(float(step(params, state, r[:, :-1], r[:, 1:])))
+    rec["losses"] = losses
+    recs = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(recs, rec)
+    multiproc.destroy_distributed()
+    if rank != 0:
+        return 0
+    # each ordered pair's messages: what one rank sent against what the
+    # other received, in order
+    bad = []
+    for src in recs:
+        for dst in recs:
+            for kind in ("act", "grad"):
+                sent = [s for op, peer, k, s in src["messages"]
+                        if op == "send" and peer == dst["rank"] and k == kind]
+                got = [s for op, peer, k, s in dst["messages"]
+                       if op == "recv" and peer == src["rank"] and k == kind]
+                if sent != got:
+                    i = next((j for j, (x, y) in enumerate(zip(sent, got)) if x != y),
+                             min(len(sent), len(got)))
+                    bad.append({"src": src["rank"], "dst": dst["rank"], "kind": kind,
+                                "sent": len(sent), "received": len(got), "first_differs": i})
+    print(json.dumps({"pp_bisect": {
+        "argv": argv, "losses": losses, "messages_checked": sum(
+            len(r["messages"]) for r in recs) if a.probe else None,
+        "message_mismatches": bad if a.probe else None,
+        "ranks": [{k: r[k] for k in ("rank", "pp_rank", "tp_rank", "params_finite",
+                                     "first_nonfinite", "head")} for r in recs]}}),
+          flush=True)
+    return 0
+
+
+def pp_bisect_main():
+    """``chip_smoke.py pp_bisect`` on four cards: the kernels built, then
+    each of :data:`BISECT_VARIANTS` as its own ``torchrun`` world (180 s
+    each, its session killed past that).  Every result is printed as it
+    comes (a ``pp_bisect`` line); after the last, it raises if a world
+    did not end with rc 0, a loss or a probed tensor was not finite, or
+    a message arrived other than it was sent."""
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        raise SystemExit(f"chip_smoke pp_bisect: needs four cards, has {n_cards}")
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+
+    def world(cmd, timeout=180):
+        t0 = time.monotonic()
+        try:
+            rc, lines, errs, _ = _child(cmd, timeout)
+        except TimeoutError as exc:
+            return {"rc": None, "error": str(exc)[-4000:], "seconds": time.monotonic() - t0}
+        out = {"rc": rc, "seconds": time.monotonic() - t0}
+        for ln in lines:
+            if ln.startswith("{"):
+                out.update(json.loads(ln))
+        if rc != 0:
+            out["stderr"] = "\n".join(errs[-40:])
+        return out
+
+    failed = []
+    for name, flags in BISECT_VARIANTS:
+        pp = int(flags[flags.index("--pp") + 1]) if "--pp" in flags else 2
+        n = pp * int(flags[flags.index("--tp") + 1])
+        res = world(["torchrun", "--standalone", f"--nproc-per-node={n}",
+                     str(ROOT / "chip_smoke.py"), "pp_bisect_child", *flags])
+        emit({"pp_bisect": {"variant": name, **res}})
+        rep = res.get("pp_bisect")
+        if res["rc"] != 0 or rep is None:
+            failed.append(f"{name}: rc {res['rc']}")
+        elif not all(np.isfinite(rep["losses"])) or rep["message_mismatches"] or any(
+                r["first_nonfinite"] is not None for r in rep["ranks"]):
+            failed.append(f"{name}: losses {rep['losses']}, first non-finite "
+                          f"{[r['first_nonfinite'] for r in rep['ranks']]}, message "
+                          f"mismatches {rep['message_mismatches']}")
+    if failed:  # after every world, so that one fault keeps the others' lines
+        raise AssertionError("pp_bisect: " + "; ".join(failed))
     return 0
 
 
@@ -4559,13 +5035,18 @@ def pp_child(argv):
     its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from apex_tpu_torch import pretrain_gpt
+
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     rep = _pretrain_here(argv, profiler=prof)
+    args = pretrain_gpt.build_args().parse_args(argv)
     idle = _busy_share(prof)
     k = idle["kernel_ms_per_step"]
     nccl = sum(ms for name, ms in k.items() if "nccl" in name.lower())
     print(json.dumps({"pp_profile": {
-        "rank": rep["rank"], "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
+        "rank": rep["rank"], "pp_rank": (rep["rank"] // args.tp) % args.pp,
+        "step_ms": rep["step_ms"],
+        "idle_share": idle["idle_share"], "busy_ms": idle["busy_ms"],
         "window_ms": idle["window_ms"], "window_steps": idle["window_steps"],
         "nccl_ms_per_step": nccl, "losses": rep["losses"],
         "peak_memory_gb": rep["peak_memory_gb"],
@@ -5022,6 +5503,14 @@ def main():
         return vpp_child(sys.argv[2:])
     if sys.argv[1:2] == ["pp_multi_card"]:
         return pp_multi_card_main()
+    if sys.argv[1:2] == ["pp_bisect"]:
+        return pp_bisect_main()
+    if sys.argv[1:2] == ["zero_child"]:
+        return zero_child(sys.argv[2:])
+    if sys.argv[1:2] == ["multi_card"]:
+        return multi_card_main()
+    if sys.argv[1:2] == ["pp_bisect_child"]:
+        return pp_bisect_child(sys.argv[2:])
     if sys.argv[1:2] == ["resilience"]:
         return resilience_main()
     if sys.argv[1:2] == ["serve_hooks"]:
@@ -5099,7 +5588,14 @@ def main():
               {132, torch.cuda.get_device_properties(dev).multi_processor_count})))})
 
     for case, kw in (("gpt124", {}),
-                     ("ragged", {"N": 1000, "V": 50257, "library": False}), *CE_GRID):
+                     ("ragged", {"N": 1000, "V": 50257, "library": False}),
+                     # a vocab split of the last, partial tile alone: tp 2's
+                     # shard of GPT-345M's vocab at 1024 rows (one row of
+                     # 1024 positions a microbatch), the shape whose NaN
+                     # ROADMAP.md section 3 logs
+                     ("partial_tile_split", {"N": 1024, "H": 1024, "V": 25152,
+                                             "library": False}),
+                     *CE_GRID):
         r = check_fused_ce(dev, case, **kw)
         results[("ce", case)] = r
         for name in ("fwd", "dx", "dembed"):

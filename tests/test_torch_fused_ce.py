@@ -294,7 +294,17 @@ from apex_tpu_torch import ce_fwd_tiles as FT  # noqa: E402
 _LOG2E = 1.4426950408889634
 
 
-def _fwd_model(x, e, t):
+#: the kernel's kLog2e, a float
+_K32 = float(np.float32(_LOG2E))
+
+
+def _fmaf(a, b, c):
+    """The card's ``fmaf(a, b, c)``: ``a * b + c`` rounded once (float64
+    holds the product of two floats exactly)."""
+    return (a.double() * b + c.double()).float()
+
+
+def _fwd_model(x, e, t, guard=True):
     """The forward kernel's arithmetic in plain torch, at the landed
     plan: vocab splits of whole tiles; in each tile a lane (warp wn,
     quad t) owns 16 columns of every row, masked to -2e30 past V, and
@@ -321,8 +331,11 @@ def _fwd_model(x, e, t):
         for vt in range(y * tps, min(nv, (y + 1) * tps)):
             tile = s[:, vt * BN:(vt + 1) * BN][:, order].reshape(N, lanes, BN // lanes)
             mx = torch.maximum(m, tile.max(-1).values)
-            ms = mx * _LOG2E
-            l = l * torch.exp2(m * _LOG2E - ms) + torch.exp2(tile * _LOG2E - ms[..., None]).sum(-1)
+            ms = mx * _K32
+            rescaled = l * torch.exp2(_fmaf(m, _K32, -ms))
+            if guard:  # a lane with no valid column yet keeps l = 0
+                rescaled = torch.where(l == 0, torch.zeros_like(l), rescaled)
+            l = rescaled + torch.exp2(_fmaf(tile, _K32, -ms[..., None])).sum(-1)
             m = mx
             rel = t.long() - vt * BN
             hit = (rel >= 0) & (rel < BN)
@@ -353,6 +366,27 @@ def test_forward_kernel_arithmetic_matches_the_plain_version(N, H, V):
     pm, pl, ptgt = K.ce_fwd_plain(xt.to(torch.bfloat16), et, tt, dot_dtype=torch.bfloat16)
     assert torch.equal(m, pm) and torch.equal(tgt, ptgt)
     _close(m + torch.log(l), (pm + torch.log(pl)).numpy(), 1e-5)
+
+
+def test_a_lane_with_no_valid_column_keeps_its_sum_at_zero():
+    """The tp 2 x pp 2 NaN of ROADMAP.md section 3: at GPT-345M's vocab
+    shard under tp 2 (V 25152: a last tile of 64 valid columns of 256) and
+    1024 rows, the last vocab split holds that tile alone, so three warps'
+    lanes see no valid column; their running max stays at the initial
+    -1e30 and ``fmaf(m, log2 e, -m log2 e)`` leaves the product's rounding,
+    +6.4e21: exp2 gives inf and ``0 * inf`` NaN.  The kernel keeps such an
+    l at 0 (``csrc/fused_ce.cu``); without that, the kernel's arithmetic
+    (``_fwd_model``) turns NaN at a small shape with the same split."""
+    plan = K.ce_fwd_plan(1024, 1024, 25152, torch.bfloat16, torch.float32)
+    nv = -(-25152 // K.FWD_TILES["cols"])
+    tps = -(-nv // plan.splits)
+    assert (plan.splits - 1) * tps == nv - 1 and 25152 % K.FWD_TILES["cols"] == 64
+    m = np.float32(-1e30)
+    assert np.float64(m) * np.float32(_LOG2E) - np.float64(np.float32(m * np.float32(_LOG2E))) > 0
+    x, e, t, _ = _data(64, 32, 259, seed=8)
+    xt, et, tt = (torch.from_numpy(a) for a in (x, e, t))
+    assert torch.isnan(_fwd_model(xt.to(torch.bfloat16), et, tt, guard=False)[1]).any()
+    assert torch.isfinite(_fwd_model(xt.to(torch.bfloat16), et, tt)[1]).all()
 
 
 #: the shapes the forward's plan is held at: the CE_GRID cases of

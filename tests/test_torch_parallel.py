@@ -208,7 +208,7 @@ def test_parallel_state_world1_getters_match_jax(world1, devices8):
     ({"tensor_model_parallel_size_": 2}, None),
     ({"pipeline_model_parallel_size_": 2}, None),
     ({"context_parallel_size_": 2}, "queue 1 item 9"),
-    ({"num_distributed_slices_": 2}, "queue 1 item 6"),
+    ({"num_distributed_slices_": 2}, None),
     ({"virtual_pipeline_model_parallel_size_": 2}, None),
 ], ids=["tp", "pp", "cp", "dcn", "virtual_pp"])
 def test_parallel_state_refusals_name_their_queue_item(kw, item, devices8):
@@ -220,7 +220,14 @@ def test_parallel_state_refusals_name_their_queue_item(kw, item, devices8):
         # schedule wants pp of 2 or more, as the JAX package does
         multiproc.initialize_distributed("cpu")
         try:
-            if "virtual_pipeline_model_parallel_size_" in kw:
+            if "num_distributed_slices_" in kw:
+                # the JAX package's outer dcn axis is ported: slices must
+                # divide dp, as the JAX mesh's rule
+                with pytest.raises(RuntimeError, match=r"not divisible by slices \(2\)"):
+                    ps.initialize_model_parallel(**kw)
+                with pytest.raises(RuntimeError, match="not divisible by slices"):
+                    jps.initialize_model_parallel(devices=devices8[:1], **kw)
+            elif "virtual_pipeline_model_parallel_size_" in kw:
                 msg = "greater than 2 with interleaved schedule"
                 with pytest.raises(RuntimeError, match=msg):
                     ps.initialize_model_parallel(**kw)

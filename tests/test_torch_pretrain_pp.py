@@ -10,8 +10,12 @@ virtual CPU devices.
   both; the band of ``tests/test_torch_pretrain_tp.py``).
 - The port's own dp 2 x pp 2 run checkpoints (gathered whole over pp,
   with its layout) and resumes bitwise at step 2; a resume of that file
-  at pp 4 raises as a layout change, naming its ROADMAP.md queue item,
-  and so does ``--zero --pp 2`` (item 12).
+  at pp 4 raises as a layout change, naming its ROADMAP.md queue item.
+  ``--zero --pp 2`` (dp 2 x pp 2, each rank's state the dp shard of its
+  stage) takes the own run's 4 steps with its losses bitwise (at dp 2 the
+  reduce-scatter and the DDP all-reduce add the same two addends, and the
+  ZeRO update is FusedAdam's), and its elastic checkpoint refuses a
+  resume at pp 4.
 """
 
 import json
@@ -87,6 +91,8 @@ def runs(tmp_path_factory):
     jax_proc = _jax_start(4, ["--tp", "2", "--pp", "2", "--steps", "4"])
     own = _torchrun_start(4, ["--pp", "2", "--steps", "4", "--checkpoint", str(d / "own"),
                               "--save-every", "2"])
+    zero = _torchrun_start(4, ["--pp", "2", "--steps", "4", "--zero", "--checkpoint",
+                               str(d / "zero"), "--save-every", "2"])
     _step0_file(d / "step0.ckpt")
     port = _torchrun_start(4, ["--tp", "2", "--pp", "2", "--steps", "4", "--resume",
                                str(d / "step0.ckpt")])
@@ -96,8 +102,12 @@ def runs(tmp_path_factory):
     ck = d / "own" / "step_00000002.ckpt"
     resumed = _torchrun_start(4, ["--pp", "2", "--steps", "2", "--resume", str(ck)])
     other_pp = _torchrun_start(4, ["--pp", "4", "--steps", "1", "--resume", str(ck)])
+    zero_rep = _report(zero)
+    zero_other = _torchrun_start(4, ["--pp", "4", "--zero", "--steps", "1", "--resume",
+                                     str(d / "zero")])
     return {"jax": _losses(text), "port": _report(port), "own": (full, full_out),
-            "resumed": _report(resumed), "other_pp": _report(other_pp, ok=False)}
+            "resumed": _report(resumed), "other_pp": _report(other_pp, ok=False),
+            "zero": zero_rep, "zero_other_pp": _report(zero_other, ok=False)}
 
 
 def test_tp2_pp2_matches_the_jax_trainer(runs):
@@ -125,7 +135,11 @@ def test_a_change_of_pp_and_zero_with_pp_raise(runs):
     rc, text = runs["other_pp"]
     assert rc != 0 and re.search(r"saved at tp=1, pp=2; resuming it at tp=1, pp=4 .*"
                                  r"ROADMAP.md queue 1 item 13", text), text[-3000:]
-    args = pretrain_gpt.build_args().parse_args(
-        ["--device", "cpu", *SHAPE, "--zero", "--pp", "2", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        pretrain_gpt.run(args)
+    # --zero --pp 2 runs: the own run's losses, bitwise; its elastic
+    # checkpoint refuses a pp change, as the reference's controller does
+    zero, zero_out = runs["zero"]
+    full, _ = runs["own"]
+    assert "mesh: dp=2 pp=2 tp=1 (4 devices)" in zero_out and zero["zero"]
+    assert zero["losses"] == full["losses"]
+    rc, text = runs["zero_other_pp"]
+    assert rc != 0 and "data-parallel-only" in text, text[-3000:]

@@ -12,8 +12,10 @@ virtual CPU devices.
   otherwise; the band of ``tests/test_torch_pretrain.py`` ``ZERO_BAND``).
 - The port's own tp 2 checkpoint (gathered whole, with its layout)
   resumes bitwise at step 4 at the same tp; at tp 1 it raises as a
-  layout change; ``--zero --tp 2`` raises; both name their ROADMAP.md
-  queue line.
+  layout change, naming its ROADMAP.md queue line.  ``--zero --tp 2``
+  (dp 1, each rank's state the dp shard of its tp slice) takes the own
+  run's steps with its losses bitwise (at dp 1 the ZeRO update is
+  FusedAdam's), and its elastic checkpoint refuses a resume at tp 1.
 """
 
 import json
@@ -79,6 +81,8 @@ def runs(tmp_path_factory):
                  for name, (dev, flags) in JAX_RUNS.items()}
     own = _torchrun_start(2, ["--tp", "2", "--sequence-parallel", "--steps", "6",
                               "--checkpoint", str(d / "own"), "--save-every", "4"])
+    zero = _torchrun_start(2, ["--tp", "2", "--sequence-parallel", "--steps", "6", "--zero",
+                               "--checkpoint", str(d / "zero"), "--save-every", "4"])
     jax_out = {}
     for name, proc in jax_procs.items():
         text, _ = proc.communicate(timeout=600)
@@ -93,6 +97,7 @@ def runs(tmp_path_factory):
                                           "--resume", str(d / "own" / "step_00000004.ckpt")]))
     out = {name: (jax_out[name], *_report(proc)) for name, proc in port.items()}
     out["own"] = ((full, full_out), resumed, d / "own")
+    out["zero"] = (_report(zero), d / "zero")
     return out
 
 
@@ -123,7 +128,13 @@ def test_a_change_of_tp_and_zero_with_tp_raise(runs):
     with metrics.MetricsScope(), pytest.raises(ValueError,
                                                match="saved at tp=2.*ROADMAP.md queue 1 item 13"):
         pretrain_gpt.run(args)
+    # --zero --tp 2 runs: the own run's losses, bitwise; its elastic
+    # checkpoint refuses a tp change, as the reference's controller does
+    (zero, zero_out), zero_dir = runs["zero"]
+    (full, _), _, _ = runs["own"]
+    assert "mesh: dp=1 pp=1 tp=2 (2 devices)" in zero_out and zero["zero"]
+    assert zero["losses"] == full["losses"]
     args = pretrain_gpt.build_args().parse_args(
-        ["--device", "cpu", *SHAPE, "--zero", "--tp", "2", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        ["--device", "cpu", *SHAPE, "--zero", "--steps", "1", "--resume", str(zero_dir)])
+    with metrics.MetricsScope(), pytest.raises(ValueError, match="data-parallel-only"):
         pretrain_gpt.run(args)

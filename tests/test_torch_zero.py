@@ -643,13 +643,17 @@ def test_unported_knobs_raise_with_their_queue_item(group1):
     from apex_tpu_torch.models.gpt import GPTConfig
     from apex_tpu_torch.train_gpt import make_train_step
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        DistributedFusedAdam(**HYPER, dp_axes=("dp_out", "dp_in"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        DistributedFusedLAMB(**HYPER, dp_axes=("dp_out", "dp_in"))
+    # the hierarchical split and model-parallel specs now build (a world
+    # of one: a (1, 1) split; specs over a tp axis of one rank)
+    for cls in (DistributedFusedAdam, DistributedFusedLAMB):
+        hier = cls(**HYPER, dp_axes=("dp_out", "dp_in"))
+        hier.init(_torch_tree(params_np(), False), axis_sizes={"dp_out": 1, "dp_in": 1})
+        assert hier.hier_plan.world == 1 and hier.plan_fingerprint()["hier"] == [
+            ["dp_in", "dp_out"], 1, 1]
     opt = DistributedFusedAdam(**HYPER)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        opt.init(_torch_tree(params_np(), False), param_specs={}, axis_sizes={"tp": 2})
+    specs = _tree(lambda k, s: ("tp",) + (None,) * (len(s) - 1))
+    opt.init(_torch_tree(params_np(), False), param_specs=specs, axis_sizes={"tp": 1})
+    assert opt.model_mult == 1 and opt._model_axes == ("tp",)
     opt.init(_torch_tree(params_np(), False))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
         make_train_step(opt, GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
