@@ -46,8 +46,9 @@ from apex_tpu_torch.parallel.distributed import all_gather_flat, reduce_scatter_
 
 __all__ = [
     "QBLOCK", "QSpec", "qspec_of", "is_quantized", "rank_order_sum", "block_scales",
-    "quantize", "dequantize", "wire_reduce_scatter", "quantized_reduce_scatter",
-    "quantized_pmean", "quantized_pmean_bucket", "grad_sync_bytes",
+    "quantize", "dequantize", "wire_reduce_scatter", "wire_reduce_scatter_start",
+    "quantized_reduce_scatter", "quantized_reduce_scatter_start", "quantized_pmean",
+    "quantized_pmean_bucket", "grad_sync_bytes",
 ]
 
 #: elements a scale block: every ZeRO shard holds whole blocks (the
@@ -150,24 +151,60 @@ def _check_block(n: int, block: int, world: int) -> None:
             f"block={block})")
 
 
-def wire_reduce_scatter(q, pg, world: int, spec: QSpec) -> torch.Tensor:
-    """This rank's 1/world shard of the group's sum of ``q``, in the wire
-    dtype: int8 by ``reduce_scatter_tensor``; fp8 by an all-to-all of
-    its bytes and an fp32 sum in rank order rounded once."""
+def wire_reduce_scatter_start(q, pg, world: int, spec: QSpec):
+    """Start :func:`wire_reduce_scatter` (the collective asynchronous);
+    returns ``finish() -> shard``, which waits for it first."""
     import torch.distributed as dist
 
     n = q.numel() // world
     if spec.is_int:
         out = torch.empty(n, dtype=q.dtype, device=q.device)
-        reduce_scatter_flat(out, q, pg)
-        return out
+        work = reduce_scatter_flat(out, q, pg, async_op=True)
+
+        def finish_int():
+            work.wait()
+            return out
+
+        return finish_int
     got = torch.empty(q.numel(), dtype=torch.uint8, device=q.device)
-    dist.all_to_all_single(got, q.view(torch.uint8), group=pg)
-    parts = got.view(q.dtype).reshape(world, n)
-    acc = parts[0].to(torch.float32)
-    for r in range(1, world):
-        acc = acc + parts[r].to(torch.float32)
-    return acc.to(q.dtype)
+    work = dist.all_to_all_single(got, q.view(torch.uint8), group=pg, async_op=True)
+
+    def finish_fp8():
+        work.wait()
+        parts = got.view(q.dtype).reshape(world, n)
+        acc = parts[0].to(torch.float32)
+        for r in range(1, world):
+            acc = acc + parts[r].to(torch.float32)
+        return acc.to(q.dtype)
+
+    return finish_fp8
+
+
+def wire_reduce_scatter(q, pg, world: int, spec: QSpec) -> torch.Tensor:
+    """This rank's 1/world shard of the group's sum of ``q``, in the wire
+    dtype: int8 by ``reduce_scatter_tensor``; fp8 by an all-to-all of
+    its bytes and an fp32 sum in rank order rounded once."""
+    return wire_reduce_scatter_start(q, pg, world, spec)()
+
+
+def quantized_reduce_scatter_start(h, pg, spec: QSpec, rank: int, world: int,
+                                   block: int = QBLOCK):
+    """The issue half of :func:`quantized_reduce_scatter`: the shared
+    block scales (a small collective, waited on), the quantize, the
+    residual, and the payload's reduce-scatter started.  Returns
+    ``(finish, residual_f32)``; ``finish()`` waits for the wire and
+    dequantizes this rank's shard of the sum."""
+    _check_block(h.shape[0], block, world)
+    scales, bounds = block_scales(h, pg, world, spec, block)
+    q = quantize(h, scales, bounds, spec, block)
+    residual = h - dequantize(q, scales, block)
+    wire = wire_reduce_scatter_start(q, pg, world, spec)
+    nb = (h.shape[0] // block) // world
+
+    def finish():
+        return dequantize(wire(), scales[rank * nb:(rank + 1) * nb], block)
+
+    return finish, residual
 
 
 def quantized_reduce_scatter(h, pg, spec: QSpec, rank: int, world: int,
@@ -175,13 +212,8 @@ def quantized_reduce_scatter(h, pg, spec: QSpec, rank: int, world: int,
     """One bucket's quantized grad sync: ``(sum_shard_f32,
     residual_f32)``, this rank's 1/world shard of the group's sum of
     ``h`` (to the wire precision) and ``h - dequantize(quantize(h))``."""
-    _check_block(h.shape[0], block, world)
-    scales, bounds = block_scales(h, pg, world, spec, block)
-    q = quantize(h, scales, bounds, spec, block)
-    residual = h - dequantize(q, scales, block)
-    q_shard = wire_reduce_scatter(q, pg, world, spec)
-    nb = (h.shape[0] // block) // world
-    return dequantize(q_shard, scales[rank * nb:(rank + 1) * nb], block), residual
+    finish, residual = quantized_reduce_scatter_start(h, pg, spec, rank, world, block)
+    return finish(), residual
 
 
 def quantized_pmean_bucket(h, pg, spec: QSpec, world: int, block: int = QBLOCK):

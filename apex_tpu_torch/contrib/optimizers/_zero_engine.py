@@ -51,8 +51,18 @@ over nested groups of the data-parallel group, the gathers mirrored.
 The shard a rank owns stays the flat plan's chunk (its ``zero_rank``),
 so checkpoints cross flat and hierarchical worlds unchanged.
 
-Not ported yet: the backward-overlapped sync (``make_train_step(
-overlap_grad_sync=True)``, :data:`OVERLAP_ITEM`).
+The backward-overlapped sync (``make_train_step(overlap_grad_sync=
+True)``) cuts :meth:`~ZeroOptimizerBase.bucket_grad_wire` in two: the
+step issues each bucket's wire (:meth:`~ZeroOptimizerBase
+.bucket_grad_issue`: pack, residual, scales, quantize, the collective
+started) as soon as the backward has made its grads, finishes it once
+the next bucket's has started (wait, dequantize or divide, unscale),
+and hands the results to ``update`` / ``update_scaled`` as
+``presynced``; the rest of the step runs unchanged on the same values.
+
+``update(..., inplace=True)`` and ``update_scaled(..., inplace=True)``
+write the new shards, residuals, step and params into the state and
+params given (the donated form the train step uses).
 """
 
 import dataclasses
@@ -72,15 +82,28 @@ from apex_tpu_torch.optimizers.tree import tree_leaves, tree_unflatten
 from apex_tpu_torch.parallel.distributed import all_gather_flat, reduce_scatter_flat
 from apex_tpu_torch.transformer.parallel_state import DATA_AXIS
 
-__all__ = ["ZeroOptimizerBase", "resolve_sync_dtype", "local_leaf_info", "OVERLAP_ITEM"]
+__all__ = ["ZeroOptimizerBase", "PendingWire", "resolve_sync_dtype", "local_leaf_info"]
 
 #: wide sync dtypes: the wire carries the values themselves
 _SUPPORTED_SYNC = ("float32", "bfloat16", "float16")
 #: quantized wire dtypes (grad sync only)
 _QUANTIZED_GRAD_SYNC = ("int8", "float8_e4m3fn", "float8_e5m2")
 
-#: what brings the part of the JAX engine not ported yet
-OVERLAP_ITEM = "the backward-overlapped grad sync, ROADMAP.md queue 1 item 6 (what it left)"
+
+
+class PendingWire:
+    """One bucket's grad wire between its issue and its finish:
+    :meth:`finish` waits for the collective and returns ``(g32_shard,
+    new_residual, pre_wire)`` as :meth:`ZeroOptimizerBase.bucket_grad_wire`
+    does."""
+
+    def __init__(self, finish, residual=None, pre_wire=None):
+        self._finish = finish
+        self.residual = residual
+        self.pre_wire = pre_wire
+
+    def finish(self):
+        return self._finish(), self.residual, self.pre_wire
 
 
 def resolve_sync_dtype(value, knob: str) -> Optional[torch.dtype]:
@@ -474,12 +497,13 @@ class ZeroOptimizerBase:
                                  f"storage dtype {b.dtype}")
 
     # -------------------------------------------------------------- grads
-    def bucket_grad_wire(self, bi, leaves, scale=None, residual=None):
-        """ONE bucket's gradient wire: ``(g32_shard, new_residual,
-        pre_wire)`` — the fp32 1/world shard of the synced grad, and on a
-        quantized wire the uncommitted residual and the fp32
-        pre-quantization bucket for the finite vote (both None on wide
-        wires)."""
+    def bucket_grad_issue(self, bi, leaves, scale=None, residual=None) -> PendingWire:
+        """The issue half of bucket ``bi``'s gradient wire: pack it (in
+        fp32 times 1/scale on a quantized wire, with the error-feedback
+        residual added; in the sync dtype on a wide one), then on a
+        quantized wire the shared block scales and the quantize, and the
+        reduce-scatter started.  A multi-hop wire runs its hops here,
+        each after the last.  :meth:`PendingWire.finish` does the rest."""
         b = self._plan.buckets[bi]
         pg, world, rank = self._pg, self._world, self._rank
         sdt = self._grad_dtype(b)
@@ -493,51 +517,96 @@ class ZeroOptimizerBase:
             h = h + residual.to(torch.float32)
             if self._hier_plan is not None:
                 g_sum, res_new = hs.quantized_multi_hop_reduce_scatter(h, self._hier_plan, spec)
+
+                def wire():
+                    return g_sum
             else:
-                g_sum, res_new = qs.quantized_reduce_scatter(h, pg, spec, rank, world)
-            g32 = g_sum / world if self.grad_average else g_sum
-            return g32, res_new.to(bucketing.torch_dtype(b.dtype)), h
+                wire, res_new = qs.quantized_reduce_scatter_start(h, pg, spec, rank, world)
+
+            def finish_quantized():
+                g_sum = wire()
+                return g_sum / world if self.grad_average else g_sum
+
+            return PendingWire(finish_quantized, res_new.to(bucketing.torch_dtype(b.dtype)), h)
         # fp16 sync pre-divides (a world-sized fp16 sum would overflow);
         # fp32/bf16 divide after, in fp32
         predivide = self.grad_average and sdt == torch.float16
         bucket = bucketing.pack_bucket(b, leaves, sdt, scale=(1.0 / world) if predivide else None)
         if self._hier_plan is not None:
-            g_loc = hs.multi_hop_reduce_scatter(bucket, self._hier_plan)
+            g_loc, work = hs.multi_hop_reduce_scatter(bucket, self._hier_plan), None
         else:
             g_loc = torch.empty(b.total // world, dtype=sdt, device=bucket.device)
-            reduce_scatter_flat(g_loc, bucket, pg)
-        g32 = g_loc.to(torch.float32)
-        if self.grad_average and not predivide and world != 1:
-            g32 = g32 / world
-        if inv is not None:
-            g32 = g32 * inv
-        return g32, None, None
+            work = reduce_scatter_flat(g_loc, bucket, pg, async_op=True)
+
+        def finish_wide():
+            if work is not None:
+                work.wait()
+            g32 = g_loc.to(torch.float32)
+            if self.grad_average and not predivide and world != 1:
+                g32 = g32 / world
+            if inv is not None:
+                g32 = g32 * inv
+            return g32
+
+        return PendingWire(finish_wide)
+
+    def bucket_grad_wire(self, bi, leaves, scale=None, residual=None):
+        """ONE bucket's gradient wire: ``(g32_shard, new_residual,
+        pre_wire)`` — the fp32 1/world shard of the synced grad, and on a
+        quantized wire the uncommitted residual and the fp32
+        pre-quantization bucket for the finite vote (both None on wide
+        wires).  :meth:`bucket_grad_issue`, then its finish at once."""
+        return self.bucket_grad_issue(bi, leaves, scale=scale, residual=residual).finish()
+
+    def _plan_of_local(self, params) -> bucketing.BucketPlan:
+        """The plan over this rank's (model-sharded) leaves: the one
+        ``init`` built, after checking that ``params`` has its leaves."""
+        plan = self._require_plan()
+        n = len(tree_leaves(params))
+        if n != plan.n_leaves:
+            raise ValueError(f"params have {n} leaves; the plan built at init has "
+                             f"{plan.n_leaves}")
+        return plan
 
     def _prepare_grads(self, plan, grads, scale, clip_norm, finite_sync, want_finite,
-                       grads_finite, sumsq_reduce, residuals=None):
+                       grads_finite, sumsq_reduce, residuals=None, presynced=None):
         """The sharded grad read: every bucket's wire, then the finite
         vote (agreed over the group by a MAX all-reduce, then
         ``finite_sync`` for the model-parallel groups), then the
         global-L2 clip from per-leaf Σx² of the shards.  Returns
         ``(g32_shards, new_residuals, pred)``; the residuals are
-        uncommitted."""
+        uncommitted.  ``presynced=(g_shards, new_residuals, pre_wire)``,
+        one entry a bucket, is the backward-overlapped hand-off: the
+        wires already ran (:meth:`bucket_grad_issue` inside the
+        backward), so the loop is skipped and the rest runs on the same
+        values (``grads`` may be None)."""
         from apex_tpu_torch.transformer.amp.grad_scaler import sync_found_inf
 
         self._check_residual_state(plan, residuals)
-        leaves = [g.detach() for g in tree_leaves(grads)]
-        if len(leaves) != plan.n_leaves:
-            raise ValueError(f"grad tree has {len(leaves)} leaves; plan expects "
-                             f"{plan.n_leaves}")
-        g_shards, new_residuals, pre_wire = [], [], []
-        for bi in range(len(plan.buckets)):
-            g32, res_new, h = self.bucket_grad_wire(
-                bi, leaves, scale=scale, residual=residuals[bi] if self._quantized else None)
-            g_shards.append(g32)
-            if res_new is not None:
-                new_residuals.append(res_new)
-                # a non-finite grad can quantize to finite garbage: vote
-                # on the pre-quantization values too
-                pre_wire.append(h)
+        if presynced is not None:
+            pre_g, pre_res, pre_h = presynced
+            if len(pre_g) != len(plan.buckets):
+                raise ValueError(f"presynced carries {len(pre_g)} bucket shards; the plan has "
+                                 f"{len(plan.buckets)} buckets")
+            g_shards = list(pre_g)
+            new_residuals = [r for r in pre_res if r is not None]
+            pre_wire = [h for h in pre_h if h is not None]
+        else:
+            leaves = [g.detach() for g in tree_leaves(grads)]
+            if len(leaves) != plan.n_leaves:
+                raise ValueError(f"grad tree has {len(leaves)} leaves; plan expects "
+                                 f"{plan.n_leaves}")
+            g_shards, new_residuals, pre_wire = [], [], []
+            for bi in range(len(plan.buckets)):
+                g32, res_new, h = self.bucket_grad_wire(
+                    bi, leaves, scale=scale,
+                    residual=residuals[bi] if self._quantized else None)
+                g_shards.append(g32)
+                if res_new is not None:
+                    new_residuals.append(res_new)
+                    # a non-finite grad can quantize to finite garbage:
+                    # vote on the pre-quantization values too
+                    pre_wire.append(h)
 
         pred = grads_finite
         if want_finite:
@@ -603,11 +672,12 @@ class ZeroOptimizerBase:
                 for b in plan.buckets]
 
     # --------------------------------------------------------------- emit
-    def _emit_params(self, plan, shard_out, params, pred):
+    def _emit_params(self, plan, shard_out, params, pred, inplace=False):
         """ZeRO param sync: one all-gather a bucket in
-        ``param_sync_dtype``, sliced back into the leaves; with ``pred``
-        (``overlap_param_sync``) each leaf is selected against the old
-        params."""
+        ``param_sync_dtype``, sliced back into the leaves (with
+        ``inplace``, copied into the given ones, which come back); with
+        ``pred`` (``overlap_param_sync``) each leaf is selected against
+        the old params."""
         leaves = tree_leaves(params)
         new_leaves: List[Optional[torch.Tensor]] = [None] * plan.n_leaves
         for b, shard in zip(plan.buckets, shard_out):
@@ -622,8 +692,11 @@ class ZeroOptimizerBase:
                 leaf = full[bl.offset:bl.offset + bl.size].view(bl.shape).to(old.dtype)
                 if pred is not None:
                     leaf = torch.where(pred, leaf, old.detach())
+                if inplace:
+                    old.detach().copy_(leaf)
+                    leaf = old
                 new_leaves[bl.leaf_id] = leaf
-        return tree_unflatten(params, new_leaves)
+        return params if inplace else tree_unflatten(params, new_leaves)
 
     @staticmethod
     def _select(pred, new, old):
@@ -631,35 +704,49 @@ class ZeroOptimizerBase:
             return list(new)
         return [torch.where(pred, n, o) for n, o in zip(new, old)]
 
-    def _commit_residuals(self, new_residuals, old_residuals, pred):
+    def _commit_residuals(self, new_residuals, old_residuals, pred, inplace=False):
         if not self._quantized:
             return ()
-        return tuple(self._select(pred, list(new_residuals), list(old_residuals)))
+        new = self._select(pred, list(new_residuals), list(old_residuals))
+        if inplace:
+            for o, n in zip(old_residuals, new, strict=True):
+                o.copy_(n)
+            return tuple(old_residuals)
+        return tuple(new)
 
     def _bias_corrections(self, step):
         return bias_corrections(step, self.bias_correction, self.beta1, self.beta2)
 
     # ---------------------------------------------------------- public API
+    #: ``update(..., inplace=True)`` writes into the given params and state
+    supports_inplace = True
+
     def update(self, grads, state, params, grads_finite=None, lr=None, clip_norm=None,
-               sumsq_reduce=None):
+               sumsq_reduce=None, presynced=None, inplace=False):
         """One ZeRO step: ``grads`` are this rank's LOCAL grads (the
         reduce-scatter is the dp sync); ``grads_finite`` predicates the
         commit; ``clip_norm`` folds a global-L2 clip into the sharded
-        grad read.  Returns ``(new_params, new_state)``."""
+        grad read; ``presynced`` hands over wires already run inside the
+        backward (``grads`` may then be None); ``inplace`` writes the new
+        values into ``params`` and ``state``.  Returns ``(new_params,
+        new_state)``."""
         p, s, _ = self._zero_step(grads, state, params, grads_finite=grads_finite, lr=lr,
                                   clip_norm=clip_norm, sumsq_reduce=sumsq_reduce,
-                                  want_finite=False)
+                                  want_finite=False, presynced=presynced, inplace=inplace)
         return p, s
 
     def update_scaled(self, grads, state, params, scale=None, clip_norm=None,
-                      finite_sync=None, lr=None, sumsq_reduce=None):
+                      finite_sync=None, lr=None, sumsq_reduce=None, presynced=None,
+                      inplace=False):
         """The fused amp step on the sharded grad read: reduce-scatter,
         fp32 unscale of the shard, the all-finite vote over the group,
-        the optional clip, the predicated commit.  Returns
-        ``(new_params, new_state, all_finite)``."""
+        the optional clip, the predicated commit (``presynced`` and
+        ``inplace`` as :meth:`update`; the unscale then ran in the
+        wire's finish).  Returns ``(new_params, new_state,
+        all_finite)``."""
         return self._zero_step(grads, state, params, scale=scale, clip_norm=clip_norm,
                                finite_sync=finite_sync, lr=lr, sumsq_reduce=sumsq_reduce,
-                               want_finite=True)
+                               want_finite=True, presynced=presynced, inplace=inplace)
 
     def step(self, grads, state, params, **kw):
         return self.update(grads, state, params, **kw)
@@ -668,16 +755,16 @@ class ZeroOptimizerBase:
         raise NotImplementedError
 
     def _run_step(self, grads, state, params, grads_finite, scale, clip_norm, finite_sync,
-                  sumsq_reduce, want_finite):
+                  sumsq_reduce, want_finite, presynced=None):
         """The common head of a step: the plan, the checks, the synced
         grad shards, the predicate and the new step counter."""
         from apex_tpu_torch.optimizers.base import predicate_step
 
-        plan = self._require_plan()
+        plan = self._plan_of_local(params)
         self._check_master_precision(state.master_shard)
         g_shards, res_new, pred = self._prepare_grads(
             plan, grads, scale, clip_norm, finite_sync, want_finite, grads_finite,
-            sumsq_reduce, residuals=state.residual)
+            sumsq_reduce, residuals=state.residual, presynced=presynced)
         self._check_state_shards(plan, state.exp_avg, "exp_avg")
         if pred is not None:
             pred = torch.as_tensor(pred, device=g_shards[0].device).to(torch.bool).reshape(())

@@ -105,22 +105,27 @@ class DistributedFusedAdam(ZeroOptimizerBase):
 
     def _zero_step(self, grads, state: DistributedFusedAdamState, params, grads_finite=None,
                    lr=None, scale=None, clip_norm=None, finite_sync=None, sumsq_reduce=None,
-                   want_finite=False):
+                   want_finite=False, presynced=None, inplace=False):
         lr = self.lr if lr is None else lr
         with torch.no_grad():
             plan, g_shards, res_new, pred, step = self._run_step(
                 grads, state, params, grads_finite, scale, clip_norm, finite_sync,
-                sumsq_reduce, want_finite)
+                sumsq_reduce, want_finite, presynced)
             bc1, bc2 = self._bias_corrections(step)
             kw = dict(lr=lr, wd=[self.weight_decay] * len(g_shards), bc1=bc1, bc2=bc2,
                       beta1=self.beta1, beta2=self.beta2, eps=self.eps,
                       adam_w_mode=self.adam_w_mode, pred=pred)
-            new_m = [torch.empty_like(a) for a in state.exp_avg]
-            new_v = [torch.empty_like(a) for a in state.exp_avg_sq]
+
+            # in place, the kernel writes m, v and the master over the
+            # shards it reads (each element read before it is written)
+            def out_like(slot):
+                return list(slot) if inplace else [torch.empty_like(a) for a in slot]
+
+            new_m, new_v = out_like(state.exp_avg), out_like(state.exp_avg_sq)
             if self.store_param_remainders:
                 p_owned = self._owned_param_shards(plan, params)
                 p_out = [torch.empty_like(p) for p in p_owned]
-                rem_out = [torch.empty_like(r) for r in state.master_shard]
+                rem_out = out_like(state.master_shard)
                 mt.mt_adam_remainder(g_shards, p_owned, list(state.master_shard),
                                      list(state.exp_avg), list(state.exp_avg_sq), p_out,
                                      rem_out, new_m, new_v, **kw)
@@ -129,7 +134,7 @@ class DistributedFusedAdam(ZeroOptimizerBase):
                 # the gathered shard in the param-sync dtype and the fp32
                 # master, written by one pass (one buffer when every
                 # bucket syncs in fp32)
-                master_out = [torch.empty_like(a) for a in state.master_shard]
+                master_out = out_like(state.master_shard)
                 sync = [self._param_dtype(b) for b in plan.buckets]
                 if all(dt == torch.float32 for dt in sync):
                     gather_src, extra = master_out, None
@@ -138,7 +143,10 @@ class DistributedFusedAdam(ZeroOptimizerBase):
                     extra = master_out
                 mt.mt_adam(g_shards, list(state.master_shard), list(state.exp_avg),
                            list(state.exp_avg_sq), gather_src, new_m, new_v, extra, **kw)
-            res_committed = self._commit_residuals(res_new, state.residual, pred)
-            new_params = self._emit_params(plan, gather_src, params, None)
+            res_committed = self._commit_residuals(res_new, state.residual, pred, inplace)
+            new_params = self._emit_params(plan, gather_src, params, None, inplace)
+            if inplace:
+                state.step.copy_(step)
+                return params, state, pred
         return new_params, DistributedFusedAdamState(
             step, tuple(new_m), tuple(new_v), tuple(master_out), res_committed), pred

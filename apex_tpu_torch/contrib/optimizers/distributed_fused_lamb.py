@@ -21,6 +21,7 @@ from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
 from apex_tpu_torch.contrib.optimizers._zero_engine import ZeroOptimizerBase
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers import bucketing
+from apex_tpu_torch.optimizers.base import write_into
 from apex_tpu_torch.optimizers.fused_lamb import (
     lamb_grad_clip,
     lamb_stage1_math,
@@ -95,13 +96,13 @@ class DistributedFusedLAMB(ZeroOptimizerBase):
 
     def _zero_step(self, grads, state: DistributedFusedLAMBState, params, grads_finite=None,
                    lr=None, scale=None, clip_norm=None, finite_sync=None, sumsq_reduce=None,
-                   want_finite=False):
+                   want_finite=False, presynced=None, inplace=False):
         lr = self.lr if lr is None else lr
         wd = self.weight_decay
         with torch.no_grad():
             plan, g_shards, res_new, pred, step = self._run_step(
                 grads, state, params, grads_finite, scale, clip_norm, finite_sync,
-                sumsq_reduce, want_finite)
+                sumsq_reduce, want_finite, presynced)
             # LAMB's own global grad-norm clip on the dp-averaged grad
             gn_sq = torch.sum(self._global_leaf_sumsq(plan, g_shards))
             clip = lamb_grad_clip(mt.sqrt_rn(gn_sq), self.max_grad_norm)
@@ -130,7 +131,12 @@ class DistributedFusedLAMB(ZeroOptimizerBase):
             new_m = self._select(pred, new_m, state.exp_avg)
             new_v = self._select(pred, new_v, state.exp_avg_sq)
             master_committed = self._select(pred, new_p, master)
-            res_committed = self._commit_residuals(res_new, state.residual, pred)
+            new_state = DistributedFusedLAMBState(
+                step, tuple(new_m), tuple(new_v), tuple(master_committed),
+                self._commit_residuals(res_new, state.residual, pred))
+            if inplace:
+                # every norm is taken: the new values overwrite the old
+                new_params = self._emit_params(plan, master_committed, params, None, True)
+                return new_params, write_into(state, new_state), pred
             new_params = self._emit_params(plan, master_committed, params, None)
-        return new_params, DistributedFusedLAMBState(
-            step, tuple(new_m), tuple(new_v), tuple(master_committed), res_committed), pred
+        return new_params, new_state, pred

@@ -3,33 +3,55 @@
 ``"full"`` saves only the layer inputs across the remat boundary and
 re-runs the whole layer forward inside the backward:
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
-layer.  The layers draw no random numbers (no dropout), so the RNG
-state is not stashed.  ``"dots"`` (save the matmul outputs, recompute
-the elementwise work) is not ported yet and raises.
+layer.  ``"dots"`` is the JAX package's
+``dots_with_no_batch_dims_saveable``: the same checkpoint with a
+selective policy (``create_selective_checkpoint_contexts``) that keeps
+the outputs of the matmuls without batch dims (``aten.mm`` and
+``aten.addmm``: the q, k, v, out, fc1 and fc2 products) and recomputes
+everything else, the batched ``aten.bmm`` of the einsum attention
+included.  The hand-written kernels launch through ``ctypes``, which no
+dispatch mode sees, so they rerun in the recompute as a ``pallas_call``
+does under the JAX policy.  The layers draw no random numbers (no
+dropout), so the RNG state is not stashed.
 """
 
-from torch.utils.checkpoint import checkpoint
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 POLICIES = ("full", "dots")
 
+#: the matmuls without batch dims: what ``"dots"`` saves
+SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
 
 def validate_policy(policy: str) -> None:
-    """Raise at config construction on a typo'd policy, and on the
-    policy this port does not run yet."""
+    """Raise at config construction on a typo'd policy."""
     if policy not in POLICIES:
         raise ValueError(f"remat_policy must be one of {POLICIES} (got {policy!r})")
-    if policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save matmul outputs, recompute the rest) is "
-            "not ported yet; use 'full'")
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective policy of ``"dots"``: save the no-batch-dims
+    matmuls, recompute the rest."""
+    del ctx, args, kwargs
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def remat_layer(layer, policy: str):
     """``layer`` wrapped so that its activations are recomputed in the
     backward under ``policy``."""
     validate_policy(policy)
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
 
     def wrapped(*args):
-        return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return wrapped

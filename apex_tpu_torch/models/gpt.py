@@ -40,8 +40,15 @@ and the final LayerNorm runs after a gather.  The grads of the LN
 scales and biases and of the row linears' biases then need the sum over
 the group (:func:`sp_grad_sync`).  A group of one rank computes the
 single-device model.  Not in this port yet (they raise): context
-parallelism, MoE, the ``"dots"`` remat policy and tensor-parallel
-decoding.
+parallelism, MoE and tensor-parallel decoding.
+
+The forward is three segments, the JAX package's seam for the
+backward-overlapped grad sync (``train_gpt.make_train_step(
+overlap_grad_sync=True)``): :func:`_embed_segment`,
+:func:`_layers_segment` and :func:`_head_segment`, which
+:func:`gpt_forward` composes, so the segmented loss and the monolithic
+one are the same functions.  :data:`_OVERLAP_STAGES` gives each param
+group's gradient-readiness stage under the segmented backward.
 """
 
 import dataclasses
@@ -574,21 +581,23 @@ def _layer(x, p, config: GPTConfig, rope, axis_name=None):
     return x + _mlp(ln2.to(cd), p, axis_name, sp), kv
 
 
-def _embed(params, tokens, config: GPTConfig, axis_name=None):
-    """tokens (B, S) -> the first layer's input (S, B, H) in the compute
-    dtype, split over the sequence under sequence parallelism (S / tp
-    rows): the embedding (vocab-parallel with a group) plus the learned
-    positions.  A pipeline's first stage runs this (``pre_fn``)."""
+def _embed_segment(embed_w, pos_w, tokens, config: GPTConfig, axis_name=None):
+    """Forward segment 1, the JAX package's ``_embed_segment``: tokens
+    (B, S) -> the first layer's input (S, B, H) in the compute dtype,
+    split over the sequence under sequence parallelism (S / tp rows):
+    the embedding (vocab-parallel with a group) plus the learned
+    positions ``pos_w`` (None with rope).  A pipeline's first stage runs
+    it (``pre_fn``)."""
     sp = config.sequence_parallel and axis_name is not None
-    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    tokens = torch.as_tensor(tokens, device=embed_w.device).long()
     S = tokens.shape[1]
     if axis_name is None:
-        x = params["embed"][tokens]  # (B, S, H) fp32
+        x = embed_w[tokens]  # (B, S, H) fp32
     else:
-        x = vocab_parallel_embedding(tokens, params["embed"], axis_name=axis_name)
+        x = vocab_parallel_embedding(tokens, embed_w, axis_name=axis_name)
     x = x.transpose(0, 1)  # (S, B, H)
     if config.position_embedding_type == "learned":
-        x = x + params["pos_embed"][:S][:, None, :]
+        x = x + pos_w[:S][:, None, :]
     x = x.to(config.compute_dtype).contiguous()
     if sp:
         x = scatter_to_sequence_parallel_region(x, axis_name)
@@ -607,8 +616,7 @@ def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = Fals
     transformer blocks, under :func:`~apex_tpu_torch.models._remat.
     remat_layer` when a gradient is recorded and ``config.
     checkpoint_layers`` is set.  Returns ``(x, ks, vs)``, the lists of
-    every layer's post-RoPE k/v with ``return_kv``.  A pipeline stage
-    runs this on its layers (``stage_fn``)."""
+    every layer's post-RoPE k/v with ``return_kv``."""
     sp = config.sequence_parallel and axis_name is not None
     S = x.shape[0] * (axis_name.size() if sp else 1)
     rope = _rope(config, S, x.device)
@@ -626,20 +634,41 @@ def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = Fals
     return x, ks, vs
 
 
-def _final(params, x, config: GPTConfig, axis_name=None):
-    """The last layer's output -> the head's input (S, B, H): the
-    sequence gathered under sequence parallelism, the final LayerNorm,
-    and with a group the copy-to-region (whose backward sums the head's
-    dx over it).  A pipeline's last stage runs this (``post_fn``)."""
+def _layers_segment(layers_p, x, config: GPTConfig, axis_name=None):
+    """Forward segment 2, the JAX package's ``_layers_segment``: the
+    stacked layers over ``x`` (:func:`_layers`, remat per layer as
+    configured).  The layer leaves are stacked, so every ``layers.*``
+    gradient is complete only when the whole segment's backward is: one
+    readiness stage, not L of them.  A pipeline stage runs it on its
+    layers (``stage_fn``)."""
+    return _layers(layers_p, x, config, axis_name)[0]
+
+
+def _head_segment(x, ln_scale, ln_bias, config: GPTConfig, axis_name=None):
+    """Forward segment 3, the JAX package's ``_head_segment``: the last
+    layer's output -> the head's input (S, B, H): the sequence gathered
+    under sequence parallelism, the final LayerNorm, and with a group the
+    copy-to-region (whose backward sums the head's dx over it).  A
+    pipeline's last stage runs it (``post_fn``)."""
     if config.sequence_parallel and axis_name is not None:
         # the head's dx is summed by the copy-to-region below, so this
         # backward splits (tensor_parallel_output_grad=False)
         x = gather_from_sequence_parallel_region(x, axis_name, False)
-    x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
-                                (config.hidden_size,), config.layernorm_eps)
+    x = fused_layer_norm_affine(x, ln_scale, ln_bias, (config.hidden_size,),
+                                config.layernorm_eps)
     if axis_name is not None:
         x = copy_to_tensor_model_parallel_region(x, axis_name)
     return x
+
+
+#: the gradient-readiness stage of each top-level param group under the
+#: segmented (overlapped) backward: the head's backward (stage 0) gives
+#: the final LayerNorm's grads, the layers' backward (stage 1) every
+#: stacked ``layers.*`` leaf at once, the embedding's backward (stage 2)
+#: the positions and the tied embedding's lookup half (its head half
+#: comes at stage 0, but the leaf is whole only after stage 2)
+_OVERLAP_STAGES = {"final_ln_scale": 0, "final_ln_bias": 0, "layers": 1,
+                   "embed": 2, "pos_embed": 2}
 
 
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
@@ -663,9 +692,12 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
             raise NotImplementedError(f"gpt_forward(return_kv=True) under tensor "
                                       f"parallelism is not ported yet: {TP_DECODE_ITEM}")
         check_tp(config, axis_name.size())
-    x = _embed(params, tokens, config, axis_name)
-    x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv)
-    x = _final(params, x, config, axis_name)
+    x = _embed_segment(params["embed"], params.get("pos_embed"), tokens, config, axis_name)
+    if return_kv:
+        x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv)
+    else:
+        x = _layers_segment(params["layers"], x, config, axis_name)
+    x = _head_segment(x, params["final_ln_scale"], params["final_ln_bias"], config, axis_name)
     out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
     if return_kv:
         return out, (torch.stack(ks), torch.stack(vs))
@@ -925,13 +957,14 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
         else None
 
     def pre_fn(shared, mb):
-        return _embed(shared, mb["tokens"], config, tp)
+        return _embed_segment(shared["embed"], shared.get("pos_embed"), mb["tokens"], config,
+                              tp)
 
     def stage_fn(layers, x):
-        return _layers(layers, x, config, tp)[0]
+        return _layers_segment(layers, x, config, tp)
 
     def post_fn(shared, y, mb):
-        h = _final(shared, y, config, tp)
+        h = _head_segment(y, shared["final_ln_scale"], shared["final_ln_bias"], config, tp)
         return lm_head_loss(h, shared["embed"], mb["targets"].transpose(0, 1), config,
                             tp).mean()
 

@@ -10,6 +10,12 @@
   in a CUDA graph (after an eager warm-up on the capturing side stream,
   as :class:`apex_tpu_torch.graphs.CapturedStep` runs them) replay with
   the right values on new inputs;
+- the same for the overlapped step's pattern
+  (``train_gpt.overlap_value_and_grads``): a second stream forked from
+  the capturing one by an event, an asynchronous reduce-scatter started
+  there, more work queued on the capturing stream, the wait and a read
+  of the result on the second stream, and the join before the capturing
+  stream reads it;
 - the device ms (CUDA events over 10 calls) of a reduce-scatter, an
   all-gather and a plain copy of GPT-124M's 124,475,904 fp32 elements:
   at world 1 NCCL copies.
@@ -96,6 +102,38 @@ def probe(n=124_475_904):
         torch.cuda.synchronize()
         out["captured_replay"] = float(result)
         out["captured_replay_expected"] = float((3 * 2 + 1) * (1 << 20) + 1)
+
+        comm = torch.cuda.Stream(dev)
+        grads = torch.ones(1 << 20, device=dev)
+        later, got = torch.empty_like(grads), torch.empty_like(grads)
+
+        def overlapped():
+            main = torch.cuda.current_stream(dev)
+            g = grads * 3  # the stage's backward, on the capturing stream
+            comm.wait_stream(main)
+            with torch.cuda.stream(comm):
+                shard = torch.empty_like(g)
+                work = reduce_scatter_flat(shard, g, None, async_op=True)
+            later.copy_(g * 2)  # the next stage's backward meanwhile
+            with torch.cuda.stream(comm):
+                work.wait()
+                synced = shard + 1
+            main.wait_stream(comm)
+            got.copy_(synced)
+            return got.sum() + later.sum()
+
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            overlapped()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph2 = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph2, stream=side):
+            result2 = overlapped()
+        grads.fill_(5)
+        graph2.replay()
+        torch.cuda.synchronize()
+        out["captured_async_replay"] = float(result2)
+        out["captured_async_replay_expected"] = float((5 * 3 + 1 + 5 * 3 * 2) * (1 << 20))
 
         a = torch.randn(n, device=dev)
         o = torch.empty_like(a)

@@ -5,7 +5,10 @@ seq, head_dim)``.  :func:`flash_attention` always runs the flash
 kernels' autograd Function
 (:class:`apex_tpu_torch.ops.flash_attention.FlashAttention`): the CUDA
 kernels for CUDA tensors, their plain versions for CPU tensors.  The
-port has no ``impl`` choice.
+port has no ``impl`` choice.  A dense score bias (``attn_bias``) takes
+the scan path instead, as in the JAX package, where a biased call never
+reaches the Pallas kernel: :class:`ScanAttention`, the twin of its
+``_flash`` ``custom_vjp``.
 
 The plain versions are :func:`_attend_fwd_scan` and
 :func:`flash_bwd_from_lse`, the JAX package's ``lax.scan`` numerics
@@ -139,6 +142,50 @@ def flash_bwd_from_lse(q, k, v, g, lse, delta, scale, causal, q_offset=0,
     return dq, dk, dv, db
 
 
+class ScanAttention(torch.autograd.Function):
+    """The JAX package's ``_flash`` ``custom_vjp`` (apex_tpu/ops/
+    attention.py:124-224): ``apply(q, k, v, bias, scale, causal,
+    q_offset, k_offset, block_k) -> out`` in q's dtype, the forward
+    :func:`_attend_fwd_scan` and the backward :func:`flash_bwd_from_lse`
+    from the saved fp32 out and lse, ``delta = rowsum(g * out)``.
+    ``bias`` (fp32, broadcastable to (B, H, Sq, Sk), or None) gets its
+    cotangent, dS summed over the dims it broadcast along, in its dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal, q_offset, k_offset, block_k):
+        out, lse = _attend_fwd_scan(q, k, v, scale, causal, q_offset, k_offset, block_k,
+                                    kv_bias=bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.config = (scale, causal, q_offset, k_offset, block_k)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        delta = torch.sum(g.float() * out, dim=-1)
+        outs = flash_bwd_from_lse(q, k, v, g, lse, delta, *ctx.config, kv_bias=bias)
+        dq, dk, dv = (d.to(t.dtype) for d, t in zip(outs[:3], (q, k, v)))
+        db = None if bias is None else outs[3].to(bias.dtype)
+        return dq, dk, dv, db, None, None, None, None, None
+
+
+def _scan_attention(q, k, v, attn_bias, kv_mask, scale, causal, q_offset, k_offset,
+                    block_k):
+    """The JAX package's ``scan_impl``: kv heads repeated (autograd sums
+    the group), the bias given leading dims up to 4 and taken in fp32,
+    the padding bias of ``kv_mask`` added to it."""
+    k, v = repeat_kv_heads(q, k, v)
+    bias = None
+    if attn_bias is not None:
+        while attn_bias.dim() < 4:
+            attn_bias = attn_bias[None]
+        bias = attn_bias.float()
+    if kv_mask is not None:
+        pad = padding_bias(kv_mask)
+        bias = pad if bias is None else bias + pad[:, None, None, :]
+    return ScanAttention.apply(q, k, v, bias, scale, causal, q_offset, k_offset, block_k)
+
+
 def flash_attention(q, k, v, causal: bool = True, softmax_scale: Optional[float] = None,
                     block_k: Optional[int] = None, q_offset: int = 0, k_offset: int = 0,
                     block_q: Optional[int] = None, kv_mask=None, attn_bias=None):
@@ -150,14 +197,18 @@ def flash_attention(q, k, v, causal: bool = True, softmax_scale: Optional[float]
     k_offset + j).  ``kv_mask``: optional (B, Sk) bool key-validity mask,
     True = valid.  Grouped-query attention: k/v may carry fewer heads
     than q (H_kv divides H).  ``block_q``/``block_k`` are accepted for
-    the JAX signature; the tile sizes are the kernels' own.
-    ``attn_bias`` (the JAX package runs it on its scan path only) is not
-    ported and raises."""
-    del block_k, block_q
+    the JAX signature; the kernels' tile sizes are their own.
+
+    ``attn_bias``: an additive score bias broadcastable as (B|1, H|1,
+    Sq|1, Sk) (OpenFold's pair bias), differentiable.  As in the JAX
+    package it runs on the scan path (:class:`ScanAttention`, key blocks
+    of ``block_k``, 256 by default), never on the flash kernels, and a
+    call without it never leaves them."""
+    del block_q
     if attn_bias is not None:
-        raise NotImplementedError(
-            "flash_attention(attn_bias=...) (a differentiable dense score bias) "
-            "is not ported yet; kv_mask is")
+        scale = softmax_scale if softmax_scale is not None else 1.0 / np.sqrt(q.shape[-1])
+        return _scan_attention(q, k, v, attn_bias, kv_mask, scale, causal, q_offset,
+                               k_offset, block_k or 256)
     from apex_tpu_torch.ops.flash_attention import flash_attention_kernel
 
     return flash_attention_kernel(q, k, v, causal=causal, softmax_scale=softmax_scale,

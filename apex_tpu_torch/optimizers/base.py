@@ -5,6 +5,13 @@ Each optimizer is a pure function over a tree of tensors (nested dicts,
 lists or tuples; :mod:`apex_tpu_torch.optimizers.tree`), as in the JAX
 package: ``init`` builds the state and ``update(grads, state, params)``
 returns new params and a new state, modifying nothing it was given.
+``update(..., inplace=True)`` (and ``update_scaled``) is the donated
+form the train step uses, the counterpart of ``jax.jit(...,
+donate_argnums=...)``: the new values are written into the params and
+state tensors given, which are returned.  FusedAdam's engine path has
+its kernel write them directly (``mt_adam`` reads each element before
+it writes it, so its outputs may alias its inputs); every other path
+computes as before and copies the results in (:func:`write_into`).
 The math is fp32 whatever the storage dtype, with an optional fp32
 master copy (``master_weights``), and the commit can be predicated on a
 device-resident ``grads_finite`` flag (the capturable noop-flag design):
@@ -51,8 +58,22 @@ __all__ = [
     "tree_map", "tree_leaves", "tree_unflatten", "make_master", "math_params",
     "emit_params", "predicate_step", "select", "bias_corrections", "HyperLeaf",
     "leaf_hypers", "leaf_lr", "PreparedGrads", "prepare_grads_bucketed", "OptimizerBase",
-    "bucket_select",
+    "bucket_select", "write_into",
 ]
+
+
+def write_into(dst, src):
+    """Copy every tensor of the tree ``src`` into the same-placed tensor
+    of ``dst`` (``graphs.tensor_leaves`` order; a tensor that is already
+    the destination is skipped) and return ``dst``: the in-place commit
+    of a path that computed new tensors."""
+    from apex_tpu_torch.graphs import tensor_leaves
+
+    with torch.no_grad():
+        for d, s in zip(tensor_leaves(dst), tensor_leaves(src), strict=True):
+            if d is not s:
+                d.copy_(s)
+    return dst
 
 
 def make_master(params: Tree, master_weights: bool) -> Optional[Tree]:
@@ -247,6 +268,10 @@ class OptimizerBase:
 
     #: True when :meth:`update_scaled` covers the optimizer's whole step
     supports_update_scaled: bool = True
+    #: ``update(..., inplace=True)`` writes into the given params and state
+    supports_inplace: bool = True
+    #: ``_bucket_update`` takes ``inplace`` and writes the outputs itself
+    _NATIVE_INPLACE: bool = False
 
     def __init__(self, lr: float, weight_decay: float = 0.0,
                  master_weights: bool = False, use_buckets: bool = True):
@@ -271,10 +296,11 @@ class OptimizerBase:
 
     def _dispatch(self, grads, state, params, grads_finite=None, lr=None, scale=None,
                   clip_norm=None, finite_sync=None, want_finite=False, prescale=None,
-                  sumsq_reduce=None, **kw):
+                  sumsq_reduce=None, inplace=False, **kw):
         """Route one step: bucket-resident state or ``use_buckets`` to
         the engine, else the per-leaf path.  Returns ``(new_params,
-        new_state, finite)``."""
+        new_state, finite)``; with ``inplace`` the given ``params`` and
+        ``state``, written over."""
         with torch.no_grad():
             if self._state_is_bucketed(state) or (self.use_buckets
                                                   and self._BUCKET_SLOT is not None):
@@ -283,10 +309,16 @@ class OptimizerBase:
                     finite_sync=finite_sync, want_finite=want_finite, prescale=prescale,
                     sumsq_reduce=sumsq_reduce)
                 pred = prep.finite if want_finite else grads_finite
+                if inplace and self._NATIVE_INPLACE:
+                    kw["inplace"] = True
                 p, s = self._bucket_update(prep, state, params, pred, lr=lr, **kw)
-                return p, s, pred
-            return self._leaf_path(grads, state, params, grads_finite, lr, scale, clip_norm,
-                                   finite_sync, want_finite, prescale, sumsq_reduce, **kw)
+            else:
+                p, s, pred = self._leaf_path(grads, state, params, grads_finite, lr, scale,
+                                             clip_norm, finite_sync, want_finite, prescale,
+                                             sumsq_reduce, **kw)
+            if inplace:
+                p, s = write_into(params, p), write_into(state, s)
+            return p, s, pred
 
     def _leaf_path(self, grads, state, params, grads_finite, lr, scale, clip_norm,
                    finite_sync, want_finite, prescale, sumsq_reduce, **kw):
@@ -337,7 +369,8 @@ class OptimizerBase:
         new_state)``.  ``grads_finite`` predicates the whole commit on
         the device; ``clip_norm`` folds a global-L2 grad clip (torch
         ``clip_grad_norm_`` semantics) into the step, ``sumsq_reduce``
-        agreeing the Σx² across ranks."""
+        agreeing the Σx² across ranks; ``inplace=True`` writes the new
+        values into ``params`` and ``state`` and returns them."""
         p, s, _ = self._dispatch(grads, state, params, grads_finite=grads_finite, lr=lr,
                                  clip_norm=clip_norm, sumsq_reduce=sumsq_reduce, **kw)
         return p, s

@@ -58,6 +58,7 @@ class FusedAdam(base.OptimizerBase):
     ``param_groups``."""
 
     _BUCKET_SLOT = "exp_avg"
+    _NATIVE_INPLACE = True
 
     def __init__(
         self,
@@ -132,12 +133,15 @@ class FusedAdam(base.OptimizerBase):
 
     # --------------------------------------------------------- bucket path
     def _bucket_update(self, prep: base.PreparedGrads, state: AdamState, params, pred,
-                       lr=None):
+                       lr=None, inplace=False):
         """One ``mt_adam`` call over every leaf: g from the prepare pass
         (the grads where they lie, or the unscaled fp32 buckets), the
         clip coefficient multiplied in by the kernel, m, v and the
         master read and written as per-leaf tensors or as slices of
-        resident buckets, the params emitted in their storage dtype."""
+        resident buckets, the params emitted in their storage dtype.
+        ``inplace``: the kernel writes the params, m, v and the master
+        over the ones it reads (element by element, each read before it
+        is written), and the given params and state come back."""
         lr = self.lr if lr is None else lr
         wd = self.weight_decay
         plan = prep.plan
@@ -149,6 +153,19 @@ class FusedAdam(base.OptimizerBase):
         resident = isinstance(state.exp_avg, bucketing.Buckets)
         has_master = state.master is not None
         p_src = _leaf_views(state.master) if has_master else [p.detach() for p in leaves]
+        if inplace and all(p.is_contiguous() for p in leaves):
+            mt.mt_adam(
+                list(prep.leaves), p_src, _leaf_views(state.exp_avg),
+                _leaf_views(state.exp_avg_sq), [p.detach() for p in leaves],
+                _leaf_views(state.exp_avg), _leaf_views(state.exp_avg_sq),
+                _leaf_views(state.master) if has_master else None, lr=lr,
+                wd=[h.get("weight_decay", wd) for h in hl],
+                lr_abs=[h.get("lr") for h in hl], lr_scale=[h.get("lr_scale", 1.0) for h in hl],
+                bc1=bc1, bc2=bc2, beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+                adam_w_mode=self.adam_w_mode,
+                pred=None if pred is None else base._pred_tensor(pred, dev), coef=prep.coef)
+            state.step.copy_(step)
+            return params, state
         if resident:
             new_m, new_v = bucketing.new_buckets(plan, dev), bucketing.new_buckets(plan, dev)
             m_out, v_out = new_m.leaf_views(), new_v.leaf_views()

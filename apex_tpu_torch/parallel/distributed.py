@@ -21,8 +21,11 @@ This is the REPLICATED-state grad sync: every rank then applies the same
 update.  A ZeRO optimizer (:mod:`apex_tpu_torch.contrib.optimizers`)
 owns the dp sync itself through its per-bucket reduce-scatter, so a step
 built with one must not also all-reduce (``train_gpt.make_train_step``
-skips it).  The backward-overlapped sync (hooks on a side stream) is
-not ported yet (ROADMAP.md queue 1 item 6, what it left).
+skips it).  The backward-overlapped sync is ``make_train_step(
+overlap_grad_sync=True)``, each bucket's reduce-scatter (ZeRO) or
+quantized all-reduce (``grad_sync_dtype``) issued on a communication
+stream between the backward's segments; like the JAX step it refuses
+this plain all-reduce, which has no per-bucket wire to interleave.
 """
 
 import contextlib
@@ -39,24 +42,25 @@ __all__ = ["allreduce_gradients", "Reducer", "DistributedDataParallel", "process
 DEFAULT_BUCKET_CAP_MB = 25.0
 
 
-def all_gather_flat(out, x, group):
+def all_gather_flat(out, x, group, async_op=False):
     """``out`` (world x ``x.numel()``, flat) = every rank's ``x`` in rank
     order: ``all_gather_single`` where torch has it, else its older name
-    ``all_gather_into_tensor`` (the same collective)."""
+    ``all_gather_into_tensor`` (the same collective).  With ``async_op``
+    the work handle, whose ``wait()`` comes before ``out`` is read."""
     import torch.distributed as dist
 
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    return fn(out, x, group=group)
+    return fn(out, x, group=group, async_op=async_op)
 
 
-def reduce_scatter_flat(out, x, group):
+def reduce_scatter_flat(out, x, group, async_op=False):
     """``out`` = this rank's 1/world slice of the group's sum of ``x``:
     ``reduce_scatter_single``, or its older name
-    ``reduce_scatter_tensor``."""
+    ``reduce_scatter_tensor``.  With ``async_op`` the work handle."""
     import torch.distributed as dist
 
     fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    return fn(out, x, group=group)
+    return fn(out, x, group=group, async_op=async_op)
 
 
 def process_group(group=None):

@@ -54,6 +54,7 @@ steps (the capture with them) are not timed.
 """
 
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -171,7 +172,7 @@ def loss_and_grads(params, tokens, targets, config, post_loss=None, axis_name=No
 
 def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, params,
                          step_guard=None, guard_state=None, clip_grad_norm=None,
-                         sync_groups=(), clip_sumsq=None):
+                         sync_groups=(), clip_sumsq=None, **opt_kw):
     """The JAX package's ``_apply_scaled_update`` (apex_tpu/models/gpt.py):
     unscale, the finite vote (``sync_found_inf`` over ``sync_groups``,
     the model-parallel groups; with none, the vote as it is), the update
@@ -179,7 +180,8 @@ def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, param
     vote feeds the guard.  An engine optimizer does the first three in
     its one fused pass (``update_scaled``, the clip folded in, its Σx²
     agreed by ``clip_sumsq``); any other takes the explicit unscale,
-    vote and ``update(grads_finite=)``.
+    vote and ``update(grads_finite=)``.  ``opt_kw`` (``presynced``,
+    ``inplace``) goes to the engine optimizer's call.
     Returns ``(params, state, scaler_state[, guard_state])``."""
     def vote(f):
         return sync_found_inf(f, sync_groups)
@@ -187,7 +189,7 @@ def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, param
     if getattr(opt, "supports_update_scaled", False):
         new_params, new_state, finite = opt.update_scaled(
             grads, opt_state, params, scale=scaler_state.loss_scale, clip_norm=clip_grad_norm,
-            finite_sync=vote, sumsq_reduce=clip_sumsq)
+            finite_sync=vote, sumsq_reduce=clip_sumsq, **opt_kw)
     else:
         grads, finite = loss_scaler.unscale(scaler_state, grads)
         finite = vote(finite)
@@ -200,18 +202,19 @@ def _apply_scaled_update(loss_scaler, scaler_state, grads, opt, opt_state, param
 
 
 def _apply_guarded_update(grads, opt, opt_state, params, step_guard, guard_state,
-                          clip_grad_norm=None, sync_groups=(), clip_sumsq=None):
+                          clip_grad_norm=None, sync_groups=(), clip_sumsq=None, **opt_kw):
     """The JAX package's ``_apply_guarded_update``: no loss scale; the
     finite vote (agreed over ``sync_groups``) alone predicates the update
     and feeds the guard (an engine optimizer votes in its fused pass,
-    ``scale=None``).  Returns ``(params, state, guard_state)``."""
+    ``scale=None``; ``opt_kw`` as :func:`_apply_scaled_update`).
+    Returns ``(params, state, guard_state)``."""
     def vote(f):
         return sync_found_inf(f, sync_groups)
 
     if getattr(opt, "supports_update_scaled", False):
         new_params, new_state, finite = opt.update_scaled(
             grads, opt_state, params, clip_norm=clip_grad_norm, finite_sync=vote,
-            sumsq_reduce=clip_sumsq)
+            sumsq_reduce=clip_sumsq, **opt_kw)
     else:
         finite = vote(all_finite(grads))
         new_params, new_state = opt.update(grads, opt_state, params, grads_finite=finite)
@@ -250,32 +253,70 @@ def _check_zero_axis(opt, dp_group):
                          f"step's dp group is {str(dp_group)!r}")
 
 
-def _dp_sync(opt, dp_group):
+def _flat_dp_group(dp_group):
+    """The flat data-parallel group of the same ranks as the hop groups
+    of a hierarchical ``dp_group`` (checked: the hops' sizes multiply to
+    its size and their ranks lie in it)."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    flat, covered = ps.get_data_parallel_group(), 1
+    for g in dp_group:
+        covered *= g.size()
+    if covered != flat.size() or any(not set(g.ranks) <= set(flat.ranks) for g in dp_group):
+        raise ValueError(f"the hop groups {tuple(str(g) for g in dp_group)!r} do not split "
+                         f"this rank's data-parallel group of {flat.size()} ranks")
+    return flat
+
+
+def _quantized_wire(dp_group, qspec):
+    """``(tree_sync, bucket_sync, world)`` of the replicated quantized dp
+    sync over the flat ``dp_group``
+    (:func:`~apex_tpu_torch.contrib.optimizers._quantized_sync.quantized_pmean`
+    of a grad tree, ``quantized_pmean_bucket`` of one packed fp32
+    bucket), or over a hierarchical one the multi-hop forms
+    (``_hierarchical_sync.quantized_multi_hop_pmean`` and ``_bucket``,
+    the plan from the hop groups' sizes); ``world`` pads the plan."""
+    from apex_tpu_torch.contrib.optimizers import _hierarchical_sync as hs
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.parallel.distributed import process_group
+
+    if isinstance(dp_group, (tuple, list)):
+        _flat_dp_group(dp_group)
+        plan = hs.hierarchical_plan(tuple(str(g) for g in dp_group),
+                                    {str(g): g.size() for g in dp_group},
+                                    grad_wire_dtype=qspec.name, groups=tuple(dp_group))
+        return (lambda g: hs.quantized_multi_hop_pmean(g, plan, qspec),
+                lambda h: hs.quantized_multi_hop_pmean_bucket(h, plan, qspec), plan.world)
+    pg, world = process_group(dp_group)
+    return (lambda g: qs.quantized_pmean(g, pg, qspec, world),
+            lambda h: qs.quantized_pmean_bucket(h, pg, qspec, world), world)
+
+
+def _dp_sync(opt, dp_group, qspec=None):
     """``(grad sync or None, loss mean or None)`` of a step: a ZeRO
     optimizer owns the grad sync (its reduce-scatter), so the step only
-    averages the loss over its group; a replicated optimizer over a
-    ``dp_group`` of more than one rank gets the DDP all-reduce
-    (:func:`apex_tpu_torch.parallel.allreduce_gradients`) and the loss
-    mean; otherwise neither.  The loss mean adds in rank order, the JAX
-    step's ``pmean``.  A hierarchical ``dp_group`` with a replicated
-    optimizer syncs over the flat data-parallel group of the same ranks,
-    as the JAX step's one ``pmean`` over both axes does."""
+    averages the loss over its group; a replicated optimizer with
+    ``qspec`` (``grad_sync_dtype``) gets the quantized all-reduce a
+    bucket (:func:`_quantized_wire`: flat, or multi-hop over a
+    hierarchical ``dp_group``); otherwise one over a ``dp_group`` of more
+    than one rank gets the DDP all-reduce
+    (:func:`apex_tpu_torch.parallel.allreduce_gradients`); either gets
+    the loss mean.  The loss mean adds in rank order, the JAX step's
+    ``pmean``.  A hierarchical ``dp_group`` with a replicated wide sync
+    syncs over the flat data-parallel group of the same ranks, as the
+    JAX step's one ``pmean`` over both axes does."""
     from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
     from apex_tpu_torch.parallel.distributed import allreduce_gradients, process_group
 
     if hasattr(opt, "sharded_state_dict"):
         pg, world = opt._pg, opt.world_size
         grad_sync = None
+    elif qspec is not None:
+        grad_sync = _quantized_wire(dp_group, qspec)[0]
+        flat = _flat_dp_group(dp_group) if isinstance(dp_group, (tuple, list)) else dp_group
+        pg, world = process_group(flat)
     elif isinstance(dp_group, (tuple, list)):
-        from apex_tpu_torch.transformer import parallel_state as ps
-
-        flat, covered = ps.get_data_parallel_group(), 1
-        for g in dp_group:
-            covered *= g.size()
-        if covered != flat.size() or any(not set(g.ranks) <= set(flat.ranks) for g in dp_group):
-            raise ValueError(f"the hop groups {tuple(str(g) for g in dp_group)!r} do not split "
-                             f"this rank's data-parallel group of {flat.size()} ranks")
-        return _dp_sync(opt, flat)
+        return _dp_sync(opt, _flat_dp_group(dp_group))
     elif dp_group is not None and process_group(dp_group)[1] > 1:
         pg, world = process_group(dp_group)
 
@@ -290,9 +331,202 @@ def _dp_sync(opt, dp_group):
     return grad_sync, loss_mean
 
 
+def _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype):
+    """The JAX step's checks of its ``grad_sync_dtype`` knob; returns its
+    :class:`~apex_tpu_torch.contrib.optimizers._quantized_sync.QSpec` (or
+    None without the knob)."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+
+    if grad_sync_dtype is None:
+        return None
+    qspec = qs.qspec_of(grad_sync_dtype)
+    if qspec is None:
+        raise ValueError(
+            f"grad_sync_dtype={qs._name(grad_sync_dtype)!r}: the step builder's knob quantizes "
+            "the replicated dp sync and accepts int8/float8_e4m3fn/float8_e5m2 only (wide "
+            "sync dtypes belong to the ZeRO optimizer's own knob)")
+    if hasattr(opt, "sharded_state_dict"):
+        raise ValueError(
+            "a ZeRO optimizer owns the dp grad sync: pass grad_sync_dtype to its constructor "
+            "(where it gains the error-feedback residual), not to make_train_step")
+    if dp_group is None:
+        raise ValueError("grad_sync_dtype quantizes the dp sync; this step has dp_axis=None")
+    return qspec
+
+
+def _check_overlap(opt, config, dp_group, qspec):
+    """The JAX step's refusals of ``overlap_grad_sync`` (its messages)."""
+    for bad, why in (
+            (config.moe_num_experts > 0, "MoE (expert grads are dp-sharded sums, not "
+                                         "bucketed pmean wires)"),
+            (config.sequence_parallel, "sequence parallelism (sp_grad_sync is a whole-tree "
+                                       "pass after the backward)")):
+        if bad:
+            raise NotImplementedError(f"overlap_grad_sync is not wired for {why}")
+    if dp_group is None:
+        raise ValueError("overlap_grad_sync overlaps the dp grad sync; this step has "
+                         "dp_axis=None")
+    if not hasattr(opt, "sharded_state_dict") and qspec is None:
+        raise ValueError(
+            "overlap_grad_sync needs a per-bucket dp grad sync to overlap — a ZeRO optimizer "
+            "(each bucket's reduce-scatter issues as its grads materialize) or "
+            "grad_sync_dtype= (per-bucket quantized pmean); the plain replicated pmean is "
+            "one whole-tree sweep with nothing to interleave")
+
+
+#: each device's communication stream of the overlapped grad sync
+_COMM_STREAMS = {}
+
+
+class _CommStream:
+    """Where the overlapped step runs its bucket wires: on CUDA one
+    stream a device, forked from the current stream after a stage's
+    backward (:meth:`fork`: it waits for what the current stream has
+    queued, the grads it packs included) and joined before the update
+    reads the shards (:meth:`join`), both by events, so a capture takes
+    them in; on the CPU the current thread, in order."""
+
+    def __init__(self, device):
+        self.stream = None
+        if device.type == "cuda":
+            if device not in _COMM_STREAMS:
+                _COMM_STREAMS[device] = torch.cuda.Stream(device)
+            self.stream = _COMM_STREAMS[device]
+
+    @contextlib.contextmanager
+    def fork(self):
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def join(self):
+        if self.stream is not None:
+            torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)
+
+
+def overlap_value_and_grads(opt, config, params, state, tokens, targets, post, scale,
+                            tp=None, wire=None):
+    """The backward-overlapped twin of :func:`loss_and_grads`, the JAX
+    package's ``overlap_value_and_grads``: the forward runs as the three
+    segments of :mod:`apex_tpu_torch.models.gpt` with their boundary
+    activations detached, and the backward as three
+    ``torch.autograd.grad`` calls, head first.  After each, every bucket
+    whose leaves all have their grads (``bucketing.buckets_by_stage``
+    over ``_OVERLAP_STAGES``: the final LayerNorm's after the head, the
+    stacked layers' after the layers, the embedding and positions after
+    the embedding, the tied embedding's two halves added) has its wire
+    run on the communication stream (:class:`_CommStream`) while the
+    next backward runs on the current stream, which joins the
+    communication stream once, before the update.
+
+    With a ZeRO optimizer the wire is its ``bucket_grad_issue`` (with
+    ``scale`` and the bucket's residual from ``state``), finished once
+    the next bucket's has started, and the result
+    ``(loss, None, presynced)`` hands the shards, new residuals and
+    pre-wire buckets to its ``update``; with a replicated optimizer
+    ``wire`` is :func:`_quantized_wire`'s ``(tree_sync, bucket_sync,
+    world)`` and the result ``(loss, grads, None)`` the synced, still
+    scaled, grads.
+    Every bucket's calls are the unoverlapped step's on the same values,
+    so fp32 losses and params are bitwise that step's."""
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.models.gpt import (
+        _OVERLAP_STAGES, _embed_segment, _head_segment, _layers_segment, lm_head_loss,
+    )
+    from apex_tpu_torch.optimizers import bucketing
+
+    unknown = sorted(set(params) - set(_OVERLAP_STAGES))
+    if unknown:
+        raise NotImplementedError(f"overlap_grad_sync does not know the gradient-readiness "
+                                  f"stage of param group(s) {unknown}")
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        if not leaf.requires_grad:
+            leaf.requires_grad_(True)
+    dev = params["embed"].device
+    t = torch.as_tensor(targets, device=dev).transpose(0, 1)  # (S, B)
+    embed, pos = params["embed"], params.get("pos_embed")
+    ln_s, ln_b = params["final_ln_scale"], params["final_ln_bias"]
+    layer_leaves = tree_leaves(params["layers"])
+
+    x0 = _embed_segment(embed, pos, tokens, config, tp)
+    x0_in = x0.detach().requires_grad_(True)
+    x1 = _layers_segment(params["layers"], x0_in, config, tp)
+    x1_in = x1.detach().requires_grad_(True)
+    h = _head_segment(x1_in, ln_s, ln_b, config, tp)
+    loss = lm_head_loss(h, embed, t, config, tp).mean()
+    scaled = loss if post is None else post(loss)
+
+    idx = tree_unflatten(params, list(range(len(leaves))))
+    stages = [0] * len(leaves)
+    for key, sub in idx.items():
+        for li in tree_leaves(sub):
+            stages[li] = _OVERLAP_STAGES[key]
+    cot = [None] * len(leaves)
+
+    def fill(key, vals):
+        for li, v in zip(tree_leaves(idx[key]), vals, strict=True):
+            cot[li] = v
+
+    zero = hasattr(opt, "sharded_state_dict")
+    if zero:
+        plan = opt._plan_of_local(params)
+    else:
+        _, bucket_sync, world = wire
+        plan = bucketing.plan_of(params, shard_pad=world, block=qs.QBLOCK)
+    by_stage = bucketing.buckets_by_stage(plan, stages, 3)
+    synced, pending = [None] * len(plan.buckets), []
+    comm = _CommStream(dev)
+
+    def finish(keep):
+        while len(pending) > keep:
+            bi, wire = pending.pop(0)
+            synced[bi] = wire.finish()
+
+    def issue(stage):
+        # a ZeRO bucket's wire finishes once the next one has started: its
+        # collective runs while the next bucket packs, and at most two
+        # buckets' temporaries are alive
+        with comm.fork():
+            for bi in by_stage[stage]:
+                if zero:
+                    res = state.residual[bi] if opt._quantized else None
+                    pending.append((bi, opt.bucket_grad_issue(bi, cot, scale=scale,
+                                                              residual=res)))
+                    finish(1)
+                else:
+                    synced[bi] = bucket_sync(
+                        bucketing.pack_bucket(plan.buckets[bi], cot, torch.float32))
+
+    d_ln_s, d_ln_b, d_embed_head, d_x1 = torch.autograd.grad(scaled, [ln_s, ln_b, embed, x1_in])
+    fill("final_ln_scale", [d_ln_s])
+    fill("final_ln_bias", [d_ln_b])
+    issue(0)
+    *d_layers, d_x0 = torch.autograd.grad(x1, layer_leaves + [x0_in], grad_outputs=d_x1)
+    fill("layers", d_layers)
+    issue(1)
+    if pos is not None:
+        d_embed_lookup, d_pos = torch.autograd.grad(x0, [embed, pos], grad_outputs=d_x0)
+        fill("pos_embed", [d_pos])
+    else:
+        (d_embed_lookup,) = torch.autograd.grad(x0, [embed], grad_outputs=d_x0)
+    fill("embed", [d_embed_head + d_embed_lookup])
+    issue(2)
+    with comm.fork():
+        finish(0)
+    comm.join()
+    if zero:
+        return scaled.detach(), None, tuple(tuple(d[i] for d in synced) for i in range(3))
+    return scaled.detach(), bucketing.unpack(plan, synced), None
+
+
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
                     graphs=None, warmup=1, telemetry=None, dp_group=None,
-                    overlap_grad_sync=False, tp_group=None, chaos=None):
+                    overlap_grad_sync=False, tp_group=None, chaos=None, grad_sync_dtype=None,
+                    inplace_update=True):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
     [guard_state], [stats], tokens, targets) -> loss``, a scaler state
@@ -309,9 +543,15 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     then the update: :func:`_apply_scaled_update` with a scaler,
     :func:`_apply_guarded_update` with a guard alone, else
     ``opt.update`` (``clip_grad_norm`` folded into each; it needs an
-    engine optimizer).  The new params, optimizer state and small states
-    are copied into the given ones in place (the counterpart of donating
-    them); the loss returned is the unscaled one.  Compiled unless
+    engine optimizer).  The params, optimizer state and small states are
+    updated in place, the counterpart of donating them: an optimizer with
+    ``supports_inplace`` (the engine optimizers, ZeRO) writes them itself
+    (``update(..., inplace=True)``; FusedAdam's ``mt_adam`` over the
+    tensors it reads), and the rest is copied in.  ``inplace_update=
+    False``, or a ``telemetry`` window (whose update norm reads the old
+    params), takes the copying step: the optimizer's new tensors copied
+    into the given ones, bitwise the same values.  The loss returned is
+    the unscaled one.  Compiled unless
     ``graphs=False``: a :class:`~apex_tpu_torch.graphs.CapturedStep` that
     runs ``warmup`` eager steps on a side stream, captures the step as one
     CUDA graph after the last of them, and replays it; on the CPU it runs
@@ -330,8 +570,24 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     replicated one syncs over the flat data-parallel group.  Either
     way the loss returned is the mean over the group, as the JAX step's
     ``pmean``.  The collectives are captured with the rest of the step.
-    ``overlap_grad_sync=True`` (the sync issued inside the backward) is
-    not ported yet and raises.
+
+    ``grad_sync_dtype`` (int8, float8_e4m3fn or float8_e5m2) quantizes a
+    replicated optimizer's dp sync: each bucket's all-reduce becomes a
+    reduce-scatter and all-gather on the wire dtype with shared block
+    scales and no residual (``quantized_pmean``; over a hierarchical
+    ``dp_group`` the multi-hop ``quantized_multi_hop_pmean``).  It raises
+    with a ZeRO optimizer (which takes the knob itself) and without a
+    dp group, as the JAX step does.
+
+    ``overlap_grad_sync=True`` issues each bucket's sync inside the
+    backward (:func:`overlap_value_and_grads`): the ZeRO optimizer's
+    reduce-scatter, or with ``grad_sync_dtype`` the quantized all-reduce,
+    on a communication stream between the three segment backwards; fp32
+    losses and params are bitwise the unoverlapped step's.  As in the
+    JAX package it raises under sequence parallelism
+    (``NotImplementedError``), without a dp group, and with a replicated
+    optimizer without ``grad_sync_dtype`` (the plain all-reduce has no
+    per-bucket wire).
 
     Tensor parallelism: with ``tp_group`` (an ``AxisGroup`` of more than
     one rank; ``params`` and ``state`` this rank's shards of
@@ -353,14 +609,12 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     multiplied by :meth:`~apex_tpu_torch.resilience.chaos.ChaosMonkey
     .grad_fault` before the backward, on the device, so a captured step
     replays the plan with no host read; the guard then skips the step."""
-    if overlap_grad_sync:
-        from apex_tpu_torch.contrib.optimizers._zero_engine import OVERLAP_ITEM
-
-        raise NotImplementedError(f"make_train_step(overlap_grad_sync=True) is not ported "
-                                  f"yet: it comes with {OVERLAP_ITEM}")
     from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce
 
+    qspec = _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype)
     _check_zero_axis(opt, dp_group)
+    if overlap_grad_sync:
+        _check_overlap(opt, config, dp_group, qspec)
     tp = _tp(tp_group)
     if tp is not None:
         check_tp(config, tp.size())
@@ -370,12 +624,20 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     def grads_fn(params, tokens, targets, post):
         return loss_and_grads(params, tokens, targets, config, post, axis_name=tp)
 
+    overlap = None
+    if overlap_grad_sync:
+        wire = None if hasattr(opt, "sharded_state_dict") else _quantized_wire(dp_group, qspec)
+
+        def overlap(params, state, tokens, targets, post, scale):
+            return overlap_value_and_grads(opt, config, params, state, tokens, targets, post,
+                                           scale, tp=tp, wire=wire)
+
     return _make_step(opt, config, grads_fn, loss_scaler=loss_scaler, step_guard=step_guard,
                       clip_grad_norm=clip_grad_norm, graphs=graphs, warmup=warmup,
                       telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=() if tp is None else (tp,), clip_sumsq=clip_sumsq,
                       norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp),
-                      chaos=chaos)
+                      chaos=chaos, qspec=qspec, overlap=overlap, inplace_update=inplace_update)
 
 
 def _post_loss(loss_scaler, scaler_state, fault):
@@ -395,7 +657,8 @@ def _post_loss(loss_scaler, scaler_state, fault):
 
 def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                clip_grad_norm=None, graphs=None, warmup=1, telemetry=None, dp_group=None,
-               tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None, chaos=None):
+               tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None, chaos=None,
+               qspec=None, overlap=None, inplace_update=True):
     """The step that :func:`make_train_step` and
     :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
     params, tokens, targets, post_loss) -> (loss, grads)`` gives the
@@ -406,13 +669,19 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
     ``norm_sumsq`` when the params are slices) and the loss mean over
     dp; compiled unless ``graphs=False``.  ``chaos`` scales the loss by
     its planned fault before the scaler (the JAX steps' ``post_loss``).
-    See :func:`make_train_step`."""
+    ``qspec``: the replicated dp sync's quantized wire; ``overlap(params,
+    state, tokens, targets, post_loss, scale) -> (loss, grads,
+    presynced)`` replaces ``grads_fn`` and the dp sync (the overlapped
+    backward); ``inplace_update`` lets an optimizer that supports it
+    write the params and state itself.  See :func:`make_train_step`."""
     from apex_tpu_torch.models.gpt import sp_grad_sync
 
     if chaos is not None and step_guard is None:
         raise ValueError("chaos NaN injection needs step_guard (the injection step counter "
                          "lives in GuardState)")
-    grad_sync, loss_mean = _dp_sync(opt, dp_group)
+    grad_sync, loss_mean = _dp_sync(opt, dp_group, qspec)
+    inplace = (inplace_update and telemetry is None
+               and getattr(opt, "supports_inplace", False))
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
         raise ValueError("clip_grad_norm needs an engine optimizer (OptimizerBase "
                          "subclass): the clip folds into its fused grad pass")
@@ -434,7 +703,8 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
         with torch.no_grad():
             for dst, src in zip(tensor_leaves((params, state, *small)), tensor_leaves(new),
                                 strict=True):
-                dst.copy_(src)
+                if dst is not src:
+                    dst.copy_(src)
         return loss
 
     def body(params, state, small, tokens, targets):
@@ -443,26 +713,33 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
         guard_state = small[-1] if step_guard is not None else None
         fault = chaos.grad_fault(guard_state.step) if chaos is not None else None
         post = _post_loss(loss_scaler, scaler_state, fault)
-        loss, grads = grads_fn(params, tokens, targets, post)
-        if config.sequence_parallel:
-            grads = sp_grad_sync(grads, tp_group)
-        if grad_sync is not None:
-            grads = grad_sync(grads)
+        kw = {"inplace": True} if inplace else {}
+        if overlap is not None:
+            scale = scaler_state.loss_scale if loss_scaler is not None else None
+            loss, grads, presynced = overlap(params, state, tokens, targets, post, scale)
+            if presynced is not None:
+                kw["presynced"] = presynced
+        else:
+            loss, grads = grads_fn(params, tokens, targets, post)
+            if config.sequence_parallel:
+                grads = sp_grad_sync(grads, tp_group)
+            if grad_sync is not None:
+                grads = grad_sync(grads)
         if loss_scaler is not None:
             loss = loss / scaler_state.loss_scale
             new = _apply_scaled_update(loss_scaler, scaler_state, grads, opt, state, params,
                                        step_guard=step_guard, guard_state=guard_state,
                                        clip_grad_norm=clip_grad_norm, sync_groups=sync_groups,
-                                       clip_sumsq=clip_sumsq)
+                                       clip_sumsq=clip_sumsq, **kw)
         elif step_guard is not None:
             new = _apply_guarded_update(grads, opt, state, params, step_guard, guard_state,
                                         clip_grad_norm=clip_grad_norm, sync_groups=sync_groups,
-                                        clip_sumsq=clip_sumsq)
+                                        clip_sumsq=clip_sumsq, **kw)
         elif clip_grad_norm is not None:
             new = opt.update(grads, state, params, clip_norm=clip_grad_norm,
-                             sumsq_reduce=clip_sumsq)
+                             sumsq_reduce=clip_sumsq, **kw)
         else:
-            new = opt.update(grads, state, params)
+            new = opt.update(grads, state, params, **kw)
         if loss_mean is not None:
             loss = loss_mean(loss)
         return loss, new

@@ -49,7 +49,8 @@ Phases, each printing one JSON line:
    at GPT-124M's shape (B*H = 96, S = 1024, causal) in bf16 at D = 32,
    64 and 128 (each with SDPA's time), fp32, GQA, non-causal, a key
    bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
-   keys), and bf16 at D = 16, 48, 80, 96 and 112 (B = 2); the bf16
+   keys), bf16 at D = 16, 48, 80, 96 and 112 (B = 2), and bf16 at the
+   gpt124_s4096 cell's shape (B = 2, S = 4096, with SDPA's time); the bf16
    backward's shared memory as ``bwd_launch_plan`` states it against
    the C entry's at every head dim.  The float16 instantiations (the
    amp train step's): LN forward at 8 and 8192 rows, the backward at
@@ -95,7 +96,8 @@ Phases, each printing one JSON line:
    by name over one verify step and one 64-position prefill chunk,
    graphed and eager.
 6c. serve_streams: the serve and serving-v2 commands in bf16 and fp32,
-   T = 0 and T = 1, graphed and eager: equal streams, exact counts.
+   T = 0 and T = 1, 16 requests each, graphed and eager: equal streams,
+   exact counts.
 6d. graph_replay: each serving step (decode, prefill at the serve
    shapes; verify, chunk, head at the serving-v2 shapes) compiled beside
    the same step eager on three sets of random inputs in turn: outputs
@@ -125,6 +127,20 @@ Phases, each printing one JSON line:
    exactly 49 / 25 / 24 / 12 / 12 fp16 kernels, one ``mt_adam`` and
    ``mt_plan``'s ``mt_scale`` a step; graphed = eager (losses and
    scales); step ms, tokens/s and peak GB beside the bf16 train phase's.
+8c. train_s4096: bench.py's ``gpt124_s4096`` cell (``train_gpt --seq
+   4096 --batch 2``), the dense head and ``--fused-ce``, graphed (1
+   warm-up, 5 replays) and eager (3 steps): exact launch counts (flash
+   forward 24, dq 12, dkv 12 a step at S 4096; the CE kernels once a
+   step at N 8192), CUDA-event step ms, peak memory, graphed = eager.
+8d. inplace_ab: the train_fce step with the donated update (FusedAdam's
+   ``mt_adam`` writing the params and state it reads) against the
+   copying step (``inplace_update=False``), graphed in turns (copy, in
+   place, in place, copy) and eager: losses, params and state bitwise,
+   the step ms of each.
+8e. attn_bias: ``flash_attention(attn_bias=)`` at (B 1, H 4, S 256, D
+   32) against a dense softmax with the bias, out and the bias's
+   cotangent; the biased call launches no flash kernel, the unbiased
+   one each once.
 8b. amp_overflow: the same step at GPT-124M with ``--step-guard 3`` and
    the scaler at 2**127 (one backoff to 2**12): the first step skipped
    with every param and the whole optimizer state bitwise unchanged, the
@@ -182,6 +198,9 @@ Phases, each printing one JSON line:
     over the last 4 steps.  Printed beside ``nvidia-smi``: the step
     median with telemetry on and off, each save's blocking host time,
     the writer thread's seconds and bytes, the step after a save.
+15a. remat_dots: ``pretrain_gpt`` at the pretrain shape for 10 steps
+    with ``--remat-policy full`` and ``dots``: losses within 1e-6
+    relative (bitwise printed), step ms and peak memory of each.
 16. zero: ``pretrain_gpt --zero`` (DistributedFusedAdam over a one-rank
     NCCL group on this card) at the pretrain cell, in this process:
     graphed (8 steps, elastic saves at 4 and 8) and ``--eager``, losses
@@ -234,6 +253,13 @@ Phases, each printing one JSON line:
     each within 1e-3 of pp 1's losses (tp x pp and the interleaved
     schedule are refused over NCCL, ROADMAP.md section 3).
     ``python3 chip_smoke.py pp_multi_card`` runs that check alone.
+    ``python3 chip_smoke.py multi_card`` (four cards) runs it, ZeRO
+    composed with tp and pp, and the backward-overlapped dp sync
+    (``overlap_multi_card``, alone by that name: GPT-345M at dp 4,
+    flat ZeRO, the (2, 2) wire, its int8 wire and replicated FusedAdam
+    with an int8 sync, each with the overlap on against off, losses and
+    params bitwise, step ms, NCCL and exposed NCCL ms, peak memory).
+    ``python3 chip_smoke.py step_options`` runs 8c-8e and 15a alone.
 19. supervised: a ``Supervisor`` runs ``pretrain_gpt --zero
     --auto-resume --save-every 1 --steps 3`` at the pretrain phase's
     GPT-124M shape as its child, a fault script killing attempt 0 at
@@ -289,6 +315,9 @@ PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 
 ITERS = 20
+#: profiled calls of a plain version's timing: its many small ops make
+#: each profiled call's trace long, and its time is a yardstick only
+PLAIN_ITERS = 3
 
 NEG_INF_HALF = -0.5e30
 
@@ -358,12 +387,12 @@ def device_ms(fn, iters=ITERS):
     profiled single call (raised to what a profiled run of ``iters``
     calls saw) and the mean from that run (from the single call for a
     name the run lost); neither depends on how many records were kept.
+    Both runs are one profiler session (:func:`_cuda_durations_split`).
     CUDA events around the calls when the profiler records nothing."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    one = _cuda_durations(fn, 1)
-    many = _cuda_durations(fn, iters)
+    one, many = _cuda_durations_split(fn, iters)
     if not one and not many:
         return call_ms(fn, iters), "cuda_events"
     us = 0.0
@@ -388,6 +417,33 @@ def _cuda_durations(fn, iters):
         if e.device_type == DeviceType.CUDA:
             out.setdefault(e.name, []).append(e.time_range.elapsed_us())
     return out
+
+
+def _cuda_durations_split(fn, iters):
+    """``({name: [us, ...]} of one call, the same of the next ``iters``
+    calls)`` from one profiler session: the single call, a synchronize,
+    a host marker, then the ``iters`` calls; an activity belongs to the
+    single call when it starts before the marker (every one of its
+    kernels ended at the synchronize, and the rest launch after it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("chip_smoke.device_ms.split"):
+            pass
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    split = min(e.time_range.start for e in events if e.name == "chip_smoke.device_ms.split")
+    one, many = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            side = one if e.time_range.start < split else many
+            side.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return one, many
 
 
 def device_us_by_name(prof):
@@ -418,7 +474,7 @@ def call_ms(fn, iters=ITERS):
 def timings(kernel, plain, library=None):
     ms, timer = device_ms(kernel)
     out = {"kernel_ms": ms, "timer": timer, "call_ms": call_ms(kernel),
-           "plain_ms": device_ms(plain)[0], "library_ms": None}
+           "plain_ms": device_ms(plain, PLAIN_ITERS)[0], "library_ms": None}
     if library is not None:
         out["library_ms"] = device_ms(library)[0]
     return out
@@ -2125,11 +2181,16 @@ def serve_v2_phase():
     return out["launches"], params, config
 
 
+#: requests of each serve_streams run (the serve defaults' 32 halved:
+#: each slot still serves two requests in turn)
+STREAM_REQUESTS = 16
+
+
 def serve_streams_phase():
     """Graphed against eager, token for token, at the serve and the
     serving-v2 commands in bf16 and fp32 (compute and KV), T = 0 and
     T = 1, each with exact launch counts (bf16 at T = 1 are the serve
-    and serve_v2 phases' own A/B)."""
+    and serve_v2 phases' own A/B), ``STREAM_REQUESTS`` requests a run."""
     t0 = time.monotonic()
     cases = {}
     for cell, base in (("serve", []), ("serve_v2", SERVE_V2_ARGS)):
@@ -2138,7 +2199,7 @@ def serve_streams_phase():
                 if (dtype, T) == ("bfloat16", "1"):
                     continue
                 argv = base + ["--compute-dtype", dtype, "--kv-dtype", dtype,
-                               "--temperature", T]
+                               "--temperature", T, "--requests", str(STREAM_REQUESTS)]
                 g, e = serve_run(argv), serve_run(argv, eager=True)
                 cases[f"{cell}_{dtype}_T{T}"] = {
                     "streams_equal": streams(g[1]) == streams(e[1]),
@@ -2684,6 +2745,250 @@ def optimizer_ab(cell, engine, per_leaf):
     if not bitwise:
         raise AssertionError(f"{cell}: engine losses {engine['losses']} != per-leaf "
                              f"{per_leaf['losses']}")
+
+
+# ------------------------------------------------------ the step's options
+#: bench.py's ``gpt124_s4096`` cell (bench.py:2157-2160): GPT-124M at seq
+#: 4096, batch 2 (8192 tokens a step, the gpt124_s1024 cell's)
+S4096_ARGV = ["--layers", "12", "--hidden", "768", "--heads", "12", "--seq", "4096",
+              "--batch", "2"]
+#: the remat_dots phase's band: dots against full remat, relative, if the
+#: losses are not bitwise equal (the saved products are the ones full
+#: remat recomputes: only another cuBLAS algorithm could move them)
+REMAT_TOL = 1e-6
+#: the attn_bias check's bands (tests/test_attention.py's): out, then the
+#: bias's cotangent, fp32 scan against a dense softmax
+ATTN_BIAS_TOL = {"out": (1e-4, 1e-5), "db": (2e-4, 2e-5)}
+
+
+def _train_expect(args, sizes, n):
+    """The launch counts of ``n`` train_gpt steps at ``args``: the
+    train phase's per-step counts (full remat: the flash and LayerNorm
+    forwards twice a layer), the CE kernels only when the fused head
+    runs (``--fused-ce`` and a ``--seq`` its chunk divides)."""
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+
+    L = args.layers
+    fused = int(args.fused_ce and args.seq % args.fused_ce_chunk == 0)
+    per_step = {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "ce_fwd": fused, "ce_dx": fused, "ce_dembed": fused,
+                "mt_adam": mt_plan("adam", sizes).launches, "mt_scale": 0, "mt_l2norm": 0}
+    return per_step, {**{k: v * n for k, v in per_step.items()},
+                      "paged_decode_attention": 0, "paged_decode_attention_wide": 0,
+                      "fused_sample": 0}
+
+
+def _train_events(argv, steps, inplace=True, keep=False):
+    """``train_gpt``'s step at ``argv`` (its config, seed-0 params and
+    batch, FusedAdam on the engine), ``--warmup`` eager steps (the last
+    capturing unless ``--eager``) then ``steps`` more, each step's time
+    between CUDA events recorded after it; ``inplace`` False takes the
+    copying step.  Returns the report (losses, step ms, median past the
+    warm-up, peak GB, exact launches checked) and, with ``keep``, the
+    params and state."""
+    import gc
+
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train_gpt.build_args().parse_args(argv)
+    config, params, tokens, targets = train_gpt.setup(args)
+    opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step = train_gpt.make_train_step(opt, config, graphs=False if args.eager else None,
+                                     warmup=args.warmup, inplace_update=inplace)
+    n = args.warmup + steps
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    for _ in range(n):
+        losses.append(step(params, state, tokens, targets).detach().clone())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_step, expect = _train_expect(args, [p.numel() for p in tree_leaves(params)], n)
+    if counts != expect:
+        raise AssertionError(f"train {argv}: launch counts {counts} != expected {expect}")
+    losses = [float(x) for x in losses]
+    # early steps on the seed's batch can rise: falling is asked of six or more
+    if not all(math.isfinite(x) for x in losses) or (n >= 6 and not losses[-1] < losses[0]):
+        raise AssertionError(f"train {argv}: losses not finite and falling: {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    report = {"losses": losses, "step_ms": step_ms,
+              "step_ms_median": float(np.median(step_ms[args.warmup:])),
+              "tokens_per_sec": 1e3 * args.batch * args.seq / float(np.median(
+                  step_ms[args.warmup:])),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "graphs": getattr(step, "graph", None) is not None, "inplace": inplace,
+              "launches_per_step": per_step, "launches": counts}
+    if keep:
+        return report, params, state
+    del step, params, state
+    return report
+
+
+def train_s4096_phase():
+    """bench.py's ``gpt124_s4096`` cell through ``train_gpt``: the dense
+    head and ``--fused-ce``, graphed (1 warm-up, 5 timed replays) and
+    ``--eager`` (3 steps), each with exact launch counts (the flash
+    kernels at S 4096: forward 24, dq 12, dkv 12 a step under full
+    remat; the CE kernels once a step at N 8192 rows), CUDA-event step
+    times, peak memory, and the graphed losses against the eager ones
+    (bitwise, or ``TRAIN_AB_TOL``)."""
+    t0 = time.monotonic()
+    out = {}
+    for head in ("dense", "fused_ce"):
+        argv = S4096_ARGV + (["--fused-ce"] if head == "fused_ce" else [])
+        graphed = _train_events(argv, 5)
+        eager = _train_events(argv + ["--eager"], 2)
+        if not graphed["graphs"] or eager["graphs"]:
+            raise AssertionError(f"train_s4096 {head}: graphed {graphed['graphs']}, eager "
+                                 f"{eager['graphs']}")
+        gl, el = graphed["losses"][:3], eager["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el))
+        if gl != el and not rel <= TRAIN_AB_TOL:
+            raise AssertionError(f"train_s4096 {head}: graphed {gl} against eager {el}")
+        out[head] = {"graphed": graphed, "eager": eager, "graphed_eager_bitwise": gl == el,
+                     "graphed_eager_max_rel": rel}
+    emit({"phase": "train_s4096", "argv": S4096_ARGV, **out,
+          "seconds": time.monotonic() - t0})
+    return out
+
+
+def inplace_ab_phase():
+    """The donated update against the copying step at the train_fce cell
+    (GPT-124M, seq 1024, batch 8, fused CE), graphed, in turns (copy,
+    in place, in place, copy; 1 warm-up and 5 timed replays each): the
+    losses and every param and Adam state tensor bitwise equal, and the
+    step ms of each; then the same pair eager (2 steps), bitwise."""
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    t0 = time.monotonic()
+    runs, ref = [], None
+    for inplace in (False, True, True, False):
+        rep, params, state = _train_events(["--fused-ce"], 5, inplace=inplace, keep=True)
+        tensors = tree_leaves((params, state))
+        if ref is None:
+            ref = (rep["losses"], [t.detach().clone() for t in tensors])
+        elif rep["losses"] != ref[0] or not all(
+                torch.equal(a, b) for a, b in zip(tensors, ref[1], strict=True)):
+            raise AssertionError(f"inplace_ab: in place={inplace} not bitwise the first run "
+                                 f"(losses {rep['losses']} against {ref[0]})")
+        del params, state, tensors
+        runs.append({k: rep[k] for k in ("inplace", "step_ms", "step_ms_median",
+                                         "peak_memory_gb")})
+    del ref
+    eager = [_train_events(["--fused-ce", "--eager"], 1, inplace=i)["losses"]
+             for i in (False, True)]
+    if eager[0] != eager[1]:
+        raise AssertionError(f"inplace_ab eager: {eager[1]} against the copying {eager[0]}")
+    med = {k: float(np.mean([r["step_ms_median"] for r in runs if r["inplace"] == k]))
+           for k in (False, True)}
+    emit({"phase": "inplace_ab", "runs": runs, "bitwise": True,
+          "step_ms_copy": med[False], "step_ms_inplace": med[True],
+          "step_ms_saved": med[False] - med[True], "eager_bitwise": True,
+          "seconds": time.monotonic() - t0})
+
+
+def remat_dots_phase():
+    """``pretrain_gpt`` at the pretrain phase's GPT-124M shape (fused CE,
+    seq 1024, 8 rows) for 10 steps with ``--remat-policy full`` and then
+    ``dots`` (save the no-batch-dims matmul outputs, recompute the rest):
+    losses within ``REMAT_TOL`` relative (bitwise printed), each run's
+    CUDA-event step ms (median past the first two) and peak memory (dots
+    holds six products a layer more)."""
+    t0 = time.monotonic()
+    out = {}
+    for policy in ("full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        rep = _pretrain_here(PRETRAIN_ARGV + ["--steps", "10", "--remat-policy", policy])
+        out[policy] = {"losses": rep["losses"],
+                       "step_ms_median": float(np.median(rep["step_ms"][2:])),
+                       "peak_memory_gb": rep["peak_memory_gb"]}
+    a, b = out["dots"]["losses"], out["full"]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+    emit({"phase": "remat_dots", **out, "bitwise": a == b, "max_rel": rel,
+          "band": REMAT_TOL, "seconds": time.monotonic() - t0})
+    if not (all(map(math.isfinite, a)) and rel <= REMAT_TOL):
+        raise AssertionError(f"remat_dots: dots {a} against full {b}: rel {rel}")
+
+
+def attn_bias_phase(dev, B=1, H=4, S=256, D=32):
+    """``flash_attention(attn_bias=)`` on the card at an OpenFold-like
+    shape (a (B, H, S, S) pair bias, fp32): out and the bias's cotangent
+    against a dense softmax with the bias added (``mha_reference``'s
+    arithmetic), in ``ATTN_BIAS_TOL``; the call leaves the flash kernels'
+    launch counters where they were (the scan path), and the same call
+    without the bias moves each by one (the kernels)."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+    from apex_tpu_torch.ops.attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(B, H, S, D, device=dev, generator=g) for _ in range(3))
+    bias = torch.randn(B, H, S, S, device=dev, generator=g).requires_grad_(True)
+    before = (tfa.FWD_LAUNCHES, tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES)
+    out = flash_attention(q, k, v, causal=False, attn_bias=bias)
+    (db,) = torch.autograd.grad(torch.sin(out).sum(), [bias])
+    biased_counts = (tfa.FWD_LAUNCHES, tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES)
+    ref_bias = bias.detach().clone().requires_grad_(True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(D) + ref_bias
+    ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+    (ref_db,) = torch.autograd.grad(torch.sin(ref).sum(), [ref_bias])
+    qb, kb, vb = (t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v))
+    flash_attention(qb, kb, vb, causal=True).float().sum().backward()
+    after = (tfa.FWD_LAUNCHES, tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES)
+    errs = {"out": float((out - ref).detach().abs().max()), "db": float((db - ref_db).abs().max())}
+    ok = all(torch.allclose(a, b, rtol=ATTN_BIAS_TOL[n][0], atol=ATTN_BIAS_TOL[n][1])
+             for n, a, b in (("out", out, ref), ("db", db, ref_db)))
+    launches = {"biased_call": [b - a for a, b in zip(before, biased_counts)],
+                "unbiased_call": [b - a for a, b in zip(biased_counts, after)]}
+    emit({"phase": "attn_bias", "shape": [B, H, S, D], "max_abs_err": errs,
+          "bands": ATTN_BIAS_TOL, "flash_launches_fwd_dq_dkv": launches})
+    if not ok or launches != {"biased_call": [0, 0, 0], "unbiased_call": [1, 1, 1]}:
+        raise AssertionError(f"attn_bias: errors {errs}, flash launches {launches}")
+
+
+def step_options_main():
+    """``chip_smoke.py step_options``: the kernels built, the flash check
+    at S 4096, then the train_s4096, inplace_ab, remat_dots and attn_bias
+    phases alone, with their seconds."""
+    from apex_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    emit({"phase": "card", "torch": torch.__version__, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": _smi()})
+    seconds = {"build": _build.build(force=True)}
+    _build.load()
+    for case, dtype, kw in FLASH_S4096:
+        t0 = time.monotonic()
+        r = check_flash(dev, dtype, case, **kw)
+        for name in ("fwd", "dq", "dkv"):
+            emit({"phase": "kernel", **r[name]})
+        seconds["flash_s4096"] = time.monotonic() - t0
+    for name, fn in (("train_s4096", train_s4096_phase), ("inplace_ab", inplace_ab_phase),
+                     ("remat_dots", remat_dots_phase),
+                     ("attn_bias", lambda: attn_bias_phase(dev))):
+        t0 = time.monotonic()
+        fn()
+        seconds[name] = time.monotonic() - t0
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+    return 0
+
+
+#: the flash kernels at the gpt124_s4096 cell's shape (B 2, 12 heads, S 4096)
+FLASH_S4096 = (("gpt124_s4096", torch.bfloat16, {"B": 2, "S": 4096, "library": True}),)
 
 
 def train_reproducible_phase(dev, B=8, H=12, S=1024, D=64):
@@ -3937,11 +4242,30 @@ def zero_mp_multi_card():
     return out
 
 
+def overlap_multi_card_main():
+    """``chip_smoke.py overlap_multi_card`` on four cards: the kernels
+    built, then :func:`overlap_multi_card` alone."""
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        raise SystemExit(f"chip_smoke overlap_multi_card: needs four cards, has {n_cards}")
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    t0 = time.monotonic()
+    overlap_multi_card()
+    emit({"phase": "overlap_multi_card", "ok": True, "seconds": time.monotonic() - t0})
+    return 0
+
+
 def multi_card_main():
     """``chip_smoke.py multi_card`` on four cards: the kernels built once,
-    then :func:`pp_multi_card` and :func:`zero_mp_multi_card` (ZeRO
-    composed with tp and pp, and the hierarchical wire), each result
-    printed as it comes; fails after both if either did."""
+    then :func:`pp_multi_card`, :func:`zero_mp_multi_card` (ZeRO composed
+    with tp and pp, and the hierarchical wire) and :func:`overlap_multi_card`
+    (the backward-overlapped dp sync), each result printed as it comes;
+    fails after the last if one did."""
     from apex_tpu_torch.ops import _build
 
     n_cards = torch.cuda.device_count()
@@ -3953,7 +4277,8 @@ def multi_card_main():
     _build.load()
     errors = []
     for name, fn in (("pp_multi_card", lambda: pp_multi_card(4)),
-                     ("zero_mp_multi_card", zero_mp_multi_card)):
+                     ("zero_mp_multi_card", zero_mp_multi_card),
+                     ("overlap_multi_card", overlap_multi_card)):
         t0 = time.monotonic()
         try:
             fn()  # its rows printed as they came
@@ -4775,6 +5100,184 @@ def zero_child(argv):
     return 0
 
 
+#: the overlap check's runs: (name, optimizer, its kwargs, hierarchical,
+#: the step's grad_sync_dtype)
+OVERLAP_RUNS = (("zero_flat", "zero", {}, False, None),
+                ("zero_hier", "zero", {"dp_axes": tuple(ZERO_HIER)}, True, None),
+                ("zero_hier_int8", "zero", {"dp_axes": tuple(ZERO_HIER),
+                                            "grad_sync_dtype": "int8"}, True, None),
+                ("fused_adam_int8", "fused_adam", {}, False, "int8"))
+
+
+def _exposed_nccl_ms(prof, skip=1, kernel="mt_adam_kernel"):
+    """``(exposed, total)``: NCCL's device ms a step that no other kernel
+    overlaps (what the compute waits on) and all of NCCL's ms a step,
+    over the steps after the ``skip``-th (from the end of that step's
+    update, as :func:`_busy_share` takes its window)."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    ends = sorted(end for _, end, name in spans if kernel in name)
+    if len(ends) <= skip:
+        raise AssertionError(f"overlap profile: {len(ends)} {kernel} records")
+    lo, hi = ends[skip - 1], ends[-1]
+
+    def union(iv):
+        out = []
+        for s, e in sorted((max(s, lo), min(e, hi)) for s, e in iv if e > lo and s < hi):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    nccl = union([(s, e) for s, e, n in spans if "nccl" in n.lower()])
+    other = union([(s, e) for s, e, n in spans if "nccl" not in n.lower()])
+    covered = sum(max(0.0, min(e, oe) - max(s, os_)) for s, e in nccl for os_, oe in other)
+    total = sum(e - s for s, e in nccl)
+    steps = len(ends) - skip
+    return (total - covered) / 1e3 / steps, total / 1e3 / steps
+
+
+def overlap_child(argv):
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py
+    overlap_child [--steps S]``: GPT-345M (pretrain_gpt's config, the
+    fused head, the seed-0 params), graphed, 8 rows of the seed-0 corpus
+    a dp rank a step, dp 4, through ``make_train_step`` with
+    ``overlap_grad_sync`` off and then on for each of ``OVERLAP_RUNS``:
+    DistributedFusedAdam on the flat group, on the (2, 2) split and on
+    its int8 wire, and FusedAdam with ``grad_sync_dtype="int8"``.  Each
+    run: S timed steps (CUDA events), the losses and every param held
+    bitwise against the run with the overlap off, then 4 steps under the
+    profiler (NCCL ms a step, the part no other kernel overlaps, idle
+    share) and the peak memory; rank 0 prints one ``overlap_child`` line
+    with every rank's records."""
+    import argparse
+    import gc
+
+    from apex_tpu_torch import pretrain_gpt
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import _init_numpy, params_from_numpy
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.train_gpt import make_train_step
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    a = ap.parse_args(argv)
+    dev = multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel()
+    args = pretrain_gpt.build_args().parse_args(GPT345_ARGV + ["--fused-ce"])
+    config = pretrain_gpt.make_config(args)
+    tree = _init_numpy(config, 0)
+    dp_g = ps.get_data_parallel_group()
+    hops = ps.get_data_parallel_hop_groups(tuple(ZERO_HIER), tuple(ZERO_HIER.values()))
+    dp = dp_g.size()
+    corpus = pretrain_gpt.load_corpus(args)
+    gb = 8 * dp
+    rows = [torch.from_numpy(np.ascontiguousarray(
+        corpus[i * gb + 8 * dp_g.rank():i * gb + 8 * dp_g.rank() + 8], np.int64)).to(dev)
+        for i in range(a.steps + 4)]
+    rank = torch.distributed.get_rank()
+    out = {}
+    for name, kind, kw, hier, gsd in OVERLAP_RUNS:
+        ref = None
+        for overlap in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = params_from_numpy(tree, config, dev, keep_fp32=True)
+            if kind == "zero":
+                opt = DistributedFusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY,
+                                           **kw)
+                state = opt.init(params, world_size=dp,
+                                 axis_sizes=dict(ZERO_HIER) if hier else None)
+            else:
+                opt = FusedAdam(lr=args.lr, weight_decay=pretrain_gpt.WEIGHT_DECAY)
+                state = opt.init(params)
+            for leaf in tree_leaves(params):
+                leaf.requires_grad_(True)
+            step = make_train_step(opt, config, dp_group=hops if hier else dp_g,
+                                   overlap_grad_sync=overlap, grad_sync_dtype=gsd)
+            events = [torch.cuda.Event(enable_timing=True)]
+            events[0].record()
+            losses = []
+            for r in rows[:a.steps]:
+                losses.append(step(params, state, r[:, :-1], r[:, 1:]).detach().clone())
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            torch.cuda.synchronize()
+            losses = [float(x) for x in losses]
+            leaves = [t.detach() for t in tree_leaves((params, state))]
+            if ref is None:
+                ref = (losses, [t.clone() for t in leaves])
+                bitwise = None
+            else:
+                bitwise = losses == ref[0] and all(
+                    torch.equal(x, y) for x, y in zip(leaves, ref[1], strict=True))
+            del leaves
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            with prof:
+                for i in range(4):
+                    step(params, state, rows[a.steps + i][:, :-1], rows[a.steps + i][:, 1:])
+                torch.cuda.synchronize()
+            exposed, nccl = _exposed_nccl_ms(prof)
+            mine = {"rank": rank, "bitwise_vs_off": bitwise,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "nccl_ms_per_step": nccl, "exposed_nccl_ms_per_step": exposed,
+                    "idle_share": _busy_share(prof, skip=1)["idle_share"]}
+            ranks = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(ranks, mine)
+            step_ms = [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])]
+            out.setdefault(name, {})["on" if overlap else "off"] = {
+                "losses": losses, "step_ms": step_ms,
+                "step_ms_median": float(np.median(step_ms[2:])), "ranks": ranks}
+            del step, params, state, opt, prof
+        del ref
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"overlap_child": {"dp": dp, **out}}), flush=True)
+    return 0
+
+
+def overlap_multi_card():
+    """The backward-overlapped dp grad sync on four cards
+    (``overlap_child``, GPT-345M, dp 4, fused CE, graphed, 10 steps): for
+    each of ``OVERLAP_RUNS`` the overlap on against off, losses and
+    params bitwise on every rank, with each run's step ms, NCCL ms and
+    exposed NCCL ms a step and peak memory a rank (one
+    ``overlap_multi_card`` line a run); fails after the last run if one
+    was not bitwise."""
+    rep = _pp_children(4, [], timeout=600, script="overlap_child",
+                       prefix='{"overlap_child"')[0]["overlap_child"]
+    failed = []
+    for name, *_ in OVERLAP_RUNS:
+        r = rep[name]
+        row = {"run": name, "dp": rep["dp"]}
+        for side in ("off", "on"):
+            x = r[side]
+            row[side] = {"losses": x["losses"], "step_ms_median": x["step_ms_median"],
+                         "peak_memory_gb_per_rank": [y["peak_memory_gb"] for y in x["ranks"]],
+                         "nccl_ms_per_step_per_rank": [y["nccl_ms_per_step"]
+                                                       for y in x["ranks"]],
+                         "exposed_nccl_ms_per_step_per_rank": [
+                             y["exposed_nccl_ms_per_step"] for y in x["ranks"]],
+                         "idle_share_per_rank": [y["idle_share"] for y in x["ranks"]]}
+        row["bitwise"] = all(y["bitwise_vs_off"] for y in r["on"]["ranks"])
+        row["step_ms_saved"] = r["off"]["step_ms_median"] - r["on"]["step_ms_median"]
+        emit({"overlap_multi_card": row})
+        if not row["bitwise"] or not all(map(math.isfinite, r["on"]["losses"])):
+            failed.append(f"{name}: on {r['on']['losses']} against off {r['off']['losses']}")
+    if failed:
+        raise AssertionError("overlap_multi_card: " + "; ".join(failed))
+    return rep
+
+
 #: the tp 2 x pp 2 bisection (ROADMAP.md section 3): each variant one
 #: ``torchrun --nproc-per-node 4 chip_smoke.py pp_bisect_child`` at GPT-345M
 #: width (hidden 1024, 16 heads, vocab 50304, seq 1024, global batch 8)
@@ -5507,6 +6010,12 @@ def main():
         return pp_bisect_main()
     if sys.argv[1:2] == ["zero_child"]:
         return zero_child(sys.argv[2:])
+    if sys.argv[1:2] == ["overlap_child"]:
+        return overlap_child(sys.argv[2:])
+    if sys.argv[1:2] == ["overlap_multi_card"]:
+        return overlap_multi_card_main()
+    if sys.argv[1:2] == ["step_options"]:
+        return step_options_main()
     if sys.argv[1:2] == ["multi_card"]:
         return multi_card_main()
     if sys.argv[1:2] == ["pp_bisect_child"]:
@@ -5612,6 +6121,8 @@ def main():
         ("gpt124_d128", torch.bfloat16, {"D": 128, "library": True}),
         # a ring-attention chunk: q rows 512.. of 1024 keys
         ("chunk", torch.bfloat16, {"S": 512, "Sk": 1024, "q_offset": 512}),
+        # the gpt124_s4096 cell's shape (the train_s4096 phase)
+        *FLASH_S4096,
         # the other instantiations of the bf16 kernels
         *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
@@ -5663,6 +6174,12 @@ def main():
     train_ab("train_fp16", fp16, train_phase(fp16=True, dense_report=dense_eager,
                                              eager=True)[2])
     lap("train_fp16")
+    train_s4096_phase()
+    lap("train_s4096")
+    inplace_ab_phase()
+    lap("inplace_ab")
+    attn_bias_phase(dev)
+    lap("attn_bias")
     amp_overflow_phase()
     lap("amp_overflow")
     train_reproducible_phase(dev)
@@ -5685,6 +6202,8 @@ def main():
     lap("train_profile")
     full = pretrain_phase(smi)
     lap("pretrain")
+    remat_dots_phase()
+    lap("remat_dots")
     remainder_launches = zero_phase(smi, full)
     lap("zero")
     absent = tp_phase(smi)

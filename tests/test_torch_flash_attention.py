@@ -263,8 +263,12 @@ def test_flash_attention_with_lse_and_refusals():
         q_offset=64, k_offset=32)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=1e-6, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="attn_bias"):
-        tatt.flash_attention(*args, attn_bias=torch.zeros(1))
+    # attn_bias is ported (the scan path): a zero bias changes nothing
+    sk = args[1].shape[2]
+    biased = tatt.flash_attention(*args, attn_bias=torch.zeros(sk))
+    ref = jatt.flash_attention(*(jnp.asarray(c[n]) for n in ("q", "k", "v")),
+                               attn_bias=jnp.zeros(sk), impl="scan")
+    np.testing.assert_allclose(biased.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
     meta = torch.empty(2, 64, 32, device="meta")
     with pytest.raises(ValueError, match="not supported"):
         tfa.flash_fwd(meta, meta, meta, 0.1, True)

@@ -14,7 +14,8 @@ fp32) with the JAX package's params carried over by
 - with ``fused_ce=True`` the loss and every gradient leaf again, for S
   divisible by ``fused_ce_chunk`` (the fused head, the chunked scan on
   the JAX side) and not (the dense head on both sides);
-- the options this slice does not run raise.
+- the options the port does not run raise, and ``remat_policy="dots"``
+  runs (its step bitwise full remat's).
 
 Bands: the loss within 1e-6 relative; each gradient leaf within 1e-5 of
 the largest gradient magnitude of the model (fp32 on both sides, sums
@@ -180,10 +181,20 @@ def test_unported_options_raise():
     for impl in ("interpret", "off"):
         with pytest.raises(ValueError, match=impl):
             _configs(fused_ce=True, fused_ce_impl=impl)
-    with pytest.raises(NotImplementedError, match="dots"):
-        _configs(remat_policy="dots")
     with pytest.raises(ValueError, match="remat_policy"):
         tgpt.GPTConfig(remat_policy="none")
+    # "dots" is ported: the step's loss and gradients equal full remat's
+    tokens, targets = _batch()
+    out = {}
+    for policy in ("full", "dots"):
+        jcfg, tcfg = _configs(checkpoint_layers=True, remat_policy=policy,
+                              use_flash_attention=True)
+        tp = tgpt.init_params(tcfg, 0, "cpu", keep_fp32=True)
+        out[policy] = train_gpt.loss_and_grads(tp, torch.from_numpy(tokens),
+                                               torch.from_numpy(targets), tcfg)
+    assert float(out["dots"][0]) == float(out["full"][0])
+    for a, b in zip(tree_leaves(out["dots"][1]), tree_leaves(out["full"][1]), strict=True):
+        assert torch.equal(a, b)
 
 
 def test_train_gpt_defaults_to_cuda_and_raises_without_it():

@@ -317,8 +317,10 @@ def test_refusals():
         _run(["--auto-resume"])
     with pytest.raises(SystemExit, match="--telemetry-every"):
         _run(["--telemetry-every", "0"])
-    with pytest.raises(NotImplementedError, match="dots"):
-        _run(["--remat-policy", "dots"])
+    # --remat-policy dots is ported: it runs, and its losses are full remat's
+    dots, _ = _run(["--remat-policy", "dots", "--steps", "2"])
+    full, _ = _run(["--steps", "2"])
+    assert dots["losses"] == full["losses"] and all(math.isfinite(x) for x in dots["losses"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pretrain_gpt.main(["--steps", "1"])

@@ -655,10 +655,25 @@ def test_unported_knobs_raise_with_their_queue_item(group1):
     opt.init(_torch_tree(params_np(), False), param_specs=specs, axis_sizes={"tp": 1})
     assert opt.model_mult == 1 and opt._model_axes == ("tp",)
     opt.init(_torch_tree(params_np(), False))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        make_train_step(opt, GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                                       num_attention_heads=4, max_seq_len=16),
-                        overlap_grad_sync=True)
+    # the backward-overlapped sync is ported: at world 1 its step is the
+    # unoverlapped one, bitwise
+    from apex_tpu_torch.models.gpt import init_params
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1, num_attention_heads=4,
+                    max_seq_len=16, compute_dtype=torch.float32)
+    tok = torch.from_numpy(np.random.RandomState(3).randint(0, 64, size=(2, 16)))
+    out = []
+    for overlap in (False, True):
+        p = init_params(cfg, 0, "cpu", keep_fp32=True)
+        zopt = DistributedFusedAdam(**HYPER)
+        st = zopt.init(p)
+        step = make_train_step(zopt, cfg, graphs=False, dp_group=group1,
+                               overlap_grad_sync=overlap)
+        out.append(([float(step(p, st, tok, torch.roll(tok, -1, 1))) for _ in range(2)],
+                    tree_leaves(p)))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1], strict=True))
     with pytest.raises(ValueError, match="world_size=2"):
         DistributedFusedAdam(**HYPER).init(_torch_tree(params_np(), False), world_size=2)
     with pytest.raises(ValueError, match="gradient-only"):
