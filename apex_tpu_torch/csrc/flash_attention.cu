@@ -12,6 +12,20 @@
 // Layouts: q, out, do (B*H, Sq, D); k, v, dk, dv (B*H_kv, Sk, D); lse and
 // delta (B*H, Sq) fp32; bias (B, Sk) fp32.  dtype float32, bfloat16 or
 // float16, one for q, k, v, do and the outputs.  D % 16 == 0, D <= 128.
+//   The ring-chunk mode (`ring`, bfloat16 only: the RING instantiations
+// of the mma kernels) is what ring attention asks of each chunk pair, as
+// it asks `flash_fwd_pallas(..., out_dtype=float32)` and
+// `flash_bwd_pallas` with an fp32 cotangent and `out_dtype=float32`
+// there: out, dq, dk and dv are written in fp32 from the accumulators,
+// and do is fp32.  The Pallas kernels widen v to fp32 rather than round
+// do, so dp = do.v^T and dv += p^T.do run on fp32 operands; here each
+// fp32 operand is split into bf16 hi + lo (hi = bf16(x), lo = bf16(x -
+// hi), the rest under 2^-16 of x) and the products summed: dp = do_hi.v
+// + do_lo.v, dv += p_hi.do_hi + p_hi.do_lo + p_lo.do_hi (fp32-grade; one
+// TF32 pass, 2^-11, would not be).  ds is rounded to bf16 for ds.k and
+// ds^T.q and p for p.v, as there.  dq splits its do rows once a block;
+// dkv carries the fp32 do through its cp.async ring and splits each
+// stage into one stage of hi and lo tiles behind a second barrier.
 //
 // Numerics, as the Pallas kernels: s = (q . k) * scale (+ bias); causal
 // entries with q_offset + row < k_offset + col are set to NEG_INF =
@@ -508,9 +522,10 @@ using apex_mma::quad_sum;
 // Row `h` (0: g, 1: g + 8) and column of accumulator element e of tile j.
 __device__ __forceinline__ int frag_col(int j, int e, int t) { return 8 * j + 2 * t + (e & 1); }
 
-// Stores rows r0 and r0 + 8 (of `rows` valid) of acc * mul as bf16.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], int r0,
+// Stores rows r0 and r0 + 8 (of `rows` valid) of acc * mul as O: bf16 (or
+// fp16), rounded, or fp32 as it is (the ring-chunk mode's outputs).
+template <typename O, int D>
+__device__ __forceinline__ void store_rows(O* dst, const float (&acc)[D / 8][4], int r0,
                                            int rows, float mul0, float mul1, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -518,9 +533,56 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4],
     if (r >= rows) continue;
     const float mul = h ? mul1 : mul0;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)r * D + 8 * dn + 2 * t) =
-          pack2<T>(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+    for (int dn = 0; dn < D / 8; ++dn) {
+      O* p = dst + (int64_t)r * D + 8 * dn + 2 * t;
+      if constexpr (std::is_same<O, float>::value)
+        *reinterpret_cast<float2*>(p) = make_float2(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+      else
+        *reinterpret_cast<uint32_t*>(p) = pack2<O>(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+    }
+  }
+}
+
+// The ring-chunk mode's split of an fp32 operand into two bf16 ones:
+// x = hi + lo + r with hi = bf16(x), lo = bf16(x - hi) and |r| <= 2^-16 |x|,
+// two values a register as an mma.sync operand wants them (lo element in
+// the low half).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// rows [0, nrows) of an fp32 (nrows x D) tile (row stride D) from src,
+// rows past `valid` zero, by 16-byte cp.async copies.
+template <int D, int THREADS>
+__device__ __forceinline__ void issue_rows_f32(float* dst, const float* src, int nrows,
+                                               int valid) {
+  constexpr int cpr = D / 4;
+  for (int c = threadIdx.x; c < nrows * cpr; c += THREADS) {
+    const int r = c / cpr, col = (c % cpr) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * D + col, src + (ok ? (int64_t)r * D + col : 0), ok ? 16 : 0);
+  }
+}
+
+// hi (row stride D + 8) and lo tiles of the fp32 (nrows x D) tile f (row
+// stride D, or `ld`), by split2; every thread of the block calls it.
+template <int D, int THREADS>
+__device__ __forceinline__ void split_tile(bf16* hi, bf16* lo, const float* f, int64_t ld,
+                                           int nrows, int valid) {
+  constexpr int cpr = D / 4;
+  for (int c = threadIdx.x; c < nrows * cpr; c += THREADS) {
+    const int r = c / cpr, col = (c % cpr) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) x = *reinterpret_cast<const float4*>(f + r * ld + col);
+    uint32_t h0, l0, h1, l1;
+    split2(x.x, x.y, h0, l0);
+    split2(x.z, x.w, h1, l1);
+    *reinterpret_cast<uint2*>(hi + r * (D + 8) + col) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(lo + r * (D + 8) + col) = make_uint2(l0, l1);
   }
 }
 
@@ -566,6 +628,41 @@ __device__ __forceinline__ void mm_px(float (&acc)[MI][D / 8][4], const float (&
   }
 }
 
+// The ring-chunk mode's acc += P . X at fp32 grade: P (the fp32 tiles s)
+// and X (hi + lo, two row-major (64 x D) bf16 tiles) are each split in
+// two, and the three products hi.hi + hi.lo + lo.hi are summed (lo.lo,
+// under 2^-16 of the whole, is left out).
+template <int D, int MI>
+__device__ __forceinline__ void mm_px_split(float (&acc)[MI][D / 8][4],
+                                            const float (&s)[MI][8][4], const bf16* Xh,
+                                            const bf16* Xl, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ph[MI][4], pl[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      split2(s[i][2 * kk][0], s[i][2 * kk][1], ph[i][0], pl[i][0]);
+      split2(s[i][2 * kk][2], s[i][2 * kk][3], ph[i][1], pl[i][1]);
+      split2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1], ph[i][2], pl[i][2]);
+      split2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3], ph[i][3], pl[i][3]);
+    }
+#pragma unroll
+    for (int dn2 = 0; dn2 < D / 16; ++dn2) {
+      uint32_t bh[4], bl[4];
+      apex_mma::ld_b_kn(bh, Xh, D + 8, 16 * dn2, 16 * kk, lane);
+      apex_mma::ld_b_kn(bl, Xl, D + 8, 16 * dn2, 16 * kk, lane);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma16816<bf16>(acc[i][2 * dn2 + n], ph[i], bh[2 * n], bh[2 * n + 1]);
+          mma16816<bf16>(acc[i][2 * dn2 + n], ph[i], bl[2 * n], bl[2 * n + 1]);
+          mma16816<bf16>(acc[i][2 * dn2 + n], pl[i], bh[2 * n], bh[2 * n + 1]);
+        }
+    }
+  }
+}
+
 // The bf16 forward.  A block owns 128 q rows: 4 warps of 32 rows (two
 // m16 tiles, so each k/v fragment read from shared memory feeds two
 // products) for D <= 64; 8 warps of 16 rows for D > 64, whose
@@ -599,9 +696,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMask2 = kNegInf * kLog2e;  // NEG_INF in the base-2 domain
 
-template <typename T, int D>
+// RING (bf16 only): the ring-chunk mode, out written in fp32 from the
+// accumulator (never rounded to bf16), as `flash_fwd_pallas(...,
+// out_dtype=float32)` writes it for ring attention.
+template <typename T, int D, bool RING>
 __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fwd_mma(Args a) {
   using F = Fwd<D>;
+  using O = typename std::conditional<RING, float, T>::type;
+  static_assert(!RING || std::is_same<T, bf16>::value, "the ring-chunk mode is bf16's");
   constexpr int MI = F::kMi, LD = F::kLd, N = F::kN;
   static_assert(F::kRows == 128 && N == 64, "fwd_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
@@ -746,13 +848,13 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, Fwd<D>::kMinBlocks) flash_fw
     }
     mm_px<T, D, MI>(acc, s, Vs, lane);  // acc += P . V, P rounded to bf16
   }
-  T* out = (T*)a.out + ((int64_t)b * a.Sq + q0) * D;
+  O* out = (O*)a.out + ((int64_t)b * a.Sq + q0) * D;
   float* lse = a.lse_out + (int64_t)b * a.Sq + q0;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int r0 = wr + 16 * i + g;
     const float l0 = fmaxf(l[i][0], 1e-30f), l1 = fmaxf(l[i][1], 1e-30f);
-    store_rows<T, D>(out, acc[i], r0, rows, 1.f / l0, 1.f / l1, t);
+    store_rows<O, D>(out, acc[i], r0, rows, 1.f / l0, 1.f / l1, t);
     if (t == 0) {  // natural-log lse; a row that saw no key keeps NEG_INF
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -806,23 +908,39 @@ struct Dkv {
 // Shared memory of the bf16 backward.  dq: the q and do tiles and two
 // stages of k and v; dkv: the k and v tiles, two stages of q and do, and
 // two of lse and delta (fp32).
-__host__ __device__ constexpr size_t dq_mma_smem(int D) {
-  return (size_t)(2 * Dq<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16);
+// The ring-chunk mode (`ring`) adds, for dq, the lo tile of do (its hi
+// tile is the do tile); for dkv, the fp32 do in place of the bf16 one in
+// each ring stage and one stage of its hi and lo tiles.
+__host__ __device__ constexpr size_t dq_mma_smem(int D, bool ring) {
+  return (size_t)(2 * Dq<16>::kRows + 4 * 64 + (ring ? Dq<16>::kRows : 0)) * (D + 8) *
+         sizeof(bf16);
 }
-__host__ __device__ constexpr size_t dkv_mma_smem(int D) {
-  return (size_t)(2 * Dkv<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16) + 4 * 64 * sizeof(float);
+__host__ __device__ constexpr size_t dkv_mma_smem(int D, bool ring) {
+  return (size_t)(2 * Dkv<16>::kRows + 4 * 64) * (D + 8) * sizeof(bf16) + 4 * 64 * sizeof(float) +
+         (ring ? 2 * 64 * D * sizeof(float) : 0);
 }
 
-template <typename T, int D>
+// RING (bf16 only): the ring-chunk mode.  do is fp32 (the ring's
+// cotangent, never rounded to bf16): the block splits its rows once into
+// hi (sDO) and lo (sDOl) bf16 tiles, and dp = do.v^T is the sum of the
+// two products, at fp32 grade as the Pallas kernel's widened v gives it;
+// ds is rounded to bf16 for ds.k as there; dq is written in fp32.
+template <typename T, int D, bool RING>
 __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_mma(Args a) {
   using F = Dq<D>;
+  using O = typename std::conditional<RING, float, T>::type;
+  static_assert(!RING || std::is_same<T, bf16>::value, "the ring-chunk mode is bf16's");
   constexpr int MI = F::kMi, LD = F::kLd, N = F::kN, R = F::kRows;
   constexpr int kStride = 2 * N * LD;  // a ring stage: k, then v
+  // q and do fragments held in registers (never in the ring-chunk mode,
+  // whose do has two)
+  constexpr bool REGS = F::kRegs && !RING;
   static_assert(R == Dq<16>::kRows, "dq_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sDO = sQ + R * LD;
   T* sK0 = sDO + R * LD;
+  T* sDOl = sK0 + 2 * kStride;  // RING: do's lo tile
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x;
   // causal: the heaviest q tiles are launched first
@@ -848,10 +966,14 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
 
   if (n_tiles > 0) {  // the q and do tiles (rows past Sq zero) and the first k/v tile
     issue_rows<D, F::kThreads>(sQ, (const T*)a.q + row0 * D, R, rows);
-    issue_rows<D, F::kThreads>(sDO, (const T*)a.dout + row0 * D, R, rows);
+    if constexpr (!RING) issue_rows<D, F::kThreads>(sDO, (const T*)a.dout + row0 * D, R, rows);
     issue_rows<D, F::kThreads>(sK0, k, N, a.Sk);
     issue_rows<D, F::kThreads>(sK0 + N * LD, v, N, a.Sk);
     cp_async_commit();
+    // RING: the fp32 do rows split into their hi and lo tiles once, by
+    // plain loads (the first tile's barrier publishes them)
+    if constexpr (RING)
+      split_tile<D, F::kThreads>(sDO, sDOl, (const float*)a.dout + row0 * D, D, R, rows);
   }
   float lse[MI][2], delta[MI][2];  // lse in base 2
 #pragma unroll
@@ -862,7 +984,8 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
       lse[i][h] = r < rows ? a.lse_in[row0 + r] * kLog2e : 0.f;
       delta[i][h] = r < rows ? a.delta[row0 + r] : 0.f;
     }
-  uint32_t qf[MI][F::kRegs ? D / 16 : 1][4], df[MI][F::kRegs ? D / 16 : 1][4];
+  uint32_t qf[MI][REGS ? D / 16 : 1][4], df[MI][REGS ? D / 16 : 1][4];
+  uint32_t dl[MI][4];  // RING: do's lo fragments
   float acc[MI][D / 8][4] = {};
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -875,7 +998,7 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
       issue_rows<D, F::kThreads>(nk + N * LD, v + (int64_t)(k0 + N) * D, N, a.Sk - k0 - N);
       cp_async_commit();
     }
-    if (F::kRegs && it == 0) {
+    if (REGS && it == 0) {
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -891,11 +1014,12 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
     float s[MI][8][4] = {}, dp[MI][8][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      if (!F::kRegs) {
+      if (!REGS) {
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           apex_mma::ld_a(qf[i][0], sQ, LD, wr + 16 * i, 16 * kk, lane);
           apex_mma::ld_a(df[i][0], sDO, LD, wr + 16 * i, 16 * kk, lane);
+          if constexpr (RING) apex_mma::ld_a(dl[i], sDOl, LD, wr + 16 * i, 16 * kk, lane);
         }
       }
 #pragma unroll
@@ -905,12 +1029,16 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
         apex_mma::ld_b_nk(bv, Vs, LD, 16 * j2, 16 * kk, lane);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          const uint32_t(&qa)[4] = qf[i][F::kRegs ? kk : 0];
-          const uint32_t(&da)[4] = df[i][F::kRegs ? kk : 0];
+          const uint32_t(&qa)[4] = qf[i][REGS ? kk : 0];
+          const uint32_t(&da)[4] = df[i][REGS ? kk : 0];
           mma16816<T>(s[i][2 * j2], qa, bk[0], bk[1]);
           mma16816<T>(s[i][2 * j2 + 1], qa, bk[2], bk[3]);
           mma16816<T>(dp[i][2 * j2], da, bv[0], bv[1]);
           mma16816<T>(dp[i][2 * j2 + 1], da, bv[2], bv[3]);
+          if constexpr (RING) {  // dp += do_lo . v^T
+            mma16816<T>(dp[i][2 * j2], dl[i], bv[0], bv[1]);
+            mma16816<T>(dp[i][2 * j2 + 1], dl[i], bv[2], bv[3]);
+          }
         }
       }
     }
@@ -960,20 +1088,32 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, Dq<D>::kMinBlocks) flash_dq_m
   // scale, e.g. D = 16, 64; within the band otherwise)
 #pragma unroll
   for (int i = 0; i < MI; ++i)
-    store_rows<T, D>((T*)a.dq + row0 * D, acc[i], wr + 16 * i + g, rows, a.scale, a.scale, t);
+    store_rows<O, D>((O*)a.dq + row0 * D, acc[i], wr + 16 * i + g, rows, a.scale, a.scale, t);
 }
 
-template <typename T, int D>
+// RING (bf16 only): the ring-chunk mode.  do is fp32: each ring stage
+// carries it as it is, and after the stage lands the block splits it into
+// one stage of hi and lo bf16 tiles (a second barrier); dp^T = v.do^T is
+// the sum of two products and dv += p^T.do the sum of three
+// (`mm_px_split`: p split too), both at fp32 grade as the Pallas kernel's
+// fp32 operands give them; ds is rounded to bf16 for ds^T.q as there; dk
+// and dv are written in fp32.
+template <typename T, int D, bool RING>
 __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dkv_mma(Args a) {
   using F = Dkv<D>;
+  using O = typename std::conditional<RING, float, T>::type;
+  static_assert(!RING || std::is_same<T, bf16>::value, "the ring-chunk mode is bf16's");
   constexpr int LD = F::kLd, N = F::kN, R = F::kRows;
-  constexpr int kStride = 2 * N * LD;  // a ring stage: q, then do
+  // a ring stage: q, then do (bf16, or fp32 in the ring-chunk mode)
+  constexpr int kStageBytes = N * LD * (int)sizeof(T) + (RING ? N * D * 4 : N * LD * (int)sizeof(T));
   static_assert(R == Dkv<16>::kRows, "dkv_mma_smem's plan");
   extern __shared__ __align__(128) char smem[];
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + R * LD;
-  T* sQ0 = sV + R * LD;
-  float* sL0 = reinterpret_cast<float*>(sQ0 + 2 * kStride);  // stage i: lse, then delta
+  char* ring0 = reinterpret_cast<char*>(sV + R * LD);
+  float* sL0 = reinterpret_cast<float*>(ring0 + 2 * kStageBytes);  // stage i: lse, then delta
+  T* sDh = reinterpret_cast<T*>(sL0 + 4 * N);  // RING: do's hi and lo tiles
+  T* sDl = sDh + N * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bkv = blockIdx.x;
   // causal: the heaviest key tiles (lowest k0) are launched first
@@ -998,9 +1138,13 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
     const int q0 = qfirst + (it % n_q) * N;
     const int64_t row0 = (int64_t)b * a.Sq + q0;
     const int valid = a.Sq - q0;
-    T* sq = sQ0 + (it & 1) * kStride;
+    T* sq = reinterpret_cast<T*>(ring0 + (it & 1) * kStageBytes);
     issue_rows<D, F::kThreads>(sq, (const T*)a.q + row0 * D, N, valid);
-    issue_rows<D, F::kThreads>(sq + N * LD, (const T*)a.dout + row0 * D, N, valid);
+    if constexpr (RING)
+      issue_rows_f32<D, F::kThreads>(reinterpret_cast<float*>(sq + N * LD),
+                                     (const float*)a.dout + row0 * D, N, valid);
+    else
+      issue_rows<D, F::kThreads>(sq + N * LD, (const T*)a.dout + row0 * D, N, valid);
     float* sl = sL0 + (it & 1) * 2 * N;
     for (int c = threadIdx.x; c < 2 * N; c += F::kThreads) {
       const int r = c % N;
@@ -1031,14 +1175,18 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
         apex_mma::ld_a(vf[kk], sV, LD, wk, 16 * kk, lane);
       }
     }
+    const T* Qs = reinterpret_cast<const T*>(ring0 + (it & 1) * kStageBytes);
+    if constexpr (RING) {  // the fp32 do of this stage into its hi and lo tiles
+      split_tile<D, F::kThreads>(sDh, sDl, reinterpret_cast<const float*>(Qs + N * LD), D, N, N);
+      __syncthreads();
+    }
     const int q0 = qfirst + (it % n_q) * N;
     // the warp's keys are past Sk, or above the diagonal for every q row
     // of the tile
     if (k0 + wk >= a.Sk ||
         (a.causal && a.q_offset + min(a.Sq, q0 + N) - 1 < a.k_offset + k0 + wk))
       continue;
-    const T* Qs = sQ0 + (it & 1) * kStride;
-    const T* DOs = Qs + N * LD;
+    const T* DOs = RING ? sDh : Qs + N * LD;
     const float* Ls = sL0 + (it & 1) * 2 * N;
     const float* Ds = Ls + N;
     // s^T = k.q^T and dp^T = v.do^T: the warp's 16 keys x the tile's 64 q rows
@@ -1060,6 +1208,11 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
         mma16816<T>(st[0][2 * j2 + 1], ka, bq[2], bq[3]);
         mma16816<T>(dpt[2 * j2], va, bd[0], bd[1]);
         mma16816<T>(dpt[2 * j2 + 1], va, bd[2], bd[3]);
+        if constexpr (RING) {  // dp^T += v . do_lo^T
+          apex_mma::ld_b_nk(bd, sDl, LD, 16 * j2, 16 * kk, lane);
+          mma16816<T>(dpt[2 * j2], va, bd[0], bd[1]);
+          mma16816<T>(dpt[2 * j2 + 1], va, bd[2], bd[3]);
+        }
       }
     }
     // p^T = exp2(s^T * scale * log2(e) - lse), masked only where the tile
@@ -1092,20 +1245,24 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, Dkv<D>::kMinBlocks) flash_dk
         for (int e = 0; e < 4; ++e)
           st[0][j][e] = exp2f(st[0][j][e] * sl2 - Ls[frag_col(j, e, t)] * kLog2e);
     }
-    mm_px<T, D, 1>(dv, st, DOs, lane);  // dv += p^T . do, p rounded to bf16
+    if constexpr (RING)
+      mm_px_split<D, 1>(dv, st, sDh, sDl, lane);  // dv += p^T . do at fp32 grade
+    else
+      mm_px<T, D, 1>(dv, st, DOs, lane);  // dv += p^T . do, p rounded to bf16
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[0][j][e] *= dpt[j][e] - Ds[frag_col(j, e, t)];  // ds^T
     mm_px<T, D, 1>(dk, st, Qs, lane);  // dk += ds^T . q (scaled at the end, as dq)
   }
-  store_rows<T, D>((T*)a.dk + krow0 * D, dk[0], wk + g, krows, a.scale, a.scale, t);
-  store_rows<T, D>((T*)a.dv + krow0 * D, dv[0], wk + g, krows, 1.f, 1.f, t);
+  store_rows<O, D>((O*)a.dk + krow0 * D, dk[0], wk + g, krows, a.scale, a.scale, t);
+  store_rows<O, D>((O*)a.dv + krow0 * D, dv[0], wk + g, krows, 1.f, 1.f, t);
 }
 
-// Shared memory of the mma kernels (which: 0 = fwd, 1 = dq, 2 = dkv).
-__host__ __device__ inline size_t mma_smem(int which, int D) {
-  return which == 0 ? fwd_mma_smem(D) : which == 1 ? dq_mma_smem(D) : dkv_mma_smem(D);
+// Shared memory of the mma kernels (which: 0 = fwd, 1 = dq, 2 = dkv;
+// ring: the ring-chunk mode).
+__host__ __device__ inline size_t mma_smem(int which, int D, bool ring) {
+  return which == 0 ? fwd_mma_smem(D) : which == 1 ? dq_mma_smem(D, ring) : dkv_mma_smem(D, ring);
 }
 
 cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, int threads,
@@ -1121,39 +1278,42 @@ cudaError_t launch(void (*kernel)(Args), size_t smem, const Args& a, dim3 grid, 
 // (64-row tiles, rows); the bf16 kernels (rows, tiles), so that a
 // causal grid's heaviest tiles (reversed q tiles, the first key tiles)
 // are dispatched first.
-template <typename T, int D>
+template <typename T, int D, bool RING>
 cudaError_t launch_mma(int which, const Args& a, int rows, cudaStream_t st) {
   if (which == 0)
-    return launch(&flash_fwd_mma<T, D>, mma_smem(0, D), a,
+    return launch(&flash_fwd_mma<T, D, RING>, mma_smem(0, D, RING), a,
                   dim3(rows, (a.Sq + Fwd<D>::kRows - 1) / Fwd<D>::kRows), Fwd<D>::kThreads, st);
   if (which == 1)
-    return launch(&flash_dq_mma<T, D>, mma_smem(1, D), a,
+    return launch(&flash_dq_mma<T, D, RING>, mma_smem(1, D, RING), a,
                   dim3(rows, (a.Sq + Dq<D>::kRows - 1) / Dq<D>::kRows), Dq<D>::kThreads, st);
-  return launch(&flash_dkv_mma<T, D>, mma_smem(2, D), a,
+  return launch(&flash_dkv_mma<T, D, RING>, mma_smem(2, D, RING), a,
                 dim3(rows, (a.Sk + Dkv<D>::kRows - 1) / Dkv<D>::kRows), Dkv<D>::kThreads, st);
 }
 
 // The mma kernels at the head dim a.D, elements of type T.
-template <typename T>
+template <typename T, bool RING = false>
 cudaError_t launch_mma_d(int which, const Args& a, int rows, cudaStream_t st) {
   switch (a.D) {
-    case 16: return launch_mma<T, 16>(which, a, rows, st);
-    case 32: return launch_mma<T, 32>(which, a, rows, st);
-    case 48: return launch_mma<T, 48>(which, a, rows, st);
-    case 64: return launch_mma<T, 64>(which, a, rows, st);
-    case 80: return launch_mma<T, 80>(which, a, rows, st);
-    case 96: return launch_mma<T, 96>(which, a, rows, st);
-    case 112: return launch_mma<T, 112>(which, a, rows, st);
-    default: return launch_mma<T, 128>(which, a, rows, st);
+    case 16: return launch_mma<T, 16, RING>(which, a, rows, st);
+    case 32: return launch_mma<T, 32, RING>(which, a, rows, st);
+    case 48: return launch_mma<T, 48, RING>(which, a, rows, st);
+    case 64: return launch_mma<T, 64, RING>(which, a, rows, st);
+    case 80: return launch_mma<T, 80, RING>(which, a, rows, st);
+    case 96: return launch_mma<T, 96, RING>(which, a, rows, st);
+    case 112: return launch_mma<T, 112, RING>(which, a, rows, st);
+    default: return launch_mma<T, 128, RING>(which, a, rows, st);
   }
 }
 
 // dtype: 0 = float32 (the *_f32 kernels), 1 = bfloat16, 2 = float16 (the
-// mma kernels).
-int dispatch(int which, const Args& a, int rows, int dtype, void* stream) {
+// mma kernels); ring: the bf16 kernels' ring-chunk mode (fp32 do and
+// outputs), bfloat16 only.
+int dispatch(int which, const Args& a, int rows, int dtype, int ring, void* stream) {
   if (a.D % 16 != 0 || a.D <= 0 || a.D > 128 || a.heads % a.kv_heads != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (ring) return dtype == 1 ? (int)launch_mma_d<bf16, true>(which, a, rows, st)
+                              : (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     void (*kernel)(Args) = which == 0   ? &flash_fwd_f32
                            : which == 1 ? &flash_dq_f32
@@ -1189,22 +1349,23 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, in
 }  // namespace
 
 // Shared memory of one block (bytes): which 0 = fwd, 1 = dq, 2 = dkv;
-// dtype 0 = float32, 1 = bfloat16, 2 = float16 (the same plan as bf16).
-extern "C" int apex_flash_smem(int which, int D, int dtype) {
-  return (int)(dtype == 0 ? Plan(D).bytes(which) : mma_smem(which, D));
+// dtype 0 = float32, 1 = bfloat16, 2 = float16 (the same plan as bf16);
+// ring: the bf16 ring-chunk mode.
+extern "C" int apex_flash_smem(int which, int D, int dtype, int ring) {
+  return (int)(dtype == 0 && !ring ? Plan(D).bytes(which) : mma_smem(which, D, ring != 0));
 }
 
 // out (BH, Sq, D), lse (BH, Sq).  bias may be null.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* bias, void* out, void* lse, int BH, int Sq,
                               int Sk, int D, int heads, int kv_heads, float scale,
-                              int causal, int q_offset, int k_offset, int dtype,
+                              int causal, int q_offset, int k_offset, int dtype, int ring,
                               void* stream) {
   Args a = make_args(q, k, v, bias, Sq, Sk, D, heads, kv_heads, scale, causal,
                      q_offset, k_offset);
   a.out = out;
   a.lse_out = (float*)lse;
-  return dispatch(0, a, BH, dtype, stream);
+  return dispatch(0, a, BH, dtype, ring, stream);
 }
 
 // dq (BH, Sq, D) from q, k, v, do, lse and delta = rowsum(do * out).
@@ -1212,14 +1373,15 @@ extern "C" int apex_flash_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta,
                              const void* bias, void* dq, int BH, int Sq, int Sk, int D,
                              int heads, int kv_heads, float scale, int causal,
-                             int q_offset, int k_offset, int dtype, void* stream) {
+                             int q_offset, int k_offset, int dtype, int ring,
+                             void* stream) {
   Args a = make_args(q, k, v, bias, Sq, Sk, D, heads, kv_heads, scale, causal,
                      q_offset, k_offset);
   a.dout = dout;
   a.lse_in = (const float*)lse;
   a.delta = (const float*)delta;
   a.dq = dq;
-  return dispatch(1, a, BH, dtype, stream);
+  return dispatch(1, a, BH, dtype, ring, stream);
 }
 
 // dk, dv (BKV, Sk, D), each summed over the q heads of its GQA group.
@@ -1227,7 +1389,7 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, const void* delta,
                               const void* bias, void* dk, void* dv, int BKV, int Sq,
                               int Sk, int D, int heads, int kv_heads, float scale,
-                              int causal, int q_offset, int k_offset, int dtype,
+                              int causal, int q_offset, int k_offset, int dtype, int ring,
                               void* stream) {
   Args a = make_args(q, k, v, bias, Sq, Sk, D, heads, kv_heads, scale, causal,
                      q_offset, k_offset);
@@ -1236,5 +1398,5 @@ extern "C" int apex_flash_dkv(const void* q, const void* k, const void* v,
   a.delta = (const float*)delta;
   a.dk = dk;
   a.dv = dv;
-  return dispatch(2, a, BKV, dtype, stream);
+  return dispatch(2, a, BKV, dtype, ring, stream);
 }

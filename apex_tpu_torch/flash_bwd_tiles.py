@@ -121,7 +121,7 @@ def runner(lib, q, k, v, do, lse, delta, H):
     BH, S, D = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     st = torch.cuda.current_stream().cuda_stream
-    common = (BH, S, S, D, H, H, float(1.0 / np.sqrt(D)), 1, 0, 0, 1, st)
+    common = (BH, S, S, D, H, H, float(1.0 / np.sqrt(D)), 1, 0, 0, 1, 0, st)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None)
 

@@ -39,8 +39,22 @@ each column linear all-gathers it and each row linear reduce-scatters,
 and the final LayerNorm runs after a gather.  The grads of the LN
 scales and biases and of the row linears' biases then need the sum over
 the group (:func:`sp_grad_sync`).  A group of one rank computes the
-single-device model.  Not in this port yet (they raise): context
-parallelism, MoE and tensor-parallel decoding.
+single-device model.  Not in this port yet (they raise): MoE and
+tensor-parallel decoding.
+
+Context parallelism: :func:`gpt_forward`, :func:`gpt_loss`,
+``train_gpt.make_train_step`` (``cp_group``) and
+:func:`make_pp_train_step` take ``cp_axis``, the context-parallel group,
+where the JAX package passes the ``cp`` axis name.  ``tokens`` are then
+this rank's sequence chunk (rank r holds positions ``r·S .. (r+1)·S``):
+the learned positions are sliced there and RoPE rotates by those global
+positions, attention is :func:`~apex_tpu_torch.transformer.
+context_parallel.ring_attention` over the group (k/v heads repeated
+first under GQA; ``config.cp_overlap`` picks the overlapped hop
+schedule), and the loss is the mean over the local chunk.  Unlike a
+one-rank tp group, a one-rank cp group still runs the ring (one chunk,
+the diagonal one).  It refuses sequence parallelism, which splits the
+sequence too, as the JAX package does.
 
 The forward is three segments, the JAX package's seam for the
 backward-overlapped grad sync (``train_gpt.make_train_step(
@@ -130,13 +144,10 @@ class GPTConfig:
             raise ValueError(
                 f"position_embedding_type must be 'learned' or 'rope' "
                 f"(got {self.position_embedding_type!r})")
-        for name, unsupported in (
-                ("moe_num_experts", self.moe_num_experts > 0),
-                ("cp_overlap", self.cp_overlap)):
-            if unsupported:
-                raise NotImplementedError(
-                    f"GPTConfig.{name} is not ported yet (MoE and context "
-                    f"parallelism come with ROADMAP.md queue 1 item 9)")
+        if self.moe_num_experts > 0:
+            raise NotImplementedError(
+                "GPTConfig.moe_num_experts is not ported yet (MoE comes with ROADMAP.md "
+                "queue 1 item 9)")
         validate_policy(self.remat_policy)
         check_impl(self.fused_ce_impl)
         if self.compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -490,6 +501,27 @@ def _layer_list(layers):
     return [dict(zip(names, vals)) for vals in zip(*(layers[k].unbind(0) for k in names))]
 
 
+def _cp(cp_axis):
+    """The context-parallel group (``cp_axis``, an ``AxisGroup`` of any
+    size: one rank still runs the ring), or None."""
+    if cp_axis is None:
+        return None
+    from apex_tpu_torch.transformer import parallel_state
+
+    if not isinstance(cp_axis, parallel_state.AxisGroup):
+        raise ValueError(f"cp_axis={cp_axis!r}: pass the context-parallel AxisGroup of "
+                         f"apex_tpu_torch.transformer.parallel_state, or None")
+    return cp_axis
+
+
+def _check_cp(config: GPTConfig, cp) -> None:
+    """The JAX package's refusal: sequence parallelism and cp both split
+    the sequence."""
+    if cp is not None and config.sequence_parallel:
+        raise ValueError("sequence_parallel (tp) and context parallelism both shard "
+                         "the sequence; enable one")
+
+
 def _tp(axis_name):
     """The group the model splits over (``axis_name``, an ``AxisGroup``),
     or None: a group of one rank computes the single-device model."""
@@ -534,14 +566,16 @@ def _mlp(x, p, axis_name=None, sp=False):
     return _row_proj(h, p["fc2"], p["fc2_b"], axis_name, sp)
 
 
-def _attention(x, p, config: GPTConfig, rope, axis_name=None):
+def _attention(x, p, config: GPTConfig, rope, axis_name=None, cp=None):
     """Causal self attention on (S, B, H) (S / tp rows under sequence
-    parallelism).  With ``use_flash_attention`` the flash kernels (GQA
-    read in place); otherwise the einsum path: scores in the compute
-    dtype divided by sqrt(head_dim), causal fill, fp32 softmax,
-    probabilities cast to v's dtype.  Under tensor parallelism q, k and
-    v are this rank's heads.  Returns ``(out, (k, v))`` with the
-    post-RoPE k/v (B, kv_heads, S, head_dim) before any GQA repeat."""
+    parallelism).  With ``cp`` (the context-parallel group; x this rank's
+    sequence chunk) ring attention over it, kv heads repeated first; else
+    with ``use_flash_attention`` the flash kernels (GQA read in place);
+    otherwise the einsum path: scores in the compute dtype divided by
+    sqrt(head_dim), causal fill, fp32 softmax, probabilities cast to v's
+    dtype.  Under tensor parallelism q, k and v are this rank's heads.
+    Returns ``(out, (k, v))`` with the post-RoPE k/v (B, kv_heads, S,
+    head_dim) before any GQA repeat."""
     tp = 1 if axis_name is None else axis_name.size()
     sp = config.sequence_parallel and axis_name is not None
     S, B = x.shape[0] * (tp if sp else 1), x.shape[1]
@@ -557,7 +591,14 @@ def _attention(x, p, config: GPTConfig, rope, axis_name=None):
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
     kv = (k, v)
-    if config.use_flash_attention:
+    if cp is not None:
+        from apex_tpu_torch.ops.attention import repeat_kv_heads
+        from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+        # the ring walks matched head counts; GQA repeats before it
+        k, v = repeat_kv_heads(q, k, v)
+        ctx = ring_attention(q, k, v, cp, causal=True, overlap=config.cp_overlap).to(v.dtype)
+    elif config.use_flash_attention:
         ctx = flash_attention(q, k, v, causal=True)
     else:
         if nkv != nh:
@@ -570,24 +611,26 @@ def _attention(x, p, config: GPTConfig, rope, axis_name=None):
     return _row_proj(ctx, p["wo"], p["bo"], axis_name, sp), kv
 
 
-def _layer(x, p, config: GPTConfig, rope, axis_name=None):
+def _layer(x, p, config: GPTConfig, rope, axis_name=None, cp=None):
     """One transformer block on (S, B, H); returns ``(x, (k, v))``."""
     H, eps, cd = config.hidden_size, config.layernorm_eps, config.compute_dtype
     sp = config.sequence_parallel and axis_name is not None
     ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
-    attn, kv = _attention(ln1.to(cd), p, config, rope, axis_name)
+    attn, kv = _attention(ln1.to(cd), p, config, rope, axis_name, cp)
     x = x + attn
     ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
     return x + _mlp(ln2.to(cd), p, axis_name, sp), kv
 
 
-def _embed_segment(embed_w, pos_w, tokens, config: GPTConfig, axis_name=None):
+def _embed_segment(embed_w, pos_w, tokens, config: GPTConfig, axis_name=None, cp=None):
     """Forward segment 1, the JAX package's ``_embed_segment``: tokens
     (B, S) -> the first layer's input (S, B, H) in the compute dtype,
     split over the sequence under sequence parallelism (S / tp rows):
     the embedding (vocab-parallel with a group) plus the learned
-    positions ``pos_w`` (None with rope).  A pipeline's first stage runs
-    it (``pre_fn``)."""
+    positions ``pos_w`` (None with rope), under context parallelism
+    (``cp``; tokens this rank's chunk) the table's rows ``rank·S ..``
+    (``_add_pos_embed``).  A pipeline's first stage runs it
+    (``pre_fn``)."""
     sp = config.sequence_parallel and axis_name is not None
     tokens = torch.as_tensor(tokens, device=embed_w.device).long()
     S = tokens.shape[1]
@@ -597,51 +640,56 @@ def _embed_segment(embed_w, pos_w, tokens, config: GPTConfig, axis_name=None):
         x = vocab_parallel_embedding(tokens, embed_w, axis_name=axis_name)
     x = x.transpose(0, 1)  # (S, B, H)
     if config.position_embedding_type == "learned":
-        x = x + pos_w[:S][:, None, :]
+        start = 0 if cp is None else cp.rank() * S
+        x = x + pos_w[start:start + S][:, None, :]
     x = x.to(config.compute_dtype).contiguous()
     if sp:
         x = scatter_to_sequence_parallel_region(x, axis_name)
     return x
 
 
-def _rope(config: GPTConfig, S: int, device):
-    """RoPE's (cos, sin) at positions 0..S-1, or None."""
+def _rope(config: GPTConfig, S: int, device, start: int = 0):
+    """RoPE's (cos, sin) at positions start..start+S-1 (a cp rank's
+    chunk starts at rank·S), or None."""
     if config.position_embedding_type != "rope":
         return None
-    return rope_cos_sin(torch.arange(S, device=device), config.head_dim, config.rope_theta)
+    return rope_cos_sin(start + torch.arange(S, device=device), config.head_dim,
+                        config.rope_theta)
 
 
-def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = False):
+def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = False, cp=None):
     """The stacked ``layers`` over ``x`` (S or S / tp, B, H): the
     transformer blocks, under :func:`~apex_tpu_torch.models._remat.
     remat_layer` when a gradient is recorded and ``config.
-    checkpoint_layers`` is set.  Returns ``(x, ks, vs)``, the lists of
-    every layer's post-RoPE k/v with ``return_kv``."""
+    checkpoint_layers`` is set; with ``cp`` x is this rank's sequence
+    chunk (RoPE at its global positions, ring attention).  Returns ``(x,
+    ks, vs)``, the lists of every layer's post-RoPE k/v with
+    ``return_kv``."""
     sp = config.sequence_parallel and axis_name is not None
     S = x.shape[0] * (axis_name.size() if sp else 1)
-    rope = _rope(config, S, x.device)
+    rope = _rope(config, S, x.device, 0 if cp is None else cp.rank() * S)
     remat = config.checkpoint_layers and torch.is_grad_enabled() and not return_kv
     ks, vs = [], []
     for p in _layer_list(layers):
         if remat:
-            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name)[0],
+            x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name, cp)[0],
                             config.remat_policy)(x)
             continue
-        x, (k, v) = _layer(x, p, config, rope, axis_name)
+        x, (k, v) = _layer(x, p, config, rope, axis_name, cp)
         if return_kv:
             ks.append(k)
             vs.append(v)
     return x, ks, vs
 
 
-def _layers_segment(layers_p, x, config: GPTConfig, axis_name=None):
+def _layers_segment(layers_p, x, config: GPTConfig, axis_name=None, cp=None):
     """Forward segment 2, the JAX package's ``_layers_segment``: the
     stacked layers over ``x`` (:func:`_layers`, remat per layer as
     configured).  The layer leaves are stacked, so every ``layers.*``
     gradient is complete only when the whole segment's backward is: one
     readiness stage, not L of them.  A pipeline stage runs it on its
-    layers (``stage_fn``)."""
-    return _layers(layers_p, x, config, axis_name)[0]
+    layers (``stage_fn``), ``cp`` the context-parallel group."""
+    return _layers(layers_p, x, config, axis_name, cp=cp)[0]
 
 
 def _head_segment(x, ln_scale, ln_bias, config: GPTConfig, axis_name=None):
@@ -672,7 +720,7 @@ _OVERLAP_STAGES = {"final_ln_scale": 0, "final_ln_bias": 0, "layers": 1,
 
 
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
-                return_kv: bool = False, axis_name=None):
+                return_kv: bool = False, axis_name=None, cp_axis=None):
     """tokens (B, S) -> logits (S, B, V) fp32, or with ``return_hidden``
     the pre-head activations (S, B, H) after the final LayerNorm.  With
     ``return_kv`` a trailing ``(k, v)`` pair is appended, each (L, B,
@@ -685,18 +733,26 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     With ``axis_name`` (the tensor-parallel group; ``params`` this rank's
     shard) the logits are the vocab-local (S, B, V / tp), and the hidden
     states (after the copy-to-region, whose backward sums the head's dx
-    over the group) are whole on every rank."""
+    over the group) are whole on every rank.
+
+    With ``cp_axis`` (the context-parallel group) ``tokens`` are this
+    rank's sequence chunk, positions are global and attention is the
+    ring over the group (module docstring); with
+    ``config.sequence_parallel`` it raises ValueError, as the JAX
+    package does."""
+    cp = _cp(cp_axis)
+    _check_cp(config, cp)
     axis_name = _tp(axis_name)
     if axis_name is not None:
         if return_kv:
             raise NotImplementedError(f"gpt_forward(return_kv=True) under tensor "
                                       f"parallelism is not ported yet: {TP_DECODE_ITEM}")
         check_tp(config, axis_name.size())
-    x = _embed_segment(params["embed"], params.get("pos_embed"), tokens, config, axis_name)
+    x = _embed_segment(params["embed"], params.get("pos_embed"), tokens, config, axis_name, cp)
     if return_kv:
-        x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv)
+        x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv, cp)
     else:
-        x = _layers_segment(params["layers"], x, config, axis_name)
+        x = _layers_segment(params["layers"], x, config, axis_name, cp)
     x = _head_segment(x, params["final_ln_scale"], params["final_ln_bias"], config, axis_name)
     out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
     if return_kv:
@@ -724,14 +780,18 @@ def lm_head_loss(x, embed, targets, config: GPTConfig, axis_name=None):
     return lse - logits.gather(-1, t_cl[..., None])[..., 0]
 
 
-def gpt_loss(params, tokens, targets, config: GPTConfig, axis_name=None):
+def gpt_loss(params, tokens, targets, config: GPTConfig, axis_name=None, cp_axis=None):
     """Mean causal-LM cross entropy of ``tokens`` (B, S) against
     ``targets`` (B, S): the JAX package's ``gpt_loss``, over the
     tensor-parallel group ``axis_name`` when given (``params`` this
-    rank's shard; the loss is the same on every rank)."""
+    rank's shard; the loss is the same on every rank).  With ``cp_axis``
+    (the context-parallel group) tokens and targets are this rank's
+    sequence chunk and the mean is over the local chunk: the ranks'
+    means average to the global one (the data-axis gradient calculus)."""
     dev = params["embed"].device
     t = torch.as_tensor(targets, device=dev).transpose(0, 1)  # (S, B)
-    hidden = gpt_forward(params, tokens, config, return_hidden=True, axis_name=axis_name)
+    hidden = gpt_forward(params, tokens, config, return_hidden=True, axis_name=axis_name,
+                         cp_axis=cp_axis)
     return lm_head_loss(hidden, params["embed"], t, config, axis_name).mean()
 
 
@@ -870,10 +930,6 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
     return x[0], kv_pools
 
 
-#: what MoE and context parallelism inside the pipeline step wait for
-PP_ITEM = "MoE and context parallelism, ROADMAP.md queue 1 item 9"
-
-
 def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
                        virtual_pipeline_size: int = 1, *, loss_scaler=None, step_guard=None,
                        clip_grad_norm=None, graphs=None, warmup: int = 1, telemetry=None,
@@ -918,13 +974,17 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
 
     ``dp_group`` / ``tp_group``: ``AxisGroup`` handles of
     :mod:`~apex_tpu_torch.transformer.parallel_state`; ``pp_group``: the
-    pipeline group (default the registered one).  Compiled unless
+    pipeline group (default the registered one).  ``cp_axis``: the
+    context-parallel group, cp inside every stage (the JAX step's): the
+    microbatches' tokens and targets are this rank's sequence chunk, each
+    stage's layers run ring attention over the group, and the loss and
+    grads are averaged over it after the schedule, before the dp sync
+    (ValueError with sequence parallelism).  Compiled unless
     ``graphs=False``: the whole step, the stage-to-stage messages with it,
     is one CUDA graph after the eager warm-up (which makes every NCCL
     channel before the capture).
-    MoE (``GPTConfig``) and ``cp_axis`` raise (ROADMAP.md queue 1 item
-    9), and so does a hierarchical ``dp_group``, as in the JAX
-    package."""
+    MoE (``GPTConfig``, ROADMAP.md queue 1 item 9) raises, and so does a
+    hierarchical ``dp_group``, as in the JAX package."""
     from apex_tpu_torch.optimizers.tree import tree_leaves
     from apex_tpu_torch.train_gpt import _check_zero_axis, _make_step
     from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
@@ -933,9 +993,8 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
         forward_backward_pipelining_without_interleaving,
     )
 
-    if cp_axis is not None:
-        raise NotImplementedError(f"context parallelism inside the pipeline step is not "
-                                  f"ported yet: it comes with {PP_ITEM}")
+    cp = _cp(cp_axis)
+    _check_cp(config, cp)
     if isinstance(dp_group, (tuple, list)):
         raise NotImplementedError("the pipeline step's dp sync is flat: a hierarchical dp "
                                   "split runs through make_train_step, as in the JAX package")
@@ -958,10 +1017,10 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
 
     def pre_fn(shared, mb):
         return _embed_segment(shared["embed"], shared.get("pos_embed"), mb["tokens"], config,
-                              tp)
+                              tp, cp)
 
     def stage_fn(layers, x):
-        return _layers_segment(layers, x, config, tp)
+        return _layers_segment(layers, x, config, tp, cp)
 
     def post_fn(shared, y, mb):
         h = _head_segment(y, shared["final_ln_scale"], shared["final_ln_bias"], config, tp)
@@ -995,4 +1054,4 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
                       warmup=warmup, telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=sync,
                       clip_sumsq=reduce if clip_grad_norm is not None else None,
-                      norm_sumsq=reduce, chaos=chaos)
+                      norm_sumsq=reduce, chaos=chaos, cp_group=cp)

@@ -5,7 +5,9 @@ its plain PyTorch version, and a launch counter ``LAUNCHES``.
 - :mod:`~apex_tpu_torch.ops.layer_norm` — LayerNorm and RMSNorm forward
   and backward, with or without weight and bias;
 - :mod:`~apex_tpu_torch.ops.flash_attention` — flash attention forward,
-  dq and dk/dv, and their autograd Function;
+  dq and dk/dv, and their autograd Function (the ring-chunk mode's
+  launches counted apart: ``RING_FWD_LAUNCHES``, ``RING_DQ_LAUNCHES``,
+  ``RING_DKV_LAUNCHES``);
 - :mod:`~apex_tpu_torch.ops.decode_attention` — paged decode attention;
 - :mod:`~apex_tpu_torch.ops.decode_sampling` — the fused sampling head;
 - :mod:`~apex_tpu_torch.ops.fused_ce_kernels` — the fused LM-head cross
@@ -34,7 +36,8 @@ import importlib
 COUNTERS = (
     ("layer_norm", "LAUNCHES"), ("layer_norm", "BWD_LAUNCHES"),
     ("flash_attention", "FWD_LAUNCHES"), ("flash_attention", "DQ_LAUNCHES"),
-    ("flash_attention", "DKV_LAUNCHES"),
+    ("flash_attention", "DKV_LAUNCHES"), ("flash_attention", "RING_FWD_LAUNCHES"),
+    ("flash_attention", "RING_DQ_LAUNCHES"), ("flash_attention", "RING_DKV_LAUNCHES"),
     ("fused_ce_kernels", "FWD_LAUNCHES"), ("fused_ce_kernels", "DX_LAUNCHES"),
     ("fused_ce_kernels", "DEMBED_LAUNCHES"),
     ("decode_attention", "LAUNCHES"), ("decode_attention", "WIDE_LAUNCHES"),

@@ -61,21 +61,25 @@ SIGNATURES = {
     # rms, dtype, stream
     "apex_layer_norm_bwd": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "apex_flash_smem": (_I, [_I, _I, _I]),
+    # which, D, dtype, ring
+    "apex_flash_smem": (_I, [_I, _I, _I, _I]),
     # q, k, v, bias, out, lse, BH, Sq, Sk, D, heads, kv_heads, scale,
-    # causal, q_offset, k_offset, dtype, stream
+    # causal, q_offset, k_offset, dtype, ring, stream (ring: the bf16
+    # ring-chunk mode, fp32 out)
     "apex_flash_fwd": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
     # q, k, v, do, lse, delta, bias, dq, BH, Sq, Sk, D, heads, kv_heads,
-    # scale, causal, q_offset, k_offset, dtype, stream
+    # scale, causal, q_offset, k_offset, dtype, ring, stream (ring: fp32
+    # do and dq)
     "apex_flash_dq": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-             _I, _P]),
+             _I, _I, _P]),
     # q, k, v, do, lse, delta, bias, dk, dv, BKV, Sq, Sk, D, heads,
-    # kv_heads, scale, causal, q_offset, k_offset, dtype, stream
+    # kv_heads, scale, causal, q_offset, k_offset, dtype, ring, stream
+    # (ring: fp32 do, dk and dv)
     "apex_flash_dkv": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-             _I, _I, _P]),
+             _I, _I, _I, _P]),
     # width, group, D, q_dtype, kv_dtype, out (int32 x 3)
     "apex_paged_decode_attention_plan": (_I, [_I, _I, _I, _I, _I, _P]),
     # q, k_pool, v_pool, page_table, lengths, out, B, width, H, HKV, D,

@@ -30,6 +30,22 @@ reference has no fp16 Pallas kernel: at fp16 it runs the scan, the
 plain versions here, so the fp16 kernels stand in for an XLA
 composite.
 
+The ring-chunk mode (``out_dtype=torch.float32`` with bfloat16 q, k and
+v) is what ring attention asks of the kernels
+(:mod:`apex_tpu_torch.transformer.context_parallel`), as
+``flash_fwd_pallas(..., out_dtype=float32)`` and ``flash_bwd_pallas``
+with an fp32 cotangent and ``out_dtype=float32`` are asked there:
+:func:`flash_fwd` writes out in fp32 from the fp32 accumulator;
+:func:`flash_dq` and :func:`flash_dkv` take the fp32 ``do`` beside the
+bf16 q, k and v and write fp32 grads.  ``do`` is fp32 only in this mode:
+every other dtype mismatch raises.  The kernels keep ``dp = do . v^T``
+and ``dv += p^T . do`` at fp32 grade (each fp32 operand split into bf16
+hi + lo, two or three products: the Pallas kernels widen v to fp32
+instead) and round ds to bf16 for dq and dk as the Pallas kernels do.
+``RING_FWD_LAUNCHES``, ``RING_DQ_LAUNCHES`` and ``RING_DKV_LAUNCHES``
+count these launches apart from the dense path's.  The plain versions
+are the same functions returning their fp32 results uncast.
+
 :class:`FlashAttention` is the ``custom_vjp`` of ``_flash_pallas``: the
 forward saves q, k, v, the bias, out and lse; the backward computes
 ``delta = rowsum(do * out)`` in fp32 with a torch op (XLA's job in the
@@ -51,6 +67,10 @@ from apex_tpu_torch.ops.attention import (
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+#: launches in the ring-chunk mode (``out_dtype=torch.float32`` from bf16)
+RING_FWD_LAUNCHES = 0
+RING_DQ_LAUNCHES = 0
+RING_DKV_LAUNCHES = 0
 
 #: shared memory one block may use on the H100 (227 KB)
 _SMEM_LIMIT = 232448
@@ -75,7 +95,7 @@ class BwdLaunchPlan(NamedTuple):
     smem_bytes: int      # dynamic shared memory of one block
 
 
-def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
+def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0, ring=False):
     """The bf16 (and fp16) backward's schedule for one (batch, head) row,
     as the C kernels index it.  ``which`` 1: dq, a block of DQ_BLOCK_ROWS q rows
     walks the 64-key tiles up to the last key one of its rows (below
@@ -84,7 +104,10 @@ def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
     tiles from the first with a row that sees its first key (for each q
     head of its GQA group, the same tiles); its first blocks are the
     heaviest.  Shared memory: the owned tiles, two ring stages of two
-    bf16 tiles (row stride D + 8) and, for dkv, two of lse and delta."""
+    bf16 tiles (row stride D + 8) and, for dkv, two of lse and delta.
+    ``ring`` (the ring-chunk mode) adds do's lo tile to dq's and, to
+    dkv's, the fp32 do in each ring stage and one stage of its hi and lo
+    tiles (which the bf16 do tiles' room holds)."""
     if which not in (1, 2):
         raise ValueError(f"which must be 1 (dq) or 2 (dkv), got {which}")
     N = BWD_TILE
@@ -100,7 +123,7 @@ def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
             first.append(0)
             last.append(-(-kend // N) - 1)
         order = tuple(reversed(range(n_blocks))) if causal else tuple(range(n_blocks))
-        smem = (2 * R + 4 * N) * (D + 8) * 2
+        smem = (2 * R + 4 * N + (R if ring else 0)) * (D + 8) * 2
     else:
         R = DKV_BLOCK_ROWS
         n_blocks = -(-Sk // R)
@@ -110,7 +133,7 @@ def bwd_launch_plan(which, Sq, Sk, D, causal, q_offset=0, k_offset=0):
             first.append(r // N if r < Sq else -(-Sq // N))
             last.append(-(-Sq // N) - 1)
         order = tuple(range(n_blocks))
-        smem = (2 * R + 4 * N) * (D + 8) * 2 + 4 * N * 4
+        smem = (2 * R + 4 * N) * (D + 8) * 2 + 4 * N * 4 + (2 * N * D * 4 if ring else 0)
     return BwdLaunchPlan(R, N, order, tuple(first), tuple(last), smem)
 
 
@@ -127,14 +150,16 @@ def _unflatten(q, k, v, kv_bias, heads, kv_heads):
 
 
 def flash_fwd_plain(q, k, v, scale, causal, q_offset=0, k_offset=0, kv_bias=None,
-                    heads=1, kv_heads=None):
+                    heads=1, kv_heads=None, out_dtype=None):
     """Plain version of :func:`flash_fwd`: ``_attend_fwd_scan`` in fp32,
-    out cast to q's dtype.  Returns ``(out (BH, Sq, D), lse (BH, Sq, 1))``."""
+    out cast to ``out_dtype`` (q's dtype by default; fp32, uncast, in the
+    ring-chunk mode).  Returns ``(out (BH, Sq, D), lse (BH, Sq, 1))``."""
     kv_heads = kv_heads or heads
     q4, k4, v4, bias = _unflatten(q, k, v, kv_bias, heads, kv_heads)
     out, lse = _attend_fwd_scan(q4, k4, v4, scale, causal, q_offset, k_offset,
                                 _PLAIN_BLOCK_K, kv_bias=bias)
-    return out.to(q.dtype).reshape(q.shape), lse.reshape(q.shape[0], q.shape[1], 1)
+    return (out.to(out_dtype or q.dtype).reshape(q.shape),
+            lse.reshape(q.shape[0], q.shape[1], 1))
 
 
 def _bwd_plain(q, k, v, do, lse, delta, scale, causal, q_offset, k_offset, kv_bias,
@@ -153,25 +178,61 @@ def _bwd_plain(q, k, v, do, lse, delta, scale, causal, q_offset, k_offset, kv_bi
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, scale, causal, q_offset=0, k_offset=0,
-                   kv_bias=None, heads=1, kv_heads=None):
+                   kv_bias=None, heads=1, kv_heads=None, out_dtype=None):
     """Plain version of :func:`flash_dq`: ``flash_bwd_from_lse``'s dq in
-    fp32, cast to q's dtype."""
+    fp32, cast to ``out_dtype`` (q's dtype by default)."""
     dq = _bwd_plain(q, k, v, do, lse, delta, scale, causal, q_offset, k_offset,
                     kv_bias, heads, kv_heads)[0]
-    return dq.to(q.dtype).reshape(q.shape)
+    return dq.to(out_dtype or q.dtype).reshape(q.shape)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, scale, causal, q_offset=0, k_offset=0,
-                    kv_bias=None, heads=1, kv_heads=None):
+                    kv_bias=None, heads=1, kv_heads=None, out_dtype=None):
     """Plain version of :func:`flash_dkv`: ``flash_bwd_from_lse``'s dk
-    and dv in fp32, summed over each GQA group, cast to k's/v's dtype."""
+    and dv in fp32, summed over each GQA group, cast to ``out_dtype``
+    (k's / v's dtype by default)."""
     _, dk, dv = _bwd_plain(q, k, v, do, lse, delta, scale, causal, q_offset, k_offset,
                            kv_bias, heads, kv_heads)
-    return dk.to(k.dtype).reshape(k.shape), dv.to(v.dtype).reshape(v.shape)
+    return (dk.to(out_dtype or k.dtype).reshape(k.shape),
+            dv.to(out_dtype or v.dtype).reshape(v.shape))
 
 
-def _problem(q, k, v, kv_bias, heads, kv_heads, extra=()):
-    """What the kernels cannot take about these arguments, or None."""
+def ring_mode(q, out_dtype) -> bool:
+    """Whether a call asks for the ring-chunk mode: fp32 outputs from
+    lower-precision q, k and v (bfloat16 is the one the kernels take).
+    Raises on an ``out_dtype`` that is neither q's dtype nor fp32."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return False
+    if out_dtype != torch.float32:
+        raise ValueError(f"out_dtype must be q's dtype ({q.dtype}) or torch.float32, "
+                         f"got {out_dtype}")
+    return True
+
+
+def dtype_problem(named, ring=False):
+    """What the kernels cannot take about the dtypes of ``named`` (``(name,
+    tensor)`` pairs, q first, then k, v and any of do, lse, delta), or
+    None: one dtype of float32, bfloat16 or float16 for q, k, v and do;
+    in the ring-chunk mode (``ring``) bfloat16 q, k and v beside an fp32
+    do shaped as q, and no other mismatch."""
+    q = named[0][1]
+    if q.dtype not in _build.DTYPE_CODES:
+        return f"dtype must be float32, bfloat16 or float16, got {q.dtype}"
+    if ring and q.dtype != torch.bfloat16:
+        return (f"the ring-chunk mode (fp32 outputs from narrower inputs) takes bfloat16 "
+                f"q, k and v, got {q.dtype}")
+    for name, t in named:
+        if name == "do" and ring:
+            if t.dtype != torch.float32 or t.shape != q.shape:
+                return "do must be a float32 tensor shaped as q in the ring-chunk mode"
+        elif name in ("q", "k", "v", "do") and t.dtype != q.dtype:
+            return f"{name} has dtype {t.dtype}, q {q.dtype}: one dtype is required"
+    return None
+
+
+def _problem(q, k, v, kv_bias, heads, kv_heads, extra=(), ring=False):
+    """What the kernels cannot take about these arguments, or None
+    (``ring``: the ring-chunk mode, whose do is fp32)."""
     if q.device.type != "cuda":
         return f"tensors on {q.device} are not supported"
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
@@ -184,13 +245,13 @@ def _problem(q, k, v, kv_bias, heads, kv_heads, extra=()):
         return f"heads={heads}, kv_heads={kv_heads} do not divide B*H={BH}"
     if k.shape[0] != BH // heads * kv_heads:
         return f"k has {k.shape[0]} rows, expected B*H_kv={BH // heads * kv_heads}"
-    if q.dtype not in _build.DTYPE_CODES:
-        return f"dtype must be float32, bfloat16 or float16, got {q.dtype}"
-    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+    named = (("q", q), ("k", k), ("v", v)) + tuple(extra)
+    problem = dtype_problem(named, ring)
+    if problem:
+        return problem
+    for name, t in named:
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             return f"{name} must be contiguous, 16-byte aligned and on {q.device}"
-        if name in ("q", "k", "v", "do") and t.dtype != q.dtype:
-            return f"{name} has dtype {t.dtype}, q {q.dtype}: one dtype is required"
         if name in ("lse", "delta") and (t.dtype != torch.float32
                                         or t.numel() != BH * Sq):
             return f"{name} must be float32 (B*H, Sq, 1)"
@@ -202,13 +263,13 @@ def _problem(q, k, v, kv_bias, heads, kv_heads, extra=()):
     return None
 
 
-def _prepare(which, name, q, k, v, kv_bias, heads, kv_heads, extra=()):
-    problem = _problem(q, k, v, kv_bias, heads, kv_heads, extra)
+def _prepare(which, name, q, k, v, kv_bias, heads, kv_heads, extra=(), ring=False):
+    problem = _problem(q, k, v, kv_bias, heads, kv_heads, extra, ring)
     if problem:
         raise ValueError(f"{name}: {problem}")
     lib, stream = _build.prepare(q.device)
     dtype = _build.DTYPE_CODES[q.dtype]
-    smem = lib.apex_flash_smem(which, q.shape[2], dtype)
+    smem = lib.apex_flash_smem(which, q.shape[2], dtype, int(ring))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: {smem} B of shared memory at D={q.shape[2]}, "
                          f"{q.dtype} exceeds {_SMEM_LIMIT}")
@@ -217,68 +278,82 @@ def _prepare(which, name, q, k, v, kv_bias, heads, kv_heads, extra=()):
 
 
 def flash_fwd(q, k, v, scale, causal, q_offset=0, k_offset=0, kv_bias=None, heads=1,
-              kv_heads=None):
+              kv_heads=None, out_dtype=None):
     """Flash attention forward on the flattened layout; returns ``(out
-    (BH, Sq, D) q.dtype, lse (BH, Sq, 1) fp32)``."""
+    (BH, Sq, D) in out_dtype (q's by default), lse (BH, Sq, 1) fp32)``.
+    ``out_dtype=torch.float32`` with bf16 inputs is the ring-chunk mode."""
     kv_heads = kv_heads or heads
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, q_offset, k_offset, kv_bias,
-                               heads, kv_heads)
+                               heads, kv_heads, out_dtype)
+    ring = ring_mode(q, out_dtype)
     lib, stream, dtype, bias_ptr = _prepare(0, "flash_fwd", q, k, v, kv_bias, heads,
-                                            kv_heads)
+                                            kv_heads, ring=ring)
     BH, Sq, D = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if ring else q.dtype, device=q.device)
     lse = torch.empty((BH, Sq, 1), dtype=torch.float32, device=q.device)
     if BH == 0 or Sq == 0:
         return out, lse
     _build.check(lib.apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         lse.data_ptr(), BH, Sq, k.shape[1], D, heads, kv_heads, float(scale),
-        int(causal), int(q_offset), int(k_offset), dtype, stream), "flash_fwd")
-    global FWD_LAUNCHES
-    FWD_LAUNCHES += 1
+        int(causal), int(q_offset), int(k_offset), dtype, int(ring), stream), "flash_fwd")
+    global FWD_LAUNCHES, RING_FWD_LAUNCHES
+    if ring:
+        RING_FWD_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, scale, causal, q_offset=0, k_offset=0,
-             kv_bias=None, heads=1, kv_heads=None):
-    """dq (BH, Sq, D) in q's dtype from the forward's lse and
-    ``delta = rowsum(do * out)`` (BH, Sq, 1) fp32."""
+             kv_bias=None, heads=1, kv_heads=None, out_dtype=None):
+    """dq (BH, Sq, D) in out_dtype (q's by default) from the forward's
+    lse and ``delta = rowsum(do * out)`` (BH, Sq, 1) fp32.  In the
+    ring-chunk mode (``out_dtype=torch.float32``, bf16 q, k, v) ``do`` is
+    fp32."""
     kv_heads = kv_heads or heads
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, scale, causal, q_offset,
-                              k_offset, kv_bias, heads, kv_heads)
+                              k_offset, kv_bias, heads, kv_heads, out_dtype)
+    ring = ring_mode(q, out_dtype)
     lib, stream, dtype, bias_ptr = _prepare(
         1, "flash_dq", q, k, v, kv_bias, heads, kv_heads,
-        (("do", do), ("lse", lse), ("delta", delta)))
+        (("do", do), ("lse", lse), ("delta", delta)), ring)
     BH, Sq, D = q.shape
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=torch.float32 if ring else q.dtype, device=q.device)
     if BH == 0 or Sq == 0:
         return dq
     _build.check(lib.apex_flash_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias_ptr, dq.data_ptr(), BH, Sq, k.shape[1], D, heads,
         kv_heads, float(scale), int(causal), int(q_offset), int(k_offset), dtype,
-        stream), "flash_dq")
-    global DQ_LAUNCHES
-    DQ_LAUNCHES += 1
+        int(ring), stream), "flash_dq")
+    global DQ_LAUNCHES, RING_DQ_LAUNCHES
+    if ring:
+        RING_DQ_LAUNCHES += 1
+    else:
+        DQ_LAUNCHES += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, scale, causal, q_offset=0, k_offset=0,
-              kv_bias=None, heads=1, kv_heads=None):
-    """(dk, dv), each (B*H_kv, Sk, D) in k's dtype, summed over the q
-    heads of each kv head's group."""
+              kv_bias=None, heads=1, kv_heads=None, out_dtype=None):
+    """(dk, dv), each (B*H_kv, Sk, D) in out_dtype (k's by default),
+    summed over the q heads of each kv head's group.  In the ring-chunk
+    mode (``out_dtype=torch.float32``, bf16 q, k, v) ``do`` is fp32."""
     kv_heads = kv_heads or heads
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, scale, causal, q_offset,
-                               k_offset, kv_bias, heads, kv_heads)
+                               k_offset, kv_bias, heads, kv_heads, out_dtype)
+    ring = ring_mode(q, out_dtype)
     lib, stream, dtype, bias_ptr = _prepare(
         2, "flash_dkv", q, k, v, kv_bias, heads, kv_heads,
-        (("do", do), ("lse", lse), ("delta", delta)))
+        (("do", do), ("lse", lse), ("delta", delta)), ring)
     BH, Sq, D = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    odt = torch.float32 if ring else k.dtype
+    dk = torch.empty(k.shape, dtype=odt, device=k.device)
+    dv = torch.empty(v.shape, dtype=odt, device=v.device)
     if k.shape[0] == 0 or k.shape[1] == 0:
         return dk, dv
     if Sq == 0:
@@ -287,9 +362,12 @@ def flash_dkv(q, k, v, do, lse, delta, scale, causal, q_offset=0, k_offset=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias_ptr, dk.data_ptr(), dv.data_ptr(), k.shape[0], Sq,
         k.shape[1], D, heads, kv_heads, float(scale), int(causal), int(q_offset),
-        int(k_offset), dtype, stream), "flash_dkv")
-    global DKV_LAUNCHES
-    DKV_LAUNCHES += 1
+        int(k_offset), dtype, int(ring), stream), "flash_dkv")
+    global DKV_LAUNCHES, RING_DKV_LAUNCHES
+    if ring:
+        RING_DKV_LAUNCHES += 1
+    else:
+        DKV_LAUNCHES += 1
     return dk, dv
 
 

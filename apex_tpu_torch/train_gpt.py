@@ -153,17 +153,19 @@ def setup(args, params_tree=None):
     return config, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev)
 
 
-def loss_and_grads(params, tokens, targets, config, post_loss=None, axis_name=None):
+def loss_and_grads(params, tokens, targets, config, post_loss=None, axis_name=None,
+                   cp_axis=None):
     """``value_and_grad(gpt_loss)``: the loss and a tree of gradients
     shaped like ``params``; with ``post_loss`` (the loss scaler's
     ``scale``) of ``post_loss(loss)``; over the tensor-parallel group
-    ``axis_name`` when given.  Leaves that do not require a gradient yet
-    are made to."""
+    ``axis_name`` and the context-parallel group ``cp_axis`` when given
+    (then of this rank's local-chunk loss).  Leaves that do not require
+    a gradient yet are made to."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         if not leaf.requires_grad:
             leaf.requires_grad_(True)
-    loss = gpt_loss(params, tokens, targets, config, axis_name=axis_name)
+    loss = gpt_loss(params, tokens, targets, config, axis_name=axis_name, cp_axis=cp_axis)
     if post_loss is not None:
         loss = post_loss(loss)
     grads = torch.autograd.grad(loss, leaves)
@@ -354,13 +356,15 @@ def _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype):
     return qspec
 
 
-def _check_overlap(opt, config, dp_group, qspec):
+def _check_overlap(opt, config, dp_group, qspec, cp=None):
     """The JAX step's refusals of ``overlap_grad_sync`` (its messages)."""
     for bad, why in (
             (config.moe_num_experts > 0, "MoE (expert grads are dp-sharded sums, not "
                                          "bucketed pmean wires)"),
             (config.sequence_parallel, "sequence parallelism (sp_grad_sync is a whole-tree "
-                                       "pass after the backward)")):
+                                       "pass after the backward)"),
+            (cp is not None, "context parallelism (cp grads need a second pmean after the "
+                             "backward)")):
         if bad:
             raise NotImplementedError(f"overlap_grad_sync is not wired for {why}")
     if dp_group is None:
@@ -526,7 +530,7 @@ def overlap_value_and_grads(opt, config, params, state, tokens, targets, post, s
 def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_norm=None,
                     graphs=None, warmup=1, telemetry=None, dp_group=None,
                     overlap_grad_sync=False, tp_group=None, chaos=None, grad_sync_dtype=None,
-                    inplace_update=True):
+                    inplace_update=True, cp_group=None):
     """The single-device form of the JAX package's ``make_train_step``
     (apex_tpu/models/gpt.py): ``step(params, state, [scaler_state],
     [guard_state], [stats], tokens, targets) -> loss``, a scaler state
@@ -603,18 +607,31 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     (``init(params, param_specs=param_specs(config), axis_sizes={"tp":
     N})``); its reduce-scatter is the dp sync and its vote covers dp.
 
+    Context parallelism: with ``cp_group`` (the context-parallel
+    ``AxisGroup``, the JAX step's ``cp_axis``) ``tokens`` and ``targets``
+    are this rank's sequence chunk, the loss and its gradients are those
+    of :func:`~apex_tpu_torch.models.gpt.gpt_loss` with ``cp_axis`` (ring
+    attention over the group), and both are averaged over the group
+    before the dp sync (``sync_loss_and_grads``: cp acts as a data axis
+    for the grads); a ZeRO optimizer's reduce-scatter then stays the dp
+    half.  A one-rank group still runs the ring.  It raises with
+    sequence parallelism (ValueError) and with ``overlap_grad_sync``
+    (NotImplementedError), as the JAX step does.
+
     ``chaos``: a :class:`~apex_tpu_torch.resilience.chaos.ChaosMonkey`
     whose planned NaN steps poison the guarded step's gradients (it needs
     ``step_guard``, whose device step counter keys the plan): the loss is
     multiplied by :meth:`~apex_tpu_torch.resilience.chaos.ChaosMonkey
     .grad_fault` before the backward, on the device, so a captured step
     replays the plan with no host read; the guard then skips the step."""
-    from apex_tpu_torch.models.gpt import _tp, check_tp, clip_sumsq_reduce
+    from apex_tpu_torch.models.gpt import _check_cp, _cp, _tp, check_tp, clip_sumsq_reduce
 
+    cp = _cp(cp_group)
+    _check_cp(config, cp)
     qspec = _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype)
     _check_zero_axis(opt, dp_group)
     if overlap_grad_sync:
-        _check_overlap(opt, config, dp_group, qspec)
+        _check_overlap(opt, config, dp_group, qspec, cp)
     tp = _tp(tp_group)
     if tp is not None:
         check_tp(config, tp.size())
@@ -622,7 +639,7 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                   if tp is not None and clip_grad_norm is not None else None)
 
     def grads_fn(params, tokens, targets, post):
-        return loss_and_grads(params, tokens, targets, config, post, axis_name=tp)
+        return loss_and_grads(params, tokens, targets, config, post, axis_name=tp, cp_axis=cp)
 
     overlap = None
     if overlap_grad_sync:
@@ -637,7 +654,26 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
                       telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=() if tp is None else (tp,), clip_sumsq=clip_sumsq,
                       norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp),
-                      chaos=chaos, qspec=qspec, overlap=overlap, inplace_update=inplace_update)
+                      chaos=chaos, qspec=qspec, overlap=overlap, inplace_update=inplace_update,
+                      cp_group=cp)
+
+
+def _cp_sync(cp):
+    """``(loss, grads) -> (loss, grads)`` averaged over the context-parallel
+    group ``cp`` (the JAX steps' ``pmean`` over cp: each rank's loss and
+    grads are those of its local chunk), or None for no group or one of
+    one rank.  The loss adds in rank order, the grads by the DDP
+    all-reduce a bucket."""
+    if cp is None or cp.size() == 1:
+        return None
+    from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
+    from apex_tpu_torch.parallel.distributed import allreduce_gradients
+
+    def sync(loss, grads):
+        loss = qs.rank_order_sum(loss.reshape(1), cp.group, cp.size())[0] / cp.size()
+        return loss, allreduce_gradients(grads, group=cp)
+
+    return sync
 
 
 def _post_loss(loss_scaler, scaler_state, fault):
@@ -658,7 +694,7 @@ def _post_loss(loss_scaler, scaler_state, fault):
 def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                clip_grad_norm=None, graphs=None, warmup=1, telemetry=None, dp_group=None,
                tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None, chaos=None,
-               qspec=None, overlap=None, inplace_update=True):
+               qspec=None, overlap=None, inplace_update=True, cp_group=None):
     """The step that :func:`make_train_step` and
     :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
     params, tokens, targets, post_loss) -> (loss, grads)`` gives the
@@ -667,8 +703,10 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
     finite vote agreed over ``sync_groups``, the clip's Σx² by
     ``clip_sumsq``), the telemetry window (its norms reduced by
     ``norm_sumsq`` when the params are slices) and the loss mean over
-    dp; compiled unless ``graphs=False``.  ``chaos`` scales the loss by
-    its planned fault before the scaler (the JAX steps' ``post_loss``).
+    dp; the loss and grads averaged over ``cp_group`` (context
+    parallelism) before the dp sync; compiled unless ``graphs=False``.
+    ``chaos`` scales the loss by its planned fault before the scaler
+    (the JAX steps' ``post_loss``).
     ``qspec``: the replicated dp sync's quantized wire; ``overlap(params,
     state, tokens, targets, post_loss, scale) -> (loss, grads,
     presynced)`` replaces ``grads_fn`` and the dp sync (the overlapped
@@ -680,6 +718,7 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
         raise ValueError("chaos NaN injection needs step_guard (the injection step counter "
                          "lives in GuardState)")
     grad_sync, loss_mean = _dp_sync(opt, dp_group, qspec)
+    cp_sync = _cp_sync(cp_group)
     inplace = (inplace_update and telemetry is None
                and getattr(opt, "supports_inplace", False))
     if clip_grad_norm is not None and not getattr(opt, "supports_update_scaled", False):
@@ -723,6 +762,8 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
             loss, grads = grads_fn(params, tokens, targets, post)
             if config.sequence_parallel:
                 grads = sp_grad_sync(grads, tp_group)
+            if cp_sync is not None:
+                loss, grads = cp_sync(loss, grads)
             if grad_sync is not None:
                 grads = grad_sync(grads)
         if loss_scaler is not None:

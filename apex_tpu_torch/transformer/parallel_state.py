@@ -10,16 +10,18 @@ groups into named axes of one device mesh; here they are
 :func:`apex_tpu_torch.parallel.multiproc.initialize_distributed` starts
 (one process a rank: NCCL on CUDA, gloo on the CPU).
 
-The data-parallel, pipeline-parallel and tensor-parallel axes are
-ported.  The ranks are laid out in the JAX mesh's ``AXIS_ORDER`` (dp,
-pp, cp, tp) with tp innermost: rank = (dp_rank * pp + pp_rank) * tp +
-tp_rank, so a tensor-parallel group is a run of consecutive ranks (one
-host's cards) and a rank's (dp, pp, tp) coordinates are those of the JAX
-mesh's device of the same index.  A pipeline group holds the ranks of
-one (dp, tp) pair, stage by stage; its first and last ranks make the
-embedding group, its first the position-embedding group (reference
-:339-372).  cp above 1 and a hierarchical dp split raise, naming the
-ROADMAP.md queue item that brings them.  :class:`AxisGroup` is the
+Every axis is ported: data, pipeline, context and tensor parallelism.
+The ranks are laid out in the JAX mesh's ``AXIS_ORDER`` (dp, pp, cp,
+tp) with tp innermost: rank = ((dp_rank * pp + pp_rank) * cp + cp_rank)
+* tp + tp_rank, so a tensor-parallel group is a run of consecutive ranks
+(one host's cards) and a rank's (dp, pp, cp, tp) coordinates are those
+of the JAX mesh's device of the same index.  A pipeline group holds the
+ranks of one (dp, cp, tp) triple, stage by stage; its first and last
+ranks make the embedding group, its first the position-embedding group
+(reference :339-372).  A context-parallel group holds the ranks of one
+(dp, pp, tp) triple, chunk by chunk: the ring of
+:mod:`apex_tpu_torch.transformer.context_parallel`.  A data-parallel
+group holds those of one (pp, cp, tp) triple.  :class:`AxisGroup` is the
 handle a getter returns: the axis name (it is a ``str``, as the JAX
 package's handle is), its ``torch.distributed`` group (None for a
 one-rank axis, over which no collective runs), its size, this process's
@@ -51,11 +53,6 @@ DATA_OUTER_AXIS = "dp_out"
 DATA_INNER_AXIS = "dp_in"
 HIER_DP_AXES = (DCN_AXIS, DATA_OUTER_AXIS, DATA_INNER_AXIS)
 AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, CONTEXT_AXIS, TENSOR_AXIS)
-
-#: what brings each axis that is not ported yet
-_UNPORTED_AXES = {
-    CONTEXT_AXIS: "context parallelism, ROADMAP.md queue 1 item 9",
-}
 
 __all__ = [
     "DATA_AXIS", "PIPELINE_AXIS", "CONTEXT_AXIS", "TENSOR_AXIS", "DCN_AXIS",
@@ -125,12 +122,6 @@ class _State:
 _STATE: Optional[_State] = None
 
 
-def _one_rank_group(axis: str) -> AxisGroup:
-    """A size-1 axis: each rank is its own group (no collective crosses
-    it; ``group`` None tells the collectives helpers to skip it)."""
-    return AxisGroup(axis, None, 1, 0)
-
-
 def initialize_model_parallel(
     tensor_model_parallel_size_: int = 1,
     pipeline_model_parallel_size_: int = 1,
@@ -143,7 +134,7 @@ def initialize_model_parallel(
     ``parallel_state.initialize_model_parallel``, :155; the JAX
     package's :76 with its argument names).  Needs the default group
     (:func:`apex_tpu_torch.parallel.multiproc.initialize_distributed`);
-    its world must divide by tp x pp, as the JAX mesh's device count
+    its world must divide by tp x pp x cp, as the JAX mesh's device count
     must, and the interleaved schedule needs pp of 2 or more (the JAX
     package's rule).  Every rank builds every group, in the same order
     (``torch.distributed.new_group``'s rule).  Returns this rank's
@@ -151,29 +142,26 @@ def initialize_model_parallel(
     import torch.distributed as dist
 
     global _STATE
-    if int(context_parallel_size_) != 1:
-        raise NotImplementedError(
-            f"{CONTEXT_AXIS} size {context_parallel_size_} is not ported yet: it comes with "
-            f"{_UNPORTED_AXES[CONTEXT_AXIS]}")
     if not dist.is_initialized():
         raise RuntimeError("initialize_model_parallel needs the default process group: "
                            "call apex_tpu_torch.parallel.multiproc.initialize_distributed")
     world, rank = dist.get_world_size(), dist.get_rank()
     tp, pp = int(tensor_model_parallel_size_), int(pipeline_model_parallel_size_)
-    if tp < 1 or pp < 1 or world % (tp * pp):
+    cp = int(context_parallel_size_)
+    if tp < 1 or pp < 1 or cp < 1 or world % (tp * pp * cp):
         raise RuntimeError(f"world size ({world}) is not divisible by tp ({tp}) x pp ({pp}) "
-                           f"x cp (1)")
+                           f"x cp ({cp})")
     if virtual_pipeline_model_parallel_size_ is not None and pp < 2:
         raise RuntimeError(
             "pipeline-model-parallel size should be greater than 2 with interleaved schedule")
-    dp = world // (tp * pp)
+    dp = world // (tp * pp * cp)
     slices = int(num_distributed_slices_)
     if slices < 1 or dp % slices:
         raise RuntimeError(f"data-parallel size ({dp}) not divisible by slices ({slices}): "
                            "model axes must fit inside one slice")
 
-    def at(d, p, t):
-        return (d * pp + p) * tp + t
+    def at(d, p, c, t):
+        return ((d * pp + p) * cp + c) * tp + t
 
     def axis_group(axis, groups, real):
         """This rank's group among ``groups`` (lists of global ranks), each
@@ -185,19 +173,25 @@ def initialize_model_parallel(
                 mine = AxisGroup(axis, pg, len(ranks), ranks.index(rank), ranks)
         return mine
 
-    data_groups = [[at(d, p, t) for d in range(dp)] for p in range(pp) for t in range(tp)]
+    data_groups = [[at(d, p, c, t) for d in range(dp)]
+                   for p in range(pp) for c in range(cp) for t in range(tp)]
     data = axis_group(DATA_AXIS, data_groups, True)
-    tensor = axis_group(TENSOR_AXIS, [[at(d, p, t) for t in range(tp)]
-                                      for d in range(dp) for p in range(pp)], False)
-    pipes = [[at(d, p, t) for p in range(pp)] for d in range(dp) for t in range(tp)]
+    tensor = axis_group(TENSOR_AXIS, [[at(d, p, c, t) for t in range(tp)]
+                                      for d in range(dp) for p in range(pp) for c in range(cp)],
+                        False)
+    pipes = [[at(d, p, c, t) for p in range(pp)]
+             for d in range(dp) for c in range(cp) for t in range(tp)]
     pipeline = axis_group(PIPELINE_AXIS, pipes, False)
+    context = axis_group(CONTEXT_AXIS, [[at(d, p, c, t) for c in range(cp)]
+                                        for d in range(dp) for p in range(pp) for t in range(tp)],
+                         False)
     split = pipeline_model_parallel_split_rank_
     emb = [sorted({r[0], r[-1]} | ({r[split]} if pp > 1 and split is not None else set()))
            for r in pipes]
     pos = [sorted({r[0]} | ({r[split]} if pp > 1 and split is not None else set()))
            for r in pipes]
     _STATE = _State(data=data, tensor=tensor, pipeline=pipeline,
-                    context=_one_rank_group(CONTEXT_AXIS),
+                    context=context,
                     embedding=axis_group(PIPELINE_AXIS, emb, False) or _outside(),
                     position_embedding=axis_group(PIPELINE_AXIS, pos, False) or _outside(),
                     virtual_pipeline_size=virtual_pipeline_model_parallel_size_,

@@ -50,9 +50,15 @@ Phases, each printing one JSON line:
    64 and 128 (each with SDPA's time), fp32, GQA, non-causal, a key
    bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
    keys), bf16 at D = 16, 48, 80, 96 and 112 (B = 2), and bf16 at the
-   gpt124_s4096 cell's shape (B = 2, S = 4096, with SDPA's time); the bf16
-   backward's shared memory as ``bwd_launch_plan`` states it against
-   the C entry's at every head dim.  The float16 instantiations (the
+   gpt124_s4096 cell's shape (B = 2, S = 4096, with SDPA's time); the
+   ring-chunk mode (bf16 q, k, v; fp32 out; fp32 do; fp32 dq, dk, dv:
+   ring attention's chunk kernels) at B 2, H 12, D 64, S = Sk 1024 and
+   2048, diagonal (causal) and full, and the diagonal S 4096 chunk, out,
+   dq and dk in the bf16 band, dv within 1e-4 and a control (dkv fed do
+   rounded to bf16) that must miss it, with SDPA's time; the bf16
+   backward's shared memory (and the ring-chunk mode's) as
+   ``bwd_launch_plan`` states it against the C entry's at every head
+   dim.  The float16 instantiations (the
    amp train step's): LN forward at 8 and 8192 rows, the backward at
    8192, the RMS and non-affine modes, H = 770 and a misaligned view,
    each with ``F.layer_norm``'s fp16 time; flash at GPT-124M's shape at
@@ -132,6 +138,20 @@ Phases, each printing one JSON line:
    warm-up, 5 replays) and eager (3 steps): exact launch counts (flash
    forward 24, dq 12, dkv 12 a step at S 4096; the CE kernels once a
    step at N 8192), CUDA-event step ms, peak memory, graphed = eager.
+8f. cp: context parallelism over one-rank NCCL groups (cp 1: one chunk,
+   the diagonal one): bench.py's ``ring_attn_cp`` at (2, 12, 4096, 64)
+   bf16, serial against overlapped, fwd+bwd bitwise and ms each;
+   ``make_train_step(cp_group=)`` at ``gpt124_s4096``, both heads,
+   graphed (6 steps) and eager (3): exact launch counts (ring-mode
+   forward 24, dq 12, dkv 12 a step, no dense flash launch), graphed =
+   eager, the first loss within 1e-5 relative of train_s4096's and
+   every step within 1e-3, step ms and peak memory.  ``python3
+   chip_smoke.py cp_multi_card`` (four cards; also in ``multi_card``):
+   ``ring_attn_cp`` at cp 4 and 2 (bitwise, ms), then GPT-124M at S 4096
+   at cp 4 (profiled: NCCL and exposed NCCL ms, idle share and the ring
+   kernels' ms a rank), cp 4 with the overlapped ring (bitwise the
+   serial one, graphed), cp 2 x dp 2 with ZeRO, cp 2 x tp 2 and pp 2 x
+   cp 2, each within 1e-3 of cp 1's losses, step ms and peak a rank.
 8d. inplace_ab: the train_fce step with the donated update (FusedAdam's
    ``mt_adam`` writing the params and state it reads) against the
    copying step (``inplace_update=False``), graphed in turns (copy, in
@@ -835,10 +855,10 @@ def check_decode_plan(lib):
 
 
 def check_flash_plan(lib):
-    """The bf16 and fp16 backward's shared memory as ``bwd_launch_plan``
-    states it (the Python plan the CPU tests check) against
-    ``apex_flash_smem``, which the launches use, at every head dim:
-    equal."""
+    """The bf16 and fp16 backward's shared memory (and the bf16
+    ring-chunk mode's) as ``bwd_launch_plan`` states it (the Python plan
+    the CPU tests check) against ``apex_flash_smem``, which the launches
+    use, at every head dim: equal."""
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.flash_attention import bwd_launch_plan
 
@@ -846,12 +866,14 @@ def check_flash_plan(lib):
     for which in (1, 2):
         for D in range(16, 129, 16):
             for dtype in (torch.bfloat16, torch.float16):
-                got = lib.apex_flash_smem(which, D, _build.DTYPE_CODES[dtype])
-                want = bwd_launch_plan(which, 1024, 1024, D, True).smem_bytes
-                if got != want:
-                    raise AssertionError(f"flash backward plan which={which} D={D} {dtype}: "
-                                         f"C {got} B, Python {want} B")
-                n += 1
+                for ring in ((False, True) if dtype == torch.bfloat16 else (False,)):
+                    got = lib.apex_flash_smem(which, D, _build.DTYPE_CODES[dtype], int(ring))
+                    want = bwd_launch_plan(which, 1024, 1024, D, True, ring=ring).smem_bytes
+                    if got != want:
+                        raise AssertionError(f"flash backward plan which={which} D={D} "
+                                             f"{dtype} ring={ring}: C {got} B, Python "
+                                             f"{want} B")
+                    n += 1
     return {"plans_checked": n}
 
 
@@ -1195,6 +1217,100 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
             "tolerance_why": why}
     outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
     return {name: {**base, "kernel": f"flash_{name}",
+                   "max_abs_err": max(abs_errs[n] for n in outputs[name]),
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1], **t[name]}
+            for name in outputs}
+
+
+#: the ring-chunk mode's chunks: (case, S, causal) at B 2, H 12, D 64 --
+#: the diagonal chunk and a full one at S / cp of bench.py's ring_attn_cp
+#: shape (S 4096) for cp 4 and 2, and the cp phase's (cp 1)
+FLASH_RING_CASES = (("ring_diag_s1024", 1024, True), ("ring_full_s1024", 1024, False),
+                    ("ring_diag_s2048", 2048, True), ("ring_full_s2048", 2048, False),
+                    # the cp phase's one chunk at cp 1 (the whole S 4096)
+                    ("ring_diag_s4096", 4096, True))
+
+
+def check_flash_ring(dev, case, S, causal, B=2, H=12, D=64, library=True):
+    """The ring-chunk mode of flash_fwd, flash_dq and flash_dkv (bf16 q,
+    k, v; fp32 out; fp32 do; fp32 dq, dk, dv) against their plain
+    versions on one chunk pair at zero offsets (Sq = Sk = S, the diagonal
+    chunk causal, a full one not), the backward fed the kernel's lse and
+    delta.  Bands: out, dq, dk within ``FLASH_TOL_BF16`` (p rounded to
+    bf16 for p.v and ds for ds.k and ds^T.q, as the Pallas kernels do);
+    dv within ``FLASH_TOL_FP32["dv"]`` (its p and do at fp32 grade); lse
+    ``FLASH_TOL_BF16["lse"]``.  Control: dkv fed do rounded to bf16 must
+    miss dv's band, so the band sees a bf16 cotangent.  Times beside the
+    plain versions and SDPA's on the same chunk (bf16 out)."""
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(S + int(causal))
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    q, k, v = (randn(B * H, S, D) for _ in range(3))
+    do = randn(B * H, S, D, dtype=torch.float32)
+    scale, f32 = 1.0 / math.sqrt(D), torch.float32
+    fwd_args = (q, k, v, scale, causal, 0, 0)
+    kw = dict(heads=H, kv_heads=H, out_dtype=f32)
+    out, lse = fa.flash_fwd(*fwd_args, **kw)
+    pout, plse = fa.flash_fwd_plain(*fwd_args, **kw)
+    delta = (do * out).sum(-1, keepdim=True)
+    bwd_args = (q, k, v, do, lse, delta, scale, causal, 0, 0)
+    dq = fa.flash_dq(*bwd_args, **kw)
+    pdq = fa.flash_dq_plain(*bwd_args, **kw)
+    dk, dv = fa.flash_dkv(*bwd_args, **kw)
+    pdk, pdv = fa.flash_dkv_plain(*bwd_args, **kw)
+    do_bf16 = do.to(torch.bfloat16).float()
+    _, dv_ctl = fa.flash_dkv(q, k, v, do_bf16, lse, delta, scale, causal, 0, 0, **kw)
+    torch.cuda.synchronize()
+    outs = {"out": (out, pout), "dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+    if any(t.dtype != f32 for t in (out, dq, dk, dv)):
+        raise AssertionError(f"flash {case}: the ring-chunk mode's outputs are not fp32")
+    errs = {n: rel_err(a, b) for n, (a, b) in outs.items()}
+    errs["lse"] = float((lse - plse).abs().max())
+    abs_errs = {n: float((a - b).abs().max()) for n, (a, b) in outs.items()}
+    tol = {"out": FLASH_TOL_BF16["out"], "dq": FLASH_TOL_BF16["dq"],
+           "dk": FLASH_TOL_BF16["dk"], "dv": FLASH_TOL_FP32["dv"], "lse": FLASH_TOL_BF16["lse"]}
+    control = rel_err(dv_ctl, pdv)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv))
+    bad = {n: e for n, e in errs.items() if not e <= tol[n]}
+    if bad or not finite or not control > tol["dv"]:
+        raise AssertionError(f"flash {case}: errors {errs} over {tol} (finite={finite}); "
+                             f"the bf16-do control's dv error {control} must exceed "
+                             f"{tol['dv']}")
+    BH, pairs = B * H, causal_pairs(S, S, causal, 0, 0)
+    t16, t32, rb = BH * S * D * 2, BH * S * D * 4, BH * S * 4
+    # every product at the bf16 tensor-core rate, the fp32-grade ones
+    # (dp and dv) counted once: a lower bound
+    bounds = {"fwd": bound(3 * t16 + t32 + rb, 4 * D * pairs * BH, PEAK_BF16),
+              "dq": bound(3 * t16 + 2 * t32 + 2 * rb, 6 * D * pairs * BH, PEAK_BF16),
+              "dkv": bound(3 * t16 + 3 * t32 + 2 * rb, 8 * D * pairs * BH, PEAK_BF16)}
+    lib = {"fwd": None, "bwd": None}
+    if library:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4, k4, v4 = (t.view(B, H, S, D).detach().requires_grad_() for t in (q, k, v))
+        o4 = sdpa(q4, k4, v4, is_causal=causal)
+        do4 = do.view(B, H, S, D).to(torch.bfloat16)
+        lib = {"fwd": lambda: sdpa(q4, k4, v4, is_causal=causal),
+               "bwd": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)}
+    t = {"fwd": timings(lambda: fa.flash_fwd(*fwd_args, **kw),
+                        lambda: fa.flash_fwd_plain(*fwd_args, **kw), lib["fwd"]),
+         "dq": timings(lambda: fa.flash_dq(*bwd_args, **kw),
+                       lambda: fa.flash_dq_plain(*bwd_args, **kw), lib["bwd"]),
+         "dkv": timings(lambda: fa.flash_dkv(*bwd_args, **kw),
+                        lambda: fa.flash_dkv_plain(*bwd_args, **kw), lib["bwd"])}
+    base = {"case": case, "B": B, "H": H, "S": S, "Sk": S, "D": D, "causal": causal,
+            "mode": "ring_chunk", "dtype": "bfloat16 in, fp32 do and outputs",
+            "rel_errors": errs, "abs_errors": abs_errs, "tolerance": tol,
+            "bf16_do_control_dv_rel_error": control,
+            "tolerance_why": ("max |kernel - plain| / max |plain|: out, dq, dk see p and "
+                              "ds rounded to bf16 (as the Pallas kernels round them), dv "
+                              "its p and do at fp32 grade (hi + lo splits); lse abs"),
+            "bound_note": "products counted once at the bf16 rate (a lower bound)"}
+    outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    return {name: {**base, "kernel": f"flash_{name}_ring",
                    "max_abs_err": max(abs_errs[n] for n in outputs[name]),
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1], **t[name]}
             for name in outputs}
@@ -4263,9 +4379,10 @@ def overlap_multi_card_main():
 def multi_card_main():
     """``chip_smoke.py multi_card`` on four cards: the kernels built once,
     then :func:`pp_multi_card`, :func:`zero_mp_multi_card` (ZeRO composed
-    with tp and pp, and the hierarchical wire) and :func:`overlap_multi_card`
-    (the backward-overlapped dp sync), each result printed as it comes;
-    fails after the last if one did."""
+    with tp and pp, and the hierarchical wire), :func:`overlap_multi_card`
+    (the backward-overlapped dp sync) and :func:`cp_multi_card` (context
+    parallelism), each result printed as it comes; fails after the last
+    if one did."""
     from apex_tpu_torch.ops import _build
 
     n_cards = torch.cuda.device_count()
@@ -4278,7 +4395,8 @@ def multi_card_main():
     errors = []
     for name, fn in (("pp_multi_card", lambda: pp_multi_card(4)),
                      ("zero_mp_multi_card", zero_mp_multi_card),
-                     ("overlap_multi_card", overlap_multi_card)):
+                     ("overlap_multi_card", overlap_multi_card),
+                     ("cp_multi_card", cp_multi_card)):
         t0 = time.monotonic()
         try:
             fn()  # its rows printed as they came
@@ -4288,6 +4406,435 @@ def multi_card_main():
             emit({"phase": name, "error": str(exc)[-6000:], "seconds": time.monotonic() - t0})
     if errors:
         raise SystemExit("multi_card: " + " | ".join(e[:2000] for e in errors))
+    return 0
+
+
+# ----------------------------------------------------------------------- cp
+#: bench.py's ``ring_attn_cp`` section (bench.py:503): B, H, S, D, bf16,
+#: causal, the sequence split over the cp group
+RING_SHAPE = (2, 12, 4096, 64)
+#: the cp phase's bands against the train_s4096 phase's losses (the same
+#: params, batch and optimizer): the first step's -- at cp 1 the ring
+#: runs one chunk, the diagonal one, and its result is taken as it is,
+#: what merging it with the empty partial gives exactly, so the forward
+#: is the dense flash path's; only the backward's fp32 delta and dv
+#: differ -- and every step's (Adam carries that difference on)
+CP_FIRST_TOL = 1e-5
+CP_BAND = 1e-3
+#: each one-card cp run's steps (the first the warm-up and capture)
+CP_STEPS = 6
+#: the four-card layouts of ``cp_child``: name -> (tp, pp, cp, ZeRO,
+#: microbatches, the overlapped ring)
+CP_LAYOUTS = {"cp4": (1, 1, 4, False, None, False),
+              "cp4_overlap": (1, 1, 4, False, None, True),
+              "cp2_dp2_zero": (1, 1, 2, True, None, False),
+              "cp2_tp2": (2, 1, 2, False, None, False),
+              "pp2_cp2": (1, 2, 2, False, 2, False)}
+
+
+def ring_counts():
+    """The flash kernels' ring-chunk launches (counted apart from the
+    dense path's)."""
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd_ring": fa.RING_FWD_LAUNCHES, "flash_dq_ring": fa.RING_DQ_LAUNCHES,
+            "flash_dkv_ring": fa.RING_DKV_LAUNCHES}
+
+
+def ring_ab(cg, iters=10):
+    """bench.py's ``ring_attn_cp`` at this rank's cp group: the sequence
+    of ``RING_SHAPE`` (bf16, seed 0) split over the group, one fwd+bwd of
+    this rank's chunk (``ring_attention``, causal, the chunk kernels)
+    with the serial and the overlapped hop schedule: out, dq, dk, dv
+    bitwise equal; each schedule also captured as one CUDA graph (after
+    a warm-up on a side stream), its replay bitwise the eager call (the
+    compiled step bench.py times); each schedule's ms eager and replayed
+    (CUDA events over ``iters`` calls, in turns serial, overlapped,
+    overlapped, serial; every rank calls alike)."""
+    from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, H, S, D = RING_SHAPE
+    rng = np.random.default_rng(0)
+    full = [rng.standard_normal((B, H, S, D), dtype=np.float32) for _ in range(4)]
+    n, r = S // cg.size(), cg.rank()
+    q, k, v, g = (torch.from_numpy(np.ascontiguousarray(a[:, :, r * n:(r + 1) * n])).to(
+        dev, torch.bfloat16) for a in full)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def run(overlap):
+        out = ring_attention(q, k, v, cg, causal=True, overlap=overlap)
+        return (out,) + torch.autograd.grad(out, (q, k, v), g)
+
+    got = {ov: [t.detach().clone() for t in run(ov)] for ov in (False, True)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(got[False], got[True], strict=True))
+    finite = all(bool(torch.isfinite(t).all()) for t in got[False])
+    graphs, replayed = {}, {}
+    for ov in (False, True):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(ov)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[ov] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[ov]):
+            outs = run(ov)
+        graphs[ov].replay()
+        torch.cuda.synchronize()
+        replayed[ov] = all(torch.equal(a, b) for a, b in zip(outs, got[ov], strict=True))
+    ms = {False: [], True: []}
+    gms = {False: [], True: []}
+    for ov in (False, True, True, False):
+        ms[ov].append(call_ms(lambda: run(ov), iters))
+        gms[ov].append(call_ms(graphs[ov].replay, iters))
+    del graphs
+    return {"shape": list(RING_SHAPE), "cp": cg.size(), "rank": r, "bitwise": bitwise,
+            "finite": finite, "replay_bitwise_eager": replayed[False] and replayed[True],
+            "serial_ms": float(np.mean(ms[False])), "overlapped_ms": float(np.mean(ms[True])),
+            "graphed_serial_ms": float(np.mean(gms[False])),
+            "graphed_overlapped_ms": float(np.mean(gms[True])),
+            "turns_ms": {"serial": ms[False], "overlapped": ms[True],
+                         "graphed_serial": gms[False], "graphed_overlapped": gms[True]}}
+
+
+def _cp_train(head, groups, steps, eager=False, zero=False, micro=None, overlap=False,
+              profile=False, tree=None):
+    """GPT-124M at bench.py's ``gpt124_s4096`` shape (S 4096, global batch
+    2, bf16, full remat, FusedAdam as train_gpt's, ``head`` "dense" or
+    "fused_ce") over ``groups`` = (tp, pp, cp, dp) ``AxisGroup``s, each
+    rank its dp rows and cp chunk of train_gpt's batch: ``make_train_step(
+    cp_group=)``, or at pp > 1 ``make_pp_train_step(cp_axis=)`` with
+    ``micro`` microbatches; ZeRO with ``zero``; ``config.cp_overlap`` from
+    ``overlap``.  ``steps`` steps on the batch (the first the warm-up and
+    capture), CUDA-event ms, peak memory, losses, launch counts (the
+    dense path's and the ring's), and with ``profile`` 4 more under the
+    profiler (NCCL ms a step, the part no kernel overlaps, idle share)."""
+    import dataclasses
+    import gc
+
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import (
+        _init_numpy, make_pp_train_step, param_specs, shard_params,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    tg, pg, cg, dg = groups
+    args = train_gpt.build_args().parse_args(
+        S4096_ARGV + (["--fused-ce"] if head == "fused_ce" else []))
+    config = dataclasses.replace(train_gpt.make_config(args), cp_overlap=overlap)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def cut(a):
+        rows, n = a.shape[0] // dg.size(), a.shape[1] // cg.size()
+        return torch.from_numpy(np.ascontiguousarray(
+            a[rows * dg.rank():rows * (dg.rank() + 1), n * cg.rank():n * (cg.rank() + 1)],
+            np.int64)).to(dev)
+
+    tokens, targets = (cut(a) for a in train_gpt.make_batch(args))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tree = _init_numpy(config, args.seed) if tree is None else tree
+    pipe = pg.size() > 1
+    params = shard_params(tree, config, tg, dev, keep_fp32=True, pp_group=pg if pipe else None)
+    if zero:
+        opt = DistributedFusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+        state = opt.init(params, world_size=dg.size(), param_specs=param_specs(config, pipe),
+                         axis_sizes={"tp": tg.size(), "pp": pg.size()})
+    else:
+        opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+        state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    kw = dict(graphs=False if eager else None, dp_group=dg, tp_group=tg)
+    if pipe:
+        step = make_pp_train_step(config, opt, micro, pp_group=pg, cp_axis=cg, **kw)
+    else:
+        step = train_gpt.make_train_step(opt, config, cp_group=cg, **kw)
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    for _ in range(steps):
+        losses.append(step(params, state, tokens, targets).detach().clone())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    rec = {"losses": [float(x) for x in losses], "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms[1:])),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launch_counts(), "ring_launches": ring_counts(),
+           "graphs": getattr(step, "graph", None) is not None,
+           "sizes": [p.numel() for p in tree_leaves(params)]}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        prof = _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(4):
+                step(params, state, tokens, targets)
+            torch.cuda.synchronize()
+        exposed, nccl = _exposed_nccl_ms(prof)
+        idle = _busy_share(prof, skip=1)
+        rec.update(nccl_ms_per_step=nccl, exposed_nccl_ms_per_step=exposed,
+                   idle_share=idle["idle_share"],
+                   ring_kernel_ms_per_step=sum(
+                       ms for name, ms in idle["kernel_ms_per_step"].items()
+                       if "flash" in name and ("true>" in name or "Lb1E" in name)))
+        del prof
+    del step, params, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cp_expect(rec, L, rank, n):
+    """``rec``'s launch counts against a ring step's: the train phase's
+    per-step counts with no dense flash launch, and the ring-chunk mode's
+    2 L (r + 1) forwards (full remat), L (r + 1) dq and dkv a step at cp
+    rank r (chunks 0..r: the others are masked and launch nothing)."""
+    from apex_tpu_torch import train_gpt
+
+    head = rec["head"]
+    args = train_gpt.build_args().parse_args(
+        S4096_ARGV + (["--fused-ce"] if head == "fused_ce" else []))
+    per_step, expect = _train_expect(args, rec["sizes"], n)
+    expect = {**expect, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    ring = {"flash_fwd_ring": 2 * L * (rank + 1) * n, "flash_dq_ring": L * (rank + 1) * n,
+            "flash_dkv_ring": L * (rank + 1) * n}
+    if rec["launches"] != expect or rec["ring_launches"] != ring:
+        raise AssertionError(f"cp {head}: launches {rec['launches']}, ring "
+                             f"{rec['ring_launches']} != expected {expect}, {ring}")
+    return {**{k: v for k, v in per_step.items() if not k.startswith("flash")},
+            **{k: v // n for k, v in ring.items()}}
+
+
+def cp_phase(smi, s4096):
+    """Context parallelism on one card, over one-rank NCCL groups (cp 1:
+    every ring has one chunk, the diagonal one): bench.py's
+    ``ring_attn_cp`` at (2, 12, 4096, 64) bf16, serial against
+    overlapped, fwd+bwd bitwise, ms each; then ``make_train_step`` with
+    the one-rank cp group at ``gpt124_s4096``, both heads, graphed
+    (``CP_STEPS``) and eager (3 steps), exact launch counts (ring-mode
+    forward 2 L, dq and dkv L a step; no dense flash launch), graphed =
+    eager, and the losses against ``s4096`` (the train_s4096 phase's,
+    the same params and batch): the first within ``CP_FIRST_TOL``, every
+    step within ``CP_BAND``; step ms and peak memory."""
+    from apex_tpu_torch.models.gpt import _init_numpy
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    t0 = time.monotonic()
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(context_parallel_size_=1)
+    runs = {}
+    try:
+        groups = (ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group(),
+                  ps.get_context_parallel_group(), ps.get_data_parallel_group())
+        ring = ring_ab(groups[2])
+        if not (ring["bitwise"] and ring["finite"] and ring["replay_bitwise_eager"]):
+            raise AssertionError(f"cp ring at cp 1: {ring}")
+        args = train_gpt.build_args().parse_args(S4096_ARGV)
+        tree = _init_numpy(train_gpt.make_config(args), args.seed)
+        for head in ("dense", "fused_ce"):
+            for eager, n in ((False, CP_STEPS), (True, 3)):
+                rec = {**_cp_train(head, groups, n, eager=eager, tree=tree), "head": head}
+                rec["launches_per_step"] = _cp_expect(rec, args.layers, 0, n)
+                if not all(map(math.isfinite, rec["losses"])):
+                    raise AssertionError(f"cp {head}: losses {rec['losses']}")
+                runs[head + ("_eager" if eager else "")] = rec
+        del tree
+    finally:
+        multiproc.destroy_distributed()
+    for head in ("dense", "fused_ce"):
+        graphed, eager = runs[head]["losses"], runs[head + "_eager"]["losses"]
+        if not runs[head]["graphs"] or runs[head + "_eager"]["graphs"]:
+            raise AssertionError(f"cp {head}: graphed {runs[head]['graphs']}, eager "
+                                 f"{runs[head + '_eager']['graphs']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+        if graphed[:3] != eager and not rel <= TRAIN_AB_TOL:
+            raise AssertionError(f"cp {head}: graphed {graphed} against eager {eager}")
+        runs[head]["graphed_vs_eager"] = "bitwise" if graphed[:3] == eager else rel
+        want = s4096[head]["graphed"]["losses"]
+        rels = [abs(a - b) / abs(b) for a, b in zip(graphed, want)]
+        if rels[0] > CP_FIRST_TOL or max(rels) > CP_BAND:
+            raise AssertionError(f"cp {head}: losses {graphed} against train_s4096's {want}: "
+                                 f"relative {rels} (first within {CP_FIRST_TOL}, every "
+                                 f"step within {CP_BAND})")
+        runs[head]["vs_train_s4096"] = {"losses": want, "rel_diff": rels,
+                                        "first_bitwise": graphed[0] == want[0]}
+        runs[head]["vs_train_s4096_step_ms"] = s4096[head]["graphed"]["step_ms_median"]
+    for rec in runs.values():
+        rec.pop("sizes")
+    emit({"phase": "cp", "argv": S4096_ARGV, "nvidia_smi": smi, "ring_attn_cp": ring,
+          "tolerance": {"first_step": CP_FIRST_TOL, "every_step": CP_BAND},
+          "runs": runs, "seconds": time.monotonic() - t0})
+    return runs
+
+
+def cp_child(argv):
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py cp_child
+    [--steps S]``: ``ring_ab`` at cp 4 and 2, then each of
+    ``CP_LAYOUTS`` (GPT-124M at S 4096, fused CE, graphed; S steps, the
+    cp 4 run profiled); rank 0 prints one ``cp_child`` line with every
+    rank's records."""
+    import argparse
+
+    from apex_tpu_torch.models.gpt import _init_numpy
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    a = ap.parse_args(argv)
+    multiproc.initialize_distributed("cuda")
+    rank = torch.distributed.get_rank()
+    args = train_gpt.build_args().parse_args(S4096_ARGV)
+    tree = _init_numpy(train_gpt.make_config(args), args.seed)
+
+    def setup(tp, pp, cp):
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tensor_model_parallel_size_=tp,
+                                     pipeline_model_parallel_size_=pp, context_parallel_size_=cp)
+        return (ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group(),
+                ps.get_context_parallel_group(), ps.get_data_parallel_group())
+
+    def gather(mine):
+        ranks = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(ranks, mine)
+        return ranks
+
+    out = {"ring": {}, "layouts": {}}
+    for cp in (4, 2):
+        out["ring"][cp] = gather(ring_ab(setup(1, 1, cp)[2]))
+    for name, (tp, pp, cp, zero, micro, overlap) in CP_LAYOUTS.items():
+        groups = setup(tp, pp, cp)
+        rec = _cp_train("fused_ce", groups, a.steps, zero=zero, micro=micro, overlap=overlap,
+                        profile=name == "cp4", tree=tree)
+        rec.pop("sizes")
+        rec.update(rank=rank, cp_rank=groups[2].rank(), pp_rank=groups[1].rank())
+        out["layouts"][name] = gather(rec)
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"cp_child": out}), flush=True)
+    return 0
+
+
+def cp_multi_card(steps=10):
+    """Context parallelism on four cards: ``make_train_step`` at cp 1 in
+    this process over one-rank groups (GPT-124M, S 4096, fused CE,
+    graphed, ``steps`` steps), then ``cp_child`` over NCCL, one card a
+    rank: ``ring_attn_cp``'s serial against overlapped at cp 4 and 2
+    (bitwise, eager and graph replays bitwise, ms of each), and the
+    ``CP_LAYOUTS`` runs -- cp 4 (profiled: NCCL
+    ms, exposed NCCL ms, idle share, ring kernels' ms a rank: rank r
+    runs r + 1 chunks), cp 4 with the overlapped ring (bitwise the serial
+    run, graphed), cp 2 x dp 2 with ZeRO, cp 2 x tp 2 and pp 2 x cp 2 (2
+    microbatches) -- each rank's losses within ``CP_BAND`` of cp 1's, step
+    ms and peak memory a rank.  Each result prints as it comes; a miss
+    fails after the last."""
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel()
+    try:
+        groups = (ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group(),
+                  ps.get_context_parallel_group(), ps.get_data_parallel_group())
+        base = _cp_train("fused_ce", groups, steps)
+    finally:
+        multiproc.destroy_distributed()
+    base.pop("sizes")
+    emit({"phase": "cp_multi_card", "run": "cp1", "losses": base["losses"],
+          "step_ms_median": base["step_ms_median"], "peak_memory_gb": base["peak_memory_gb"]})
+    lines = _pp_children(4, [], timeout=900, script="cp_child",
+                         extra=["--steps", str(steps)], prefix='{"cp_child"')
+    res = lines[0]["cp_child"]
+    failed = []
+    for cp, ranks in res["ring"].items():
+        ok = all(r["bitwise"] and r["finite"] and r["replay_bitwise_eager"] for r in ranks)
+        emit({"phase": "cp_multi_card", "run": f"ring_attn_cp{cp}", "bitwise": ok,
+              **{k: [r[k] for r in ranks] for k in (
+                  "serial_ms", "overlapped_ms", "graphed_serial_ms",
+                  "graphed_overlapped_ms")}})
+        if not ok:
+            failed.append(f"ring cp {cp}: serial and overlapped, or a replay and the eager "
+                          f"call, differ, or are not finite")
+    serial = None
+    for name, ranks in res["layouts"].items():
+        rels = [max(abs(x - y) / abs(y) for x, y in zip(r["losses"], base["losses"]))
+                for r in ranks]
+        row = {"phase": "cp_multi_card", "run": name, "layout": dict(zip(
+                   ("tp", "pp", "cp", "zero", "micro_batches", "overlap"), CP_LAYOUTS[name])),
+               "max_rel_vs_cp1": max(rels), "graphs": all(r["graphs"] for r in ranks),
+               "step_ms_median": [r["step_ms_median"] for r in ranks],
+               "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+               "ring_launches_per_rank": [r["ring_launches"] for r in ranks],
+               "losses": ranks[0]["losses"]}
+        if name == "cp4":
+            serial = ranks
+            row.update({k: [r[k] for r in ranks] for k in (
+                "nccl_ms_per_step", "exposed_nccl_ms_per_step", "idle_share",
+                "ring_kernel_ms_per_step")})
+        if name == "cp4_overlap":
+            row["bitwise_vs_serial"] = all(
+                r["losses"] == s["losses"] for r, s in zip(ranks, serial))
+            if not row["bitwise_vs_serial"]:
+                failed.append("cp4_overlap: losses not bitwise the serial ring's")
+        emit(row)
+        if not max(rels) <= CP_BAND or not row["graphs"]:
+            failed.append(f"{name}: losses {max(rels)} from cp 1's (band {CP_BAND}), "
+                          f"graphs {row['graphs']}")
+    if failed:
+        raise AssertionError("cp_multi_card: " + "; ".join(failed))
+    return res
+
+
+def cp_main():
+    """``chip_smoke.py cp`` on one card: the kernels built, the ring-chunk
+    kernel checks of the kernels phase, then train_s4096 and the cp
+    phase (which holds its losses against train_s4096's) alone."""
+    from apex_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _smi()
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    for case, S, causal in FLASH_RING_CASES:
+        r = check_flash_ring(dev, case, S, causal)
+        for name in ("fwd", "dq", "dkv"):
+            emit({"phase": "kernel", **r[name]})
+    emit({"phase": "kernel", "kernel": "flash_bwd_plan", **check_flash_plan(_build.load())})
+    cp_phase(smi, train_s4096_phase())
+    emit({"phase": "cp_main", "ok": True, "seconds": time.monotonic() - t0})
+    return 0
+
+
+def cp_multi_card_main():
+    """``chip_smoke.py cp_multi_card`` on four cards: the kernels built,
+    then :func:`cp_multi_card` alone."""
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        raise SystemExit(f"chip_smoke cp_multi_card: needs four cards, has {n_cards}")
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    t0 = time.monotonic()
+    cp_multi_card()
+    emit({"phase": "cp_multi_card", "ok": True, "seconds": time.monotonic() - t0})
     return 0
 
 
@@ -6018,6 +6565,12 @@ def main():
         return step_options_main()
     if sys.argv[1:2] == ["multi_card"]:
         return multi_card_main()
+    if sys.argv[1:2] == ["cp_child"]:
+        return cp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["cp_multi_card"]:
+        return cp_multi_card_main()
+    if sys.argv[1:2] == ["cp"]:
+        return cp_main()
     if sys.argv[1:2] == ["pp_bisect_child"]:
         return pp_bisect_child(sys.argv[2:])
     if sys.argv[1:2] == ["resilience"]:
@@ -6133,6 +6686,11 @@ def main():
         results[("flash", case, dtype)] = r
         for name in ("fwd", "dq", "dkv"):
             emit({"phase": "kernel", **r[name]})
+    for case, S, causal in FLASH_RING_CASES:
+        r = check_flash_ring(dev, case, S, causal)
+        results[("flash_ring", case)] = r
+        for name in ("fwd", "dq", "dkv"):
+            emit({"phase": "kernel", **r[name]})
     fp16_kernels(dev, results)
     mt_kernels(dev, results, _build.load())
     lap("kernels")
@@ -6174,8 +6732,10 @@ def main():
     train_ab("train_fp16", fp16, train_phase(fp16=True, dense_report=dense_eager,
                                              eager=True)[2])
     lap("train_fp16")
-    train_s4096_phase()
+    s4096 = train_s4096_phase()
     lap("train_s4096")
+    cp_runs = cp_phase(smi, s4096)
+    lap("cp")
     inplace_ab_phase()
     lap("inplace_ab")
     attn_bias_phase(dev)
@@ -6271,6 +6831,17 @@ def main():
         ("flash_dkv_fp16", "apex_tpu_torch/csrc/flash_attention.cu",
          "apex_tpu/ops/flash_attention_pallas.py:394",
          results[("flash", "gpt124", torch.float16)]["dkv"]),
+        # the ring-chunk mode (bf16 in, fp32 do and outputs) at the cp
+        # phase's chunk, ring attention's per-chunk kernels
+        ("flash_fwd_ring", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:145",
+         results[("flash_ring", "ring_diag_s4096")]["fwd"]),
+        ("flash_dq_ring", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:339",
+         results[("flash_ring", "ring_diag_s4096")]["dq"]),
+        ("flash_dkv_ring", "apex_tpu_torch/csrc/flash_attention.cu",
+         "apex_tpu/ops/flash_attention_pallas.py:394",
+         results[("flash_ring", "ring_diag_s4096")]["dkv"]),
     )
     # launches: the serve phase's for the serving kernels, the serve_v2
     # phase's for the width > 1 layout, the train phase's for the
@@ -6279,7 +6850,8 @@ def main():
     # the serve phase's counts); mt_adam the train phase's, mt_scale and
     # mt_l2norm the optimizers phase's amp steps; the fp16 instantiations
     # the train_fp16 phase's; mt_adam_remainder the zero phase's
-    # zero_param_remainders replays
+    # zero_param_remainders replays; the ring-chunk mode the cp phase's
+    # graphed fused-CE run
     launches = {**train_counts, **amp_counts, "mt_adam": train_counts["mt_adam"],
                 "mt_adam_remainder": remainder_launches,
                 **{k: counts[k] for k in
@@ -6288,7 +6860,8 @@ def main():
                 "paged_decode_attention_wide": v2_counts["paged_decode_attention_wide"],
                 **{k: fce_counts[k] for k in ("ce_fwd", "ce_dx", "ce_dembed")},
                 **{f"{k}_fp16": fp16_counts[k] for k in (
-                    "layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq", "flash_dkv")}}
+                    "layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq", "flash_dkv")},
+                **cp_runs["fused_ce"]["ring_launches"]}
     unlaunched = [name for name, *_ in main_path if not launches[name]]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")

@@ -271,7 +271,10 @@ def test_vpp_layout_round_trips_and_refusals():
     """``params_to_vpp_layout`` puts stage s's chunks back to back (numpy
     and tensors alike, as the JAX package's) and its inverse undoes it;
     the layer split and the interleaved microbatch rule refuse as the
-    JAX step does."""
+    JAX step does.  (The name dates from when ``cp_axis`` was refused
+    too: cp inside the pipeline step is ported, its run in
+    tests/test_torch_context_parallel.py; what is left is the JAX step's
+    own refusal of cp beside sequence parallelism.)"""
     params = jax_params()
     for pp, vpp in ((2, 2), (4, 1), (1, 4)):
         want = jgpt.params_to_vpp_layout(params, pp, vpp)
@@ -290,5 +293,8 @@ def test_vpp_layout_round_trips_and_refusals():
         tgpt.check_pp(cfg, 2, 4)
     from apex_tpu_torch.optimizers import FusedAdam
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        tgpt.make_pp_train_step(cfg, FusedAdam(lr=LR), 2, cp_axis="cp")
+    from apex_tpu_torch.transformer.parallel_state import AxisGroup
+
+    with pytest.raises(ValueError, match="both shard the sequence"):
+        tgpt.make_pp_train_step(tgpt.GPTConfig(**CFG, sequence_parallel=True),
+                                FusedAdam(lr=LR), 2, cp_axis=AxisGroup("cp", None, 1, 0))

@@ -188,16 +188,17 @@ def test_serve_gpt_main_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """What is still unported raises: MoE and the overlapped ring
-    schedule.  (Speculative decoding, chunked prefill, prefix sharing and
-    the best-effort lane are ported, their positive cases in
+    """What is still unported raises: MoE.  (The name dates from when the
+    overlapped ring schedule was refused too: ``cp_overlap`` is ported
+    and builds here, its runs in tests/test_torch_context_parallel.py.
+    Speculative decoding, chunked prefill, prefix sharing and the
+    best-effort lane are ported, their positive cases in
     tests/test_torch_serving_v2.py; sequence parallelism too, in
     tests/test_torch_gpt_tp.py: it builds here.)"""
     with pytest.raises(NotImplementedError, match="moe_num_experts"):
         tgpt.GPTConfig(moe_num_experts=4)
     assert tgpt.GPTConfig(sequence_parallel=True).sequence_parallel
-    with pytest.raises(NotImplementedError, match="cp_overlap"):
-        tgpt.GPTConfig(cp_overlap=True)
+    assert tgpt.GPTConfig(cp_overlap=True).cp_overlap
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -266,6 +267,8 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.resilience.uniformity, apex_tpu_torch.resilience.locks\n"
         "import apex_tpu_torch.utils.profiler, apex_tpu_torch.utils.misc\n"
         "import apex_tpu_torch.inference.fleet, apex_tpu_torch.graphs\n"
+        "import apex_tpu_torch.transformer.context_parallel\n"
+        "import apex_tpu_torch.transformer.context_parallel.ring_attention\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -207,17 +207,21 @@ def test_parallel_state_world1_getters_match_jax(world1, devices8):
 @pytest.mark.parametrize("kw,item", [
     ({"tensor_model_parallel_size_": 2}, None),
     ({"pipeline_model_parallel_size_": 2}, None),
-    ({"context_parallel_size_": 2}, "queue 1 item 9"),
+    ({"context_parallel_size_": 2}, None),
     ({"num_distributed_slices_": 2}, None),
     ({"virtual_pipeline_model_parallel_size_": 2}, None),
 ], ids=["tp", "pp", "cp", "dcn", "virtual_pp"])
 def test_parallel_state_refusals_name_their_queue_item(kw, item, devices8):
+    # (The name dates from when cp was refused and named its queue item:
+    # every axis is ported now, and each case is the JAX mesh's own rule.)
     if item is None:
-        # tensor and pipeline parallelism are ported: on a world they do
-        # not divide they are refused as the JAX mesh refuses them, and
-        # size 1 runs (worlds 2 and 4 in tests/test_torch_tensor_parallel.py
-        # and tests/test_torch_pipeline_parallel.py); the interleaved
-        # schedule wants pp of 2 or more, as the JAX package does
+        # tensor, pipeline and context parallelism are ported: on a world
+        # they do not divide they are refused as the JAX mesh refuses
+        # them, and size 1 runs (worlds 2 and 4 in
+        # tests/test_torch_tensor_parallel.py,
+        # tests/test_torch_pipeline_parallel.py and
+        # tests/test_torch_context_parallel.py); the interleaved schedule
+        # wants pp of 2 or more, as the JAX package does
         multiproc.initialize_distributed("cpu")
         try:
             if "num_distributed_slices_" in kw:
@@ -238,8 +242,14 @@ def test_parallel_state_refusals_name_their_queue_item(kw, item, devices8):
             else:
                 with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
                     ps.initialize_model_parallel(**kw)
+                with pytest.raises(RuntimeError, match=r"world size \(1\) is not divisible"):
+                    jps.initialize_model_parallel(devices=devices8[:1], **kw)
             ps.initialize_model_parallel(tensor_model_parallel_size_=1,
-                                         pipeline_model_parallel_size_=1)
+                                         pipeline_model_parallel_size_=1,
+                                         context_parallel_size_=1)
+            assert ps.get_context_parallel_world_size() == 1
+            assert ps.get_context_parallel_rank() == 0
+            assert ps.get_context_parallel_group().ranks == (0,)
             assert ps.get_tensor_model_parallel_world_size() == 1
             assert ps.get_tensor_model_parallel_src_rank() == 0
             assert ps.get_pipeline_model_parallel_world_size() == 1
