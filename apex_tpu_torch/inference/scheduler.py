@@ -248,6 +248,8 @@ class ContinuousBatchingScheduler:
     def __init__(self, params, config: GPTConfig, dcfg: DecodeConfig,
                  time_fn=time.monotonic, device="cuda", graphs=None, watchdog=None,
                  anomaly=None, metrics: bool = False):
+        if config.moe:
+            raise NotImplementedError("MoE decode is not wired")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(

@@ -39,8 +39,19 @@ each column linear all-gathers it and each row linear reduce-scatters,
 and the final LayerNorm runs after a gather.  The grads of the LN
 scales and biases and of the row linears' biases then need the sum over
 the group (:func:`sp_grad_sync`).  A group of one rank computes the
-single-device model.  Not in this port yet (they raise): MoE and
-tensor-parallel decoding.
+single-device model.  :func:`forward_decode` takes the same group: the
+rank's pools then hold its local kv heads.
+
+Mixture of experts (``config.moe_num_experts`` > 0): each layer's FFN is
+:func:`~apex_tpu_torch.transformer.expert_parallel.moe_ffn` (params
+``layers.moe.{router, w1, b1, w2, b2}`` in place of ``fc*``), its
+load-balancing aux summed over the layers (``gpt_forward(return_aux=
+True)``) and added to the loss times ``moe_aux_coef`` (:func:`gpt_loss`).
+``ep_axis`` (the data-parallel group: EP rides DP) splits the experts,
+each rank holding ``E / ep`` of them (``param_specs(config, ep=True)``,
+the ``"ep"`` dim); tensor-parallel ranks compute the layer replicated.
+As in the JAX package, MoE refuses sequence parallelism (ValueError) and
+decoding (NotImplementedError).
 
 Context parallelism: :func:`gpt_forward`, :func:`gpt_loss`,
 ``train_gpt.make_train_step`` (``cp_group``) and
@@ -103,8 +114,9 @@ MATMUL_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",
 #: the sequence-split region, each rank sees only its own tokens
 SP_KEYS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", "fc2_b")
 
-#: what tensor-parallel decoding waits for
-TP_DECODE_ITEM = "tensor-parallel decoding, ROADMAP.md queue 1 item 8"
+#: the MoE leaves cast to ``compute_dtype`` at load for serving (the
+#: router stays fp32: its logits are fp32)
+MOE_MATMUL_KEYS = ("w1", "b1", "w2", "b2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +124,9 @@ class GPTConfig:
     """The fields of the JAX package's ``GPTConfig``.  ``checkpoint_layers``
     and ``remat_policy`` act when a gradient is taken; ``fused_ce`` and
     ``fused_ce_chunk`` act on the loss path, and ``fused_ce_impl`` must be
-    None (the kernels are the one implementation).  The options the port
-    cannot run raise at construction."""
+    None (the kernels are the one implementation); ``moe_*`` make each
+    FFN a mixture of experts.  The options the port cannot run raise at
+    construction."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -144,10 +157,6 @@ class GPTConfig:
             raise ValueError(
                 f"position_embedding_type must be 'learned' or 'rope' "
                 f"(got {self.position_embedding_type!r})")
-        if self.moe_num_experts > 0:
-            raise NotImplementedError(
-                "GPTConfig.moe_num_experts is not ported yet (MoE comes with ROADMAP.md "
-                "queue 1 item 9)")
         validate_policy(self.remat_policy)
         check_impl(self.fused_ce_impl)
         if self.compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -169,6 +178,10 @@ class GPTConfig:
         return self.ffn_hidden_size or 4 * self.hidden_size
 
     @property
+    def moe(self):
+        return self.moe_num_experts > 0
+
+    @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
 
@@ -186,8 +199,10 @@ class GPTConfig:
 def _init_numpy(config: GPTConfig, seed: int) -> Dict[str, Any]:
     """fp32 numpy params with the JAX package's tree, names and shapes
     (normal(0, 0.02) matrices, output projections scaled by
-    1/sqrt(2L), ones/zeros for LayerNorm and biases), drawn from a
-    numpy generator seeded with ``seed``."""
+    1/sqrt(2L), ones/zeros for LayerNorm and biases; with MoE the
+    ``moe`` subtree of ``moe_init``, its ``w2`` scaled by 1/sqrt(2), in
+    place of ``fc*``), drawn from a numpy generator seeded with
+    ``seed``."""
     H, Fh, L, V = config.hidden_size, config.ffn, config.num_layers, config.vocab_size
     KV = config.kv_heads * config.head_dim
     rng = np.random.default_rng(seed)
@@ -210,12 +225,19 @@ def _init_numpy(config: GPTConfig, seed: int) -> Dict[str, Any]:
             "bq": zeros(L, H), "bk": zeros(L, KV), "bv": zeros(L, KV),
             "wo": init(L, H, H) * scale, "bo": zeros(L, H),
             "ln2_scale": ones(L, H), "ln2_bias": zeros(L, H),
-            "fc1": init(L, Fh, H), "fc1_b": zeros(L, Fh),
-            "fc2": init(L, H, Fh) * scale, "fc2_b": zeros(L, H),
         },
         "final_ln_scale": ones(H),
         "final_ln_bias": zeros(H),
     }
+    if config.moe:
+        E = config.moe_num_experts
+        params["layers"]["moe"] = {
+            "router": init(L, H, E), "w1": init(L, E, Fh, H), "b1": zeros(L, E, Fh),
+            "w2": init(L, E, H, Fh) * np.float32(1.0 / np.sqrt(2.0)), "b2": zeros(L, E, H)}
+    else:
+        params["layers"].update({
+            "fc1": init(L, Fh, H), "fc1_b": zeros(L, Fh),
+            "fc2": init(L, H, Fh) * scale, "fc2_b": zeros(L, H)})
     if config.position_embedding_type == "learned":
         params["pos_embed"] = init(config.max_seq_len, H)
     return params
@@ -225,8 +247,9 @@ def params_from_numpy(tree, config: GPTConfig, device="cuda",
                       keep_fp32: bool = False) -> Dict[str, Any]:
     """The JAX package's GPT params (a tree of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's: torch tensors
-    on ``device``.  For serving the :data:`MATMUL_KEYS` leaves are cast
-    to ``config.compute_dtype`` once here; with ``keep_fp32`` (training)
+    on ``device``.  For serving the :data:`MATMUL_KEYS` leaves (and the
+    MoE experts', :data:`MOE_MATMUL_KEYS`) are cast to
+    ``config.compute_dtype`` once here; with ``keep_fp32`` (training)
     every leaf stays fp32, the tree JAX trains.  The rest is fp32."""
     dev = resolve_device(device)
     cast = torch.float32 if keep_fp32 else config.compute_dtype
@@ -237,7 +260,11 @@ def params_from_numpy(tree, config: GPTConfig, device="cuda",
     out = {k: to(v, torch.float32) for k, v in tree.items() if k != "layers"}
     out["layers"] = {
         k: to(v, cast if k in MATMUL_KEYS else torch.float32)
-        for k, v in tree["layers"].items()}
+        for k, v in tree["layers"].items() if k != "moe"}
+    if "moe" in tree["layers"]:
+        out["layers"]["moe"] = {
+            k: to(v, cast if k in MOE_MATMUL_KEYS else torch.float32)
+            for k, v in tree["layers"]["moe"].items()}
     return out
 
 
@@ -254,7 +281,7 @@ def _host_f32(a) -> np.ndarray:
 
 
 def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=None,
-                           axis_name=None, pp_group=None):
+                           axis_name=None, pp_group=None, ep_group=None):
     """The JAX trainer's checkpoint tree as the port's train state.
 
     ``tree`` is what ``examples/gpt/pretrain_gpt.py`` saves (``ckpt_tree``)
@@ -266,16 +293,18 @@ def train_state_from_numpy(tree, config: GPTConfig, device="cuda", loss_scaler=N
     ``AdamState`` holding the moments and master in the same layout, the
     scaler's state through ``loss_scaler.load_state_dict`` (None without
     a ``loss_scaler``; raises if the tree has none to load), and the
-    step count as an int.  With ``axis_name`` (the tensor-parallel group)
-    and ``pp_group`` (the pipeline group) the params and every
-    params-shaped state tree are this rank's shard (:func:`shard_params`)."""
+    step count as an int.  With ``axis_name`` (the tensor-parallel group),
+    ``pp_group`` (the pipeline group) and ``ep_group`` (the expert group)
+    the params and every params-shaped state tree are this rank's shard
+    (:func:`shard_params`)."""
     from apex_tpu_torch.optimizers.fused_adam import AdamState
     from apex_tpu_torch.optimizers.tree import tree_map
 
     dev = resolve_device(device)
     def like_params(t):
         return None if t is None else shard_params(tree_map(_host_f32, t), config, axis_name,
-                                                   dev, keep_fp32=True, pp_group=pp_group)
+                                                   dev, keep_fp32=True, pp_group=pp_group,
+                                                   ep_group=ep_group)
 
     params = like_params(tree["params"])
 
@@ -334,8 +363,13 @@ class PartitionSpec:
         pipeline), or None."""
         return self.axes.index("pp") if "pp" in self.axes else None
 
+    @property
+    def ep_dim(self) -> Optional[int]:
+        """The dim split over ``"ep"`` (the MoE experts'), or None."""
+        return self.axes.index("ep") if "ep" in self.axes else None
 
-def param_specs(config: GPTConfig, pp: bool = False) -> Dict[str, Any]:
+
+def param_specs(config: GPTConfig, pp: bool = False, ep: bool = False) -> Dict[str, Any]:
     """The split of each param over the ``"tp"`` axis, the JAX package's
     ``param_specs`` (apex_tpu/models/gpt.py:187-231) leaf for leaf:
     column-parallel weights and biases split their output rows,
@@ -344,23 +378,39 @@ def param_specs(config: GPTConfig, pp: bool = False) -> Dict[str, Any]:
     their layer axis over ``"pp"`` (``P("pp", ...)``, each stage its L /
     pp layers, as ``make_pp_train_step`` shards them there); the
     embedding, position table and final LayerNorm stay replicated over
-    the stages."""
+    the stages.  With MoE the ``moe`` subtree is the JAX
+    ``moe_param_specs``: with ``ep`` (the JAX ``ep_axis`` given) the
+    experts' dim split over ``"ep"``, else replicated; the router always
+    replicated."""
+    from apex_tpu_torch.transformer.expert_parallel import moe_param_specs
+
     P = PartitionSpec
     col, colb, row, rep2 = P(None, "tp", None), P(None, "tp"), P(None, None, "tp"), P(None, None)
+    layers = {"ln1_scale": rep2, "ln1_bias": rep2, "wq": col, "wk": col, "wv": col,
+              "bq": colb, "bk": colb, "bv": colb, "wo": row, "bo": rep2,
+              "ln2_scale": rep2, "ln2_bias": rep2}
+    if config.moe:
+        layers["moe"] = {k: P(*(a if ep else None if a == "ep" else a for a in v))
+                         for k, v in moe_param_specs().items()}
+    else:
+        layers.update({"fc1": col, "fc1_b": colb, "fc2": row, "fc2_b": rep2})
     specs = {
         "embed": P("tp", None),
-        "layers": {"ln1_scale": rep2, "ln1_bias": rep2, "wq": col, "wk": col, "wv": col,
-                   "bq": colb, "bk": colb, "bv": colb, "wo": row, "bo": rep2,
-                   "ln2_scale": rep2, "ln2_bias": rep2, "fc1": col, "fc1_b": colb,
-                   "fc2": row, "fc2_b": rep2},
+        "layers": layers,
         "final_ln_scale": P(None),
         "final_ln_bias": P(None),
     }
     if config.position_embedding_type == "learned":
         specs["pos_embed"] = P(None, None)
     if pp:
-        specs["layers"] = {k: P("pp", *tuple(v)[1:]) for k, v in specs["layers"].items()}
+        specs["layers"] = _map_layers(lambda v: P("pp", *tuple(v)[1:]), specs["layers"])
     return specs
+
+
+def _map_layers(fn, layers):
+    """``fn`` over the stacked per-layer leaves (the ``moe`` subtree's
+    too)."""
+    return {k: _map_layers(fn, v) if isinstance(v, dict) else fn(v) for k, v in layers.items()}
 
 
 def check_pp(config: GPTConfig, pp: int, vpp: int = 1) -> None:
@@ -374,28 +424,39 @@ def check_pp(config: GPTConfig, pp: int, vpp: int = 1) -> None:
 def check_tp(config: GPTConfig, tp: int) -> None:
     """Raise unless ``config`` splits over ``tp`` ranks: the vocab, the
     heads, the kv heads (GQA: tp above the kv-head count is refused, as
-    the JAX package refuses it) and the FFN width must divide."""
+    the JAX package refuses it) and the FFN width (dense: MoE experts are
+    replicated over tp) must divide."""
     if config.kv_heads % tp:
         raise ValueError(
             f"num_query_groups ({config.kv_heads}) must be divisible by the "
             f"tensor-parallel size ({tp}): kv heads shard over tp")
     for name, n in (("vocab_size", config.vocab_size),
                     ("num_attention_heads", config.num_attention_heads),
-                    ("ffn width", config.ffn)):
+                    ("ffn width", 0 if config.moe else config.ffn)):
         if n % tp:
             raise ValueError(f"{name} ({n}) must be divisible by the tensor-parallel "
                              f"size ({tp})")
 
 
-def map_specs(fn, tree, config: GPTConfig, pp: bool = False):
+def map_specs(fn, tree, config: GPTConfig, pp: bool = False, ep: bool = False):
     """``fn(leaf, spec)`` over a params-shaped tree (nested dicts) with
-    each leaf's :func:`param_specs` entry (``pp``: the pipeline's)."""
+    each leaf's :func:`param_specs` entry (``pp``: the pipeline's; ``ep``:
+    the experts split)."""
     def walk(node, specs):
         if isinstance(node, dict):
             return {k: walk(v, specs[k]) for k, v in node.items()}
         return fn(node, specs)
 
-    return walk(tree, param_specs(config, pp))
+    return walk(tree, param_specs(config, pp, ep))
+
+
+def check_ep(config: GPTConfig, ep: int, axis: str = "dp") -> None:
+    """The JAX step's rule: the experts split evenly over the ``axis``
+    group of ``ep`` ranks (EP rides DP)."""
+    if config.moe and config.moe_num_experts % ep:
+        raise ValueError(
+            f"moe_num_experts ({config.moe_num_experts}) must be divisible by the '{axis}' "
+            f"mesh axis size ({ep}): experts shard over dp (EP rides DP)")
 
 
 def _narrow(a, d, rank, size):
@@ -407,51 +468,60 @@ def _narrow(a, d, rank, size):
 
 
 def shard_tree(tree, config: GPTConfig, rank: int, size: int, pp_rank: int = 0,
-               pp_size: int = 1):
+               pp_size: int = 1, ep_rank: int = 0, ep_size: int = 1):
     """This rank's slice of each leaf of a params-shaped tree (numpy
     arrays or tensors): along the leaf's ``"tp"`` dim of
     :func:`param_specs`, the ``rank``-th of ``size`` equal pieces -- the
     block ``shard_map`` gives the device at that tp index -- and with
     ``pp_size`` above 1 along the stacked layers, stage ``pp_rank``'s L /
     pp layers (``P("pp", ...)``; for the interleaved schedule the tree
-    is in :func:`params_to_vpp_layout`'s order)."""
+    is in :func:`params_to_vpp_layout`'s order); with ``ep_size`` above 1
+    the MoE experts' ``ep_rank``-th E / ep."""
     check_tp(config, size)
     check_pp(config, pp_size)
+    check_ep(config, ep_size)
 
     def one(a, spec):
         if spec.tp_dim is not None and size > 1:
             a = _narrow(a, spec.tp_dim, rank, size)
         if spec.pp_dim is not None and pp_size > 1:
             a = _narrow(a, spec.pp_dim, pp_rank, pp_size)
+        if spec.ep_dim is not None and ep_size > 1:
+            a = _narrow(a, spec.ep_dim, ep_rank, ep_size)
         return a
 
-    return map_specs(one, tree, config, pp=True)
+    return map_specs(one, tree, config, pp=True, ep=True)
+
+
+def _coords(group):
+    """``(rank, size)`` of an ``AxisGroup``, ``(0, 1)`` for None."""
+    return (0, 1) if group is None else (group.rank(), group.size())
 
 
 def shard_params(tree, config: GPTConfig, axis_name, device="cuda",
-                 keep_fp32: bool = False, pp_group=None) -> Dict[str, Any]:
+                 keep_fp32: bool = False, pp_group=None, ep_group=None) -> Dict[str, Any]:
     """The JAX package's params (numpy) as this rank's shard on
     ``device``: :func:`shard_tree` at ``axis_name``'s rank and size (an
-    ``AxisGroup``; None is the whole tree) and at ``pp_group``'s stage,
-    then :func:`params_from_numpy`."""
-    rank, size = (0, 1) if axis_name is None else (axis_name.rank(), axis_name.size())
-    pp_rank, pp_size = (0, 1) if pp_group is None else (pp_group.rank(), pp_group.size())
-    return params_from_numpy(shard_tree(tree, config, rank, size, pp_rank, pp_size), config,
-                             device, keep_fp32)
+    ``AxisGroup``; None is the whole tree), at ``pp_group``'s stage and
+    at ``ep_group``'s expert block, then :func:`params_from_numpy`."""
+    return params_from_numpy(
+        shard_tree(tree, config, *_coords(axis_name), *_coords(pp_group), *_coords(ep_group)),
+        config, device, keep_fp32)
 
 
-def gather_params(tree, config: GPTConfig, axis_name, pp_group=None):
+def gather_params(tree, config: GPTConfig, axis_name, pp_group=None, ep_group=None):
     """The opposite of :func:`shard_tree` on the device: every rank's
     slices of a params-shaped tree of tensors, all-gathered over
-    ``axis_name`` along each leaf's ``"tp"`` dim and over ``pp_group``
-    along the stacked layers, into the whole tree (collectives: every
-    rank of the groups calls it).  Under the interleaved schedule the
-    result is in the vpp layout (:func:`params_from_vpp_layout` undoes
-    it)."""
+    ``axis_name`` along each leaf's ``"tp"`` dim, over ``pp_group`` along
+    the stacked layers and over ``ep_group`` along the MoE experts, into
+    the whole tree (collectives: every rank of the groups calls it).
+    Under the interleaved schedule the result is in the vpp layout
+    (:func:`params_from_vpp_layout` undoes it)."""
     from apex_tpu_torch.transformer.tensor_parallel.mappings import all_gather_dim
 
     tp = axis_name is not None and axis_name.size() > 1
     pp = pp_group is not None and pp_group.size() > 1
+    ep = ep_group is not None and ep_group.size() > 1
 
     def one(a, spec):
         a = a.detach()
@@ -459,9 +529,11 @@ def gather_params(tree, config: GPTConfig, axis_name, pp_group=None):
             a = all_gather_dim(a, axis_name, spec.tp_dim)
         if pp and spec.pp_dim is not None:
             a = all_gather_dim(a, pp_group, spec.pp_dim)
+        if ep and spec.ep_dim is not None:
+            a = all_gather_dim(a, ep_group, spec.ep_dim)
         return a
 
-    return tree if not (tp or pp) else map_specs(one, tree, config, pp=True)
+    return tree if not (tp or pp or ep) else map_specs(one, tree, config, pp=True, ep=True)
 
 
 def _vpp_perm(a, pp: int, vpp: int, inverse: bool):
@@ -484,21 +556,24 @@ def params_to_vpp_layout(params, pp: int, vpp: int):
     in[(v·pp + s)·lpc + i]``.  Numpy arrays or tensors; the other leaves
     pass through.  Inverse: :func:`params_from_vpp_layout`."""
     out = dict(params)
-    out["layers"] = {k: _vpp_perm(v, pp, vpp, False) for k, v in params["layers"].items()}
+    out["layers"] = _map_layers(lambda v: _vpp_perm(v, pp, vpp, False), params["layers"])
     return out
 
 
 def params_from_vpp_layout(params, pp: int, vpp: int):
     """The inverse of :func:`params_to_vpp_layout`."""
     out = dict(params)
-    out["layers"] = {k: _vpp_perm(v, pp, vpp, True) for k, v in params["layers"].items()}
+    out["layers"] = _map_layers(lambda v: _vpp_perm(v, pp, vpp, True), params["layers"])
     return out
 
 
 def _layer_list(layers):
-    """The stacked per-layer leaves as one dict of views per layer."""
+    """The stacked per-layer leaves as one dict of views per layer (the
+    ``moe`` subtree a dict of its own)."""
     names = list(layers)
-    return [dict(zip(names, vals)) for vals in zip(*(layers[k].unbind(0) for k in names))]
+    per = [_layer_list(layers[k]) if isinstance(layers[k], dict) else layers[k].unbind(0)
+           for k in names]
+    return [dict(zip(names, vals)) for vals in zip(*per)]
 
 
 def _cp(cp_axis):
@@ -611,15 +686,30 @@ def _attention(x, p, config: GPTConfig, rope, axis_name=None, cp=None):
     return _row_proj(ctx, p["wo"], p["bo"], axis_name, sp), kv
 
 
-def _layer(x, p, config: GPTConfig, rope, axis_name=None, cp=None):
-    """One transformer block on (S, B, H); returns ``(x, (k, v))``."""
+def _moe_mlp(x, p, config: GPTConfig, ep=None):
+    """The expert-parallel FFN on (S, B, H), the JAX package's
+    ``_moe_mlp``: the experts split over ``ep`` (the data-parallel group),
+    tensor-parallel ranks computing it replicated.  Returns ``(out,
+    aux)``."""
+    from apex_tpu_torch.transformer.expert_parallel import moe_ffn
+
+    return moe_ffn(x, p["moe"], top_k=config.moe_top_k,
+                   capacity_factor=config.moe_capacity_factor, ep_group=ep)
+
+
+def _layer(x, p, config: GPTConfig, rope, axis_name=None, cp=None, ep=None):
+    """One transformer block on (S, B, H); returns ``(x, (k, v), aux)``,
+    aux the MoE load-balancing loss (None when the FFN is dense)."""
     H, eps, cd = config.hidden_size, config.layernorm_eps, config.compute_dtype
     sp = config.sequence_parallel and axis_name is not None
     ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
     attn, kv = _attention(ln1.to(cd), p, config, rope, axis_name, cp)
     x = x + attn
     ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
-    return x + _mlp(ln2.to(cd), p, axis_name, sp), kv
+    if config.moe:
+        h, aux = _moe_mlp(ln2.to(cd), p, config, ep)
+        return x + h, kv, aux
+    return x + _mlp(ln2.to(cd), p, axis_name, sp), kv, None
 
 
 def _embed_segment(embed_w, pos_w, tokens, config: GPTConfig, axis_name=None, cp=None):
@@ -657,39 +747,51 @@ def _rope(config: GPTConfig, S: int, device, start: int = 0):
                         config.rope_theta)
 
 
-def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = False, cp=None):
+def _layers(layers, x, config: GPTConfig, axis_name=None, return_kv: bool = False, cp=None,
+            ep=None):
     """The stacked ``layers`` over ``x`` (S or S / tp, B, H): the
     transformer blocks, under :func:`~apex_tpu_torch.models._remat.
     remat_layer` when a gradient is recorded and ``config.
     checkpoint_layers`` is set; with ``cp`` x is this rank's sequence
-    chunk (RoPE at its global positions, ring attention).  Returns ``(x,
-    ks, vs)``, the lists of every layer's post-RoPE k/v with
-    ``return_kv``."""
+    chunk (RoPE at its global positions, ring attention); ``ep`` the MoE
+    experts' group.  Returns ``(x, ks, vs, aux)``: the lists of every
+    layer's post-RoPE k/v with ``return_kv``, and with MoE the layers'
+    load-balancing losses summed (None when dense)."""
     sp = config.sequence_parallel and axis_name is not None
     S = x.shape[0] * (axis_name.size() if sp else 1)
     rope = _rope(config, S, x.device, 0 if cp is None else cp.rank() * S)
     remat = config.checkpoint_layers and torch.is_grad_enabled() and not return_kv
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for p in _layer_list(layers):
+        if remat and config.moe:
+            x, aux = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name, cp,
+                                                        ep)[0::2], config.remat_policy)(x)
+            auxes.append(aux)
+            continue
         if remat:
             x = remat_layer(lambda x_, p=p: _layer(x_, p, config, rope, axis_name, cp)[0],
                             config.remat_policy)(x)
             continue
-        x, (k, v) = _layer(x, p, config, rope, axis_name, cp)
+        x, (k, v), aux = _layer(x, p, config, rope, axis_name, cp, ep)
+        auxes.append(aux)
         if return_kv:
             ks.append(k)
             vs.append(v)
-    return x, ks, vs
+    aux = torch.stack(auxes).sum() if config.moe else None
+    return x, ks, vs, aux
 
 
-def _layers_segment(layers_p, x, config: GPTConfig, axis_name=None, cp=None):
+def _layers_segment(layers_p, x, config: GPTConfig, axis_name=None, cp=None, ep=None):
     """Forward segment 2, the JAX package's ``_layers_segment``: the
     stacked layers over ``x`` (:func:`_layers`, remat per layer as
-    configured).  The layer leaves are stacked, so every ``layers.*``
-    gradient is complete only when the whole segment's backward is: one
-    readiness stage, not L of them.  A pipeline stage runs it on its
-    layers (``stage_fn``), ``cp`` the context-parallel group."""
-    return _layers(layers_p, x, config, axis_name, cp=cp)[0]
+    configured); returns ``(x, aux)``, aux the layers' summed MoE
+    load-balancing loss (None when dense).  The layer leaves are
+    stacked, so every ``layers.*`` gradient is complete only when the
+    whole segment's backward is: one readiness stage, not L of them.  A
+    pipeline stage runs it on its layers (``stage_fn``), ``cp`` the
+    context-parallel group, ``ep`` the experts'."""
+    x, _, _, aux = _layers(layers_p, x, config, axis_name, cp=cp, ep=ep)
+    return x, aux
 
 
 def _head_segment(x, ln_scale, ln_bias, config: GPTConfig, axis_name=None):
@@ -719,8 +821,29 @@ _OVERLAP_STAGES = {"final_ln_scale": 0, "final_ln_bias": 0, "layers": 1,
                    "embed": 2, "pos_embed": 2}
 
 
+def _check_moe(config: GPTConfig) -> None:
+    """The JAX package's refusal: MoE beside sequence parallelism."""
+    if config.moe and config.sequence_parallel:
+        raise ValueError("MoE with Megatron sequence parallelism is not supported: "
+                         "expert grads would need an extra tp-psum; use cp instead")
+
+
+def _ep(ep_axis):
+    """The experts' group (``ep_axis``, an ``AxisGroup``), or None for
+    none or a group of one rank (every expert local)."""
+    if ep_axis is None:
+        return None
+    from apex_tpu_torch.transformer import parallel_state
+
+    if not isinstance(ep_axis, parallel_state.AxisGroup):
+        raise ValueError(f"ep_axis={ep_axis!r}: pass the data-parallel AxisGroup of "
+                         f"apex_tpu_torch.transformer.parallel_state, or None")
+    return ep_axis if ep_axis.size() > 1 else None
+
+
 def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
-                return_kv: bool = False, axis_name=None, cp_axis=None):
+                return_kv: bool = False, axis_name=None, cp_axis=None, ep_axis=None,
+                return_aux: bool = False):
     """tokens (B, S) -> logits (S, B, V) fp32, or with ``return_hidden``
     the pre-head activations (S, B, H) after the final LayerNorm.  With
     ``return_kv`` a trailing ``(k, v)`` pair is appended, each (L, B,
@@ -733,7 +856,14 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     With ``axis_name`` (the tensor-parallel group; ``params`` this rank's
     shard) the logits are the vocab-local (S, B, V / tp), and the hidden
     states (after the copy-to-region, whose backward sums the head's dx
-    over the group) are whole on every rank.
+    over the group) are whole on every rank; the ``return_kv`` pair holds
+    the rank's kv_heads / tp heads.
+
+    With MoE, ``ep_axis`` (the data-parallel group: EP rides DP) splits
+    the experts, ``params`` holding this rank's; ``return_aux`` puts the
+    layers' summed load-balancing loss (fp32, 0 when dense) after the
+    output, before the kv pair.  MoE with ``config.sequence_parallel``
+    raises ValueError, as in the JAX package.
 
     With ``cp_axis`` (the context-parallel group) ``tokens`` are this
     rank's sequence chunk, positions are global and attention is the
@@ -742,22 +872,20 @@ def gpt_forward(params, tokens, config: GPTConfig, return_hidden: bool = False,
     package does."""
     cp = _cp(cp_axis)
     _check_cp(config, cp)
+    _check_moe(config)
     axis_name = _tp(axis_name)
     if axis_name is not None:
-        if return_kv:
-            raise NotImplementedError(f"gpt_forward(return_kv=True) under tensor "
-                                      f"parallelism is not ported yet: {TP_DECODE_ITEM}")
         check_tp(config, axis_name.size())
     x = _embed_segment(params["embed"], params.get("pos_embed"), tokens, config, axis_name, cp)
-    if return_kv:
-        x, ks, vs = _layers(params["layers"], x, config, axis_name, return_kv, cp)
-    else:
-        x = _layers_segment(params["layers"], x, config, axis_name, cp)
+    x, ks, vs, aux = _layers(params["layers"], x, config, axis_name, return_kv, cp,
+                             _ep(ep_axis))
     x = _head_segment(x, params["final_ln_scale"], params["final_ln_bias"], config, axis_name)
-    out = x if return_hidden else torch.matmul(x.float(), params["embed"].float().T)
+    out = (x if return_hidden else torch.matmul(x.float(), params["embed"].float().T),)
+    if return_aux:
+        out += (aux if aux is not None else torch.zeros((), device=x.device),)
     if return_kv:
-        return out, (torch.stack(ks), torch.stack(vs))
-    return out
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    return out if len(out) > 1 else out[0]
 
 
 def lm_head_loss(x, embed, targets, config: GPTConfig, axis_name=None):
@@ -780,19 +908,26 @@ def lm_head_loss(x, embed, targets, config: GPTConfig, axis_name=None):
     return lse - logits.gather(-1, t_cl[..., None])[..., 0]
 
 
-def gpt_loss(params, tokens, targets, config: GPTConfig, axis_name=None, cp_axis=None):
+def gpt_loss(params, tokens, targets, config: GPTConfig, axis_name=None, cp_axis=None,
+             ep_axis=None):
     """Mean causal-LM cross entropy of ``tokens`` (B, S) against
-    ``targets`` (B, S): the JAX package's ``gpt_loss``, over the
-    tensor-parallel group ``axis_name`` when given (``params`` this
-    rank's shard; the loss is the same on every rank).  With ``cp_axis``
-    (the context-parallel group) tokens and targets are this rank's
-    sequence chunk and the mean is over the local chunk: the ranks'
-    means average to the global one (the data-axis gradient calculus)."""
+    ``targets`` (B, S), plus ``moe_aux_coef`` times the MoE
+    load-balancing loss when the FFNs are experts: the JAX package's
+    ``gpt_loss``, over the tensor-parallel group ``axis_name`` when given
+    (``params`` this rank's shard; the loss is the same on every rank).
+    With ``cp_axis`` (the context-parallel group) tokens and targets are
+    this rank's sequence chunk and the mean is over the local chunk: the
+    ranks' means average to the global one (the data-axis gradient
+    calculus).  ``ep_axis``: the experts' group (:func:`gpt_forward`)."""
     dev = params["embed"].device
     t = torch.as_tensor(targets, device=dev).transpose(0, 1)  # (S, B)
-    hidden = gpt_forward(params, tokens, config, return_hidden=True, axis_name=axis_name,
-                         cp_axis=cp_axis)
-    return lm_head_loss(hidden, params["embed"], t, config, axis_name).mean()
+    out = gpt_forward(params, tokens, config, return_hidden=True, axis_name=axis_name,
+                      cp_axis=cp_axis, ep_axis=ep_axis, return_aux=config.moe)
+    hidden, aux = out if config.moe else (out, None)
+    loss = lm_head_loss(hidden, params["embed"], t, config, axis_name).mean()
+    if aux is not None:
+        loss = loss + config.moe_aux_coef * aux
+    return loss
 
 
 def sp_grad_sync(grads, axis_name):
@@ -813,13 +948,15 @@ def sp_grad_sync(grads, axis_name):
     return allreduce_sequence_parallel_grads(grads, mask, axis_name)
 
 
-def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None):
+def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None, ep_group=None):
     """The global Σx² of a grad clip over a model-parallel step, the JAX
     package's ``clip_sumsq_reduce`` (apex_tpu/models/gpt.py:781-829) on
     :func:`param_specs`: a split leaf holds only its slice, so its Σx²
     is summed over the groups it is split over (``axis_name``, the
     tensor-parallel group, for the tp-split leaves; ``pp_group``, the
-    pipeline, for the stacked layers of a pipelined step); a replicated
+    pipeline, for the stacked layers of a pipelined step; ``ep_group``,
+    the experts' group, for the MoE experts, split over it when it is
+    given, as the JAX step's ``ep_axis`` splits them); a replicated
     leaf is whole on every rank and is not (the embedding, positions and
     final LayerNorm count once, though every stage holds them).  Returns
     ``reduce(per_leaf_sumsq) -> total`` for the optimizers' ``sumsq_
@@ -827,15 +964,16 @@ def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None):
     package the leaves are grouped by the axes they are split over, each
     group summed locally and then over its axes (in rank order, XLA's
     CPU ``psum`` order; tp before pp), the groups added in the order of
-    their sorted axis names: replicated, pp, pp+tp, tp."""
+    their sorted axis names: replicated, ep, ep+pp, pp, pp+tp, tp (the
+    JAX package's ``dp`` sorts where ``ep`` does)."""
     from apex_tpu_torch.contrib.optimizers._quantized_sync import rank_order_sum
     from apex_tpu_torch.optimizers.tree import tree_leaves
 
     pp = pp_group is not None
-    specs = tree_leaves(param_specs(config, pp))
+    specs = tree_leaves(param_specs(config, pp, ep=config.moe and ep_group is not None))
     axes = [tuple(sorted(a for a in spec if a is not None)) for spec in specs]
     order = sorted(set(axes))
-    groups = {"tp": axis_name, "pp": pp_group}
+    groups = {"tp": axis_name, "pp": pp_group, "ep": ep_group}
 
     def reduce(sq):
         if len(sq) != len(specs):
@@ -844,7 +982,7 @@ def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None):
         total = torch.zeros((), dtype=sq[0].dtype, device=sq[0].device)
         for key in order:
             part = torch.stack([q for q, a in zip(sq, axes) if a == key]).sum()
-            for ax in sorted(key, reverse=True):  # tp, then pp
+            for ax in sorted(key, reverse=True):  # tp, then pp, then ep
                 g = groups[ax]
                 if g is not None and g.size() > 1:
                     part = rank_order_sum(part, g.group, g.size())
@@ -855,7 +993,7 @@ def clip_sumsq_reduce(config: GPTConfig, axis_name, pp_group=None):
 
 
 def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
-                   config: GPTConfig, verify_width: int = 1, write_mask=None):
+                   config: GPTConfig, verify_width: int = 1, write_mask=None, axis_name=None):
     """Decode forward over the paged KV cache.
 
     ``tokens``/``positions``/``active``: (B,) current token ids, their
@@ -878,17 +1016,45 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
     can recompute a shared-prefix position without rewriting the shared
     page.
 
+    With ``axis_name`` (the tensor-parallel group; ``params`` this rank's
+    shard) the projections run column- and row-parallel as in training:
+    the vocab-parallel embedding, q, k and v on the rank's heads, the
+    pools holding its kv_heads / tp heads (the JAX package's pool spec
+    splits the head dim over tp), wo and fc2 row-parallel, and the final
+    LayerNorm followed by the copy-to-region.
+
     Returns ``(hidden, kv_pools)``: hidden (B, H) after the final
     LayerNorm (the caller owns the head), and the same pools dict.
+    MoE raises NotImplementedError and sequence parallelism ValueError,
+    as in the JAX package.
     """
     from apex_tpu_torch.inference.kv_cache import decode_write_index
 
+    if config.moe:
+        raise NotImplementedError(
+            "MoE decode is not wired (expert routing at batch 1 needs "
+            "its own capacity plan); see ROADMAP follow-ons")
+    if config.sequence_parallel:
+        raise ValueError(
+            "sequence_parallel shards the sequence axis; a decode step "
+            "is one token — build the decode config without it")
+    axis_name = _tp(axis_name)
+    tp = 1 if axis_name is None else axis_name.size()
+    if config.kv_heads % tp != 0:
+        raise ValueError(
+            f"num_query_groups ({config.kv_heads}) must be divisible by "
+            f"the tensor-parallel size ({tp}): kv heads (and the KV page "
+            "pools) shard over tp")
     B = tokens.shape[0]
     H, eps, cd = config.hidden_size, config.layernorm_eps, config.compute_dtype
-    nh, nkv, hd = config.num_attention_heads, config.kv_heads, config.head_dim
+    nh, nkv, hd = config.num_attention_heads // tp, config.kv_heads // tp, config.head_dim
     positions = positions.long()
     lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-    x = params["embed"][tokens.long()][None]  # (1, B, H) fp32
+    if axis_name is None:
+        x = params["embed"][tokens.long()][None]  # (1, B, H) fp32
+    else:
+        x = vocab_parallel_embedding(tokens.long()[:, None], params["embed"],
+                                     axis_name=axis_name)[:, 0][None]
     if config.position_embedding_type == "learned":
         pos = params["pos_embed"][positions.clamp(0, config.max_seq_len - 1)]
         x = x + pos[None]
@@ -910,7 +1076,7 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
                                     k_pools.shape[1], k_pools.shape[2])
     for li, p in enumerate(_layer_list(params["layers"])):
         ln1 = fused_layer_norm_affine(x, p["ln1_scale"], p["ln1_bias"], (H,), eps)
-        h = ln1.to(cd)
+        h = _col_in(ln1.to(cd), axis_name, False)
         q = _proj(h, p["wq"], p["bq"])[0].reshape(B, nh, hd)
         k = _proj(h, p["wk"], p["bk"])[0].reshape(B, nkv, hd)
         v = _proj(h, p["wv"], p["bv"])[0].reshape(B, nkv, hd)
@@ -922,11 +1088,13 @@ def forward_decode(params, tokens, positions, active, kv_pools, page_tables,
         ctx = paged_decode_attention(q, k_pool, v_pool, page_tables, lengths,
                                      width=verify_width)
         ctx = ctx.to(cd).reshape(1, B, nh * hd)
-        x = x + _proj(ctx, p["wo"], p["bo"])
+        x = x + _row_proj(ctx, p["wo"], p["bo"], axis_name, False)
         ln2 = fused_layer_norm_affine(x, p["ln2_scale"], p["ln2_bias"], (H,), eps)
-        x = x + _mlp(ln2.to(cd), p)
+        x = x + _mlp(ln2.to(cd), p, axis_name)
     x = fused_layer_norm_affine(x, params["final_ln_scale"], params["final_ln_bias"],
                                 (H,), eps)
+    if axis_name is not None:
+        x = copy_to_tensor_model_parallel_region(x, axis_name)
     return x[0], kv_pools
 
 
@@ -983,8 +1151,18 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
     ``graphs=False``: the whole step, the stage-to-stage messages with it,
     is one CUDA graph after the eager warm-up (which makes every NCCL
     channel before the capture).
-    MoE (``GPTConfig``, ROADMAP.md queue 1 item 9) raises, and so does a
-    hierarchical ``dp_group``, as in the JAX package."""
+
+    MoE composes, as in the JAX step: the experts split over
+    ``dp_group`` inside every stage (``params`` this rank's E / dp,
+    ``shard_params(..., ep_group=dp_group)``), each stage's layers return
+    the pre-weighted ``moe_aux_coef · Σ aux``, which the schedule adds to
+    the loss once per (stage, microbatch) unit and seeds with 1 / M into
+    that unit's backward (``stage_has_aux``; a loss scale or chaos fault
+    scales it with the loss), the expert grads skip the dp all-reduce and
+    are scaled by 1 / dp, and dp joins the finite vote.  MoE without a
+    ``dp_group`` raises ValueError, and with a ZeRO optimizer
+    NotImplementedError, as a hierarchical ``dp_group`` does, as in the
+    JAX package."""
     from apex_tpu_torch.optimizers.tree import tree_leaves
     from apex_tpu_torch.train_gpt import _check_zero_axis, _make_step
     from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication as p2p
@@ -993,11 +1171,16 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
         forward_backward_pipelining_without_interleaving,
     )
 
-    cp = _cp(cp_axis)
-    _check_cp(config, cp)
     if isinstance(dp_group, (tuple, list)):
         raise NotImplementedError("the pipeline step's dp sync is flat: a hierarchical dp "
                                   "split runs through make_train_step, as in the JAX package")
+    if config.moe and dp_group is None:
+        raise ValueError("MoE in the pipeline step needs a dp axis (EP rides DP)")
+    cp = _cp(cp_axis)
+    _check_cp(config, cp)
+    _check_moe(config)
+    if config.moe and hasattr(optimizer, "sharded_state_dict"):
+        raise NotImplementedError("ZeRO + MoE expert sharding both claim the dp axis; not wired")
     _check_zero_axis(optimizer, dp_group)
     group = p2p._group(pp_group)
     P = group.size()
@@ -1012,15 +1195,22 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
         check_tp(config, tp.size())
     sp = config.sequence_parallel and tp is not None
     pipe = group if P > 1 else None
-    reduce = clip_sumsq_reduce(config, tp, pipe) if (tp is not None or pipe is not None) \
-        else None
+    ep_group = dp_group if config.moe else None
+    if ep_group is not None:
+        check_ep(config, ep_group.size(), str(ep_group))
+    ep = _ep(ep_group)
+    reduce = (clip_sumsq_reduce(config, tp, pipe, ep_group)
+              if (tp is not None or pipe is not None or ep is not None) else None)
 
     def pre_fn(shared, mb):
         return _embed_segment(shared["embed"], shared.get("pos_embed"), mb["tokens"], config,
                               tp, cp)
 
     def stage_fn(layers, x):
-        return _layers_segment(layers, x, config, tp, cp)
+        y, aux = _layers_segment(layers, x, config, tp, cp, ep)
+        # the pre-weighted load-balancing aux rides the schedule's aux
+        # channel
+        return y if aux is None else (y, config.moe_aux_coef * aux)
 
     def post_fn(shared, y, mb):
         h = _head_segment(y, shared["final_ln_scale"], shared["final_ln_bias"], config, tp)
@@ -1036,22 +1226,33 @@ def make_pp_train_step(config: GPTConfig, optimizer, num_microbatches: int,
             raise ValueError(f"the batch's {B} rows do not split into {M} microbatches")
         mbs = {"tokens": tokens.reshape(M, B // M, S), "targets": targets.reshape(M, B // M, S)}
         post_ = post_fn if post is None else (lambda sh, y, mb: post(post_fn(sh, y, mb)))
+        stage_ = stage_fn
+        if post is not None and config.moe:
+            # the loss scale and chaos fault are linear: the aux enters the
+            # loss inside the schedule and rides the same scaled backward
+            def stage_(layers, x):
+                y, aux = stage_fn(layers, x)
+                return y, post(aux)
         shared = {k: v for k, v in params.items() if k != "layers"}
         shape = (S // tp.size() if sp else S, B // M, config.hidden_size)
-        kw = dict(tensor_shape=shape, dtype=config.compute_dtype, axis_name=group)
+        kw = dict(tensor_shape=shape, dtype=config.compute_dtype, axis_name=group,
+                  stage_has_aux=config.moe)
         if vpp > 1:
             loss, (g_sh, g_st) = forward_backward_pipelining_with_interleaving(
-                pre_fn, stage_fn, post_, shared, params["layers"], mbs,
+                pre_fn, stage_, post_, shared, params["layers"], mbs,
                 virtual_pipeline_model_parallel_size=vpp, **kw)
         else:
             loss, (g_sh, g_st) = forward_backward_pipelining_without_interleaving(
-                pre_fn, stage_fn, post_, shared, params["layers"], mbs, **kw)
+                pre_fn, stage_, post_, shared, params["layers"], mbs, **kw)
         return loss.detach(), {**g_sh, "layers": g_st}
 
-    sync = tuple(g for g in (pipe, tp) if g is not None)
+    # stage-split, tp-split and (MoE) dp-split expert grads can overflow on
+    # one rank only: each such group joins the finite vote
+    sync = tuple(g for g in (pipe, tp, ep) if g is not None)
     return _make_step(optimizer, config, grads_fn, loss_scaler=loss_scaler,
                       step_guard=step_guard, clip_grad_norm=clip_grad_norm, graphs=graphs,
                       warmup=warmup, telemetry=telemetry, dp_group=dp_group, tp_group=tp,
                       sync_groups=sync,
                       clip_sumsq=reduce if clip_grad_norm is not None else None,
-                      norm_sumsq=reduce, chaos=chaos, cp_group=cp)
+                      norm_sumsq=reduce, chaos=chaos, cp_group=cp,
+                      expert_grads=config.moe)

@@ -26,7 +26,9 @@ its plain PyTorch version, and a launch counter ``LAUNCHES``.
 - :mod:`~apex_tpu_torch.ops.rope` — rotary embeddings (plain PyTorch).
 
 :func:`launch_counts` and :func:`restore_counts` read and set every
-counter at once, for code that must not know the kernel modules (a
+counter at once (with the MoE layer's ``all_to_all`` exchanges,
+``transformer.expert_parallel.A2A_LAUNCHES``, counted beside the
+kernels), for code that must not know the kernel modules (a
 captured step counts its replays through them).
 """
 
@@ -44,11 +46,14 @@ COUNTERS = (
     ("decode_sampling", "LAUNCHES"),
     ("multi_tensor", "ADAM_LAUNCHES"), ("multi_tensor", "SCALE_LAUNCHES"),
     ("multi_tensor", "L2NORM_LAUNCHES"), ("multi_tensor", "REMAINDER_LAUNCHES"),
+    ("apex_tpu_torch.transformer.expert_parallel", "A2A_LAUNCHES"),
 )
 
 
 def _module(name):
-    return importlib.import_module(f"{__name__}.{name}")
+    """A kernel module of this package by its short name, or any module
+    by its dotted path."""
+    return importlib.import_module(name if "." in name else f"{__name__}.{name}")
 
 
 def launch_counts():
@@ -60,5 +65,5 @@ def restore_counts(counts):
     """Set the counters named in ``counts`` (keys as
     :func:`launch_counts` gives them) to its values."""
     for key, value in counts.items():
-        m, n = key.split(".")
+        m, n = key.rsplit(".", 1)
         setattr(_module(m), n, value)

@@ -154,18 +154,19 @@ def setup(args, params_tree=None):
 
 
 def loss_and_grads(params, tokens, targets, config, post_loss=None, axis_name=None,
-                   cp_axis=None):
+                   cp_axis=None, ep_axis=None):
     """``value_and_grad(gpt_loss)``: the loss and a tree of gradients
     shaped like ``params``; with ``post_loss`` (the loss scaler's
     ``scale``) of ``post_loss(loss)``; over the tensor-parallel group
-    ``axis_name`` and the context-parallel group ``cp_axis`` when given
-    (then of this rank's local-chunk loss).  Leaves that do not require
-    a gradient yet are made to."""
+    ``axis_name``, the context-parallel group ``cp_axis`` (then of this
+    rank's local-chunk loss) and the MoE experts' group ``ep_axis`` when
+    given.  Leaves that do not require a gradient yet are made to."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         if not leaf.requires_grad:
             leaf.requires_grad_(True)
-    loss = gpt_loss(params, tokens, targets, config, axis_name=axis_name, cp_axis=cp_axis)
+    loss = gpt_loss(params, tokens, targets, config, axis_name=axis_name, cp_axis=cp_axis,
+                    ep_axis=ep_axis)
     if post_loss is not None:
         loss = post_loss(loss)
     grads = torch.autograd.grad(loss, leaves)
@@ -294,7 +295,28 @@ def _quantized_wire(dp_group, qspec):
             lambda h: qs.quantized_pmean_bucket(h, pg, qspec, world), world)
 
 
-def _dp_sync(opt, dp_group, qspec=None):
+def _expert_split_sync(sync, world):
+    """``sync`` (a tree's DDP all-reduce) over every leaf but the MoE
+    experts', which are dp-split sums (the exchange already brought every
+    rank's cotangents to their owner): those are scaled by 1 / ``world``
+    instead, the JAX step's ``pmean_grads(skip_experts=True)``."""
+    from apex_tpu_torch.transformer.expert_parallel import EXPERT_PARAM_KEYS
+
+    inv = 1.0 / world
+
+    def grad_sync(grads):
+        moe = grads["layers"]["moe"]
+        rest = {**grads, "layers": {**grads["layers"], "moe": {
+            k: v for k, v in moe.items() if k not in EXPERT_PARAM_KEYS}}}
+        rest = sync(rest)
+        rest["layers"]["moe"] = {k: v * inv if k in EXPERT_PARAM_KEYS
+                                 else rest["layers"]["moe"][k] for k, v in moe.items()}
+        return rest
+
+    return grad_sync
+
+
+def _dp_sync(opt, dp_group, qspec=None, expert_grads=False):
     """``(grad sync or None, loss mean or None)`` of a step: a ZeRO
     optimizer owns the grad sync (its reduce-scatter), so the step only
     averages the loss over its group; a replicated optimizer with
@@ -306,7 +328,9 @@ def _dp_sync(opt, dp_group, qspec=None):
     the loss mean.  The loss mean adds in rank order, the JAX step's
     ``pmean``.  A hierarchical ``dp_group`` with a replicated wide sync
     syncs over the flat data-parallel group of the same ranks, as the
-    JAX step's one ``pmean`` over both axes does."""
+    JAX step's one ``pmean`` over both axes does.  With ``expert_grads``
+    (MoE, whose experts split over ``dp_group``) the all-reduce skips the
+    expert leaves and scales them by 1 / dp (:func:`_expert_split_sync`)."""
     from apex_tpu_torch.contrib.optimizers import _quantized_sync as qs
     from apex_tpu_torch.parallel.distributed import allreduce_gradients, process_group
 
@@ -324,6 +348,8 @@ def _dp_sync(opt, dp_group, qspec=None):
 
         def grad_sync(grads):
             return allreduce_gradients(grads, group=dp_group)
+        if expert_grads:
+            grad_sync = _expert_split_sync(grad_sync, world)
     else:
         return None, None
 
@@ -333,7 +359,7 @@ def _dp_sync(opt, dp_group, qspec=None):
     return grad_sync, loss_mean
 
 
-def _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype):
+def _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype, moe=False):
     """The JAX step's checks of its ``grad_sync_dtype`` knob; returns its
     :class:`~apex_tpu_torch.contrib.optimizers._quantized_sync.QSpec` (or
     None without the knob)."""
@@ -351,6 +377,9 @@ def _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype):
         raise ValueError(
             "a ZeRO optimizer owns the dp grad sync: pass grad_sync_dtype to its constructor "
             "(where it gains the error-feedback residual), not to make_train_step")
+    if moe:
+        raise NotImplementedError("quantized dp sync + MoE is not wired: expert grads are "
+                                  "dp-sharded sums, not pmean'd")
     if dp_group is None:
         raise ValueError("grad_sync_dtype quantizes the dp sync; this step has dp_axis=None")
     return qspec
@@ -458,7 +487,7 @@ def overlap_value_and_grads(opt, config, params, state, tokens, targets, post, s
 
     x0 = _embed_segment(embed, pos, tokens, config, tp)
     x0_in = x0.detach().requires_grad_(True)
-    x1 = _layers_segment(params["layers"], x0_in, config, tp)
+    x1 = _layers_segment(params["layers"], x0_in, config, tp)[0]
     x1_in = x1.detach().requires_grad_(True)
     h = _head_segment(x1_in, ln_s, ln_b, config, tp)
     loss = lm_head_loss(h, embed, t, config, tp).mean()
@@ -623,23 +652,51 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     ``step_guard``, whose device step counter keys the plan): the loss is
     multiplied by :meth:`~apex_tpu_torch.resilience.chaos.ChaosMonkey
     .grad_fault` before the backward, on the device, so a captured step
-    replays the plan with no host read; the guard then skips the step."""
-    from apex_tpu_torch.models.gpt import _check_cp, _cp, _tp, check_tp, clip_sumsq_reduce
+    replays the plan with no host read; the guard then skips the step.
 
+    Mixture of experts (``config.moe_num_experts`` > 0): the experts ride
+    ``dp_group`` (the JAX step's ``ep_axis = dp_axis``), each rank holding
+    its E / dp (``shard_params(..., ep_group=dp_group)``) and exchanging
+    tokens over the group twice a layer; the loss adds ``moe_aux_coef``
+    times the aux; the expert grads skip the DDP all-reduce and are
+    scaled by 1 / dp (the router and every other leaf are averaged as
+    always); dp joins the finite vote; a clip's Σx² sums the expert
+    leaves over dp.  Tensor and context parallelism compose.  As in the
+    JAX step it raises ValueError when the experts do not divide over dp,
+    and NotImplementedError with a hierarchical ``dp_group``, with
+    ``grad_sync_dtype``, with a ZeRO optimizer and with
+    ``overlap_grad_sync``."""
+    from apex_tpu_torch.models.gpt import (
+        _check_cp, _cp, _tp, check_ep, check_tp, clip_sumsq_reduce,
+    )
+
+    if config.moe and isinstance(dp_group, (tuple, list)):
+        raise NotImplementedError("MoE expert parallelism over a hierarchical dp split is not "
+                                  "wired (EP rides a single dp axis)")
+    ep = dp_group if config.moe else None  # EP rides DP
+    if ep is not None:
+        check_ep(config, ep.size(), str(ep))
     cp = _cp(cp_group)
     _check_cp(config, cp)
-    qspec = _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype)
+    qspec = _check_grad_sync_dtype(opt, dp_group, grad_sync_dtype, config.moe)
+    if config.moe and hasattr(opt, "sharded_state_dict"):
+        raise NotImplementedError("ZeRO + MoE expert sharding both claim the dp axis; not wired")
     _check_zero_axis(opt, dp_group)
     if overlap_grad_sync:
         _check_overlap(opt, config, dp_group, qspec, cp)
     tp = _tp(tp_group)
     if tp is not None:
         check_tp(config, tp.size())
-    clip_sumsq = (clip_sumsq_reduce(config, tp)
-                  if tp is not None and clip_grad_norm is not None else None)
+    split = tp is not None or ep is not None
+    norm_sumsq = clip_sumsq_reduce(config, tp, ep_group=ep) if split else None
+    clip_sumsq = norm_sumsq if clip_grad_norm is not None else None
+    # tp-split grads, and the dp-split expert grads, can overflow on one
+    # rank only: each such group joins the finite vote
+    sync_groups = tuple(g for g in (tp, ep) if g is not None and g.size() > 1)
 
     def grads_fn(params, tokens, targets, post):
-        return loss_and_grads(params, tokens, targets, config, post, axis_name=tp, cp_axis=cp)
+        return loss_and_grads(params, tokens, targets, config, post, axis_name=tp, cp_axis=cp,
+                              ep_axis=ep)
 
     overlap = None
     if overlap_grad_sync:
@@ -652,10 +709,9 @@ def make_train_step(opt, config, loss_scaler=None, step_guard=None, clip_grad_no
     return _make_step(opt, config, grads_fn, loss_scaler=loss_scaler, step_guard=step_guard,
                       clip_grad_norm=clip_grad_norm, graphs=graphs, warmup=warmup,
                       telemetry=telemetry, dp_group=dp_group, tp_group=tp,
-                      sync_groups=() if tp is None else (tp,), clip_sumsq=clip_sumsq,
-                      norm_sumsq=None if tp is None else clip_sumsq_reduce(config, tp),
+                      sync_groups=sync_groups, clip_sumsq=clip_sumsq, norm_sumsq=norm_sumsq,
                       chaos=chaos, qspec=qspec, overlap=overlap, inplace_update=inplace_update,
-                      cp_group=cp)
+                      cp_group=cp, expert_grads=ep is not None)
 
 
 def _cp_sync(cp):
@@ -694,7 +750,8 @@ def _post_loss(loss_scaler, scaler_state, fault):
 def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                clip_grad_norm=None, graphs=None, warmup=1, telemetry=None, dp_group=None,
                tp_group=None, sync_groups=(), clip_sumsq=None, norm_sumsq=None, chaos=None,
-               qspec=None, overlap=None, inplace_update=True, cp_group=None):
+               qspec=None, overlap=None, inplace_update=True, cp_group=None,
+               expert_grads=False):
     """The step that :func:`make_train_step` and
     :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
     params, tokens, targets, post_loss) -> (loss, grads)`` gives the
@@ -711,13 +768,15 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
     state, tokens, targets, post_loss, scale) -> (loss, grads,
     presynced)`` replaces ``grads_fn`` and the dp sync (the overlapped
     backward); ``inplace_update`` lets an optimizer that supports it
-    write the params and state itself.  See :func:`make_train_step`."""
+    write the params and state itself; ``expert_grads``: the MoE experts
+    split over ``dp_group``, whose grads skip its all-reduce.  See
+    :func:`make_train_step`."""
     from apex_tpu_torch.models.gpt import sp_grad_sync
 
     if chaos is not None and step_guard is None:
         raise ValueError("chaos NaN injection needs step_guard (the injection step counter "
                          "lives in GuardState)")
-    grad_sync, loss_mean = _dp_sync(opt, dp_group, qspec)
+    grad_sync, loss_mean = _dp_sync(opt, dp_group, qspec, expert_grads)
     cp_sync = _cp_sync(cp_group)
     inplace = (inplace_update and telemetry is None
                and getattr(opt, "supports_inplace", False))

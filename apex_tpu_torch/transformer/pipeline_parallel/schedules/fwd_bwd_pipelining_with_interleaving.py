@@ -53,11 +53,13 @@ def interleaved_pipelined_apply(stage_fn, stage_params, mb_inputs, vpp: int, axi
 def forward_backward_pipelining_with_interleaving(
         pre_fn: Callable, stage_fn: Callable, post_fn: Callable, shared_params, stage_params,
         microbatches, *, tensor_shape, dtype, virtual_pipeline_model_parallel_size: int = 2,
-        forward_only: bool = False, axis_name=None, schedule_log=None):
+        forward_only: bool = False, axis_name=None, schedule_log=None,
+        stage_has_aux: bool = False):
     """The interleaved analog of
     :func:`~apex_tpu_torch.transformer.pipeline_parallel.schedules.
     forward_backward_pipelining_without_interleaving`: the stage params
-    hold ``vpp`` chunks stacked on the layer axis."""
+    hold ``vpp`` chunks stacked on the layer axis; ``stage_has_aux`` as
+    there."""
     from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule import (
         pipelined_fwd_bwd,
     )
@@ -66,7 +68,8 @@ def forward_backward_pipelining_with_interleaving(
         pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches,
         tensor_shape=tensor_shape, dtype=dtype,
         num_chunks=virtual_pipeline_model_parallel_size, axis_name=axis_name,
-        forward_only=forward_only, schedule_log=schedule_log)
+        forward_only=forward_only, schedule_log=schedule_log,
+        stage_has_aux=stage_has_aux)
     if forward_only:
         return loss, None
     g_shared, g_stage = grads

@@ -88,11 +88,15 @@ def make_pipeline_loss_fn(pre_fn: Callable, stage_fn: Callable, post_fn: Callabl
 def forward_backward_pipelining_without_interleaving(
         pre_fn: Callable, stage_fn: Callable, post_fn: Callable, shared_params, stage_params,
         microbatches, *, tensor_shape, dtype, forward_only: bool = False, axis_name=None,
-        schedule_log=None):
+        schedule_log=None, stage_has_aux: bool = False):
     """Run the 1F1B schedule; returns ``(loss, (shared_grads,
     stage_grads))`` (or ``(loss, None)`` with ``forward_only``), the
     shared grads summed over the pipeline group.  ``tensor_shape`` and
-    ``dtype``: a stage activation's."""
+    ``dtype``: a stage activation's.  ``stage_has_aux``: ``stage_fn``
+    returns ``(y, aux)``, a scalar loss the schedule adds once per
+    (stage, microbatch) unit (the MoE load-balancing channel,
+    :func:`~apex_tpu_torch.transformer.pipeline_parallel.schedules.
+    tick_schedule.pipelined_fwd_bwd`)."""
     from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule import (
         pipelined_fwd_bwd,
     )
@@ -100,7 +104,8 @@ def forward_backward_pipelining_without_interleaving(
     loss, grads = pipelined_fwd_bwd(
         pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches,
         tensor_shape=tensor_shape, dtype=dtype, num_chunks=1, axis_name=axis_name,
-        forward_only=forward_only, schedule_log=schedule_log)
+        forward_only=forward_only, schedule_log=schedule_log,
+        stage_has_aux=stage_has_aux)
     if forward_only:
         return loss, None
     g_shared, g_stage = grads

@@ -36,7 +36,11 @@ p2p_communication`, as the reference does:
 
 ``pre_fn(shared, mb) -> x`` runs on the first stage's first chunk,
 ``stage_fn(chunk_params, x) -> y`` on every unit, ``post_fn(shared, y,
-mb) -> loss`` on the last stage's last chunk.  ``stage_params`` leaves
+mb) -> loss`` on the last stage's last chunk.  With ``stage_has_aux``
+``stage_fn`` returns ``(y, aux)``, a scalar auxiliary loss (MoE load
+balancing, pre-weighted by the caller): the JAX package's aux channel
+adds ``aux / M`` to the loss once per (stage, microbatch) unit and seeds
+the unit's backward with ``1 / M`` for it beside ``y``'s cotangent.  ``stage_params`` leaves
 are this rank's layers ``(vpp·lpc, ...)`` with chunk v at
 ``[v·lpc:(v+1)·lpc]`` (the stage-major layout of
 :func:`apex_tpu_torch.models.gpt.params_to_vpp_layout`).  Shared grads
@@ -94,8 +98,9 @@ class _Units:
     """The forward and backward units of one rank, and what they keep."""
 
     def __init__(self, pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches,
-                 vpp, P, rank, forward_only, log):
+                 vpp, P, rank, forward_only, log, has_aux=False):
         self.pre_fn, self.stage_fn, self.post_fn = pre_fn, stage_fn, post_fn
+        self.has_aux = has_aux
         self.shared, self.stages, self.mbs = shared_params, stage_params, microbatches
         self.vpp, self.P, self.rank = vpp, P, rank
         self.forward_only = forward_only
@@ -115,7 +120,7 @@ class _Units:
                              for t in self.shared_leaves]
             self.g_stage = [torch.zeros_like(t, dtype=torch.float32)
                             for t in self.stage_leaves]
-        # per chunk: the (input, output, chunk leaves) of units whose
+        # per chunk: the (input, output, aux, chunk leaves) of units whose
         # backward has not run, oldest first
         self.pending: List[list] = [[] for _ in range(vpp)]
         self.live = 0
@@ -146,11 +151,16 @@ class _Units:
                 x_in = x_in.detach().requires_grad_(True)
             x = self.pre_fn(self.shared, mb) if self.first(v) else x_in
             y = self.stage_fn(chunk, x)
+            aux = None
+            if self.has_aux:
+                y, aux = y
             out = self.post_fn(self.shared, y, mb) if self.last(v) else y
+        if aux is not None:
+            self.loss_sum = self.loss_sum + aux.detach().to(torch.float32) * self.inv_m
         if self.last(v):
             self.loss_sum = self.loss_sum + out.detach().to(torch.float32) * self.inv_m
         if not self.forward_only:
-            self.pending[v].append((x_in, out, chunk_leaves))
+            self.pending[v].append((x_in, out, aux, chunk_leaves))
             self.live += 1
         return None if self.last(v) else y.detach()
 
@@ -161,12 +171,16 @@ class _Units:
         send back (None on the first chunk of the first stage)."""
         if self.log is not None:
             self.log.append(("B", v, m, self.live))
-        x_in, out, chunk_leaves = self.pending[v].pop(0)
+        x_in, out, aux, chunk_leaves = self.pending[v].pop(0)
         self.live -= 1
         if dy is None:
             dy = torch.full_like(out, self.inv_m)
+        outs, seeds = [out], [dy]
+        if aux is not None:
+            outs.append(aux)
+            seeds.append(torch.full_like(aux, self.inv_m))
         inputs = ([x_in] if x_in is not None else []) + chunk_leaves + self.shared_leaves
-        grads = torch.autograd.grad(out, inputs, grad_outputs=dy, allow_unused=True)
+        grads = torch.autograd.grad(outs, inputs, grad_outputs=seeds, allow_unused=True)
         dx = grads[0] if x_in is not None else None
         grads = grads[1:] if x_in is not None else grads
         nst = len(chunk_leaves)
@@ -309,7 +323,7 @@ def _interleaved(u: _Units, spec):
 def pipelined_fwd_bwd(pre_fn: Callable, stage_fn: Callable, post_fn: Callable, shared_params,
                       stage_params, microbatches, *, tensor_shape, dtype, num_chunks: int = 1,
                       axis_name=None, forward_only: bool = False,
-                      schedule_log: Optional[list] = None):
+                      schedule_log: Optional[list] = None, stage_has_aux: bool = False):
     """One pipelined forward and backward over this rank's stage (see the
     module docstring).  ``microbatches`` is a tree whose leaves lead with
     the microbatch index ``(M, ...)``; ``tensor_shape`` and ``dtype`` are
@@ -317,6 +331,8 @@ def pipelined_fwd_bwd(pre_fn: Callable, stage_fn: Callable, post_fn: Callable, s
     ``axis_name``: the pipeline's ``AxisGroup`` (by default the
     registered one).  ``schedule_log``, a list, receives ``("F", chunk, mb)`` and
     ``("B", chunk, mb, units in flight)`` in the order they ran.
+    ``stage_has_aux``: ``stage_fn`` returns ``(y, aux)`` (module
+    docstring).
 
     Returns ``(loss, (shared_grads, stage_grads))``: the loss on every
     rank of the group; shared grads this rank's contributions (sum them
@@ -329,7 +345,7 @@ def pipelined_fwd_bwd(pre_fn: Callable, stage_fn: Callable, post_fn: Callable, s
         raise ValueError(f"num_chunks={vpp}: the interleaved schedule needs pp >= 2 "
                          f"(pp is {P})")
     u = _Units(pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches, vpp,
-               P, rank, forward_only, schedule_log)
+               P, rank, forward_only, schedule_log, stage_has_aux)
     device = u.loss_sum.device
     _warm(group, device)
     spec = (tuple(tensor_shape), dtype, device, group)

@@ -152,6 +152,32 @@ Phases, each printing one JSON line:
    kernels' ms a rank), cp 4 with the overlapped ring (bitwise the
    serial one, graphed), cp 2 x dp 2 with ZeRO, cp 2 x tp 2 and pp 2 x
    cp 2, each within 1e-3 of cp 1's losses, step ms and peak a rank.
+8g. moe: mixture of experts at train_gpt's GPT-124M step (S 1024, batch
+   8, bf16, flash, full remat, FusedAdam) with 8 experts, top 2,
+   capacity 1.25 and aux 0.01 in every FFN (about 521 M params), on this
+   card alone (every expert local): ``make_train_step`` with the dense
+   head and the fused CE, graphed (10 steps) and eager (3): graphed =
+   eager bitwise, exact launches a step (LayerNorm 49 / 25, flash 24 /
+   12 / 12, CE 1 / 1 / 1 with the fused head, ``mt_plan``'s
+   ``mt_adam``), losses finite and falling, ms a step and peak memory
+   beside train_fce's; the MoE layer's parts timed forward and backward
+   (router, route, dispatch, experts, combine); an fp32 layer of 1024
+   tokens on the card against the CPU (out, aux and every grad within
+   1e-5 of the largest, the routing equal).  ``python3 chip_smoke.py
+   moe`` runs it alone.  ``python3 chip_smoke.py moe_multi_card`` (four
+   cards; also in ``multi_card``): the experts over the dp group at ep 4
+   (dp 4), dp 2 x tp 2 and pp 2 x dp 2 (2 microbatches), each at ample
+   capacity without aux -- the first loss within 1e-4 of the one-card
+   run's -- and at the defaults, timed (ms a step, peak a rank), the
+   ``all_to_all`` exchanges exactly 6 a layer a microbatch a step (2
+   forward, 2 in the remat's recompute, 2 backward), and the layer's
+   parts at ep 4, the two exchanges with them.  ``python3 chip_smoke.py
+   tp_decode_multi_card`` (two cards; also in ``multi_card``): GPT-124M
+   in fp32 at tp 2, 4 prompts of 64 tokens prefilled through
+   ``gpt_forward(return_kv=True)`` and 32 greedy ``forward_decode``
+   steps on each rank's kv heads: every step's logits within 1e-4 of tp
+   1's, the tokens equal, 12 paged decode attention launches a step on
+   each rank, ms a decode step at tp 1 and 2.
 8d. inplace_ab: the train_fce step with the donated update (FusedAdam's
    ``mt_adam`` writing the params and state it reads) against the
    copying step (``inplace_update=False``), graphed in turns (copy, in
@@ -4380,9 +4406,11 @@ def multi_card_main():
     """``chip_smoke.py multi_card`` on four cards: the kernels built once,
     then :func:`pp_multi_card`, :func:`zero_mp_multi_card` (ZeRO composed
     with tp and pp, and the hierarchical wire), :func:`overlap_multi_card`
-    (the backward-overlapped dp sync) and :func:`cp_multi_card` (context
-    parallelism), each result printed as it comes; fails after the last
-    if one did."""
+    (the backward-overlapped dp sync), :func:`cp_multi_card` (context
+    parallelism), :func:`moe_multi_card` (expert parallelism) and
+    :func:`tp_decode_multi_card` (tensor-parallel decoding, two of the
+    cards), each result printed as it comes; fails after the last if one
+    did."""
     from apex_tpu_torch.ops import _build
 
     n_cards = torch.cuda.device_count()
@@ -4396,7 +4424,9 @@ def multi_card_main():
     for name, fn in (("pp_multi_card", lambda: pp_multi_card(4)),
                      ("zero_mp_multi_card", zero_mp_multi_card),
                      ("overlap_multi_card", overlap_multi_card),
-                     ("cp_multi_card", cp_multi_card)):
+                     ("cp_multi_card", cp_multi_card),
+                     ("moe_multi_card", moe_multi_card),
+                     ("tp_decode_multi_card", tp_decode_multi_card)):
         t0 = time.monotonic()
         try:
             fn()  # its rows printed as they came
@@ -4836,6 +4866,605 @@ def cp_multi_card_main():
     cp_multi_card()
     emit({"phase": "cp_multi_card", "ok": True, "seconds": time.monotonic() - t0})
     return 0
+
+
+# ---------------------------------------------------------------------- moe
+#: the MoE configuration on the card: train_gpt's GPT-124M step (S 1024,
+#: batch 8, bf16, flash, full remat, FusedAdam(3e-4, wd 0.1)) with the
+#: JAX GPTConfig's MoE defaults in every FFN: 8 experts, top 2, capacity
+#: factor 1.25, aux coefficient 0.01 (about 521 M params)
+MOE = {"moe_num_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 1.25,
+       "moe_aux_coef": 0.01}
+#: the four-card parity runs' overrides: every token kept (C = T) and no
+#: aux (a per-shard product of means), so each layout's loss is the
+#: one-card step's on the same global batch
+MOE_AMPLE = {"moe_capacity_factor": 4.0, "moe_aux_coef": 0.0}
+#: each layout's first parity loss against the one-card run's, relative
+MOE_BAND = 1e-4
+#: an fp32 MoE layer on the card against the CPU: of each leaf's largest
+#: entry
+MOE_CPU_TOL = 1e-5
+#: steps of each graphed MoE run (the first the warm-up and capture), of
+#: each eager one, and of each parity run
+MOE_STEPS, MOE_EAGER_STEPS, MOE_PARITY_STEPS = 10, 3, 3
+#: the four-card layouts of ``moe_child`` (experts over dp): name -> (tp,
+#: pp, microbatches)
+MOE_LAYOUTS = {"ep4": (1, 1, None), "dp2_tp2": (2, 1, None), "pp2_dp2": (1, 2, 2)}
+
+
+def a2a_launches():
+    """The MoE layer's ``all_to_all`` exchanges issued (and replayed)."""
+    from apex_tpu_torch.transformer import expert_parallel
+
+    return expert_parallel.A2A_LAUNCHES
+
+
+def _moe_args(head):
+    from apex_tpu_torch import train_gpt
+
+    return train_gpt.build_args().parse_args(["--fused-ce"] if head == "fused_ce" else [])
+
+
+def _moe_config(args, over=None):
+    import dataclasses
+
+    from apex_tpu_torch import train_gpt
+
+    return dataclasses.replace(train_gpt.make_config(args), **{**MOE, **(over or {})})
+
+
+def _moe_train(head, steps, groups=None, eager=False, tree=None, over=None, micro=None,
+               profile=False):
+    """train_gpt's GPT-124M step with MoE (``head`` "dense" or
+    "fused_ce"; ``over`` config overrides) for ``steps`` steps on its
+    batch (the first the warm-up and capture): with no ``groups`` on this
+    card alone; with ``groups`` = (tp, pp, dp) ``AxisGroup``s each rank
+    its dp rows, the experts over dp, ``make_pp_train_step`` with
+    ``micro`` microbatches when pp > 1.  Losses, CUDA-event ms a step,
+    peak memory, launch counts, the ``all_to_all`` exchanges; with
+    ``profile`` 4 more steps under the profiler: NCCL's ms a step (the
+    exchanges -- NCCL's send/receive or all-to-all kernels -- apart from
+    the rest), the part no other kernel overlaps, the idle share."""
+    import gc
+
+    from apex_tpu_torch import train_gpt
+    from apex_tpu_torch.models.gpt import _init_numpy, make_pp_train_step, shard_params
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    args = _moe_args(head)
+    config = _moe_config(args, over)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tg, pg, dg = groups if groups is not None else (None, None, None)
+    tokens, targets = train_gpt.make_batch(args)
+    if dg is not None:
+        n = args.batch // dg.size()
+        tokens, targets = (a[n * dg.rank():n * (dg.rank() + 1)] for a in (tokens, targets))
+    tokens, targets = (torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+                       for a in (tokens, targets))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tree = _init_numpy(config, args.seed) if tree is None else tree
+    pipe = pg is not None and pg.size() > 1
+    params = shard_params(tree, config, tg, dev, keep_fp32=True,
+                          pp_group=pg if pipe else None, ep_group=dg)
+    opt = FusedAdam(lr=args.lr, weight_decay=train_gpt.WEIGHT_DECAY)
+    state = opt.init(params)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    kw = dict(graphs=False if eager else None, dp_group=dg, tp_group=tg)
+    if pipe:
+        step = make_pp_train_step(config, opt, micro, pp_group=pg, **kw)
+    else:
+        step = train_gpt.make_train_step(opt, config, **kw)
+    reset_counts()
+    a2a = a2a_launches()
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    losses = []
+    for _ in range(steps):
+        losses.append(step(params, state, tokens, targets).detach().clone())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    rec = {"head": head, "losses": [float(x) for x in losses], "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms[1:])) if steps > 1 else None,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launch_counts(), "a2a": a2a_launches() - a2a,
+           "graphs": getattr(step, "graph", None) is not None,
+           "params": sum(p.numel() for p in tree_leaves(params)),
+           "sizes": [p.numel() for p in tree_leaves(params)]}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        prof = _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(4):
+                step(params, state, tokens, targets)
+            torch.cuda.synchronize()
+        exposed, nccl = _exposed_nccl_ms(prof)
+        idle = _busy_share(prof, skip=1)
+        by_name = idle["kernel_ms_per_step"]
+        rec.update(nccl_ms_per_step=nccl, exposed_nccl_ms_per_step=exposed,
+                   idle_share=idle["idle_share"],
+                   busy_ms_per_step=idle["busy_ms"] / idle["window_steps"],
+                   a2a_ms_per_step=sum(ms for n, ms in by_name.items()
+                                       if "sendrecv" in n.lower() or "alltoall" in n.lower()),
+                   top_kernels_ms_per_step=dict(list(by_name.items())[:12]))
+        del prof
+    del step, params, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_expect(rec, n):
+    """``rec``'s launch counts against ``n`` one-card MoE steps: the
+    train phase's a step (LayerNorm 49 / 25, flash 24 / 12 / 12, the CE
+    kernels once each with the fused head, ``mt_plan``'s ``mt_adam``
+    launches) and no exchange."""
+    per_step, expect = _train_expect(_moe_args(rec["head"]), rec["sizes"], n)
+    if rec["launches"] != expect or rec["a2a"]:
+        raise AssertionError(f"moe {rec['head']}: launches {rec['launches']}, all_to_all "
+                             f"{rec['a2a']} != expected {expect}, 0")
+    return per_step
+
+
+def moe_layer_split(group=None, T=8192, H=768, F=3072, E=8, top_k=2, cf=1.25, iters=10):
+    """The MoE layer at GPT-124M's widths (bf16, ``T`` tokens: a step's
+    8 x 1024 on one card) in parts, device ms a call (:func:`device_ms`:
+    the profiler's kernel times over ``iters`` calls; CUDA events over
+    them, after a barrier, for what runs a collective) each: the router (fp32 logits and softmax), the route (top-k,
+    capacity, the indices), dispatch, the experts (two batched matmuls,
+    bias, GELU), combine and, with ``group`` (the experts over it), each
+    ``all_to_all`` exchange; the forward of each and the backward of each
+    that has one (a ones cotangent), and the whole layer's forward and
+    forward + backward.  Every rank of ``group`` calls it alike."""
+    import torch.nn.functional as Fn
+
+    from apex_tpu_torch.transformer import expert_parallel as epm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = group if group is not None and group.size() > 1 else None
+    ep = 1 if g is None else g.size()
+    gen = torch.Generator().manual_seed(0)
+    full = epm.moe_init(gen, H, F, E)
+    El, r = E // ep, 0 if g is None else g.rank()
+    p = {k: (v if k == "router" else v[r * El:(r + 1) * El]).to(dev).requires_grad_()
+         for k, v in full.items()}
+    x = torch.randn(T, H, generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    cd, C = torch.bfloat16, epm.capacity_of(T, E, top_k, cf)
+
+    def router():
+        return torch.softmax(torch.matmul(x.float(), p["router"].float()), dim=-1)
+
+    probs = router()
+
+    def route():
+        return epm._Route(probs.detach(), top_k, C)
+
+    rt = route()
+
+    def dispatch():
+        return epm._Dispatch.apply(x, rt.src, rt.dest).reshape(E, C, H)
+
+    xin = dispatch()
+
+    def to_experts():
+        return epm._Exchange.apply(xin, g, True)
+
+    ein = to_experts() if g is not None else xin
+
+    def experts():
+        h = torch.matmul(ein, p["w1"].transpose(-1, -2).to(cd))
+        h = Fn.gelu(h + p["b1"].to(cd)[:, None, :], approximate="tanh")
+        return torch.matmul(h, p["w2"].transpose(-1, -2).to(cd)) + p["b2"].to(cd)[:, None, :]
+
+    y = experts()
+
+    def from_experts():
+        return epm._Exchange.apply(y, g, False)
+
+    yb = from_experts() if g is not None else y
+    w = (rt.weights * rt.keep).to(cd).requires_grad_()
+
+    def combine():
+        return epm._Combine.apply(yb.reshape(E * C, H), w, rt.dest, rt.owner, rt.src)
+
+    out = combine()
+
+    def backward(outp, inputs):
+        cot = torch.ones_like(outp)
+        return lambda: torch.autograd.grad(outp, inputs, cot, retain_graph=True)
+
+    parts = {"router": (router, backward(probs, [x, p["router"]])), "route": (route, None),
+             "dispatch": (dispatch, backward(xin, [x])),
+             "experts": (experts, backward(y, [ein] + [p[k] for k in epm.EXPERT_PARAM_KEYS])),
+             "combine": (combine, backward(out, [yb, w]))}
+    if g is not None:
+        parts["all_to_all_in"] = (to_experts, backward(ein, [xin]))
+        parts["all_to_all_out"] = (from_experts, backward(yb, [y]))
+
+    def layer():
+        return epm.moe_ffn(x, p, top_k=top_k, capacity_factor=cf, ep_group=g)
+
+    def layer_fwd_bwd():
+        o, aux = layer()
+        return torch.autograd.grad((o.float().sum() + aux), [x] + list(p.values()))
+
+    def timed(fn, collective):
+        # a collective's device time waits on the slowest rank: CUDA events
+        # over the calls, the ranks lined up by a barrier first
+        if not collective:
+            return device_ms(fn, iters)[0]
+        torch.distributed.barrier()
+        return call_ms(fn, iters)
+
+    res = {"tokens": T, "num_experts": E, "ep": ep, "capacity": C,
+           "layer_fwd_ms": timed(layer, g is not None),
+           "layer_fwd_bwd_ms": timed(layer_fwd_bwd, g is not None)}
+    for name, (fwd, bwd) in parts.items():
+        coll = name.startswith("all_to_all")
+        res[name] = {"fwd_ms": timed(fwd, coll),
+                     "bwd_ms": timed(bwd, coll) if bwd is not None else None}
+    return res
+
+
+def moe_cpu_parity(T=1024, H=768, F=3072, E=8, top_k=2, cf=1.25):
+    """An fp32 MoE layer at GPT-124M's widths on ``T`` tokens (seeded),
+    on the card and on the CPU (the same call): out, aux and the grads of
+    ``sum(sin(out)) + aux`` for x and every param, each within
+    ``MOE_CPU_TOL`` of the leaf's largest entry; the routing (experts and
+    kept assignments) equal, with the smallest gap between a token's
+    chosen and next prob (how close the routing came to a tie)."""
+    from apex_tpu_torch.transformer import expert_parallel as epm
+
+    gen = torch.Generator().manual_seed(1)
+    params = epm.moe_init(gen, H, F, E)
+    x = torch.randn(T, H, generator=gen)
+
+    def run(dev):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        out, aux = epm.moe_ffn(xx, p, top_k=top_k, capacity_factor=cf)
+        grads = torch.autograd.grad(torch.sin(out).sum() + aux, [xx] + [p[k] for k in sorted(p)])
+        with torch.no_grad():
+            probs = torch.softmax(xx @ p["router"], -1)
+            rt = epm._Route(probs, top_k, epm.capacity_of(T, E, top_k, cf))
+        named = dict(zip(["out", "aux", "x"] + [f"d{k}" for k in sorted(p)],
+                         (out, aux.reshape(1)) + grads))
+        return ({k: v.detach().cpu() for k, v in named.items()}, rt.expert.cpu(), rt.keep.cpu(),
+                probs.cpu())
+
+    card, cpu = run(torch.device("cuda", torch.cuda.current_device())), run("cpu")
+    errs = {k: rel_err(card[0][k], cpu[0][k]) for k in cpu[0]}
+    top = torch.sort(cpu[3], dim=-1, descending=True).values
+    res = {"tokens": T, "errors": errs, "tolerance": MOE_CPU_TOL,
+           "routing_equal": torch.equal(card[1], cpu[1]) and torch.equal(card[2], cpu[2]),
+           "min_prob_gap": float((top[:, :top_k + 1][:, :-1] - top[:, 1:top_k + 1]).min())}
+    if not res["routing_equal"] or max(errs.values()) > MOE_CPU_TOL:
+        raise AssertionError(f"moe card against CPU: {res}")
+    return res
+
+
+def moe_phase(smi, train_fce_ms=None):
+    """MoE on one card: ``make_train_step`` at train_gpt's GPT-124M step
+    with ``MOE`` (no dp group: every expert local, no exchange), the
+    dense head and the fused CE, graphed (``MOE_STEPS``) and eager
+    (``MOE_EAGER_STEPS``): graphed = eager bitwise, exact launches a step
+    (LayerNorm 49 / 25, flash 24 / 12 / 12, CE 1 / 1 / 1 with the fused
+    head, ``mt_plan``'s ``mt_adam``), losses finite and falling, ms a
+    step and peak memory beside ``train_fce_ms`` (the train_fce phase's
+    step median); then the layer's split (:func:`moe_layer_split`) and an
+    fp32 layer card against CPU (:func:`moe_cpu_parity`)."""
+    from apex_tpu_torch.models.gpt import _init_numpy
+
+    t0 = time.monotonic()
+    tree = _init_numpy(_moe_config(_moe_args("dense")), 0)
+    runs = {}
+    for head in ("dense", "fused_ce"):
+        graphed = _moe_train(head, MOE_STEPS, tree=tree)
+        eager = _moe_train(head, MOE_EAGER_STEPS, tree=tree, eager=True)
+        per_step = _moe_expect(graphed, MOE_STEPS)
+        _moe_expect(eager, MOE_EAGER_STEPS)
+        losses = graphed["losses"]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"moe {head}: losses {losses} not finite and falling")
+        if not graphed["graphs"] or eager["graphs"]:
+            raise AssertionError(f"moe {head}: graphed {graphed['graphs']}, eager "
+                                 f"{eager['graphs']}")
+        if losses[:MOE_EAGER_STEPS] != eager["losses"]:
+            raise AssertionError(f"moe {head}: graphed {losses} against eager "
+                                 f"{eager['losses']}: not bitwise")
+        for rec in (graphed, eager):
+            rec.pop("sizes")
+        runs[head] = {**graphed, "launches_per_step": per_step, "graphed_vs_eager": "bitwise",
+                      "eager_step_ms": eager["step_ms"][1:],
+                      "eager_step_ms_median": eager["step_ms_median"]}
+    del tree
+    emit({"phase": "moe_train", "nvidia_smi": smi,
+          "config": {**MOE, "layers": 12, "hidden": 768, "heads": 12, "seq": 1024, "batch": 8},
+          "params": runs["dense"]["params"], "runs": runs, "train_fce_step_ms": train_fce_ms})
+    emit({"phase": "moe", "nvidia_smi": smi, "layer_split": moe_layer_split(),
+          "card_vs_cpu": moe_cpu_parity(), "seconds": time.monotonic() - t0})
+    return runs
+
+
+def moe_main():
+    """``chip_smoke.py moe`` on one card: the kernels built, then the moe
+    phase alone."""
+    from apex_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _smi()
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    t0 = time.monotonic()
+    moe_phase(smi)
+    emit({"phase": "moe_main", "ok": True, "seconds": time.monotonic() - t0})
+    return 0
+
+
+def moe_child(argv):
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py moe_child``:
+    each of ``MOE_LAYOUTS`` (the fused CE head, graphed): a parity run
+    (``MOE_AMPLE``, ``MOE_PARITY_STEPS`` steps) and a timed one (``MOE``,
+    ``--steps``), then the layer's split at ep 4 (each rank its 2 x 1024
+    tokens); rank 0 prints one ``moe_child`` line with every rank's
+    records."""
+    import argparse
+
+    from apex_tpu_torch.models.gpt import _init_numpy
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=MOE_STEPS)
+    a = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multiproc.initialize_distributed("cuda")
+    rank = torch.distributed.get_rank()
+    tree = _init_numpy(_moe_config(_moe_args("fused_ce")), 0)
+
+    def setup(tp, pp):
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tensor_model_parallel_size_=tp,
+                                     pipeline_model_parallel_size_=pp)
+        return (ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group(),
+                ps.get_data_parallel_group())
+
+    def gather(mine):
+        ranks = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(ranks, mine)
+        return ranks
+
+    out = {"layouts": {}}
+    for name, (tp, pp, micro) in MOE_LAYOUTS.items():
+        groups = setup(tp, pp)
+        recs = {}
+        for kind, over, n in (("parity", MOE_AMPLE, MOE_PARITY_STEPS), ("timed", None, a.steps)):
+            rec = _moe_train("fused_ce", n, groups, tree=tree, over=over, micro=micro,
+                             profile=kind == "timed" and name == "ep4")
+            rec.pop("sizes")
+            rec.update(rank=rank, dp=groups[2].size(), pp_rank=groups[1].rank(),
+                       layers_on_rank=12 // pp, micro=micro or 1)
+            recs[kind] = rec
+        out["layouts"][name] = gather(recs)
+    del tree
+    out["split"] = gather(moe_layer_split(setup(1, 1)[2], T=2048))
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"moe_child": out}), flush=True)
+    return 0
+
+
+def moe_multi_card(steps=8):
+    """MoE on four cards: the one-card run in this process (no dp group:
+    every expert local) at ``MOE_AMPLE`` (``MOE_PARITY_STEPS`` steps) and
+    at ``MOE`` (``steps``), then ``moe_child`` over NCCL, one card a rank,
+    the experts over the dp group: ep 4 (dp 4), dp 2 x tp 2 and pp 2 x
+    dp 2 (2 microbatches), each at ``MOE_AMPLE`` -- every rank's first
+    loss within ``MOE_BAND`` of the one-card run's -- and at ``MOE``,
+    timed (ms a step, peak memory a rank); the ``all_to_all`` exchanges
+    exactly 6 a layer a microbatch a step on every rank (2 forward, 2 in
+    the remat's recompute, 2 backward); the layer's split at ep 4.  Each
+    result prints as it comes; a miss fails after the last."""
+    base = {kind: _moe_train("fused_ce", n, over=over)
+            for kind, over, n in (("parity", MOE_AMPLE, MOE_PARITY_STEPS),
+                                  ("timed", None, steps))}
+    for rec in base.values():
+        rec.pop("sizes")
+    smi = _smi()
+    emit({"phase": "moe_multi_card", "run": "ep1", "nvidia_smi": smi, **{
+        kind: {k: rec[k] for k in ("losses", "step_ms_median", "peak_memory_gb")}
+        for kind, rec in base.items()}})
+    lines = _pp_children(4, [], timeout=900, script="moe_child",
+                         extra=["--steps", str(steps)], prefix='{"moe_child"')
+    res = lines[0]["moe_child"]
+    failed = []
+    want = base["parity"]["losses"]
+    for name, ranks in res["layouts"].items():
+        rels = [[abs(x - y) / abs(y) for x, y in zip(r["parity"]["losses"], want)]
+                for r in ranks]
+        a2a = [r["timed"]["a2a"] for r in ranks]
+        expect = [6 * r["timed"]["layers_on_rank"] * r["timed"]["micro"] * steps for r in ranks]
+        row = {"phase": "moe_multi_card", "run": name, "nvidia_smi": smi,
+               "layout": dict(zip(("tp", "pp", "micro_batches"), MOE_LAYOUTS[name])),
+               "parity_rel_vs_ep1": rels, "parity_losses": ranks[0]["parity"]["losses"],
+               "graphs": all(r[k]["graphs"] for r in ranks for k in ("parity", "timed")),
+               "step_ms_median": [r["timed"]["step_ms_median"] for r in ranks],
+               "peak_memory_gb": [r["timed"]["peak_memory_gb"] for r in ranks],
+               "a2a": a2a, "a2a_expected": expect, "losses": ranks[0]["timed"]["losses"]}
+        if name == "ep4":
+            row.update({k: [r["timed"][k] for r in ranks] for k in (
+                "nccl_ms_per_step", "exposed_nccl_ms_per_step", "a2a_ms_per_step",
+                "idle_share", "busy_ms_per_step")})
+            row["top_kernels_ms_per_step_rank0"] = ranks[0]["timed"]["top_kernels_ms_per_step"]
+        emit(row)
+        if max(r[0] for r in rels) > MOE_BAND:
+            failed.append(f"{name}: first parity loss {max(r[0] for r in rels)} from ep 1's "
+                          f"(band {MOE_BAND})")
+        if a2a != expect or not row["graphs"]:
+            failed.append(f"{name}: all_to_all {a2a} != {expect}, graphs {row['graphs']}")
+        if not all(math.isfinite(x) for r in ranks for x in r["timed"]["losses"]):
+            failed.append(f"{name}: losses not finite")
+    emit({"phase": "moe_multi_card", "run": "layer_split_ep4", "nvidia_smi": smi,
+          "ranks": res["split"]})
+    if failed:
+        raise AssertionError("moe_multi_card: " + "; ".join(failed))
+    return res
+
+
+def moe_multi_card_main():
+    """``chip_smoke.py moe_multi_card`` on four cards: the kernels built,
+    then :func:`moe_multi_card` alone."""
+    return _multi_card_alone("moe_multi_card", moe_multi_card, 4)
+
+
+def _multi_card_alone(name, fn, n):
+    from apex_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < n:
+        raise SystemExit(f"chip_smoke {name}: needs {n} cards, has {n_cards}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": list(torch.cuda.nccl.version()), "count": n_cards, "nvidia_smi": _smi()})
+    emit({"phase": "build", "seconds": _build.build(force=True)})
+    _build.load()
+    t0 = time.monotonic()
+    fn()
+    emit({"phase": name, "ok": True, "seconds": time.monotonic() - t0})
+    return 0
+
+
+# ---------------------------------------------------------------- tp decode
+#: tensor-parallel decoding: GPT-124M (rope, as serve_gpt's defaults) in
+#: fp32, 4 prompts of 64 tokens prefilled through ``gpt_forward(
+#: return_kv=True)``, then 32 greedy ``forward_decode`` steps over pages
+#: of 16 positions
+TP_DECODE = {"batch": 4, "prompt": 64, "steps": 32, "page_size": 16}
+#: tp 2's fp32 logits against tp 1's, absolute
+TP_DECODE_TOL = 1e-4
+
+
+def tp_decode_run(tg=None):
+    """:data:`TP_DECODE` at tp = ``tg``'s size (None: tp 1): the logits
+    of each decode step (the rank's vocab shard gathered), the greedy
+    tokens, ms a decode step (host clock around the synchronized loop,
+    eager) and the paged decode attention
+    launches of the decode loop."""
+    from apex_tpu_torch.inference import KVCacheConfig, alloc_pools, write_prompt_kv
+    from apex_tpu_torch.models.gpt import (
+        GPTConfig, _init_numpy, forward_decode, gpt_forward, shard_params,
+    )
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import all_gather_dim
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, S, n, ps_ = (TP_DECODE[k] for k in ("batch", "prompt", "steps", "page_size"))
+    V = 50304
+    config = GPTConfig(vocab_size=V, hidden_size=768, num_layers=12, num_attention_heads=12,
+                       max_seq_len=1024, position_embedding_type="rope",
+                       compute_dtype=torch.float32, checkpoint_layers=False)
+    tp = 1 if tg is None else tg.size()
+    params = shard_params(_init_numpy(config, 0), config, tg, dev)
+    per_seq = -(-(S + n) // ps_)
+    pools = alloc_pools(config.num_layers, config.kv_heads // tp, config.head_dim,
+                        KVCacheConfig(num_pages=B * per_seq + 1, page_size=ps_,
+                                      pages_per_seq=per_seq, dtype=torch.float32), device=dev)
+    tables = (1 + torch.arange(B * per_seq, dtype=torch.int32, device=dev)).reshape(B, per_seq)
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(0, V, (B, S))).to(dev)
+
+    def whole(logits):
+        return logits if tg is None else all_gather_dim(logits, tg, -1)
+
+    logits_all, tokens = [], []
+    with torch.no_grad():
+        logits, (k, v) = gpt_forward(params, prompts, config, return_kv=True, axis_name=tg)
+        for b in range(B):
+            write_prompt_kv(pools["k"], pools["v"], k[:, b].transpose(1, 2),
+                            v[:, b].transpose(1, 2), tables[b], S)
+        tok = whole(logits[-1]).argmax(-1)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(n):
+            pos = torch.full((B,), S + i, dtype=torch.long, device=dev)
+            h, _ = forward_decode(params, tok, pos, active, pools, tables, config, axis_name=tg)
+            step_logits = whole(torch.matmul(h.float(), params["embed"].float().T))
+            logits_all.append(step_logits)
+            tok = step_logits.argmax(-1)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+    return (torch.stack(logits_all).cpu(), torch.stack(tokens).cpu().tolist(),
+            1e3 * (time.perf_counter() - t0) / n, launch_counts()["paged_decode_attention"])
+
+
+def tp_decode_child(argv):
+    """One rank of ``torchrun --nproc-per-node 2 chip_smoke.py
+    tp_decode_child REF``: :func:`tp_decode_run` at tp 2, held against
+    the tp 1 run saved at REF (``torch.save`` of its logits and tokens);
+    rank 0 prints one ``tp_decode_child`` line with both ranks'
+    records."""
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel(tensor_model_parallel_size_=2)
+    ref = torch.load(argv[0])
+    logits, tokens, ms, launches = tp_decode_run(ps.get_tensor_model_parallel_group())
+    mine = {"rank": torch.distributed.get_rank(),
+            "max_abs_diff": float((logits - ref["logits"]).abs().max()),
+            "tokens_equal": tokens == ref["tokens"], "decode_step_ms": ms,
+            "decode_attention_launches": launches}
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    multiproc.destroy_distributed()
+    if mine["rank"] == 0:
+        print(json.dumps({"tp_decode_child": ranks}), flush=True)
+    return 0
+
+
+def tp_decode_multi_card():
+    """Tensor-parallel decoding on two cards: :data:`TP_DECODE` at tp 1 in
+    this process, then ``tp_decode_child`` at tp 2 over NCCL: every
+    rank's fp32 logits within ``TP_DECODE_TOL`` of tp 1's at each of the
+    32 steps, its greedy tokens equal to tp 1's, 12 paged decode
+    attention launches a step on each rank, ms a decode step at each tp."""
+    import tempfile
+
+    logits, tokens, ms, launches = tp_decode_run()
+    n = TP_DECODE["steps"]
+    with tempfile.TemporaryDirectory() as d:
+        ref = str(Path(d) / "tp1.pt")
+        torch.save({"logits": logits, "tokens": tokens}, ref)
+        ranks = _pp_children(2, [ref], timeout=600, script="tp_decode_child",
+                             prefix='{"tp_decode_child"')[0]["tp_decode_child"]
+    row = {"phase": "tp_decode_multi_card", "nvidia_smi": _smi(), **TP_DECODE,
+           "tp1_decode_step_ms": ms,
+           "tp1_decode_attention_launches": launches, "tolerance": TP_DECODE_TOL, "tp2": ranks}
+    emit(row)
+    bad = [r for r in ranks if not (r["max_abs_diff"] <= TP_DECODE_TOL and r["tokens_equal"]
+                                    and r["decode_attention_launches"] == 12 * n)]
+    if launches != 12 * n or bad:
+        raise AssertionError(f"tp_decode_multi_card: tp 1 launches {launches} (want {12 * n}); "
+                             f"{bad}")
+    return row
+
+
+def tp_decode_multi_card_main():
+    """``chip_smoke.py tp_decode_multi_card`` on two cards: the kernels
+    built, then :func:`tp_decode_multi_card` alone."""
+    return _multi_card_alone("tp_decode_multi_card", tp_decode_multi_card, 2)
 
 
 # ----------------------------------------------------------------------- tp
@@ -6571,6 +7200,16 @@ def main():
         return cp_multi_card_main()
     if sys.argv[1:2] == ["cp"]:
         return cp_main()
+    if sys.argv[1:2] == ["moe"]:
+        return moe_main()
+    if sys.argv[1:2] == ["moe_child"]:
+        return moe_child(sys.argv[2:])
+    if sys.argv[1:2] == ["moe_multi_card"]:
+        return moe_multi_card_main()
+    if sys.argv[1:2] == ["tp_decode_child"]:
+        return tp_decode_child(sys.argv[2:])
+    if sys.argv[1:2] == ["tp_decode_multi_card"]:
+        return tp_decode_multi_card_main()
     if sys.argv[1:2] == ["pp_bisect_child"]:
         return pp_bisect_child(sys.argv[2:])
     if sys.argv[1:2] == ["resilience"]:
@@ -6736,6 +7375,8 @@ def main():
     lap("train_s4096")
     cp_runs = cp_phase(smi, s4096)
     lap("cp")
+    moe_phase(smi, fused["step_ms_median"])
+    lap("moe")
     inplace_ab_phase()
     lap("inplace_ab")
     attn_bias_phase(dev)

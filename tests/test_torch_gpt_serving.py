@@ -188,15 +188,18 @@ def test_serve_gpt_main_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """What is still unported raises: MoE.  (The name dates from when the
-    overlapped ring schedule was refused too: ``cp_overlap`` is ported
-    and builds here, its runs in tests/test_torch_context_parallel.py.
-    Speculative decoding, chunked prefill, prefix sharing and the
-    best-effort lane are ported, their positive cases in
-    tests/test_torch_serving_v2.py; sequence parallelism too, in
-    tests/test_torch_gpt_tp.py: it builds here.)"""
-    with pytest.raises(NotImplementedError, match="moe_num_experts"):
-        tgpt.GPTConfig(moe_num_experts=4)
+    """Every option of the JAX ``GPTConfig`` is ported and builds here.
+    (The name dates from when MoE, the overlapped ring schedule and
+    sequence parallelism were refused: MoE is ported, its positive cases
+    in tests/test_torch_moe.py, where serving it raises as the JAX
+    package's does; ``cp_overlap``'s runs are in
+    tests/test_torch_context_parallel.py, sequence parallelism's in
+    tests/test_torch_gpt_tp.py.  Speculative decoding, chunked prefill,
+    prefix sharing and the best-effort lane are ported, their positive
+    cases in tests/test_torch_serving_v2.py; tensor-parallel decoding in
+    tests/test_torch_tp_decode.py.)"""
+    moe = tgpt.GPTConfig(moe_num_experts=4)
+    assert moe.moe and moe.moe_num_experts == 4 and not tgpt.GPTConfig().moe
     assert tgpt.GPTConfig(sequence_parallel=True).sequence_parallel
     assert tgpt.GPTConfig(cp_overlap=True).cp_overlap
 
@@ -269,6 +272,7 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.inference.fleet, apex_tpu_torch.graphs\n"
         "import apex_tpu_torch.transformer.context_parallel\n"
         "import apex_tpu_torch.transformer.context_parallel.ring_attention\n"
+        "import apex_tpu_torch.transformer.expert_parallel\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
