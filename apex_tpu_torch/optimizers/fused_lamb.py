@@ -48,12 +48,21 @@ def lamb_stage1_math(g, p32, m, v, wd_i, bc1, bc2, *, beta1, beta2, eps, adam_w_
     return u, m_new, v_new
 
 
+def _lr_tensor(lr_i, device):
+    """``lr_i`` as a 0-d fp32 tensor on ``device``, a Python number
+    written by a fill (no host-to-device copy, so a captured step can
+    take it)."""
+    if isinstance(lr_i, torch.Tensor):
+        return lr_i.to(device=device, dtype=torch.float32)
+    return torch.full((), lr_i, dtype=torch.float32, device=device)
+
+
 def lamb_trust_ratio(lr_i, p_norm, u_norm, *, apply_ratio):
     """Stage-2 per-tensor ratio (multi_tensor_lamb.cu:255-262)."""
     if apply_ratio:
         return torch.where((p_norm != 0.0) & (u_norm != 0.0), lr_i * (p_norm / u_norm),
-                           torch.as_tensor(lr_i, dtype=torch.float32, device=p_norm.device))
-    return torch.as_tensor(lr_i, dtype=torch.float32, device=p_norm.device)
+                           _lr_tensor(lr_i, p_norm.device))
+    return _lr_tensor(lr_i, p_norm.device)
 
 
 def lamb_grad_clip(global_grad_norm, max_grad_norm):

@@ -2,7 +2,7 @@
 :mod:`apex_tpu.transformer.pipeline_parallel.schedules`; reference
 ``schedules/__init__.py:22``).  The encoder/decoder schedule
 (``tick_schedule_encdec``, T5) is not ported yet: it comes with the
-models of ROADMAP.md queue 1 item 10."""
+models of ROADMAP.md queue 1 item 10 (T5, the next slice)."""
 
 from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
     broadcast_from_last_stage,

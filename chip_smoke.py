@@ -50,7 +50,9 @@ Phases, each printing one JSON line:
    64 and 128 (each with SDPA's time), fp32, GQA, non-causal, a key
    bias, offsets, a ring-attention chunk (512 q rows after 512 of 1024
    keys), bf16 at D = 16, 48, 80, 96 and 112 (B = 2), and bf16 at the
-   gpt124_s4096 cell's shape (B = 2, S = 4096, with SDPA's time); the
+   gpt124_s4096 cell's shape (B = 2, S = 4096, with SDPA's time), bf16
+   at the bert phase's (B 16, H 16, S 512, D 64, non-causal, a key mask of
+   the batch's lengths, with SDPA's time under the boolean mask); the
    ring-chunk mode (bf16 q, k, v; fp32 out; fp32 do; fp32 dq, dk, dv:
    ring attention's chunk kernels) at B 2, H 12, D 64, S = Sk 1024 and
    2048, diagonal (causal) and full, and the diagonal S 4096 chunk, out,
@@ -178,6 +180,39 @@ Phases, each printing one JSON line:
    steps on each rank's kv heads: every step's logits within 1e-4 of tp
    1's, the tokens equal, 12 paged decode attention launches a step on
    each rank, ms a decode step at tp 1 and 2.
+8h. bert: bench.py's ``bert_base_lamb`` (BERT-Large: 24 layers, hidden
+   1024, 16 heads, S 512, batch 16, vocab 30528, bf16, full remat,
+   FusedLAMB(1e-3, wd 0.01); key lengths S/2..S, 15 % of the valid
+   positions predicted) through ``models.bert.make_train_step``, the
+   dense head and the fused CE, each graphed and eager for 10 steps:
+   graphed = eager bitwise, exact launches a step (LayerNorm 98 / 50,
+   flash 48 / 24 / 24, CE 1 / 1 / 1 with the fused head), losses finite
+   and falling, ms a step, tokens/s, peak; the FusedLAMB update alone
+   (its share of the step); an fp32 BERT of 2 layers at the same widths
+   on the card against the CPU (logits, loss, grads within 1e-5).  The
+   kernels phase holds the flash kernels at its attention (``bert_large``:
+   (16, 16, 512, 64), non-causal, the batch's key mask) with SDPA's time.
+   ``python3 chip_smoke.py bert`` runs it alone.
+8i. resnet: bench.py's ``resnet50_b64`` (ResNet-50, one batch of 64 at
+   224, FusedSGD(0.1, momentum 0.9, wd 1e-4) with master weights) under
+   amp O2 through the ImageNet trainer's step, graphed and eager with
+   cuDNN's deterministic algorithms: losses, params, optimizer state and
+   running statistics bitwise equal, no hand-written kernel launched,
+   losses finite and falling, ms a step, images/s, peak; graphed again
+   under the trainer's cuDNN settings (PyTorch's defaults), timed; an fp32
+   ResNet18ish at 32 x 32 on the card against the CPU (1e-4); ``python -m
+   apex_tpu_torch.imagenet_main_amp --steps 3 --batch-size 64
+   --checkpoint``, then ``--resume`` going on at ``step 3``.  ``python3
+   chip_smoke.py resnet`` runs it alone.  ``python3 chip_smoke.py
+   models_multi_card`` (two cards; also in ``multi_card``): ResNet-50 at
+   dp 2 with SyncBN over NCCL (32 rows a rank) against one card at 64
+   (fp32 at 64 x 64, the last batch norm of every bottleneck
+   zero-scaled: loss, running statistics and every grad within 1e-4, as
+   is one card's own spread when it reorders its batch (printed at 224
+   too), and the same step with SyncBN's cotangents left unsummed
+   outside it; bf16 under amp O2 at 224, timed), SyncBN over 24 + 40
+   rows against the full batch, BERT at tp 2 (the fp32 4-layer loss within 1e-4 of tp 1's;
+   BERT-Large bf16, timed, launches exact).
 8d. inplace_ab: the train_fce step with the donated update (FusedAdam's
    ``mt_adam`` writing the params and state it reads) against the
    copying step (``inplace_update=False``), graphed in turns (copy, in
@@ -264,6 +299,8 @@ Phases, each printing one JSON line:
     did not run on a card.  The kernels phase holds ``mt_adam_remainder``
     bitwise against its plain version (with a clip and a false
     predicate) and times it beside ``torch.optim.AdamW(fused=True)``.
+19-21 run under ``python3 chip_smoke.py resilience``, not in the
+no-argument run, which they would take past its time:
 17. tp: ``pretrain_gpt --tp 1`` at GPT-345M (24 layers, hidden 1024, 16
     heads, vocab 50304, seq 1024, global batch 8, bf16, full remat,
     FusedAdam) in this process over a one-rank NCCL group registered at
@@ -1151,11 +1188,14 @@ def causal_pairs(Sq, Sk, causal, q_offset, k_offset):
 
 
 def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
-                q_offset=0, k_offset=0, masked=False, library=False, Sk=None):
+                q_offset=0, k_offset=0, masked=False, library=False, Sk=None,
+                lengths=None):
     """flash_fwd, flash_dq and flash_dkv against their plain versions on
     one input (S q rows, Sk keys, Sk = S by default); the backward
     kernels and plain versions get the kernel's lse and delta, so each
-    kernel is held on its own."""
+    kernel is held on its own.  ``lengths`` (B valid keys a row, the
+    rest padded): a key-padding mask as BERT's, whose valid pairs the
+    bound counts, and SDPA with the boolean mask as the library call."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops.attention import padding_bias
 
@@ -1167,10 +1207,14 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
     Sk = Sk or S
     q, do = randn(B * H, S, D), randn(B * H, S, D)
     k, v = randn(B * Hkv, Sk, D), randn(B * Hkv, Sk, D)
-    bias = None
+    bias = valid = None
     if masked:  # batch row b keeps its first Sk - 100 * b keys
         valid = (torch.arange(Sk, device=dev)[None, :]
                  < (Sk - 100 * torch.arange(B, device=dev))[:, None])
+    if lengths is not None:
+        valid = (torch.arange(Sk, device=dev)[None, :]
+                 < torch.as_tensor(lengths, device=dev)[:, None])
+    if valid is not None:
         bias = padding_bias(valid)[:, None, :].contiguous()
     scale = 1.0 / math.sqrt(D)
     kw = dict(kv_bias=bias, heads=H, kv_heads=Hkv)
@@ -1214,6 +1258,8 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
         raise AssertionError(f"flash {case} {dtype}: errors {errs} over {tol} "
                              f"(finite={finite})")
     e, pairs = q.element_size(), causal_pairs(S, Sk, causal, q_offset, k_offset)
+    if lengths is not None:  # the valid pairs this run's mask leaves, a (b, h) mean
+        pairs = S * float(np.mean(lengths))
     BH, BKV = B * H, B * Hkv
     peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16  # fp16: the same peak
     qb, kb, rb = BH * S * D * e, BKV * Sk * D * e, BH * S * 4
@@ -1225,9 +1271,10 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
     if library:  # SDPA's causal mask is the kernels' only at Sq == Sk, no offsets
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q4, k4, v4 = (t.view(B, -1, S, D).detach().requires_grad_() for t in (q, k, v))
-        o4 = sdpa(q4, k4, v4, is_causal=causal)
+        mask = None if lengths is None else valid[:, None, None, :]
+        o4 = sdpa(q4, k4, v4, attn_mask=mask, is_causal=causal)
         do4 = do.view(B, H, S, D)
-        lib = {"fwd": lambda: sdpa(q4, k4, v4, is_causal=causal),
+        lib = {"fwd": lambda: sdpa(q4, k4, v4, attn_mask=mask, is_causal=causal),
                "bwd": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)}
     t = {"fwd": timings(lambda: fa.flash_fwd(*fwd_args, **kw),
                         lambda: fa.flash_fwd_plain(*fwd_args, **kw), lib["fwd"]),
@@ -1237,7 +1284,9 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
                         lambda: fa.flash_dkv_plain(*bwd_args, **kw), lib["bwd"])}
     base = {"case": case, "B": B, "H": H, "H_kv": Hkv, "S": S, "Sk": Sk, "D": D,
             "causal": causal,
-            "q_offset": q_offset, "k_offset": k_offset, "kv_bias": masked,
+            "q_offset": q_offset, "k_offset": k_offset,
+            "kv_bias": masked or lengths is not None,
+            "key_lengths": None if lengths is None else [int(n) for n in lengths],
             "dtype": str(dtype).replace("torch.", ""), "fully_masked_rows": dead_rows,
             "rel_errors": errs, "abs_errors": abs_errs, "tolerance": tol,
             "tolerance_why": why}
@@ -4426,7 +4475,8 @@ def multi_card_main():
                      ("overlap_multi_card", overlap_multi_card),
                      ("cp_multi_card", cp_multi_card),
                      ("moe_multi_card", moe_multi_card),
-                     ("tp_decode_multi_card", tp_decode_multi_card)):
+                     ("tp_decode_multi_card", tp_decode_multi_card),
+                     ("models_multi_card", models_multi_card)):
         t0 = time.monotonic()
         try:
             fn()  # its rows printed as they came
@@ -7144,24 +7194,680 @@ def serve_hooks_main(argv):
     return 0
 
 
-def resilience_main():
-    """``chip_smoke.py resilience``: the kernels built, then the
-    supervised, serve_resilience and fleet phases alone on one card."""
+def _phases_alone(phases):
+    """One card: the kernels built, then each of ``phases`` (``(name,
+    fn(smi))``) in turn, with their seconds (``chip_smoke.py bert``,
+    ``resnet``, ``resilience``)."""
     from apex_tpu_torch.ops import _build
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = _smi()
-    emit({"phase": "card", "torch": torch.__version__, "device": torch.cuda.get_device_name(0),
-          "nvidia_smi": smi})
-    secs = _build.build(force=True)
+    emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    seconds = {"build": _build.build(force=True)}
     _build.load()
-    seconds = {"build": secs}
-    for name, fn in (("supervised", supervised_phase),
-                     ("serve_resilience", serve_resilience_phase), ("fleet", fleet_phase)):
+    for name, fn in phases:
         t0 = time.monotonic()
         fn(smi)
         seconds[name] = time.monotonic() - t0
-    emit({"phase": "seconds", **seconds})
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     return 0
+
+
+#: the phases ``chip_smoke.py resilience`` runs alone (not in the
+#: no-argument run)
+RESILIENCE_PHASES = (("supervised", supervised_phase),
+                     ("serve_resilience", serve_resilience_phase), ("fleet", fleet_phase))
+
+
+# ----------------------------------------------------------- bert, resnet
+#: bench.py's ``bert_base_lamb`` section (bench.py:658-735): BERT-Large
+#: (24 layers, hidden 1024, 16 heads), S 512, batch 16, vocab 30528, bf16,
+#: full remat, ``FusedLAMB(lr=1e-3, weight_decay=0.01)``
+BERT_LARGE = {"num_layers": 24, "hidden_size": 1024, "num_attention_heads": 16,
+              "max_seq_len": 512, "vocab_size": 30528}
+BERT_BATCH = 16
+BERT_LAMB = {"lr": 1e-3, "weight_decay": 0.01}
+#: steps of each bert run (graphed and eager; the first warms up, the
+#: graphed run captures after it)
+BERT_STEPS = 10
+#: the fp32 card-against-CPU checks (relative to the largest entry; a
+#: grad leaf against the largest of its own entries, :func:`_grads_errs`)
+BERT_CPU_TOL = 1e-5
+RESNET_CPU_TOL = 1e-4
+#: models_multi_card: BERT's first fp32 loss at tp 2 (4 layers) against
+#: tp 1; ResNet-50's fp32 first step at dp 2 (SyncBN) against one card at
+#: the same global batch (the loss, the running statistics, every grad
+#: leaf and the grads' L2), taken with the last batch norm of every
+#: bottleneck zero-scaled and at :data:`RESNET_PARITY_SIZE`
+#: (:func:`_resnet50_fp32_step`); SyncBN over an uneven split against the
+#: full batch
+BERT_TP_TOL = 1e-4
+RESNET_DP_TOL = 1e-4
+SYNCBN_TOL = 1e-4
+#: the resnet phase: bench.py's ``resnet50_b64`` section (bench.py:607-655:
+#: ResNet-50, one batch of 64 at 224 x 224 repeated, 1000 classes,
+#: FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4) with master
+#: weights) through the trainer's step under amp O2
+RESNET_SGD = {"lr": 0.1, "momentum": 0.9, "weight_decay": 1e-4}
+RESNET_STEPS = 10
+#: the uneven SyncBN split of models_multi_card, rows a rank, and its shape
+SYNCBN_SPLIT = (24, 40)
+SYNCBN_SHAPE = (64, 256, 56, 56)
+#: the image size of ResNet-50's fp32 dp 2 parity (a batch of 64)
+RESNET_PARITY_SIZE = 64
+
+
+def bert_batch(B=BERT_BATCH, S=512, V=30528):
+    """bench.py's BERT batch (``np.random.RandomState(0)``): tokens,
+    targets, key lengths S/2..S, the padding mask and the loss mask (15 %
+    of the valid positions)."""
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, V, size=(B, S))
+    targets = rng.randint(0, V, size=(B, S))
+    lengths = rng.randint(S // 2, S + 1, size=B)
+    pad = np.arange(S)[None, :] < lengths[:, None]
+    loss_mask = ((rng.rand(B, S) < 0.15) & pad).astype(np.float32)
+    return tokens, targets, lengths, pad, loss_mask
+
+
+#: the flash kernels at the bert phase's attention: (16, 16, 512, 64),
+#: bidirectional, the batch's key-padding mask
+BERT_FLASH = {"B": BERT_BATCH, "H": 16, "Hkv": 16, "S": 512, "D": 64, "causal": False,
+              "lengths": tuple(int(n) for n in bert_batch()[2])}
+
+
+def bert_expect(fused, L=24):
+    """Kernel launches of one BERT train step: LayerNorm forward 2 + 2L
+    and 2L more in the layers' recompute, backward 2 + 2L; flash forward
+    L + L recomputed, dq and dkv L; the CE kernels once with the fused
+    head."""
+    return {"layer_norm_fwd": 2 + 4 * L, "layer_norm_bwd": 2 + 2 * L, "flash_fwd": 2 * L,
+            "flash_dq": L, "flash_dkv": L, "ce_fwd": int(fused), "ce_dx": int(fused),
+            "ce_dembed": int(fused)}
+
+
+def _grads_rel(got, want):
+    """The largest of :func:`_grads_errs`."""
+    return max(_grads_errs(got, want))
+
+
+def _grads_l2(got, want):
+    """||got - want|| / ||want|| over every leaf at once."""
+    num = sum(float(((g.double() - w.double()) ** 2).sum()) for g, w in zip(got, want))
+    return math.sqrt(num / sum(float((w.double() ** 2).sum()) for w in want))
+
+
+def _grads_errs(got, want):
+    """Per leaf, max |got - want| / max |want|.  A leaf
+    whose largest |want| is under 1e-6 of the largest of any leaf has a
+    gradient that is zero but for rounding (BERT's key bias: softmax does
+    not see a per-row constant); it counts by its largest |got| and
+    |want| over that largest one instead, which must be as small."""
+    top = max(float(w.abs().max()) for w in want)
+    errs = []
+    for g, w in zip(got, want):
+        if float(w.abs().max()) < 1e-6 * top:
+            errs.append(max(float(g.abs().max()), float(w.abs().max())) / top)
+        else:
+            errs.append(float((g.float() - w.float()).abs().max()) / float(w.abs().max()))
+    return errs
+
+
+def _bert_tensors(dev, B=BERT_BATCH):
+    tokens, targets, _, pad, loss_mask = (a[:B] for a in bert_batch())
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (tokens, targets, loss_mask, pad)]
+
+
+def _bert_train(cfg, pristine, batch, eager, axis_name=None, steps=BERT_STEPS):
+    """``steps`` of ``models.bert.make_train_step`` with FusedLAMB from a
+    copy of ``pristine``: losses, per-step launches (counted from 0), ms
+    a step (median after the warm-up and capture), peak GB."""
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+
+    dev = batch[0].device
+    params = tree_map(lambda t: t.detach().clone(), pristine)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = FusedLAMB(**BERT_LAMB)
+    state = opt.init(params)
+    step = bert.make_train_step(opt, cfg, graphs=False if eager else None, axis_name=axis_name)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(step(params, state, *batch).clone())
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    ms = 1e3 * float(np.median(times[2:]))
+    rec = {"losses": [float(x) for x in losses], "step_ms": [1e3 * t for t in times],
+           "step_ms_median": ms, "counts": counts,
+           "tokens_per_sec": batch[0].numel() / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "graphs": not eager and getattr(step, "graph", None) is not None}
+    del params, state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bert_lamb_ms(pristine, iters=10):
+    """The FusedLAMB update alone over BERT-Large's params (the engine
+    path, in place, fp32 grads of 1e-3 noise): ms a call between CUDA
+    events, the optimizer's share of a bert step."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers.tree import tree_map
+
+    params = tree_map(lambda t: t.detach().clone(), pristine)
+    gen = torch.Generator(device=next(iter(params.values())).device).manual_seed(0)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen, device=t.device) * 1e-3,
+                     params)
+    opt = FusedLAMB(**BERT_LAMB)
+    state = opt.init(params)
+    ms = call_ms(lambda: opt.update(grads, state, params, inplace=True), iters)
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return ms
+
+
+def bert_cpu_parity(dev, layers=2, B=2):
+    """An fp32 BERT of ``layers`` layers at BERT-Large's widths, ``B`` rows
+    of the bert batch: logits, MLM loss and every grad on the card against
+    the same calls on the CPU (the flash and LN kernels' fp32
+    instantiations against their plain versions)."""
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.optimizers.tree import leaves_with_path, tree_leaves
+
+    cfg = bert.BertConfig(**{**BERT_LARGE, "num_layers": layers}, compute_dtype=torch.float32,
+                          checkpoint_layers=False)
+    tree = bert._init_numpy(cfg, torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        tokens, targets, loss_mask, pad = _bert_tensors(d, B)
+        p = bert.params_from_numpy(tree, cfg, d)
+        with torch.no_grad():
+            logits = bert.bert_forward(p, tokens, pad_mask=pad, config=cfg).cpu()
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = bert.bert_mlm_loss(p, tokens, targets, loss_mask, cfg, pad_mask=pad)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        out[str(d)] = (logits, float(loss.detach()), [g.cpu() for g in grads])
+    (lc, sc, gc), (lg, sg, gg) = out["cpu"], out[str(dev)]
+    by_leaf = dict(zip((k for k, _ in leaves_with_path(p)), _grads_errs(gg, gc)))
+    errs = {"logits": rel_err(lg, lc), "loss": abs(sg - sc) / abs(sc),
+            "grads": max(by_leaf.values())}
+    rec = {"layers": layers, "rows": B, "errors": errs, "tolerance": BERT_CPU_TOL,
+           "worst_grad_leaves": dict(sorted(by_leaf.items(), key=lambda kv: -kv[1])[:4])}
+    if not all(e <= BERT_CPU_TOL for e in errs.values()):
+        raise AssertionError(f"bert card vs CPU: {rec}")
+    return rec
+
+
+def bert_phase(smi):
+    """BERT-Large MLM with FusedLAMB on one card (:data:`BERT_LARGE`, the
+    bench batch): ``models.bert.make_train_step``, the dense head and the
+    fused CE, each graphed and eager for :data:`BERT_STEPS` steps: graphed
+    bitwise eager, exact launches a step (:func:`bert_expect`), losses
+    finite and falling, ms a step, tokens/s and peak; then
+    :func:`bert_cpu_parity`."""
+    import dataclasses
+
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    cfg = bert.BertConfig(**BERT_LARGE, compute_dtype=torch.bfloat16, checkpoint_layers=True)
+    pristine = bert.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(pristine))
+    batch = _bert_tensors(dev)
+    runs = {}
+    for head, fused in (("dense", False), ("fused_ce", True)):
+        hcfg = dataclasses.replace(cfg, fused_ce=fused)
+        graphed = _bert_train(hcfg, pristine, batch, eager=False)
+        eager = _bert_train(hcfg, pristine, batch, eager=True)
+        want = bert_expect(fused)
+        for name, rec in (("graphed", graphed), ("eager", eager)):
+            per = {k: v / BERT_STEPS for k, v in rec["counts"].items()}
+            bad = {k: per[k] for k in want if per[k] != want[k]}
+            if bad:
+                raise AssertionError(f"bert {head} {name}: launches a step {bad}, want "
+                                     f"{ {k: want[k] for k in bad} }")
+            rec["launches_per_step"] = per
+        losses = graphed["losses"]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"bert {head}: losses {losses} not finite and falling")
+        if not graphed["graphs"] or losses != eager["losses"]:
+            raise AssertionError(f"bert {head}: graphed {losses} against eager "
+                                 f"{eager['losses']} (graphs {graphed['graphs']}): not bitwise")
+        runs[head] = {**{k: v for k, v in graphed.items() if k != "counts"},
+                      "graphed_vs_eager": "bitwise",
+                      "eager_step_ms_median": eager["step_ms_median"]}
+    lamb_ms = bert_lamb_ms(pristine)
+    del pristine
+    torch.cuda.empty_cache()
+    emit({"phase": "bert_train", "nvidia_smi": smi,
+          "config": {**BERT_LARGE, "batch": BERT_BATCH, "dtype": "bfloat16", "remat": "full",
+                     "optimizer": BERT_LAMB},
+          "params": n_params, "runs": runs, "lamb_update_ms": lamb_ms,
+          "lamb_share_of_fused_step": lamb_ms / runs["fused_ce"]["step_ms_median"]})
+    emit({"phase": "bert", "nvidia_smi": smi, "card_vs_cpu": bert_cpu_parity(dev),
+          "seconds": time.monotonic() - t0})
+    return runs
+
+
+def resnet_cpu_parity(dev, size=32, B=8):
+    """An fp32 ResNet18ish at ``size`` x ``size`` on the card against the
+    same call on the CPU: the training-mode logits, the new running
+    statistics and every grad (cuDNN against the CPU's convolutions; the
+    flax padding on both)."""
+    from apex_tpu_torch.imagenet_main_amp import loss_and_grads, synthetic_batch
+    from apex_tpu_torch.models.resnet import ResNet18ish
+
+    x, y = synthetic_batch(np.random.default_rng(1), B, size)
+    out = {}
+    for d in ("cpu", dev):
+        model = ResNet18ish(dtype=torch.float32, device=d,
+                            generator=torch.Generator().manual_seed(0))
+        v = model.variables()
+        params = {k: t.clone().requires_grad_(True) for k, t in v["params"].items()}
+        xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+        with torch.no_grad():
+            logits, stats = model.apply(params, v["batch_stats"], xt, train=True)
+        _, grads = loss_and_grads(model, params, {k: t.clone() for k, t in
+                                                  v["batch_stats"].items()}, xt, yt)
+        out[str(d)] = (logits.cpu(), [s.cpu() for s in stats.values()],
+                       [grads[k].cpu() for k in sorted(grads)])
+    (lc, sc, gc), (lg, sg, gg) = out["cpu"], out[str(dev)]
+    errs = {"logits": rel_err(lg, lc), "batch_stats": _grads_rel(sg, sc),
+            "grads": _grads_rel(gg, gc)}
+    rec = {"model": "ResNet18ish", "image_size": size, "batch": B, "errors": errs,
+           "tolerance": RESNET_CPU_TOL}
+    if not all(e <= RESNET_CPU_TOL for e in errs.values()):
+        raise AssertionError(f"resnet card vs CPU: {rec}")
+    return rec
+
+
+def resnet_batch(dev, rows=slice(None), batch=64, size=224, classes=1000):
+    """bench.py's ResNet batch (``np.random.RandomState(0)``: one batch
+    of ``batch`` images, repeated every step), ``rows`` of it on
+    ``dev``."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(batch, size, size, 3).astype(np.float32)
+    y = rng.randint(0, classes, size=(batch,))
+    return torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev)
+
+
+def _resnet_train(dev, eager, group=None, rows=slice(None), steps=RESNET_STEPS):
+    """The trainer's step (``imagenet_main_amp.make_train_step``: amp O2,
+    ``FusedSGD(master_weights=True)``, SyncBN and the grad all-reduce
+    over ``group``) on ResNet-50 with seed-0 params, ``steps`` steps on
+    ``rows`` of :func:`resnet_batch`: losses, ms a step (median after the
+    warm-up and capture), images/s over the global batch, peak GB,
+    launches (counted from 0) and the final state."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch import imagenet_main_amp as im
+    from apex_tpu_torch.models.resnet import ResNet50
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+
+    model = ResNet50(sync_bn_group=group, device=dev)
+    v = model.variables()
+    params, _ = amp.initialize(v["params"], opt_level="O2")
+    params = tree_map(lambda t: t.clone(), params)
+    stats = tree_map(lambda t: t.clone(), v["batch_stats"])
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = FusedSGD(**RESNET_SGD, master_weights=True)
+    state = opt.init(params)
+    step = im.make_train_step(model, opt, group, graphs=False if eager else None)
+    x, y = resnet_batch(dev, rows)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(step(params, state, stats, x, y).clone())
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(times[2:]))
+    rec = {"losses": [float(t) for t in losses], "step_ms": [1e3 * t for t in times],
+           "step_ms_median": ms, "images_per_sec": 64 / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "counts": launch_counts(),
+           "graphs": not eager and getattr(step, "graph", None) is not None}
+    state_out = {"params": params, "opt_state": state, "batch_stats": stats}
+    del step
+    return rec, state_out
+
+
+def resnet_trainer_resume(steps=3, batch=64):
+    """``python -m apex_tpu_torch.imagenet_main_amp --steps 3 --batch-size
+    64 --checkpoint F``, then ``--resume F``, which must go on at ``step
+    3``."""
+    import tempfile
+
+    cmd = [sys.executable, "-m", "apex_tpu_torch.imagenet_main_amp", "--batch-size", str(batch)]
+    with tempfile.TemporaryDirectory() as d:
+        ck = str(Path(d) / "resnet.pt")
+        rc, out, errs, s1 = _child(cmd + ["--steps", str(steps), "--checkpoint", ck], 600)
+        rc2, out2, errs2, s2 = _child(cmd + ["--steps", "2", "--resume", ck], 600)
+    first = [ln for ln in out if ln.startswith("step ")]
+    resumed = [ln for ln in out2 if ln.startswith("step ")]
+    rec = {"first": first, "resumed": resumed, "seconds": [s1, s2],
+           "throughput": [ln for ln in out + out2 if ln.startswith("throughput")]}
+    if (rc, rc2) != (0, 0) or len(first) != steps or not resumed or not resumed[0].startswith(
+            f"step {steps}:"):
+        raise AssertionError(f"imagenet_main_amp checkpoint/resume: exit {rc}, {rc2}; {rec}\n"
+                             + "\n".join(errs[-20:] + errs2[-20:]))
+    return rec
+
+
+def resnet_phase(smi):
+    """ResNet-50 under amp O2 on one card through the trainer's step
+    (:func:`_resnet_train`: bench.py's resnet50_b64 section, :data:`RESNET_SGD`,
+    :data:`RESNET_STEPS` steps), graphed then eager (cuDNN's
+    deterministic algorithms): losses, running statistics
+    and params bitwise equal, losses finite and falling, no hand-written
+    kernel launched (the path is cuDNN and PyTorch ops, as XLA ops in the
+    reference), ms a step, images/s, peak; then graphed once more under
+    the trainer's cuDNN settings (PyTorch's defaults: algorithms not held
+    deterministic, no autotuning), timed; then :func:`resnet_cpu_parity`
+    and :func:`resnet_trainer_resume`."""
+    from apex_tpu_torch.graphs import tensor_leaves
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        graphed, g_state = _resnet_train(dev, eager=False)
+        eager, e_state = _resnet_train(dev, eager=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    same = {k: all(torch.equal(a, b) for a, b in zip(tensor_leaves(g_state[k]),
+                                                     tensor_leaves(e_state[k]), strict=True))
+            for k in g_state}
+    del g_state, e_state
+    torch.cuda.empty_cache()
+    default, _ = _resnet_train(dev, eager=False)
+    torch.cuda.empty_cache()
+    losses = graphed["losses"]
+    launched = {k: v for r in (graphed, eager, default) for k, v in r["counts"].items() if v}
+    for run in (losses, default["losses"]):
+        if not all(map(math.isfinite, run)) or not run[-1] < run[0]:
+            raise AssertionError(f"resnet: losses {run} not finite and falling")
+    if not graphed["graphs"] or losses != eager["losses"] or not all(same.values()):
+        raise AssertionError(f"resnet: graphed {losses} against eager {eager['losses']}, "
+                             f"state bitwise {same}")
+    if launched:
+        raise AssertionError(f"resnet: the path launched hand-written kernels {launched}")
+    emit({"phase": "resnet", "nvidia_smi": smi,
+          "config": {"model": "ResNet-50", "batch": 64, "image_size": 224, "classes": 1000,
+                     "opt_level": "O2", "optimizer": {**RESNET_SGD, "master_weights": True},
+                     "steps": RESNET_STEPS},
+          "graphed": {k: v for k, v in graphed.items() if k != "counts"},
+          "cudnn": "deterministic algorithms, no autotuning (graphed and eager)",
+          "graphed_trainer_cudnn": {k: v for k, v in default.items() if k != "counts"},
+          "eager_step_ms_median": eager["step_ms_median"], "graphed_vs_eager": "bitwise "
+          "(losses, params, optimizer state, running statistics)", "kernel_launches": 0,
+          "card_vs_cpu": resnet_cpu_parity(dev),
+          "trainer_resume": resnet_trainer_resume(), "seconds": time.monotonic() - t0})
+    return graphed
+
+
+def _resnet50_fp32_step(dev, group=None, rows=slice(None), order=None, last_bn_scale=0.0,
+                        size=RESNET_PARITY_SIZE):
+    """ResNet-50 in fp32 (seed-0 params with the last batch norm of
+    every bottleneck scaled by ``last_bn_scale``, the trainer's first
+    batch of 64 at ``size``, its rows permuted by ``order``): the loss,
+    the grads (all-reduced over ``group``, the mean) and the new running
+    statistics of ``rows``, on the CPU.
+
+    Where this network's fp32 backward is well conditioned: with the
+    last BN scale zero (the zero-init flax's ImageNet example uses) the
+    bottlenecks pass their input through, so the stem's and the
+    projections' batch norms carry the backward, and every batch norm's
+    statistics reach the grads of the scales and shifts; at the init's
+    scale of 1 the backward runs through every branch and a reordering
+    of the batch moves the grads by percents.  Some grads are residues
+    of sums that cancel (a batch norm's backward sums to zero over each
+    channel, so a shift's grad downstream of it is what is left), and at
+    224 x 224 the one card's own reordering moves those by percents even
+    zero-scaled; :func:`models_multi_card` prints that spread at 224 and
+    at the parity's 64 x 64, where it must lie within the band."""
+    from apex_tpu_torch.imagenet_main_amp import loss_and_grads, synthetic_batch
+    from apex_tpu_torch.models.resnet import ResNet50
+    from apex_tpu_torch.parallel import allreduce_gradients
+
+    rng = np.random.default_rng(0)
+    x, y = synthetic_batch(rng, 64, size)
+    if order is not None:
+        x, y = x[order], y[order]
+    model = ResNet50(dtype=torch.float32, sync_bn_group=group, device=dev)
+    v = model.variables()
+    params = {k: (t.clone() if not k.endswith("bn3.weight")
+                  else torch.full_like(t, last_bn_scale)).requires_grad_(True)
+              for k, t in v["params"].items()}
+    stats = {k: t.clone() for k, t in v["batch_stats"].items()}
+    loss, grads = loss_and_grads(model, params, stats, torch.from_numpy(x[rows]).to(dev),
+                                 torch.from_numpy(y[rows]).to(dev))
+    if group is not None and group.size() > 1:
+        grads = allreduce_gradients(grads, group)
+        torch.distributed.all_reduce(loss, group=group.group)
+        loss = loss / group.size()
+    return {"loss": float(loss), "grads": {k: g.cpu() for k, g in grads.items()},
+            "stats": {k: s.cpu() for k, s in stats.items()}}
+
+
+@contextlib.contextmanager
+def _syncbn_cotangents_unsummed():
+    """The must-fail control of models_multi_card's dp 2 parity: SyncBN's
+    backward with the all-reduce of the cotangents skipped (each rank
+    keeps its own), for the calls inside."""
+    from apex_tpu_torch.parallel import sync_batchnorm
+
+    fn = sync_batchnorm._SumOverGroup
+    saved = fn.__dict__["backward"]
+    fn.backward = staticmethod(lambda ctx, g: (g.clone(), None))
+    try:
+        yield
+    finally:
+        fn.backward = saved
+
+
+def _syncbn_uneven(dev, group=None, rows=slice(None)):
+    """SyncBatchNorm (256 channels, fp32, affine 1.5 / -0.25) on ``rows``
+    of a (64, 256, 56, 56) batch: its output rows and running
+    statistics, on the CPU."""
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(SYNCBN_SHAPE,
+                                                                  dtype=np.float32))
+    bn = SyncBatchNorm(SYNCBN_SHAPE[1], group=group, device=dev)
+    with torch.no_grad():
+        bn.weight.fill_(1.5)
+        bn.bias.fill_(-0.25)
+        y = bn(x[rows].to(dev))
+    return {"out": y.cpu(), "running_mean": bn.running_mean.cpu(),
+            "running_var": bn.running_var.cpu()}
+
+
+def _bert_fp32_loss(dev, axis_name=None, layers=4):
+    """The first MLM loss of an fp32 BERT of ``layers`` layers at
+    BERT-Large's widths on the bert batch (seed-1 params), over the
+    tensor-parallel group ``axis_name``."""
+    from apex_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(**{**BERT_LARGE, "num_layers": layers}, compute_dtype=torch.float32,
+                          checkpoint_layers=False)
+    tree = bert._init_numpy(cfg, torch.Generator().manual_seed(1))
+    p = bert.shard_params(tree, cfg, axis_name, dev)
+    tokens, targets, loss_mask, pad = _bert_tensors(dev)
+    with torch.no_grad():
+        return float(bert.bert_mlm_loss(p, tokens, targets, loss_mask, cfg, axis_name, pad))
+
+
+def _resnet_compare(got, want):
+    """Loss, running statistics and grads of one ResNet-50 fp32 step
+    against another's: relative errors, the grads also as one L2 over
+    every leaf."""
+    keys = sorted(want["grads"])
+    g, w = [got["grads"][k] for k in keys], [want["grads"][k] for k in keys]
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grads_rel": _grads_rel(g, w), "grads_l2": _grads_l2(g, w),
+            "stats_rel": _grads_rel([got["stats"][k] for k in sorted(want["stats"])],
+                                    [want["stats"][k] for k in sorted(want["stats"])])}
+
+
+def models_child(argv):
+    """One rank of ``torchrun --nproc-per-node 2 chip_smoke.py
+    models_child REF``: at dp 2 (SyncBN over NCCL) ResNet-50's fp32 first
+    step on 32 rows, held against the one-card step at REF, and again
+    with SyncBN's cotangents left unsummed (the control); the trainer's
+    bf16 amp-O2 step at dp 2, timed; SyncBN over the uneven
+    :data:`SYNCBN_SPLIT`; then at tp 2 BERT's first fp32 loss (4 layers)
+    and BERT-Large's bf16 FusedLAMB step, timed.  Rank 0 prints one
+    ``models_child`` line with both ranks' records."""
+    from apex_tpu_torch.models import bert
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multiproc.initialize_distributed("cuda")
+    ps.initialize_model_parallel()
+    dp = ps.get_data_parallel_group()
+    rank = dp.rank()
+    ref = torch.load(argv[0])
+    mine = {"rank": rank}
+    got = _resnet50_fp32_step(dev, dp, slice(32 * rank, 32 * (rank + 1)))
+    mine["resnet_fp32"] = {"loss": got["loss"], **_resnet_compare(got, ref["resnet"])}
+    with _syncbn_cotangents_unsummed():
+        got = _resnet50_fp32_step(dev, dp, slice(32 * rank, 32 * (rank + 1)))
+    mine["resnet_fp32_control"] = _resnet_compare(got, ref["resnet"])
+    del got
+    torch.cuda.empty_cache()
+    run, _ = _resnet_train(dev, eager=False, group=dp, rows=slice(32 * rank, 32 * (rank + 1)))
+    mine["resnet_bf16"] = {k: run[k] for k in ("losses", "step_ms_median", "images_per_sec",
+                                               "peak_memory_gb", "graphs")}
+    torch.cuda.empty_cache()
+    a = SYNCBN_SPLIT[0]
+    rows = slice(0, a) if rank == 0 else slice(a, SYNCBN_SHAPE[0])
+    bn = _syncbn_uneven(dev, dp, rows)
+    want = ref["syncbn"]
+    mine["syncbn_uneven"] = {
+        "rows": rows.stop - rows.start,
+        "out_rel": rel_err(bn["out"], want["out"][rows]),
+        "stats_rel": _grads_rel([bn["running_mean"], bn["running_var"]],
+                                [want["running_mean"], want["running_var"]])}
+    ps.destroy_model_parallel()
+    ps.initialize_model_parallel(tensor_model_parallel_size_=2)
+    tg = ps.get_tensor_model_parallel_group()
+    loss = _bert_fp32_loss(dev, tg)
+    mine["bert_tp2_fp32"] = {"loss": loss, "loss_rel": abs(loss - ref["bert_loss"])
+                             / abs(ref["bert_loss"])}
+    cfg = bert.BertConfig(**BERT_LARGE, compute_dtype=torch.bfloat16, checkpoint_layers=True)
+    tree = bert._init_numpy(cfg, torch.Generator().manual_seed(0))
+    run = _bert_train(cfg, bert.shard_params(tree, cfg, tg, dev), _bert_tensors(dev),
+                      eager=False, axis_name=tg)
+    del tree
+    mine["bert_tp2_bf16"] = {k: run[k] for k in ("losses", "step_ms_median", "tokens_per_sec",
+                                               "peak_memory_gb", "graphs")}
+    mine["bert_tp2_bf16"]["launches_per_step"] = {k: v / BERT_STEPS
+                                                  for k, v in run["counts"].items() if v}
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"models_child": ranks}), flush=True)
+    return 0
+
+
+def models_multi_card():
+    """BERT and ResNet across two cards: the one-card references in this
+    process (ResNet-50's fp32 first step at batch 64 of 64 x 64 images
+    with every bottleneck's last batch norm zero-scaled, SyncBN on the full
+    batch, BERT's fp32 4-layer loss at tp 1), then ``models_child`` over
+    NCCL (:func:`models_child`): ResNet-50 dp 2's loss, running
+    statistics and grads after ``allreduce_gradients`` within
+    :data:`RESNET_DP_TOL` (the one card's own spread under a reordering of
+    its batch printed beside them; the same step with SyncBN's cotangents
+    left unsummed must miss the band), SyncBN over 24 + 40 rows within
+    :data:`SYNCBN_TOL`, BERT tp 2 within :data:`BERT_TP_TOL`; the bf16
+    ResNet-50 dp 2 and BERT-Large tp 2 steps timed, their losses falling
+    and their launches exact."""
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    ref = {"resnet": _resnet50_fp32_step(dev), "syncbn": _syncbn_uneven(dev),
+           "bert_loss": _bert_fp32_loss(dev)}
+    # the one card's own spread: the same step with the batch's halves
+    # swapped (every sum over the batch in another order), zero-scaled at
+    # the parity's size and at 224, and at the init's scale of 1 at 224
+    swap = np.r_[32:64, 0:32]
+    spread = {f"zero_scaled_{RESNET_PARITY_SIZE}": _resnet_compare(
+        _resnet50_fp32_step(dev, order=swap), ref["resnet"])}
+    for name, scale in (("zero_scaled_224", 0.0), ("init_scale_1_224", 1.0)):
+        spread[name] = _resnet_compare(
+            _resnet50_fp32_step(dev, order=swap, last_bn_scale=scale, size=224),
+            _resnet50_fp32_step(dev, last_bn_scale=scale, size=224))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "ref.pt")
+        torch.save(ref, path)
+        ranks = _pp_children(2, [path], timeout=1200, script="models_child",
+                             prefix='{"models_child"')[0]["models_child"]
+    row = {"phase": "models_multi_card", "nvidia_smi": _smi(),
+           "resnet_fp32_loss_1card": ref["resnet"]["loss"], "resnet_fp32_1card_spread": spread,
+           "bert_fp32_loss_tp1": ref["bert_loss"],
+           "tolerance": {"resnet_dp2": RESNET_DP_TOL, "syncbn": SYNCBN_TOL,
+                         "bert_tp2": BERT_TP_TOL},
+           "ranks": ranks, "seconds": time.monotonic() - t0}
+    emit(row)
+    want = bert_expect(False)
+    bad = []
+    e = spread[f"zero_scaled_{RESNET_PARITY_SIZE}"]
+    if not max(e.values()) <= RESNET_DP_TOL:
+        bad.append(("resnet_fp32_1card_spread", e))
+    for r in ranks:
+        e = r["resnet_fp32"]
+        if not max(e["loss_rel"], e["stats_rel"], e["grads_rel"], e["grads_l2"]) <= RESNET_DP_TOL:
+            bad.append(("resnet_fp32", r["rank"], e))
+        if not r["resnet_fp32_control"]["grads_l2"] > RESNET_DP_TOL:
+            bad.append(("resnet_fp32_control_within_band", r["rank"], r["resnet_fp32_control"]))
+        e = r["syncbn_uneven"]
+        if not max(e["out_rel"], e["stats_rel"]) <= SYNCBN_TOL:
+            bad.append(("syncbn_uneven", r["rank"], e))
+        if not r["bert_tp2_fp32"]["loss_rel"] <= BERT_TP_TOL:
+            bad.append(("bert_tp2_fp32", r["rank"], r["bert_tp2_fp32"]))
+        for name in ("resnet_bf16", "bert_tp2_bf16"):
+            losses = r[name]["losses"]
+            if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+                bad.append((name, r["rank"], losses))
+        per = r["bert_tp2_bf16"]["launches_per_step"]
+        if any(per.get(k, 0) != v for k, v in want.items()):
+            bad.append(("bert_tp2_launches", r["rank"], per))
+    if bad:
+        raise AssertionError(f"models_multi_card: {bad}")
+    return row
+
+
+def models_multi_card_main():
+    """``chip_smoke.py models_multi_card`` (two cards): the kernels built,
+    then :func:`models_multi_card` alone."""
+    return _multi_card_alone("models_multi_card", models_multi_card, 2)
 
 
 def main():
@@ -7213,9 +7919,17 @@ def main():
     if sys.argv[1:2] == ["pp_bisect_child"]:
         return pp_bisect_child(sys.argv[2:])
     if sys.argv[1:2] == ["resilience"]:
-        return resilience_main()
+        return _phases_alone(RESILIENCE_PHASES)
     if sys.argv[1:2] == ["serve_hooks"]:
         return serve_hooks_main(sys.argv[2:])
+    if sys.argv[1:2] == ["bert"]:
+        return _phases_alone([("bert", bert_phase)])
+    if sys.argv[1:2] == ["resnet"]:
+        return _phases_alone([("resnet", resnet_phase)])
+    if sys.argv[1:2] == ["models_child"]:
+        return models_child(sys.argv[2:])
+    if sys.argv[1:2] == ["models_multi_card"]:
+        return models_multi_card_main()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7315,6 +8029,8 @@ def main():
         ("chunk", torch.bfloat16, {"S": 512, "Sk": 1024, "q_offset": 512}),
         # the gpt124_s4096 cell's shape (the train_s4096 phase)
         *FLASH_S4096,
+        # the bert phase's: BERT-Large, bidirectional, key-padding mask
+        ("bert_large", torch.bfloat16, {**BERT_FLASH, "library": True}),
         # the other instantiations of the bf16 kernels
         *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
@@ -7377,6 +8093,10 @@ def main():
     lap("cp")
     moe_phase(smi, fused["step_ms_median"])
     lap("moe")
+    bert_phase(smi)
+    lap("bert")
+    resnet_phase(smi)
+    lap("resnet")
     inplace_ab_phase()
     lap("inplace_ab")
     attn_bias_phase(dev)
@@ -7411,12 +8131,6 @@ def main():
     lap("tp")
     pp_phase(smi, absent)
     lap("pp")
-    supervised_phase(smi)
-    lap("supervised")
-    serve_resilience_phase(smi)
-    lap("serve_resilience")
-    fleet_phase(smi)
-    lap("fleet")
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     main_path = (

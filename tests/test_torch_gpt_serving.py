@@ -219,10 +219,18 @@ def test_entry_points_raise_without_a_gpu():
         ContinuousBatchingScheduler(tp, tcfg, DecodeConfig(max_prompt_len=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_gpt.main(["--layers", "1", "--hidden", "32", "--heads", "4", "--vocab", "64"])
+    from apex_tpu_torch.models.resnet import ResNet18ish
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyncBatchNorm(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet18ish()
 
 
 def _forbidden(module: str) -> bool:
-    return module in ("jax", "apex_tpu") or module.startswith(("jax.", "apex_tpu."))
+    return module in ("jax", "flax", "apex_tpu") or module.startswith(
+        ("jax.", "flax.", "apex_tpu."))
 
 
 def test_port_imports_no_jax_ast_scan():
@@ -273,8 +281,11 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.transformer.context_parallel\n"
         "import apex_tpu_torch.transformer.context_parallel.ring_attention\n"
         "import apex_tpu_torch.transformer.expert_parallel\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'apex_tpu')\n"
-        "    or m.startswith(('jax.', 'apex_tpu.')))))\n")
+        "import apex_tpu_torch.models.bert, apex_tpu_torch.models.resnet\n"
+        "import apex_tpu_torch.parallel.sync_batchnorm, apex_tpu_torch.parallel.LARC\n"
+        "import apex_tpu_torch.imagenet_main_amp, apex_tpu_torch.contrib.layer_norm\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'flax', 'apex_tpu')\n"
+        "    or m.startswith(('jax.', 'flax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
