@@ -753,8 +753,10 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                qspec=None, overlap=None, inplace_update=True, cp_group=None,
                expert_grads=False):
     """The step that :func:`make_train_step` and
-    :func:`apex_tpu_torch.models.gpt.make_pp_train_step`): ``grads_fn(
-    params, tokens, targets, post_loss) -> (loss, grads)`` gives the
+    :func:`apex_tpu_torch.models.gpt.make_pp_train_step`, and the T5
+    steps of :mod:`apex_tpu_torch.models.t5`): ``grads_fn(params, *data,
+    post_loss) -> (loss, grads)``, ``data`` the step's batch arguments
+    (``tokens, targets``; T5's ``src, dec_in, targets``), gives the
     (scaled) loss and this rank's grads; then the sequence-parallel sum
     over ``tp_group``, the dp sync over ``dp_group``, the update (the
     finite vote agreed over ``sync_groups``, the clip's Σx² by
@@ -787,12 +789,12 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
     n_state = n_small + int(telemetry is not None)
 
     def step(params, state, *rest):
-        small, (tokens, targets) = rest[:n_small], rest[n_state:]
+        small, data = rest[:n_small], rest[n_state:]
         if telemetry is None:
-            loss, new = body(params, state, small, tokens, targets)
+            loss, new = body(params, state, small, data)
         else:
             with stepstats.capture(norm_sumsq) as cap:
-                loss, new = body(params, state, small, tokens, targets)
+                loss, new = body(params, state, small, data)
             telemetry.accumulate_(
                 rest[n_small], loss=loss, grad_norm=cap.get("grad_norm"),
                 finite=cap.get("all_finite"),
@@ -805,8 +807,9 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
                     dst.copy_(src)
         return loss
 
-    def body(params, state, small, tokens, targets):
-        """``(loss, (params, state, *small states))`` of one step."""
+    def body(params, state, small, data):
+        """``(loss, (params, state, *small states))`` of one step on the
+        batch ``data`` (``(tokens, targets)``, or the step's own)."""
         scaler_state = small[0] if loss_scaler is not None else None
         guard_state = small[-1] if step_guard is not None else None
         fault = chaos.grad_fault(guard_state.step) if chaos is not None else None
@@ -814,12 +817,12 @@ def _make_step(opt, config, grads_fn, *, loss_scaler=None, step_guard=None,
         kw = {"inplace": True} if inplace else {}
         if overlap is not None:
             scale = scaler_state.loss_scale if loss_scaler is not None else None
-            loss, grads, presynced = overlap(params, state, tokens, targets, post, scale)
+            loss, grads, presynced = overlap(params, state, *data, post, scale)
             if presynced is not None:
                 kw["presynced"] = presynced
         else:
-            loss, grads = grads_fn(params, tokens, targets, post)
-            if config.sequence_parallel:
+            loss, grads = grads_fn(params, *data, post)
+            if getattr(config, "sequence_parallel", False):
                 grads = sp_grad_sync(grads, tp_group)
             if cp_sync is not None:
                 loss, grads = cp_sync(loss, grads)

@@ -74,6 +74,11 @@ __all__ = [
     "get_position_embedding_group", "get_rank_info", "is_unitialized",
     "is_rank_in_embedding_group",
     "is_rank_in_position_embedding_group",
+    "is_pipeline_stage_before_split", "is_pipeline_stage_after_split",
+    "is_pipeline_stage_at_split", "is_rank_in_encoder_relative_position_embedding_group",
+    "is_rank_in_decoder_relative_position_embedding_group",
+    "get_encoder_relative_position_embedding_group",
+    "get_decoder_relative_position_embedding_group", "set_pipeline_model_parallel_split_rank",
 ]
 
 
@@ -105,6 +110,11 @@ class _State:
     context: AxisGroup
     embedding: AxisGroup
     position_embedding: AxisGroup
+    #: the encoder's and the decoder's stages of this rank's pipeline
+    encoder_relative_position_embedding: AxisGroup
+    decoder_relative_position_embedding: AxisGroup
+    #: every pipeline group's global ranks (the split's groups cut each)
+    pipes: tuple = ()
     virtual_pipeline_size: Optional[int] = None
     split_rank: Optional[int] = None
     #: every data-parallel group's global ranks, in the order they were
@@ -186,18 +196,55 @@ def initialize_model_parallel(
                                         for d in range(dp) for p in range(pp) for t in range(tp)],
                          False)
     split = pipeline_model_parallel_split_rank_
-    emb = [sorted({r[0], r[-1]} | ({r[split]} if pp > 1 and split is not None else set()))
-           for r in pipes]
-    pos = [sorted({r[0]} | ({r[split]} if pp > 1 and split is not None else set()))
-           for r in pipes]
     _STATE = _State(data=data, tensor=tensor, pipeline=pipeline,
-                    context=context,
-                    embedding=axis_group(PIPELINE_AXIS, emb, False) or _outside(),
-                    position_embedding=axis_group(PIPELINE_AXIS, pos, False) or _outside(),
+                    context=context, **_split_groups(pipes, pp, split),
+                    pipes=tuple(tuple(r) for r in pipes),
                     virtual_pipeline_size=virtual_pipeline_model_parallel_size_,
                     split_rank=split, data_groups=tuple(tuple(r) for r in data_groups),
                     num_distributed_slices=slices)
     return data
+
+
+def _split_groups(pipes, pp: int, split: Optional[int]) -> dict:
+    """The groups the encoder/decoder split decides, cut from each
+    pipeline (``pipes``, lists of global ranks) and built on every rank in
+    the same order: its first and last ranks make the embedding group and
+    its first the position-embedding group, each with the split stage
+    (reference :339-372); its stages before the split the encoder's
+    relative-position-embedding group and those from it on the decoder's
+    (the JAX package's ``_relative_position_embedding_members``), both
+    stage 0 alone without a split.  A group this rank is not in is
+    :func:`_outside`."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+
+    def group(members):
+        """This rank's group among one per pipeline, each of ``members``
+        (stage indices) of it."""
+        mine = _outside()
+        for r in pipes:
+            ranks = [r[i] for i in members]
+            pg = dist.new_group(ranks) if len(ranks) > 1 else None
+            if rank in ranks:
+                mine = AxisGroup(PIPELINE_AXIS, pg, len(ranks), ranks.index(rank), ranks)
+        return mine
+
+    at_split = {split} if pp > 1 and split is not None else set()
+    return {"embedding": group(sorted({0, pp - 1} | at_split)),
+            "position_embedding": group(sorted({0} | at_split)),
+            "encoder_relative_position_embedding": group(
+                _relative_position_embedding_members(pp, split, True)),
+            "decoder_relative_position_embedding": group(
+                _relative_position_embedding_members(pp, split, False))}
+
+
+def _relative_position_embedding_members(pp: int, split: Optional[int], encoder: bool) -> tuple:
+    """The JAX package's :556: the encoder's stages, or the decoder's;
+    stage 0 alone without a split (the reference's ``[ranks[0]]``)."""
+    if pp == 1 or split is None:
+        return (0,)
+    return tuple(range(0, split)) if encoder else tuple(range(split, pp))
 
 
 def _outside() -> AxisGroup:
@@ -478,3 +525,90 @@ def get_rank_info() -> str:
 def is_unitialized() -> bool:
     """Reference :79 (its spelling): no model-parallel state is registered."""
     return _STATE is None
+
+
+# ------------------------------------------------- encoder/decoder split
+# (T5-style models: stages [0, split) run the encoder, [split, pp) the
+#  decoder; reference parallel_state.py:538-575, the JAX package's
+#  :455-497 with its signatures: the stage index as the positional
+#  ``rank`` or ``stage=``.)
+def is_pipeline_stage_before_split(rank: Optional[int] = None, *,
+                                   stage: Optional[int] = None) -> bool:
+    """True if pipeline stage ``stage`` runs the encoder of a model with an
+    encoder and a decoder (reference :538)."""
+    s = _state()
+    stage = rank if stage is None else stage
+    if s.pipeline.size() == 1:
+        return True
+    if stage is None:
+        raise ValueError("pass the static pipeline stage index")
+    if s.split_rank is None:
+        return True
+    return stage < s.split_rank
+
+
+def is_pipeline_stage_after_split(rank: Optional[int] = None, *,
+                                  stage: Optional[int] = None) -> bool:
+    """True if stage ``stage`` runs the decoder (reference :553)."""
+    s = _state()
+    stage = rank if stage is None else stage
+    if s.pipeline.size() == 1:
+        return True
+    if stage is None:
+        raise ValueError("pass the static pipeline stage index")
+    if s.split_rank is None:
+        return True
+    return stage >= s.split_rank
+
+
+def is_pipeline_stage_at_split(rank: Optional[int] = None, *,
+                               stage: Optional[int] = None) -> bool:
+    """True if stage ``stage`` is the last encoder stage, the next one the
+    first decoder stage (reference :568-575)."""
+    s = _state()
+    stage = rank if stage is None else stage
+    if s.pipeline.size() == 1 or s.split_rank is None:
+        return False
+    if stage is None:
+        raise ValueError("pass the static pipeline stage index")
+    return is_pipeline_stage_before_split(stage) and is_pipeline_stage_after_split(stage + 1)
+
+
+def is_rank_in_encoder_relative_position_embedding_group(*,
+                                                         stage: Optional[int] = None) -> bool:
+    """Reference :526: stage ``stage`` is one of the encoder's, which share
+    the encoder's relative-position-embedding grads."""
+    if stage is None:
+        raise ValueError("pass stage= (static pipeline stage index)")
+    s = _state()
+    return stage in _relative_position_embedding_members(s.pipeline.size(), s.split_rank, True)
+
+
+def is_rank_in_decoder_relative_position_embedding_group(*,
+                                                         stage: Optional[int] = None) -> bool:
+    """Reference :532: stage ``stage`` is one of the decoder's."""
+    if stage is None:
+        raise ValueError("pass stage= (static pipeline stage index)")
+    s = _state()
+    return stage in _relative_position_embedding_members(s.pipeline.size(), s.split_rank, False)
+
+
+def get_encoder_relative_position_embedding_group() -> AxisGroup:
+    """The encoder stages of this rank's pipeline (stage 0 without a
+    split); a rank outside it gets a group of size 0."""
+    return _state().encoder_relative_position_embedding
+
+
+def get_decoder_relative_position_embedding_group() -> AxisGroup:
+    """The decoder stages of this rank's pipeline (stage 0 without a
+    split); a rank outside it gets a group of size 0."""
+    return _state().decoder_relative_position_embedding
+
+
+def set_pipeline_model_parallel_split_rank(rank: Optional[int]) -> None:
+    """Reference :614: set the split rank, and rebuild the groups it
+    decides (:func:`_split_groups`: a collective, every rank calls it)."""
+    s = _state()
+    s.split_rank = rank
+    for k, v in _split_groups(s.pipes, s.pipeline.size(), rank).items():
+        setattr(s, k, v)

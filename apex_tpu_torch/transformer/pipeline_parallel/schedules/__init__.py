@@ -1,8 +1,9 @@
 """Schedule selector (counterpart of
 :mod:`apex_tpu.transformer.pipeline_parallel.schedules`; reference
-``schedules/__init__.py:22``).  The encoder/decoder schedule
-(``tick_schedule_encdec``, T5) is not ported yet: it comes with the
-models of ROADMAP.md queue 1 item 10 (T5, the next slice)."""
+``schedules/__init__.py:22``), and the encoder/decoder schedule of T5
+(:mod:`.tick_schedule_encdec`: ``forward_backward_pipelining_encdec``
+and its per-stage layout), which the selector does not pick, as in the
+JAX package: ``models.t5.make_pp_train_step`` calls it."""
 
 from apex_tpu_torch.transformer.pipeline_parallel.schedules.common import (
     broadcast_from_last_stage,
@@ -20,6 +21,11 @@ from apex_tpu_torch.transformer.pipeline_parallel.schedules.fwd_bwd_pipelining_w
     forward_backward_pipelining_without_interleaving,
     make_pipeline_loss_fn,
 )
+from apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule_encdec import (
+    forward_backward_pipelining_encdec,
+    pad_stage_layout_encdec,
+    unpad_stage_layout_encdec,
+)
 
 
 def get_forward_backward_func(virtual_pipeline_model_parallel_size, pipeline_model_parallel_size):
@@ -36,9 +42,12 @@ __all__ = [
     "forward_backward_no_pipelining",
     "forward_backward_pipelining_without_interleaving",
     "forward_backward_pipelining_with_interleaving",
+    "forward_backward_pipelining_encdec",
     "interleaved_pipelined_apply",
     "make_pipeline_loss_fn",
+    "pad_stage_layout_encdec",
     "pipelined_apply",
     "broadcast_from_last_stage",
     "build_model",
+    "unpad_stage_layout_encdec",
 ]

@@ -98,9 +98,12 @@ class _Units:
     """The forward and backward units of one rank, and what they keep."""
 
     def __init__(self, pre_fn, stage_fn, post_fn, shared_params, stage_params, microbatches,
-                 vpp, P, rank, forward_only, log, has_aux=False):
+                 vpp, P, rank, forward_only, log, has_aux=False, stage_takes_mb=False):
         self.pre_fn, self.stage_fn, self.post_fn = pre_fn, stage_fn, post_fn
         self.has_aux = has_aux
+        # stage_fn(chunk, x, microbatch): the encoder/decoder schedule's
+        # units, whose split stage embeds the target
+        self.stage_takes_mb = stage_takes_mb
         self.shared, self.stages, self.mbs = shared_params, stage_params, microbatches
         self.vpp, self.P, self.rank = vpp, P, rank
         self.forward_only = forward_only
@@ -150,7 +153,7 @@ class _Units:
             if x_in is not None and not self.forward_only:
                 x_in = x_in.detach().requires_grad_(True)
             x = self.pre_fn(self.shared, mb) if self.first(v) else x_in
-            y = self.stage_fn(chunk, x)
+            y = self.stage_fn(chunk, x, mb) if self.stage_takes_mb else self.stage_fn(chunk, x)
             aux = None
             if self.has_aux:
                 y, aux = y

@@ -7870,6 +7870,480 @@ def models_multi_card_main():
     return _multi_card_alone("models_multi_card", models_multi_card, 2)
 
 
+# ---------------------------------------------------------------------- t5
+#: T5-small (``google-t5/t5-small``'s widths, the JAX ``T5Config``
+#: defaults, ``apex_tpu/models/t5.py:58-76``): d_model 512, d_ff 2048, 6
+#: + 6 layers, 8 heads of 64, vocab 32128, learned positions of 512 a
+#: side; 61,032,960 params
+T5_SMALL = {"vocab_size": 32128, "hidden_size": 512, "num_encoder_layers": 6,
+            "num_decoder_layers": 6, "num_attention_heads": 8, "max_src_len": 512,
+            "max_tgt_len": 512}
+T5_BATCH = 16
+#: steps of each t5 run (graphed and eager; the first warms up, the graphed
+#: run captures after it); FusedAdam at pretrain_t5's lr
+T5_STEPS = 10
+T5_LR = 1e-3
+#: the fp32 2 + 2-layer step card against CPU: logits and loss (as
+#: BERT_CPU_TOL); each grad leaf's error against float64 within
+#: T5_FP32_SPREAD times the CPU fp32's own (:func:`t5_cpu_parity`)
+T5_CPU_TOL = 1e-5
+T5_FP32_SPREAD = 10.0
+#: t5_multi_card: each layout's fp32 loss against the one-card step on
+#: the same global batch (the band of BERT_TP_TOL); each grad leaf's error
+#: against a float64 step within T5_FP32_SPREAD times the one-card fp32
+#: step's own, plus this band (:func:`t5_multi_card`)
+T5_MULTI_TOL = 1e-4
+T5_PARITY_BATCH = 8
+#: t5_multi_card's layouts: name -> (tp, pp, split, microbatches); dp is
+#: what the four cards leave; pp 4 split 1 puts the 6 encoder layers on
+#: one stage and 2 decoder layers on each of three
+T5_LAYOUTS = {"pp4_split2": (1, 4, 2, 8), "pp2_split1_tp2": (2, 2, 1, 4),
+              "pp4_split1": (1, 4, 1, 8), "dp2_pp2_split1": (1, 2, 1, 2),
+              "tp2_dp2": (2, 1, None, 1)}
+
+
+def t5_batch(B=T5_BATCH, S=512, V=32128):
+    """pretrain_t5's copy task (``np.random.RandomState(0)``): the source,
+    the decoder's input (<bos> + src[:-1]) and the targets (src)."""
+    from apex_tpu_torch.pretrain_t5 import make_batch
+
+    return make_batch(np.random.RandomState(0), B, S, V)
+
+
+def _t5_tensors(dev, rows=slice(None), B=T5_BATCH):
+    return [torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev) for a in t5_batch(B)]
+
+
+def t5_expect(fused, Le=6, Ld=6):
+    """Kernel launches of one T5 train step under full remat: RMS forward 2
+    an encoder layer, 4 a decoder layer and 1 final, the layers' again in
+    their recompute; RMS backward once each; no flash kernel (T5 runs the
+    einsum attention); the CE kernels once with the fused head."""
+    n = 2 * Le + 4 * Ld
+    return {"layer_norm_fwd": 2 * n + 1, "layer_norm_bwd": n + 1, "flash_fwd": 0,
+            "flash_dq": 0, "flash_dkv": 0, "ce_fwd": int(fused), "ce_dx": int(fused),
+            "ce_dembed": int(fused)}
+
+
+def t5_kernels(dev, results):
+    """T5-small's shapes in the kernels phase: the RMS-affine LayerNorm
+    forward and backward at R 8192 (16 x 512 tokens), H 512, bf16 x and an
+    fp32 scale (and fp32 x), with ``F.rms_norm``; the CE kernels at N 8192,
+    H 512, V 32128, bf16 x and an fp32 embed, with the dense bf16 head."""
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_layer_norm(dev, 8192, dtype, "rms_affine", H=512)
+        results[("ln", 8192, dtype, "rms_affine", 512, False)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_fwd", **r})
+        r = check_layer_norm_bwd(dev, dtype, "rms_affine", H=512)
+        results[("ln_bwd", dtype, "rms_affine", 512, False)] = r
+        emit({"phase": "kernel", "kernel": "layer_norm_bwd", **r})
+    r = check_fused_ce(dev, "t5_small", N=8192, H=512, V=32128)
+    results[("ce", "t5_small")] = r
+    for name in ("fwd", "dx", "dembed"):
+        emit({"phase": "kernel", **r[name]})
+
+
+def _t5_train(cfg, pristine, batch, eager, build=None, steps=T5_STEPS, rows=None):
+    """``steps`` of a T5 step (``build(opt, graphs)``, by default
+    ``models.t5.make_train_step``) with FusedAdam from a copy of
+    ``pristine``: losses, per-step launches (counted from 0), ms a step
+    (median after the warm-up and capture), target tokens a second
+    (pretrain_t5's count: ``rows`` x S_tgt, the batch's rows by default)
+    and peak GB."""
+    from apex_tpu_torch.models import t5
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map
+
+    dev = batch[0].device
+    params = tree_map(lambda t: t.detach().clone(), pristine)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = FusedAdam(lr=T5_LR)
+    state = opt.init(params)
+    graphs = False if eager else None
+    step = (build(opt, graphs) if build is not None
+            else t5.make_train_step(cfg, opt, graphs=graphs))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(step(params, state, *batch).clone())
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    ms = 1e3 * float(np.median(times[2:]))
+    tokens = (rows or batch[0].shape[0]) * batch[1].shape[1]
+    rec = {"losses": [float(x) for x in losses], "step_ms": [1e3 * t for t in times],
+           "step_ms_median": ms, "counts": counts, "tokens_per_sec": tokens / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "graphs": not eager and getattr(step, "graph", None) is not None}
+    del params, state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def t5_cpu_parity(dev, layers=2, B=2):
+    """An fp32 T5 of ``layers`` encoder and decoder layers at T5-small's
+    widths, ``B`` rows of the t5 batch: logits, loss and every grad on the
+    card against the same calls on the CPU (the RMS kernels' fp32
+    instantiation against its plain version, cuBLAS against the CPU's
+    products) and against a float64 run on the CPU.  The logits and loss
+    are held at :data:`T5_CPU_TOL` of the CPU's.  Each grad leaf's error
+    against float64 is held at :data:`T5_FP32_SPREAD` times the CPU's own
+    fp32 error there (plus :data:`T5_CPU_TOL`): at init the encoder's
+    grads are residues of sums that cancel (its self-attention and the
+    cross-attention's keys see a near-uniform softmax), so fp32 rounding
+    alone moves them by up to ~1e-3 of their largest entry on either
+    device, and a fixed band would hold the rounding, not the port."""
+    import dataclasses
+
+    from apex_tpu_torch.models import t5
+    from apex_tpu_torch.optimizers.tree import leaves_with_path, tree_leaves, tree_map
+
+    cfg = t5.T5Config(**{**T5_SMALL, "num_encoder_layers": layers,
+                         "num_decoder_layers": layers},
+                      compute_dtype=torch.float32, checkpoint_layers=False)
+    tree = t5._init_numpy(cfg, torch.Generator().manual_seed(1))
+    out = {}
+    for name, d, dtype in (("cpu", "cpu", torch.float32), ("cuda", dev, torch.float32),
+                           ("cpu64", "cpu", torch.float64)):
+        c = dataclasses.replace(cfg)
+        object.__setattr__(c, "compute_dtype", dtype)  # float64: the reference only
+        src, dec_in, tgt = _t5_tensors(d, slice(0, B))
+        p = tree_map(lambda a: a.to(dtype), t5.params_from_numpy(tree, cfg, d))
+        with torch.no_grad():
+            logits = t5.t5_forward(p, src, dec_in, c).cpu()
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = t5.t5_loss(p, src, dec_in, tgt, c)
+        grads = torch.autograd.grad(loss, leaves)
+        out[name] = (logits, float(loss.detach()), [g.cpu().double() for g in grads])
+    names = [k for k, _ in leaves_with_path(p)]
+    (lc, sc, gc), (lg, sg, gg), (_, _, g64) = out["cpu"], out["cuda"], out["cpu64"]
+    card = dict(zip(names, _grads_errs(gg, g64)))
+    cpu = dict(zip(names, _grads_errs(gc, g64)))
+    vs_cpu = dict(zip(names, _grads_errs(gg, gc)))
+    over = {k: card[k] / (T5_FP32_SPREAD * cpu[k] + T5_CPU_TOL) for k in names}
+    errs = {"logits": rel_err(lg, lc), "loss": abs(sg - sc) / abs(sc)}
+    worst = sorted(names, key=lambda k: -over[k])[:4]
+    rec = {"layers": layers, "rows": B, "errors": errs, "tolerance": T5_CPU_TOL,
+           "grads_band": f"card vs float64 <= {T5_FP32_SPREAD} x (CPU fp32 vs float64) + "
+                         f"{T5_CPU_TOL}, per leaf",
+           "grads_band_used_max": over[worst[0]],
+           "worst_grad_leaves": {k: {"card_vs_f64": card[k], "cpu_vs_f64": cpu[k],
+                                     "card_vs_cpu": vs_cpu[k]} for k in worst},
+           "grads_card_vs_cpu_max": max(vs_cpu.values())}
+    if not (all(e <= T5_CPU_TOL for e in errs.values()) and over[worst[0]] <= 1.0):
+        raise AssertionError(f"t5 card vs CPU: {rec}")
+    return rec
+
+
+def t5_phase(smi):
+    """T5-small on one card (:data:`T5_SMALL`, :data:`T5_BATCH` rows of
+    512 + 512 tokens, bf16, full remat, FusedAdam):
+    ``models.t5.make_train_step``, the dense head and the fused CE, each
+    graphed and eager for :data:`T5_STEPS` steps: graphed bitwise eager,
+    exact launches a step (:func:`t5_expect`), losses finite, ms a step,
+    target tokens/s and peak; then :func:`t5_cpu_parity`.  Returns the
+    runs (the graphed fused run's counts feed the kernels line)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import t5
+    from apex_tpu_torch.optimizers.tree import tree_leaves
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    cfg = t5.T5Config(**T5_SMALL, compute_dtype=torch.bfloat16, checkpoint_layers=True)
+    pristine = t5.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(pristine))
+    batch = _t5_tensors(dev)
+    runs = {}
+    for head, fused in (("dense", False), ("fused_ce", True)):
+        hcfg = dataclasses.replace(cfg, fused_ce=fused)
+        graphed = _t5_train(hcfg, pristine, batch, eager=False)
+        eager = _t5_train(hcfg, pristine, batch, eager=True)
+        want = t5_expect(fused)
+        for name, rec in (("graphed", graphed), ("eager", eager)):
+            per = {k: v / T5_STEPS for k, v in rec["counts"].items()}
+            bad = {k: per[k] for k in want if per[k] != want[k]}
+            if bad:
+                raise AssertionError(f"t5 {head} {name}: launches a step {bad}, want "
+                                     f"{ {k: want[k] for k in bad} }")
+            rec["launches_per_step"] = per
+        losses = graphed["losses"]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"t5 {head}: losses {losses} not finite")
+        if not graphed["graphs"] or losses != eager["losses"]:
+            raise AssertionError(f"t5 {head}: graphed {losses} against eager "
+                                 f"{eager['losses']} (graphs {graphed['graphs']}): not bitwise")
+        runs[head] = {**graphed, "graphed_vs_eager": "bitwise",
+                      "eager_step_ms_median": eager["step_ms_median"]}
+    del pristine
+    torch.cuda.empty_cache()
+    emit({"phase": "t5_train", "nvidia_smi": smi,
+          "config": {**T5_SMALL, "batch": T5_BATCH, "dtype": "bfloat16", "remat": "full",
+                     "optimizer": {"FusedAdam": {"lr": T5_LR}}},
+          "params": n_params,
+          "runs": {h: {k: v for k, v in r.items() if k != "counts"} for h, r in runs.items()}})
+    emit({"phase": "t5", "nvidia_smi": smi, "card_vs_cpu": t5_cpu_parity(dev),
+          "seconds": time.monotonic() - t0})
+    return runs
+
+
+def _t5_fp32_step(dev, layout=None, rows=slice(None), dtype=torch.float32):
+    """One fp32 T5-small step (no remat) on :data:`T5_PARITY_BATCH` rows of
+    the t5 batch from the seed-1 params: the loss and every grad, the
+    whole tree in the layout without a pipeline, on the CPU.  ``layout``
+    (a :data:`T5_LAYOUTS` entry, the groups registered) runs it through
+    the layout's step over this process's ranks (``rows`` its dp rows);
+    None is one device's ``t5_loss``, in ``dtype`` (float64 on the CPU:
+    the reference only)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import t5
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers.tree import tree_leaves, tree_map, tree_unflatten
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        unpad_stage_layout_encdec,
+    )
+
+    cfg = t5.T5Config(**T5_SMALL, compute_dtype=torch.float32, checkpoint_layers=False)
+    tree = t5._init_numpy(cfg, torch.Generator().manual_seed(1))
+    batch = _t5_tensors(dev, rows, T5_PARITY_BATCH)
+    if layout is None:
+        c = dataclasses.replace(cfg)
+        object.__setattr__(c, "compute_dtype", dtype)
+        p = tree_map(lambda a: a.to(dtype), t5.params_from_numpy(tree, cfg, dev))
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = t5.t5_loss(p, *batch, c)
+        grads = tree_unflatten(p, list(torch.autograd.grad(loss, leaves)))
+        return {"loss": float(loss.detach()),
+                "grads": {k: v.cpu() for k, v in _flat_leaves(grads).items()}}
+    tp, pp, split, M = layout
+    tg, pg, dp = (ps.get_tensor_model_parallel_group(), ps.get_pipeline_model_parallel_group(),
+                  ps.get_data_parallel_group())
+
+    class Recording(FusedAdam):
+        def update(self, grads, state, params, **kw):
+            self.grads = grads
+            return super().update(grads, state, params, **kw)
+
+    opt = Recording(lr=T5_LR)
+    if pp > 1:
+        p = t5.shard_params(t5.params_to_pp_layout(tree, pp, split), cfg, tg, dev, pg)
+        step = t5.make_pp_train_step(cfg, opt, M, split, dp_group=dp, tp_group=tg,
+                                     pp_group=pg, graphs=False)
+    else:
+        p = t5.shard_params(tree, cfg, tg, dev)
+        step = t5.make_train_step(cfg, opt, dp_group=dp, tp_group=tg, graphs=False)
+    loss = float(step(p, opt.init(p), *batch))
+    grads = t5.gather_params(opt.grads, cfg, tg, pg if pp > 1 else None)
+    if pp > 1:
+        enc, dec = unpad_stage_layout_encdec(grads["enc_layers"], grads["dec_layers"], pp, split)
+        grads = {**grads, "enc_layers": enc, "dec_layers": dec}
+    return {"loss": loss, "grads": {k: v.cpu() for k, v in _flat_leaves(grads).items()}}
+
+
+def _t5_reference(dev):
+    """The one-device fp32 step of :func:`_t5_fp32_step` on ``dev``, with
+    the same step in float64 on the CPU beside it (``grads64``,
+    ``loss64``) and each grad leaf's fp32 error against it (``spread``,
+    :func:`_grads_errs`)."""
+    ref = _t5_fp32_step(dev)
+    f64 = _t5_fp32_step(torch.device("cpu"), dtype=torch.float64)
+    keys = sorted(ref["grads"])
+    ref["grads64"], ref["loss64"] = f64["grads"], f64["loss"]
+    ref["spread"] = dict(zip(keys, _grads_errs([ref["grads"][k].double() for k in keys],
+                                               [f64["grads"][k] for k in keys])))
+    return ref
+
+
+def _flat_leaves(tree):
+    from apex_tpu_torch.optimizers.tree import leaves_with_path
+
+    return dict(leaves_with_path(tree))
+
+
+def t5_child(argv):
+    """One rank of ``torchrun --nproc-per-node 4 chip_smoke.py t5_child
+    REF``: each layout of :data:`T5_LAYOUTS` takes an fp32 step held
+    against REF (:func:`_t5_reference`: the loss against the one-card
+    step, every grad leaf against the float64 step in the band of
+    :func:`t5_multi_card`), then
+    T5-small's bf16 step (graphed, :data:`T5_BATCH` rows, full remat) is
+    timed in it; last an fp16 pp 4 split 2 run (the dense head) with the
+    scaler at 2**127, whose first step overflows in the fp16 backward and
+    must leave every param and the optimizer state bitwise as they were
+    on every stage.  Rank 0 prints one ``t5_child`` line with every
+    rank's records."""
+    import dataclasses
+
+    from apex_tpu_torch.amp import DynamicLossScaler
+    from apex_tpu_torch.graphs import tensor_leaves
+    from apex_tpu_torch.models import t5
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import multiproc
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multiproc.initialize_distributed("cuda")
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    ref = torch.load(argv[0])
+    keys = sorted(ref["grads"])
+    mine = {"rank": rank}
+    cfg = t5.T5Config(**T5_SMALL, compute_dtype=torch.bfloat16, checkpoint_layers=True)
+    tree = t5._init_numpy(cfg, torch.Generator().manual_seed(0))
+    for name, layout in T5_LAYOUTS.items():
+        tp, pp, split, M = layout
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tensor_model_parallel_size_=tp,
+                                     pipeline_model_parallel_size_=pp,
+                                     pipeline_model_parallel_split_rank_=split)
+        tg, pg, dp = (ps.get_tensor_model_parallel_group(),
+                      ps.get_pipeline_model_parallel_group(), ps.get_data_parallel_group())
+        n = T5_PARITY_BATCH // dp.size()
+        got = _t5_fp32_step(dev, layout, slice(n * dp.rank(), n * (dp.rank() + 1)))
+        g = [got["grads"][k].double() for k in keys]
+        vs_1card = dict(zip(keys, _grads_errs(g, [ref["grads"][k] for k in keys])))
+        vs_f64 = dict(zip(keys, _grads_errs(g, [ref["grads64"][k] for k in keys])))
+        used = {k: vs_f64[k] / (T5_FP32_SPREAD * ref["spread"][k] + T5_MULTI_TOL) for k in keys}
+        worst = sorted(keys, key=lambda k: -used[k])[:3]
+        rec = {"dp": dp.size(), "loss": got["loss"],
+               "loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+               "grads_band_used": used[worst[0]],
+               "grads_rel_1card_max": max(vs_1card.values()),
+               "worst_grad_leaves": {k: {"vs_f64": vs_f64[k], "1card_vs_f64": ref["spread"][k],
+                                         "vs_1card": vs_1card[k]} for k in worst}}
+        del got
+        torch.cuda.empty_cache()
+        rows = T5_BATCH // dp.size()
+        batch = _t5_tensors(dev, slice(rows * dp.rank(), rows * (dp.rank() + 1)))
+        if pp > 1:
+            pristine = t5.shard_params(t5.params_to_pp_layout(tree, pp, split), cfg, tg, dev, pg)
+
+            def build(opt, graphs, M=M, split=split, tg=tg, pg=pg, dp=dp):
+                return t5.make_pp_train_step(cfg, opt, M, split, dp_group=dp, tp_group=tg,
+                                             pp_group=pg, graphs=graphs)
+        else:
+            pristine = t5.shard_params(tree, cfg, tg, dev)
+
+            def build(opt, graphs, tg=tg, dp=dp):
+                return t5.make_train_step(cfg, opt, dp_group=dp, tp_group=tg, graphs=graphs)
+        run = _t5_train(cfg, pristine, batch, eager=False, build=build, rows=T5_BATCH)
+        rec["bf16"] = {k: run[k] for k in ("losses", "step_ms_median", "tokens_per_sec",
+                                           "peak_memory_gb", "graphs")}
+        rec["bf16"]["launches_per_step"] = {k: v / T5_STEPS for k, v in run["counts"].items()
+                                            if v}
+        mine[name] = rec
+        del pristine, run
+        torch.cuda.empty_cache()
+    # fp16, pp 4 split 2: the first step overflows (scale 2**127) and is
+    # skipped on every stage, the scale backs off to 2**12
+    ps.destroy_model_parallel()
+    ps.initialize_model_parallel(pipeline_model_parallel_size_=4,
+                                 pipeline_model_parallel_split_rank_=2)
+    pg = ps.get_pipeline_model_parallel_group()
+    fcfg = dataclasses.replace(cfg, compute_dtype=torch.float16)
+    p = t5.shard_params(t5.params_to_pp_layout(tree, 4, 2), fcfg, None, dev, pg)
+    opt = FusedAdam(lr=T5_LR)
+    st = opt.init(p)
+    scaler = DynamicLossScaler(**OVERFLOW_SCALER)
+    sst = scaler.init(dev)
+    step = t5.make_pp_train_step(fcfg, opt, 8, loss_scaler=scaler, pp_group=pg)
+    batch = _t5_tensors(dev)
+    before = [t.detach().clone() for t in tensor_leaves((p, st))]
+    fp16 = {"losses": [], "scales": [], "adam_steps": []}
+    for i in range(6):
+        fp16["losses"].append(float(step(p, st, sst, *batch)))
+        fp16["scales"].append(float(sst.loss_scale))
+        fp16["adam_steps"].append(int(st.step))
+        if i == 0:
+            fp16["first_step_unchanged"] = all(
+                torch.equal(a, b) for a, b in zip(before, tensor_leaves((p, st))))
+    del before
+    mine["fp16_pp4_split2"] = fp16
+    ranks = [None] * world
+    torch.distributed.all_gather_object(ranks, mine)
+    multiproc.destroy_distributed()
+    if rank == 0:
+        print(json.dumps({"t5_child": ranks}), flush=True)
+    return 0
+
+
+def t5_multi_card():
+    """T5-small across four cards: the one-card fp32 step (no remat, seed-1
+    params, :data:`T5_PARITY_BATCH` rows) and the same step in float64 on
+    the CPU, in this process (:func:`_t5_reference`), then ``t5_child``
+    over NCCL (:func:`t5_child`): each layout of :data:`T5_LAYOUTS` with
+    its loss within :data:`T5_MULTI_TOL` of the one card's and each grad
+    leaf's error against float64 within :data:`T5_FP32_SPREAD` times the
+    one card's own plus :data:`T5_MULTI_TOL` (at init a few ReLU gates
+    sit at zero and flip under any change of rounding, and the attention
+    grads are residues of sums that cancel: the one card's fp32 grads
+    are up to ~1e-3 to 7e-3 of a leaf's largest entry off float64, so a
+    fixed 1e-4 would hold the rounding, not the layouts), its bf16 step
+    timed with finite losses, and the fp16 pp 4 run's first step skipped
+    on every stage."""
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    ref = _t5_reference(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "ref.pt")
+        torch.save(ref, path)
+        ranks = _pp_children(4, [path], timeout=1500, script="t5_child",
+                             prefix='{"t5_child"')[0]["t5_child"]
+    row = {"phase": "t5_multi_card", "nvidia_smi": _smi(), "fp32_loss_1card": ref["loss"],
+           "f64_loss_cpu": ref["loss64"], "tolerance": T5_MULTI_TOL,
+           "grads_band": f"per leaf: vs float64 <= {T5_FP32_SPREAD} x (one card's fp32 vs "
+                         f"float64) + {T5_MULTI_TOL}",
+           "one_card_fp32_vs_f64_worst": dict(sorted(ref["spread"].items(),
+                                                     key=lambda kv: -kv[1])[:4]),
+           "layouts": T5_LAYOUTS, "ranks": ranks, "seconds": time.monotonic() - t0}
+    emit(row)
+    bad = []
+    for r in ranks:
+        for name in T5_LAYOUTS:
+            e = r[name]
+            if not (e["loss_rel"] <= T5_MULTI_TOL and e["grads_band_used"] <= 1.0):
+                bad.append((name, r["rank"], e["loss_rel"], e["grads_band_used"]))
+            if not (all(map(math.isfinite, e["bf16"]["losses"])) and e["bf16"]["graphs"]):
+                bad.append((name, "bf16", r["rank"], e["bf16"]))
+        f = r["fp16_pp4_split2"]
+        if not (f["first_step_unchanged"] and f["adam_steps"][0] == 0
+                and f["scales"][0] == OVERFLOW_SCALER["init_scale"]
+                * OVERFLOW_SCALER["backoff_factor"]
+                and all(map(math.isfinite, f["losses"][1:]))):
+            bad.append(("fp16_pp4_split2", r["rank"], f))
+    if bad:
+        raise AssertionError(f"t5_multi_card: {bad}")
+    return row
+
+
+def t5_multi_card_main():
+    """``chip_smoke.py t5_multi_card`` (four cards): the kernels built, then
+    :func:`t5_multi_card` alone."""
+    return _multi_card_alone("t5_multi_card", t5_multi_card, 4)
+
+
+def t5_main():
+    """``chip_smoke.py t5`` (one card): the kernels built, T5-small's kernel
+    shapes (:func:`t5_kernels`), then :func:`t5_phase`."""
+    dev = torch.device("cuda", 0)
+    return _phases_alone([("t5_kernels", lambda smi: t5_kernels(dev, {})),
+                          ("t5", t5_phase)])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -7930,6 +8404,12 @@ def main():
         return models_child(sys.argv[2:])
     if sys.argv[1:2] == ["models_multi_card"]:
         return models_multi_card_main()
+    if sys.argv[1:2] == ["t5"]:
+        return t5_main()
+    if sys.argv[1:2] == ["t5_child"]:
+        return t5_child(sys.argv[2:])
+    if sys.argv[1:2] == ["t5_multi_card"]:
+        return t5_multi_card_main()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8046,6 +8526,7 @@ def main():
         results[("flash_ring", case)] = r
         for name in ("fwd", "dq", "dkv"):
             emit({"phase": "kernel", **r[name]})
+    t5_kernels(dev, results)
     fp16_kernels(dev, results)
     mt_kernels(dev, results, _build.load())
     lap("kernels")
@@ -8097,6 +8578,8 @@ def main():
     lap("bert")
     resnet_phase(smi)
     lap("resnet")
+    t5_runs = t5_phase(smi)
+    lap("t5")
     inplace_ab_phase()
     lap("inplace_ab")
     attn_bias_phase(dev)
@@ -8217,6 +8700,10 @@ def main():
                 **{f"{k}_fp16": fp16_counts[k] for k in (
                     "layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_dq", "flash_dkv")},
                 **cp_runs["fused_ce"]["ring_launches"]}
+    # T5's RMS and CE launches (the t5 phase's graphed fused-CE run) add to
+    # the LayerNorm and CE kernels' counts
+    for k in ("layer_norm_fwd", "layer_norm_bwd", "ce_fwd", "ce_dx", "ce_dembed"):
+        launches[k] += t5_runs["fused_ce"]["counts"][k]
     unlaunched = [name for name, *_ in main_path if not launches[name]]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")

@@ -226,6 +226,14 @@ def test_entry_points_raise_without_a_gpu():
         SyncBatchNorm(3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResNet18ish()
+    from apex_tpu_torch import pretrain_t5
+    from apex_tpu_torch.models import t5
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t5.init_params(t5.T5Config(vocab_size=64, hidden_size=32, num_encoder_layers=1,
+                                   num_decoder_layers=1, num_attention_heads=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_t5.main([])
 
 
 def _forbidden(module: str) -> bool:
@@ -284,6 +292,8 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.models.bert, apex_tpu_torch.models.resnet\n"
         "import apex_tpu_torch.parallel.sync_batchnorm, apex_tpu_torch.parallel.LARC\n"
         "import apex_tpu_torch.imagenet_main_amp, apex_tpu_torch.contrib.layer_norm\n"
+        "import apex_tpu_torch.models.t5, apex_tpu_torch.pretrain_t5\n"
+        "import apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule_encdec\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'flax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'flax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
