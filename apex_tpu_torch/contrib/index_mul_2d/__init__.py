@@ -1,0 +1,3 @@
+from apex_tpu_torch.contrib.index_mul_2d.index_mul_2d import index_mul_2d
+
+__all__ = ["index_mul_2d"]

@@ -397,7 +397,9 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 
-ITERS = 20
+#: timed calls of a kernel (profiled, and between CUDA events); 10 since
+#: PR 25, whose full run on a slow host came within 9 s of STALL_SECONDS
+ITERS = 10
 #: profiled calls of a plain version's timing: its many small ops make
 #: each profiled call's trace long, and its time is a yardstick only
 PLAIN_ITERS = 3
@@ -1270,7 +1272,8 @@ def check_flash(dev, dtype, case, B=8, H=12, Hkv=12, S=1024, D=64, causal=True,
     lib = {"fwd": None, "bwd": None}
     if library:  # SDPA's causal mask is the kernels' only at Sq == Sk, no offsets
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        q4, k4, v4 = (t.view(B, -1, S, D).detach().requires_grad_() for t in (q, k, v))
+        q4, k4, v4 = (t.view(B, -1, n, D).detach().requires_grad_()
+                      for t, n in ((q, S), (k, Sk), (v, Sk)))
         mask = None if lengths is None else valid[:, None, None, :]
         o4 = sdpa(q4, k4, v4, attn_mask=mask, is_causal=causal)
         do4 = do.view(B, H, S, D)
@@ -2374,7 +2377,8 @@ def serve_v2_phase():
 
 #: requests of each serve_streams run (the serve defaults' 32 halved:
 #: each slot still serves two requests in turn)
-STREAM_REQUESTS = 16
+#: 8 since PR 25 (16 before), to keep the full run inside STALL_SECONDS
+STREAM_REQUESTS = 8
 
 
 def serve_streams_phase():
@@ -8344,6 +8348,552 @@ def t5_main():
                           ("t5", t5_phase)])
 
 
+# ----------------------------------------------------------------- contrib
+#: fmha at BERT-Large's attention: 32 sequences of lengths drawn from the
+#: seed in [128, 512], padded to max_s 512, 16 heads of 64
+FMHA_MAX_S = 512
+FMHA_HEADS, FMHA_D = 16, 64
+FMHA_LENGTHS = tuple(int(n) for n in np.random.RandomState(0).randint(128, 513, size=32))
+#: the flash kernels at fmha's dense shape in fp16 (a key mask, non-causal)
+#: and at EncdecMultiheadAttn's (Sq 256 against Sk 512, non-causal, a key
+#: mask): the contrib phase's new kernel shapes, each against its plain
+#: version with its bound and SDPA's time
+FMHA_FLASH = {"B": len(FMHA_LENGTHS), "H": FMHA_HEADS, "Hkv": FMHA_HEADS, "S": FMHA_MAX_S,
+              "D": FMHA_D, "causal": False, "lengths": FMHA_LENGTHS, "library": True}
+ENCDEC_FLASH = {"B": 16, "H": 16, "Hkv": 16, "S": 256, "Sk": 512, "D": 64, "causal": False,
+                "lengths": FMHA_LENGTHS[:16], "library": True}
+CONTRIB_FLASH_CASES = (("fmha_fp16", torch.float16, FMHA_FLASH),
+                       ("encdec", torch.bfloat16, ENCDEC_FLASH))
+#: the MHA modules: hidden 1024, 16 heads, S 512 (Sq 256 for the
+#: cross attention), batch 16, the key lengths of ENCDEC_FLASH
+MHA_HIDDEN, MHA_HEADS, MHA_S, MHA_BATCH = 1024, 16, 512, 16
+#: card against CPU, fp32: outputs within 1e-5 of their largest entry;
+#: grads that pass through the flash backward within its fp32 band
+#: (FLASH_TOL_FP32's 1e-4), the rest within 1e-5
+CONTRIB_CPU_TOL = 1e-5
+CONTRIB_GRAD_TOL = FLASH_TOL_FP32["dq"]
+#: timed calls of each contrib path (CUDA events and the profiler)
+CONTRIB_ITERS = 5
+#: DCGAN: the steps of each run (graphed and eager) at the driver's batch
+DCGAN_STEPS = 5
+#: attention_core at OpenFold's Evoformer widths: MSA row attention (128
+#: sequences x 256 residues, 8 heads of 32) and triangle attention (256 x
+#: 256, 4 heads of 32): (name, lead dims, heads, S, D)
+EVOFORMER_CASES = (("msa_row", (1, 128), 8, 256, 32), ("triangle", (1, 256), 4, 256, 32))
+#: xentropy (N, C); focal_loss (batch, anchors, classes); group_norm NHWC
+#: shapes (a diffusion UNet's); index_mul_2d (rows, width); conv_bias_relu
+#: NHWC input (ResNet-50's stage 1, 3 x 3); the transducer
+XENT_SHAPE = (8192, 32768)
+FOCAL_SHAPE = (16, 100000, 80)
+GN_SHAPES = ((8, 64, 64, 320), (8, 32, 32, 640))
+INDEX_MUL_SHAPE = (1 << 20, 32)
+CONV_SHAPE = (64, 56, 56, 64)
+TRANSDUCER = {"B": 16, "T": 200, "U": 64, "V": 1024, "joint": 512}
+
+
+def _path_times(fn, iters=CONTRIB_ITERS, prefix="", profiled=True):
+    """``{prefix}ms``: CUDA events around ``iters`` calls of ``fn`` (the
+    device's time, or the host's where dispatch is slower); and, when
+    ``profiled``, ``{prefix}device_ms``: the device time of its kernels a
+    call (:func:`device_ms`, the profiler; left out where a path's many
+    small ops make the trace long and the events already read its device
+    time)."""
+    out = {f"{prefix}ms": call_ms(fn, iters)}
+    if profiled:
+        out[f"{prefix}device_ms"] = device_ms(fn, iters)[0]
+    return out
+
+
+def _fwd_bwd(fn, inputs, cot):
+    """``(out, grads)``: ``fn(*inputs)`` and its gradients under ``cot``
+    with respect to the inputs that require grad."""
+    out = fn(*inputs)
+    return out, torch.autograd.grad(out, [t for t in inputs if t.requires_grad], cot)
+
+
+def _leaf(a, dev, dtype=None, grad=False):
+    t = torch.from_numpy(np.array(a)).to(dev)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.requires_grad_(grad)
+
+
+def _card_vs_cpu(name, fn_of, arrays, cot, diff, dev, dtype=torch.float32,
+                 tol=CONTRIB_CPU_TOL, grad_tol=CONTRIB_CPU_TOL):
+    """``fn_of(device)`` (a function of the inputs built for that device)
+    on the card and on the CPU (the plain versions) from the same numpy
+    ``arrays`` (those at ``diff`` differentiated, float inputs cast to
+    ``dtype``): the output's and each grad's ``rel_err`` against the
+    CPU's, raising past ``tol`` / ``grad_tol``."""
+    def run(d):
+        ins = [_leaf(a, d, dtype if np.asarray(a).dtype.kind == "f" else None, i in diff)
+               for i, a in enumerate(arrays)]
+        return _fwd_bwd(fn_of(d), ins, _leaf(cot, d, dtype))
+
+    (out, grads), (pout, pgrads) = run(dev), run(torch.device("cpu"))
+    errs = {"out": rel_err(out.detach().cpu(), pout.detach())}
+    errs.update({f"grad{i}": rel_err(g.cpu(), p) for i, g, p in zip(diff, grads, pgrads)})
+    bad = {k: e for k, e in errs.items() if not e <= (tol if k == "out" else grad_tol)}
+    finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all())
+                                                     for g in grads)
+    if bad or not finite:
+        raise AssertionError(f"contrib {name}: card against CPU {errs} over {tol} / "
+                             f"{grad_tol} (finite={finite})")
+    return errs
+
+
+def _counted(fn, want):
+    """Run ``fn()`` once from zeroed counters; the counts of ``want``'s
+    kernels must equal it."""
+    torch.cuda.synchronize()
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    bad = {k: got[k] for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"launches {bad}, want { {k: want[k] for k in bad} }")
+    return got
+
+
+FLASH3 = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LN2 = {"layer_norm_fwd": 1, "layer_norm_bwd": 1}
+
+
+def _add(total, counts, keys, suffix=""):
+    for k in keys:
+        total[k + suffix] = total.get(k + suffix, 0) + counts[k]
+
+
+def _fmha_varlen_path(dev, dtype, totals):
+    """fmha_varlen forward and backward at FMHA_LENGTHS: exact flash
+    launches 1 / 1 / 1, ms of the path against SDPA with the boolean mask
+    on the dense batch; the first two sequences card against CPU (plain
+    versions from the same ``dtype`` inputs) in the flash bands."""
+    from apex_tpu_torch.contrib.fmha import fmha_varlen
+
+    rng = np.random.RandomState(1)
+    lengths = np.asarray(FMHA_LENGTHS)
+    cu = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    qkv = rng.standard_normal((int(cu[-1]), 3, FMHA_HEADS, FMHA_D)).astype(np.float32)
+    cot = rng.standard_normal((int(cu[-1]), FMHA_HEADS, FMHA_D)).astype(np.float32)
+    x = _leaf(qkv, dev, dtype, True)
+    g = _leaf(cot, dev, dtype)
+    cu_t = torch.from_numpy(cu).to(dev)
+    fn = lambda t: fmha_varlen(t, cu_t, FMHA_MAX_S)  # noqa: E731
+    counts = _counted(lambda: _fwd_bwd(fn, [x], g), FLASH3)
+    _add(totals, counts, FLASH3, "_fp16" if dtype == torch.float16 else "")
+    times = _path_times(lambda: _fwd_bwd(fn, [x], g), CONTRIB_ITERS)
+    # SDPA on the dense padded batch with the boolean key mask
+    B, S = len(lengths), FMHA_MAX_S
+    dense = [_leaf(rng.standard_normal((B, FMHA_HEADS, S, FMHA_D)).astype(np.float32), dev,
+                   dtype, True) for _ in range(3)]
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.from_numpy(lengths).to(dev)[:, None])[:, None, None, :]
+    sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask)
+    dg = torch.randn_like(dense[0])
+    lib_times = _path_times(lambda: _fwd_bwd(sdpa, dense, dg), CONTRIB_ITERS, "sdpa_")
+    n2 = int(cu[2])
+    tol = FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL_FP16
+    errs = _card_vs_cpu(f"fmha_varlen {dtype}",
+                        lambda d: (lambda t: fmha_varlen(t, torch.from_numpy(cu[:3]).to(d),
+                                                         FMHA_MAX_S)),
+                        [qkv[:n2]], cot[:n2], [0], dev, dtype, tol["out"], tol["dq"])
+    return {"dtype": str(dtype).replace("torch.", ""), "tokens": int(cu[-1]),
+            "sequences": B, "max_s": S, "launches": {k: counts[k] for k in FLASH3},
+            **times, **lib_times, "card_vs_cpu_first2": errs}
+
+
+def _mha_path(dev, kind, include_norm_add, totals):
+    """SelfMultiheadAttn (S 512) or EncdecMultiheadAttn (Sq 256 against
+    Sk 512) at hidden 1024, 16 heads, batch 16, bf16, the key padding
+    mask of ENCDEC_FLASH's lengths: exact launches (LN 1 / 1 with
+    ``include_norm_add``, flash 1 / 1 / 1), the block's forward and
+    backward ms, and an fp32 copy at batch 2 card against CPU."""
+    import copy
+
+    from apex_tpu_torch.contrib import multihead_attn as mha
+
+    H, nh, B = MHA_HIDDEN, MHA_HEADS, MHA_BATCH
+    Sq = MHA_S if kind == "self" else MHA_S // 2
+    rng = np.random.RandomState(2)
+    lengths = np.asarray(ENCDEC_FLASH["lengths"])
+    pad = np.arange(MHA_S)[None, :] >= lengths[:, None]            # True = PAD
+    q = rng.standard_normal((Sq, B, H)).astype(np.float32)
+    k = rng.standard_normal((MHA_S, B, H)).astype(np.float32)
+    cot = rng.standard_normal((Sq, B, H)).astype(np.float32)
+
+    def build(d):
+        if kind == "self":
+            return mha.SelfMultiheadAttn(H, nh, include_norm_add=include_norm_add,
+                                         device="cpu").to(d)
+        return mha.EncdecMultiheadAttn(H, nh, use_bias=True, include_norm_add=include_norm_add,
+                                       device="cpu").to(d)
+
+    cpu_module = build(torch.device("cpu"))
+    card_module = copy.deepcopy(cpu_module).to(dev)
+
+    def fn_of(module, d, rows=slice(None)):
+        mask = torch.from_numpy(pad[rows]).to(d)
+        if kind == "self":
+            return lambda x: module(x, mask, train=False)
+        return lambda x, kk: module(x, kk, mask, train=False)
+
+    arrays = [q] if kind == "self" else [q, k]
+    ins = [_leaf(a, dev, torch.bfloat16, True) for a in arrays]
+    g = _leaf(cot, dev, torch.bfloat16)
+    fn = fn_of(card_module, dev)
+    want = {**FLASH3, **(LN2 if include_norm_add else
+                         {"layer_norm_fwd": 0, "layer_norm_bwd": 0})}
+    counts = _counted(lambda: _fwd_bwd(fn, ins, g), want)
+    _add(totals, counts, want)
+    times = _path_times(lambda: _fwd_bwd(fn, ins, g), CONTRIB_ITERS)
+    rows = slice(0, 2)
+    errs = _card_vs_cpu(
+        f"{kind}_mha norm_add={include_norm_add}",
+        lambda d: fn_of(card_module if d.type == "cuda" else cpu_module, d, rows),
+        [a[:, rows] for a in arrays], cot[:, rows], list(range(len(arrays))), dev,
+        grad_tol=CONTRIB_GRAD_TOL)
+    return {"kind": kind, "include_norm_add": include_norm_add, "Sq": Sq, "Sk": MHA_S,
+            "batch": B, "hidden": H, "heads": nh, "dtype": "bfloat16",
+            "launches": {k: counts[k] for k in want}, **times, "card_vs_cpu_b2": errs}
+
+
+def _attention_core_path(dev, name, lead, H, S, D, totals):
+    """openfold's attention_core at an Evoformer shape, bf16, a residue
+    mask (…, 1, 1, S) and the fp32 pair bias (1, 1, H, S, S), forward and
+    backward (the bias's grad too): the scan path, no flash launch; ms
+    against SDPA with the summed float mask; four rows card against CPU
+    in fp32."""
+    from apex_tpu_torch.contrib.openfold_triton import attention_core
+
+    rng = np.random.RandomState(3)
+    shape = (*lead, H, S, D)
+    q, k, v, cot = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    mask = (rng.rand(*lead, 1, 1, S) > 0.1).astype(np.float32)
+    bias = rng.standard_normal((1, 1, H, S, S)).astype(np.float32)
+    ins = [_leaf(q, dev, torch.bfloat16, True), _leaf(k, dev, torch.bfloat16, True),
+           _leaf(v, dev, torch.bfloat16, True), _leaf(mask, dev), _leaf(bias, dev, grad=True)]
+    g = _leaf(cot, dev, torch.bfloat16)
+    fn = lambda q, k, v, m, b: attention_core(q, k, v, mask=m, bias=b)  # noqa: E731
+    counts = _counted(lambda: _fwd_bwd(fn, ins, g), NO_FLASH)
+    times = _path_times(lambda: _fwd_bwd(fn, ins, g), CONTRIB_ITERS)
+    n = int(np.prod(lead))
+    sq = [t.detach().reshape(n, H, S, D).requires_grad_() for t in ins[:3]]
+    fb = (torch.where(ins[3].bool(), 0.0, -1e9) + ins[4].detach()).expand(*lead, H, S, S)
+    fb = fb.reshape(n, H, S, S).to(torch.bfloat16)
+    sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=fb)
+    lib_times = _path_times(lambda: _fwd_bwd(sdpa, sq, g.reshape(n, H, S, D)),
+                            CONTRIB_ITERS, "sdpa_")
+    small = (*lead[:-1], 4)
+    errs = _card_vs_cpu(f"attention_core {name}", lambda d: fn,
+                        [q[..., :4, :, :, :], k[..., :4, :, :, :], v[..., :4, :, :, :],
+                         mask[..., :4, :, :, :], bias], cot[..., :4, :, :, :], [0, 1, 2, 4], dev,
+                        grad_tol=CONTRIB_CPU_TOL)
+    del ins, sq, fb
+    return {"case": name, "lead": list(lead), "heads": H, "S": S, "D": D, "dtype": "bfloat16",
+            "flash_launches": {k: counts[k] for k in NO_FLASH}, **times, **lib_times,
+            "card_vs_cpu_rows": list(small), "card_vs_cpu": errs}
+
+
+def _adam_swa_path(dev, totals, steps=5):
+    """FusedAdamSWA over bench.py's leaves (the optimizers phase's 99
+    tensors): ``mt_plan``'s ``mt_adam`` launches a step, the step's ms;
+    five steps with the third skipped (grads_finite false) card against
+    CPU on the odd shapes, within 1e-7 of the largest entry."""
+    from apex_tpu_torch.contrib.openfold_triton import FusedAdamSWA
+    from apex_tpu_torch.ops.multi_tensor import mt_plan
+
+    params, grads = bench_params(dev)
+    opt = FusedAdamSWA(lr=1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    want = mt_plan("adam", [p.numel() for p in params.values()]).launches
+    counts = _counted(lambda: opt.update(grads, state, params, inplace=True),
+                      {"mt_adam": want})
+    _add(totals, counts, ("mt_adam",))
+    times = _path_times(lambda: opt.update(grads, state, params, inplace=True), 10,
+                        profiled=False)
+    rng = np.random.RandomState(4)
+    p0 = {f"p{i}": rng.standard_normal(s).astype(np.float32) for i, s in enumerate(ODD_SHAPES)}
+    gs = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+          for _ in range(steps)]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        o = FusedAdamSWA(lr=1e-2, weight_decay=0.01)
+        p = {k: torch.from_numpy(v).to(d) for k, v in p0.items()}
+        s = o.init(p)
+        for i, g in enumerate(gs):
+            p, s = o.update({k: torch.from_numpy(v).to(d) for k, v in g.items()}, s, p,
+                            grads_finite=torch.tensor(i != 2, device=d))
+        runs.append((p, s))
+    (p, s), (cp, cs) = runs
+    errs = {"params": max(rel_err(p[k].cpu(), cp[k]) for k in p),
+            "swa": max(rel_err(s.swa_params[k].cpu(), cs.swa_params[k]) for k in p)}
+    n = (int(s.n_averaged), int(cs.n_averaged))
+    if not max(errs.values()) <= 1e-7 or n != (steps - 1, steps - 1):
+        raise AssertionError(f"FusedAdamSWA card against CPU: {errs}, n_averaged {n}")
+    del params, grads, state
+    return {"tensors": len(bench_param_shapes()), "mt_adam_launches": counts["mt_adam"],
+            **times, "card_vs_cpu": errs, "n_averaged": n[0]}
+
+
+def _loss_paths(dev):
+    """xentropy (8192 x 32768, bf16, smoothing 0.1) against
+    ``F.cross_entropy(label_smoothing=0.1)``; focal_loss (16 x 100,000
+    anchors x 80 classes, fp32); each forward and backward ms, and a
+    slice card against CPU in fp32."""
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+    from apex_tpu_torch.contrib.xentropy import softmax_xentropy
+
+    out = {}
+    rng = np.random.RandomState(5)
+    N, C = XENT_SHAPE
+    x = torch.randn(N, C, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    y = torch.randint(0, C, (N,), device=dev)
+    g = torch.rand(N, device=dev)
+    fn = lambda x: softmax_xentropy(x, y, 0.1)  # noqa: E731
+    ce = lambda x: torch.nn.functional.cross_entropy(  # noqa: E731
+        x.float(), y, reduction="none", label_smoothing=0.1)
+    times = _path_times(lambda: _fwd_bwd(fn, [x], g), profiled=False)
+    lib_times = _path_times(lambda: _fwd_bwd(ce, [x], g), prefix="cross_entropy_",
+                            profiled=False)
+    labels = rng.randint(0, C, size=256)
+    errs = _card_vs_cpu("xentropy", lambda d: (lambda t, lab: softmax_xentropy(t, lab, 0.1)),
+                        [rng.standard_normal((256, C)).astype(np.float32) * 3, labels],
+                        rng.rand(256).astype(np.float32), [0], dev)
+    out["xentropy"] = {"N": N, "C": C, "dtype": "bfloat16", "smoothing": 0.1, **times,
+                       **lib_times, "card_vs_cpu_256_rows": errs}
+    del x
+    B, A, K = FOCAL_SHAPE
+    logits = torch.randn(B, A, K, device=dev, requires_grad=True)
+    t = torch.randint(-1, K + 1, (B, A), device=dev)
+    nps = (t > 0).sum().float()
+    one = torch.ones((), device=dev)
+    fn = lambda x: focal_loss(x, t, nps, K)  # noqa: E731
+    times = _path_times(lambda: _fwd_bwd(fn, [logits], one), profiled=False)
+    tt = rng.randint(-1, K + 1, size=(2, 1000))
+    errs = _card_vs_cpu("focal_loss",
+                        lambda d: (lambda x, tg: focal_loss(x, tg, float((tt > 0).sum()), K)),
+                        [rng.standard_normal((2, 1000, K)).astype(np.float32), tt],
+                        np.float32(1.0), [0], dev)
+    out["focal_loss"] = {"shape": [B, A, K], "dtype": "float32", **times,
+                         "card_vs_cpu_2x1000": errs}
+    del logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _norm_conv_paths(dev):
+    """group_norm NHWC + SiLU (32 groups, bf16) at a diffusion UNet's
+    (8, 64, 64, 320) and (8, 32, 32, 640) against ``F.group_norm`` +
+    ``F.silu`` on the channels_last view; index_mul_2d; conv_bias_relu at
+    ResNet-50's (64, 56, 56, 64) 3 x 3; each forward and backward ms and
+    a slice card against CPU in fp32."""
+    from apex_tpu_torch.contrib.conv_bias_relu import ConvBiasReLU
+    from apex_tpu_torch.contrib.group_norm import group_norm_nhwc
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+
+    F = torch.nn.functional
+    rng = np.random.RandomState(6)
+    out = {"group_norm": []}
+    for shape in GN_SHAPES:
+        C = shape[-1]
+        x = torch.randn(shape, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        w = torch.rand(C, device=dev, requires_grad=True)
+        b = torch.randn(C, device=dev, requires_grad=True)
+        g = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+        fn = lambda x, w, b: group_norm_nhwc(x, 32, w, b, act="silu")  # noqa: E731
+        lib = lambda x, w, b: F.silu(F.group_norm(  # noqa: E731
+            x.permute(0, 3, 1, 2), 32, w.to(x.dtype), b.to(x.dtype))).permute(0, 2, 3, 1)
+        times = _path_times(lambda: _fwd_bwd(fn, [x, w, b], g), profiled=False)
+        lib_times = _path_times(lambda: _fwd_bwd(lib, [x, w, b], g),
+                                prefix="group_norm_silu_", profiled=False)
+        small = (1, *shape[1:])
+        errs = _card_vs_cpu("group_norm", lambda d: fn,
+                            [rng.standard_normal(small).astype(np.float32),
+                             rng.rand(C).astype(np.float32),
+                             rng.standard_normal(C).astype(np.float32)],
+                            rng.standard_normal(small).astype(np.float32), [0, 1, 2], dev)
+        out["group_norm"].append({"shape": list(shape), "groups": 32, "act": "silu",
+                                  "dtype": "bfloat16", **times,
+                                  **lib_times, "card_vs_cpu_n1": errs})
+    # index_mul_2d at OpenFold's (N 1,048,576 rows of 32, K the same, repeated indices)
+    N, D = INDEX_MUL_SHAPE
+    in1 = torch.randn(N, D, device=dev, requires_grad=True)
+    in2 = torch.randn(N, D, device=dev, requires_grad=True)
+    idx = torch.randint(0, N, (N,), device=dev)
+    g = torch.randn(N, D, device=dev)
+    fn = lambda a, b: index_mul_2d(a, b, idx)  # noqa: E731
+    times = _path_times(lambda: _fwd_bwd(fn, [in1, in2], g), profiled=False)
+    ii = rng.randint(0, 64, size=256)
+    errs = _card_vs_cpu("index_mul_2d", lambda d: (lambda a, b, i: index_mul_2d(a, b, i)),
+                        [rng.standard_normal((64, D)).astype(np.float32),
+                         rng.standard_normal((256, D)).astype(np.float32), ii],
+                        rng.standard_normal((256, D)).astype(np.float32), [0, 1], dev)
+    out["index_mul_2d"] = {"N": N, "D": D, "K": N, "dtype": "float32", **times,
+                           "card_vs_cpu": errs}
+    # conv_bias_relu at ResNet-50's stage-1 3 x 3
+    C = CONV_SHAPE[-1]
+    x = torch.randn(CONV_SHAPE, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = (torch.randn(3, 3, C, C, device=dev) / 24).to(torch.bfloat16).requires_grad_()
+    b = torch.randn(C, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(CONV_SHAPE, device=dev, dtype=torch.bfloat16)
+    times = _path_times(lambda: _fwd_bwd(ConvBiasReLU, [x, w, b], g), profiled=False)
+    errs = _card_vs_cpu("conv_bias_relu", lambda d: ConvBiasReLU,
+                        [rng.standard_normal((2, *CONV_SHAPE[1:])).astype(np.float32),
+                         (rng.standard_normal((3, 3, C, C)) / 24).astype(np.float32),
+                         rng.standard_normal(C).astype(np.float32)],
+                        rng.standard_normal((2, *CONV_SHAPE[1:])).astype(np.float32),
+                        [0, 1, 2], dev)
+    out["conv_bias_relu"] = {"shape": list(CONV_SHAPE), "kernel": [3, 3, C, C],
+                             "dtype": "bfloat16", **times, "card_vs_cpu_b2": errs}
+    return out
+
+
+def _transducer_path(dev):
+    """TransducerJoint (ReLU) and transducer_loss at B 16, T 200, U 64, V
+    1024, joint width 512 (a linear 512 -> V between them), bf16 joint and
+    fp32 loss, forward and backward ms; B 2, T 40, U 12 card against CPU
+    in fp32."""
+    from apex_tpu_torch.contrib.transducer import TransducerJoint, transducer_loss
+
+    B, T, U, V, Hj = (TRANSDUCER[k] for k in ("B", "T", "U", "V", "joint"))
+    rng = np.random.RandomState(7)
+    joint = TransducerJoint(relu=True)
+
+    def path(f, g, w, targets, f_len, y_len):
+        h = joint(f, g)
+        logits = h @ w.to(h.dtype)
+        return transducer_loss(logits, targets, f_len, y_len)
+
+    f = torch.randn(B, T, Hj, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(B, U, Hj, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = (torch.randn(Hj, V, device=dev) / Hj ** 0.5).requires_grad_()
+    targets = torch.randint(1, V, (B, U - 1), device=dev)
+    f_len = torch.from_numpy(rng.randint(T // 2, T + 1, size=B)).to(dev)
+    y_len = torch.from_numpy(rng.randint(U // 2, U, size=B)).to(dev)
+    cot = torch.ones(B, device=dev)
+    fn = lambda f, g, w: path(f, g, w, targets, f_len, y_len)  # noqa: E731
+    loss, _ = _fwd_bwd(fn, [f, g, w], cot)
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"transducer: loss {loss} not finite")
+    times = _path_times(lambda: _fwd_bwd(fn, [f, g, w], cot), 2, profiled=False)
+    b, t, u = 2, 40, 12
+    tg = rng.randint(1, V, size=(b, u - 1))
+    fl, yl = np.array([t, t - 7]), np.array([u - 1, u - 4])
+    errs = _card_vs_cpu("transducer", lambda d: (lambda f, g, w, tg, fl, yl: path(
+                            f, g, w, tg, fl, yl)),
+                        [rng.standard_normal((b, t, Hj)).astype(np.float32),
+                         rng.standard_normal((b, u, Hj)).astype(np.float32),
+                         (rng.standard_normal((Hj, V)) / Hj ** 0.5).astype(np.float32),
+                         tg, fl, yl], np.ones(b, np.float32), [0, 1, 2], dev)
+    del f, g, w
+    return {"B": B, "T": T, "U": U, "V": V, "joint_width": Hj, "joint_dtype": "bfloat16",
+            "mean_loss": float(loss.detach().mean()), **times, "card_vs_cpu_b2": errs}
+
+
+def _dcgan_path(dev):
+    """``dcgan_main_amp.run`` at its widths and batch (32, bf16), graphed
+    and eager for DCGAN_STEPS steps each under cuDNN's deterministic
+    algorithms: losses, params and both optimizers' states bitwise equal;
+    the graphed median step ms (both networks)."""
+    from apex_tpu_torch import dcgan_main_amp as dc
+    from apex_tpu_torch.graphs import tensor_leaves
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for name, extra in (("graphed", []), ("eager", ["--eager"])):
+            args = dc.build_args().parse_args(["--steps", str(DCGAN_STEPS)] + extra)
+            with contextlib.redirect_stdout(sys.stderr):
+                runs[name] = dc.run(args)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    gr, eg = runs["graphed"], runs["eager"]
+    same = gr["losses"] == eg["losses"] and all(
+        torch.equal(a, b) for a, b in zip(tensor_leaves((gr["params"], gr["states"])),
+                                          tensor_leaves((eg["params"], eg["states"]))))
+    finite = all(math.isfinite(x) for pair in gr["losses"] for x in pair)
+    if not (gr["graphs"] and same and finite):
+        raise AssertionError(f"dcgan: graphed {gr['losses']} against eager {eg['losses']} "
+                             f"(graphs {gr['graphs']}, bitwise {same}, finite {finite})")
+    return {"steps": DCGAN_STEPS, "batch": 32, "compute_dtype": "bfloat16",
+            "losses": gr["losses"], "graphed_vs_eager": "bitwise (cudnn deterministic)",
+            "step_ms_median": gr["step_ms"], "eager_step_ms_median": eg["step_ms"],
+            "loss_scales": gr["loss_scales"]}
+
+
+def _ddp_path():
+    """``distributed_data_parallel.run`` at world 1 over NCCL."""
+    from apex_tpu_torch import distributed_data_parallel as ddp
+
+    with contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        r = ddp.run(ddp.build_args().parse_args([]))
+    return {"world": r["world"], "losses": r["losses"], "err": r["err"],
+            "seconds": time.perf_counter() - t0}
+
+
+def contrib_kernels(dev, results):
+    """The flash kernels at the contrib phase's new shapes
+    (CONTRIB_FLASH_CASES), each against its plain version."""
+    for case, dtype, kw in CONTRIB_FLASH_CASES:
+        r = check_flash(dev, dtype, case, **kw)
+        results[("flash", case, dtype)] = r
+        for name in ("fwd", "dq", "dkv"):
+            emit({"phase": "kernel", **r[name]})
+
+
+def contrib_phase(smi):
+    """The contrib modules and the two drivers on one card: each path
+    forward and backward at the widths its users run, its ms (CUDA
+    events over CONTRIB_ITERS calls), exact launches where it runs the
+    port's kernels, and a slice of it card against CPU (the plain
+    versions) in fp32; see each ``_*_path``.  Returns the LN, flash and
+    ``mt_adam`` launches of the counted runs (they add to the kernels
+    line)."""
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    totals = {}
+    rec = {}
+
+    def path(name, fn):
+        t = time.monotonic()
+        rec[name] = fn()
+        emit({"phase": "contrib_path", "path": name, "result": rec[name],
+              "seconds": time.monotonic() - t})
+        torch.cuda.empty_cache()
+
+    path("fmha_varlen", lambda: [_fmha_varlen_path(dev, dt, totals)
+                                 for dt in (torch.bfloat16, torch.float16)])
+    path("self_mha", lambda: [_mha_path(dev, "self", na, totals) for na in (False, True)])
+    path("encdec_mha", lambda: [_mha_path(dev, "encdec", na, totals) for na in (False, True)])
+    path("attention_core", lambda: [_attention_core_path(dev, *case, totals)
+                                    for case in EVOFORMER_CASES])
+    path("fused_adam_swa", lambda: _adam_swa_path(dev, totals))
+    path("losses", lambda: _loss_paths(dev))
+    path("norm_conv", lambda: _norm_conv_paths(dev))
+    path("transducer", lambda: _transducer_path(dev))
+    path("dcgan", lambda: _dcgan_path(dev))
+    path("distributed_data_parallel", _ddp_path)
+    emit({"phase": "contrib", "nvidia_smi": smi, "launches": totals,
+          "seconds": time.monotonic() - t0})
+    return totals
+
+
+def contrib_main():
+    """``chip_smoke.py contrib`` (one card): the kernels built, the flash
+    kernels at the contrib shapes (:func:`contrib_kernels`), then
+    :func:`contrib_phase`."""
+    dev = torch.device("cuda", 0)
+    return _phases_alone([("contrib_kernels", lambda smi: contrib_kernels(dev, {})),
+                          ("contrib", contrib_phase)])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -8410,6 +8960,8 @@ def main():
         return t5_child(sys.argv[2:])
     if sys.argv[1:2] == ["t5_multi_card"]:
         return t5_multi_card_main()
+    if sys.argv[1:2] == ["contrib"]:
+        return contrib_main()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8511,6 +9063,8 @@ def main():
         *FLASH_S4096,
         # the bert phase's: BERT-Large, bidirectional, key-padding mask
         ("bert_large", torch.bfloat16, {**BERT_FLASH, "library": True}),
+        # the contrib phase's: fmha's dense shape in fp16, the cross attention
+        *CONTRIB_FLASH_CASES,
         # the other instantiations of the bf16 kernels
         *((f"d{D}", torch.bfloat16, {"B": 2, "D": D}) for D in (16, 48, 80, 96, 112)),
     )
@@ -8580,6 +9134,8 @@ def main():
     lap("resnet")
     t5_runs = t5_phase(smi)
     lap("t5")
+    contrib_counts = contrib_phase(smi)
+    lap("contrib")
     inplace_ab_phase()
     lap("inplace_ab")
     attn_bias_phase(dev)
@@ -8704,6 +9260,10 @@ def main():
     # the LayerNorm and CE kernels' counts
     for k in ("layer_norm_fwd", "layer_norm_bwd", "ce_fwd", "ce_dx", "ce_dembed"):
         launches[k] += t5_runs["fused_ce"]["counts"][k]
+    # the contrib phase's counted runs (fmha, the MHA modules, FusedAdamSWA)
+    # add to the LayerNorm, flash (bf16 and fp16) and mt_adam counts
+    for k, n in contrib_counts.items():
+        launches[k] += n
     unlaunched = [name for name, *_ in main_path if not launches[name]]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")

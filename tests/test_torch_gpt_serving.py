@@ -234,6 +234,17 @@ def test_entry_points_raise_without_a_gpu():
                                    num_decoder_layers=1, num_attention_heads=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain_t5.main([])
+    from apex_tpu_torch import dcgan_main_amp, distributed_data_parallel
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn, SelfMultiheadAttn
+    from apex_tpu_torch.contrib.openfold_triton import LayerNormSmallShapeOptImpl
+
+    for make in (lambda: SelfMultiheadAttn(32, 4), lambda: EncdecMultiheadAttn(32, 4),
+                 lambda: GroupNorm(2, 8), lambda: LayerNormSmallShapeOptImpl(32),
+                 dcgan_main_amp.init_params, lambda: dcgan_main_amp.main(["--steps", "1"]),
+                 lambda: distributed_data_parallel.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def _forbidden(module: str) -> bool:
@@ -294,6 +305,12 @@ def test_port_imports_no_jax_at_runtime():
         "import apex_tpu_torch.imagenet_main_amp, apex_tpu_torch.contrib.layer_norm\n"
         "import apex_tpu_torch.models.t5, apex_tpu_torch.pretrain_t5\n"
         "import apex_tpu_torch.transformer.pipeline_parallel.schedules.tick_schedule_encdec\n"
+        "import apex_tpu_torch.dcgan_main_amp, apex_tpu_torch.distributed_data_parallel\n"
+        "import apex_tpu_torch.contrib.fmha, apex_tpu_torch.contrib.multihead_attn\n"
+        "import apex_tpu_torch.contrib.openfold_triton, apex_tpu_torch.contrib.xentropy\n"
+        "import apex_tpu_torch.contrib.focal_loss, apex_tpu_torch.contrib.group_norm\n"
+        "import apex_tpu_torch.contrib.index_mul_2d, apex_tpu_torch.contrib.transducer\n"
+        "import apex_tpu_torch.contrib.conv_bias_relu\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'flax', 'apex_tpu')\n"
         "    or m.startswith(('jax.', 'flax.', 'apex_tpu.')))))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
